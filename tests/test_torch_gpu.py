@@ -1,0 +1,47 @@
+"""The port's kernels on a CUDA card, against their plain versions, bit for
+bit (tolerance 0).  Skipped without a card.
+
+This file imports no jax, so it also runs where jax is absent; the
+repository's ``tests/conftest.py`` imports jax, so there run it with
+``python -m pytest tests/test_torch_gpu.py -m gpu --noconftest``."""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from yoloface_tpu_torch.kernels import arena, head, preprocess
+from yoloface_tpu_torch.pipeline.e2e import load_pipeline
+
+torch.set_num_threads(1)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CORPUS = os.path.join(REPO, "checkpoints", "yoloface_corpus_int8.tflite")
+GOLDEN = os.path.join(REPO, "tests", "data", "torch_port_frames.npz")
+
+
+@pytest.mark.gpu
+def test_kernels_match_plain_on_the_card():
+    """Each kernel equals its plain version on the golden frames, and the
+    served int8 head equals the golden file."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gold = dict(np.load(GOLDEN))
+    f = torch.from_numpy(gold["frames"]).cuda()
+    x = preprocess.preprocess_rgb565(f)
+    assert torch.equal(x, preprocess.preprocess_rgb565_plain(f))
+    pipe = load_pipeline(CORPUS, device="cuda")
+    plan = pipe.engine.arena
+    env = plan.run_stages(x)
+    for k, st in enumerate(plan.stages):
+        ins = [env[i] for i in st.inputs]
+        outs = [torch.empty_like(env[o]) for o in st.outputs]
+        arena.arena_stage_plain(st, getattr(plan, f"consts{k}"), ins + outs)
+        for o, t in zip(st.outputs, outs):
+            assert torch.equal(env[o], t)
+    y = env[plan.output_idxs[0]]
+    np.testing.assert_array_equal(y.cpu().numpy(), gold["head"])
+    kw = dict(scale=pipe._out_scale, zero_point=pipe._out_zp)
+    got, want = head.detect_head(y, **kw), head.detect_head_plain(y, **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

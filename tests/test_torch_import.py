@@ -1,0 +1,40 @@
+"""The port imports neither jax nor yoloface_tpu: the card's machine has no
+jax, and any yoloface_tpu module imports jax (yoloface_tpu/__init__.py)."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_CODE = """
+import importlib, pkgutil, sys
+import yoloface_tpu_torch as p
+names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]
+for n in names:
+    importlib.import_module(n)
+bad = sorted(m for m in sys.modules
+             if m.split('.')[0] in ('jax', 'jaxlib', 'yoloface_tpu'))
+print(len(names), bad)
+assert not bad, bad
+"""
+
+
+@pytest.mark.parametrize("entry", ["all modules", "serving entry point"])
+def test_port_imports_without_jax(entry):
+    code = (_CODE if entry == "all modules" else
+            "import sys\n"
+            "from yoloface_tpu_torch.pipeline.e2e import load_pipeline\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'yoloface_tpu')]\n"
+            "assert not bad, bad\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    if entry == "all modules":
+        assert int(res.stdout.split()[0]) >= 18      # every module imported

@@ -1,0 +1,68 @@
+"""Write tests/data/torch_port_frames.npz, the golden file of the PyTorch port.
+
+It holds 8 RGB565 frames, made from 8 images of checkpoints/vis/ (cv2
+read, BGR->RGB, resize to 112x112, 5/6/5 truncation), with what the
+JAX ``fast2`` pipeline gives for them: the int8 head tensor [8,7,7,18] and
+the staged head's detections (boxes, scores, valid, count).  chip_smoke.py
+holds the card's output against it without jax; tests/test_torch_pipeline.py
+recomputes the JAX side and holds it against the file.
+
+Run from the repository root, on the CPU:
+    JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+OUT = os.path.join(REPO, "tests", "data", "torch_port_frames.npz")
+CORPUS = os.path.join(REPO, "checkpoints", "yoloface_corpus_int8.tflite")
+# seven images on which the corpus model finds 1 or 2 faces at 112x112
+# RGB565, and one (img_1122) on which it finds none
+IMAGES = ("img_1087", "img_1122", "img_331", "img_457", "img_558", "img_82",
+          "img_935", "img_967")
+
+
+def golden_frames() -> np.ndarray:
+    """uint16 RGB565 [8,112,112] from the IMAGES of checkpoints/vis."""
+    import cv2
+
+    from yoloface_tpu.pipeline.preprocess import encode_rgb565
+    rgbs = []
+    for name in IMAGES:
+        path = os.path.join(REPO, "checkpoints", "vis", name + ".jpg")
+        img = cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)
+        rgbs.append(cv2.resize(img, (112, 112)))
+    return encode_rgb565(np.stack(rgbs))
+
+
+def jax_outputs(frames: np.ndarray) -> dict:
+    """The JAX fast2 engine's int8 head and the staged head's detections."""
+    from yoloface_tpu.io.tflite_import import load_tflite
+    from yoloface_tpu.pipeline import preprocess
+    from yoloface_tpu.pipeline.e2e import FacePipeline
+    from yoloface_tpu.pipeline.head import HeadConfig
+    from yoloface_tpu.runtime.engine import Int8Engine
+    eng = Int8Engine(load_tflite(CORPUS), "fast2")
+    pipe = FacePipeline(eng, HeadConfig(use_fused_head=False,
+                                        use_pallas_topk=False))
+    head = np.asarray(eng(np.asarray(preprocess.rgb565_to_int8_input(frames))))
+    return {"head": head, **pipe.detect_rgb565(frames)}
+
+
+def main() -> int:
+    if REPO not in sys.path:
+        sys.path.insert(0, REPO)
+    frames = golden_frames()
+    os.makedirs(os.path.dirname(OUT), exist_ok=True)
+    np.savez_compressed(OUT, frames=frames, **jax_outputs(frames))
+    print(f"wrote {OUT}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

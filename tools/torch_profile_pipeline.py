@@ -1,0 +1,165 @@
+#!/usr/bin/env python3
+"""Where the time of the PyTorch/CUDA port's serving path goes, on one card.
+
+Run from the repository root on a machine with a CUDA card:
+
+    python3 tools/torch_profile_pipeline.py [--batch 65536] [--arena-batch 16384]
+
+It prints, each line with the card's name, power limit and SM clocks:
+
+  * pipeline: ``FacePipeline.detect_rgb565`` with the frames on the card,
+    back to back (host clock over 5 batches) and synchronised (p50 of 10
+    calls, each ending in ``torch.cuda.synchronize()``);
+  * device busy share: ``torch.profiler`` over 5 back-to-back batches, the
+    sum of the device kernels' time over the wall time, and the kernels
+    that take the most of it;
+  * arena breakdown: the time of each descriptor of the arena stage,
+    measured as the CUDA-event time (median of 7) of the program prefix
+    that ends at it minus that of the prefix before, summed by op kind.
+
+Imports nothing of JAX; builds the kernels like ``chip_smoke.py``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+CORPUS = os.path.join(ROOT, "checkpoints", "yoloface_corpus_int8.tflite")
+
+
+def _frames(n: int, seed: int = 0):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    f = rng.integers(0, 1 << 16, (n, 112, 112), dtype=np.int64)
+    return torch.from_numpy(f.astype(np.uint16)).cuda()
+
+
+def profile_pipeline(pipe, n: int, card: str) -> None:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    f = _frames(n)
+    for _ in range(3):
+        pipe.detect_rgb565(f)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(5):
+        pipe.detect_rgb565(f)
+    torch.cuda.synchronize()
+    b2b = (time.perf_counter() - t) / 5
+    lat = []
+    for _ in range(10):
+        t = time.perf_counter()
+        pipe.detect_rgb565(f)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t)
+    p50 = sorted(lat)[len(lat) // 2]
+    print(f"[pipeline] N={n}: back to back {b2b * 1e3:.3f} ms/batch "
+          f"({n / b2b:.0f} frames/s); sync p50 {p50 * 1e3:.3f} ms "
+          f"({n / p50:.0f} frames/s) ({card})")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(5):
+            pipe.detect_rgb565(f)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    rows = sorted(((e.device_time_total, e.key, e.count)
+                   for e in prof.key_averages() if e.device_time_total > 0),
+                  reverse=True)
+    busy = sum(r[0] for r in rows) / 1e3
+    print(f"[busy] N={n}, 5 batches: device kernels {busy:.2f} ms in "
+          f"{wall * 1e3:.2f} ms wall, busy share {busy / (wall * 1e3):.4f} "
+          f"({card})")
+    for us, key, count in rows[:12]:
+        print(f"  {us / 1e3 / 5:10.3f} ms/batch  x{count // 5:3d}  {key[:80]}")
+
+
+def arena_breakdown(pipe, n: int, card: str, reps: int = 7) -> None:
+    import torch
+    from yoloface_tpu_torch.kernels import _build, arena
+    from yoloface_tpu_torch.kernels.preprocess import preprocess_rgb565
+    plan = pipe.engine.arena
+    if len(plan.stages) != 1:
+        raise SystemExit("arena breakdown expects a one-stage plan")
+    st, descs, consts = plan.stages[0], plan.descs0, plan.consts0
+    x = preprocess_rgb565(_frames(n))
+    out = torch.empty((n,) + st.shapes[st.outputs[0]], dtype=torch.int8,
+                      device="cuda")
+    lib = _build.library()
+    ptrs = (ctypes.c_uint64 * arena.MAX_GLOBALS)(x.data_ptr(), out.data_ptr())
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def prefix_ms(k: int) -> float:
+        def run():
+            _build.check(lib.yf_arena_stage(
+                descs.data_ptr(), k, consts.data_ptr(), ptrs, 2, n,
+                st.arena_bytes, arena.THREADS, stream), "arena prefix")
+        for _ in range(2):
+            run()
+        times = []
+        for _ in range(reps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            run()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        return sorted(times)[reps // 2]
+
+    names = {arena.COPY: "COPY", arena.CONV: "CONV", arena.DW: "DW",
+             arena.MAXPOOL: "MAXPOOL", arena.ADD: "ADD",
+             arena.QUANTIZE: "QUANTIZE"}
+    F = arena.F
+    rows, prev = [], 0.0
+    for k in range(1, len(st.descs) + 1):
+        cur = prefix_ms(k)
+        d = st.descs[k - 1]
+        name = names[int(d[F["code"]])]
+        if name in ("CONV", "MAXPOOL"):
+            name += f"{int(d[F['kh']])}x{int(d[F['kw']])}"
+        rows.append((cur - prev, k - 1, name, int(d[F["sh"]]),
+                     int(d[F["in0_c"]]), int(d[F["out_c"]]),
+                     int(d[F["out_h"]])))
+        prev = cur
+    by = {}
+    for r in rows:
+        by[r[2]] = by.get(r[2], 0.0) + r[0]
+    print(f"[arena] N={n}: whole stage {prev:.3f} ms ({card})")
+    print("[arena] by kind: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in sorted(by.items(), key=lambda kv: -kv[1])))
+    for dt, i, name, s, ci, co, oh in sorted(rows, reverse=True)[:12]:
+        print(f"  {dt:8.3f} ms  op{i:2d} {name:10s} s{s} ci{ci} co{co} "
+              f"out{oh}x{oh}")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--batch", type=int, default=65536)
+    ap.add_argument("--arena-batch", type=int, default=16384)
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("needs a CUDA card", file=sys.stderr)
+        return 1
+    from yoloface_tpu_torch.pipeline.e2e import load_pipeline
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,clocks.max.sm",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    pipe = load_pipeline(CORPUS, mode="arena2", device="cuda")
+    profile_pipeline(pipe, args.batch, card)
+    arena_breakdown(pipe, args.arena_batch, card)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

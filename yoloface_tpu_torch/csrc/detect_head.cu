@@ -1,0 +1,179 @@
+// The whole YOLO head in one kernel: top-K, decode and greedy NMS.
+//
+// Replaces yoloface_tpu/kernels/pallas_head.py::detect_head_fused.  One
+// warp a frame.  The ranking key of cell f (flat (anchor,row,col) order,
+// read from the (row,col,anchor*6+ch) layout) is the float32 sigmoid of
+// its confidence, zeroed below the threshold; K rounds of a warp argmax on
+// the pair (key descending, index ascending) pick the survivors, so
+// sigmoid saturation ties go to the lowest flat index as lax.top_k does.
+// Lane k then decodes survivor k, and NMS walks the K candidates in rank
+// order with one ballot each.  Plain version: kernels/head.py::
+// detect_head_plain, which the card compares bit for bit: expf and the
+// float divisions are the IEEE library ones (no fast math), each product
+// and sum rounded apart as torch computes them.
+//
+// What bounds it on the card: latency of the K = 16 dependent warp
+// reductions (5 shuffles each) and of 16 expf a frame; it reads 882 bytes
+// and writes 336 a frame.  What the design does about it: a frame never
+// leaves its warp's registers, and four frames share a block, so enough
+// warps are resident to hide the shuffle latency.
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kKeysPerLane = 8;          // up to 256 cells a frame
+constexpr int kWarpsPerBlock = 4;
+
+struct Anchors {
+  float w[4], h[4];
+};
+
+__device__ __forceinline__ float sigm(float x) {
+  return __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-x)));
+}
+
+__device__ __forceinline__ float clampf(float v, float lo, float hi) {
+  return fminf(fmaxf(v, lo), hi);
+}
+
+__global__ void detect_head_kernel(const int8_t* __restrict__ y,
+                                   float* __restrict__ boxes,
+                                   float* __restrict__ scores,
+                                   bool* __restrict__ valid, int n, int g,
+                                   int a, int k, float scale, float zp,
+                                   float thr, float iou_thr, float stride,
+                                   float lim, int apply_nms, Anchors anc) {
+  const long long frame =
+      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (frame >= n) return;                // whole warps leave together
+  const int cells = g * g, c6 = a * 6, n_keys = cells * a;
+  const int8_t* yf = y + frame * cells * c6;
+
+  float key[kKeysPerLane];
+#pragma unroll
+  for (int j = 0; j < kKeysPerLane; ++j) {
+    const int f = lane + 32 * j;
+    key[j] = -2.0f;                      // padding: below every real key
+    if (f < n_keys) {
+      const int an = f / cells, rc = f % cells;
+      const float q = static_cast<float>(yf[rc * c6 + an * 6 + 4]);
+      const float cf = sigm(__fmul_rn(__fsub_rn(q, zp), scale));
+      key[j] = cf >= thr ? cf : 0.0f;
+    }
+  }
+
+  int mine = 0;                          // lane kk: flat index of survivor kk
+  for (int kk = 0; kk < k; ++kk) {
+    float best = -3.0f;
+    int bi = 1 << 30;
+#pragma unroll
+    for (int j = 0; j < kKeysPerLane; ++j) {
+      if (key[j] > best) {               // ascending f: ties keep the lowest
+        best = key[j];
+        bi = lane + 32 * j;
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float ob = __shfl_xor_sync(kFull, best, off);
+      const int oi = __shfl_xor_sync(kFull, bi, off);
+      if (ob > best || (ob == best && oi < bi)) {
+        best = ob;
+        bi = oi;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kKeysPerLane; ++j)
+      if (lane + 32 * j == bi) key[j] = -1.0f;
+    if (lane == kk) mine = bi;
+  }
+
+  float x1 = 0.f, y1 = 0.f, x2 = 0.f, y2 = 0.f, cf = 0.f;
+  bool keep = false;
+  if (lane < k) {
+    const int an = mine / cells, rc = mine % cells;
+    const int row = rc / g, col = rc % g;
+    const int8_t* cell = yf + rc * c6 + an * 6;
+    float t[6];
+#pragma unroll
+    for (int ch = 0; ch < 6; ++ch)
+      t[ch] = __fmul_rn(__fsub_rn(static_cast<float>(cell[ch]), zp), scale);
+    const float cx = __fmul_rn(__fadd_rn(sigm(t[0]), static_cast<float>(col)),
+                               stride);
+    const float cy = __fmul_rn(__fadd_rn(sigm(t[1]), static_cast<float>(row)),
+                               stride);
+    const float w = __fmul_rn(expf(t[2]), anc.w[an]);
+    const float h = __fmul_rn(expf(t[3]), anc.h[an]);
+    cf = sigm(t[4]);
+    const float hw = __fdiv_rn(w, 2.0f), hh = __fdiv_rn(h, 2.0f);
+    x1 = clampf(__fsub_rn(cx, hw), 0.0f, lim);
+    y1 = clampf(__fsub_rn(cy, hh), 0.0f, lim);
+    x2 = clampf(__fadd_rn(cx, hw), 0.0f, lim);
+    y2 = clampf(__fadd_rn(cy, hh), 0.0f, lim);
+    keep = cf >= thr;
+  }
+
+  if (apply_nms) {
+    const float area = __fmul_rn(__fadd_rn(__fsub_rn(x2, x1), 1.0f),
+                                 __fadd_rn(__fsub_rn(y2, y1), 1.0f));
+    for (int i = 1; i < k; ++i) {
+      const float bx1 = __shfl_sync(kFull, x1, i);
+      const float by1 = __shfl_sync(kFull, y1, i);
+      const float bx2 = __shfl_sync(kFull, x2, i);
+      const float by2 = __shfl_sync(kFull, y2, i);
+      const float barea = __shfl_sync(kFull, area, i);
+      bool over = false;
+      if (lane < i) {
+        const float xx1 = fmaxf(bx1, x1), yy1 = fmaxf(by1, y1);
+        const float xx2 = fminf(bx2, x2), yy2 = fminf(by2, y2);
+        const float iw = fmaxf(0.0f, __fadd_rn(__fsub_rn(xx2, xx1), 1.0f));
+        const float ih = fmaxf(0.0f, __fadd_rn(__fsub_rn(yy2, yy1), 1.0f));
+        const float inter = __fmul_rn(iw, ih);
+        const float iou =
+            __fdiv_rn(inter, __fsub_rn(__fadd_rn(barea, area), inter));
+        over = iou > iou_thr && keep;
+      }
+      const unsigned any = __ballot_sync(kFull, over);
+      if (lane == i) keep = keep && any == 0u;
+    }
+  }
+
+  if (lane < k) {
+    const long long o = frame * k + lane;
+    boxes[o * 4 + 0] = keep ? x1 : 0.0f;
+    boxes[o * 4 + 1] = keep ? y1 : 0.0f;
+    boxes[o * 4 + 2] = keep ? x2 : 0.0f;
+    boxes[o * 4 + 3] = keep ? y2 : 0.0f;
+    scores[o] = keep ? cf : 0.0f;
+    valid[o] = keep;
+  }
+}
+
+}  // namespace
+
+extern "C" int yf_detect_head(const void* y, void* boxes, void* scores,
+                              void* valid, int n, int g, int a, int k,
+                              float scale, float zp, float thr, float iou_thr,
+                              float stride, float box_limit, int apply_nms,
+                              const void* host_anchors, void* stream) {
+  Anchors anc = {};
+  const float* ha = static_cast<const float*>(host_anchors);
+  for (int i = 0; i < 4; ++i) {
+    anc.w[i] = ha[i];
+    anc.h[i] = ha[4 + i];
+  }
+  const int threads = 32 * kWarpsPerBlock;
+  const unsigned blocks =
+      static_cast<unsigned>((static_cast<long long>(n) + kWarpsPerBlock - 1) /
+                            kWarpsPerBlock);
+  detect_head_kernel<<<blocks, threads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(y), static_cast<float*>(boxes),
+      static_cast<float*>(scores), static_cast<bool*>(valid), n, g, a, k,
+      scale, zp, thr, iou_thr, stride, box_limit, apply_nms, anc);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,101 @@
+"""Build the CUDA kernels with ``nvcc`` and bind them with ``ctypes``.
+
+All ``csrc/*.cu`` compile into one shared library with a plain C interface
+(no PyTorch headers, so the build takes seconds).  The library lands in
+``build/yoloface_tpu_torch/`` at the root of the checkout, named by a hash
+of the sources, and is built at first CUDA use.  ``-fmad=false`` keeps
+every float multiply and add separately rounded, as the JAX twins compute
+them; there is no ``--use_fast_math``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = (Path(__file__).resolve().parents[2] / "build"
+             / "yoloface_tpu_torch")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+SIGNATURES = {
+    # (frames u16, out i8, n, stream)
+    "yf_preprocess_rgb565": [_P, _P, _I, _P],
+    # (descs, n_ops, consts, host ptr table, n_globals, n_frames,
+    #  arena_bytes, threads, stream)
+    "yf_arena_stage": [_P, _I, _P, _P, _I, _I, _I, _I, _P],
+    # (y, boxes, scores, valid, n, g, a, k, scale, zp, thr, iou_thr,
+    #  stride, box_limit, apply_nms, host anchors[8], stream)
+    "yf_detect_head": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F,
+                       _F, _I, _P, _P],
+}
+
+_lock = threading.Lock()
+_lib = None
+build_seconds = None          # wall time of the build this process made
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    found = str(cand) if cand.exists() else shutil.which("nvcc")
+    if not found:
+        raise RuntimeError("nvcc not found (set CUDA_HOME)")
+    return found
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def build() -> Path:
+    """Compile the kernels unless a library for these sources exists."""
+    global build_seconds
+    cus, headers = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in cus + headers:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    lib = BUILD_DIR / f"libyoloface_kernels_{h.hexdigest()[:16]}.so"
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+           *map(str, cus)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}"
+                           f"\n{res.stdout}\n{res.stderr}")
+    os.replace(tmp, lib)
+    build_seconds = time.perf_counter() - t0
+    return lib
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+    return _lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise on a non-zero ``cudaGetLastError()`` returned by a launch."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error {err}")

@@ -1,0 +1,578 @@
+"""Activation-arena stages: the int8 net as a static op-descriptor program.
+
+Replaces ``yoloface_tpu.kernels.pallas_arena`` (``lower_arena_ops`` +
+``build_arena_plan`` + the ``_build_stage`` kernel, with the
+``apply_requant_leaky`` v2 epilogue inside it) for the ``arena2`` engine
+mode, the counterpart of ``pallas_mxu2``.
+
+The host planner here turns the graph into a program of fixed-size int32
+op descriptors per stage:
+
+  * each conv/dw whose output feeds exactly one LEAKY_RELU fuses it (the
+    fast2 single-rounding epilogue);
+  * PAD ops dissolve into the consumer's window: reads outside the input
+    return the op's fill value (the PAD zero-point, the conv input
+    zero-point for SAME convs, -128 for SAME max-pools);
+  * single-consumer CONCATENATION inputs produced in the same stage alias
+    channel ranges of the concat output, so their producers write in place;
+    other inputs are copied;
+  * every tensor a stage holds gets a byte offset in a per-frame arena by
+    liveness (first-fit over op-index intervals);
+  * the op list splits into stages wherever the arena would exceed the
+    shared-memory budget.  Tensors that cross stages go through device
+    memory as int8 NHWC ``[N,H,W,C]``.
+
+The CUDA kernel (``csrc/arena_stage.cu``) runs one stage: one block per
+frame, the arena in dynamic shared memory.  ``arena_stage_plain`` executes
+the SAME descriptor program with torch ops over an ``[N, arena_bytes]``
+int8 tensor, so the CPU tests check the planner's offsets, aliasing and
+stage split, and the card compares the kernel with it op for op.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from yoloface_tpu_torch.graph.ir import GraphDef
+from yoloface_tpu_torch.kernels import specs
+from yoloface_tpu_torch.ops.int8_fast import (add_int8_fast, requant_f32,
+                                              requantize_int8_fast)
+from yoloface_tpu_torch.ops.int8_fast2 import epilogue_v2
+from yoloface_tpu_torch.ops.int8_ref import (_conv_acc, _dw_acc,
+                                             _same_pad_amounts, _window_max,
+                                             pad_spatial)
+
+# op codes and epilogues; the field layout below is the ``Op`` struct of
+# csrc/arena_stage.cu, one int32 each
+COPY, CONV, DW, MAXPOOL, ADD, QUANTIZE = range(6)
+CONCAT = 100                       # planner-only: becomes COPYs or nothing
+EPI_REQUANT, EPI_LEAKY_V2 = 0, 1
+FIELDS = ("code", "epi",
+          "in0_space", "in0_off", "in0_h", "in0_w", "in0_c", "in0_cs",
+          "in1_space", "in1_off", "in1_h", "in1_w", "in1_c", "in1_cs",
+          "out_space", "out_off", "out_h", "out_w", "out_c", "out_cs",
+          "kh", "kw", "sh", "sw", "pt", "pl", "fill",
+          "w_off", "b_off", "s_off",
+          "zp_a", "zp_b", "zp_out", "conv_zp", "f0", "f1")
+OP_INTS = 40                       # FIELDS padded to 160 bytes
+F = {name: i for i, name in enumerate(FIELDS)}
+
+ARENA_BUDGET = 227 * 1024          # H100: 232,448 B of shared memory a block
+MAX_GLOBALS = 16                   # device tensors one stage may touch
+THREADS = 256
+_ALIGN = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class View:
+    """A tensor's placement: ``space`` 0 is the arena, k >= 1 the k-th
+    global tensor of the stage; element (y, x, c) of a frame lies at
+    ``offset + (y * w + x) * cstride + c``."""
+
+    space: int
+    offset: int
+    h: int
+    w: int
+    c: int
+    cstride: int
+
+    def channels(self, c0: int, c: int) -> "View":
+        return View(self.space, self.offset + c0, self.h, self.w, c,
+                    self.cstride)
+
+    def fields(self) -> List[int]:
+        return [self.space, self.offset, self.h, self.w, self.c, self.cstride]
+
+
+NOVIEW = View(0, 0, 0, 0, 0, 0)
+
+
+@dataclasses.dataclass
+class LOp:
+    """One lowered graph op over tensor indices (before placement)."""
+
+    code: int
+    out: int
+    ins: List[int]
+    epi: int = EPI_REQUANT
+    window: Tuple[int, int, int, int, int, int, int] = (1, 1, 1, 1, 0, 0, 0)
+    weights: Optional[np.ndarray] = None     # int8 OHWI, or [1,Kh,Kw,C]
+    bias: Optional[np.ndarray] = None        # int32 bias_eff [Co]
+    scale: Optional[np.ndarray] = None       # f32 [Co]
+    zp_a: int = 0
+    zp_b: int = 0
+    zp_out: int = 0
+    conv_zp: int = 0
+    f0: float = 0.0
+    f1: float = 0.0
+    offsets: Optional[List[int]] = None      # CONCAT channel offsets
+
+
+def _hwc(graph: GraphDef, i: int) -> Tuple[int, int, int]:
+    s = graph.tensor(i).shape
+    return int(s[1]), int(s[2]), int(s[3])
+
+
+def _window_req(graph: GraphDef, op, pads_of: Dict[int, object]):
+    """(input tensor, pad_top, pad_left, fill) of a conv/pool, absorbing an
+    upstream PAD (its pads are ((n),(h),(w),(c)) rows of the pad tensor)."""
+    t = graph.tensor
+    x_idx = op.inputs[0]
+    if op.opname == "MAX_POOL_2D":
+        kh, kw = op.attrs["filter_h"], op.attrs["filter_w"]
+    else:
+        wd = t(op.inputs[1]).data
+        kh, kw = wd.shape[1], wd.shape[2]
+    same = (0, 0), (0, 0)
+    if op.attrs.get("padding") == "SAME":
+        h, w, _ = _hwc(graph, x_idx)
+        same = (_same_pad_amounts(h, op.attrs["stride_h"], kh),
+                _same_pad_amounts(w, op.attrs["stride_w"], kw))
+    pad_op = pads_of.get(x_idx)
+    if pad_op is not None:
+        p = t(pad_op.inputs[1]).data.astype(np.int64)
+        if p[0].any() or p[3].any():
+            raise NotImplementedError(
+                f"arena plan: PAD {pad_op.index} pads batch or channels")
+        if same != ((0, 0), (0, 0)):
+            raise NotImplementedError(
+                f"arena plan: op {op.index} pads twice (PAD and SAME)")
+        zp = t(pad_op.outputs[0]).qparams.zero_point
+        return pad_op.inputs[0], int(p[1][0]), int(p[2][0]), int(zp)
+    fill = (-128 if op.opname == "MAX_POOL_2D"
+            else t(x_idx).qparams.zero_point)
+    return x_idx, same[0][0], same[1][0], int(fill)
+
+
+def lower_arena_ops(graph: GraphDef):
+    """Graph -> (LOps in graph order, concat alias map).
+
+    The alias map sends a concat input to (concat output, channel offset)
+    when the concat is its only consumer and an op produces it; whether
+    it aliases in a stage is decided when the stage is planned."""
+    t = graph.tensor
+    uses = specs.use_counts(graph)
+    consumers: Dict[int, list] = {}
+    for op in graph.ops:
+        for i in op.inputs:
+            consumers.setdefault(i, []).append(op)
+
+    fused_leaky = specs.fused_leakys(graph)
+    absorbed = {op.index for op in fused_leaky.values()}
+    pads_of: Dict[int, object] = {}
+    for op in graph.ops:
+        if op.opname == "PAD":
+            out = op.outputs[0]
+            bad = [c.opname for c in consumers.get(out, [])
+                   if c.opname not in ("CONV_2D", "DEPTHWISE_CONV_2D",
+                                       "MAX_POOL_2D")
+                   or c.inputs[0] != out]
+            if bad or out in graph.outputs:
+                raise NotImplementedError(
+                    f"arena plan: PAD {op.index} feeds {bad or 'an output'}"
+                    "; only conv/pool windows absorb a PAD")
+            pads_of[out] = op
+            absorbed.add(op.index)
+
+    concat_alias: Dict[int, Tuple[int, int]] = {}
+    lops: List[LOp] = []
+    for op in graph.ops:
+        if op.index in absorbed:
+            continue
+        name = op.opname
+        out_idx = op.outputs[0]
+        if name in ("CONV_2D", "DEPTHWISE_CONV_2D"):
+            if (op.attrs.get("dilation_h", 1) != 1
+                    or op.attrs.get("dilation_w", 1) != 1):
+                raise NotImplementedError(f"{name} with dilation")
+            if op.attrs.get("activation", "NONE") != "NONE":
+                raise NotImplementedError(f"{name} with a fused activation")
+            x_idx, pt, pl, fill = _window_req(graph, op, pads_of)
+            w, b = t(op.inputs[1]), t(op.inputs[2])
+            wd = w.data
+            dw = name == "DEPTHWISE_CONV_2D"
+            if dw and (wd.shape[0] != 1
+                       or wd.shape[3] != _hwc(graph, x_idx)[2]):
+                raise NotImplementedError("depthwise with depth_multiplier>1")
+            zp_in = t(op.inputs[0]).qparams.zero_point
+            rq = specs.conv_requant_spec(graph, op)
+            co = wd.shape[3] if dw else wd.shape[0]
+            axes = (0, 1, 2) if dw else (1, 2, 3)
+            bias_eff = (b.data.astype(np.int64)
+                        - zp_in * wd.astype(np.int64).sum(axes)
+                        ).astype(np.int32)
+            lop = LOp(DW if dw else CONV, out_idx, [x_idx],
+                      window=(wd.shape[1], wd.shape[2], op.attrs["stride_h"],
+                              op.attrs["stride_w"], pt, pl, fill),
+                      weights=np.ascontiguousarray(wd.astype(np.int8)),
+                      bias=bias_eff,
+                      scale=np.ascontiguousarray(
+                          np.broadcast_to(rq.scale, (co,)), np.float32),
+                      zp_out=rq.zp_out)
+            leaky_op = fused_leaky.get(op.index)
+            if leaky_op is not None:
+                lk = specs.leaky_spec(graph, leaky_op)
+                lop.out = leaky_op.outputs[0]
+                lop.epi, lop.conv_zp, lop.zp_out = (EPI_LEAKY_V2, rq.zp_out,
+                                                    lk.zp_out)
+                lop.f0, lop.f1 = lk.s_id, lk.s_al
+            lops.append(lop)
+        elif name == "MAX_POOL_2D":
+            x_idx, pt, pl, fill = _window_req(graph, op, pads_of)
+            lops.append(LOp(MAXPOOL, out_idx, [x_idx], window=(
+                op.attrs["filter_h"], op.attrs["filter_w"],
+                op.attrs["stride_h"], op.attrs["stride_w"], pt, pl, fill)))
+        elif name == "ADD":
+            a_idx, b_idx = op.inputs
+            if _hwc(graph, a_idx) != _hwc(graph, b_idx):
+                raise NotImplementedError("ADD with broadcasting")
+            sp = specs.add_spec(t(a_idx).qparams, t(b_idx).qparams,
+                                t(out_idx).qparams)
+            lops.append(LOp(ADD, out_idx, [a_idx, b_idx], zp_a=sp.zp_in,
+                            zp_b=sp.zp_in2, zp_out=sp.zp_out, f0=sp.s1,
+                            f1=sp.s2))
+        elif name == "QUANTIZE":
+            sp = specs.quantize_spec(t(op.inputs[0]).qparams,
+                                     t(out_idx).qparams)
+            lops.append(LOp(QUANTIZE, out_idx, [op.inputs[0]],
+                            zp_a=sp.zp_in, zp_out=sp.zp_out, f0=sp.s1))
+        elif name == "CONCATENATION":
+            if op.attrs["axis"] % 4 != 3:
+                raise NotImplementedError("CONCATENATION off the channel axis")
+            offs = np.cumsum([0] + [_hwc(graph, i)[2]
+                                    for i in op.inputs]).tolist()
+            lop_outs = {lp.out for lp in lops}
+            for i, c0 in zip(op.inputs, offs):
+                if uses[i] == 1 and i in lop_outs:
+                    concat_alias[i] = (out_idx, c0)
+            lops.append(LOp(CONCAT, out_idx, list(op.inputs),
+                            offsets=offs[:-1]))
+        else:
+            raise NotImplementedError(f"arena plan: op {name}")
+    return lops, concat_alias
+
+
+@dataclasses.dataclass
+class Stage:
+    """One planned stage: its encoded program, constants and globals."""
+
+    descs: np.ndarray              # int32 [n_ops, OP_INTS]
+    consts: np.ndarray             # uint8: weights, bias_eff, scales
+    arena_bytes: int
+    inputs: List[int]              # global spaces 1..len(inputs)
+    outputs: List[int]             # the spaces after them
+    shapes: Dict[int, Tuple[int, int, int]]   # (H, W, C) of each global
+
+    @property
+    def globals_(self) -> List[int]:
+        return self.inputs + self.outputs
+
+
+def plan_stage(graph: GraphDef, lops: Sequence[LOp], start: int, end: int,
+               concat_alias: Dict[int, Tuple[int, int]]) -> Stage:
+    """Place lops[start:end] in one arena and encode their descriptors."""
+    stage = list(lops[start:end])
+    produced = {lp.out for lp in stage}
+    later = set(graph.outputs)
+    for lp in lops[end:]:
+        later.update(lp.ins)
+    outputs = [lp.out for lp in stage if lp.out in later]
+    inputs: List[int] = []
+    for lp in stage:
+        for i in lp.ins:
+            if i not in produced and i not in inputs:
+                inputs.append(i)
+    if len(inputs) + len(outputs) > MAX_GLOBALS:
+        raise NotImplementedError("arena plan: too many stage globals")
+    alias = {i: a for i, a in concat_alias.items()
+             if i in produced and a[0] in produced}
+    shapes = {i: _hwc(graph, i) for i in inputs + outputs}
+
+    def root(i: int) -> int:
+        while i in alias:
+            i = alias[i][0]
+        return i
+
+    # buffer lifetimes over op-index intervals, both ends inclusive
+    life: Dict[int, List[int]] = {}
+
+    def touch(i: int, k: int) -> None:
+        r = root(i)
+        lo_hi = life.setdefault(r, [k, k])
+        lo_hi[0], lo_hi[1] = min(lo_hi[0], k), max(lo_hi[1], k)
+
+    for k, lp in enumerate(stage):
+        touch(lp.out, k)
+        for i, c0 in zip(lp.ins, lp.offsets or [None] * len(lp.ins)):
+            if not (lp.code == CONCAT and alias.get(i) == (lp.out, c0)):
+                touch(i, k)
+    placed: List[Tuple[int, int, int, int]] = []      # (lo, hi, off, size)
+    offset: Dict[int, int] = {}
+    for r in sorted(life, key=lambda r: (life[r][0], r)):
+        lo, hi = life[r]
+        h, w, c = _hwc(graph, r)
+        size = -(-h * w * c // _ALIGN) * _ALIGN
+        off = 0
+        for plo, phi, poff, psize in sorted(placed, key=lambda p: p[2]):
+            if plo <= hi and lo <= phi and off < poff + psize \
+                    and poff < off + size:
+                off = poff + psize
+        placed.append((lo, hi, off, size))
+        offset[r] = off
+    arena_bytes = max((p[2] + p[3] for p in placed), default=0)
+
+    def view(i: int) -> View:
+        h, w, c = _hwc(graph, i)
+        if i in alias:
+            cout, c0 = alias[i]
+            return view(cout).channels(c0, c)
+        return View(0, offset[i], h, w, c, c)
+
+    def gview(i: int) -> View:
+        h, w, c = shapes[i]
+        return View(1 + (inputs + outputs).index(i), 0, h, w, c, c)
+
+    consts = bytearray()
+
+    def put(arr: np.ndarray) -> int:
+        consts.extend(b"\0" * (-len(consts) % _ALIGN))
+        off = len(consts)
+        consts.extend(np.ascontiguousarray(arr).tobytes())
+        return off
+
+    rows: List[List[int]] = []
+
+    def emit(code, out: View, in0: View = NOVIEW, in1: View = NOVIEW,
+             lp: Optional[LOp] = None, **kw) -> None:
+        row = [0] * OP_INTS
+        row[F["code"]] = code
+        row[F["in0_space"]:F["in0_space"] + 6] = in0.fields()
+        row[F["in1_space"]:F["in1_space"] + 6] = in1.fields()
+        row[F["out_space"]:F["out_space"] + 6] = out.fields()
+        if lp is not None:
+            row[F["epi"]] = lp.epi
+            row[F["kh"]:F["kh"] + 7] = list(lp.window)
+            for name in ("zp_a", "zp_b", "zp_out", "conv_zp"):
+                row[F[name]] = getattr(lp, name)
+            for name in ("f0", "f1"):
+                row[F[name]] = int(np.float32(getattr(lp, name))
+                                   .view(np.int32))
+        for name, v in kw.items():
+            row[F[name]] = v
+        rows.append(row)
+
+    loaded = set()
+    for lp in stage:
+        for i in lp.ins:
+            if i in inputs and i not in loaded:
+                loaded.add(i)
+                emit(COPY, view(i), gview(i))
+        if lp.code == CONCAT:
+            out_v = view(lp.out)
+            for i, c0 in zip(lp.ins, lp.offsets):
+                if alias.get(i) != (lp.out, c0):
+                    c = _hwc(graph, i)[2]
+                    emit(COPY, out_v.channels(c0, c), view(i))
+        elif lp.code in (CONV, DW):
+            emit(lp.code, view(lp.out), view(lp.ins[0]), lp=lp,
+                 w_off=put(lp.weights), b_off=put(lp.bias),
+                 s_off=put(lp.scale))
+        else:
+            in1 = view(lp.ins[1]) if len(lp.ins) > 1 else NOVIEW
+            emit(lp.code, view(lp.out), view(lp.ins[0]), in1, lp=lp)
+        if lp.out in outputs:
+            emit(COPY, gview(lp.out), view(lp.out))
+    return Stage(np.asarray(rows, np.int32).reshape(-1, OP_INTS),
+                 np.frombuffer(bytes(consts) or b"\0", np.uint8).copy(),
+                 arena_bytes, inputs, outputs, shapes)
+
+
+def build_arena_plan(graph: GraphDef,
+                     budget: int = ARENA_BUDGET) -> List[Stage]:
+    """Greedy stage split: grow each stage op by op while its planned arena
+    fits ``budget`` bytes."""
+    lops, alias = lower_arena_ops(graph)
+    stages: List[Stage] = []
+    start = 0
+    while start < len(lops):
+        end = start + 1
+        st = plan_stage(graph, lops, start, end, alias)
+        if st.arena_bytes > budget:
+            raise NotImplementedError(
+                f"arena plan: one op needs {st.arena_bytes} B of arena "
+                f"(> budget {budget})")
+        while end < len(lops):
+            cand = plan_stage(graph, lops, start, end + 1, alias)
+            if cand.arena_bytes > budget:
+                break
+            st, end = cand, end + 1
+        stages.append(st)
+        start = end
+    return stages
+
+
+# --------------------------------------------------------------------------
+# plain version: the same descriptor program in torch
+# --------------------------------------------------------------------------
+def _f32(bits: int) -> float:
+    return float(np.int32(bits).view(np.float32))
+
+
+def _realize(v: View, arena: torch.Tensor,
+             gl: Sequence[torch.Tensor]) -> torch.Tensor:
+    n = arena.shape[0]
+    if v.space == 0:
+        return arena.as_strided(
+            (n, v.h, v.w, v.c), (arena.shape[1], v.w * v.cstride, v.cstride, 1),
+            arena.storage_offset() + v.offset)
+    g = gl[v.space - 1]
+    return g.as_strided((n, v.h, v.w, v.c),
+                        (v.h * v.w * v.cstride, v.w * v.cstride, v.cstride, 1),
+                        g.storage_offset() + v.offset)
+
+
+def _padded_window(x: torch.Tensor, d, out: View) -> torch.Tensor:
+    """Input of a window op padded by its fill to exactly the extent the
+    output's windows read."""
+    kh, kw, sh, sw, pt, pl, fill = (int(d[F[k]]) for k in
+                                    ("kh", "kw", "sh", "sw", "pt", "pl",
+                                     "fill"))
+    need_h = (out.h - 1) * sh + kh
+    need_w = (out.w - 1) * sw + kw
+    xp = pad_spatial(x, (pt, max(0, need_h - pt - x.shape[1])),
+                     (pl, max(0, need_w - pl - x.shape[2])), fill)
+    return xp[:, :need_h, :need_w, :]
+
+
+def _const(consts: torch.Tensor, off: int, count: int, dtype) -> torch.Tensor:
+    size = torch.empty((), dtype=dtype).element_size()
+    return consts[off:off + count * size].view(dtype)
+
+
+def arena_stage_plain(stage: Stage, consts: torch.Tensor,
+                      gl: Sequence[torch.Tensor]) -> None:
+    """Run ``stage``'s descriptors in torch; ``gl`` holds the stage inputs
+    then its (preallocated) outputs, int8 [N,H,W,C] each."""
+    n = gl[0].shape[0]
+    arena = torch.zeros((n, max(stage.arena_bytes, 1)), dtype=torch.int8,
+                        device=gl[0].device)
+    for d in stage.descs.tolist():
+        views = [View(*d[F[p + "_space"]:F[p + "_space"] + 6])
+                 for p in ("in0", "in1", "out")]
+        in0, in1, out = views
+        code = d[F["code"]]
+        x = _realize(in0, arena, gl)
+        if code == COPY:
+            res = x
+        elif code in (CONV, DW):
+            kh, kw, sh, sw = (d[F[k]] for k in ("kh", "kw", "sh", "sw"))
+            co = out.c
+            wshape = (1, kh, kw, co) if code == DW else (co, kh, kw, in0.c)
+            w = _const(consts, d[F["w_off"]], int(np.prod(wshape)),
+                       torch.int8).reshape(wshape)
+            bias = _const(consts, d[F["b_off"]], co, torch.int32)
+            scale = _const(consts, d[F["s_off"]], co, torch.float32)
+            xp = _padded_window(x, d, out)
+            acc = (_dw_acc if code == DW else _conv_acc)(xp, w, (sh, sw))
+            acc = acc + bias
+            if d[F["epi"]] == EPI_LEAKY_V2:
+                res = epilogue_v2(acc, scale, d[F["conv_zp"]], d[F["zp_out"]],
+                                  _f32(d[F["f0"]]), _f32(d[F["f1"]]))
+            else:
+                res = requant_f32(acc, scale, d[F["zp_out"]])
+        elif code == MAXPOOL:
+            res = _window_max(_padded_window(x, d, out),
+                              (d[F["kh"]], d[F["kw"]]),
+                              (d[F["sh"]], d[F["sw"]]))
+        elif code == ADD:
+            res = add_int8_fast(x, _realize(in1, arena, gl), zp1=d[F["zp_a"]],
+                                zp2=d[F["zp_b"]], zp_out=d[F["zp_out"]],
+                                scale1=_f32(d[F["f0"]]),
+                                scale2=_f32(d[F["f1"]]))
+        elif code == QUANTIZE:
+            res = requantize_int8_fast(x, input_zp=d[F["zp_a"]],
+                                       output_zp=d[F["zp_out"]],
+                                       scale=_f32(d[F["f0"]]))
+        else:
+            raise ValueError(f"unknown arena op code {code}")
+        _realize(out, arena, gl).copy_(res)
+
+
+# --------------------------------------------------------------------------
+# the kernel wrapper
+# --------------------------------------------------------------------------
+def arena_stage(stage: Stage, descs: torch.Tensor, consts: torch.Tensor,
+                xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Run one stage on its input tensors (int8 [N,H,W,C], in
+    ``stage.inputs`` order) -> its output tensors.  CPU tensors take
+    ``arena_stage_plain``; CUDA tensors launch ``yf_arena_stage``."""
+    if len(xs) != len(stage.inputs):
+        raise ValueError(f"stage takes {len(stage.inputs)} inputs")
+    n = xs[0].shape[0]
+    dev = xs[0].device
+    for i, x in zip(stage.inputs, xs):
+        if tuple(x.shape) != (n,) + stage.shapes[i] or x.dtype != torch.int8:
+            raise ValueError(f"input {i}: expected int8 "
+                             f"{(n,) + stage.shapes[i]}, got {x.dtype} "
+                             f"{tuple(x.shape)}")
+        if x.device != dev or not x.is_contiguous():
+            raise ValueError(f"input {i} must be contiguous on {dev}")
+    outs = [torch.empty((n,) + stage.shapes[o], dtype=torch.int8, device=dev)
+            for o in stage.outputs]
+    if dev.type == "cpu":
+        arena_stage_plain(stage, consts, list(xs) + outs)
+        return outs
+    if dev.type != "cuda":
+        raise ValueError(f"no arena kernel for device {dev}")
+    if (descs.device != dev or descs.dtype != torch.int32
+            or tuple(descs.shape) != stage.descs.shape
+            or not descs.is_contiguous()):
+        raise ValueError("descs must be the stage's int32 program on the card")
+    if (consts.device != dev or consts.dtype != torch.uint8
+            or consts.numel() != stage.consts.size):
+        raise ValueError("consts must be the stage's uint8 buffer on the card")
+    if n == 0:
+        return outs
+    from yoloface_tpu_torch.kernels._build import check, library
+    ptrs = (ctypes.c_uint64 * MAX_GLOBALS)(
+        *[t.data_ptr() for t in list(xs) + outs])
+    err = library().yf_arena_stage(
+        descs.data_ptr(), stage.descs.shape[0], consts.data_ptr(), ptrs,
+        len(stage.globals_), n, stage.arena_bytes, THREADS,
+        torch.cuda.current_stream(dev).cuda_stream)
+    check(err, "arena_stage")
+    arena_stage.launches += 1
+    return outs
+
+
+arena_stage.launches = 0
+
+
+class ArenaPlan(nn.Module):
+    """The planned stages with their programs and constants as buffers."""
+
+    def __init__(self, graph: GraphDef, budget: int = ARENA_BUDGET):
+        super().__init__()
+        self.stages = build_arena_plan(graph, budget)
+        self.input_idx = graph.inputs[0]
+        self.output_idxs = list(graph.outputs)
+        for k, st in enumerate(self.stages):
+            self.register_buffer(f"descs{k}", torch.from_numpy(st.descs))
+            self.register_buffer(f"consts{k}", torch.from_numpy(st.consts))
+
+    def run_stages(self, x: torch.Tensor) -> Dict[int, torch.Tensor]:
+        """int8 NHWC input -> every stage input and output tensor."""
+        env = {self.input_idx: x.contiguous()}
+        for k, st in enumerate(self.stages):
+            outs = arena_stage(st, getattr(self, f"descs{k}"),
+                               getattr(self, f"consts{k}"),
+                               [env[i] for i in st.inputs])
+            env.update(zip(st.outputs, outs))
+        return env
+
