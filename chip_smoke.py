@@ -7,14 +7,22 @@ Phases (each prints its lines; any failure ends the run with an error):
   1. environment: torch, CUDA, nvcc, the card's name and power limit; the
      kernel build from yoloface_tpu_torch/csrc/ into build/yoloface_tpu_torch/;
   2. each kernel against its plain torch version on the card, bit for bit,
-     at the serving path's shapes;
-  3. serving: load_pipeline(..., device="cuda") answers detect_rgb565 on
-     batches of 1, 8, 256 and 4096 frames with every kernel's launch count
-     > 0; its detections are held against the CPU path (the plain
-     versions) and the golden file tests/data/torch_port_frames.npz;
+     at the serving path's shapes: the preprocess; the arena stage in each
+     bit semantics (fast2, fast, exact) in 1 and 4 stages; the fused head
+     and the top-K kernel on crafted tensors with saturation ties and on the
+     net's outputs;
+  3. serving, one path after another, each with every launch count set to
+     0 just before it and read just after (each of its kernels > 0):
+     load_pipeline(..., device="cuda").detect_rgb565 in mode arena2 (fused
+     head), arena_exact (fused head), arena_exact with
+     HeadConfig(use_fused_head=False) (the top-K kernel and the staged
+     head) and arena (fused head); detections are held against the CPU path
+     of the same mode (the plain versions) and, for arena2 and arena_exact,
+     against the golden file tests/data/torch_port_frames.npz;
   4. timing with CUDA events (warm-up, median of 10): each kernel against
-     its plain version at batch 16384, the pipeline at 16384 and 65536,
-     and the pipeline's synchronised latency (host clock, p50 of 10);
+     its plain version at batch 16384 (the arena in all three bit
+     semantics), the arena2 and arena_exact pipelines at 16384 and 65536,
+     and their synchronised latency (host clock, p50 of 10);
   5. the kernels JSON line, the card line, and the result line last.
 
 Without a CUDA device it exits non-zero and prints no result.
@@ -90,7 +98,8 @@ def main() -> int:
     from yoloface_tpu_torch.kernels import head as khead
     from yoloface_tpu_torch.kernels import preprocess as kpre
     from yoloface_tpu_torch.pipeline import head as thead
-    from yoloface_tpu_torch.pipeline.e2e import load_pipeline
+    from yoloface_tpu_torch.pipeline.e2e import FacePipeline, load_pipeline
+    from yoloface_tpu_torch.runtime.engine import ARENA_BITS
 
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions: f64
     torch.backends.cudnn.allow_tf32 = False
@@ -116,10 +125,18 @@ def main() -> int:
         f = rng.integers(0, 1 << 16, (n, 112, 112), dtype=np.int64)
         return torch.from_numpy(f.astype(np.uint16)).to(dev)
 
-    pipe = load_pipeline(CORPUS, mode="arena2", device=dev)
-    plan = pipe.engine.arena
+    modes = {bits: mode for mode, bits in ARENA_BITS.items()}
+    pipes = {"arena2": load_pipeline(CORPUS, mode="arena2", device=dev)}
+    pipe = pipes["arena2"]
+    for bits in ("fast", "exact"):
+        pipes[modes[bits]] = load_pipeline(CORPUS, mode=modes[bits],
+                                           device=dev)
+    plans = {bits: pipes[modes[bits]].engine.arena for bits in modes}
     head_kw = dict(scale=pipe._out_scale, zero_point=pipe._out_zp)
-    err = {"preprocess_rgb565": 0.0, "arena_stage": 0.0, "detect_head": 0.0}
+    counted = (kpre.preprocess_rgb565, arena.arena_stage, khead.detect_head,
+               khead.topk_conf)
+    err = {"preprocess_rgb565": 0.0, "arena_stage": 0.0,
+           "requant_epilogue": 0.0, "detect_head": 0.0, "topk_conf": 0.0}
 
     # -------------------------------------- 2. kernels vs plain, on the card
     for n in (1, 7, 4096):
@@ -142,25 +159,30 @@ def main() -> int:
             torch.cuda.synchronize()
             for o, u, v in zip(st.outputs, outs, ref):
                 _require(torch.equal(u, v), f"arena stage {k} t{o} {tag}")
-            err["arena_stage"] = max(err["arena_stage"],
-                                     _max_err(zip(outs, ref)))
+            e = _max_err(zip(outs, ref))
+            err["arena_stage"] = max(err["arena_stage"], e)
+            if p.bits != "fast2":          # the v1 and exact epilogues
+                err["requant_epilogue"] = max(err["requant_epilogue"], e)
             env.update(zip(st.outputs, outs))
         return env[p.output_idxs[0]]
 
-    small = arena.ArenaPlan(pipe.engine.graph, 18 * 1024).to(dev)
-    _require(len(small.stages) >= 3, "small budget gives >= 3 stages")
-    net_out = None
-    for n in (1, 7, 1024):
-        x = kpre.preprocess_rgb565(frames(n))
-        y = check_stages(plan, x, f"N={n}")
-        y_small = check_stages(small, x, f"N={n} small budget")
-        _require(torch.equal(y, y_small), f"1 vs {len(small.stages)} stages")
-        print(f"[check] arena_stage N={n}: {len(plan.stages)} stage "
-              f"({plan.stages[0].arena_bytes} B arena) and "
-              f"{len(small.stages)} stages "
-              f"{[s.arena_bytes for s in small.stages]} B: every stage "
-              "output bit-exact")
-        net_out = y
+    net_out = {}
+    for bits, plan in plans.items():
+        small = arena.ArenaPlan(pipe.engine.graph, 18 * 1024,
+                                bits=bits).to(dev)
+        _require(len(small.stages) >= 3, "small budget gives >= 3 stages")
+        for n in (1, 7, 1024):
+            x = kpre.preprocess_rgb565(frames(n))
+            y = check_stages(plan, x, f"{bits} N={n}")
+            y_small = check_stages(small, x, f"{bits} N={n} small budget")
+            _require(torch.equal(y, y_small),
+                     f"{bits}: 1 vs {len(small.stages)} stages")
+            print(f"[check] arena_stage {bits} bits N={n}: "
+                  f"{len(plan.stages)} stage ({plan.stages[0].arena_bytes} B "
+                  f"arena) and {len(small.stages)} stages "
+                  f"{[s.arena_bytes for s in small.stages]} B: every stage "
+                  "output bit-exact")
+            net_out[bits] = y
 
     rng_h = np.random.default_rng(23)          # tests/test_pipeline.py:262
     yc = rng_h.integers(-128, 128, (48, 7, 7, 18), dtype=np.int64)
@@ -169,9 +191,9 @@ def main() -> int:
     yc[5] = 127
     yc[6, :, :, 4::6] = 127
     crafted = torch.from_numpy(yc).to(dev)
-    for name, y, kw in (("crafted", crafted, dict(scale=0.14218327403068542,
-                                                  zero_point=-15)),
-                        ("net", net_out, head_kw)):
+    crafted_kw = dict(scale=0.14218327403068542, zero_point=-15)
+    for name, y, kw in (("crafted", crafted, crafted_kw),
+                        ("net", net_out["fast2"], head_kw)):
         for nms in (True, False):
             cfg = thead.HeadConfig(apply_nms=nms)
             got = khead.detect_head(y, cfg=cfg, **kw)
@@ -183,25 +205,29 @@ def main() -> int:
                                      _max_err(zip(got, want)))
         print(f"[check] detect_head {name} N={y.shape[0]} (nms on/off): "
               f"bit-exact, {int(got[2].sum())} detections without NMS")
+    for name, y, kw in (("crafted", crafted, crafted_kw),
+                        *((f"net {b}", net_out[b], head_kw) for b in plans)):
+        for k in (16, 1, 32):
+            got = khead.topk_conf(y, k, **kw)
+            want = khead.topk_conf_plain(y, k, **kw)
+            torch.cuda.synchronize()
+            _require(torch.equal(got, want), f"topk_conf {name} K={k}")
+            err["topk_conf"] = max(err["topk_conf"], _max_err([(got, want)]))
+        print(f"[check] topk_conf {name} N={y.shape[0]} K=16/1/32: "
+              "bit-exact indices")
 
     # ---------------------------------------------------------- 3. serving
     gold = dict(np.load(GOLDEN))
-    batches = {1: frames(1), 8: torch.from_numpy(gold["frames"]).to(dev),
-               256: frames(256), 4096: frames(4096)}
-    for fn in (kpre.preprocess_rgb565, arena.arena_stage, khead.detect_head):
-        fn.launches = 0
-    served = {}
-    for n, f in batches.items():
-        served[n] = pipe.detect_rgb565(f)
-    torch.cuda.synchronize()
-    launches = {"preprocess_rgb565": kpre.preprocess_rgb565.launches,
-                "arena_stage": arena.arena_stage.launches,
-                "detect_head": khead.detect_head.launches}
-    print(f"[serve] detect_rgb565 on batches {list(batches)}: launches "
-          f"{launches}")
-    _require(all(v > 0 for v in launches.values()), "every kernel launched")
-
-    cpu_pipe = load_pipeline(CORPUS, mode="arena2", device="cpu")
+    gold_frames = torch.from_numpy(gold["frames"]).to(dev)
+    staged = thead.HeadConfig(use_fused_head=False)
+    paths = {   # name: (pipeline, head config, batches, kernels it runs)
+        "arena2": (pipe, None, (1, 8, 256, 4096), counted[:3]),
+        "arena_exact": (pipes["arena_exact"], None, (1, 8, 256), counted[:3]),
+        "arena_exact staged": (pipes["arena_exact"], staged, (8, 256),
+                               counted[:2] + counted[3:]),
+        "arena": (pipes["arena"], None, (8, 256), counted[:3]),
+    }
+    launches = {}
 
     def close(got, want, tag):
         for k in ("valid", "count"):
@@ -213,79 +239,129 @@ def main() -> int:
                        - np.asarray(want[k], np.float64)).max()
             _require(d <= tol, f"{tag}: {k} off by {d} > {tol}")
 
-    for n, f in batches.items():
-        want = cpu_pipe.detect_rgb565(f.cpu())
-        close(served[n], {k: v.numpy() for k, v in want.items()}, f"N={n}")
-        y_card = pipe.engine(pipe.preprocess(f))
-        y_cpu = cpu_pipe.engine(cpu_pipe.preprocess(f.cpu()))
-        _require(torch.equal(y_card.cpu(), y_cpu), f"N={n}: int8 head")
-        print(f"[serve] N={n}: int8 head bit-exact vs the CPU path, "
-              f"{int(served[n]['count'].sum())} detections equal within "
-              f"boxes {thead.BOX_ATOL} / scores {thead.SCORE_ATOL}")
-    y_gold = pipe.engine(pipe.preprocess(batches[8]))
-    _require(np.array_equal(y_gold.cpu().numpy(), gold["head"]),
-             "golden int8 head")
-    close(served[8], gold, "golden")
-    print(f"[serve] golden file: int8 head bit-exact, counts "
-          f"{served[8]['count'].tolist()} equal")
+    for path, (eng_pipe, cfg, sizes, kernels) in paths.items():
+        p = FacePipeline(eng_pipe.engine, cfg)
+        batches = {n: gold_frames if n == 8 else frames(n) for n in sizes}
+        for fn in counted:
+            fn.launches = 0
+        served = {n: p.detect_rgb565(f) for n, f in batches.items()}
+        torch.cuda.synchronize()
+        launches[path] = {fn.__name__: fn.launches for fn in counted}
+        print(f"[serve] {path}: detect_rgb565 on batches {list(batches)}: "
+              f"launches {launches[path]}")
+        _require(all(fn.launches > 0 for fn in kernels),
+                 f"{path}: every kernel of the path launched")
+        eng = p.engine
+        cpu_pipe = load_pipeline(CORPUS, mode=eng.mode, device="cpu",
+                                 head_config=cfg)
+        for n, f in batches.items():
+            want = cpu_pipe.detect_rgb565(f.cpu())
+            close(served[n], {k: v.numpy() for k, v in want.items()},
+                  f"{path} N={n}")
+            y_card = eng(p.preprocess(f))
+            y_cpu = cpu_pipe.engine(cpu_pipe.preprocess(f.cpu()))
+            _require(torch.equal(y_card.cpu(), y_cpu),
+                     f"{path} N={n}: int8 head")
+            print(f"[serve] {path} N={n}: int8 head bit-exact vs the CPU "
+                  f"path, {int(served[n]['count'].sum())} detections equal "
+                  f"within boxes {thead.BOX_ATOL} / scores "
+                  f"{thead.SCORE_ATOL}")
+        if eng.mode == "arena":
+            continue
+        exact = eng.mode == "arena_exact"
+        y_gold = eng(p.preprocess(gold_frames))
+        _require(np.array_equal(y_gold.cpu().numpy(),
+                                gold["head_exact" if exact else "head"]),
+                 f"{path}: golden int8 head")
+        prefix = "exact_" if exact else ""
+        close(served[8], {k: gold[prefix + k] for k in
+                          ("boxes", "scores", "valid", "count")},
+              f"{path}: golden")
+        print(f"[serve] {path}: golden file: int8 head bit-exact, counts "
+              f"{served[8]['count'].tolist()} equal")
 
     # ----------------------------------------------------------- 4. timing
     n = TIMING_BATCH
     f = frames(n)
     x = kpre.preprocess_rgb565(f)
-    st, descs, consts = plan.stages[0], plan.descs0, plan.consts0
-    outs = [torch.empty((n,) + st.shapes[o], dtype=torch.int8, device=dev)
-            for o in st.outputs]
     y = pipe.engine(x)
+
+    def stage_pair(plan):
+        st, descs, consts = plan.stages[0], plan.descs0, plan.consts0
+        outs = [torch.empty((n,) + st.shapes[o], dtype=torch.int8,
+                            device=dev) for o in st.outputs]
+        return (lambda: arena.arena_stage(st, descs, consts, [x]),
+                lambda: arena.arena_stage_plain(st, consts, [x] + outs))
+
     timed = {
         "preprocess_rgb565": (lambda: kpre.preprocess_rgb565(f),
                               lambda: kpre.preprocess_rgb565_plain(f)),
-        "arena_stage": (lambda: arena.arena_stage(st, descs, consts, [x]),
-                        lambda: arena.arena_stage_plain(st, consts,
-                                                        [x] + outs)),
+        "arena_stage": stage_pair(plans["fast2"]),
+        "requant_epilogue": stage_pair(plans["exact"]),
+        "arena_stage fast": stage_pair(plans["fast"]),
         "detect_head": (lambda: khead.detect_head(y, **head_kw),
                         lambda: khead.detect_head_plain(y, **head_kw)),
+        "topk_conf": (lambda: khead.topk_conf(y, 16, **head_kw),
+                      lambda: khead.topk_conf_plain(y, 16, **head_kw)),
     }
+    label = {"arena_stage": "arena_stage fast2",
+             "requant_epilogue": "arena_stage exact"}
     ms = {}
     for name, (kern, plain) in timed.items():
         # plain, kernel, kernel, plain: report each pair's mean
         p1, k1, k2, p2 = (_time_ms(plain), _time_ms(kern), _time_ms(kern),
                           _time_ms(plain))
         ms[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
-        print(f"[time] {name} N={n}: kernel {ms[name][0]:.4f} ms, plain "
-              f"{ms[name][1]:.4f} ms ({card})")
-    for n in (16384, 65536):
-        f = frames(n)
-        t = _time_ms(lambda: pipe.detect_rgb565(f))
-        print(f"[time] pipeline detect_rgb565 N={n}: {t:.3f} ms, "
-              f"{n / t * 1e3:.0f} frames/s ({card})")
-        lat = []
-        for _ in range(REPS):
-            t0 = time.perf_counter()
-            pipe.detect_rgb565(f)
-            torch.cuda.synchronize()
-            lat.append((time.perf_counter() - t0) * 1e3)
-        p50 = sorted(lat)[len(lat) // 2]
-        print(f"[time] pipeline sync latency N={n}: p50 {p50:.3f} ms of "
-              f"{REPS} calls, host clock ({card})")
-        del f
+        print(f"[time] {label.get(name, name)} N={n}: kernel "
+              f"{ms[name][0]:.4f} ms, plain {ms[name][1]:.4f} ms ({card})")
+    for mode in ("arena2", "arena_exact"):
+        for n in (16384, 65536):
+            f = frames(n)
+            t = _time_ms(lambda: pipes[mode].detect_rgb565(f))
+            print(f"[time] pipeline {mode} detect_rgb565 N={n}: {t:.3f} ms, "
+                  f"{n / t * 1e3:.0f} frames/s ({card})")
+            lat = []
+            for _ in range(REPS):
+                t0 = time.perf_counter()
+                pipes[mode].detect_rgb565(f)
+                torch.cuda.synchronize()
+                lat.append((time.perf_counter() - t0) * 1e3)
+            p50 = sorted(lat)[len(lat) // 2]
+            print(f"[time] pipeline {mode} sync latency N={n}: p50 "
+                  f"{p50:.3f} ms of {REPS} calls, host clock ({card})")
+            del f
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"[time] peak device memory {peak:.2f} GiB")
 
     # ------------------------------------------------------------ 5. lines
     src = "yoloface_tpu_torch/csrc/"
-    meta = {
+    meta = {   # name: (source, TPU kernel, path whose launches count)
         "preprocess_rgb565": (src + "preprocess_rgb565.cu",
-                              "yoloface_tpu/kernels/pallas_int8.py:687"),
+                              "yoloface_tpu/kernels/pallas_int8.py:687",
+                              "arena2", "preprocess_rgb565"),
         "arena_stage": (src + "arena_stage.cu",
-                        "yoloface_tpu/kernels/pallas_arena.py:870"),
+                        "yoloface_tpu/kernels/pallas_arena.py:870",
+                        "arena2", "arena_stage"),
+        "requant_epilogue": (src + "epilogue.cuh",
+                             "yoloface_tpu/kernels/pallas_int8.py:315",
+                             "arena_exact", "arena_stage"),
         "detect_head": (src + "detect_head.cu",
-                        "yoloface_tpu/kernels/pallas_head.py:83"),
+                        "yoloface_tpu/kernels/pallas_head.py:83",
+                        "arena2", "detect_head"),
+        "topk_conf": (src + "topk_conf.cu",
+                      "yoloface_tpu/kernels/pallas_head.py:33",
+                      "arena_exact staged", "topk_conf"),
     }
-    kernels = [{"name": k, "route": "cuda", "source": meta[k][0],
-                "replaces": meta[k][1], "launches": launches[k],
-                "max_abs_err": err[k], "ms": ms[k][0], "plain_ms": ms[k][1]}
-               for k in meta]
+    bits = {"arena_stage": ["fast2", "fast", "exact"],
+            "requant_epilogue": ["fast", "exact"]}
+    kernels = []
+    for k, (source, tpu, path, counter) in meta.items():
+        row = {"name": k, "route": "cuda", "source": source, "replaces": tpu,
+               "launches": launches[path][counter], "max_abs_err": err[k],
+               "ms": ms[k][0], "plain_ms": ms[k][1]}
+        if k in bits:
+            row["bits"] = bits[k]
+        kernels.append(row)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,8 @@
-"""The port's ``fast`` and ``fast2`` engines against the JAX engine, bit for
-bit (tolerance 0) on every tensor: the corpus graph and fuzz seed 4."""
+"""The port's engines against the JAX engine, bit for bit (tolerance 0):
+the per-op ``exact``, ``fast`` and ``fast2`` modes on every tensor, and the
+arena plans in ``exact`` and ``fast`` bits (the ``arena_exact`` and ``arena``
+modes) on every stage output in 1 and >= 3 stages; the corpus graph and
+fuzz seed 4."""
 
 import os
 
@@ -12,6 +15,7 @@ from yoloface_tpu.io.tflite_import import load_tflite as jax_load_tflite
 from yoloface_tpu.runtime.engine import Int8Engine as JaxEngine
 from yoloface_tpu_torch.convert import graph_from_jax
 from yoloface_tpu_torch.graph.ir import GraphDef, OpDef, QParams, TensorDef
+from yoloface_tpu_torch.kernels import arena
 from yoloface_tpu_torch.runtime.engine import Int8Engine
 
 torch.set_num_threads(1)
@@ -26,23 +30,33 @@ def corpus():
     return jax_load_tflite(CORPUS)
 
 
+@pytest.fixture(scope="module")
+def corpus_exact(corpus):
+    """The JAX exact engine's every tensor on 4 frames, computed once."""
+    x = _frames(0, 4, (56, 56, 3))
+    return x, JaxEngine(corpus, "exact").run_with_intermediates(x)
+
+
 def _frames(seed, n, shape):
     rng = np.random.default_rng(seed)
     x = rng.integers(-128, 128, (n,) + shape, dtype=np.int64)
     return x.astype(np.int8)
 
 
-@pytest.mark.parametrize("mode,n_tensors", [("fast", 55), ("fast2", 38)])
-def test_corpus_every_tensor_equals_jax(corpus, mode, n_tensors):
+@pytest.mark.parametrize("mode,n_tensors", [("fast", 55), ("fast2", 38),
+                                            ("exact", 55)])
+def test_corpus_every_tensor_equals_jax(corpus, corpus_exact, mode,
+                                        n_tensors):
     x = _frames(0, 4, (56, 56, 3))
-    want = JaxEngine(corpus, mode).run_with_intermediates(x)
+    want = (corpus_exact[1] if mode == "exact"
+            else JaxEngine(corpus, mode).run_with_intermediates(x))
     got = Int8Engine(graph_from_jax(corpus), mode).run_with_intermediates(x)
     assert sorted(got) == sorted(want) and len(got) == n_tensors
     for k in want:
         np.testing.assert_array_equal(got[k], want[k], err_msg=f"t{k}")
 
 
-@pytest.mark.parametrize("mode", ["fast", "fast2"])
+@pytest.mark.parametrize("mode", ["fast", "fast2", "exact"])
 def test_fuzz_seed4_equals_jax(mode):
     jg, rng = _int8_graph(4)
     # every op of seed 4 lies in the slice: the case cannot pass by skipping
@@ -53,6 +67,66 @@ def test_fuzz_seed4_equals_jax(mode):
     assert sorted(got) == sorted(want)
     for k in want:
         np.testing.assert_array_equal(got[k], want[k], err_msg=f"t{k}")
+
+
+def _stage_outputs(plan, x):
+    return {k: v.numpy() for k, v in
+            plan.run_stages(torch.from_numpy(x)).items()}
+
+
+@pytest.mark.parametrize("budget,n_stages", [(arena.ARENA_BUDGET, 1),
+                                             (18 * 1024, 4)])
+@pytest.mark.parametrize("bits", ["exact", "fast"])
+def test_corpus_arena_bits_equal_jax(corpus, corpus_exact, bits, budget,
+                                     n_stages):
+    """``ArenaPlan(bits=...)`` (the arena_exact / arena modes) against the
+    JAX engine of the same bits on every stage output."""
+    x, want = corpus_exact
+    if bits == "fast":
+        want = JaxEngine(corpus, "fast").run_with_intermediates(x)
+    plan = arena.ArenaPlan(graph_from_jax(corpus), budget, bits=bits)
+    assert len(plan.stages) == n_stages
+    epis = np.concatenate([st.descs[:, arena.F["epi"]] for st in plan.stages])
+    fused = arena.EPI_LEAKY_EXACT if bits == "exact" else arena.EPI_LEAKY_V1
+    assert (epis == fused).sum() == 17            # every conv+leaky pair
+    got = _stage_outputs(plan, x)
+    assert len(got) == 1 + sum(len(st.outputs) for st in plan.stages)
+    for k, v in got.items():
+        np.testing.assert_array_equal(v, want[k], err_msg=f"t{k}")
+
+
+@pytest.mark.parametrize("budget", [arena.ARENA_BUDGET, 2400])
+@pytest.mark.parametrize("bits", ["exact", "fast"])
+def test_fuzz_seed4_arena_bits_equal_jax(bits, budget):
+    jg, rng = _int8_graph(4)
+    x = rng.integers(-128, 128, (3, 14, 14, 3), dtype=np.int64).astype(np.int8)
+    want = JaxEngine(jg, bits).run_with_intermediates(x)
+    plan = arena.ArenaPlan(graph_from_jax(jg), budget, bits=bits)
+    assert len(plan.stages) == (2 if budget == 2400 else 1)
+    for k, v in _stage_outputs(plan, x).items():
+        np.testing.assert_array_equal(v, want[k], err_msg=f"t{k}")
+
+
+@pytest.mark.parametrize("mode,jax_mode", [("arena_exact", "exact"),
+                                           ("arena", "fast")])
+def test_arena_modes_serve_like_jax(corpus, mode, jax_mode):
+    x = _frames(5, 5, (56, 56, 3))
+    want = np.asarray(JaxEngine(corpus, jax_mode)(x))
+    got = Int8Engine(graph_from_jax(corpus), mode)(torch.from_numpy(x))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_exact_left_shift_out_of_int32_raises():
+    """A requant whose left shift would take |x| out of int32 is refused at
+    plan time, never wrapped: a QUANTIZE with a ratio of 2**24."""
+    i8 = np.dtype(np.int8)
+    tensors = [TensorDef(0, "in", (1, 4, 4, 2), i8, QParams((1.0,), (0,))),
+               TensorDef(1, "q", (1, 4, 4, 2), i8,
+                         QParams((2.0 ** -24,), (0,)))]
+    g = GraphDef(tensors, [OpDef(0, "QUANTIZE", [0], [1], {})], [0], [1])
+    arena.build_arena_plan(g, bits="fast")
+    with pytest.raises(NotImplementedError, match="int32"):
+        arena.build_arena_plan(g, bits="exact")
 
 
 @pytest.mark.parametrize("n", [1, 7])
@@ -70,7 +144,8 @@ def _tiny_graph(opname):
     return GraphDef(tensors, [OpDef(0, opname, [0], [1], {})], [0], [1])
 
 
-@pytest.mark.parametrize("mode", ["fast", "fast2", "arena2"])
+@pytest.mark.parametrize("mode", ["exact", "fast", "fast2", "arena_exact",
+                                  "arena", "arena2"])
 def test_unknown_op_raises(mode):
     with pytest.raises(NotImplementedError, match="LOGISTIC"):
         Int8Engine(_tiny_graph("LOGISTIC"), mode)

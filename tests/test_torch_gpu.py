@@ -21,16 +21,19 @@ GOLDEN = os.path.join(REPO, "tests", "data", "torch_port_frames.npz")
 
 
 @pytest.mark.gpu
-def test_kernels_match_plain_on_the_card():
-    """Each kernel equals its plain version on the golden frames, and the
-    served int8 head equals the golden file."""
+@pytest.mark.parametrize("mode,golden", [("arena2", "head"),
+                                         ("arena_exact", "head_exact"),
+                                         ("arena", None)])
+def test_kernels_match_plain_on_the_card(mode, golden):
+    """Each kernel equals its plain version on the golden frames, in each
+    arena mode's bits, and the served int8 head equals the golden file."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     gold = dict(np.load(GOLDEN))
     f = torch.from_numpy(gold["frames"]).cuda()
     x = preprocess.preprocess_rgb565(f)
     assert torch.equal(x, preprocess.preprocess_rgb565_plain(f))
-    pipe = load_pipeline(CORPUS, device="cuda")
+    pipe = load_pipeline(CORPUS, mode=mode, device="cuda")
     plan = pipe.engine.arena
     env = plan.run_stages(x)
     for k, st in enumerate(plan.stages):
@@ -40,8 +43,11 @@ def test_kernels_match_plain_on_the_card():
         for o, t in zip(st.outputs, outs):
             assert torch.equal(env[o], t)
     y = env[plan.output_idxs[0]]
-    np.testing.assert_array_equal(y.cpu().numpy(), gold["head"])
+    if golden is not None:
+        np.testing.assert_array_equal(y.cpu().numpy(), gold[golden])
     kw = dict(scale=pipe._out_scale, zero_point=pipe._out_zp)
     got, want = head.detect_head(y, **kw), head.detect_head_plain(y, **kw)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+    assert torch.equal(head.topk_conf(y, 16, **kw),
+                       head.topk_conf_plain(y, 16, **kw))

@@ -3,6 +3,12 @@ against the JAX fused head (Pallas interpret) and staged path on the
 crafted tensors of test_pipeline.py: all-below-threshold frames,
 saturation ties, an NMS-heavy frame.
 
+The top-K kernel's plain version (``topk_conf_plain``) against
+``pallas_head.topk_conf_int8`` in interpret mode: indices equal exactly on
+every frame whose ranking keys agree bit for bit between the two (checked
+by comparing the key tensors), and against the port's own stable-sort
+``_top_k`` on its own key everywhere.
+
 Tolerance: validity is exact; boxes within ``BOX_ATOL`` and scores within
 ``SCORE_ATOL`` (pipeline/head.py), because torch's and XLA's CPU ``exp``
 differ by one ulp on some int8 inputs.  Within the port, the fused plain
@@ -10,12 +16,15 @@ version and the staged path are bit-identical."""
 
 import dataclasses
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from yoloface_tpu.kernels.pallas_head import topk_conf_int8
 from yoloface_tpu.pipeline import head as jhead
-from yoloface_tpu_torch.kernels.head import detect_head, detect_head_plain
+from yoloface_tpu_torch.kernels.head import (detect_head, detect_head_plain,
+                                             topk_conf, topk_conf_plain)
 from yoloface_tpu_torch.pipeline import head as thead
 
 torch.set_num_threads(1)
@@ -102,8 +111,65 @@ def test_decode_and_select_equal_jax():
         np.testing.assert_array_equal(u.numpy(), np.asarray(v))
 
 
-def test_topk_only_head_is_not_ported_yet():
-    cfg = thead.HeadConfig(use_pallas_topk=True, use_fused_head=False)
-    with pytest.raises(NotImplementedError, match="B5"):
-        thead.detect_int8_head(torch.zeros((1, 7, 7, 18), dtype=torch.int8),
-                               scale=SCALE, zero_point=ZP, cfg=cfg)
+def _jax_key(y):
+    """The JAX kernels' ranking key [N,147] in (anchor,row,col) order."""
+    q = jnp.asarray(y[..., 4::6].astype(np.float32))          # [N,7,7,3]
+    conf = 1.0 / (1.0 + jnp.exp(-((q - float(ZP)) * float(SCALE))))
+    key = jnp.where(conf >= 0.7, conf, 0.0)
+    return np.asarray(jnp.transpose(key, (0, 3, 1, 2))).reshape(len(y), -1)
+
+
+def _agreeing_frames(seed):
+    """Frames whose confidence channels take only int8 values on which the
+    JAX and torch keys agree bit for bit, half of them saturating to 1.0
+    (ties everywhere)."""
+    y = np.zeros((2, 7, 7, 18), np.int8)
+    y[..., 4::6] = np.resize(np.arange(-128, 128), (2, 7, 7, 3))
+    _, tkey = thead.rank_key(torch.from_numpy(y), scale=SCALE, zero_point=ZP)
+    q = y[..., 4::6].transpose(0, 3, 1, 2).reshape(2, -1)   # key order
+    ok = np.setdiff1d(q, q[_jax_key(y) != tkey.numpy()]).astype(np.int8)
+    assert ok.size > 200
+    rng = np.random.default_rng(seed)
+    y = _crafted(seed)
+    y[..., 4::6] = rng.choice(ok, y[..., 4::6].shape)
+    y[8:16, ..., 4::6] = rng.choice(ok[ok > 100], y[8:16, ..., 4::6].shape)
+    return y
+
+
+@pytest.mark.parametrize("frames", ["crafted", "agreeing"])
+def test_topk_conf_plain_equals_jax_kernel(frames):
+    y = _crafted(23) if frames == "crafted" else _agreeing_frames(31)
+    ty = torch.from_numpy(y)
+    want = np.asarray(topk_conf_int8(y, 16, 7, 3, scale=SCALE, zero_point=ZP,
+                                     conf_threshold=0.7))
+    got = topk_conf_plain(ty, 16, scale=SCALE, zero_point=ZP)
+    assert got.dtype == torch.int32 and got.shape == (48, 16)
+    _, tkey = thead.rank_key(ty, scale=SCALE, zero_point=ZP)
+    same = (_jax_key(y) == tkey.numpy()).all(-1)
+    assert same.sum() >= (8 if frames == "crafted" else 48)
+    np.testing.assert_array_equal(got.numpy()[same], want[same])
+    # everywhere: the port's stable sort on its own key, and the wrapper
+    np.testing.assert_array_equal(got.numpy(), thead._top_k(tkey, 16)[1])
+    assert torch.equal(topk_conf(ty, 16, scale=SCALE, zero_point=ZP), got)
+
+
+@pytest.mark.parametrize("nms", [True, False])
+def test_topk_only_head_equals_jax(nms):
+    """The staged head ranked by the top-K kernel (the config that raised
+    before B5 was ported) against JAX's, and bit for bit against the port's
+    stable-sort staged head."""
+    y = _agreeing_frames(37)
+    cfg = dataclasses.replace(thead.HeadConfig(apply_nms=nms),
+                              use_fused_head=False)
+    jcfg = dataclasses.replace(jhead.HeadConfig(apply_nms=nms),
+                               use_fused_head=False)
+    assert cfg.use_pallas_topk and jcfg.use_pallas_topk
+    got = thead.detect_int8_head(torch.from_numpy(y), scale=SCALE,
+                                 zero_point=ZP, cfg=cfg)
+    assert_detections_close(got, jhead.detect_int8_head(
+        y, scale=SCALE, zero_point=ZP, cfg=jcfg))
+    ref = thead.detect_int8_head(torch.from_numpy(y), scale=SCALE,
+                                 zero_point=ZP, cfg=_staged(cfg))
+    for u, v in zip(got, ref):
+        assert torch.equal(u, v)
+    assert got[2].sum() > 0

@@ -1,11 +1,14 @@
-"""The port's int8 operators against ``yoloface_tpu.ops.int8_fast*``, bit for
-bit (tolerance 0): convs at strides 1 and 2, SAME and VALID, odd widths."""
+"""The port's int8 operators against ``yoloface_tpu.ops.int8_fast*`` and the
+exact ``yoloface_tpu.ops.int8_ref`` operators, bit for bit (tolerance 0):
+convs at strides 1 and 2, SAME and VALID, odd widths."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from yoloface_tpu.core.fixedpoint import (quantize_multiplier,
+                                          quantize_multiplier_arr)
 from yoloface_tpu.ops import int8_fast as jfast
 from yoloface_tpu.ops import int8_fast2 as jfast2
 from yoloface_tpu.ops import int8_ref as jref
@@ -121,3 +124,58 @@ def test_pad_and_concat():
         tref.pad_int8(torch.from_numpy(a), pads, -9))
     _eq(jref.concat_int8([jnp.asarray(a), jnp.asarray(b)], 3),
         tref.concat_int8([torch.from_numpy(a), torch.from_numpy(b)], 3))
+
+
+@pytest.mark.parametrize("depthwise", [False, True])
+@pytest.mark.parametrize("kh,stride,padding,w", [(1, 1, "SAME", 7),
+                                                 (3, 1, "SAME", 9),
+                                                 (3, 2, "SAME", 11),
+                                                 (3, 2, "VALID", 13)])
+def test_conv_exact(depthwise, kh, stride, padding, w):
+    rng = np.random.default_rng(kh * 10 + stride + w + 50 * depthwise)
+    x = _i8(rng, (2, 9, w, 5))
+    wt, b, s = _conv_case(rng, kh, 5, 6, depthwise)
+    # per-channel multipliers from the real scales, as the engine derives them
+    qm, shift = quantize_multiplier_arr(s.astype(np.float64))
+    kw = dict(input_zp=-9, output_zp=4, stride=(stride, stride),
+              padding=padding)
+    jf = jref.depthwise_conv2d_int8 if depthwise else jref.conv2d_int8
+    tf = tref.depthwise_conv2d_int8 if depthwise else tref.conv2d_int8
+    want = jf(jnp.asarray(x), wt, b, qm=qm, shift=shift, **kw)
+    _eq(want, tf(torch.from_numpy(x), torch.from_numpy(wt),
+                 torch.from_numpy(b), qm=torch.from_numpy(qm),
+                 shift=torch.from_numpy(shift), **kw))
+    assert 0 < (np.abs(np.asarray(want)) < 127).mean()
+
+
+@pytest.mark.parametrize("ratio,alpha", [(0.83, 0.1), (1.7, 0.1),
+                                         (0.0313, 0.2), (3.9, 0.01)])
+def test_leaky_requantize_exact(ratio, alpha):
+    """Every int8 input, both branches; ratios > 1 take a left shift."""
+    x = np.arange(-128, 128, dtype=np.int64).astype(np.int8)
+    x = np.stack([x, x[::-1]]).reshape(2, 8, 16, 2)
+    qm_id, sh_id = quantize_multiplier(ratio)
+    qm_al, sh_al = quantize_multiplier(ratio * alpha)
+    kw = dict(input_zp=-3, output_zp=11, qm_identity=qm_id,
+              shift_identity=sh_id, qm_alpha=qm_al, shift_alpha=sh_al)
+    _eq(jref.leaky_relu_int8(jnp.asarray(x), **kw),
+        tref.leaky_relu_int8(torch.from_numpy(x), **kw))
+    kw = dict(input_zp=17, output_zp=-6, qm=qm_id, shift=sh_id)
+    _eq(jref.requantize_int8(jnp.asarray(x), **kw),
+        tref.requantize_int8(torch.from_numpy(x), **kw))
+
+
+@pytest.mark.parametrize("s1,s2,so", [(0.05, 0.08, 0.11), (0.2, 0.013, 0.05),
+                                      (0.031, 0.031, 0.9)])
+def test_add_exact(s1, s2, so):
+    """The engine's exact ADD constants (left shift 20) on random tensors."""
+    rng = np.random.default_rng(int(s1 * 1000))
+    a, b = _i8(rng, (3, 5, 7, 4)), _i8(rng, (3, 5, 7, 4))
+    twice_max = 2.0 * max(s1, s2)
+    qm1, sh1 = quantize_multiplier(s1 / twice_max)
+    qm2, sh2 = quantize_multiplier(s2 / twice_max)
+    qmo, sho = quantize_multiplier(twice_max / ((1 << 20) * so))
+    kw = dict(zp1=-5, zp2=12, zp_out=3, qm1=qm1, shift1=sh1, qm2=qm2,
+              shift2=sh2, qm_out=qmo, shift_out=sho, left_shift=20)
+    _eq(jref.add_int8(jnp.asarray(a), jnp.asarray(b), **kw),
+        tref.add_int8(torch.from_numpy(a), torch.from_numpy(b), **kw))

@@ -1,11 +1,17 @@
 """Write tests/data/torch_port_frames.npz, the golden file of the PyTorch port.
 
 It holds 8 RGB565 frames, made from 8 images of checkpoints/vis/ (cv2
-read, BGR->RGB, resize to 112x112, 5/6/5 truncation), with what the
-JAX ``fast2`` pipeline gives for them: the int8 head tensor [8,7,7,18] and
-the staged head's detections (boxes, scores, valid, count).  chip_smoke.py
-holds the card's output against it without jax; tests/test_torch_pipeline.py
-recomputes the JAX side and holds it against the file.
+read, BGR->RGB, resize to 112x112, 5/6/5 truncation), with what the JAX
+pipelines give for them:
+  * ``fast2`` engine: the int8 head tensor ``head`` [8,7,7,18] and the
+    staged head's detections ranked by a stable sort (``boxes``,
+    ``scores``, ``valid``, ``count``);
+  * ``exact`` engine: ``head_exact`` and the staged head's detections
+    ranked by the top-K Pallas kernel in interpret mode (``exact_boxes``,
+    ``exact_scores``, ``exact_valid``, ``exact_count``).
+chip_smoke.py holds the card's output against it without jax;
+tests/test_torch_pipeline.py recomputes the JAX side and holds it against
+the file.
 
 Run from the repository root, on the CPU:
     JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py
@@ -41,17 +47,23 @@ def golden_frames() -> np.ndarray:
 
 
 def jax_outputs(frames: np.ndarray) -> dict:
-    """The JAX fast2 engine's int8 head and the staged head's detections."""
+    """The golden arrays of the JAX fast2 and exact pipelines."""
     from yoloface_tpu.io.tflite_import import load_tflite
     from yoloface_tpu.pipeline import preprocess
     from yoloface_tpu.pipeline.e2e import FacePipeline
     from yoloface_tpu.pipeline.head import HeadConfig
     from yoloface_tpu.runtime.engine import Int8Engine
-    eng = Int8Engine(load_tflite(CORPUS), "fast2")
-    pipe = FacePipeline(eng, HeadConfig(use_fused_head=False,
-                                        use_pallas_topk=False))
-    head = np.asarray(eng(np.asarray(preprocess.rgb565_to_int8_input(frames))))
-    return {"head": head, **pipe.detect_rgb565(frames)}
+    graph = load_tflite(CORPUS)
+    x = np.asarray(preprocess.rgb565_to_int8_input(frames))
+    out = {}
+    for mode, prefix, topk in (("fast2", "", False), ("exact", "exact_", True)):
+        eng = Int8Engine(graph, mode)
+        pipe = FacePipeline(eng, HeadConfig(use_fused_head=False,
+                                            use_pallas_topk=topk))
+        out["head" + ("_exact" if prefix else "")] = np.asarray(eng(x))
+        out.update({prefix + k: np.asarray(v)
+                    for k, v in pipe.detect_rgb565(frames).items()})
+    return out
 
 
 def main() -> int:

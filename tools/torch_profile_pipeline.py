@@ -4,8 +4,10 @@
 Run from the repository root on a machine with a CUDA card:
 
     python3 tools/torch_profile_pipeline.py [--batch 65536] [--arena-batch 16384]
+        [--modes arena2 arena arena_exact]
 
-It prints, each line with the card's name, power limit and SM clocks:
+For each engine mode (default ``arena2``) it prints, each line with the
+card's name, power limit and SM clocks:
 
   * pipeline: ``FacePipeline.detect_rgb565`` with the frames on the card,
     back to back (host clock over 5 batches) and synchronised (p50 of 10
@@ -145,6 +147,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batch", type=int, default=65536)
     ap.add_argument("--arena-batch", type=int, default=16384)
+    ap.add_argument("--modes", nargs="+", default=["arena2"],
+                    choices=["arena2", "arena", "arena_exact"])
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -155,9 +159,11 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,clocks.max.sm",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    pipe = load_pipeline(CORPUS, mode="arena2", device="cuda")
-    profile_pipeline(pipe, args.batch, card)
-    arena_breakdown(pipe, args.arena_batch, card)
+    for mode in args.modes:
+        print(f"[mode] {mode}")
+        pipe = load_pipeline(CORPUS, mode=mode, device="cuda")
+        profile_pipeline(pipe, args.batch, card)
+        arena_breakdown(pipe, args.arena_batch, card)
     return 0
 
 

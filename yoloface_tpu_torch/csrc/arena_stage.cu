@@ -2,10 +2,12 @@
 // run over a per-frame arena in shared memory.
 //
 // Replaces yoloface_tpu/kernels/pallas_arena.py::_build_stage (the stage
-// kernel planned by build_arena_plan over lower_arena_ops), with the v2
-// epilogue of pallas_int8.py::apply_requant_leaky inside it (epilogue.cuh).
-// The host planner and the plain version of this kernel are in
-// kernels/arena.py; the Op layout below is its FIELDS tuple.
+// kernel planned by build_arena_plan over lower_arena_ops), with the
+// epilogues of pallas_int8.py::apply_requant_leaky inside it (epilogue.cuh):
+// one kernel for the fast2, fast (v1) and exact bit semantics, chosen per
+// op by the descriptor's epilogue code.  The host planner and the plain
+// version of this kernel are in kernels/arena.py; the Op layout below is
+// its FIELDS tuple.
 //
 // What bounds it on the card: integer multiply-adds on the CUDA cores
 // (1.03 M MACs a 56x56 frame) and shared-memory reads of the windows.
@@ -29,22 +31,31 @@ namespace {
 
 constexpr int kMaxGlobals = 16;
 enum Code { COPY = 0, CONV = 1, DW = 2, MAXPOOL = 3, ADD = 4, QUANTIZE = 5 };
-enum Epi { EPI_REQUANT = 0, EPI_LEAKY_V2 = 1 };
+enum Epi {
+  EPI_REQUANT = 0,        // fast requant (ADD/QUANTIZE: fast bits)
+  EPI_LEAKY_V2 = 1,       // fast2 fused conv+leaky, one rounding
+  EPI_LEAKY_V1 = 2,       // fast fused conv+leaky, two roundings
+  EPI_REQUANT_EXACT = 3,  // exact requant (ADD/QUANTIZE: exact bits)
+  EPI_LEAKY_EXACT = 4     // exact fused conv+leaky
+};
 
 struct View {          // element (y, x, c) at offset + (y * w + x) * cs + c
   int space, offset, h, w, c, cs;
 };
 
-struct Op {            // 40 int32, the host planner's FIELDS in order
+struct Op {            // 48 int32, the host planner's FIELDS in order
   int code, epi;
   View in0, in1, out;
   int kh, kw, sh, sw, pt, pl, fill;
   int w_off, b_off, s_off;
   int zp_a, zp_b, zp_out, conv_zp;
   float f0, f1;
+  int q_off;             // exact: int32 qm[C] then shift[C]
+  int m0, e0, m1, e1, m2, e2;   // exact (qm, shift) pairs
+  int lsh;               // exact ADD's left shift
   int reserved[4];
 };
-static_assert(sizeof(Op) == 40 * 4, "Op must match kernels/arena.py FIELDS");
+static_assert(sizeof(Op) == 48 * 4, "Op must match kernels/arena.py FIELDS");
 
 struct Globals {       // device pointers of the stage inputs then outputs
   int8_t* p[kMaxGlobals];
@@ -63,6 +74,7 @@ __device__ void conv_op(const Op& op, const int8_t* in, int8_t* out,
   const int8_t* w = reinterpret_cast<const int8_t*>(consts + op.w_off);
   const int* bias = reinterpret_cast<const int*>(consts + op.b_off);
   const float* scale = reinterpret_cast<const float*>(consts + op.s_off);
+  const int* qms = reinterpret_cast<const int*>(consts + op.q_off);
   const int co_n = op.out.c, ci_n = op.in0.c;
   const int total = op.out.h * op.out.w * co_n;
   for (int e = threadIdx.x; e < total; e += blockDim.x) {
@@ -89,11 +101,29 @@ __device__ void conv_op(const Op& op, const int8_t* in, int8_t* out,
         }
       }
     }
-    const float s = __ldg(scale + co);
-    out[p * op.out.cs + co] =
-        op.epi == EPI_LEAKY_V2
-            ? yf::requant_leaky_v2(acc, s, op.conv_zp, op.f0, op.f1, op.zp_out)
-            : yf::requant_fast(acc, s, op.zp_out);
+    int8_t r;
+    switch (op.epi) {    // uniform across the block: no divergence
+      case EPI_LEAKY_V2:
+        r = yf::requant_leaky_v2(acc, __ldg(scale + co), op.conv_zp, op.f0,
+                                 op.f1, op.zp_out);
+        break;
+      case EPI_LEAKY_V1:
+        r = yf::requant_leaky_v1(acc, __ldg(scale + co), op.conv_zp, op.f0,
+                                 op.f1, op.zp_out);
+        break;
+      case EPI_REQUANT_EXACT:
+        r = yf::requant_exact(acc, __ldg(qms + co), __ldg(qms + co_n + co),
+                              op.zp_out);
+        break;
+      case EPI_LEAKY_EXACT:
+        r = yf::requant_leaky_exact(acc, __ldg(qms + co),
+                                    __ldg(qms + co_n + co), op.conv_zp, op.m0,
+                                    op.e0, op.m1, op.e1, op.zp_out);
+        break;
+      default:
+        r = yf::requant_fast(acc, __ldg(scale + co), op.zp_out);
+    }
+    out[p * op.out.cs + co] = r;
   }
 }
 
@@ -128,14 +158,19 @@ __device__ void eltwise_op(const Op& op, const int8_t* a, const int8_t* b,
     const int c = e % c_n;
     const int p = e / c_n;
     const int va = a[p * op.in0.cs + c];
+    const bool exact = op.epi == EPI_REQUANT_EXACT;
     int8_t r;
     switch (op.code) {
-      case ADD:
-        r = yf::add_fast(va - op.zp_a, b[p * op.in1.cs + c] - op.zp_b, op.f0,
-                         op.f1, op.zp_out);
+      case ADD: {
+        const int vb = b[p * op.in1.cs + c] - op.zp_b;
+        r = exact ? yf::add_exact(va - op.zp_a, vb, op.lsh, op.m0, op.e0,
+                                  op.m1, op.e1, op.m2, op.e2, op.zp_out)
+                  : yf::add_fast(va - op.zp_a, vb, op.f0, op.f1, op.zp_out);
         break;
+      }
       case QUANTIZE:
-        r = yf::quantize_fast(va - op.zp_a, op.f0, op.zp_out);
+        r = exact ? yf::requant_exact(va - op.zp_a, op.m0, op.e0, op.zp_out)
+                  : yf::quantize_fast(va - op.zp_a, op.f0, op.zp_out);
         break;
       default:
         r = static_cast<int8_t>(va);

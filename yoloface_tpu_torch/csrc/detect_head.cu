@@ -1,13 +1,10 @@
 // The whole YOLO head in one kernel: top-K, decode and greedy NMS.
 //
 // Replaces yoloface_tpu/kernels/pallas_head.py::detect_head_fused.  One
-// warp a frame.  The ranking key of cell f (flat (anchor,row,col) order,
-// read from the (row,col,anchor*6+ch) layout) is the float32 sigmoid of
-// its confidence, zeroed below the threshold; K rounds of a warp argmax on
-// the pair (key descending, index ascending) pick the survivors, so
-// sigmoid saturation ties go to the lowest flat index as lax.top_k does.
-// Lane k then decodes survivor k, and NMS walks the K candidates in rank
-// order with one ballot each.  Plain version: kernels/head.py::
+// warp a frame.  The top-K selection (ranking key and tie rule) is the
+// shared one of topk.cuh.  Lane k then decodes survivor k, and NMS walks
+// the K candidates in rank order with one ballot each.  Plain version:
+// kernels/head.py::
 // detect_head_plain, which the card compares bit for bit: expf and the
 // float divisions are the IEEE library ones (no fast math), each product
 // and sum rounded apart as torch computes them.
@@ -21,19 +18,17 @@
 
 #include <cstdint>
 
+#include "topk.cuh"
+
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kKeysPerLane = 8;          // up to 256 cells a frame
+using yf::kFull;
+using yf::sigm;
 constexpr int kWarpsPerBlock = 4;
 
 struct Anchors {
   float w[4], h[4];
 };
-
-__device__ __forceinline__ float sigm(float x) {
-  return __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-x)));
-}
 
 __device__ __forceinline__ float clampf(float v, float lo, float hi) {
   return fminf(fmaxf(v, lo), hi);
@@ -51,53 +46,18 @@ __global__ void detect_head_kernel(const int8_t* __restrict__ y,
   const int lane = threadIdx.x & 31;
   if (frame >= n) return;                // whole warps leave together
   const int cells = g * g, c6 = a * 6, n_keys = cells * a;
-  const int8_t* yf = y + frame * cells * c6;
+  const int8_t* yq = y + frame * cells * c6;  // this frame
 
-  float key[kKeysPerLane];
-#pragma unroll
-  for (int j = 0; j < kKeysPerLane; ++j) {
-    const int f = lane + 32 * j;
-    key[j] = -2.0f;                      // padding: below every real key
-    if (f < n_keys) {
-      const int an = f / cells, rc = f % cells;
-      const float q = static_cast<float>(yf[rc * c6 + an * 6 + 4]);
-      const float cf = sigm(__fmul_rn(__fsub_rn(q, zp), scale));
-      key[j] = cf >= thr ? cf : 0.0f;
-    }
-  }
-
-  int mine = 0;                          // lane kk: flat index of survivor kk
-  for (int kk = 0; kk < k; ++kk) {
-    float best = -3.0f;
-    int bi = 1 << 30;
-#pragma unroll
-    for (int j = 0; j < kKeysPerLane; ++j) {
-      if (key[j] > best) {               // ascending f: ties keep the lowest
-        best = key[j];
-        bi = lane + 32 * j;
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ob = __shfl_xor_sync(kFull, best, off);
-      const int oi = __shfl_xor_sync(kFull, bi, off);
-      if (ob > best || (ob == best && oi < bi)) {
-        best = ob;
-        bi = oi;
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kKeysPerLane; ++j)
-      if (lane + 32 * j == bi) key[j] = -1.0f;
-    if (lane == kk) mine = bi;
-  }
+  float key[yf::kKeysPerLane];
+  yf::load_keys(yq, lane, cells, c6, n_keys, zp, scale, thr, key);
+  const int mine = yf::warp_topk(key, lane, k);  // lane kk: survivor kk
 
   float x1 = 0.f, y1 = 0.f, x2 = 0.f, y2 = 0.f, cf = 0.f;
   bool keep = false;
   if (lane < k) {
     const int an = mine / cells, rc = mine % cells;
     const int row = rc / g, col = rc % g;
-    const int8_t* cell = yf + rc * c6 + an * 6;
+    const int8_t* cell = yq + rc * c6 + an * 6;
     float t[6];
 #pragma unroll
     for (int ch = 0; ch < 6; ++ch)

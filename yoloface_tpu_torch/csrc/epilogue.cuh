@@ -1,17 +1,25 @@
-// Requantization epilogues of the int8 net: float32, round half to even.
+// Requantization epilogues of the int8 net, in the three bit semantics.
 //
-// Replaces yoloface_tpu/kernels/pallas_int8.py::apply_requant_leaky (its
-// fast-bits-v2 branch) and the fast requant of RequantSpec.apply_in_kernel,
-// plus the fast ADD and QUANTIZE of the arena emits
-// (pallas_arena.py).  Plain versions: ops/int8_fast.py and
-// ops/int8_fast2.py, bit for bit.
+// Replaces yoloface_tpu/kernels/pallas_int8.py::apply_requant_leaky (all
+// its branches: fast-bits v2, exact, fast v1) and RequantSpec.
+// apply_in_kernel, LeakySpec.apply_exact_i32, exact_add_rescale and
+// apply_quantize_val, plus the ADD and QUANTIZE of the arena emits
+// (pallas_arena.py).  Plain versions: ops/int8_fast.py, ops/int8_fast2.py
+// and the exact ops of ops/int8_ref.py (core/fixedpoint.py), bit for bit.
 //
 // What bounds these on the card: nothing of their own -- a few ALU ops per
-// output element inside the stage kernel.  What the design does about
-// bits: every product and sum is a separately rounded __fmul_rn/__fadd_rn
-// (and the library builds with -fmad=false), so no FMA contraction changes
-// a rounding; __float2int_rn rounds half to even like torch.round and
-// jnp.round.
+// output element inside the stage kernel (the exact MBQM: one 64-bit
+// multiply, two adds and two shifts).  What the design does about bits:
+//  * fast: every product and sum is a separately rounded __fmul_rn /
+//    __fadd_rn (and the library builds with -fmad=false), so no FMA
+//    contraction changes a rounding; __float2int_rn rounds half to even
+//    like torch.round and jnp.round;
+//  * exact: gemmlowp's MultiplyByQuantizedMultiplier as one 64-bit product
+//    of the magnitude, both roundings half away from zero on the magnitude
+//    (the form of core/fixedpoint.mbqm_numpy).  The TPU needed 16-bit limbs
+//    or f32-assisted forms for lack of int64; the card has it.  The planner
+//    keeps x << left inside int32 (specs.check_exact_domain), so the
+//    product stays below 2**62 and nothing overflows.
 #pragma once
 
 #include <cstdint>
@@ -56,6 +64,58 @@ __device__ __forceinline__ int8_t add_fast(int va, int vb, float s1, float s2,
 __device__ __forceinline__ int8_t quantize_fast(int v, float scale,
                                                 int zp_out) {
   return round_zp_clip(__fmul_rn(static_cast<float>(v), scale), zp_out);
+}
+
+// fast (v1) fused conv+leaky: the conv's rounding, then the leaky's.
+__device__ __forceinline__ int8_t requant_leaky_v1(int acc, float scale,
+                                                   int conv_zp, float s_id,
+                                                   float s_al, int zp_out) {
+  const int v = requant_fast(acc, scale, conv_zp) - conv_zp;
+  const float sel = v >= 0 ? s_id : s_al;
+  return round_zp_clip(__fmul_rn(static_cast<float>(v), sel), zp_out);
+}
+
+// gemmlowp MultiplyByQuantizedMultiplier: x * qm * 2**(shift - 31), SRDHM
+// then RDivPOT, each rounding half away from zero, on |x|.
+__device__ __forceinline__ int mbqm(int x, int qm, int shift) {
+  const int left = shift > 0 ? shift : 0;
+  const int right = shift > 0 ? 0 : -shift;
+  const long long xs = static_cast<long long>(x) * (1LL << left);
+  const bool neg = xs < 0;
+  const long long p = (neg ? -xs : xs) * static_cast<long long>(qm);
+  long long mag = (p + (1LL << 30) - (neg ? 1 : 0)) >> 31;
+  mag = (mag + ((1LL << right) >> 1)) >> right;
+  return static_cast<int>(neg ? -mag : mag);
+}
+
+__device__ __forceinline__ int clip_i8(int v) { return min(max(v, -128), 127); }
+
+// exact conv requant (and QUANTIZE on v = x - zp_in): clip(MBQM + zp_out)
+__device__ __forceinline__ int8_t requant_exact(int x, int qm, int shift,
+                                                int zp_out) {
+  return static_cast<int8_t>(clip_i8(mbqm(x, qm, shift) + zp_out));
+}
+
+// exact fused conv+leaky: the conv requant rounds and saturates, then the
+// leaky requantizes v = r - conv_zp on its identity (v >= 0) or alpha branch.
+__device__ __forceinline__ int8_t requant_leaky_exact(int acc, int qm,
+                                                      int shift, int conv_zp,
+                                                      int qm_id, int sh_id,
+                                                      int qm_al, int sh_al,
+                                                      int zp_out) {
+  const int v = clip_i8(mbqm(acc, qm, shift) + conv_zp) - conv_zp;
+  return v >= 0 ? requant_exact(v, qm_id, sh_id, zp_out)
+                : requant_exact(v, qm_al, sh_al, zp_out);
+}
+
+// exact ADD on v = x - zp: both inputs rescaled to the shared
+// 2**left_shift-amplified scale, summed, requantized.
+__device__ __forceinline__ int8_t add_exact(int va, int vb, int lsh, int qm1,
+                                            int sh1, int qm2, int sh2,
+                                            int qmo, int sho, int zp_out) {
+  const int sa = mbqm(va * (1 << lsh), qm1, sh1);
+  const int sb = mbqm(vb * (1 << lsh), qm2, sh2);
+  return requant_exact(sa + sb, qmo, sho, zp_out);
 }
 
 }  // namespace yf

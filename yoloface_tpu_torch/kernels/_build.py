@@ -1,11 +1,12 @@
 """Build the CUDA kernels with ``nvcc`` and bind them with ``ctypes``.
 
-All ``csrc/*.cu`` compile into one shared library with a plain C interface
-(no PyTorch headers, so the build takes seconds).  The library lands in
-``build/yoloface_tpu_torch/`` at the root of the checkout, named by a hash
-of the sources, and is built at first CUDA use.  ``-fmad=false`` keeps
-every float multiply and add separately rounded, as the JAX twins compute
-them; there is no ``--use_fast_math``.
+Each ``csrc/*.cu`` compiles in its own ``nvcc`` process, all started
+together, and the objects link into one shared library with a plain C
+interface (no PyTorch headers, so the build takes seconds).  The library
+lands in ``build/yoloface_tpu_torch/`` at the root of the checkout, named
+by a hash of the sources, and is built at first CUDA use.  ``-fmad=false``
+keeps every float multiply and add separately rounded, as the JAX twins
+compute them; there is no ``--use_fast_math``.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = (Path(__file__).resolve().parents[2] / "build"
              / "yoloface_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "-fmad=false", "-Xcompiler", "-fPIC"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
@@ -36,6 +37,8 @@ SIGNATURES = {
     #  stride, box_limit, apply_nms, host anchors[8], stream)
     "yf_detect_head": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F,
                        _F, _I, _P, _P],
+    # (y, idx i32 [n,k], n, g, a, k, scale, zp, thr, stream)
+    "yf_topk_conf": [_P, _P, _I, _I, _I, _I, _F, _F, _F, _P],
 }
 
 _lock = threading.Lock()
@@ -56,6 +59,12 @@ def _sources():
     return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
 
 
+def _finish(cmd, out: str, err: str, returncode: int) -> None:
+    if returncode != 0:
+        raise RuntimeError(f"nvcc failed ({returncode}):\n{' '.join(cmd)}"
+                           f"\n{out}\n{err}")
+
+
 def build() -> Path:
     """Compile the kernels unless a library for these sources exists."""
     global build_seconds
@@ -68,14 +77,29 @@ def build() -> Path:
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           *map(str, cus)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}"
-                           f"\n{res.stdout}\n{res.stderr}")
+    nvcc = _nvcc()
+    objs = [BUILD_DIR / f"{cu.stem}.{tag}.o" for cu in cus]
+    jobs = [[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(o), str(cu)]
+            for cu, o in zip(cus, objs)]
+    jobs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                   stderr=subprocess.PIPE, text=True))
+            for cmd in jobs]
+    link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+    try:
+        for cmd, proc in jobs:
+            _finish(cmd, *proc.communicate(), proc.returncode)
+        res = subprocess.run(link, capture_output=True, text=True)
+        _finish(link, res.stdout, res.stderr, res.returncode)
+    finally:
+        for _, proc in jobs:            # after a failure: stop the others
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        for o in objs:
+            o.unlink(missing_ok=True)
     os.replace(tmp, lib)
     build_seconds = time.perf_counter() - t0
     return lib

@@ -2,14 +2,18 @@
 
 Replaces ``yoloface_tpu.kernels.pallas_arena`` (``lower_arena_ops`` +
 ``build_arena_plan`` + the ``_build_stage`` kernel, with the
-``apply_requant_leaky`` v2 epilogue inside it) for the ``arena2`` engine
-mode, the counterpart of ``pallas_mxu2``.
+``apply_requant_leaky`` epilogues inside it) for the ``arena_exact``,
+``arena`` and ``arena2`` engine modes, the counterparts of
+``pallas_mxu_exact``, ``pallas_mxu`` and ``pallas_mxu2``.  One kernel serves
+the three bit semantics (``BITS``); the planner picks each op's epilogue
+code and writes its constants.
 
 The host planner here turns the graph into a program of fixed-size int32
 op descriptors per stage:
 
-  * each conv/dw whose output feeds exactly one LEAKY_RELU fuses it (the
-    fast2 single-rounding epilogue);
+  * each conv/dw whose output feeds exactly one LEAKY_RELU fuses it: one
+    rounding in fast2 bits, the conv's rounding then the leaky's in fast
+    (v1) and exact bits;
   * PAD ops dissolve into the consumer's window: reads outside the input
     return the op's fill value (the PAD zero-point, the conv input
     zero-point for SAME convs, -128 for SAME max-pools);
@@ -39,28 +43,41 @@ import numpy as np
 import torch
 from torch import nn
 
+from yoloface_tpu_torch.core.fixedpoint import requant_exact
 from yoloface_tpu_torch.graph.ir import GraphDef
 from yoloface_tpu_torch.kernels import specs
-from yoloface_tpu_torch.ops.int8_fast import (add_int8_fast, requant_f32,
+from yoloface_tpu_torch.ops.int8_fast import (add_int8_fast,
+                                              leaky_relu_int8_fast,
+                                              requant_f32,
                                               requantize_int8_fast)
 from yoloface_tpu_torch.ops.int8_fast2 import epilogue_v2
 from yoloface_tpu_torch.ops.int8_ref import (_conv_acc, _dw_acc,
                                              _same_pad_amounts, _window_max,
-                                             pad_spatial)
+                                             add_int8, leaky_relu_int8,
+                                             pad_spatial, requantize_int8)
 
+BITS = ("fast", "fast2", "exact")
 # op codes and epilogues; the field layout below is the ``Op`` struct of
-# csrc/arena_stage.cu, one int32 each
+# csrc/arena_stage.cu, one int32 each.  ``epi`` is the requant of a
+# CONV/DW (fast f32, fused leaky v2 / v1, exact, fused exact leaky) and
+# says fast (EPI_REQUANT) or exact (EPI_REQUANT_EXACT) for ADD and QUANTIZE.
 COPY, CONV, DW, MAXPOOL, ADD, QUANTIZE = range(6)
 CONCAT = 100                       # planner-only: becomes COPYs or nothing
-EPI_REQUANT, EPI_LEAKY_V2 = 0, 1
+(EPI_REQUANT, EPI_LEAKY_V2, EPI_LEAKY_V1, EPI_REQUANT_EXACT,
+ EPI_LEAKY_EXACT) = range(5)
+EXACT_EPIS = (EPI_REQUANT_EXACT, EPI_LEAKY_EXACT)
 FIELDS = ("code", "epi",
           "in0_space", "in0_off", "in0_h", "in0_w", "in0_c", "in0_cs",
           "in1_space", "in1_off", "in1_h", "in1_w", "in1_c", "in1_cs",
           "out_space", "out_off", "out_h", "out_w", "out_c", "out_cs",
           "kh", "kw", "sh", "sw", "pt", "pl", "fill",
           "w_off", "b_off", "s_off",
-          "zp_a", "zp_b", "zp_out", "conv_zp", "f0", "f1")
-OP_INTS = 40                       # FIELDS padded to 160 bytes
+          "zp_a", "zp_b", "zp_out", "conv_zp", "f0", "f1",
+          # exact bits: per-channel int32 qm[C] then shift[C] at q_off;
+          # (m, e) multiplier/shift pairs: leaky id, al; ADD a, b, out;
+          # QUANTIZE's in m0/e0; the ADD's left shift
+          "q_off", "m0", "e0", "m1", "e1", "m2", "e2", "lsh")
+OP_INTS = 48                       # FIELDS padded to 192 bytes
 F = {name: i for i, name in enumerate(FIELDS)}
 
 ARENA_BUDGET = 227 * 1024          # H100: 232,448 B of shared memory a block
@@ -111,6 +128,9 @@ class LOp:
     conv_zp: int = 0
     f0: float = 0.0
     f1: float = 0.0
+    qms: Optional[np.ndarray] = None         # int32 [2*Co]: qm then shift
+    mults: Tuple[int, ...] = (0,) * 6        # m0, e0, m1, e1, m2, e2
+    lsh: int = 0
     offsets: Optional[List[int]] = None      # CONCAT channel offsets
 
 
@@ -150,12 +170,16 @@ def _window_req(graph: GraphDef, op, pads_of: Dict[int, object]):
     return x_idx, same[0][0], same[1][0], int(fill)
 
 
-def lower_arena_ops(graph: GraphDef):
-    """Graph -> (LOps in graph order, concat alias map).
+def lower_arena_ops(graph: GraphDef, bits: str = "fast2"):
+    """Graph -> (LOps in graph order, concat alias map), with the epilogues
+    and constants of ``bits`` (one of ``BITS``).
 
     The alias map sends a concat input to (concat output, channel offset)
     when the concat is its only consumer and an op produces it; whether
     it aliases in a stage is decided when the stage is planned."""
+    if bits not in BITS:
+        raise ValueError(f"unknown bit semantics {bits!r}; one of {BITS}")
+    exact = bits == "exact"
     t = graph.tensor
     uses = specs.use_counts(graph)
     consumers: Dict[int, list] = {}
@@ -211,17 +235,30 @@ def lower_arena_ops(graph: GraphDef):
                       window=(wd.shape[1], wd.shape[2], op.attrs["stride_h"],
                               op.attrs["stride_w"], pt, pl, fill),
                       weights=np.ascontiguousarray(wd.astype(np.int8)),
-                      bias=bias_eff,
-                      scale=np.ascontiguousarray(
-                          np.broadcast_to(rq.scale, (co,)), np.float32),
-                      zp_out=rq.zp_out)
+                      bias=bias_eff, zp_out=rq.zp_out)
+            if exact:
+                qm, shift = (np.broadcast_to(a, (co,)) for a in
+                             (rq.qm, rq.shift))
+                bound = (128 * np.abs(wd.astype(np.int64)).sum(axes)
+                         + np.abs(bias_eff.astype(np.int64)))
+                specs.check_exact_domain(bound, shift, f"op {op.index}")
+                lop.epi = EPI_REQUANT_EXACT
+                lop.qms = np.concatenate([qm, shift]).astype(np.int32)
+            else:
+                lop.scale = np.ascontiguousarray(
+                    np.broadcast_to(rq.scale, (co,)), np.float32)
             leaky_op = fused_leaky.get(op.index)
             if leaky_op is not None:
                 lk = specs.leaky_spec(graph, leaky_op)
                 lop.out = leaky_op.outputs[0]
-                lop.epi, lop.conv_zp, lop.zp_out = (EPI_LEAKY_V2, rq.zp_out,
-                                                    lk.zp_out)
+                lop.conv_zp, lop.zp_out = rq.zp_out, lk.zp_out
                 lop.f0, lop.f1 = lk.s_id, lk.s_al
+                lop.epi = {"fast": EPI_LEAKY_V1, "fast2": EPI_LEAKY_V2,
+                           "exact": EPI_LEAKY_EXACT}[bits]
+                if exact:
+                    specs.check_exact_domain(
+                        255, [lk.m_id[1], lk.m_al[1]], f"op {leaky_op.index}")
+                    lop.mults = lk.m_id + lk.m_al + (0, 0)
             lops.append(lop)
         elif name == "MAX_POOL_2D":
             x_idx, pt, pl, fill = _window_req(graph, op, pads_of)
@@ -234,14 +271,26 @@ def lower_arena_ops(graph: GraphDef):
                 raise NotImplementedError("ADD with broadcasting")
             sp = specs.add_spec(t(a_idx).qparams, t(b_idx).qparams,
                                 t(out_idx).qparams)
-            lops.append(LOp(ADD, out_idx, [a_idx, b_idx], zp_a=sp.zp_in,
-                            zp_b=sp.zp_in2, zp_out=sp.zp_out, f0=sp.s1,
-                            f1=sp.s2))
+            lop = LOp(ADD, out_idx, [a_idx, b_idx], zp_a=sp.zp_in,
+                      zp_b=sp.zp_in2, zp_out=sp.zp_out, f0=sp.s1, f1=sp.s2)
+            if exact:
+                specs.check_exact_domain(255 << sp.left_shift,
+                                         [sp.m1[1], sp.m2[1]],
+                                         f"op {op.index}")
+                specs.check_exact_domain(specs.add_sum_bound(sp), sp.mo[1],
+                                         f"op {op.index}")
+                lop.epi, lop.lsh = EPI_REQUANT_EXACT, sp.left_shift
+                lop.mults = sp.m1 + sp.m2 + sp.mo
+            lops.append(lop)
         elif name == "QUANTIZE":
             sp = specs.quantize_spec(t(op.inputs[0]).qparams,
                                      t(out_idx).qparams)
-            lops.append(LOp(QUANTIZE, out_idx, [op.inputs[0]],
-                            zp_a=sp.zp_in, zp_out=sp.zp_out, f0=sp.s1))
+            lop = LOp(QUANTIZE, out_idx, [op.inputs[0]], zp_a=sp.zp_in,
+                      zp_out=sp.zp_out, f0=sp.s1)
+            if exact:
+                specs.check_exact_domain(255, sp.m1[1], f"op {op.index}")
+                lop.epi, lop.mults = EPI_REQUANT_EXACT, sp.m1 + (0,) * 4
+            lops.append(lop)
         elif name == "CONCATENATION":
             if op.attrs["axis"] % 4 != 3:
                 raise NotImplementedError("CONCATENATION off the channel axis")
@@ -358,8 +407,9 @@ def plan_stage(graph: GraphDef, lops: Sequence[LOp], start: int, end: int,
         if lp is not None:
             row[F["epi"]] = lp.epi
             row[F["kh"]:F["kh"] + 7] = list(lp.window)
-            for name in ("zp_a", "zp_b", "zp_out", "conv_zp"):
+            for name in ("zp_a", "zp_b", "zp_out", "conv_zp", "lsh"):
                 row[F[name]] = getattr(lp, name)
+            row[F["m0"]:F["m0"] + 6] = list(lp.mults)
             for name in ("f0", "f1"):
                 row[F[name]] = int(np.float32(getattr(lp, name))
                                    .view(np.int32))
@@ -380,9 +430,10 @@ def plan_stage(graph: GraphDef, lops: Sequence[LOp], start: int, end: int,
                     c = _hwc(graph, i)[2]
                     emit(COPY, out_v.channels(c0, c), view(i))
         elif lp.code in (CONV, DW):
+            req = ({"q_off": put(lp.qms)} if lp.epi in EXACT_EPIS
+                   else {"s_off": put(lp.scale)})
             emit(lp.code, view(lp.out), view(lp.ins[0]), lp=lp,
-                 w_off=put(lp.weights), b_off=put(lp.bias),
-                 s_off=put(lp.scale))
+                 w_off=put(lp.weights), b_off=put(lp.bias), **req)
         else:
             in1 = view(lp.ins[1]) if len(lp.ins) > 1 else NOVIEW
             emit(lp.code, view(lp.out), view(lp.ins[0]), in1, lp=lp)
@@ -393,11 +444,11 @@ def plan_stage(graph: GraphDef, lops: Sequence[LOp], start: int, end: int,
                  arena_bytes, inputs, outputs, shapes)
 
 
-def build_arena_plan(graph: GraphDef,
-                     budget: int = ARENA_BUDGET) -> List[Stage]:
+def build_arena_plan(graph: GraphDef, budget: int = ARENA_BUDGET,
+                     bits: str = "fast2") -> List[Stage]:
     """Greedy stage split: grow each stage op by op while its planned arena
-    fits ``budget`` bytes."""
-    lops, alias = lower_arena_ops(graph)
+    fits ``budget`` bytes.  ``bits`` is the bit semantics (``BITS``)."""
+    lops, alias = lower_arena_ops(graph, bits)
     stages: List[Stage] = []
     start = 0
     while start < len(lops):
@@ -455,6 +506,30 @@ def _const(consts: torch.Tensor, off: int, count: int, dtype) -> torch.Tensor:
     return consts[off:off + count * size].view(dtype)
 
 
+def _conv_epilogue(acc: torch.Tensor, d: List[int], consts: torch.Tensor,
+                   co: int) -> torch.Tensor:
+    """int32 accumulator [N,H,W,Co] -> int8 by the descriptor's epilogue."""
+    epi, zp_out, conv_zp = d[F["epi"]], d[F["zp_out"]], d[F["conv_zp"]]
+    if epi in EXACT_EPIS:
+        qs = _const(consts, d[F["q_off"]], 2 * co, torch.int32)
+        if epi == EPI_REQUANT_EXACT:
+            return requant_exact(acc, qs[:co], qs[co:], zp_out)
+        m0, e0, m1, e1 = d[F["m0"]:F["m0"] + 4]
+        return leaky_relu_int8(requant_exact(acc, qs[:co], qs[co:], conv_zp),
+                               input_zp=conv_zp, output_zp=zp_out,
+                               qm_identity=m0, shift_identity=e0,
+                               qm_alpha=m1, shift_alpha=e1)
+    scale = _const(consts, d[F["s_off"]], co, torch.float32)
+    s_id, s_al = _f32(d[F["f0"]]), _f32(d[F["f1"]])
+    if epi == EPI_LEAKY_V2:
+        return epilogue_v2(acc, scale, conv_zp, zp_out, s_id, s_al)
+    if epi == EPI_LEAKY_V1:
+        return leaky_relu_int8_fast(requant_f32(acc, scale, conv_zp),
+                                    input_zp=conv_zp, output_zp=zp_out,
+                                    scale_identity=s_id, scale_alpha=s_al)
+    return requant_f32(acc, scale, zp_out)
+
+
 def arena_stage_plain(stage: Stage, consts: torch.Tensor,
                       gl: Sequence[torch.Tensor]) -> None:
     """Run ``stage``'s descriptors in torch; ``gl`` holds the stage inputs
@@ -477,28 +552,33 @@ def arena_stage_plain(stage: Stage, consts: torch.Tensor,
             w = _const(consts, d[F["w_off"]], int(np.prod(wshape)),
                        torch.int8).reshape(wshape)
             bias = _const(consts, d[F["b_off"]], co, torch.int32)
-            scale = _const(consts, d[F["s_off"]], co, torch.float32)
             xp = _padded_window(x, d, out)
             acc = (_dw_acc if code == DW else _conv_acc)(xp, w, (sh, sw))
             acc = acc + bias
-            if d[F["epi"]] == EPI_LEAKY_V2:
-                res = epilogue_v2(acc, scale, d[F["conv_zp"]], d[F["zp_out"]],
-                                  _f32(d[F["f0"]]), _f32(d[F["f1"]]))
-            else:
-                res = requant_f32(acc, scale, d[F["zp_out"]])
+            res = _conv_epilogue(acc, d, consts, co)
         elif code == MAXPOOL:
             res = _window_max(_padded_window(x, d, out),
                               (d[F["kh"]], d[F["kw"]]),
                               (d[F["sh"]], d[F["sw"]]))
         elif code == ADD:
-            res = add_int8_fast(x, _realize(in1, arena, gl), zp1=d[F["zp_a"]],
-                                zp2=d[F["zp_b"]], zp_out=d[F["zp_out"]],
-                                scale1=_f32(d[F["f0"]]),
-                                scale2=_f32(d[F["f1"]]))
+            kw = dict(zp1=d[F["zp_a"]], zp2=d[F["zp_b"]],
+                      zp_out=d[F["zp_out"]])
+            if d[F["epi"]] == EPI_REQUANT_EXACT:
+                m0, e0, m1, e1, m2, e2 = d[F["m0"]:F["m0"] + 6]
+                res = add_int8(x, _realize(in1, arena, gl), qm1=m0,
+                               shift1=e0, qm2=m1, shift2=e1, qm_out=m2,
+                               shift_out=e2, left_shift=d[F["lsh"]], **kw)
+            else:
+                res = add_int8_fast(x, _realize(in1, arena, gl),
+                                    scale1=_f32(d[F["f0"]]),
+                                    scale2=_f32(d[F["f1"]]), **kw)
         elif code == QUANTIZE:
-            res = requantize_int8_fast(x, input_zp=d[F["zp_a"]],
-                                       output_zp=d[F["zp_out"]],
-                                       scale=_f32(d[F["f0"]]))
+            kw = dict(input_zp=d[F["zp_a"]], output_zp=d[F["zp_out"]])
+            if d[F["epi"]] == EPI_REQUANT_EXACT:
+                res = requantize_int8(x, qm=d[F["m0"]], shift=d[F["e0"]],
+                                      **kw)
+            else:
+                res = requantize_int8_fast(x, scale=_f32(d[F["f0"]]), **kw)
         else:
             raise ValueError(f"unknown arena op code {code}")
         _realize(out, arena, gl).copy_(res)
@@ -555,11 +635,14 @@ arena_stage.launches = 0
 
 
 class ArenaPlan(nn.Module):
-    """The planned stages with their programs and constants as buffers."""
+    """The planned stages with their programs and constants as buffers, in
+    the bit semantics ``bits`` (one of ``BITS``)."""
 
-    def __init__(self, graph: GraphDef, budget: int = ARENA_BUDGET):
+    def __init__(self, graph: GraphDef, budget: int = ARENA_BUDGET,
+                 bits: str = "fast2"):
         super().__init__()
-        self.stages = build_arena_plan(graph, budget)
+        self.bits = bits
+        self.stages = build_arena_plan(graph, budget, bits)
         self.input_idx = graph.inputs[0]
         self.output_idxs = list(graph.outputs)
         for k, st in enumerate(self.stages):

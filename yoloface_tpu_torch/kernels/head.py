@@ -1,11 +1,15 @@
-"""Fused YOLO head kernel wrapper (``csrc/detect_head.cu``).
+"""YOLO head kernel wrappers: the fused head and the top-K selection.
 
-Replaces ``yoloface_tpu.kernels.pallas_head.detect_head_fused``: K
-masked-argmax rounds over the zeroed-below-threshold sigmoid key (ties to
-the lowest flat index in (anchor,row,col) order, though the input is stored
+``detect_head`` (``csrc/detect_head.cu``) replaces
+``yoloface_tpu.kernels.pallas_head.detect_head_fused``: K masked-argmax
+rounds over the zeroed-below-threshold sigmoid key (ties to the lowest flat
+index in (anchor,row,col) order, though the input is stored
 (row,col,anchor*6+ch)), decode of the K survivors, clamp and greedy K^2 NMS
-with the +1-pixel IoU.  ``detect_head_plain`` is the same computation in
-torch on a batch; a CPU tensor takes it.
+with the +1-pixel IoU.  ``topk_conf`` (``csrc/topk_conf.cu``) replaces
+``pallas_head.topk_conf_int8``: the same selection alone, giving the [N,K]
+indices the staged head decodes.  Both kernels share the selection code
+(``csrc/topk.cuh``); ``detect_head_plain`` and ``topk_conf_plain`` are the
+same computations in torch on a batch, and a CPU tensor takes them.
 
 This module also holds ``HeadConfig`` and the ranking, decode and NMS steps
 that the plain version shares with the staged head of ``pipeline/head.py``.
@@ -36,8 +40,8 @@ class HeadConfig:
     iou_threshold: float = 0.5
     max_detections: int = 16              # fixed-shape NMS capacity
     apply_nms: bool = True
-    # rank with the top-K-only kernel (B5 in ROADMAP.md, not ported yet);
-    # only meaningful with use_fused_head=False
+    # rank with the top-K kernel (topk_conf below) instead of a stable
+    # sort; only meaningful with use_fused_head=False
     use_pallas_topk: bool = True
     # run top-K + decode + NMS as one kernel (detect_head below)
     use_fused_head: bool = True
@@ -104,6 +108,7 @@ def decode_topk(qf: torch.Tensor, top_idx: torch.Tensor,
     -> (boxes [N,K,4], scores [N,K], valid [N,K] bool)."""
     n, g, a = qf.shape[0], cfg.grid, len(cfg.anchors)
     cells = g * g
+    top_idx = top_idx.long()
     anc = top_idx // cells
     rows = (top_idx % cells) // g
     cols = top_idx % g
@@ -128,36 +133,86 @@ def decode_topk(qf: torch.Tensor, top_idx: torch.Tensor,
             torch.where(valid, conf, 0.0), valid)
 
 
+def masked_argmax(key: torch.Tensor, k: int) -> torch.Tensor:
+    """K masked-argmax rounds over ``key`` [N,C] -> int32 [N,K]: each round
+    takes the largest key, ties to the lowest index, and masks it to -1."""
+    c = key.shape[1]
+    flat = torch.arange(c, device=key.device)
+    sel = []
+    for _ in range(k):
+        m = key.max(-1, keepdim=True).values
+        s = torch.where(key == m, flat, c).min(-1).values        # lowest idx
+        sel.append(s)
+        key = torch.where(flat == s[:, None], -1.0, key)
+    return torch.stack(sel, -1).to(torch.int32)
+
+
 def detect_head_plain(y: torch.Tensor, *, scale: float, zero_point: int,
                       cfg: HeadConfig = HeadConfig()):
     """[N,G,G,A*6] int8 -> (boxes [N,K,4] f32, scores [N,K] f32,
     valid [N,K] bool), by K masked-argmax rounds like the kernel."""
     qf, key = rank_key(y, scale=scale, zero_point=zero_point, cfg=cfg)
-    c = key.shape[1]
-    flat = torch.arange(c, device=y.device)
-    sel = []
-    for _ in range(min(cfg.max_detections, c)):
-        m = key.max(-1, keepdim=True).values
-        s = torch.where(key == m, flat, c).min(-1).values        # lowest idx
-        sel.append(s)
-        key = torch.where(flat == s[:, None], -1.0, key)
-    return decode_topk(qf, torch.stack(sel, -1), cfg)
+    k = min(cfg.max_detections, key.shape[1])
+    return decode_topk(qf, masked_argmax(key, k), cfg)
 
 
-def detect_head(y: torch.Tensor, *, scale: float, zero_point: int,
-                cfg: HeadConfig = HeadConfig()):
-    """One-kernel head; see ``detect_head_plain`` for the contract."""
+def topk_conf_plain(y: torch.Tensor, k: int, *, scale: float,
+                    zero_point: int, cfg: HeadConfig = HeadConfig()
+                    ) -> torch.Tensor:
+    """[N,G,G,A*6] int8 -> int32 [N,K] flat (anchor,row,col) indices of the
+    K best candidates by the ranking key, best first."""
+    _, key = rank_key(y, scale=scale, zero_point=zero_point, cfg=cfg)
+    return masked_argmax(key, k)
+
+
+def _check_head(y: torch.Tensor, cfg: HeadConfig) -> None:
     g, a = cfg.grid, len(cfg.anchors)
     if y.dim() != 4 or tuple(y.shape[1:]) != (g, g, a * 6):
         raise ValueError(f"expected [N,{g},{g},{a * 6}] head, got "
                          f"{tuple(y.shape)}")
     if y.dtype != torch.int8:
         raise ValueError(f"expected int8 head, got {y.dtype}")
+    if y.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no head kernel for device {y.device}")
+
+
+def topk_conf(y: torch.Tensor, k: int, *, scale: float, zero_point: int,
+              cfg: HeadConfig = HeadConfig()) -> torch.Tensor:
+    """Top-K kernel; see ``topk_conf_plain`` for the contract."""
+    _check_head(y, cfg)
+    if y.device.type == "cpu":
+        return topk_conf_plain(y, k, scale=scale, zero_point=zero_point,
+                               cfg=cfg)
+    if cfg.num_cells > MAX_KEYS or not 0 < k <= min(MAX_K, cfg.num_cells):
+        raise ValueError(f"top-K kernel takes <= {MAX_KEYS} cells and "
+                         f"0 < K <= min({MAX_K}, cells)")
+    if not y.is_contiguous():
+        raise ValueError("head tensor must be contiguous")
+    n = y.shape[0]
+    idx = torch.empty((n, k), dtype=torch.int32, device=y.device)
+    if n == 0:
+        return idx
+    from yoloface_tpu_torch.kernels._build import check, library
+    err = library().yf_topk_conf(
+        y.data_ptr(), idx.data_ptr(), n, cfg.grid, len(cfg.anchors), k,
+        f32(scale), float(zero_point), f32(cfg.conf_threshold),
+        torch.cuda.current_stream(y.device).cuda_stream)
+    check(err, "topk_conf")
+    topk_conf.launches += 1
+    return idx
+
+
+topk_conf.launches = 0
+
+
+def detect_head(y: torch.Tensor, *, scale: float, zero_point: int,
+                cfg: HeadConfig = HeadConfig()):
+    """One-kernel head; see ``detect_head_plain`` for the contract."""
+    _check_head(y, cfg)
+    g, a = cfg.grid, len(cfg.anchors)
     if y.device.type == "cpu":
         return detect_head_plain(y, scale=scale, zero_point=zero_point,
                                  cfg=cfg)
-    if y.device.type != "cuda":
-        raise ValueError(f"no head kernel for device {y.device}")
     k = min(cfg.max_detections, cfg.num_cells)
     if cfg.num_cells > MAX_KEYS or k > MAX_K or a > MAX_ANCHORS:
         raise ValueError(f"head kernel takes <= {MAX_KEYS} cells, K <= "

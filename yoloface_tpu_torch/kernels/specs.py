@@ -1,49 +1,69 @@
-"""Plan-time requantization constants (fast and fast2 bits).
+"""Plan-time requantization constants, in every bit semantics.
 
-Each float64 -> float32 derivation is the one the JAX package makes
-(``runtime/pallas_plan._requant_spec`` / ``_leaky_spec`` and the fast
-fields of ``kernels/pallas_int8.RequantSpec`` / ``LeakySpec`` /
-``quantize_spec``), so the engine's per-op path, the arena planner and the
-CUDA epilogues all see the same float32 bits.  ``fused_leakys`` is the one
-place that decides which conv+LEAKY pairs take the fast2 epilogue.
+Each spec carries the fast constants (exact float32 values) and the exact
+ones (gemmlowp ``(qm, shift)`` pairs), derived with the float64 steps the
+JAX package takes (``runtime/pallas_plan._requant_spec`` / ``_leaky_spec``,
+``kernels/pallas_int8.quantize_spec``, the arena ADD spec of
+``kernels/pallas_arena.py`` and the engine's exact branches), so the
+engine's per-op path, the arena planner and the CUDA epilogues all see the
+same constants.  ``fused_leakys`` is the one place that decides which
+conv+LEAKY pairs the fused epilogues take.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from collections import Counter
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
+
+from yoloface_tpu_torch.core.fixedpoint import (mbqm_numpy,
+                                                quantize_multiplier,
+                                                quantize_multiplier_arr)
+
+ADD_LEFT_SHIFT = 20
 
 
 @dataclasses.dataclass(frozen=True)
 class RequantSpec:
-    """Per-channel conv requantization: ``scale`` f32 [C], ``zp_out``."""
+    """Per-channel conv requantization: ``scale`` f32 [C] (fast bits),
+    ``qm``/``shift`` int32 [C] (exact bits), ``zp_out``."""
 
     zp_out: int
     scale: np.ndarray
+    qm: np.ndarray
+    shift: np.ndarray
 
 
 @dataclasses.dataclass(frozen=True)
 class LeakySpec:
-    """Scalar LEAKY_RELU constants; ``s_id``/``s_al`` are exact f32 values."""
+    """Scalar LEAKY_RELU constants: ``s_id``/``s_al`` are exact f32 values
+    (fast bits), ``m_id``/``m_al`` the (qm, shift) pairs (exact bits)."""
 
     zp_in: int
     zp_out: int
     s_id: float
     s_al: float
+    m_id: Tuple[int, int]
+    m_al: Tuple[int, int]
 
 
 @dataclasses.dataclass(frozen=True)
 class ScaleSpec:
-    """QUANTIZE (``s1`` only) or ADD (``s1``, ``s2``) constants."""
+    """QUANTIZE (``s1``/``m1`` only) or ADD constants.  Fast bits: the f32
+    ratios ``s1``, ``s2``.  Exact bits: the (qm, shift) pairs ``m1`` (and,
+    for ADD, ``m2`` and the output's ``mo``) after a ``left_shift``."""
 
     zp_in: int
     zp_out: int
     s1: float
+    m1: Tuple[int, int]
     zp_in2: int = 0
     s2: float = 0.0
+    m2: Tuple[int, int] = (0, 0)
+    mo: Tuple[int, int] = (0, 0)
+    left_shift: int = 0
 
 
 def _f32(x) -> float:
@@ -52,7 +72,8 @@ def _f32(x) -> float:
 
 def requant_spec(s_in, s_w, s_out, zp_out) -> RequantSpec:
     eff = np.float64(s_in) * np.asarray(s_w, np.float64) / np.float64(s_out)
-    return RequantSpec(int(zp_out), eff.astype(np.float32).ravel())
+    qm, shift = quantize_multiplier_arr(eff)
+    return RequantSpec(int(zp_out), eff.astype(np.float32).ravel(), qm, shift)
 
 
 def conv_requant_spec(graph, conv_op) -> RequantSpec:
@@ -69,19 +90,44 @@ def leaky_spec(graph, leaky_op) -> LeakySpec:
     alpha = np.float64(leaky_op.attrs["alpha"])
     ratio = np.float64(in_q.scale) / np.float64(out_q.scale)
     return LeakySpec(int(in_q.zero_point), int(out_q.zero_point),
-                     _f32(ratio), _f32(ratio * alpha))
+                     _f32(ratio), _f32(ratio * alpha),
+                     quantize_multiplier(ratio),
+                     quantize_multiplier(ratio * alpha))
 
 
 def quantize_spec(in_q, out_q) -> ScaleSpec:
     ratio = np.float64(in_q.scale) / np.float64(out_q.scale)
-    return ScaleSpec(int(in_q.zero_point), int(out_q.zero_point), _f32(ratio))
+    return ScaleSpec(int(in_q.zero_point), int(out_q.zero_point), _f32(ratio),
+                     quantize_multiplier(ratio))
 
 
 def add_spec(q1, q2, qo) -> ScaleSpec:
-    so = np.float64(qo.scale)
-    return ScaleSpec(int(q1.zero_point), int(qo.zero_point),
-                     _f32(np.float64(q1.scale) / so), int(q2.zero_point),
-                     _f32(np.float64(q2.scale) / so))
+    s1, s2, so = (np.float64(q1.scale), np.float64(q2.scale),
+                  np.float64(qo.scale))
+    twice_max = 2.0 * max(s1, s2)
+    return ScaleSpec(int(q1.zero_point), int(qo.zero_point), _f32(s1 / so),
+                     quantize_multiplier(s1 / twice_max), int(q2.zero_point),
+                     _f32(s2 / so), quantize_multiplier(s2 / twice_max),
+                     quantize_multiplier(
+                         twice_max / ((1 << ADD_LEFT_SHIFT) * so)),
+                     ADD_LEFT_SHIFT)
+
+
+def check_exact_domain(bound, shift, what: str) -> None:
+    """Raise unless ``bound << max(shift, 0)`` fits int32 (elementwise over
+    per-channel arrays): the domain in which MBQM is defined (TFLite shifts
+    in int32) and in which the card's 64-bit product cannot overflow.
+    ``bound`` is the largest |x| the requant can see."""
+    left = np.maximum(np.asarray(shift, np.int64), 0)
+    if (np.asarray(bound, np.int64) << left).max() >= 1 << 31:
+        raise NotImplementedError(
+            f"{what}: an exact requant's left shift takes |x| out of int32")
+
+
+def add_sum_bound(sp: ScaleSpec) -> int:
+    """Largest |MBQM(va << ls, m1) + MBQM(vb << ls, m2)| of an exact ADD."""
+    top = 255 << sp.left_shift
+    return int(abs(mbqm_numpy(top, *sp.m1)) + abs(mbqm_numpy(top, *sp.m2)))
 
 
 def use_counts(graph) -> Counter:

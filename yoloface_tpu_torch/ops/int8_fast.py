@@ -10,13 +10,9 @@ plain versions of the CUDA epilogues in ``csrc/epilogue.cuh``.
 
 from __future__ import annotations
 
-from typing import Tuple
-
 import torch
 
-from yoloface_tpu_torch.ops.int8_ref import (INT8_MAX, INT8_MIN, _conv_acc,
-                                             _dw_acc, _same_pad_amounts,
-                                             pad_spatial)
+from yoloface_tpu_torch.ops.int8_ref import INT8_MAX, INT8_MIN, conv_acc
 
 __all__ = [
     "conv2d_int8_fast", "depthwise_conv2d_int8_fast", "leaky_relu_int8_fast",
@@ -33,33 +29,6 @@ def requant_f32(acc: torch.Tensor, scale: torch.Tensor,
     """int32 acc [..., C] * f32 scale [C] -> int8 (standalone conv requant)."""
     v = torch.round(acc.to(torch.float32) * scale).to(torch.int32)
     return _clip_i8(v + int(zero_point))
-
-
-def same_pads(x: torch.Tensor, kh: int, kw: int, stride: Tuple[int, int],
-              padding: str):
-    """(ph, pw) TFLite pads of a window op on NHWC ``x``."""
-    if padding != "SAME":
-        return (0, 0), (0, 0)
-    return (_same_pad_amounts(x.shape[1], stride[0], kh),
-            _same_pad_amounts(x.shape[2], stride[1], kw))
-
-
-def bias_eff(weights: torch.Tensor, bias: torch.Tensor, input_zp: int,
-             depthwise: bool) -> torch.Tensor:
-    """int32 bias with the input zero-point term folded in (int64 fold)."""
-    dims = (0, 1, 2) if depthwise else (1, 2, 3)
-    corr = weights.to(torch.int64).sum(dims) * int(input_zp)
-    return (bias.to(torch.int64) - corr).to(torch.int32)
-
-
-def conv_acc(x, weights, bias, *, input_zp, stride, padding,
-             depthwise=False) -> torch.Tensor:
-    """int32 accumulator of a (depthwise) int8 conv with bias folded in."""
-    kh, kw = weights.shape[1], weights.shape[2]
-    ph, pw = same_pads(x, kh, kw, stride, padding)
-    xp = pad_spatial(x, ph, pw, input_zp)
-    acc = (_dw_acc if depthwise else _conv_acc)(xp, weights, stride)
-    return acc + bias_eff(weights, bias, input_zp, depthwise)
 
 
 def conv2d_int8_fast(x, weights, bias, *, input_zp, output_zp, scale,

@@ -15,8 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from yoloface_tpu_torch.ops.int8_fast import conv_acc
-from yoloface_tpu_torch.ops.int8_ref import INT8_MAX, INT8_MIN
+from yoloface_tpu_torch.ops.int8_ref import INT8_MAX, INT8_MIN, conv_acc
 
 __all__ = ["conv2d_leaky_int8_fast2", "depthwise_conv2d_leaky_int8_fast2",
            "epilogue_v2"]

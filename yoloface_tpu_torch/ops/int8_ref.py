@@ -1,12 +1,13 @@
-"""Integer building blocks of the int8 operators, in torch (NHWC).
+"""Int8 operators with exact TFLite builtin-kernel semantics, in torch (NHWC).
 
-The counterpart of the ``yoloface_tpu.ops.int8_ref`` subset that the fast
-and fast2 semantics share: padding, the conv accumulator, max-pool and
-concat.  Convolutions accumulate in float64 matmuls: CPU ``F.conv2d`` takes
-no integer types, float32 is exact only below 2**24, and every partial sum
-of int8 products here is an integer far below 2**53, so the result is exact
-in any summation order (and cuDNN, whose algorithms may not be exact, is
-never involved).
+The counterpart of ``yoloface_tpu.ops.int8_ref``: the building blocks every
+semantics shares (padding, the conv accumulator, max-pool, concat) and the
+``exact`` operators, which requantize with gemmlowp fixed point
+(``core/fixedpoint.py``, int64).  Convolutions accumulate in float64
+matmuls: CPU ``F.conv2d`` takes no integer types, float32 is exact only
+below 2**24, and every partial sum of int8 products here is an integer far
+below 2**53, so the result is exact in any summation order (and cuDNN, whose
+algorithms may not be exact, is never involved).
 """
 
 from __future__ import annotations
@@ -15,6 +16,9 @@ from typing import Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from yoloface_tpu_torch.core.fixedpoint import (
+    multiply_by_quantized_multiplier as mbqm, requant_exact)
 
 INT8_MIN, INT8_MAX = -128, 127
 
@@ -81,6 +85,33 @@ def _dw_acc(x: torch.Tensor, weights: torch.Tensor,
     return acc
 
 
+def same_pads(x: torch.Tensor, kh: int, kw: int, stride: Tuple[int, int],
+              padding: str):
+    """(ph, pw) TFLite pads of a window op on NHWC ``x``."""
+    if padding != "SAME":
+        return (0, 0), (0, 0)
+    return (_same_pad_amounts(x.shape[1], stride[0], kh),
+            _same_pad_amounts(x.shape[2], stride[1], kw))
+
+
+def bias_eff(weights: torch.Tensor, bias: torch.Tensor, input_zp: int,
+             depthwise: bool) -> torch.Tensor:
+    """int32 bias with the input zero-point term folded in (int64 fold)."""
+    dims = (0, 1, 2) if depthwise else (1, 2, 3)
+    corr = weights.to(torch.int64).sum(dims) * int(input_zp)
+    return (bias.to(torch.int64) - corr).to(torch.int32)
+
+
+def conv_acc(x, weights, bias, *, input_zp, stride, padding,
+             depthwise=False) -> torch.Tensor:
+    """int32 accumulator of a (depthwise) int8 conv with bias folded in."""
+    kh, kw = weights.shape[1], weights.shape[2]
+    ph, pw = same_pads(x, kh, kw, stride, padding)
+    xp = pad_spatial(x, ph, pw, input_zp)
+    acc = (_dw_acc if depthwise else _conv_acc)(xp, weights, stride)
+    return acc + bias_eff(weights, bias, input_zp, depthwise)
+
+
 def _window_max(x: torch.Tensor, filter_hw: Tuple[int, int],
                 stride: Tuple[int, int]) -> torch.Tensor:
     """VALID max over the (padded) window."""
@@ -103,3 +134,50 @@ def maxpool_int8(x: torch.Tensor, *, filter_hw: Tuple[int, int],
 def concat_int8(xs: Sequence[torch.Tensor], axis: int) -> torch.Tensor:
     """TFLite int8 CONCATENATION (inputs already share output scale/zp)."""
     return torch.cat(list(xs), dim=axis)
+
+
+# --------------------------------------------------------------------------
+# exact bits: gemmlowp fixed-point requantization
+# --------------------------------------------------------------------------
+def conv2d_int8(x, weights, bias, *, input_zp, output_zp, qm, shift, stride,
+                padding):
+    """TFLite ``reference_integer_ops::ConvPerChannel``; ``qm``/``shift``
+    int32 [Co] tensors."""
+    acc = conv_acc(x, weights, bias, input_zp=input_zp, stride=stride,
+                   padding=padding)
+    return requant_exact(acc, qm, shift, output_zp)
+
+
+def depthwise_conv2d_int8(x, weights, bias, *, input_zp, output_zp, qm, shift,
+                          stride, padding):
+    """TFLite ``reference_integer_ops::DepthwiseConvPerChannel``."""
+    acc = conv_acc(x, weights, bias, input_zp=input_zp, stride=stride,
+                   padding=padding, depthwise=True)
+    return requant_exact(acc, qm, shift, output_zp)
+
+
+def leaky_relu_int8(x, *, input_zp, output_zp, qm_identity, shift_identity,
+                    qm_alpha, shift_alpha):
+    """TFLite ``reference_ops::QuantizeLeakyRelu``: the identity branch for
+    ``x - input_zp >= 0``, the alpha branch below."""
+    v = x.to(torch.int64) - int(input_zp)
+    pos = v >= 0
+    qm = torch.where(pos, int(qm_identity), int(qm_alpha))
+    sh = torch.where(pos, int(shift_identity), int(shift_alpha))
+    return requant_exact(v, qm, sh, output_zp)
+
+
+def add_int8(x1, x2, *, zp1, zp2, zp_out, qm1, shift1, qm2, shift2, qm_out,
+             shift_out, left_shift=20):
+    """TFLite quantized ADD: both inputs rescaled to a shared
+    ``1 << left_shift``-amplified scale, summed, requantized."""
+    v1 = (x1.to(torch.int64) - int(zp1)) << left_shift
+    v2 = (x2.to(torch.int64) - int(zp2)) << left_shift
+    s = mbqm(v1, qm1, shift1) + mbqm(v2, qm2, shift2)
+    return requant_exact(s, qm_out, shift_out, zp_out)
+
+
+def requantize_int8(x, *, input_zp, output_zp, qm, shift):
+    """TFLite QUANTIZE int8 -> int8 (``reference_ops::Requantize``)."""
+    return requant_exact(x.to(torch.int64) - int(input_zp), qm, shift,
+                         output_zp)

@@ -1,10 +1,14 @@
 """Camera frames -> detections: the port's serving path.
 
-The counterpart of ``yoloface_tpu.pipeline.e2e``.  With an ``arena2``
-engine ``detect_rgb565`` runs three kernels on the card: the RGB565
-preprocess, the arena stage(s) of the int8 net and the fused head.  On the
-CPU the same calls take each kernel's plain torch version.  No batch
-padding: any N works.
+The counterpart of ``yoloface_tpu.pipeline.e2e``.  With an arena engine
+(``arena2``, ``arena``, ``arena_exact``) ``detect_rgb565`` runs three
+kernels on the card: the RGB565 preprocess, the arena stage(s) of the int8
+net and the fused head (or, with ``HeadConfig(use_fused_head=False)``, the
+top-K kernel and the staged decode and NMS).  On the CPU the same calls
+take each kernel's plain torch version.  No batch padding: any N works.
+
+``load_pipeline`` defaults to ``arena2`` (fast2 bits, the serving mode);
+the JAX package's engine and ``load_pipeline`` default to ``exact``.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ from yoloface_tpu_torch.kernels.preprocess import preprocess_rgb565
 from yoloface_tpu_torch.pipeline import head as head_lib
 from yoloface_tpu_torch.pipeline.head import HeadConfig
 from yoloface_tpu_torch.pipeline.preprocess import rgb565_to_int8_input
-from yoloface_tpu_torch.runtime.engine import Int8Engine
+from yoloface_tpu_torch.runtime.engine import ARENA_BITS, Int8Engine
 
 
 class FacePipeline(nn.Module):
@@ -59,7 +63,7 @@ class FacePipeline(nn.Module):
     def preprocess(self, frames) -> torch.Tensor:
         """uint16 RGB565 [N,112,112] -> int8 [N,56,56,3] on the device."""
         f = self._on_device(frames)
-        if self.engine.mode == "arena2":
+        if self.engine.mode in ARENA_BITS:
             return preprocess_rgb565(f)
         return rgb565_to_int8_input(f)
 

@@ -5,12 +5,14 @@ ordering follow the firmware ``post_process`` (grid 7, stride 8, anchors
 [9,14] [12,17] [22,21]; cx = (sigmoid+col)*8, w = exp*anchor); NMS is the
 fixed-shape greedy K^2 pass with the +1-pixel area convention.
 
-``detect_int8_head`` runs either the staged path below (stable-sort top-K,
-gather, decode, NMS) or, with ``HeadConfig.use_fused_head``, the one-kernel
-head of ``kernels/head.py``.  Both rank by the zeroed-below-threshold
-float32 sigmoid key with ties to the lowest flat (anchor,row,col) index,
-like ``lax.top_k`` in the JAX package.  ``HeadConfig`` and the ranking,
-decode and NMS steps both paths share live in ``kernels/head.py``.
+``detect_int8_head`` runs either the staged path below (top-K by the
+``topk_conf`` kernel or, with ``use_pallas_topk=False``, by a stable sort;
+then gather, decode, NMS) or, with ``HeadConfig.use_fused_head``, the
+one-kernel head of ``kernels/head.py``.  All rank by the
+zeroed-below-threshold float32 sigmoid key with ties to the lowest flat
+(anchor,row,col) index, like ``lax.top_k`` and the Pallas kernels in the
+JAX package.  ``HeadConfig`` and the ranking, selection, decode and NMS
+steps the paths share live in ``kernels/head.py``.
 
 Against the JAX package on the CPU the head agrees up to the last ulp of
 ``exp``: torch's and XLA's CPU ``exp`` differ by one ulp on 16 to 27 of the
@@ -28,7 +30,7 @@ import torch
 
 from yoloface_tpu_torch.kernels.head import (  # noqa: F401 (re-exported)
     HeadConfig, _greedy_nms, _iou_matrix, clamp_boxes, decode_topk,
-    detect_head, f32, rank_key, sigmoid)
+    detect_head, f32, rank_key, sigmoid, topk_conf)
 
 # The head's stated tolerance between two exp implementations (torch CPU vs
 # XLA CPU in the tests, the card vs the CPU in chip_smoke.py): about 8 ulp
@@ -89,10 +91,11 @@ def detect_int8_head(y_int8: torch.Tensor, *, scale: float, zero_point: int,
     if cfg.use_fused_head:
         return detect_head(y_int8.reshape(n, g, g, a * 6), scale=scale,
                            zero_point=zero_point, cfg=cfg)
-    if cfg.use_pallas_topk:
-        raise NotImplementedError(
-            "HeadConfig(use_pallas_topk=True, use_fused_head=False) needs the "
-            "top-K kernel B5 (ROADMAP.md, queue B), which is not ported yet")
+    k = min(cfg.max_detections, cfg.num_cells)
     qf, key = rank_key(y_int8, scale=scale, zero_point=zero_point, cfg=cfg)
-    _, top_idx = _top_k(key, min(cfg.max_detections, cfg.num_cells))
+    if cfg.use_pallas_topk:
+        top_idx = topk_conf(y_int8.reshape(n, g, g, a * 6), k, scale=scale,
+                            zero_point=zero_point, cfg=cfg)
+    else:
+        _, top_idx = _top_k(key, k)
     return decode_topk(qf, top_idx, cfg)

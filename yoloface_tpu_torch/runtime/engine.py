@@ -1,16 +1,21 @@
 """Int8 graph engine as a torch ``nn.Module``.
 
-The counterpart of ``yoloface_tpu.runtime.engine.Int8Engine`` for three
-modes, all bit-identical to their JAX twins:
+The counterpart of ``yoloface_tpu.runtime.engine.Int8Engine`` for six
+modes, each bit-identical to its JAX twin:
 
+  * ``exact``  -- per-op torch, gemmlowp fixed-point requantization (int64);
+    the parity oracle, equal to TFLite ``BUILTIN_REF``;
   * ``fast``   -- per-op torch, float32 requantization;
   * ``fast2``  -- per-op torch, one rounding per fused conv+leaky pair;
-  * ``arena2`` -- the net as activation-arena stages (``kernels/arena.py``):
-    the CUDA stage kernel on the card, its plain torch version on the CPU.
-    The counterpart of ``pallas_mxu2``; bit-identical to ``fast2``.
+  * ``arena_exact`` / ``arena`` / ``arena2`` -- the net as activation-arena
+    stages (``kernels/arena.py``) in exact / fast / fast2 bits: the CUDA
+    stage kernel on the card, its plain torch version on the CPU.  The
+    counterparts of ``pallas_mxu_exact`` / ``pallas_mxu`` / ``pallas_mxu2``,
+    bit-identical to ``exact`` / ``fast`` / ``fast2``.
 
-Weights, biases and scales are buffers, so ``.to(device)`` moves the
-engine.  Activations are int8 NHWC ``[N,H,W,C]`` at every public function.
+Weights, biases and requant constants are buffers, so ``.to(device)`` moves
+the engine.  Activations are int8 NHWC ``[N,H,W,C]`` at every public
+function.
 """
 
 from __future__ import annotations
@@ -27,7 +32,8 @@ from yoloface_tpu_torch.ops import int8_fast as fast_ops
 from yoloface_tpu_torch.ops import int8_fast2 as fast2_ops
 from yoloface_tpu_torch.ops import int8_ref as ref_ops
 
-MODES = ("fast", "fast2", "arena2")
+MODES = ("exact", "fast", "fast2", "arena_exact", "arena", "arena2")
+ARENA_BITS = {"arena_exact": "exact", "arena": "fast", "arena2": "fast2"}
 
 
 def _check_conv(op: OpDef) -> None:
@@ -62,9 +68,9 @@ class Int8Engine(nn.Module):
         self.output_idx = graph.outputs[0]
         self.input_shape = tuple(in_t.shape[1:])
         self._plan: List[Tuple[int, Callable]] = []
-        if mode == "arena2":
+        if mode in ARENA_BITS:
             from yoloface_tpu_torch.kernels.arena import ArenaPlan
-            self.arena = ArenaPlan(graph)
+            self.arena = ArenaPlan(graph, bits=ARENA_BITS[mode])
         elif mode == "fast2":
             self._plan = self._lower_ops_fast2()
         else:
@@ -92,6 +98,7 @@ class Int8Engine(nn.Module):
         t = g.tensor
         name = op.opname
         out_idx = op.outputs[0]
+        exact = self.mode == "exact"
 
         if name == "PAD":
             data_idx, pad_idx = op.inputs
@@ -106,26 +113,39 @@ class Int8Engine(nn.Module):
             x_idx = op.inputs[0]
             wn, bn = self._conv_consts(op)
             rq = specs.conv_requant_spec(g, op)
-            sn = self._const(f"s{op.index}", rq.scale)
             kw = dict(input_zp=t(x_idx).qparams.zero_point,
                       output_zp=rq.zp_out,
                       stride=(op.attrs["stride_h"], op.attrs["stride_w"]),
                       padding=op.attrs["padding"])
-            impl = (fast_ops.conv2d_int8_fast if name == "CONV_2D"
-                    else fast_ops.depthwise_conv2d_int8_fast)
+            if exact:
+                req = {"qm": self._const(f"qm{op.index}", rq.qm),
+                       "shift": self._const(f"sh{op.index}", rq.shift)}
+                impl = (ref_ops.conv2d_int8 if name == "CONV_2D"
+                        else ref_ops.depthwise_conv2d_int8)
+            else:
+                req = {"scale": self._const(f"s{op.index}", rq.scale)}
+                impl = (fast_ops.conv2d_int8_fast if name == "CONV_2D"
+                        else fast_ops.depthwise_conv2d_int8_fast)
 
             def fn(env):
                 return impl(env[x_idx], getattr(self, wn), getattr(self, bn),
-                            scale=getattr(self, sn), **kw)
+                            **{k: getattr(self, v) for k, v in req.items()},
+                            **kw)
 
         elif name == "LEAKY_RELU":
             (x_idx,) = op.inputs
             lk = specs.leaky_spec(g, op)
+            kw = dict(input_zp=lk.zp_in, output_zp=lk.zp_out)
+            if exact:
+                impl = ref_ops.leaky_relu_int8
+                kw.update(qm_identity=lk.m_id[0], shift_identity=lk.m_id[1],
+                          qm_alpha=lk.m_al[0], shift_alpha=lk.m_al[1])
+            else:
+                impl = fast_ops.leaky_relu_int8_fast
+                kw.update(scale_identity=lk.s_id, scale_alpha=lk.s_al)
 
             def fn(env):
-                return fast_ops.leaky_relu_int8_fast(
-                    env[x_idx], input_zp=lk.zp_in, output_zp=lk.zp_out,
-                    scale_identity=lk.s_id, scale_alpha=lk.s_al)
+                return impl(env[x_idx], **kw)
 
         elif name == "MAX_POOL_2D":
             (x_idx,) = op.inputs
@@ -140,20 +160,32 @@ class Int8Engine(nn.Module):
             a_idx, b_idx = op.inputs
             sp = specs.add_spec(t(a_idx).qparams, t(b_idx).qparams,
                                 t(out_idx).qparams)
+            kw = dict(zp1=sp.zp_in, zp2=sp.zp_in2, zp_out=sp.zp_out)
+            if exact:
+                impl = ref_ops.add_int8
+                kw.update(qm1=sp.m1[0], shift1=sp.m1[1], qm2=sp.m2[0],
+                          shift2=sp.m2[1], qm_out=sp.mo[0],
+                          shift_out=sp.mo[1], left_shift=sp.left_shift)
+            else:
+                impl = fast_ops.add_int8_fast
+                kw.update(scale1=sp.s1, scale2=sp.s2)
 
             def fn(env):
-                return fast_ops.add_int8_fast(
-                    env[a_idx], env[b_idx], zp1=sp.zp_in, zp2=sp.zp_in2,
-                    zp_out=sp.zp_out, scale1=sp.s1, scale2=sp.s2)
+                return impl(env[a_idx], env[b_idx], **kw)
 
         elif name == "QUANTIZE":
             (x_idx,) = op.inputs
             sp = specs.quantize_spec(t(x_idx).qparams, t(out_idx).qparams)
+            kw = dict(input_zp=sp.zp_in, output_zp=sp.zp_out)
+            if exact:
+                impl = ref_ops.requantize_int8
+                kw.update(qm=sp.m1[0], shift=sp.m1[1])
+            else:
+                impl = fast_ops.requantize_int8_fast
+                kw.update(scale=sp.s1)
 
             def fn(env):
-                return fast_ops.requantize_int8_fast(
-                    env[x_idx], input_zp=sp.zp_in, output_zp=sp.zp_out,
-                    scale=sp.s1)
+                return impl(env[x_idx], **kw)
 
         elif name == "CONCATENATION":
             idxs = list(op.inputs)
@@ -215,7 +247,7 @@ class Int8Engine(nn.Module):
             raise ValueError(f"expected int8 input, got {x.dtype}")
 
     def _env(self, x: torch.Tensor) -> Dict[int, torch.Tensor]:
-        if self.mode == "arena2":
+        if self.mode in ARENA_BITS:
             return self.arena.run_stages(x)
         env = {self.input_idx: x}
         for out_idx, fn in self._plan:
@@ -233,7 +265,8 @@ class Int8Engine(nn.Module):
     @torch.no_grad()
     def run_with_intermediates(self, x) -> Dict[int, np.ndarray]:
         """Every activation tensor the mode materializes (all tensors for
-        fast/fast2; the stage inputs and outputs for arena2), as numpy."""
+        the per-op modes; the stage inputs and outputs for the arena
+        modes), as numpy."""
         if isinstance(x, np.ndarray):
             x = torch.from_numpy(x)
         x = x.to(self._device())
