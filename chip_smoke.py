@@ -10,7 +10,10 @@ Phases (each prints its lines; any failure ends the run with an error):
      at the serving path's shapes: the preprocess; the arena stage in each
      bit semantics (fast2, fast, exact) in 1 and 4 stages; the fused head
      and the top-K kernel on crafted tensors with saturation ties and on the
-     net's outputs;
+     net's outputs; the tiled section kernel on every section output of
+     the 448 net (retarget_spatial(corpus, 8), N = 1 and 3) and of the
+     112 net under a small budget (7 sections of up to 28 strips), in each
+     bit semantics;
   3. serving, one path after another, each with every launch count set to
      0 just before it and read just after (each of its kernels > 0):
      load_pipeline(..., device="cuda").detect_rgb565 in mode arena2 (fused
@@ -18,11 +21,15 @@ Phases (each prints its lines; any failure ends the run with an error):
      HeadConfig(use_fused_head=False) (the top-K kernel and the staged
      head) and arena (fused head); detections are held against the CPU path
      of the same mode (the plain versions) and, for arena2 and arena_exact,
-     against the golden file tests/data/torch_port_frames.npz;
+     against the golden file tests/data/torch_port_frames.npz; then the
+     448 net, Int8Engine(g448, mode, device="cuda") in modes tiled2 and
+     tiled_exact, held against the CPU path and the golden 448 keys;
   4. timing with CUDA events (warm-up, median of 10): each kernel against
      its plain version at batch 16384 (the arena in all three bit
      semantics), the arena2 and arena_exact pipelines at 16384 and 65536,
-     and their synchronised latency (host clock, p50 of 10);
+     and their synchronised latency (host clock, p50 of 10); the 448 net
+     in tiled2 and tiled_exact (the section kernel) at batch 1024 and at
+     128, against its plain version at 128 (median of 3);
   5. the kernels JSON line, the card line, and the result line last.
 
 Without a CUDA device it exits non-zero and prints no result.
@@ -30,6 +37,7 @@ Without a CUDA device it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import subprocess
@@ -40,7 +48,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CORPUS = os.path.join(ROOT, "checkpoints", "yoloface_corpus_int8.tflite")
 GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_frames.npz")
 SEED = 0
+SEED448 = 448              # tools/make_torch_port_golden.py:frames448
 TIMING_BATCH = 16384
+BATCH448, PLAIN_BATCH448 = 1024, 128
+TILE_SMALL = 16 * 1024     # the 112 net in 7 sections of 2-28 strips
 REPS = 10
 
 
@@ -94,12 +105,15 @@ def main() -> int:
         return 1
     import numpy as np
 
-    from yoloface_tpu_torch.kernels import _build, arena
+    from yoloface_tpu_torch.graph.retarget import retarget_spatial
+    from yoloface_tpu_torch.io.tflite_import import load_tflite
+    from yoloface_tpu_torch.kernels import _build, arena, tiled
     from yoloface_tpu_torch.kernels import head as khead
     from yoloface_tpu_torch.kernels import preprocess as kpre
     from yoloface_tpu_torch.pipeline import head as thead
     from yoloface_tpu_torch.pipeline.e2e import FacePipeline, load_pipeline
-    from yoloface_tpu_torch.runtime.engine import ARENA_BITS
+    from yoloface_tpu_torch.runtime.engine import (ARENA_BITS, TILED_BITS,
+                                                   Int8Engine)
 
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions: f64
     torch.backends.cudnn.allow_tf32 = False
@@ -134,9 +148,10 @@ def main() -> int:
     plans = {bits: pipes[modes[bits]].engine.arena for bits in modes}
     head_kw = dict(scale=pipe._out_scale, zero_point=pipe._out_zp)
     counted = (kpre.preprocess_rgb565, arena.arena_stage, khead.detect_head,
-               khead.topk_conf)
+               khead.topk_conf, tiled.tiled_section)
     err = {"preprocess_rgb565": 0.0, "arena_stage": 0.0,
-           "requant_epilogue": 0.0, "detect_head": 0.0, "topk_conf": 0.0}
+           "requant_epilogue": 0.0, "detect_head": 0.0, "topk_conf": 0.0,
+           "tiled_section": 0.0}
 
     # -------------------------------------- 2. kernels vs plain, on the card
     for n in (1, 7, 4096):
@@ -184,6 +199,43 @@ def main() -> int:
                   "output bit-exact")
             net_out[bits] = y
 
+    def int8_frames(n, hw):
+        x = rng.integers(-128, 128, (n, hw, hw, 3), dtype=np.int64)
+        return torch.from_numpy(x.astype(np.int8)).to(dev)
+
+    def check_sections(p, x, tag):
+        env = {p.input_idx: x}
+        for k, st in enumerate(p.stages):
+            ins = [env[i] for i in st.inputs]
+            outs = tiled.tiled_section(st, getattr(p, f"descs{k}"),
+                                       getattr(p, f"consts{k}"), ins)
+            ref = [torch.empty_like(o) for o in outs]
+            tiled.tiled_section_plain(st, getattr(p, f"consts{k}"),
+                                      ins + ref)
+            torch.cuda.synchronize()
+            for o, u, v in zip(st.outputs, outs, ref):
+                _require(torch.equal(u, v), f"tiled section {k} t{o} {tag}")
+            err["tiled_section"] = max(err["tiled_section"],
+                                       _max_err(zip(outs, ref)))
+            env.update(zip(st.outputs, outs))
+
+    corpus = load_tflite(CORPUS)
+    g448, g112 = retarget_spatial(corpus, 8), retarget_spatial(corpus, 2)
+    for bits in arena.BITS:
+        for g, budget, sizes in ((g448, arena.ARENA_BUDGET, (1, 3)),
+                                 (g112, TILE_SMALL, (2, 37))):
+            p = tiled.TiledPlan(g, budget, bits).to(dev)
+            _require(p.tiled and len(p.stages) >= 3,
+                     f"{bits}: the {g.name} plan is >= 3 sections")
+            hw = g.tensor(g.inputs[0]).shape[1]
+            for n in sizes:
+                check_sections(p, int8_frames(n, hw), f"{bits} {hw} N={n}")
+            print(f"[check] tiled_section {bits} bits {hw}x{hw} N={sizes}: "
+                  f"{len(p.stages)} sections of "
+                  f"{[st.strips for st in p.stages]} strips, arenas "
+                  f"{[st.arena_bytes for st in p.stages]} B: every section "
+                  "output bit-exact")
+
     rng_h = np.random.default_rng(23)          # tests/test_pipeline.py:262
     yc = rng_h.integers(-128, 128, (48, 7, 7, 18), dtype=np.int64)
     yc = yc.astype(np.int8)
@@ -224,7 +276,7 @@ def main() -> int:
         "arena2": (pipe, None, (1, 8, 256, 4096), counted[:3]),
         "arena_exact": (pipes["arena_exact"], None, (1, 8, 256), counted[:3]),
         "arena_exact staged": (pipes["arena_exact"], staged, (8, 256),
-                               counted[:2] + counted[3:]),
+                               counted[:2] + counted[3:4]),
         "arena": (pipes["arena"], None, (8, 256), counted[:3]),
     }
     launches = {}
@@ -280,6 +332,35 @@ def main() -> int:
         print(f"[serve] {path}: golden file: int8 head bit-exact, counts "
               f"{served[8]['count'].tolist()} equal")
 
+    gold448 = np.random.default_rng(SEED448).integers(
+        -128, 128, (2, 448, 448, 3), dtype=np.int64).astype(np.int8)
+    _require(hashlib.sha256(gold448.tobytes()).hexdigest()
+             == str(gold["frames448_sha256"]), "golden 448 frames remade")
+    engines448 = {}
+    for mode, key in (("tiled2", "head448"), ("tiled_exact", "head448_exact")):
+        eng = Int8Engine(g448, mode, device=dev)
+        engines448[mode] = eng
+        batches = {"golden": torch.from_numpy(gold448).to(dev),
+                   "random": int8_frames(2, 448)}
+        path = f"448 {mode}"
+        for fn in counted:
+            fn.launches = 0
+        served = {b: eng(f) for b, f in batches.items()}
+        torch.cuda.synchronize()
+        launches[path] = {fn.__name__: fn.launches for fn in counted}
+        print(f"[serve] {path}: Int8Engine(g448) on the golden and a random "
+              f"pair of frames: launches {launches[path]}")
+        _require(tiled.tiled_section.launches == 2 * len(eng.arena.stages),
+                 f"{path}: every section through the kernel")
+        cpu = Int8Engine(g448, mode)
+        for b, f in batches.items():
+            _require(torch.equal(served[b].cpu(), cpu(f.cpu())),
+                     f"{path} {b}: vs the CPU path")
+        _require(np.array_equal(served["golden"].cpu().numpy(), gold[key]),
+                 f"{path}: golden {key}")
+        print(f"[serve] {path}: [2,56,56,18] bit-exact vs the CPU path on "
+              f"both pairs and vs the golden {key}")
+
     # ----------------------------------------------------------- 4. timing
     n = TIMING_BATCH
     f = frames(n)
@@ -330,6 +411,32 @@ def main() -> int:
             print(f"[time] pipeline {mode} sync latency N={n}: p50 "
                   f"{p50:.3f} ms of {REPS} calls, host clock ({card})")
             del f
+    for mode, eng in engines448.items():
+        bits = TILED_BITS[mode]
+        p = eng.arena
+        x = int8_frames(PLAIN_BATCH448, 448)
+        env = p.run_stages(x)
+        outs = [[torch.empty_like(env[o]) for o in st.outputs]
+                for st in p.stages]
+
+        def plain448():
+            for k, st in enumerate(p.stages):
+                tiled.tiled_section_plain(st, getattr(p, f"consts{k}"),
+                                          [env[i] for i in st.inputs]
+                                          + outs[k])
+
+        p1, k1, k2, p2 = (_time_ms(plain448, 3), _time_ms(lambda: eng(x)),
+                          _time_ms(lambda: eng(x)), _time_ms(plain448, 3))
+        del env, outs
+        xb = int8_frames(BATCH448, 448)
+        t = _time_ms(lambda: eng(xb))
+        del xb
+        ms[f"tiled_section {bits}"] = (t, (p1 + p2) / 2, (k1 + k2) / 2)
+        print(f"[time] tiled_section {bits} (448 net, {len(p.stages)} "
+              f"sections) N={PLAIN_BATCH448}: kernel {(k1 + k2) / 2:.4f} ms, "
+              f"plain {(p1 + p2) / 2:.4f} ms ({card})")
+        print(f"[time] 448 net {mode} N={BATCH448}: {t:.3f} ms, "
+              f"{BATCH448 / t * 1e3:.1f} frames/s ({card})")
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"[time] peak device memory {peak:.2f} GiB")
 
@@ -351,9 +458,14 @@ def main() -> int:
         "topk_conf": (src + "topk_conf.cu",
                       "yoloface_tpu/kernels/pallas_head.py:33",
                       "arena_exact staged", "topk_conf"),
+        "tiled_section": (src + "tiled_section.cu",
+                          "yoloface_tpu/kernels/pallas_tiled.py:1109",
+                          "448 tiled2", "tiled_section"),
     }
     bits = {"arena_stage": ["fast2", "fast", "exact"],
-            "requant_epilogue": ["fast", "exact"]}
+            "requant_epilogue": ["fast", "exact"],
+            "tiled_section": ["fast2", "fast", "exact"]}
+    ms["tiled_section"] = ms["tiled_section fast2"]
     kernels = []
     for k, (source, tpu, path, counter) in meta.items():
         row = {"name": k, "route": "cuda", "source": source, "replaces": tpu,
@@ -361,6 +473,9 @@ def main() -> int:
                "ms": ms[k][0], "plain_ms": ms[k][1]}
         if k in bits:
             row["bits"] = bits[k]
+        if k == "tiled_section":     # the kernel at 1024, both at 128
+            row.update(batch=BATCH448, plain_batch=PLAIN_BATCH448,
+                       ms_at_plain_batch=ms[k][2])
         kernels.append(row)
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -5,14 +5,18 @@ This file imports no jax, so it also runs where jax is absent; the
 repository's ``tests/conftest.py`` imports jax, so there run it with
 ``python -m pytest tests/test_torch_gpu.py -m gpu --noconftest``."""
 
+import importlib.util
 import os
 
 import numpy as np
 import pytest
 import torch
 
-from yoloface_tpu_torch.kernels import arena, head, preprocess
+from yoloface_tpu_torch.graph.retarget import retarget_spatial
+from yoloface_tpu_torch.io.tflite_import import load_tflite
+from yoloface_tpu_torch.kernels import arena, head, preprocess, tiled
 from yoloface_tpu_torch.pipeline.e2e import load_pipeline
+from yoloface_tpu_torch.runtime.engine import Int8Engine
 
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -51,3 +55,27 @@ def test_kernels_match_plain_on_the_card(mode, golden):
         assert torch.equal(a, b)
     assert torch.equal(head.topk_conf(y, 16, **kw),
                        head.topk_conf_plain(y, 16, **kw))
+
+
+@pytest.mark.gpu
+def test_tiled2_448_on_the_card_equals_cpu():
+    """The 448 net in ``tiled2`` on the card (every section through the
+    section kernel) equals the CPU plain path and the golden file on the
+    two golden 448x448 frames."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    spec = importlib.util.spec_from_file_location(
+        "make_torch_port_golden",
+        os.path.join(REPO, "tools", "make_torch_port_golden.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    g = retarget_spatial(load_tflite(CORPUS), 8)
+    x = torch.from_numpy(tool.frames448())
+    card = Int8Engine(g, "tiled2", device="cuda")
+    tiled.tiled_section.launches = 0
+    y = card(x.cuda())
+    torch.cuda.synchronize()
+    assert tiled.tiled_section.launches == len(card.arena.stages)
+    want = Int8Engine(g, "tiled2")(x)
+    assert torch.equal(y.cpu(), want)
+    np.testing.assert_array_equal(want.numpy(), np.load(GOLDEN)["head448"])

@@ -25,16 +25,29 @@ assert not bad, bad
 """
 
 
-@pytest.mark.parametrize("entry", ["all modules", "serving entry point"])
+_ENTRY = """
+import sys
+{imports}
+bad = [m for m in sys.modules if m.split('.')[0] in
+       ('jax', 'jaxlib', 'yoloface_tpu')]
+assert not bad, bad
+"""
+ENTRIES = {
+    "serving entry point":
+        "from yoloface_tpu_torch.pipeline.e2e import load_pipeline",
+    "448 entry point":
+        "from yoloface_tpu_torch.graph.retarget import retarget_spatial\n"
+        "from yoloface_tpu_torch.kernels.tiled import TiledPlan\n"
+        "from yoloface_tpu_torch.runtime.engine import Int8Engine",
+}
+
+
+@pytest.mark.parametrize("entry", ["all modules", *ENTRIES])
 def test_port_imports_without_jax(entry):
     code = (_CODE if entry == "all modules" else
-            "import sys\n"
-            "from yoloface_tpu_torch.pipeline.e2e import load_pipeline\n"
-            "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'yoloface_tpu')]\n"
-            "assert not bad, bad\n")
+            _ENTRY.format(imports=ENTRIES[entry]))
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
     if entry == "all modules":
-        assert int(res.stdout.split()[0]) >= 18      # every module imported
+        assert int(res.stdout.split()[0]) >= 26      # every module imported

@@ -8,10 +8,15 @@ pipelines give for them:
     ``scores``, ``valid``, ``count``);
   * ``exact`` engine: ``head_exact`` and the staged head's detections
     ranked by the top-K Pallas kernel in interpret mode (``exact_boxes``,
-    ``exact_scores``, ``exact_valid``, ``exact_count``).
+    ``exact_scores``, ``exact_valid``, ``exact_count``);
+  * the 448 family (``retarget_spatial(corpus, 8)``): the int8 net output
+    [2,56,56,18] of the JAX ``fast2`` and ``exact`` engines (``head448``,
+    ``head448_exact``) for two int8 448x448x3 frames made by
+    ``frames448()`` from numpy seed ``SEED448``.  The frames themselves are
+    not stored (602,112 B each), only their sha256 (``frames448_sha256``).
 chip_smoke.py holds the card's output against it without jax;
-tests/test_torch_pipeline.py recomputes the JAX side and holds it against
-the file.
+tests/test_torch_pipeline.py and tests/test_torch_tiled.py recompute the
+JAX side and hold it against the file.
 
 Run from the repository root, on the CPU:
     JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py
@@ -19,6 +24,7 @@ Run from the repository root, on the CPU:
 
 from __future__ import annotations
 
+import hashlib
 import os
 import sys
 
@@ -31,6 +37,8 @@ CORPUS = os.path.join(REPO, "checkpoints", "yoloface_corpus_int8.tflite")
 # RGB565, and one (img_1122) on which it finds none
 IMAGES = ("img_1087", "img_1122", "img_331", "img_457", "img_558", "img_82",
           "img_935", "img_967")
+SEED448 = 448
+KEYS448 = ("head448", "head448_exact", "frames448_sha256")
 
 
 def golden_frames() -> np.ndarray:
@@ -66,12 +74,37 @@ def jax_outputs(frames: np.ndarray) -> dict:
     return out
 
 
+def frames448() -> np.ndarray:
+    """int8 [2,448,448,3] from numpy seed SEED448 (numpy only: the card's
+    machine makes the same frames)."""
+    rng = np.random.default_rng(SEED448)
+    x = rng.integers(-128, 128, (2, 448, 448, 3), dtype=np.int64)
+    return x.astype(np.int8)
+
+
+def sha256(a: np.ndarray) -> str:
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def jax_outputs_448() -> dict:
+    """The golden 448 arrays: JAX fast2 and exact on ``frames448()``."""
+    from yoloface_tpu.graph.retarget import retarget_spatial
+    from yoloface_tpu.io.tflite_import import load_tflite
+    from yoloface_tpu.runtime.engine import Int8Engine
+    graph = retarget_spatial(load_tflite(CORPUS), 8)
+    x = frames448()
+    return {"head448": np.asarray(Int8Engine(graph, "fast2")(x)),
+            "head448_exact": np.asarray(Int8Engine(graph, "exact")(x)),
+            "frames448_sha256": np.array(sha256(x))}
+
+
 def main() -> int:
     if REPO not in sys.path:
         sys.path.insert(0, REPO)
     frames = golden_frames()
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
-    np.savez_compressed(OUT, frames=frames, **jax_outputs(frames))
+    np.savez_compressed(OUT, frames=frames, **jax_outputs(frames),
+                        **jax_outputs_448())
     print(f"wrote {OUT}")
     return 0
 

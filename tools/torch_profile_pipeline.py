@@ -4,20 +4,26 @@
 Run from the repository root on a machine with a CUDA card:
 
     python3 tools/torch_profile_pipeline.py [--batch 65536] [--arena-batch 16384]
-        [--modes arena2 arena arena_exact]
+        [--batch448 1024] [--modes arena2 arena arena_exact tiled2 tiled_exact]
 
 For each engine mode (default ``arena2``) it prints, each line with the
 card's name, power limit and SM clocks:
 
-  * pipeline: ``FacePipeline.detect_rgb565`` with the frames on the card,
-    back to back (host clock over 5 batches) and synchronised (p50 of 10
-    calls, each ending in ``torch.cuda.synchronize()``);
+  * pipeline: ``FacePipeline.detect_rgb565`` with the frames on the card
+    (an arena mode), or the 448 net ``Int8Engine(retarget_spatial(corpus,
+    8), mode)`` on int8 448x448 frames on the card (a tiled mode), back to
+    back (host clock over 5 batches) and synchronised (p50 of 10 calls,
+    each ending in ``torch.cuda.synchronize()``);
   * device busy share: ``torch.profiler`` over 5 back-to-back batches, the
     sum of the device kernels' time over the wall time, and the kernels
     that take the most of it;
   * arena breakdown: the time of each descriptor of the arena stage,
     measured as the CUDA-event time (median of 7) of the program prefix
-    that ends at it minus that of the prefix before, summed by op kind.
+    that ends at it minus that of the prefix before, summed by op kind;
+  * section breakdown (tiled modes): the CUDA-event time (median of 7) of
+    each section kernel of the 448 net, with its ops, strips and arena;
+    with ``--shares``, the 448 net's time under each strip-height target
+    ``tiled.TARGET_SHARE`` (strip arenas of the budget over that share).
 
 Imports nothing of JAX; builds the kernels like ``chip_smoke.py``.
 """
@@ -44,22 +50,46 @@ def _frames(n: int, seed: int = 0):
     return torch.from_numpy(f.astype(np.uint16)).cuda()
 
 
-def profile_pipeline(pipe, n: int, card: str) -> None:
+def _int8_frames(n: int, hw: int, seed: int = 0):
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randint(-128, 128, (n, hw, hw, 3), generator=g,
+                         device="cuda", dtype=torch.int8)
+
+
+def _event_ms(run, reps: int = 7) -> float:
+    import torch
+    for _ in range(2):
+        run()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        run()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return sorted(times)[reps // 2]
+
+
+def profile_pipeline(run, n: int, card: str) -> None:
+    """Back to back, sync p50 and busy share of ``run()``, one batch of
+    ``n`` frames."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    f = _frames(n)
     for _ in range(3):
-        pipe.detect_rgb565(f)
+        run()
     torch.cuda.synchronize()
     t = time.perf_counter()
     for _ in range(5):
-        pipe.detect_rgb565(f)
+        run()
     torch.cuda.synchronize()
     b2b = (time.perf_counter() - t) / 5
     lat = []
     for _ in range(10):
         t = time.perf_counter()
-        pipe.detect_rgb565(f)
+        run()
         torch.cuda.synchronize()
         lat.append(time.perf_counter() - t)
     p50 = sorted(lat)[len(lat) // 2]
@@ -70,7 +100,7 @@ def profile_pipeline(pipe, n: int, card: str) -> None:
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         for _ in range(5):
-            pipe.detect_rgb565(f)
+            run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
     rows = sorted(((e.device_time_total, e.key, e.count)
@@ -100,22 +130,9 @@ def arena_breakdown(pipe, n: int, card: str, reps: int = 7) -> None:
     stream = torch.cuda.current_stream().cuda_stream
 
     def prefix_ms(k: int) -> float:
-        def run():
-            _build.check(lib.yf_arena_stage(
-                descs.data_ptr(), k, consts.data_ptr(), ptrs, 2, n,
-                st.arena_bytes, arena.THREADS, stream), "arena prefix")
-        for _ in range(2):
-            run()
-        times = []
-        for _ in range(reps):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            run()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        return sorted(times)[reps // 2]
+        return _event_ms(lambda: _build.check(lib.yf_arena_stage(
+            descs.data_ptr(), k, consts.data_ptr(), ptrs, 2, n,
+            st.arena_bytes, arena.THREADS, stream), "arena prefix"), reps)
 
     names = {arena.COPY: "COPY", arena.CONV: "CONV", arena.DW: "DW",
              arena.MAXPOOL: "MAXPOOL", arena.ADD: "ADD",
@@ -143,26 +160,92 @@ def arena_breakdown(pipe, n: int, card: str, reps: int = 7) -> None:
               f"out{oh}x{oh}")
 
 
+def section_breakdown(eng, x, card: str) -> None:
+    """CUDA-event time of each section kernel of a tiled plan on ``x``."""
+    from yoloface_tpu_torch.kernels import arena, tiled
+    plan = eng.arena
+    env = plan.run_stages(x)
+    names = {arena.COPY: "copy", arena.CONV: "conv", arena.DW: "dw",
+             arena.MAXPOOL: "pool", arena.ADD: "add",
+             arena.QUANTIZE: "quant"}
+    rows = []
+    for k, st in enumerate(plan.stages):
+        ins = [env[i] for i in st.inputs]
+        ms = _event_ms(lambda: tiled.tiled_section(
+            st, getattr(plan, f"descs{k}"), getattr(plan, f"consts{k}"),
+            ins))
+        ops = [names[int(c)] for c in st.descs[:, arena.F["code"]]]
+        rows.append((ms, k, st, ops))
+    total = sum(r[0] for r in rows)
+    print(f"[sections] N={x.shape[0]}: {len(rows)} section kernels "
+          f"{total:.3f} ms ({card})")
+    for ms, k, st, ops in rows:
+        print(f"  {ms:8.3f} ms ({ms / total:6.1%})  section {k} ops "
+              f"[{st.start},{st.end}) {st.strips} strips of {st.unit}, "
+              f"{st.arena_bytes} B arena, recompute {st.recompute:.3f}: "
+              f"{' '.join(o for o in ops if o != 'copy')}")
+
+
+def share_sweep(graph, mode: str, shares, x, card: str) -> None:
+    """The 448 net's CUDA-event time (median of 7) when the planner sizes
+    strips for ``budget / share`` of shared memory, for each share."""
+    from yoloface_tpu_torch.kernels import tiled
+    from yoloface_tpu_torch.runtime.engine import Int8Engine
+    default = tiled.TARGET_SHARE
+    try:
+        for share in shares:
+            tiled.TARGET_SHARE = share
+            eng = Int8Engine(graph, mode, device="cuda")
+            st = eng.arena.stages
+            ms = _event_ms(lambda: eng(x))
+            print(f"[share] {share}: {len(st)} sections, strips "
+                  f"{[s.strips for s in st]}, arenas "
+                  f"{[s.arena_bytes for s in st]} B, recompute "
+                  f"{[round(s.recompute, 3) for s in st]}: {ms:.3f} ms at "
+                  f"N={x.shape[0]} ({card})")
+    finally:
+        tiled.TARGET_SHARE = default
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batch", type=int, default=65536)
     ap.add_argument("--arena-batch", type=int, default=16384)
+    ap.add_argument("--batch448", type=int, default=1024)
+    ap.add_argument("--shares", nargs="*", type=int, default=[],
+                    help="tiled modes: time the 448 net at these "
+                    "strip-height targets (tiled.TARGET_SHARE)")
     ap.add_argument("--modes", nargs="+", default=["arena2"],
-                    choices=["arena2", "arena", "arena_exact"])
+                    choices=["arena2", "arena", "arena_exact", "tiled2",
+                             "tiled", "tiled_exact"])
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 1
+    from yoloface_tpu_torch.graph.retarget import retarget_spatial
+    from yoloface_tpu_torch.io.tflite_import import load_tflite
     from yoloface_tpu_torch.pipeline.e2e import load_pipeline
+    from yoloface_tpu_torch.runtime.engine import TILED_BITS, Int8Engine
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,clocks.max.sm",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     for mode in args.modes:
         print(f"[mode] {mode}")
+        if mode in TILED_BITS:
+            g448 = retarget_spatial(load_tflite(CORPUS), 8)
+            eng = Int8Engine(g448, mode, device="cuda")
+            x = _int8_frames(args.batch448, 448)
+            profile_pipeline(lambda: eng(x), args.batch448, card)
+            section_breakdown(eng, x, card)
+            share_sweep(g448, mode, args.shares, x, card)
+            del x
+            continue
         pipe = load_pipeline(CORPUS, mode=mode, device="cuda")
-        profile_pipeline(pipe, args.batch, card)
+        f = _frames(args.batch)
+        profile_pipeline(lambda: pipe.detect_rgb565(f), args.batch, card)
+        del f
         arena_breakdown(pipe, args.arena_batch, card)
     return 0
 

@@ -54,11 +54,11 @@ from yoloface_tpu_torch.ops.int8_fast2 import epilogue_v2
 from yoloface_tpu_torch.ops.int8_ref import (_conv_acc, _dw_acc,
                                              _same_pad_amounts, _window_max,
                                              add_int8, leaky_relu_int8,
-                                             pad_spatial, requantize_int8)
+                                             requantize_int8)
 
 BITS = ("fast", "fast2", "exact")
 # op codes and epilogues; the field layout below is the ``Op`` struct of
-# csrc/arena_stage.cu, one int32 each.  ``epi`` is the requant of a
+# csrc/arena_ops.cuh, one int32 each.  ``epi`` is the requant of a
 # CONV/DW (fast f32, fused leaky v2 / v1, exact, fused exact leaky) and
 # says fast (EPI_REQUANT) or exact (EPI_REQUANT_EXACT) for ADD and QUANTIZE.
 COPY, CONV, DW, MAXPOOL, ADD, QUANTIZE = range(6)
@@ -78,7 +78,13 @@ FIELDS = ("code", "epi",
           # QUANTIZE's in m0/e0; the ADD's left shift
           "q_off", "m0", "e0", "m1", "e1", "m2", "e2", "lsh")
 OP_INTS = 48                       # FIELDS padded to 192 bytes
+# a strip program (kernels/tiled.py) appends the ``Band`` of in0, in1 and
+# out to each descriptor: the ``StripOp`` struct of csrc/tiled_section.cu
+BAND_FIELDS = tuple(f"{v}_{k}" for v in ("in0", "in1", "out")
+                    for k in ("m", "a", "rows"))
+STRIP_OP_INTS = 64                 # OP_INTS + BAND_FIELDS padded to 256 B
 F = {name: i for i, name in enumerate(FIELDS)}
+F.update({name: OP_INTS + i for i, name in enumerate(BAND_FIELDS)})
 
 ARENA_BUDGET = 227 * 1024          # H100: 232,448 B of shared memory a block
 MAX_GLOBALS = 16                   # device tensors one stage may touch
@@ -108,6 +114,26 @@ class View:
 
 
 NOVIEW = View(0, 0, 0, 0, 0, 0)
+
+
+@dataclasses.dataclass(frozen=True)
+class Band:
+    """The image rows a view holds in strip ``j``: ``[j*m - a, j*m - a +
+    rows)``, clipped to the image.  A whole frame is ``Band(0, 0, H)``; a
+    section output in device memory is ``Band(m, 0, m)``, the rows strip
+    ``j`` owns.  An op computes the rows of its output's band."""
+
+    m: int
+    a: int
+    rows: int
+
+    def span(self, j: int, h: int) -> Tuple[int, int]:
+        """[lo, hi) of the image rows (of ``h``) strip ``j`` covers."""
+        y0 = j * self.m - self.a
+        return max(0, y0), min(h, y0 + self.rows)
+
+    def fields(self) -> List[int]:
+        return [self.m, self.a, self.rows]
 
 
 @dataclasses.dataclass
@@ -309,29 +335,46 @@ def lower_arena_ops(graph: GraphDef, bits: str = "fast2"):
 
 @dataclasses.dataclass
 class Stage:
-    """One planned stage: its encoded program, constants and globals."""
+    """One planned stage: its encoded program, constants and globals.  A
+    whole-frame stage has ``OP_INTS`` descriptors and no bands; a strip
+    program (a tiled section) has ``STRIP_OP_INTS`` ones and runs over
+    ``strips`` strips of each frame."""
 
-    descs: np.ndarray              # int32 [n_ops, OP_INTS]
+    descs: np.ndarray              # int32 [n_ops, OP_INTS | STRIP_OP_INTS]
     consts: np.ndarray             # uint8: weights, bias_eff, scales
     arena_bytes: int
     inputs: List[int]              # global spaces 1..len(inputs)
     outputs: List[int]             # the spaces after them
     shapes: Dict[int, Tuple[int, int, int]]   # (H, W, C) of each global
+    strips: int = 1
+    bands: Optional[Dict[int, Band]] = None    # of each arena tensor
 
     @property
     def globals_(self) -> List[int]:
         return self.inputs + self.outputs
 
 
-def plan_stage(graph: GraphDef, lops: Sequence[LOp], start: int, end: int,
-               concat_alias: Dict[int, Tuple[int, int]]) -> Stage:
-    """Place lops[start:end] in one arena and encode their descriptors."""
-    stage = list(lops[start:end])
-    produced = {lp.out for lp in stage}
+def stage_outputs(graph: GraphDef, lops: Sequence[LOp], start: int,
+                  end: int) -> List[int]:
+    """The tensors lops[start:end] produce that later ops or the graph
+    read: the stage's outputs to device memory."""
     later = set(graph.outputs)
     for lp in lops[end:]:
         later.update(lp.ins)
-    outputs = [lp.out for lp in stage if lp.out in later]
+    return [lp.out for lp in lops[start:end] if lp.out in later]
+
+
+def plan_stage(graph: GraphDef, lops: Sequence[LOp], start: int, end: int,
+               concat_alias: Dict[int, Tuple[int, int]],
+               bands: Optional[Dict[int, Band]] = None,
+               strips: int = 1) -> Stage:
+    """Place lops[start:end] in one arena and encode their descriptors.
+    With ``bands`` (the rows a strip holds of each tensor, kernels/tiled.py)
+    each tensor takes its band's rows of the arena and the descriptors
+    carry the bands: a strip program over ``strips`` strips."""
+    stage = list(lops[start:end])
+    produced = {lp.out for lp in stage}
+    outputs = stage_outputs(graph, lops, start, end)
     inputs: List[int] = []
     for lp in stage:
         for i in lp.ins:
@@ -366,6 +409,8 @@ def plan_stage(graph: GraphDef, lops: Sequence[LOp], start: int, end: int,
     for r in sorted(life, key=lambda r: (life[r][0], r)):
         lo, hi = life[r]
         h, w, c = _hwc(graph, r)
+        if bands is not None:
+            h = bands[r].rows
         size = -(-h * w * c // _ALIGN) * _ALIGN
         off = 0
         for plo, phi, poff, psize in sorted(placed, key=lambda p: p[2]):
@@ -376,16 +421,20 @@ def plan_stage(graph: GraphDef, lops: Sequence[LOp], start: int, end: int,
         offset[r] = off
     arena_bytes = max((p[2] + p[3] for p in placed), default=0)
 
-    def view(i: int) -> View:
+    def view(i: int) -> Tuple[View, Band]:
         h, w, c = _hwc(graph, i)
         if i in alias:
             cout, c0 = alias[i]
-            return view(cout).channels(c0, c)
-        return View(0, offset[i], h, w, c, c)
+            v, band = view(cout)
+            return v.channels(c0, c), band
+        return (View(0, offset[i], h, w, c, c),
+                Band(0, 0, h) if bands is None else bands[i])
 
-    def gview(i: int) -> View:
+    def gview(i: int) -> Tuple[View, Band]:
         h, w, c = shapes[i]
-        return View(1 + (inputs + outputs).index(i), 0, h, w, c, c)
+        band = (Band(bands[i].m, 0, bands[i].m)      # the rows a strip owns
+                if bands is not None and i in outputs else Band(0, 0, h))
+        return View(1 + (inputs + outputs).index(i), 0, h, w, c, c), band
 
     consts = bytearray()
 
@@ -397,13 +446,17 @@ def plan_stage(graph: GraphDef, lops: Sequence[LOp], start: int, end: int,
 
     rows: List[List[int]] = []
 
-    def emit(code, out: View, in0: View = NOVIEW, in1: View = NOVIEW,
-             lp: Optional[LOp] = None, **kw) -> None:
-        row = [0] * OP_INTS
+    none = (NOVIEW, Band(0, 0, 0))
+
+    def emit(code, out: Tuple[View, Band], in0: Tuple[View, Band] = none,
+             in1: Tuple[View, Band] = none, lp: Optional[LOp] = None,
+             **kw) -> None:
+        row = [0] * (OP_INTS if bands is None else STRIP_OP_INTS)
         row[F["code"]] = code
-        row[F["in0_space"]:F["in0_space"] + 6] = in0.fields()
-        row[F["in1_space"]:F["in1_space"] + 6] = in1.fields()
-        row[F["out_space"]:F["out_space"] + 6] = out.fields()
+        for name, (v, band) in (("in0", in0), ("in1", in1), ("out", out)):
+            row[F[name + "_space"]:F[name + "_space"] + 6] = v.fields()
+            if bands is not None:
+                row[F[name + "_m"]:F[name + "_m"] + 3] = band.fields()
         if lp is not None:
             row[F["epi"]] = lp.epi
             row[F["kh"]:F["kh"] + 7] = list(lp.window)
@@ -424,24 +477,25 @@ def plan_stage(graph: GraphDef, lops: Sequence[LOp], start: int, end: int,
                 loaded.add(i)
                 emit(COPY, view(i), gview(i))
         if lp.code == CONCAT:
-            out_v = view(lp.out)
+            out_v, out_band = view(lp.out)
             for i, c0 in zip(lp.ins, lp.offsets):
                 if alias.get(i) != (lp.out, c0):
                     c = _hwc(graph, i)[2]
-                    emit(COPY, out_v.channels(c0, c), view(i))
+                    emit(COPY, (out_v.channels(c0, c), out_band), view(i))
         elif lp.code in (CONV, DW):
             req = ({"q_off": put(lp.qms)} if lp.epi in EXACT_EPIS
                    else {"s_off": put(lp.scale)})
             emit(lp.code, view(lp.out), view(lp.ins[0]), lp=lp,
                  w_off=put(lp.weights), b_off=put(lp.bias), **req)
         else:
-            in1 = view(lp.ins[1]) if len(lp.ins) > 1 else NOVIEW
+            in1 = view(lp.ins[1]) if len(lp.ins) > 1 else none
             emit(lp.code, view(lp.out), view(lp.ins[0]), in1, lp=lp)
         if lp.out in outputs:
             emit(COPY, gview(lp.out), view(lp.out))
-    return Stage(np.asarray(rows, np.int32).reshape(-1, OP_INTS),
+    width = OP_INTS if bands is None else STRIP_OP_INTS
+    return Stage(np.asarray(rows, np.int32).reshape(-1, width),
                  np.frombuffer(bytes(consts) or b"\0", np.uint8).copy(),
-                 arena_bytes, inputs, outputs, shapes)
+                 arena_bytes, inputs, outputs, shapes, strips, bands)
 
 
 def build_arena_plan(graph: GraphDef, budget: int = ARENA_BUDGET,
@@ -475,30 +529,40 @@ def _f32(bits: int) -> float:
     return float(np.int32(bits).view(np.float32))
 
 
-def _realize(v: View, arena: torch.Tensor,
-             gl: Sequence[torch.Tensor]) -> torch.Tensor:
+def _realize(v: View, band: Band, j: int, arena: torch.Tensor,
+             gl: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, int]:
+    """(the rows a view holds in strip ``j`` as [N,rows,W,C], the image
+    row of its first row).  Device-memory views hold the whole image."""
     n = arena.shape[0]
     if v.space == 0:
         return arena.as_strided(
-            (n, v.h, v.w, v.c), (arena.shape[1], v.w * v.cstride, v.cstride, 1),
-            arena.storage_offset() + v.offset)
+            (n, band.rows, v.w, v.c),
+            (arena.shape[1], v.w * v.cstride, v.cstride, 1),
+            arena.storage_offset() + v.offset), j * band.m - band.a
     g = gl[v.space - 1]
     return g.as_strided((n, v.h, v.w, v.c),
                         (v.h * v.w * v.cstride, v.w * v.cstride, v.cstride, 1),
-                        g.storage_offset() + v.offset)
+                        g.storage_offset() + v.offset), 0
 
 
-def _padded_window(x: torch.Tensor, d, out: View) -> torch.Tensor:
-    """Input of a window op padded by its fill to exactly the extent the
-    output's windows read."""
+def _padded_window(x: torch.Tensor, y0: int, d, in0: View, out: View,
+                   lo: int, hi: int) -> torch.Tensor:
+    """The input of a window op for output rows [lo, hi), ``x`` holding
+    input image rows from ``y0`` on: rows and columns outside the image
+    take the op's fill, to exactly the extent the windows read."""
     kh, kw, sh, sw, pt, pl, fill = (int(d[F[k]]) for k in
                                     ("kh", "kw", "sh", "sw", "pt", "pl",
                                      "fill"))
-    need_h = (out.h - 1) * sh + kh
+    r0, r1 = lo * sh - pt, (hi - 1) * sh - pt + kh
+    v0, v1 = max(r0, 0), min(r1, in0.h)
+    if v0 < v1 and not (y0 <= v0 and v1 <= y0 + x.shape[1]):
+        raise ValueError(f"window rows [{v0},{v1}) outside the held rows")
     need_w = (out.w - 1) * sw + kw
-    xp = pad_spatial(x, (pt, max(0, need_h - pt - x.shape[1])),
-                     (pl, max(0, need_w - pl - x.shape[2])), fill)
-    return xp[:, :need_h, :need_w, :]
+    xp = torch.full((x.shape[0], r1 - r0, max(need_w, pl + in0.w), in0.c),
+                    fill, dtype=x.dtype, device=x.device)
+    if v0 < v1:
+        xp[:, v0 - r0:v1 - r0, pl:pl + in0.w] = x[:, v0 - y0:v1 - y0]
+    return xp[:, :, :need_w]
 
 
 def _const(consts: torch.Tensor, off: int, count: int, dtype) -> torch.Tensor:
@@ -532,66 +596,84 @@ def _conv_epilogue(acc: torch.Tensor, d: List[int], consts: torch.Tensor,
 
 def arena_stage_plain(stage: Stage, consts: torch.Tensor,
                       gl: Sequence[torch.Tensor]) -> None:
-    """Run ``stage``'s descriptors in torch; ``gl`` holds the stage inputs
-    then its (preallocated) outputs, int8 [N,H,W,C] each."""
+    """Run ``stage``'s descriptors in torch, strip by strip for a strip
+    program; ``gl`` holds the stage inputs then its (preallocated)
+    outputs, int8 [N,H,W,C] each."""
     n = gl[0].shape[0]
     arena = torch.zeros((n, max(stage.arena_bytes, 1)), dtype=torch.int8,
                         device=gl[0].device)
-    for d in stage.descs.tolist():
-        views = [View(*d[F[p + "_space"]:F[p + "_space"] + 6])
-                 for p in ("in0", "in1", "out")]
-        in0, in1, out = views
-        code = d[F["code"]]
-        x = _realize(in0, arena, gl)
-        if code == COPY:
-            res = x
-        elif code in (CONV, DW):
-            kh, kw, sh, sw = (d[F[k]] for k in ("kh", "kw", "sh", "sw"))
-            co = out.c
-            wshape = (1, kh, kw, co) if code == DW else (co, kh, kw, in0.c)
-            w = _const(consts, d[F["w_off"]], int(np.prod(wshape)),
-                       torch.int8).reshape(wshape)
-            bias = _const(consts, d[F["b_off"]], co, torch.int32)
-            xp = _padded_window(x, d, out)
-            acc = (_dw_acc if code == DW else _conv_acc)(xp, w, (sh, sw))
-            acc = acc + bias
-            res = _conv_epilogue(acc, d, consts, co)
-        elif code == MAXPOOL:
-            res = _window_max(_padded_window(x, d, out),
-                              (d[F["kh"]], d[F["kw"]]),
-                              (d[F["sh"]], d[F["sw"]]))
-        elif code == ADD:
-            kw = dict(zp1=d[F["zp_a"]], zp2=d[F["zp_b"]],
-                      zp_out=d[F["zp_out"]])
-            if d[F["epi"]] == EPI_REQUANT_EXACT:
-                m0, e0, m1, e1, m2, e2 = d[F["m0"]:F["m0"] + 6]
-                res = add_int8(x, _realize(in1, arena, gl), qm1=m0,
-                               shift1=e0, qm2=m1, shift2=e1, qm_out=m2,
-                               shift_out=e2, left_shift=d[F["lsh"]], **kw)
-            else:
-                res = add_int8_fast(x, _realize(in1, arena, gl),
-                                    scale1=_f32(d[F["f0"]]),
-                                    scale2=_f32(d[F["f1"]]), **kw)
-        elif code == QUANTIZE:
-            kw = dict(input_zp=d[F["zp_a"]], output_zp=d[F["zp_out"]])
-            if d[F["epi"]] == EPI_REQUANT_EXACT:
-                res = requantize_int8(x, qm=d[F["m0"]], shift=d[F["e0"]],
-                                      **kw)
-            else:
-                res = requantize_int8_fast(x, scale=_f32(d[F["f0"]]), **kw)
+    descs = stage.descs.tolist()
+    for j in range(stage.strips):
+        for d in descs:
+            _plain_op(d, j, consts, arena, gl)
+
+
+def _plain_op(d: List[int], j: int, consts: torch.Tensor,
+              arena: torch.Tensor, gl: Sequence[torch.Tensor]) -> None:
+    """One descriptor over the output rows strip ``j`` computes."""
+    views, bands = [], []
+    for p in ("in0", "in1", "out"):
+        v = View(*d[F[p + "_space"]:F[p + "_space"] + 6])
+        views.append(v)
+        bands.append(Band(*d[F[p + "_m"]:F[p + "_m"] + 3])
+                     if len(d) > OP_INTS else Band(0, 0, v.h))
+    (in0, in1, out), (b_in0, b_in1, b_out) = views, bands
+    lo, hi = b_out.span(j, out.h)
+    if lo >= hi:
+        return
+    code = d[F["code"]]
+    x, y0 = _realize(in0, b_in0, j, arena, gl)
+
+    def rows(t: torch.Tensor, t0: int) -> torch.Tensor:
+        if lo < t0 or hi > t0 + t.shape[1]:
+            raise ValueError(f"rows [{lo},{hi}) outside the held rows")
+        return t[:, lo - t0:hi - t0]
+
+    if code == COPY:
+        res = rows(x, y0)
+    elif code in (CONV, DW):
+        kh, kw, sh, sw = (d[F[k]] for k in ("kh", "kw", "sh", "sw"))
+        co = out.c
+        wshape = (1, kh, kw, co) if code == DW else (co, kh, kw, in0.c)
+        w = _const(consts, d[F["w_off"]], int(np.prod(wshape)),
+                   torch.int8).reshape(wshape)
+        bias = _const(consts, d[F["b_off"]], co, torch.int32)
+        xp = _padded_window(x, y0, d, in0, out, lo, hi)
+        acc = (_dw_acc if code == DW else _conv_acc)(xp, w, (sh, sw))
+        res = _conv_epilogue(acc + bias, d, consts, co)
+    elif code == MAXPOOL:
+        res = _window_max(_padded_window(x, y0, d, in0, out, lo, hi),
+                          (d[F["kh"]], d[F["kw"]]), (d[F["sh"]], d[F["sw"]]))
+    elif code == ADD:
+        kw = dict(zp1=d[F["zp_a"]], zp2=d[F["zp_b"]], zp_out=d[F["zp_out"]])
+        b = rows(*_realize(in1, b_in1, j, arena, gl))
+        if d[F["epi"]] == EPI_REQUANT_EXACT:
+            m0, e0, m1, e1, m2, e2 = d[F["m0"]:F["m0"] + 6]
+            res = add_int8(rows(x, y0), b, qm1=m0, shift1=e0, qm2=m1,
+                           shift2=e1, qm_out=m2, shift_out=e2,
+                           left_shift=d[F["lsh"]], **kw)
         else:
-            raise ValueError(f"unknown arena op code {code}")
-        _realize(out, arena, gl).copy_(res)
+            res = add_int8_fast(rows(x, y0), b, scale1=_f32(d[F["f0"]]),
+                                scale2=_f32(d[F["f1"]]), **kw)
+    elif code == QUANTIZE:
+        kw = dict(input_zp=d[F["zp_a"]], output_zp=d[F["zp_out"]])
+        if d[F["epi"]] == EPI_REQUANT_EXACT:
+            res = requantize_int8(rows(x, y0), qm=d[F["m0"]],
+                                  shift=d[F["e0"]], **kw)
+        else:
+            res = requantize_int8_fast(rows(x, y0), scale=_f32(d[F["f0"]]),
+                                       **kw)
+    else:
+        raise ValueError(f"unknown arena op code {code}")
+    rows(*_realize(out, b_out, j, arena, gl)).copy_(res)
 
 
 # --------------------------------------------------------------------------
 # the kernel wrapper
 # --------------------------------------------------------------------------
-def arena_stage(stage: Stage, descs: torch.Tensor, consts: torch.Tensor,
-                xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    """Run one stage on its input tensors (int8 [N,H,W,C], in
-    ``stage.inputs`` order) -> its output tensors.  CPU tensors take
-    ``arena_stage_plain``; CUDA tensors launch ``yf_arena_stage``."""
+def prepare(stage: Stage, xs: Sequence[torch.Tensor]
+            ) -> Tuple[List[torch.Tensor], torch.device]:
+    """Check a stage's inputs; allocate its outputs on their device."""
     if len(xs) != len(stage.inputs):
         raise ValueError(f"stage takes {len(stage.inputs)} inputs")
     n = xs[0].shape[0]
@@ -603,13 +685,13 @@ def arena_stage(stage: Stage, descs: torch.Tensor, consts: torch.Tensor,
                              f"{tuple(x.shape)}")
         if x.device != dev or not x.is_contiguous():
             raise ValueError(f"input {i} must be contiguous on {dev}")
-    outs = [torch.empty((n,) + stage.shapes[o], dtype=torch.int8, device=dev)
-            for o in stage.outputs]
-    if dev.type == "cpu":
-        arena_stage_plain(stage, consts, list(xs) + outs)
-        return outs
-    if dev.type != "cuda":
-        raise ValueError(f"no arena kernel for device {dev}")
+    return [torch.empty((n,) + stage.shapes[o], dtype=torch.int8, device=dev)
+            for o in stage.outputs], dev
+
+
+def check_program(stage: Stage, descs: torch.Tensor, consts: torch.Tensor,
+                  dev: torch.device) -> None:
+    """Raise unless ``descs``/``consts`` are the stage's buffers on ``dev``."""
     if (descs.device != dev or descs.dtype != torch.int32
             or tuple(descs.shape) != stage.descs.shape
             or not descs.is_contiguous()):
@@ -617,6 +699,23 @@ def arena_stage(stage: Stage, descs: torch.Tensor, consts: torch.Tensor,
     if (consts.device != dev or consts.dtype != torch.uint8
             or consts.numel() != stage.consts.size):
         raise ValueError("consts must be the stage's uint8 buffer on the card")
+
+
+def arena_stage(stage: Stage, descs: torch.Tensor, consts: torch.Tensor,
+                xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Run one stage on its input tensors (int8 [N,H,W,C], in
+    ``stage.inputs`` order) -> its output tensors.  CPU tensors take
+    ``arena_stage_plain``; CUDA tensors launch ``yf_arena_stage``."""
+    if stage.bands is not None:
+        raise ValueError("a strip program runs on tiled.tiled_section")
+    outs, dev = prepare(stage, xs)
+    if dev.type == "cpu":
+        arena_stage_plain(stage, consts, list(xs) + outs)
+        return outs
+    if dev.type != "cuda":
+        raise ValueError(f"no arena kernel for device {dev}")
+    check_program(stage, descs, consts, dev)
+    n = xs[0].shape[0]
     if n == 0:
         return outs
     from yoloface_tpu_torch.kernels._build import check, library
@@ -642,20 +741,26 @@ class ArenaPlan(nn.Module):
                  bits: str = "fast2"):
         super().__init__()
         self.bits = bits
-        self.stages = build_arena_plan(graph, budget, bits)
+        self.stages = self._plan(graph, budget, bits)
         self.input_idx = graph.inputs[0]
         self.output_idxs = list(graph.outputs)
         for k, st in enumerate(self.stages):
             self.register_buffer(f"descs{k}", torch.from_numpy(st.descs))
             self.register_buffer(f"consts{k}", torch.from_numpy(st.consts))
 
+    def _plan(self, graph: GraphDef, budget: int, bits: str) -> List[Stage]:
+        return build_arena_plan(graph, budget, bits)
+
+    def _launch(self, st: Stage):
+        return arena_stage
+
     def run_stages(self, x: torch.Tensor) -> Dict[int, torch.Tensor]:
         """int8 NHWC input -> every stage input and output tensor."""
         env = {self.input_idx: x.contiguous()}
         for k, st in enumerate(self.stages):
-            outs = arena_stage(st, getattr(self, f"descs{k}"),
-                               getattr(self, f"consts{k}"),
-                               [env[i] for i in st.inputs])
+            outs = self._launch(st)(st, getattr(self, f"descs{k}"),
+                                    getattr(self, f"consts{k}"),
+                                    [env[i] for i in st.inputs])
             env.update(zip(st.outputs, outs))
         return env
 

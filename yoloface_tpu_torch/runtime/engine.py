@@ -1,6 +1,6 @@
 """Int8 graph engine as a torch ``nn.Module``.
 
-The counterpart of ``yoloface_tpu.runtime.engine.Int8Engine`` for six
+The counterpart of ``yoloface_tpu.runtime.engine.Int8Engine`` for nine
 modes, each bit-identical to its JAX twin:
 
   * ``exact``  -- per-op torch, gemmlowp fixed-point requantization (int64);
@@ -11,7 +11,14 @@ modes, each bit-identical to its JAX twin:
     stages (``kernels/arena.py``) in exact / fast / fast2 bits: the CUDA
     stage kernel on the card, its plain torch version on the CPU.  The
     counterparts of ``pallas_mxu_exact`` / ``pallas_mxu`` / ``pallas_mxu2``,
-    bit-identical to ``exact`` / ``fast`` / ``fast2``.
+    bit-identical to ``exact`` / ``fast`` / ``fast2``;
+  * ``tiled_exact`` / ``tiled`` / ``tiled2`` -- the net as tiled sections
+    (``kernels/tiled.py``: strip programs for graphs whose ops do not fit
+    one block's shared memory on a whole frame, such as the 448 family of
+    ``graph/retarget.py``; the arena plan for graphs that fit): the CUDA
+    section kernel on the card, its plain torch version on the CPU.  The
+    counterparts of ``pallas_tiled_exact`` / ``pallas_tiled`` /
+    ``pallas_tiled2``, bit-identical to ``exact`` / ``fast`` / ``fast2``.
 
 Weights, biases and requant constants are buffers, so ``.to(device)`` moves
 the engine.  Activations are int8 NHWC ``[N,H,W,C]`` at every public
@@ -32,8 +39,10 @@ from yoloface_tpu_torch.ops import int8_fast as fast_ops
 from yoloface_tpu_torch.ops import int8_fast2 as fast2_ops
 from yoloface_tpu_torch.ops import int8_ref as ref_ops
 
-MODES = ("exact", "fast", "fast2", "arena_exact", "arena", "arena2")
+MODES = ("exact", "fast", "fast2", "arena_exact", "arena", "arena2",
+         "tiled_exact", "tiled", "tiled2")
 ARENA_BITS = {"arena_exact": "exact", "arena": "fast", "arena2": "fast2"}
+TILED_BITS = {"tiled_exact": "exact", "tiled": "fast", "tiled2": "fast2"}
 
 
 def _check_conv(op: OpDef) -> None:
@@ -71,6 +80,9 @@ class Int8Engine(nn.Module):
         if mode in ARENA_BITS:
             from yoloface_tpu_torch.kernels.arena import ArenaPlan
             self.arena = ArenaPlan(graph, bits=ARENA_BITS[mode])
+        elif mode in TILED_BITS:
+            from yoloface_tpu_torch.kernels.tiled import TiledPlan
+            self.arena = TiledPlan(graph, bits=TILED_BITS[mode])
         elif mode == "fast2":
             self._plan = self._lower_ops_fast2()
         else:
@@ -247,7 +259,7 @@ class Int8Engine(nn.Module):
             raise ValueError(f"expected int8 input, got {x.dtype}")
 
     def _env(self, x: torch.Tensor) -> Dict[int, torch.Tensor]:
-        if self.mode in ARENA_BITS:
+        if self.mode in ARENA_BITS or self.mode in TILED_BITS:
             return self.arena.run_stages(x)
         env = {self.input_idx: x}
         for out_idx, fn in self._plan:
@@ -255,8 +267,9 @@ class Int8Engine(nn.Module):
         return env
 
     def forward(self, x: torch.Tensor):
-        """int8 frames [N,56,56,3] -> int8 [N,7,7,18] (a tuple for graphs
-        with several outputs)."""
+        """int8 frames [N,H,W,C] -> the graph's int8 output, e.g.
+        [N,56,56,3] -> [N,7,7,18] (a tuple for graphs with several
+        outputs)."""
         self._check_input(x)
         env = self._env(x)
         outs = tuple(env[o] for o in self.output_idxs)
@@ -265,8 +278,8 @@ class Int8Engine(nn.Module):
     @torch.no_grad()
     def run_with_intermediates(self, x) -> Dict[int, np.ndarray]:
         """Every activation tensor the mode materializes (all tensors for
-        the per-op modes; the stage inputs and outputs for the arena
-        modes), as numpy."""
+        the per-op modes; the stage or section inputs and outputs for the
+        arena and tiled modes), as numpy."""
         if isinstance(x, np.ndarray):
             x = torch.from_numpy(x)
         x = x.to(self._device())
