@@ -13,24 +13,38 @@ Phases (each prints its lines; any failure ends the run with an error):
      net's outputs; the tiled section kernel on every section output of
      the 448 net (retarget_spatial(corpus, 8), N = 1 and 3) and of the
      112 net under a small budget (7 sections of up to 28 strips), in each
-     bit semantics;
+     bit semantics; the fused-stage kernel on every stage output of the
+     corpus net cut at kernels.fused.FUSED_BUDGET (3 stages), 10**9 (1)
+     and 1 (34), N = 1, 3 and 37, and of the op-surface graph
+     (tools/make_torch_port_golden.surface_graph, every op the fused
+     stages lower) at the budget and at one op a stage, in fast and exact
+     bits; the op-surface outputs also against the golden keys;
   3. serving, one path after another, each with every launch count set to
      0 just before it and read just after (each of its kernels > 0):
      load_pipeline(..., device="cuda").detect_rgb565 in mode arena2 (fused
      head), arena_exact (fused head), arena_exact with
      HeadConfig(use_fused_head=False) (the top-K kernel and the staged
-     head) and arena (fused head); detections are held against the CPU path
-     of the same mode (the plain versions) and, for arena2 and arena_exact,
-     against the golden file tests/data/torch_port_frames.npz; then the
-     448 net, Int8Engine(g448, mode, device="cuda") in modes tiled2 and
-     tiled_exact, held against the CPU path and the golden 448 keys;
+     head), arena (fused head), fused and fused_exact (the preprocess, the
+     fused stages, the fused head); detections are held against the CPU
+     path of the same mode (the plain versions) and the int8 head against
+     the golden file tests/data/torch_port_frames.npz (head, head_exact,
+     head_fast; the golden detections for arena2, arena_exact and
+     fused_exact); then the 448 net, Int8Engine(g448, mode,
+     device="cuda") in modes tiled2 and tiled_exact, held against the CPU
+     path and the golden 448 keys;
   4. timing with CUDA events (warm-up, median of 10): each kernel against
      its plain version at batch 16384 (the arena in all three bit
-     semantics), the arena2 and arena_exact pipelines at 16384 and 65536,
-     and their synchronised latency (host clock, p50 of 10); the 448 net
-     in tiled2 and tiled_exact (the section kernel) at batch 1024 and at
-     128, against its plain version at 128 (median of 3);
-  5. the kernels JSON line, the card line, and the result line last.
+     semantics, the fused stages in both), the one PyTorch call that
+     computes a kernel's function where there is one (torch.topk for the
+     top-K kernel), the arena2, arena_exact, fused and fused_exact
+     pipelines at 16384 and 65536, and their synchronised latency (host
+     clock, p50 of 10); the 448 net in tiled2 and tiled_exact (the section
+     kernel) at batch 1024 and at 128, against its plain version at 128
+     (median of 3);
+  5. the kernels JSON line (each kernel's time beside its bound: the larger
+     of the bytes its function must move over 3.35 TB/s and its
+     operations over the card's peak rate for them), the card line, and
+     the result line last.
 
 Without a CUDA device it exits non-zero and prints no result.
 """
@@ -53,6 +67,56 @@ TIMING_BATCH = 16384
 BATCH448, PLAIN_BATCH448 = 1024, 128
 TILE_SMALL = 16 * 1024     # the 112 net in 7 sections of 2-28 strips
 REPS = 10
+# the H100 SXM's published peaks: HBM bytes/s;
+# int8 tensor-core ops/s (2 a multiply-add); float32 outside the tensor
+# cores, the most the CUDA cores' compares and integer ops could reach
+HBM_RATE, INT8_RATE, CORE_RATE = 3.35e12, 1979e12, 67e12
+# mode: (golden int8 head, prefix of its golden detections or None)
+GOLD_KEYS = {"arena2": ("head", ""), "arena_exact": ("head_exact", "exact_"),
+             "fused": ("head_fast", None),
+             "fused_exact": ("head_exact", "exact_")}
+
+
+def _golden_tool():
+    """tools/make_torch_port_golden.py (numpy at import; jax only inside
+    the functions that compute the JAX side, which this script never
+    calls)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "make_torch_port_golden",
+        os.path.join(ROOT, "tools", "make_torch_port_golden.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _net_work(graph):
+    """(multiply-adds, max-pool compares) of one frame of an int8 graph:
+    K*K*Ci MACs a conv output (K*K a depthwise one); a max-pool computed
+    separably, kw compares for each of the (oh - 1) * s + kh rows of its
+    row pass and kh for each output."""
+    macs = compares = 0
+    for op in graph.ops:
+        oh, ow, c = graph.tensor(op.outputs[0]).shape[1:]
+        if op.opname in ("CONV_2D", "DEPTHWISE_CONV_2D"):
+            _, kh, kw, ci = graph.tensor(op.inputs[1]).data.shape
+            macs += oh * ow * c * kh * kw * (
+                ci if op.opname == "CONV_2D" else 1)
+        elif op.opname == "MAX_POOL_2D":
+            a = op.attrs
+            rows = (oh - 1) * a["stride_h"] + a["filter_h"]
+            compares += (rows * a["filter_w"] + oh * a["filter_h"]) * ow * c
+    return macs, compares
+
+
+def _bound(nbytes: float, macs: float = 0, core_ops: float = 0):
+    """(ms, "bytes" | "operations"): the least time the card could take,
+    the larger of the bytes over the HBM rate and the operations over
+    their peak (multiply-adds on the int8 tensor cores, other integer ops
+    at the CUDA cores' rate, each unit at its own peak at once)."""
+    t_bytes = nbytes / HBM_RATE * 1e3
+    t_ops = max(2 * macs / INT8_RATE, core_ops / CORE_RATE) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def _smi(fields: str) -> str:
@@ -107,13 +171,13 @@ def main() -> int:
 
     from yoloface_tpu_torch.graph.retarget import retarget_spatial
     from yoloface_tpu_torch.io.tflite_import import load_tflite
-    from yoloface_tpu_torch.kernels import _build, arena, tiled
+    from yoloface_tpu_torch.kernels import _build, arena, fused, tiled
     from yoloface_tpu_torch.kernels import head as khead
     from yoloface_tpu_torch.kernels import preprocess as kpre
     from yoloface_tpu_torch.pipeline import head as thead
     from yoloface_tpu_torch.pipeline.e2e import FacePipeline, load_pipeline
-    from yoloface_tpu_torch.runtime.engine import (ARENA_BITS, TILED_BITS,
-                                                   Int8Engine)
+    from yoloface_tpu_torch.runtime.engine import (ARENA_BITS, FUSED_BITS,
+                                                   TILED_BITS, Int8Engine)
 
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions: f64
     torch.backends.cudnn.allow_tf32 = False
@@ -146,12 +210,18 @@ def main() -> int:
         pipes[modes[bits]] = load_pipeline(CORPUS, mode=modes[bits],
                                            device=dev)
     plans = {bits: pipes[modes[bits]].engine.arena for bits in modes}
+    for mode in FUSED_BITS:
+        pipes[mode] = load_pipeline(CORPUS, mode=mode, device=dev)
+    fplans = {bits: pipes[mode].engine.arena
+              for mode, bits in FUSED_BITS.items()}
     head_kw = dict(scale=pipe._out_scale, zero_point=pipe._out_zp)
     counted = (kpre.preprocess_rgb565, arena.arena_stage, khead.detect_head,
-               khead.topk_conf, tiled.tiled_section)
+               khead.topk_conf, tiled.tiled_section, fused.fused_stage)
     err = {"preprocess_rgb565": 0.0, "arena_stage": 0.0,
            "requant_epilogue": 0.0, "detect_head": 0.0, "topk_conf": 0.0,
-           "tiled_section": 0.0}
+           "tiled_section": 0.0, "fused_stage": 0.0}
+    gold = dict(np.load(GOLDEN))
+    tool = _golden_tool()
 
     # -------------------------------------- 2. kernels vs plain, on the card
     for n in (1, 7, 4096):
@@ -236,6 +306,49 @@ def main() -> int:
                   f"{[st.arena_bytes for st in p.stages]} B: every section "
                   "output bit-exact")
 
+    def check_fused(p, x, tag):
+        """Each stage through the kernel and its plain version; -> the
+        kernel's tensors."""
+        env = {p.input_idx: x}
+        for k, st in enumerate(p.stages):
+            ins = [env[i] for i in st.inputs]
+            outs = fused.fused_stage(st, getattr(p, f"descs{k}"),
+                                     getattr(p, f"consts{k}"), ins)
+            ref = [torch.empty_like(o) for o in outs]
+            fused.fused_stage_plain(st, getattr(p, f"consts{k}"), ins + ref)
+            torch.cuda.synchronize()
+            for o, u, v in zip(st.outputs, outs, ref):
+                _require(torch.equal(u, v), f"fused stage {k} t{o} {tag}")
+            err["fused_stage"] = max(err["fused_stage"],
+                                     _max_err(zip(outs, ref)))
+            env.update(zip(st.outputs, outs))
+        return env
+
+    surface = tool.surface_graph()
+    for bits in fused.BITS:
+        for budget, n_stages in ((fused.FUSED_BUDGET, 3), (10 ** 9, 1),
+                                 (1, 34)):
+            p = fused.FusedPlan(corpus, budget, bits).to(dev)
+            _require(len(p.stages) == n_stages,
+                     f"fused {bits} budget {budget}: {n_stages} stages")
+            for n in (1, 3, 37):
+                check_fused(p, int8_frames(n, 56), f"{bits} {budget} N={n}")
+            print(f"[check] fused_stage {bits} bits, budget {budget}: "
+                  f"{len(p.stages)} stages of up to "
+                  f"{max(st.smem_bytes for st in p.stages)} B shared "
+                  "memory, N=1/3/37: every stage output bit-exact")
+        xs = torch.from_numpy(tool.surface_frames()).to(dev)
+        for budget in (fused.FUSED_BUDGET, 1):
+            p = fused.FusedPlan(surface, budget, bits).to(dev)
+            env = check_fused(p, xs, f"op surface {bits} {budget}")
+            for k, o in enumerate(surface.outputs):
+                _require(np.array_equal(env[o].cpu().numpy(),
+                                        gold[f"surface_{bits}{k}"]),
+                         f"op surface {bits} {budget}: golden output {k}")
+            print(f"[check] fused_stage {bits} bits, op-surface graph in "
+                  f"{len(p.stages)} stage(s): bit-exact, outputs equal the "
+                  "golden keys")
+
     rng_h = np.random.default_rng(23)          # tests/test_pipeline.py:262
     yc = rng_h.integers(-128, 128, (48, 7, 7, 18), dtype=np.int64)
     yc = yc.astype(np.int8)
@@ -269,7 +382,6 @@ def main() -> int:
               "bit-exact indices")
 
     # ---------------------------------------------------------- 3. serving
-    gold = dict(np.load(GOLDEN))
     gold_frames = torch.from_numpy(gold["frames"]).to(dev)
     staged = thead.HeadConfig(use_fused_head=False)
     paths = {   # name: (pipeline, head config, batches, kernels it runs)
@@ -278,6 +390,10 @@ def main() -> int:
         "arena_exact staged": (pipes["arena_exact"], staged, (8, 256),
                                counted[:2] + counted[3:4]),
         "arena": (pipes["arena"], None, (8, 256), counted[:3]),
+        "fused": (pipes["fused"], None, (8, 256),
+                  (counted[0], counted[5], counted[2])),
+        "fused_exact": (pipes["fused_exact"], None, (8, 256),
+                        (counted[0], counted[5], counted[2])),
     }
     launches = {}
 
@@ -318,19 +434,19 @@ def main() -> int:
                   f"path, {int(served[n]['count'].sum())} detections equal "
                   f"within boxes {thead.BOX_ATOL} / scores "
                   f"{thead.SCORE_ATOL}")
-        if eng.mode == "arena":
+        if eng.mode not in GOLD_KEYS:
             continue
-        exact = eng.mode == "arena_exact"
+        key, prefix = GOLD_KEYS[eng.mode]
         y_gold = eng(p.preprocess(gold_frames))
-        _require(np.array_equal(y_gold.cpu().numpy(),
-                                gold["head_exact" if exact else "head"]),
-                 f"{path}: golden int8 head")
-        prefix = "exact_" if exact else ""
-        close(served[8], {k: gold[prefix + k] for k in
-                          ("boxes", "scores", "valid", "count")},
-              f"{path}: golden")
-        print(f"[serve] {path}: golden file: int8 head bit-exact, counts "
-              f"{served[8]['count'].tolist()} equal")
+        _require(np.array_equal(y_gold.cpu().numpy(), gold[key]),
+                 f"{path}: golden int8 head {key}")
+        if prefix is not None:
+            close(served[8], {k: gold[prefix + k] for k in
+                              ("boxes", "scores", "valid", "count")},
+                  f"{path}: golden")
+        print(f"[serve] {path}: golden file: int8 head bit-exact vs {key}"
+              + ("" if prefix is None else
+                 f", counts {served[8]['count'].tolist()} equal"))
 
     gold448 = np.random.default_rng(SEED448).integers(
         -128, 128, (2, 448, 448, 3), dtype=np.int64).astype(np.int8)
@@ -352,7 +468,7 @@ def main() -> int:
               f"pair of frames: launches {launches[path]}")
         _require(tiled.tiled_section.launches == 2 * len(eng.arena.stages),
                  f"{path}: every section through the kernel")
-        cpu = Int8Engine(g448, mode)
+        cpu = Int8Engine(g448, mode, device="cpu")
         for b, f in batches.items():
             _require(torch.equal(served[b].cpu(), cpu(f.cpu())),
                      f"{path} {b}: vs the CPU path")
@@ -374,6 +490,17 @@ def main() -> int:
         return (lambda: arena.arena_stage(st, descs, consts, [x]),
                 lambda: arena.arena_stage_plain(st, consts, [x] + outs))
 
+    def fused_pair(plan):
+        env = plan.run_stages(x)
+        outs = [[torch.empty_like(env[o]) for o in st.outputs]
+                for st in plan.stages]
+
+        def plain():
+            for k, st in enumerate(plan.stages):
+                fused.fused_stage_plain(st, getattr(plan, f"consts{k}"),
+                                        [env[i] for i in st.inputs] + outs[k])
+        return lambda: plan.run_stages(x), plain
+
     timed = {
         "preprocess_rgb565": (lambda: kpre.preprocess_rgb565(f),
                               lambda: kpre.preprocess_rgb565_plain(f)),
@@ -384,9 +511,13 @@ def main() -> int:
                         lambda: khead.detect_head_plain(y, **head_kw)),
         "topk_conf": (lambda: khead.topk_conf(y, 16, **head_kw),
                       lambda: khead.topk_conf_plain(y, 16, **head_kw)),
+        "fused_stage": fused_pair(fplans["fast"]),
+        "fused_stage exact": fused_pair(fplans["exact"]),
     }
     label = {"arena_stage": "arena_stage fast2",
-             "requant_epilogue": "arena_stage exact"}
+             "requant_epilogue": "arena_stage exact",
+             "fused_stage": "fused_stage fast (3 stages)",
+             "fused_stage exact": "fused_stage exact (3 stages)"}
     ms = {}
     for name, (kern, plain) in timed.items():
         # plain, kernel, kernel, plain: report each pair's mean
@@ -395,7 +526,13 @@ def main() -> int:
         ms[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
         print(f"[time] {label.get(name, name)} N={n}: kernel "
               f"{ms[name][0]:.4f} ms, plain {ms[name][1]:.4f} ms ({card})")
-    for mode in ("arena2", "arena_exact"):
+    # one PyTorch call computing a kernel's function: torch.topk on the
+    # ranking key (ties in any order; the kernel takes the lowest index)
+    key = khead.rank_key(y, **head_kw)[1]
+    library_ms = {"topk_conf": _time_ms(lambda: torch.topk(key, 16, dim=1))}
+    print(f"[time] torch.topk(key, 16) N={n}: {library_ms['topk_conf']:.4f} "
+          f"ms ({card})")
+    for mode in ("arena2", "arena_exact", "fused", "fused_exact"):
         for n in (16384, 65536):
             f = frames(n)
             t = _time_ms(lambda: pipes[mode].detect_rgb565(f))
@@ -461,16 +598,37 @@ def main() -> int:
         "tiled_section": (src + "tiled_section.cu",
                           "yoloface_tpu/kernels/pallas_tiled.py:1109",
                           "448 tiled2", "tiled_section"),
+        "fused_stage": (src + "fused_stage.cu",
+                        "yoloface_tpu/kernels/pallas_fused.py:518",
+                        "fused", "fused_stage"),
     }
     bits = {"arena_stage": ["fast2", "fast", "exact"],
             "requant_epilogue": ["fast", "exact"],
-            "tiled_section": ["fast2", "fast", "exact"]}
+            "tiled_section": ["fast2", "fast", "exact"],
+            "fused_stage": ["fast", "exact"]}
     ms["tiled_section"] = ms["tiled_section fast2"]
+    # the bound of each timed call, from this run's shapes
+    n, k_det, cells = TIMING_BATCH, 16, 7 * 7 * 3
+    net = _bound(n * (56 * 56 * 3 + 7 * 7 * 18), *(
+        n * w for w in _net_work(corpus)))
+    bounds = {
+        "preprocess_rgb565": _bound(n * (112 * 112 * 2 + 56 * 56 * 3),
+                                    core_ops=n * 56 * 56 * 3 * 5),
+        "arena_stage": net, "requant_epilogue": net, "fused_stage": net,
+        "detect_head": _bound(n * (7 * 7 * 18 + k_det * 21),
+                              core_ops=n * (k_det * cells + k_det ** 2)),
+        "topk_conf": _bound(n * (7 * 7 * 18 + k_det * 4),
+                            core_ops=n * k_det * cells),
+        "tiled_section": _bound(BATCH448 * (448 * 448 * 3 + 56 * 56 * 18),
+                                *(BATCH448 * w for w in _net_work(g448))),
+    }
     kernels = []
     for k, (source, tpu, path, counter) in meta.items():
         row = {"name": k, "route": "cuda", "source": source, "replaces": tpu,
                "launches": launches[path][counter], "max_abs_err": err[k],
-               "ms": ms[k][0], "plain_ms": ms[k][1]}
+               "ms": ms[k][0], "plain_ms": ms[k][1],
+               "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
+               "library_ms": library_ms.get(k)}
         if k in bits:
             row["bits"] = bits[k]
         if k == "tiled_section":     # the kernel at 1024, both at 128

@@ -103,7 +103,8 @@ def test_ragged_batches(corpus, n):
     rng = np.random.default_rng(n)
     x = rng.integers(-128, 128, (n, 56, 56, 3), dtype=np.int64).astype(np.int8)
     want = np.asarray(JaxEngine(jg, "fast2")(x))
-    got = Int8Engine(graph_from_jax(jg), "arena2")(torch.from_numpy(x))
+    got = Int8Engine(graph_from_jax(jg), "arena2",
+                     device="cpu")(torch.from_numpy(x))
     np.testing.assert_array_equal(got.numpy(), want)
 
 

@@ -16,6 +16,7 @@ from yoloface_tpu.runtime.engine import Int8Engine as JaxEngine
 from yoloface_tpu_torch.convert import graph_from_jax
 from yoloface_tpu_torch.graph.ir import GraphDef, OpDef, QParams, TensorDef
 from yoloface_tpu_torch.kernels import arena
+from yoloface_tpu_torch.pipeline.e2e import load_pipeline
 from yoloface_tpu_torch.runtime.engine import Int8Engine
 
 torch.set_num_threads(1)
@@ -50,7 +51,8 @@ def test_corpus_every_tensor_equals_jax(corpus, corpus_exact, mode,
     x = _frames(0, 4, (56, 56, 3))
     want = (corpus_exact[1] if mode == "exact"
             else JaxEngine(corpus, mode).run_with_intermediates(x))
-    got = Int8Engine(graph_from_jax(corpus), mode).run_with_intermediates(x)
+    got = Int8Engine(graph_from_jax(corpus), mode,
+                     device="cpu").run_with_intermediates(x)
     assert sorted(got) == sorted(want) and len(got) == n_tensors
     for k in want:
         np.testing.assert_array_equal(got[k], want[k], err_msg=f"t{k}")
@@ -63,7 +65,8 @@ def test_fuzz_seed4_equals_jax(mode):
     assert {op.opname for op in jg.ops} == SEED4_OPS
     x = rng.integers(-128, 128, (3, 14, 14, 3), dtype=np.int64).astype(np.int8)
     want = JaxEngine(jg, mode).run_with_intermediates(x)
-    got = Int8Engine(graph_from_jax(jg), mode).run_with_intermediates(x)
+    got = Int8Engine(graph_from_jax(jg), mode,
+                     device="cpu").run_with_intermediates(x)
     assert sorted(got) == sorted(want)
     for k in want:
         np.testing.assert_array_equal(got[k], want[k], err_msg=f"t{k}")
@@ -112,7 +115,8 @@ def test_fuzz_seed4_arena_bits_equal_jax(bits, budget):
 def test_arena_modes_serve_like_jax(corpus, mode, jax_mode):
     x = _frames(5, 5, (56, 56, 3))
     want = np.asarray(JaxEngine(corpus, jax_mode)(x))
-    got = Int8Engine(graph_from_jax(corpus), mode)(torch.from_numpy(x))
+    got = Int8Engine(graph_from_jax(corpus), mode,
+                     device="cpu")(torch.from_numpy(x))
     np.testing.assert_array_equal(got.numpy(), want)
 
 
@@ -133,7 +137,8 @@ def test_exact_left_shift_out_of_int32_raises():
 def test_ragged_batches(corpus, n):
     x = _frames(n, n, (56, 56, 3))
     want = np.asarray(JaxEngine(corpus, "fast2")(x))
-    got = Int8Engine(graph_from_jax(corpus), "fast2")(torch.from_numpy(x))
+    got = Int8Engine(graph_from_jax(corpus), "fast2",
+                     device="cpu")(torch.from_numpy(x))
     np.testing.assert_array_equal(got.numpy(), want)
 
 
@@ -145,17 +150,33 @@ def _tiny_graph(opname):
 
 
 @pytest.mark.parametrize("mode", ["exact", "fast", "fast2", "arena_exact",
-                                  "arena", "arena2"])
+                                  "arena", "arena2", "tiled_exact", "tiled",
+                                  "tiled2", "fused_exact", "fused"])
 def test_unknown_op_raises(mode):
-    with pytest.raises(NotImplementedError, match="LOGISTIC"):
-        Int8Engine(_tiny_graph("LOGISTIC"), mode)
+    """An op no mode of the port lowers yet (ROADMAP A8) is refused by
+    name, in every mode."""
+    with pytest.raises(NotImplementedError, match="AVERAGE_POOL_2D"):
+        Int8Engine(_tiny_graph("AVERAGE_POOL_2D"), mode, device="cpu")
+
+
+def test_default_device_is_the_card(corpus):
+    """``Int8Engine`` and ``load_pipeline`` run on the card unless the
+    caller names the CPU: without a card the default raises, it never
+    carries on on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default runs there "
+                    "(tests/test_torch_gpu.py)")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Int8Engine(graph_from_jax(corpus))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_pipeline(CORPUS)
 
 
 def test_bad_mode_and_input_rejected(corpus):
     g = graph_from_jax(corpus)
     with pytest.raises(ValueError, match="mode"):
-        Int8Engine(g, "pallas_mxu2")
-    eng = Int8Engine(g, "fast2")
+        Int8Engine(g, "pallas_mxu2", device="cpu")
+    eng = Int8Engine(g, "fast2", device="cpu")
     with pytest.raises(ValueError, match="int8"):
         eng(torch.zeros((1, 56, 56, 3), dtype=torch.uint8))
     with pytest.raises(ValueError, match="expected input"):

@@ -14,7 +14,8 @@ import torch
 
 from yoloface_tpu_torch.graph.retarget import retarget_spatial
 from yoloface_tpu_torch.io.tflite_import import load_tflite
-from yoloface_tpu_torch.kernels import arena, head, preprocess, tiled
+from yoloface_tpu_torch.kernels import (arena, fused, head, preprocess,
+                                       tiled)
 from yoloface_tpu_torch.pipeline.e2e import load_pipeline
 from yoloface_tpu_torch.runtime.engine import Int8Engine
 
@@ -76,6 +77,30 @@ def test_tiled2_448_on_the_card_equals_cpu():
     y = card(x.cuda())
     torch.cuda.synchronize()
     assert tiled.tiled_section.launches == len(card.arena.stages)
-    want = Int8Engine(g, "tiled2")(x)
+    want = Int8Engine(g, "tiled2", device="cpu")(x)
     assert torch.equal(y.cpu(), want)
     np.testing.assert_array_equal(want.numpy(), np.load(GOLDEN)["head448"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,golden", [("fused_exact", "head_exact"),
+                                         ("fused", "head_fast")])
+def test_fused_serving_on_the_card_equals_cpu(mode, golden):
+    """``load_pipeline(corpus, mode)`` on the card (the preprocess, fused
+    stage and head kernels) equals the CPU path (their plain versions):
+    the int8 head bit for bit, the golden head too, and the detections."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gold = dict(np.load(GOLDEN))
+    card = load_pipeline(CORPUS, mode=mode)
+    cpu = load_pipeline(CORPUS, mode=mode, device="cpu")
+    fused.fused_stage.launches = 0
+    got = card.detect_rgb565(gold["frames"])
+    torch.cuda.synchronize()
+    assert fused.fused_stage.launches == len(card.engine.arena.stages)
+    want = cpu.detect_rgb565(gold["frames"])
+    for k in ("valid", "count"):
+        assert torch.equal(got[k].cpu(), want[k])
+    y = card.engine(card.preprocess(gold["frames"]))
+    assert torch.equal(y.cpu(), cpu.engine(cpu.preprocess(gold["frames"])))
+    np.testing.assert_array_equal(y.cpu().numpy(), gold[golden])

@@ -39,6 +39,9 @@ ENTRIES = {
         "from yoloface_tpu_torch.graph.retarget import retarget_spatial\n"
         "from yoloface_tpu_torch.kernels.tiled import TiledPlan\n"
         "from yoloface_tpu_torch.runtime.engine import Int8Engine",
+    "fused entry point":
+        "from yoloface_tpu_torch.kernels.fused import FusedPlan\n"
+        "from yoloface_tpu_torch.runtime.engine import FUSED_BITS",
 }
 
 
@@ -50,4 +53,4 @@ def test_port_imports_without_jax(entry):
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
     if entry == "all modules":
-        assert int(res.stdout.split()[0]) >= 26      # every module imported
+        assert int(res.stdout.split()[0]) >= 27      # every module imported

@@ -46,6 +46,9 @@ EXACT_KEYS = ("head_exact", "exact_boxes", "exact_scores", "exact_valid",
               "exact_count")
 # the 448 family's keys; tests/test_torch_tiled.py pins and recomputes them
 KEYS448 = ("head448", "head448_exact", "frames448_sha256")
+# the fused family's op-surface keys; tests/test_torch_fused.py recomputes them
+KEYS_SURFACE = ("surface_fast0", "surface_fast1", "surface_exact0",
+                "surface_exact1", "surface_frames_sha256")
 
 
 @pytest.fixture(scope="module")
@@ -97,8 +100,8 @@ def test_golden_file_equals_recomputed_jax_side():
     tool = _golden_tool()
     np.testing.assert_array_equal(tool.golden_frames(), gold["frames"])
     want = tool.jax_outputs(gold["frames"])
-    assert sorted(want) == sorted(k for k in gold
-                                  if k not in ("frames",) + KEYS448)
+    assert sorted(want) == sorted(k for k in gold if k not in
+                                  ("frames",) + KEYS448 + KEYS_SURFACE)
     for k, v in want.items():
         np.testing.assert_array_equal(v, gold[k], err_msg=k)
     assert gold["count"].sum() >= 7       # faces on seven of the frames
@@ -107,7 +110,8 @@ def test_golden_file_equals_recomputed_jax_side():
 def test_golden_fast2_keys_unchanged():
     gold = np.load(GOLDEN)
     assert sorted(gold.files) == sorted([*FAST2_DIGESTS, *EXACT_KEYS,
-                                         *KEYS448])
+                                         "head_fast", *KEYS448,
+                                         *KEYS_SURFACE])
     for k, digest in FAST2_DIGESTS.items():
         assert hashlib.sha256(gold[k].tobytes()).hexdigest() == digest, k
 

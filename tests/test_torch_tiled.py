@@ -171,7 +171,7 @@ def test_tiled_sections_equal_jax(jax_corpus, mode, factor, n, budget):
     want = JaxEngine(jg, TILED_BITS[mode]).run_with_intermediates(x)
     g = graph_from_jax(jg)
     if budget == arena.ARENA_BUDGET:
-        eng = Int8Engine(g, mode)
+        eng = Int8Engine(g, mode, device="cpu")
         plan = eng.arena
         got = eng.run_with_intermediates(x)
     else:
@@ -202,7 +202,7 @@ def test_tiled2_equals_jax_pallas_tiled2(jax_corpus, monkeypatch):
     x = _frames(0, 2, 112)
     want = np.asarray(JaxEngine(jg, "pallas_tiled2")(x))
     g = graph_from_jax(jg)
-    got = Int8Engine(g, "tiled2")(torch.from_numpy(x))
+    got = Int8Engine(g, "tiled2", device="cpu")(torch.from_numpy(x))
     np.testing.assert_array_equal(got.numpy(), want)
     plan = tiled.TiledPlan(g, SMALL, "fast2")
     got_small = plan.run_stages(torch.from_numpy(x))[g.outputs[0]]
@@ -285,15 +285,15 @@ def test_tiled_modes_refuse_what_arena_modes_refuse(mode):
     if mode == "tiled_exact":
         cases.append((_quantize_graph(), "int32"))
     else:       # fast bits take it, in strips too
-        Int8Engine(_quantize_graph(), mode)
+        Int8Engine(_quantize_graph(), mode, device="cpu")
         assert all(isinstance(s, tiled.Section) for s in
                    tiled.build_tiled_plan(_quantize_graph(), 64,
                                           TILED_BITS[mode]))
     for g, match in cases:
         with pytest.raises(NotImplementedError, match=match):
-            Int8Engine(g, twin)
+            Int8Engine(g, twin, device="cpu")
         with pytest.raises(NotImplementedError, match=match):
-            Int8Engine(g, mode)
+            Int8Engine(g, mode, device="cpu")
         with pytest.raises(NotImplementedError, match=match):
             tiled.build_tiled_plan(g, 64, TILED_BITS[mode])
 
@@ -346,7 +346,8 @@ def test_golden_448_equals_recomputed_jax_side():
 def test_448_entry_point_on_golden_frames(mode, key):
     """``Int8Engine(retarget_spatial(load_tflite(corpus), 8), mode)`` on
     the golden 448 frames gives the golden output."""
-    eng = Int8Engine(retarget_spatial(load_tflite(CORPUS), 8), mode)
+    eng = Int8Engine(retarget_spatial(load_tflite(CORPUS), 8), mode,
+                     device="cpu")
     y = eng(torch.from_numpy(_golden_tool().frames448()))
     assert y.shape == (2, 56, 56, 18) and y.dtype == torch.int8
     np.testing.assert_array_equal(y.numpy(), np.load(GOLDEN)[key])

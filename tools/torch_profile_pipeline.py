@@ -4,7 +4,8 @@
 Run from the repository root on a machine with a CUDA card:
 
     python3 tools/torch_profile_pipeline.py [--batch 65536] [--arena-batch 16384]
-        [--batch448 1024] [--modes arena2 arena arena_exact tiled2 tiled_exact]
+        [--batch448 1024]
+        [--modes arena2 arena arena_exact tiled2 tiled_exact fused fused_exact]
 
 For each engine mode (default ``arena2``) it prints, each line with the
 card's name, power limit and SM clocks:
@@ -20,6 +21,8 @@ card's name, power limit and SM clocks:
   * arena breakdown: the time of each descriptor of the arena stage,
     measured as the CUDA-event time (median of 7) of the program prefix
     that ends at it minus that of the prefix before, summed by op kind;
+  * fused breakdown (fused modes): each fused stage kernel's time and, the
+    same way, the time of each of its descriptors, summed by op kind;
   * section breakdown (tiled modes): the CUDA-event time (median of 7) of
     each section kernel of the 448 net, with its ops, strips and arena;
     with ``--shares``, the 448 net's time under each strip-height target
@@ -114,6 +117,41 @@ def profile_pipeline(run, n: int, card: str) -> None:
         print(f"  {us / 1e3 / 5:10.3f} ms/batch  x{count // 5:3d}  {key[:80]}")
 
 
+_CODE_NAMES = ("COPY", "CONV", "DW", "MAXPOOL", "ADD", "QUANTIZE", "PAD",
+               "LEAKY", "ACT", "RESIZE")   # kernels/arena.py's op codes
+
+
+def _descriptor_rows(st, prefix_ms):
+    """(ms, index, kind, stride, in C, out C, out H) of each descriptor of
+    ``st``: ``prefix_ms(k)`` (the program's first k descriptors) minus
+    ``prefix_ms(k - 1)``; and the whole program's ms."""
+    from yoloface_tpu_torch.kernels import arena
+    F = arena.F
+    rows, prev = [], 0.0
+    for k in range(1, len(st.descs) + 1):
+        cur = prefix_ms(k)
+        d = st.descs[k - 1]
+        name = _CODE_NAMES[int(d[F["code"]])]
+        if name in ("CONV", "MAXPOOL"):
+            name += f"{int(d[F['kh']])}x{int(d[F['kw']])}"
+        rows.append((cur - prev, k - 1, name, int(d[F["sh"]]),
+                     int(d[F["in0_c"]]), int(d[F["out_c"]]),
+                     int(d[F["out_h"]])))
+        prev = cur
+    return rows, prev
+
+
+def _print_rows(tag: str, rows, top: int = 12) -> None:
+    by = {}
+    for r in rows:
+        by[r[2]] = by.get(r[2], 0.0) + r[0]
+    print(f"[{tag}] by kind: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in sorted(by.items(), key=lambda kv: -kv[1])))
+    for dt, i, name, s, ci, co, oh in sorted(rows, reverse=True)[:top]:
+        print(f"  {dt:8.3f} ms  op{i:2d} {name:10s} s{s} ci{ci} co{co} "
+              f"out{oh}x{oh}")
+
+
 def arena_breakdown(pipe, n: int, card: str, reps: int = 7) -> None:
     import torch
     from yoloface_tpu_torch.kernels import _build, arena
@@ -134,30 +172,41 @@ def arena_breakdown(pipe, n: int, card: str, reps: int = 7) -> None:
             descs.data_ptr(), k, consts.data_ptr(), ptrs, 2, n,
             st.arena_bytes, arena.THREADS, stream), "arena prefix"), reps)
 
-    names = {arena.COPY: "COPY", arena.CONV: "CONV", arena.DW: "DW",
-             arena.MAXPOOL: "MAXPOOL", arena.ADD: "ADD",
-             arena.QUANTIZE: "QUANTIZE"}
-    F = arena.F
-    rows, prev = [], 0.0
-    for k in range(1, len(st.descs) + 1):
-        cur = prefix_ms(k)
-        d = st.descs[k - 1]
-        name = names[int(d[F["code"]])]
-        if name in ("CONV", "MAXPOOL"):
-            name += f"{int(d[F['kh']])}x{int(d[F['kw']])}"
-        rows.append((cur - prev, k - 1, name, int(d[F["sh"]]),
-                     int(d[F["in0_c"]]), int(d[F["out_c"]]),
-                     int(d[F["out_h"]])))
-        prev = cur
-    by = {}
-    for r in rows:
-        by[r[2]] = by.get(r[2], 0.0) + r[0]
-    print(f"[arena] N={n}: whole stage {prev:.3f} ms ({card})")
-    print("[arena] by kind: " + ", ".join(
-        f"{k} {v:.3f} ms" for k, v in sorted(by.items(), key=lambda kv: -kv[1])))
-    for dt, i, name, s, ci, co, oh in sorted(rows, reverse=True)[:12]:
-        print(f"  {dt:8.3f} ms  op{i:2d} {name:10s} s{s} ci{ci} co{co} "
-              f"out{oh}x{oh}")
+    rows, total = _descriptor_rows(st, prefix_ms)
+    print(f"[arena] N={n}: whole stage {total:.3f} ms ({card})")
+    _print_rows("arena", rows)
+
+
+def fused_breakdown(pipe, n: int, card: str, reps: int = 7) -> None:
+    """Each fused stage kernel's time and its descriptors' (prefix times)."""
+    import torch
+    from yoloface_tpu_torch.kernels import _build, arena
+    from yoloface_tpu_torch.kernels.preprocess import preprocess_rgb565
+    plan = pipe.engine.arena
+    env = plan.run_stages(preprocess_rgb565(_frames(n)))
+    lib = _build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    every = []
+    for k, st in enumerate(plan.stages):
+        descs, consts = getattr(plan, f"descs{k}"), getattr(plan, f"consts{k}")
+        outs = [torch.empty_like(env[o]) for o in st.outputs]
+        ptrs = (ctypes.c_uint64 * arena.MAX_GLOBALS)(
+            *[t.data_ptr() for t in [env[i] for i in st.inputs] + outs])
+
+        def prefix_ms(j: int, st=st, descs=descs, consts=consts,
+                      ptrs=ptrs) -> float:
+            return _event_ms(lambda: _build.check(lib.yf_fused_stage(
+                descs.data_ptr(), j, consts.data_ptr(), ptrs,
+                len(st.globals_), n, st.smem_bytes, st.arena_bytes,
+                arena.THREADS, stream), "fused prefix"), reps)
+
+        rows, total = _descriptor_rows(st, prefix_ms)
+        every += rows
+        kinds = " ".join(r[2] for r in rows if r[2] != "COPY")
+        print(f"[fused] N={n}: stage {k} {total:.3f} ms, {st.smem_bytes} B "
+              f"shared memory, {len(st.inputs)} in / {len(st.outputs)} out: "
+              f"{kinds} ({card})")
+    _print_rows("fused", every)
 
 
 def section_breakdown(eng, x, card: str) -> None:
@@ -217,7 +266,7 @@ def main() -> int:
                     "strip-height targets (tiled.TARGET_SHARE)")
     ap.add_argument("--modes", nargs="+", default=["arena2"],
                     choices=["arena2", "arena", "arena_exact", "tiled2",
-                             "tiled", "tiled_exact"])
+                             "tiled", "tiled_exact", "fused", "fused_exact"])
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -226,7 +275,8 @@ def main() -> int:
     from yoloface_tpu_torch.graph.retarget import retarget_spatial
     from yoloface_tpu_torch.io.tflite_import import load_tflite
     from yoloface_tpu_torch.pipeline.e2e import load_pipeline
-    from yoloface_tpu_torch.runtime.engine import TILED_BITS, Int8Engine
+    from yoloface_tpu_torch.runtime.engine import (FUSED_BITS, TILED_BITS,
+                                                   Int8Engine)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,clocks.max.sm",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -246,7 +296,10 @@ def main() -> int:
         f = _frames(args.batch)
         profile_pipeline(lambda: pipe.detect_rgb565(f), args.batch, card)
         del f
-        arena_breakdown(pipe, args.arena_batch, card)
+        if mode in FUSED_BITS:
+            fused_breakdown(pipe, args.arena_batch, card)
+        else:
+            arena_breakdown(pipe, args.arena_batch, card)
     return 0
 
 

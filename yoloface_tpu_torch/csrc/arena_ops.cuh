@@ -17,6 +17,13 @@
 // Threads walk output elements with the channel fastest, so a pixel's
 // input window is a shared-memory broadcast across the threads of
 // neighbouring channels; weights come through the read-only cache.
+//
+// The bodies after eltwise_op serve the fused stages (fused_stage.cu):
+// copy_op (16-byte moves of dense views), pad_op, leaky_op, act_op
+// (RELU / RELU6 clips, LOGISTIC), resize_op and the separable
+// maxpool_sep_op, which needs a scratch of ((rows - 1) * sh + kh) * out.w *
+// out.c bytes.  They take the same row origin and count as the bodies
+// above, so the arena and tiled kernels can take them up unchanged.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -28,7 +35,13 @@
 namespace yf {
 
 constexpr int kMaxGlobals = 16;
-enum Code { COPY = 0, CONV = 1, DW = 2, MAXPOOL = 3, ADD = 4, QUANTIZE = 5 };
+enum Code {
+  COPY = 0, CONV = 1, DW = 2, MAXPOOL = 3, ADD = 4, QUANTIZE = 5,
+  // the fused stages' ops (fused_stage.cu); no arena or tiled program
+  // emits them yet
+  PAD = 6, LEAKY = 7, ACT = 8, RESIZE = 9
+};
+enum Act { ACT_CLIP = 0, ACT_LOGISTIC = 1 };   // ACT's epi
 enum Epi {
   EPI_REQUANT = 0,        // fast requant (ADD/QUANTIZE: fast bits)
   EPI_LEAKY_V2 = 1,       // fast2 fused conv+leaky, one rounding
@@ -181,6 +194,133 @@ static __device__ void eltwise_op(const Op& op, const int8_t* a,
         r = static_cast<int8_t>(va);
     }
     out[p * op.out.cs + c] = r;
+  }
+}
+
+// COPY of `rows` rows: between two dense views (cs == c on both sides: a
+// stage input staged in, a stage output written out) 16 bytes a thread
+// where both ends are 16-byte aligned; into a channel slice (a concat
+// input) element by element.  `a` and `out` point at the same first row.
+static __device__ void copy_op(const Op& op, const int8_t* a, int8_t* out,
+                               int rows) {
+  const int c_n = op.out.c;
+  const int total = rows * op.out.w * c_n;
+  if (op.in0.cs != c_n || op.out.cs != c_n) {
+    for (int e = threadIdx.x; e < total; e += blockDim.x) {
+      const int c = e % c_n, p = e / c_n;
+      out[p * op.out.cs + c] = a[p * op.in0.cs + c];
+    }
+    return;
+  }
+  int head = 0;
+  if (((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(out)) &
+       15) == 0) {
+    head = total / 16 * 16;
+    const int4* src = reinterpret_cast<const int4*>(a);
+    int4* dst = reinterpret_cast<int4*>(out);
+    for (int i = threadIdx.x; i < total / 16; i += blockDim.x) dst[i] = src[i];
+  }
+  for (int i = head + threadIdx.x; i < total; i += blockDim.x) out[i] = a[i];
+}
+
+// PAD over output rows [oy0, oy0 + rows): element (y, x, c) is the input's
+// (y - pt, x - pl, c) inside the input image and the fill outside it.
+static __device__ void pad_op(const Op& op, const int8_t* in, int in_y0,
+                              int8_t* out, int oy0, int rows) {
+  const int c_n = op.out.c;
+  const int total = rows * op.out.w * c_n;
+  for (int e = threadIdx.x; e < total; e += blockDim.x) {
+    const int c = e % c_n;
+    const int p = e / c_n;
+    const int iy = oy0 + p / op.out.w - op.pt, ix = p % op.out.w - op.pl;
+    const bool inb = iy >= 0 && iy < op.in0.h && ix >= 0 && ix < op.in0.w;
+    out[p * op.out.cs + c] =
+        inb ? in[((iy - in_y0) * op.in0.w + ix) * op.in0.cs + c]
+            : static_cast<int8_t>(op.fill);
+  }
+}
+
+// standalone LEAKY_RELU on v = x - zp_a: the v1 (fast) or exact leaky of
+// epilogue.cuh; `a` and `out` point at the same first row.
+static __device__ void leaky_op(const Op& op, const int8_t* a, int8_t* out,
+                                int rows) {
+  const int c_n = op.out.c;
+  const int total = rows * op.out.w * c_n;
+  const bool exact = op.epi == EPI_REQUANT_EXACT;
+  for (int e = threadIdx.x; e < total; e += blockDim.x) {
+    const int c = e % c_n, p = e / c_n;
+    const int v = a[p * op.in0.cs + c] - op.zp_a;
+    out[p * op.out.cs + c] =
+        exact ? leaky_exact(v, op.m0, op.e0, op.m1, op.e1, op.zp_out)
+              : leaky_v1(v, op.f0, op.f1, op.zp_out);
+  }
+}
+
+// RELU / RELU6 (a clip to [zp_a, zp_b]) or LOGISTIC of (x - zp_a) * f0.
+static __device__ void act_op(const Op& op, const int8_t* a, int8_t* out,
+                              int rows) {
+  const int c_n = op.out.c;
+  const int total = rows * op.out.w * c_n;
+  const bool sigmoid = op.epi == ACT_LOGISTIC;
+  for (int e = threadIdx.x; e < total; e += blockDim.x) {
+    const int c = e % c_n, p = e / c_n;
+    const int x = a[p * op.in0.cs + c];
+    out[p * op.out.cs + c] =
+        sigmoid ? logistic(x - op.zp_a, op.f0)
+                : static_cast<int8_t>(min(max(x, op.zp_a), op.zp_b));
+  }
+}
+
+// RESIZE_NEAREST_NEIGHBOR by the integer factors kh x kw over output rows
+// [oy0, oy0 + rows): element (y, x, c) is the input's (y / kh, x / kw, c).
+static __device__ void resize_op(const Op& op, const int8_t* in, int in_y0,
+                                 int8_t* out, int oy0, int rows) {
+  const int c_n = op.out.c;
+  const int total = rows * op.out.w * c_n;
+  for (int e = threadIdx.x; e < total; e += blockDim.x) {
+    const int c = e % c_n;
+    const int p = e / c_n;
+    const int iy = (oy0 + p / op.out.w) / op.kh, ix = (p % op.out.w) / op.kw;
+    out[p * op.out.cs + c] = in[((iy - in_y0) * op.in0.w + ix) * op.in0.cs + c];
+  }
+}
+
+// separable max-pool over output rows [oy0, oy0 + rows): a row pass takes
+// the max over the kw taps of each of the (rows - 1) * sh + kh padded input
+// rows the windows read, at the output's columns, into `scratch`; a column
+// pass takes the max over kh of those rows.  Taps outside the image read
+// the fill, so the bits are the full window's max at kw + kh compares an
+// output instead of kh * kw.  All threads of the block take part.
+static __device__ void maxpool_sep_op(const Op& op, const int8_t* in,
+                                      int in_y0, int8_t* out, int oy0,
+                                      int rows, int8_t* scratch) {
+  const int c_n = op.out.c, ow = op.out.w;
+  const int r0 = oy0 * op.sh - op.pt;
+  const int n_rows = (rows - 1) * op.sh + op.kh;
+  const int fill = max(op.fill, -128);
+  for (int e = threadIdx.x; e < n_rows * ow * c_n; e += blockDim.x) {
+    const int c = e % c_n;
+    const int p = e / c_n;
+    const int iy = r0 + p / ow, ox = p % ow;
+    int m = fill;
+    if (iy >= 0 && iy < op.in0.h) {
+      const int8_t* row = in + (iy - in_y0) * op.in0.w * op.in0.cs + c;
+      m = -128;
+      for (int dx = 0; dx < op.kw; ++dx) {
+        const int ix = ox * op.sw - op.pl + dx;
+        m = max(m, ix >= 0 && ix < op.in0.w ? row[ix * op.in0.cs] : op.fill);
+      }
+    }
+    scratch[e] = static_cast<int8_t>(m);
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < rows * ow * c_n; e += blockDim.x) {
+    const int c = e % c_n;
+    const int p = e / c_n;
+    const int8_t* col = scratch + ((p / ow) * op.sh * ow + p % ow) * c_n + c;
+    int m = -128;
+    for (int dy = 0; dy < op.kh; ++dy) m = max(m, col[dy * ow * c_n]);
+    out[p * op.out.cs + c] = static_cast<int8_t>(m);
   }
 }
 

@@ -2,9 +2,10 @@
 //
 // Replaces yoloface_tpu/kernels/pallas_int8.py::apply_requant_leaky (all
 // its branches: fast-bits v2, exact, fast v1) and RequantSpec.
-// apply_in_kernel, LeakySpec.apply_exact_i32, exact_add_rescale and
-// apply_quantize_val, plus the ADD and QUANTIZE of the arena emits
-// (pallas_arena.py).  Plain versions: ops/int8_fast.py, ops/int8_fast2.py
+// apply_in_kernel, LeakySpec.apply / apply_exact_i32 (also standalone, for
+// the fused stages), exact_add_rescale, apply_quantize_val and the
+// LOGISTIC of activation_int32, plus the ADD and QUANTIZE of the arena
+// emits (pallas_arena.py).  Plain versions: ops/int8_fast.py, ops/int8_fast2.py
 // and the exact ops of ops/int8_ref.py (core/fixedpoint.py), bit for bit.
 //
 // What bounds these on the card: nothing of their own -- a few ALU ops per
@@ -66,13 +67,30 @@ __device__ __forceinline__ int8_t quantize_fast(int v, float scale,
   return round_zp_clip(__fmul_rn(static_cast<float>(v), scale), zp_out);
 }
 
+// fast (v1) LeakyReLU on v = x - zp_in: round(v * (v >= 0 ? s_id : s_al))
+// + zp_out.
+__device__ __forceinline__ int8_t leaky_v1(int v, float s_id, float s_al,
+                                           int zp_out) {
+  const float sel = v >= 0 ? s_id : s_al;
+  return round_zp_clip(__fmul_rn(static_cast<float>(v), sel), zp_out);
+}
+
 // fast (v1) fused conv+leaky: the conv's rounding, then the leaky's.
 __device__ __forceinline__ int8_t requant_leaky_v1(int acc, float scale,
                                                    int conv_zp, float s_id,
                                                    float s_al, int zp_out) {
-  const int v = requant_fast(acc, scale, conv_zp) - conv_zp;
-  const float sel = v >= 0 ? s_id : s_al;
-  return round_zp_clip(__fmul_rn(static_cast<float>(v), sel), zp_out);
+  return leaky_v1(requant_fast(acc, scale, conv_zp) - conv_zp, s_id, s_al,
+                  zp_out);
+}
+
+// LOGISTIC on v = x - zp_in: t = v * scale in float32, y = 1 / (1 +
+// expf(-t)) with the correctly rounded expf and division (never __expf or
+// __fdividef), then round(y * 256) - 128, clipped: the output's fixed 1/256
+// scale and zero-point -128.
+__device__ __forceinline__ int8_t logistic(int v, float scale) {
+  const float t = __fmul_rn(static_cast<float>(v), scale);
+  const float y = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-t)));
+  return round_zp_clip(__fmul_rn(y, 256.0f), -128);
 }
 
 // gemmlowp MultiplyByQuantizedMultiplier: x * qm * 2**(shift - 31), SRDHM
@@ -96,16 +114,23 @@ __device__ __forceinline__ int8_t requant_exact(int x, int qm, int shift,
   return static_cast<int8_t>(clip_i8(mbqm(x, qm, shift) + zp_out));
 }
 
+// exact LeakyReLU on v = x - zp_in: the identity (v >= 0) or alpha branch.
+__device__ __forceinline__ int8_t leaky_exact(int v, int qm_id, int sh_id,
+                                              int qm_al, int sh_al,
+                                              int zp_out) {
+  return v >= 0 ? requant_exact(v, qm_id, sh_id, zp_out)
+                : requant_exact(v, qm_al, sh_al, zp_out);
+}
+
 // exact fused conv+leaky: the conv requant rounds and saturates, then the
-// leaky requantizes v = r - conv_zp on its identity (v >= 0) or alpha branch.
+// leaky requantizes v = r - conv_zp.
 __device__ __forceinline__ int8_t requant_leaky_exact(int acc, int qm,
                                                       int shift, int conv_zp,
                                                       int qm_id, int sh_id,
                                                       int qm_al, int sh_al,
                                                       int zp_out) {
   const int v = clip_i8(mbqm(acc, qm, shift) + conv_zp) - conv_zp;
-  return v >= 0 ? requant_exact(v, qm_id, sh_id, zp_out)
-                : requant_exact(v, qm_al, sh_al, zp_out);
+  return leaky_exact(v, qm_id, sh_id, qm_al, sh_al, zp_out);
 }
 
 // exact ADD on v = x - zp: both inputs rescaled to the shared

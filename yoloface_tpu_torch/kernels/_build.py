@@ -36,6 +36,9 @@ SIGNATURES = {
     # (descs, n_ops, consts, host ptr table, n_globals, n_frames, strips,
     #  arena_bytes, threads, stream)
     "yf_tiled_section": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
+    # (descs, n_ops, consts, host ptr table, n_globals, n_frames,
+    #  smem_bytes, scratch_off, threads, stream)
+    "yf_fused_stage": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
     # (y, boxes, scores, valid, n, g, a, k, scale, zp, thr, iou_thr,
     #  stride, box_limit, apply_nms, host anchors[8], stream)
     "yf_detect_head": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F,

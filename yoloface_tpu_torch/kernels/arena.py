@@ -54,14 +54,22 @@ from yoloface_tpu_torch.ops.int8_fast2 import epilogue_v2
 from yoloface_tpu_torch.ops.int8_ref import (_conv_acc, _dw_acc,
                                              _same_pad_amounts, _window_max,
                                              add_int8, leaky_relu_int8,
-                                             requantize_int8)
+                                             logistic_int8, requantize_int8)
 
 BITS = ("fast", "fast2", "exact")
 # op codes and epilogues; the field layout below is the ``Op`` struct of
 # csrc/arena_ops.cuh, one int32 each.  ``epi`` is the requant of a
 # CONV/DW (fast f32, fused leaky v2 / v1, exact, fused exact leaky) and
-# says fast (EPI_REQUANT) or exact (EPI_REQUANT_EXACT) for ADD and QUANTIZE.
+# says fast (EPI_REQUANT) or exact (EPI_REQUANT_EXACT) for ADD, QUANTIZE
+# and LEAKY.
 COPY, CONV, DW, MAXPOOL, ADD, QUANTIZE = range(6)
+# op bodies the fused stages run (kernels/fused.py); the plain executor
+# below runs them too, the arena and tiled planners do not emit them yet.
+# A PAD is a 1x1 window (pt, pl, fill); a RESIZE's factors are kh, kw; an
+# ACT clips to [zp_a, zp_b] (RELU, RELU6) or is the LOGISTIC of
+# (x - zp_a) * f0, as its epi says.
+PAD, LEAKY, ACT, RESIZE = range(6, 10)
+ACT_CLIP, ACT_LOGISTIC = range(2)
 CONCAT = 100                       # planner-only: becomes COPYs or nothing
 (EPI_REQUANT, EPI_LEAKY_V2, EPI_LEAKY_V1, EPI_REQUANT_EXACT,
  EPI_LEAKY_EXACT) = range(5)
@@ -196,6 +204,99 @@ def _window_req(graph: GraphDef, op, pads_of: Dict[int, object]):
     return x_idx, same[0][0], same[1][0], int(fill)
 
 
+def conv_lop(graph: GraphDef, op, window: Tuple[int, int, int, int],
+             bits: str, leaky_op=None) -> LOp:
+    """A CONV_2D / DEPTHWISE_CONV_2D (with ``leaky_op``, the LEAKY_RELU
+    that alone reads its output, fused) in ``bits``; ``window`` is its
+    (input tensor, pad_top, pad_left, fill)."""
+    t = graph.tensor
+    name = op.opname
+    exact = bits == "exact"
+    if (op.attrs.get("dilation_h", 1) != 1
+            or op.attrs.get("dilation_w", 1) != 1):
+        raise NotImplementedError(f"{name} with dilation")
+    if op.attrs.get("activation", "NONE") != "NONE":
+        raise NotImplementedError(f"{name} with a fused activation")
+    x_idx, pt, pl, fill = window
+    w, b = t(op.inputs[1]), t(op.inputs[2])
+    wd = w.data
+    dw = name == "DEPTHWISE_CONV_2D"
+    if dw and (wd.shape[0] != 1 or wd.shape[3] != _hwc(graph, x_idx)[2]):
+        raise NotImplementedError("depthwise with depth_multiplier>1")
+    zp_in = t(op.inputs[0]).qparams.zero_point
+    rq = specs.conv_requant_spec(graph, op)
+    co = wd.shape[3] if dw else wd.shape[0]
+    axes = (0, 1, 2) if dw else (1, 2, 3)
+    bias_eff = (b.data.astype(np.int64)
+                - zp_in * wd.astype(np.int64).sum(axes)).astype(np.int32)
+    lop = LOp(DW if dw else CONV, op.outputs[0], [x_idx],
+              window=(wd.shape[1], wd.shape[2], op.attrs["stride_h"],
+                      op.attrs["stride_w"], pt, pl, fill),
+              weights=np.ascontiguousarray(wd.astype(np.int8)),
+              bias=bias_eff, zp_out=rq.zp_out)
+    if exact:
+        qm, shift = (np.broadcast_to(a, (co,)) for a in (rq.qm, rq.shift))
+        bound = (128 * np.abs(wd.astype(np.int64)).sum(axes)
+                 + np.abs(bias_eff.astype(np.int64)))
+        specs.check_exact_domain(bound, shift, f"op {op.index}")
+        lop.epi = EPI_REQUANT_EXACT
+        lop.qms = np.concatenate([qm, shift]).astype(np.int32)
+    else:
+        lop.scale = np.ascontiguousarray(np.broadcast_to(rq.scale, (co,)),
+                                         np.float32)
+    if leaky_op is not None:
+        lk = specs.leaky_spec(graph, leaky_op)
+        lop.out = leaky_op.outputs[0]
+        lop.conv_zp, lop.zp_out = rq.zp_out, lk.zp_out
+        lop.f0, lop.f1 = lk.s_id, lk.s_al
+        lop.epi = {"fast": EPI_LEAKY_V1, "fast2": EPI_LEAKY_V2,
+                   "exact": EPI_LEAKY_EXACT}[bits]
+        if exact:
+            specs.check_exact_domain(255, [lk.m_id[1], lk.m_al[1]],
+                                     f"op {leaky_op.index}")
+            lop.mults = lk.m_id + lk.m_al + (0, 0)
+    return lop
+
+
+def add_lop(graph: GraphDef, op, exact: bool) -> LOp:
+    t = graph.tensor
+    a_idx, b_idx = op.inputs
+    if _hwc(graph, a_idx) != _hwc(graph, b_idx):
+        raise NotImplementedError("ADD with broadcasting")
+    sp = specs.add_spec(t(a_idx).qparams, t(b_idx).qparams,
+                        t(op.outputs[0]).qparams)
+    lop = LOp(ADD, op.outputs[0], [a_idx, b_idx], zp_a=sp.zp_in,
+              zp_b=sp.zp_in2, zp_out=sp.zp_out, f0=sp.s1, f1=sp.s2)
+    if exact:
+        specs.check_exact_domain(255 << sp.left_shift, [sp.m1[1], sp.m2[1]],
+                                 f"op {op.index}")
+        specs.check_exact_domain(specs.add_sum_bound(sp), sp.mo[1],
+                                 f"op {op.index}")
+        lop.epi, lop.lsh = EPI_REQUANT_EXACT, sp.left_shift
+        lop.mults = sp.m1 + sp.m2 + sp.mo
+    return lop
+
+
+def quantize_lop(graph: GraphDef, op, exact: bool) -> LOp:
+    t = graph.tensor
+    sp = specs.quantize_spec(t(op.inputs[0]).qparams,
+                             t(op.outputs[0]).qparams)
+    lop = LOp(QUANTIZE, op.outputs[0], [op.inputs[0]], zp_a=sp.zp_in,
+              zp_out=sp.zp_out, f0=sp.s1)
+    if exact:
+        specs.check_exact_domain(255, sp.m1[1], f"op {op.index}")
+        lop.epi, lop.mults = EPI_REQUANT_EXACT, sp.m1 + (0,) * 4
+    return lop
+
+
+def concat_offsets(graph: GraphDef, op) -> List[int]:
+    """Channel offsets of a CONCATENATION's inputs, then its width."""
+    if op.attrs["axis"] % 4 != 3:
+        raise NotImplementedError(
+            f"CONCATENATION (op {op.index}) off the channel axis")
+    return np.cumsum([0] + [_hwc(graph, i)[2] for i in op.inputs]).tolist()
+
+
 def lower_arena_ops(graph: GraphDef, bits: str = "fast2"):
     """Graph -> (LOps in graph order, concat alias map), with the epilogues
     and constants of ``bits`` (one of ``BITS``).
@@ -206,7 +307,6 @@ def lower_arena_ops(graph: GraphDef, bits: str = "fast2"):
     if bits not in BITS:
         raise ValueError(f"unknown bit semantics {bits!r}; one of {BITS}")
     exact = bits == "exact"
-    t = graph.tensor
     uses = specs.use_counts(graph)
     consumers: Dict[int, list] = {}
     for op in graph.ops:
@@ -238,90 +338,19 @@ def lower_arena_ops(graph: GraphDef, bits: str = "fast2"):
         name = op.opname
         out_idx = op.outputs[0]
         if name in ("CONV_2D", "DEPTHWISE_CONV_2D"):
-            if (op.attrs.get("dilation_h", 1) != 1
-                    or op.attrs.get("dilation_w", 1) != 1):
-                raise NotImplementedError(f"{name} with dilation")
-            if op.attrs.get("activation", "NONE") != "NONE":
-                raise NotImplementedError(f"{name} with a fused activation")
-            x_idx, pt, pl, fill = _window_req(graph, op, pads_of)
-            w, b = t(op.inputs[1]), t(op.inputs[2])
-            wd = w.data
-            dw = name == "DEPTHWISE_CONV_2D"
-            if dw and (wd.shape[0] != 1
-                       or wd.shape[3] != _hwc(graph, x_idx)[2]):
-                raise NotImplementedError("depthwise with depth_multiplier>1")
-            zp_in = t(op.inputs[0]).qparams.zero_point
-            rq = specs.conv_requant_spec(graph, op)
-            co = wd.shape[3] if dw else wd.shape[0]
-            axes = (0, 1, 2) if dw else (1, 2, 3)
-            bias_eff = (b.data.astype(np.int64)
-                        - zp_in * wd.astype(np.int64).sum(axes)
-                        ).astype(np.int32)
-            lop = LOp(DW if dw else CONV, out_idx, [x_idx],
-                      window=(wd.shape[1], wd.shape[2], op.attrs["stride_h"],
-                              op.attrs["stride_w"], pt, pl, fill),
-                      weights=np.ascontiguousarray(wd.astype(np.int8)),
-                      bias=bias_eff, zp_out=rq.zp_out)
-            if exact:
-                qm, shift = (np.broadcast_to(a, (co,)) for a in
-                             (rq.qm, rq.shift))
-                bound = (128 * np.abs(wd.astype(np.int64)).sum(axes)
-                         + np.abs(bias_eff.astype(np.int64)))
-                specs.check_exact_domain(bound, shift, f"op {op.index}")
-                lop.epi = EPI_REQUANT_EXACT
-                lop.qms = np.concatenate([qm, shift]).astype(np.int32)
-            else:
-                lop.scale = np.ascontiguousarray(
-                    np.broadcast_to(rq.scale, (co,)), np.float32)
-            leaky_op = fused_leaky.get(op.index)
-            if leaky_op is not None:
-                lk = specs.leaky_spec(graph, leaky_op)
-                lop.out = leaky_op.outputs[0]
-                lop.conv_zp, lop.zp_out = rq.zp_out, lk.zp_out
-                lop.f0, lop.f1 = lk.s_id, lk.s_al
-                lop.epi = {"fast": EPI_LEAKY_V1, "fast2": EPI_LEAKY_V2,
-                           "exact": EPI_LEAKY_EXACT}[bits]
-                if exact:
-                    specs.check_exact_domain(
-                        255, [lk.m_id[1], lk.m_al[1]], f"op {leaky_op.index}")
-                    lop.mults = lk.m_id + lk.m_al + (0, 0)
-            lops.append(lop)
+            lops.append(conv_lop(graph, op, _window_req(graph, op, pads_of),
+                                 bits, fused_leaky.get(op.index)))
         elif name == "MAX_POOL_2D":
             x_idx, pt, pl, fill = _window_req(graph, op, pads_of)
             lops.append(LOp(MAXPOOL, out_idx, [x_idx], window=(
                 op.attrs["filter_h"], op.attrs["filter_w"],
                 op.attrs["stride_h"], op.attrs["stride_w"], pt, pl, fill)))
         elif name == "ADD":
-            a_idx, b_idx = op.inputs
-            if _hwc(graph, a_idx) != _hwc(graph, b_idx):
-                raise NotImplementedError("ADD with broadcasting")
-            sp = specs.add_spec(t(a_idx).qparams, t(b_idx).qparams,
-                                t(out_idx).qparams)
-            lop = LOp(ADD, out_idx, [a_idx, b_idx], zp_a=sp.zp_in,
-                      zp_b=sp.zp_in2, zp_out=sp.zp_out, f0=sp.s1, f1=sp.s2)
-            if exact:
-                specs.check_exact_domain(255 << sp.left_shift,
-                                         [sp.m1[1], sp.m2[1]],
-                                         f"op {op.index}")
-                specs.check_exact_domain(specs.add_sum_bound(sp), sp.mo[1],
-                                         f"op {op.index}")
-                lop.epi, lop.lsh = EPI_REQUANT_EXACT, sp.left_shift
-                lop.mults = sp.m1 + sp.m2 + sp.mo
-            lops.append(lop)
+            lops.append(add_lop(graph, op, exact))
         elif name == "QUANTIZE":
-            sp = specs.quantize_spec(t(op.inputs[0]).qparams,
-                                     t(out_idx).qparams)
-            lop = LOp(QUANTIZE, out_idx, [op.inputs[0]], zp_a=sp.zp_in,
-                      zp_out=sp.zp_out, f0=sp.s1)
-            if exact:
-                specs.check_exact_domain(255, sp.m1[1], f"op {op.index}")
-                lop.epi, lop.mults = EPI_REQUANT_EXACT, sp.m1 + (0,) * 4
-            lops.append(lop)
+            lops.append(quantize_lop(graph, op, exact))
         elif name == "CONCATENATION":
-            if op.attrs["axis"] % 4 != 3:
-                raise NotImplementedError("CONCATENATION off the channel axis")
-            offs = np.cumsum([0] + [_hwc(graph, i)[2]
-                                    for i in op.inputs]).tolist()
+            offs = concat_offsets(graph, op)
             lop_outs = {lp.out for lp in lops}
             for i, c0 in zip(op.inputs, offs):
                 if uses[i] == 1 and i in lop_outs:
@@ -663,6 +692,30 @@ def _plain_op(d: List[int], j: int, consts: torch.Tensor,
         else:
             res = requantize_int8_fast(rows(x, y0), scale=_f32(d[F["f0"]]),
                                        **kw)
+    elif code == PAD:                      # a 1x1 window of the identity
+        res = _padded_window(x, y0, d, in0, out, lo, hi)
+    elif code == LEAKY:
+        kw = dict(input_zp=d[F["zp_a"]], output_zp=d[F["zp_out"]])
+        if d[F["epi"]] == EPI_REQUANT_EXACT:
+            m0, e0, m1, e1 = d[F["m0"]:F["m0"] + 4]
+            res = leaky_relu_int8(rows(x, y0), qm_identity=m0,
+                                  shift_identity=e0, qm_alpha=m1,
+                                  shift_alpha=e1, **kw)
+        else:
+            res = leaky_relu_int8_fast(rows(x, y0),
+                                       scale_identity=_f32(d[F["f0"]]),
+                                       scale_alpha=_f32(d[F["f1"]]), **kw)
+    elif code == ACT:
+        if d[F["epi"]] == ACT_LOGISTIC:
+            res = logistic_int8(rows(x, y0), input_scale=_f32(d[F["f0"]]),
+                                input_zp=d[F["zp_a"]])
+        else:
+            res = torch.clamp(rows(x, y0), d[F["zp_a"]], d[F["zp_b"]])
+    elif code == RESIZE:
+        src = torch.arange(lo, hi, device=x.device) // d[F["kh"]] - y0
+        if src[0] < 0 or src[-1] >= x.shape[1]:
+            raise ValueError(f"resize rows [{lo},{hi}) outside the held rows")
+        res = x[:, src].repeat_interleave(d[F["kw"]], 2)
     else:
         raise ValueError(f"unknown arena op code {code}")
     rows(*_realize(out, b_out, j, arena, gl)).copy_(res)

@@ -7,7 +7,9 @@ JAX package takes (``runtime/pallas_plan._requant_spec`` / ``_leaky_spec``,
 ``kernels/pallas_arena.py`` and the engine's exact branches), so the
 engine's per-op path, the arena planner and the CUDA epilogues all see the
 same constants.  ``fused_leakys`` is the one place that decides which
-conv+LEAKY pairs the fused epilogues take.
+conv+LEAKY pairs the fused epilogues take.  ``activation_spec`` and
+``resize_factors`` are the host side of ``pallas_int8.activation_int32``
+and ``resize_factors``, with their guards.
 """
 
 from __future__ import annotations
@@ -111,6 +113,54 @@ def add_spec(q1, q2, qo) -> ScaleSpec:
                      quantize_multiplier(
                          twice_max / ((1 << ADD_LEFT_SHIFT) * so)),
                      ADD_LEFT_SHIFT)
+
+
+@dataclasses.dataclass(frozen=True)
+class ActSpec:
+    """RELU / RELU6 (``logistic`` False: a clip of the int8 value to
+    [``lo``, ``hi``]) or LOGISTIC (``logistic`` True: float32 ``(x - zp) *
+    scale``, then the sigmoid, onto the fixed 1/256 scale and zero-point
+    -128).  ``q`` is the INPUT tensor's qparams, as
+    ``pallas_int8.activation_int32`` takes them."""
+
+    logistic: bool
+    lo: int = -128
+    hi: int = 127
+    zp: int = 0
+    scale: float = 0.0
+
+
+def activation_spec(name: str, q) -> ActSpec:
+    if name == "RELU":
+        return ActSpec(False, int(q.zero_point))
+    if name == "RELU6":
+        lo = int(q.zero_point)
+        hi = int(round(6.0 / float(q.scale)) + q.zero_point)
+        return ActSpec(False, max(lo, -128), min(hi, 127))
+    if name == "LOGISTIC":
+        return ActSpec(True, zp=int(q.zero_point), scale=_f32(q.scale))
+    raise NotImplementedError(f"activation {name}")
+
+
+def resize_factors(graph, op) -> Tuple[int, int]:
+    """(f_h, f_w) integer replication factors of a RESIZE_NEAREST_NEIGHBOR,
+    refused as the JAX lowerings refuse it: requantization, a sampling
+    convention other than the default, a non-integer factor."""
+    t = graph.tensor
+    in_t, out_t = t(op.inputs[0]), t(op.outputs[0])
+    if (in_t.qparams.scale != out_t.qparams.scale
+            or in_t.qparams.zero_point != out_t.qparams.zero_point):
+        raise NotImplementedError(
+            "RESIZE_NEAREST_NEIGHBOR with requantization")
+    if op.attrs.get("align_corners") or op.attrs.get("half_pixel_centers"):
+        raise NotImplementedError(
+            "RESIZE_NEAREST_NEIGHBOR align_corners/half_pixel")
+    (ih, iw), (oh, ow) = in_t.shape[1:3], out_t.shape[1:3]
+    if oh % ih or ow % iw:
+        raise NotImplementedError(
+            f"RESIZE_NEAREST_NEIGHBOR: non-integer scale {ih}x{iw} -> "
+            f"{oh}x{ow}")
+    return oh // ih, ow // iw
 
 
 def check_exact_domain(bound, shift, what: str) -> None:

@@ -1,7 +1,8 @@
 """Int8 operators with exact TFLite builtin-kernel semantics, in torch (NHWC).
 
 The counterpart of ``yoloface_tpu.ops.int8_ref``: the building blocks every
-semantics shares (padding, the conv accumulator, max-pool, concat) and the
+semantics shares (padding, the conv accumulator, max-pool, concat, the
+requant-free RELU / RELU6, LOGISTIC, nearest resize) and the
 ``exact`` operators, which requantize with gemmlowp fixed point
 (``core/fixedpoint.py``, int64).  Convolutions accumulate in float64
 matmuls: CPU ``F.conv2d`` takes no integer types, float32 is exact only
@@ -14,6 +15,7 @@ from __future__ import annotations
 
 from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -134,6 +136,44 @@ def maxpool_int8(x: torch.Tensor, *, filter_hw: Tuple[int, int],
 def concat_int8(xs: Sequence[torch.Tensor], axis: int) -> torch.Tensor:
     """TFLite int8 CONCATENATION (inputs already share output scale/zp)."""
     return torch.cat(list(xs), dim=axis)
+
+
+def relu_int8(x: torch.Tensor, *, zero_point: int) -> torch.Tensor:
+    """TFLite RELU (int8): max(x, zp), same quantization in/out."""
+    return torch.clamp(x, min=int(zero_point))
+
+
+def relu6_int8(x: torch.Tensor, *, scale: float, zero_point: int
+               ) -> torch.Tensor:
+    """TFLite RELU6 (int8): clamp to the quantized [0, 6] range (Python's
+    ``round`` of the float64 ``6 / scale``)."""
+    lo = int(zero_point)
+    hi = int(round(6.0 / scale) + zero_point)
+    return torch.clamp(x, max(lo, INT8_MIN), min(hi, INT8_MAX))
+
+
+def logistic_int8(x: torch.Tensor, *, input_scale: float, input_zp: int
+                  ) -> torch.Tensor:
+    """TFLite LOGISTIC (int8): fixed output quantization scale 1/256,
+    zero-point -128; computed in float32 like the reference kernel."""
+    v = (x.to(torch.float32) - int(input_zp)) * float(np.float32(input_scale))
+    y = 1.0 / (1.0 + torch.exp(-v))
+    return torch.clamp(torch.round(y * 256.0) - 128, INT8_MIN,
+                       INT8_MAX).to(torch.int8)
+
+
+def resize_nearest_int8(x: torch.Tensor, *, out_hw: Tuple[int, int]
+                        ) -> torch.Tensor:
+    """TFLite RESIZE_NEAREST_NEIGHBOR (int8, align_corners=False,
+    half_pixel_centers=False) for integer upscale factors: pixel
+    replication (``floor(i * in/out)`` == ``i // factor``).  Quantization
+    passes through unchanged."""
+    h, w = x.shape[1], x.shape[2]
+    oh, ow = out_hw
+    if oh % h or ow % w:
+        raise NotImplementedError(
+            f"resize_nearest_int8: non-integer scale {h}x{w} -> {oh}x{ow}")
+    return x.repeat_interleave(oh // h, 1).repeat_interleave(ow // w, 2)
 
 
 # --------------------------------------------------------------------------

@@ -1,14 +1,18 @@
 """Camera frames -> detections: the port's serving path.
 
-The counterpart of ``yoloface_tpu.pipeline.e2e``.  With an arena engine
-(``arena2``, ``arena``, ``arena_exact``) ``detect_rgb565`` runs three
-kernels on the card: the RGB565 preprocess, the arena stage(s) of the int8
-net and the fused head (or, with ``HeadConfig(use_fused_head=False)``, the
-top-K kernel and the staged decode and NMS).  On the CPU the same calls
-take each kernel's plain torch version.  No batch padding: any N works.
+The counterpart of ``yoloface_tpu.pipeline.e2e``.  With a kernel engine
+(``arena2``, ``arena``, ``arena_exact``; ``fused``, ``fused_exact``; the
+``tiled*`` modes) ``detect_rgb565`` runs three kernels on the card: the
+RGB565 preprocess, the arena stage(s), fused stages or tiled sections of
+the int8 net and the fused head (or, with
+``HeadConfig(use_fused_head=False)``, the top-K kernel and the staged
+decode and NMS), as the JAX pipeline routes every ``pallas*`` mode through
+its preprocess kernel.  On the CPU the same calls take each kernel's plain
+torch version.  No batch padding: any N works.
 
-``load_pipeline`` defaults to ``arena2`` (fast2 bits, the serving mode);
-the JAX package's engine and ``load_pipeline`` default to ``exact``.
+``load_pipeline`` defaults to ``arena2`` (fast2 bits, the serving mode) on
+the card (``device="cpu"`` runs the plain versions); the JAX package's
+engine and ``load_pipeline`` default to ``exact``.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ from yoloface_tpu_torch.kernels.preprocess import preprocess_rgb565
 from yoloface_tpu_torch.pipeline import head as head_lib
 from yoloface_tpu_torch.pipeline.head import HeadConfig
 from yoloface_tpu_torch.pipeline.preprocess import rgb565_to_int8_input
-from yoloface_tpu_torch.runtime.engine import ARENA_BITS, Int8Engine
+from yoloface_tpu_torch.runtime.engine import KERNEL_MODES, Int8Engine
 
 
 class FacePipeline(nn.Module):
@@ -63,7 +67,7 @@ class FacePipeline(nn.Module):
     def preprocess(self, frames) -> torch.Tensor:
         """uint16 RGB565 [N,112,112] -> int8 [N,56,56,3] on the device."""
         f = self._on_device(frames)
-        if self.engine.mode in ARENA_BITS:
+        if self.engine.mode in KERNEL_MODES:
             return preprocess_rgb565(f)
         return rgb565_to_int8_input(f)
 
@@ -75,7 +79,7 @@ class FacePipeline(nn.Module):
         return self._head(self.engine(self.preprocess(frames)))
 
 
-def load_pipeline(tflite_path: str, mode: str = "arena2", device="cpu",
+def load_pipeline(tflite_path: str, mode: str = "arena2", device="cuda",
                   head_config: Optional[HeadConfig] = None) -> FacePipeline:
     """Path to an int8 .tflite -> ready FacePipeline on ``device``."""
     from yoloface_tpu_torch.io.tflite_import import load_tflite

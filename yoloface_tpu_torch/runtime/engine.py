@@ -1,6 +1,6 @@
 """Int8 graph engine as a torch ``nn.Module``.
 
-The counterpart of ``yoloface_tpu.runtime.engine.Int8Engine`` for nine
+The counterpart of ``yoloface_tpu.runtime.engine.Int8Engine`` for eleven
 modes, each bit-identical to its JAX twin:
 
   * ``exact``  -- per-op torch, gemmlowp fixed-point requantization (int64);
@@ -18,11 +18,19 @@ modes, each bit-identical to its JAX twin:
     ``graph/retarget.py``; the arena plan for graphs that fit): the CUDA
     section kernel on the card, its plain torch version on the CPU.  The
     counterparts of ``pallas_tiled_exact`` / ``pallas_tiled`` /
-    ``pallas_tiled2``, bit-identical to ``exact`` / ``fast`` / ``fast2``.
+    ``pallas_tiled2``, bit-identical to ``exact`` / ``fast`` / ``fast2``;
+  * ``fused_exact`` / ``fused`` -- the net as fused value stages
+    (``kernels/fused.py``: JAX's greedy byte budget cuts the stages, so
+    the stage outputs are JAX's; RELU, RELU6, LOGISTIC, RESIZE, standalone
+    LEAKY and PAD, N-ary concat): the CUDA fused-stage kernel on the card,
+    its plain torch version on the CPU.  The counterparts of
+    ``pallas_fused_exact`` / ``pallas_fused``, bit-identical to ``exact`` /
+    ``fast``.
 
 Weights, biases and requant constants are buffers, so ``.to(device)`` moves
-the engine.  Activations are int8 NHWC ``[N,H,W,C]`` at every public
-function.
+the engine.  The engine runs on the card unless the caller passes
+``device="cpu"``; without a card the default raises.  Activations are int8
+NHWC ``[N,H,W,C]`` at every public function.
 """
 
 from __future__ import annotations
@@ -40,9 +48,11 @@ from yoloface_tpu_torch.ops import int8_fast2 as fast2_ops
 from yoloface_tpu_torch.ops import int8_ref as ref_ops
 
 MODES = ("exact", "fast", "fast2", "arena_exact", "arena", "arena2",
-         "tiled_exact", "tiled", "tiled2")
+         "tiled_exact", "tiled", "tiled2", "fused_exact", "fused")
 ARENA_BITS = {"arena_exact": "exact", "arena": "fast", "arena2": "fast2"}
 TILED_BITS = {"tiled_exact": "exact", "tiled": "fast", "tiled2": "fast2"}
+FUSED_BITS = {"fused_exact": "exact", "fused": "fast"}
+KERNEL_MODES = {**ARENA_BITS, **TILED_BITS, **FUSED_BITS}
 
 
 def _check_conv(op: OpDef) -> None:
@@ -58,10 +68,14 @@ def _check_conv(op: OpDef) -> None:
 class Int8Engine(nn.Module):
     """Executes an imported int8 TFLite graph in torch."""
 
-    def __init__(self, graph: GraphDef, mode: str = "fast2", device="cpu"):
+    def __init__(self, graph: GraphDef, mode: str = "fast2", device="cuda"):
         super().__init__()
         if mode not in MODES:
             raise ValueError(f"unknown engine mode {mode!r}; one of {MODES}")
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("Int8Engine: no CUDA device; pass "
+                               "device=\"cpu\" to run on the CPU")
         if len(graph.inputs) != 1 or len(graph.outputs) < 1:
             raise ValueError("Int8Engine supports single-input graphs with "
                              ">= 1 output")
@@ -83,6 +97,9 @@ class Int8Engine(nn.Module):
         elif mode in TILED_BITS:
             from yoloface_tpu_torch.kernels.tiled import TiledPlan
             self.arena = TiledPlan(graph, bits=TILED_BITS[mode])
+        elif mode in FUSED_BITS:
+            from yoloface_tpu_torch.kernels.fused import FusedPlan
+            self.arena = FusedPlan(graph, bits=FUSED_BITS[mode])
         elif mode == "fast2":
             self._plan = self._lower_ops_fast2()
         else:
@@ -206,6 +223,30 @@ class Int8Engine(nn.Module):
             def fn(env):
                 return ref_ops.concat_int8([env[i] for i in idxs], axis)
 
+        elif name in ("RELU", "RELU6", "LOGISTIC"):
+            (x_idx,) = op.inputs
+            q = t(x_idx).qparams
+            impl, kw = {
+                "RELU": (ref_ops.relu_int8, dict(zero_point=q.zero_point)),
+                "RELU6": (ref_ops.relu6_int8,
+                          dict(scale=float(q.scale),
+                               zero_point=q.zero_point)),
+                "LOGISTIC": (ref_ops.logistic_int8,
+                             dict(input_scale=float(q.scale),
+                                  input_zp=q.zero_point)),
+            }[name]
+
+            def fn(env):
+                return impl(env[x_idx], **kw)
+
+        elif name == "RESIZE_NEAREST_NEIGHBOR":
+            x_idx = op.inputs[0]
+            specs.resize_factors(g, op)          # the guards
+            out_hw = tuple(t(out_idx).shape[1:3])
+
+            def fn(env):
+                return ref_ops.resize_nearest_int8(env[x_idx], out_hw=out_hw)
+
         else:
             raise NotImplementedError(f"op {name} not supported")
         return out_idx, fn
@@ -259,7 +300,7 @@ class Int8Engine(nn.Module):
             raise ValueError(f"expected int8 input, got {x.dtype}")
 
     def _env(self, x: torch.Tensor) -> Dict[int, torch.Tensor]:
-        if self.mode in ARENA_BITS or self.mode in TILED_BITS:
+        if self.mode in KERNEL_MODES:
             return self.arena.run_stages(x)
         env = {self.input_idx: x}
         for out_idx, fn in self._plan:
