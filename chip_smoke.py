@@ -18,29 +18,43 @@ Phases (each prints its lines; any failure ends the run with an error):
      and 1 (34), N = 1, 3 and 37, and of the op-surface graph
      (tools/make_torch_port_golden.surface_graph, every op the fused
      stages lower) at the budget and at one op a stage, in fast and exact
-     bits; the op-surface outputs also against the golden keys;
+     bits; the op-surface outputs also against the golden keys; the same
+     kernel on the per-op programs (kernels/perop.py, one op a launch, the
+     counterparts of the eleven pallas_int8 kernels) on every op output of
+     the corpus net (N = 1, 3, 37) and of the op-surface graph (which runs
+     all eleven), in fast and exact bits;
   3. serving, one path after another, each with every launch count set to
      0 just before it and read just after (each of its kernels > 0):
      load_pipeline(..., device="cuda").detect_rgb565 in mode arena2 (fused
      head), arena_exact (fused head), arena_exact with
      HeadConfig(use_fused_head=False) (the top-K kernel and the staged
      head), arena (fused head), fused and fused_exact (the preprocess, the
-     fused stages, the fused head); detections are held against the CPU
+     fused stages, the fused head), perop and perop_exact (the preprocess,
+     the per-op programs, the fused head); detections are held against the CPU
      path of the same mode (the plain versions) and the int8 head against
      the golden file tests/data/torch_port_frames.npz (head, head_exact,
-     head_fast; the golden detections for arena2, arena_exact and
-     fused_exact); then the 448 net, Int8Engine(g448, mode,
+     head_fast; the golden detections for arena2, arena_exact, fused_exact
+     and perop_exact); then the 448 net, Int8Engine(g448, mode,
      device="cuda") in modes tiled2 and tiled_exact, held against the CPU
-     path and the golden 448 keys;
+     path and the golden 448 keys; then the op-surface graph,
+     Int8Engine(surface, mode, device="cuda") in perop and perop_exact, held
+     against the CPU path and the golden keys (the per-op launches there
+     count for the eltwise, resize and standalone leaky rows);
   4. timing with CUDA events (warm-up, median of 10): each kernel against
      its plain version at batch 16384 (the arena in all three bit
-     semantics, the fused stages in both), the one PyTorch call that
+     semantics, the fused stages and the per-op program in both), each op
+     of the per-op program on its own, summed by per-op kernel (the corpus
+     net's ops; the op-surface graph's for the eltwise, resize and leaky
+     kernels, and again at a real model's size on the FPN upsample of the
+     published yolov3-tiny at batch 1024), the one PyTorch call that
      computes a kernel's function where there is one (torch.topk for the
-     top-K kernel), the arena2, arena_exact, fused and fused_exact
-     pipelines at 16384 and 65536, and their synchronised latency (host
-     clock, p50 of 10); the 448 net in tiled2 and tiled_exact (the section
-     kernel) at batch 1024 and at 128, against its plain version at 128
-     (median of 3);
+     top-K kernel; F.pad, torch.cat, torch.clamp, F.interpolate and, where
+     the card has it for int8, F.max_pool2d for per-op kernels), the
+     arena2, arena_exact, fused, fused_exact, perop and perop_exact
+     pipelines at 16384 and 65536, and their synchronised
+     latency (host clock, p50 of 10); the 448 net in tiled2 and
+     tiled_exact (the section kernel) at batch 1024 and at 128, against its
+     plain version at 128 (median of 3);
   5. the kernels JSON line (each kernel's time beside its bound: the larger
      of the bytes its function must move over 3.35 TB/s and its
      operations over the card's peak rate for them), the card line, and
@@ -74,7 +88,14 @@ HBM_RATE, INT8_RATE, CORE_RATE = 3.35e12, 1979e12, 67e12
 # mode: (golden int8 head, prefix of its golden detections or None)
 GOLD_KEYS = {"arena2": ("head", ""), "arena_exact": ("head_exact", "exact_"),
              "fused": ("head_fast", None),
-             "fused_exact": ("head_exact", "exact_")}
+             "fused_exact": ("head_exact", "exact_"),
+             "perop": ("head_fast", None),
+             "perop_exact": ("head_exact", "exact_")}
+# the per-op kernels only the op-surface graph runs, at 128-512 B a frame;
+# they are timed again on SCALE_GRAPH (_upsample_graph) at BATCH_SCALE
+SURFACE_ONLY = ("eltwise_int8", "resize_nearest", "leaky_int8")
+SCALE_GRAPH = "yolov3-tiny 416 upsample 13x13x128 -> 26x26x128"
+BATCH_SCALE = 1024
 
 
 def _golden_tool():
@@ -88,6 +109,25 @@ def _golden_tool():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def _upsample_graph(tool):
+    """The FPN upsample of the published yolov3-tiny (darknet's
+    yolov3-tiny.cfg at 416x416: layer 19, int8 [N,13,13,128] -> RESIZE x2
+    -> [N,26,26,128]) with RELU, RELU6, LOGISTIC and a standalone LEAKY on
+    its output, where the op-surface graph has them on its 8x8 tensors;
+    scales from ``tool.GraphMaker``'s seed."""
+    import numpy as np
+    b = tool.GraphMaker(SEED)
+    x = b.act(13, 128, 0.09, 4)
+    size = b.tensor((2,), np.int32, data=np.asarray([26, 26], np.int32))
+    z = b.op("RESIZE_NEAREST_NEIGHBOR", [x, size], b.act(26, 128, 0.09, 4),
+             align_corners=False, half_pixel_centers=False)
+    outs = [b.op("RELU", [z], b.act(26, 128, 0.09, 4)),
+            b.op("RELU6", [z], b.act(26, 128, 0.09, 4)),
+            b.op("LOGISTIC", [z], b.act(26, 128, 1.0 / 256.0, -128)),
+            b.op("LEAKY_RELU", [z], b.act(26, 128, 0.07, -20), alpha=0.1)]
+    return b.graph([x], outs, "yolov3_tiny_upsample")
 
 
 def _net_work(graph):
@@ -107,6 +147,30 @@ def _net_work(graph):
             rows = (oh - 1) * a["stride_h"] + a["filter_h"]
             compares += (rows * a["filter_w"] + oh * a["filter_h"]) * ow * c
     return macs, compares
+
+
+def _op_work(st):
+    """(bytes, multiply-adds, other operations) of one frame of a per-op
+    program (kernels/perop.py): each input read once and the output written
+    once; K*K*Ci MACs a conv output (K*K a depthwise one); kh*kw compares a
+    max-pool output (the full window the kernel takes); one operation an
+    output element of ADD, QUANTIZE, LEAKY and the activations; none for
+    PAD, RESIZE and concat, which only move bytes."""
+    from yoloface_tpu_torch.kernels import arena
+    F = arena.F
+    nbytes = sum(h * w * c for h, w, c in st.shapes.values())
+    h, w, c = st.shapes[st.outputs[0]]
+    d = st.descs[0]
+    kk = int(d[F["kh"]]) * int(d[F["kw"]])
+    code = int(d[F["code"]])
+    if code in (arena.CONV, arena.DW):
+        ci = int(d[F["in0_c"]]) if code == arena.CONV else 1
+        return nbytes, h * w * c * kk * ci, 0
+    if code == arena.MAXPOOL:
+        return nbytes, 0, h * w * c * kk
+    if code in (arena.ADD, arena.QUANTIZE, arena.LEAKY, arena.ACT):
+        return nbytes, 0, h * w * c
+    return nbytes, 0, 0
 
 
 def _bound(nbytes: float, macs: float = 0, core_ops: float = 0):
@@ -171,13 +235,14 @@ def main() -> int:
 
     from yoloface_tpu_torch.graph.retarget import retarget_spatial
     from yoloface_tpu_torch.io.tflite_import import load_tflite
-    from yoloface_tpu_torch.kernels import _build, arena, fused, tiled
+    from yoloface_tpu_torch.kernels import _build, arena, fused, perop, tiled
     from yoloface_tpu_torch.kernels import head as khead
     from yoloface_tpu_torch.kernels import preprocess as kpre
     from yoloface_tpu_torch.pipeline import head as thead
     from yoloface_tpu_torch.pipeline.e2e import FacePipeline, load_pipeline
     from yoloface_tpu_torch.runtime.engine import (ARENA_BITS, FUSED_BITS,
-                                                   TILED_BITS, Int8Engine)
+                                                   PEROP_BITS, TILED_BITS,
+                                                   Int8Engine)
 
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions: f64
     torch.backends.cudnn.allow_tf32 = False
@@ -214,12 +279,24 @@ def main() -> int:
         pipes[mode] = load_pipeline(CORPUS, mode=mode, device=dev)
     fplans = {bits: pipes[mode].engine.arena
               for mode, bits in FUSED_BITS.items()}
+    for mode in PEROP_BITS:
+        pipes[mode] = load_pipeline(CORPUS, mode=mode, device=dev)
+    pplans = {bits: pipes[mode].engine.arena
+              for mode, bits in PEROP_BITS.items()}
     head_kw = dict(scale=pipe._out_scale, zero_point=pipe._out_zp)
     counted = (kpre.preprocess_rgb565, arena.arena_stage, khead.detect_head,
-               khead.topk_conf, tiled.tiled_section, fused.fused_stage)
+               khead.topk_conf, tiled.tiled_section, fused.fused_stage,
+               perop.perop_op)
+
+    def zero_counts():
+        for fn in counted:
+            fn.launches = 0
+        perop.reset_launches()
+
     err = {"preprocess_rgb565": 0.0, "arena_stage": 0.0,
            "requant_epilogue": 0.0, "detect_head": 0.0, "topk_conf": 0.0,
-           "tiled_section": 0.0, "fused_stage": 0.0}
+           "tiled_section": 0.0, "fused_stage": 0.0,
+           **{k: 0.0 for k in perop.KERNELS}}
     gold = dict(np.load(GOLDEN))
     tool = _golden_tool()
 
@@ -306,23 +383,30 @@ def main() -> int:
                   f"{[st.arena_bytes for st in p.stages]} B: every section "
                   "output bit-exact")
 
-    def check_fused(p, x, tag):
-        """Each stage through the kernel and its plain version; -> the
-        kernel's tensors."""
+    def check_program(p, x, tag, kernel, plain, key):
+        """Each stage (or op) of ``p`` through ``kernel`` and ``plain``,
+        its error kept under ``key(stage)``; -> the kernel's tensors."""
         env = {p.input_idx: x}
         for k, st in enumerate(p.stages):
             ins = [env[i] for i in st.inputs]
-            outs = fused.fused_stage(st, getattr(p, f"descs{k}"),
-                                     getattr(p, f"consts{k}"), ins)
+            outs = kernel(st, getattr(p, f"descs{k}"),
+                          getattr(p, f"consts{k}"), ins)
             ref = [torch.empty_like(o) for o in outs]
-            fused.fused_stage_plain(st, getattr(p, f"consts{k}"), ins + ref)
+            plain(st, getattr(p, f"consts{k}"), ins + ref)
             torch.cuda.synchronize()
             for o, u, v in zip(st.outputs, outs, ref):
-                _require(torch.equal(u, v), f"fused stage {k} t{o} {tag}")
-            err["fused_stage"] = max(err["fused_stage"],
-                                     _max_err(zip(outs, ref)))
+                _require(torch.equal(u, v), f"{key(st)} {k} t{o} {tag}")
+            err[key(st)] = max(err[key(st)], _max_err(zip(outs, ref)))
             env.update(zip(st.outputs, outs))
         return env
+
+    def check_fused(p, x, tag):
+        return check_program(p, x, tag, fused.fused_stage,
+                             fused.fused_stage_plain, lambda st: "fused_stage")
+
+    def check_perop(p, x, tag):
+        return check_program(p, x, tag, perop.perop_op, perop.perop_plain,
+                             lambda st: st.kernel)
 
     surface = tool.surface_graph()
     for bits in fused.BITS:
@@ -348,6 +432,22 @@ def main() -> int:
             print(f"[check] fused_stage {bits} bits, op-surface graph in "
                   f"{len(p.stages)} stage(s): bit-exact, outputs equal the "
                   "golden keys")
+
+    for bits, p in pplans.items():
+        for n in (1, 3, 37):
+            check_perop(p, int8_frames(n, 56), f"perop {bits} N={n}")
+        ps = perop.PerOpPlan(surface, bits).to(dev)
+        env = check_perop(ps, torch.from_numpy(tool.surface_frames()).to(dev),
+                          f"perop {bits} op surface")
+        for k, o in enumerate(surface.outputs):
+            _require(np.array_equal(env[o].cpu().numpy(),
+                                    gold[f"surface_{bits}{k}"]),
+                     f"perop op surface {bits}: golden output {k}")
+        print(f"[check] perop {bits} bits: the per-op programs bit-exact on "
+              f"every op output of the corpus net ({len(p.stages)} ops, "
+              f"N=1/3/37) and of the op-surface graph ({len(ps.stages)} ops, "
+              f"kernels {sorted({st.kernel for st in ps.stages})}); its "
+              "outputs equal the golden keys")
 
     rng_h = np.random.default_rng(23)          # tests/test_pipeline.py:262
     yc = rng_h.integers(-128, 128, (48, 7, 7, 18), dtype=np.int64)
@@ -394,8 +494,16 @@ def main() -> int:
                   (counted[0], counted[5], counted[2])),
         "fused_exact": (pipes["fused_exact"], None, (8, 256),
                         (counted[0], counted[5], counted[2])),
+        "perop": (pipes["perop"], None, (8, 256),
+                  (counted[0], counted[6], counted[2])),
+        "perop_exact": (pipes["perop_exact"], None, (8, 256),
+                        (counted[0], counted[6], counted[2])),
     }
-    launches = {}
+    launches, by_kernel = {}, {}
+
+    def read_counts(path):
+        launches[path] = {fn.__name__: fn.launches for fn in counted}
+        by_kernel[path] = dict(perop.perop_op.by_kernel)
 
     def close(got, want, tag):
         for k in ("valid", "count"):
@@ -410,13 +518,13 @@ def main() -> int:
     for path, (eng_pipe, cfg, sizes, kernels) in paths.items():
         p = FacePipeline(eng_pipe.engine, cfg)
         batches = {n: gold_frames if n == 8 else frames(n) for n in sizes}
-        for fn in counted:
-            fn.launches = 0
+        zero_counts()
         served = {n: p.detect_rgb565(f) for n, f in batches.items()}
         torch.cuda.synchronize()
-        launches[path] = {fn.__name__: fn.launches for fn in counted}
+        read_counts(path)
         print(f"[serve] {path}: detect_rgb565 on batches {list(batches)}: "
-              f"launches {launches[path]}")
+              f"launches {launches[path]}"
+              + (f", per-op {by_kernel[path]}" if by_kernel[path] else ""))
         _require(all(fn.launches > 0 for fn in kernels),
                  f"{path}: every kernel of the path launched")
         eng = p.engine
@@ -459,11 +567,10 @@ def main() -> int:
         batches = {"golden": torch.from_numpy(gold448).to(dev),
                    "random": int8_frames(2, 448)}
         path = f"448 {mode}"
-        for fn in counted:
-            fn.launches = 0
+        zero_counts()
         served = {b: eng(f) for b, f in batches.items()}
         torch.cuda.synchronize()
-        launches[path] = {fn.__name__: fn.launches for fn in counted}
+        read_counts(path)
         print(f"[serve] {path}: Int8Engine(g448) on the golden and a random "
               f"pair of frames: launches {launches[path]}")
         _require(tiled.tiled_section.launches == 2 * len(eng.arena.stages),
@@ -476,6 +583,27 @@ def main() -> int:
                  f"{path}: golden {key}")
         print(f"[serve] {path}: [2,56,56,18] bit-exact vs the CPU path on "
               f"both pairs and vs the golden {key}")
+
+    xs_surface = torch.from_numpy(tool.surface_frames()).to(dev)
+    for mode, bits in PEROP_BITS.items():
+        eng = Int8Engine(surface, mode, device=dev)
+        path = f"op surface {mode}"
+        zero_counts()
+        served = eng(xs_surface)
+        torch.cuda.synchronize()
+        read_counts(path)
+        print(f"[serve] {path}: Int8Engine(surface) on {len(xs_surface)} "
+              f"frames: per-op launches {by_kernel[path]}")
+        _require(perop.perop_op.launches == len(eng.arena.stages)
+                 and set(by_kernel[path]) == set(perop.KERNELS),
+                 f"{path}: every op through the kernel, all eleven kernels")
+        cpu = Int8Engine(surface, mode, device="cpu")(xs_surface.cpu())
+        for k, (u, v) in enumerate(zip(served, cpu)):
+            _require(torch.equal(u.cpu(), v), f"{path}: output {k} vs CPU")
+            _require(np.array_equal(v.numpy(), gold[f"surface_{bits}{k}"]),
+                     f"{path}: golden output {k}")
+        print(f"[serve] {path}: both outputs bit-exact vs the CPU path and "
+              "the golden keys")
 
     # ----------------------------------------------------------- 4. timing
     n = TIMING_BATCH
@@ -490,16 +618,18 @@ def main() -> int:
         return (lambda: arena.arena_stage(st, descs, consts, [x]),
                 lambda: arena.arena_stage_plain(st, consts, [x] + outs))
 
-    def fused_pair(plan):
+    def program_pair(plan, plain_fn, free=False):
+        """(every stage through the kernel, every stage through plain_fn
+        on the kernel's inputs)."""
         env = plan.run_stages(x)
         outs = [[torch.empty_like(env[o]) for o in st.outputs]
                 for st in plan.stages]
 
         def plain():
             for k, st in enumerate(plan.stages):
-                fused.fused_stage_plain(st, getattr(plan, f"consts{k}"),
-                                        [env[i] for i in st.inputs] + outs[k])
-        return lambda: plan.run_stages(x), plain
+                plain_fn(st, getattr(plan, f"consts{k}"),
+                         [env[i] for i in st.inputs] + outs[k])
+        return lambda: plan.run_stages(x, free), plain
 
     timed = {
         "preprocess_rgb565": (lambda: kpre.preprocess_rgb565(f),
@@ -511,13 +641,19 @@ def main() -> int:
                         lambda: khead.detect_head_plain(y, **head_kw)),
         "topk_conf": (lambda: khead.topk_conf(y, 16, **head_kw),
                       lambda: khead.topk_conf_plain(y, 16, **head_kw)),
-        "fused_stage": fused_pair(fplans["fast"]),
-        "fused_stage exact": fused_pair(fplans["exact"]),
+        "fused_stage": program_pair(fplans["fast"], fused.fused_stage_plain),
+        "fused_stage exact": program_pair(fplans["exact"],
+                                          fused.fused_stage_plain),
+        "perop": program_pair(pplans["fast"], perop.perop_plain, True),
+        "perop exact": program_pair(pplans["exact"], perop.perop_plain, True),
     }
     label = {"arena_stage": "arena_stage fast2",
              "requant_epilogue": "arena_stage exact",
              "fused_stage": "fused_stage fast (3 stages)",
-             "fused_stage exact": "fused_stage exact (3 stages)"}
+             "fused_stage exact": "fused_stage exact (3 stages)",
+             "perop": f"perop program fast ({len(pplans['fast'].stages)} ops)",
+             "perop exact": "perop program exact "
+                            f"({len(pplans['exact'].stages)} ops)"}
     ms = {}
     for name, (kern, plain) in timed.items():
         # plain, kernel, kernel, plain: report each pair's mean
@@ -532,7 +668,128 @@ def main() -> int:
     library_ms = {"topk_conf": _time_ms(lambda: torch.topk(key, 16, dim=1))}
     print(f"[time] torch.topk(key, 16) N={n}: {library_ms['topk_conf']:.4f} "
           f"ms ({card})")
-    for mode in ("arena2", "arena_exact", "fused", "fused_exact"):
+
+    # each op of the per-op program on its own (kernel, then plain), summed
+    # by per-op kernel: the corpus net's ops, and the op-surface graph's for
+    # the kernels only it runs; beside them the one PyTorch call computing
+    # the same function, where there is one, on the same inputs
+    import torch.nn.functional as tf
+    Fd = arena.F
+
+    def library_call(st, ins):
+        """(name, fn) of the one PyTorch call computing the op, or None."""
+        d = [int(v) for v in st.descs[0]]
+        (hi, wi, _), (ho, wo, _) = (st.shapes[st.inputs[0]],
+                                    st.shapes[st.outputs[0]])
+        if st.kernel == "pad_int8":
+            pt, pl = d[Fd["pt"]], d[Fd["pl"]]
+            return "F.pad", lambda: tf.pad(
+                ins[0], (0, 0, pl, wo - wi - pl, pt, ho - hi - pt),
+                value=d[Fd["fill"]])
+        if st.kernel == "concat_channels" and len(ins) == len(st.descs):
+            return "torch.cat", lambda: torch.cat(ins, dim=3)
+        if st.kernel == "eltwise_int8" and d[Fd["epi"]] == arena.ACT_CLIP:
+            return "torch.clamp", lambda: torch.clamp(ins[0], d[Fd["zp_a"]],
+                                                      d[Fd["zp_b"]])
+        if st.kernel == "maxpool_int8":
+            def pool():   # SAME pads of the corpus pools are symmetric
+                return tf.max_pool2d(
+                    ins[0].permute(0, 3, 1, 2), (d[Fd["kh"]], d[Fd["kw"]]),
+                    (d[Fd["sh"]], d[Fd["sw"]]), (d[Fd["pt"]], d[Fd["pl"]])
+                ).permute(0, 2, 3, 1)
+            return "F.max_pool2d", pool
+        if st.kernel == "resize_nearest":
+            def resize():   # a byte move: the same on a uint8 view
+                u = ins[0].view(torch.uint8).permute(0, 3, 1, 2)
+                return tf.interpolate(u, size=(ho, wo), mode="nearest"
+                                      ).permute(0, 2, 3, 1).view(torch.int8)
+            return "F.interpolate", resize
+        return None
+
+    def time_ops(plan, inp, keep, bits, op_ms, work, lib_ops):
+        """Time each op of ``plan`` that ``keep(st)`` selects on the
+        program's own tensors from ``inp``: kernel and plain summed by
+        kernel into ``op_ms[(kernel, bits)]``; in fast bits its work into
+        ``work[kernel]`` and the library call (checked equal first) with
+        the kernel on the same ops into ``lib_ops[kernel]`` (None where the
+        card has none)."""
+        env = plan.run_stages(inp)
+        for k, st in enumerate(plan.stages):
+            if not keep(st):
+                continue
+            ins = [env[i] for i in st.inputs]
+            descs, consts = (getattr(plan, f"descs{k}"),
+                             getattr(plan, f"consts{k}"))
+            out = [torch.empty_like(env[st.outputs[0]])]
+            acc = op_ms.setdefault((st.kernel, bits), [0.0, 0.0])
+            t_k = _time_ms(lambda: perop.perop_op(st, descs, consts, ins))
+            acc[0] += t_k
+            acc[1] += _time_ms(lambda: perop.perop_plain(st, consts,
+                                                         ins + out))
+            if bits != "fast":
+                continue
+            w = work.setdefault(st.kernel, [0, 0, 0])
+            for j, v in enumerate(_op_work(st)):
+                w[j] += len(inp) * v
+            lib = library_call(st, ins)
+            if lib is None:
+                continue
+            lname, fn = lib
+            try:
+                same = torch.equal(fn(), env[st.outputs[0]])
+            except (RuntimeError, NotImplementedError) as e:
+                same = str(e).splitlines()[0]
+            if same is not True:
+                print(f"[time] {lname} on {st.kernel} op {k}: none for "
+                      f"int8 on this card ({same or 'other values'})")
+                lib_ops[st.kernel] = None
+            if lib_ops.get(st.kernel, 0) is None:
+                continue
+            got = lib_ops.setdefault(st.kernel, [lname, 0.0, 0.0])
+            got[1] += _time_ms(fn)
+            got[2] += t_k
+
+    op_ms, work, lib_ops = {}, {}, {}
+    surface_n = int8_frames(n, 15)
+    op_graph = {k: "op surface" if k in SURFACE_ONLY else "corpus"
+                for k in perop.KERNELS}
+    for bits in perop.BITS:
+        time_ops(pplans[bits], x, lambda st: st.kernel not in SURFACE_ONLY,
+                 bits, op_ms, work, lib_ops)
+        time_ops(perop.PerOpPlan(surface, bits).to(dev), surface_n,
+                 lambda st: st.kernel in SURFACE_ONLY, bits, op_ms, work,
+                 lib_ops)
+    del surface_n
+    for (name, bits), (t_k, t_p) in op_ms.items():
+        print(f"[time] perop {name} {bits} N={n} ({op_graph[name]}): kernel "
+              f"{t_k:.4f} ms, plain {t_p:.4f} ms, summed over its ops "
+              f"({card})")
+    for name, got in lib_ops.items():
+        if got is not None:
+            library_ms[name] = got[1]
+            print(f"[time] {got[0]} for {name} N={n}: {got[1]:.4f} ms, the "
+                  f"kernel {got[2]:.4f} ms on the same ops ({card})")
+    # the op-surface graph gives those three kernels 128-512 B a frame; at
+    # a real model's size they run on the FPN upsample of the published
+    # yolov3-tiny (SCALE_GRAPH): every op of that graph, fast bits
+    big_ms, big_work, big_lib = {}, {}, {}
+    g_up = _upsample_graph(tool)
+    x_up = torch.from_numpy(rng.integers(
+        -128, 128, (BATCH_SCALE, 13, 13, 128), dtype=np.int64
+    ).astype(np.int8)).to(dev)
+    time_ops(perop.PerOpPlan(g_up, "fast").to(dev), x_up, lambda st: True,
+             "fast", big_ms, big_work, big_lib)
+    del x_up
+    big_ms_by_kernel = {name: t for (name, _), t in big_ms.items()}
+    for name, (t_k, t_p) in big_ms_by_kernel.items():
+        lib = big_lib.get(name)
+        print(f"[time] perop {name} fast N={BATCH_SCALE} ({SCALE_GRAPH}): "
+              f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms"
+              + ("" if not lib else f", {lib[0]} {lib[1]:.4f} ms (the kernel "
+                 f"{lib[2]:.4f} ms on the same ops)") + f" ({card})")
+
+    for mode in ("arena2", "arena_exact", "fused", "fused_exact", "perop",
+                 "perop_exact"):
         for n in (16384, 65536):
             f = frames(n)
             t = _time_ms(lambda: pipes[mode].detect_rgb565(f))
@@ -634,6 +891,31 @@ def main() -> int:
         if k == "tiled_section":     # the kernel at 1024, both at 128
             row.update(batch=BATCH448, plain_batch=PLAIN_BATCH448,
                        ms_at_plain_batch=ms[k][2])
+        kernels.append(row)
+    for k, (line, _) in perop.KERNELS.items():   # B8.1-B8.11 by op
+        b = _bound(*work[k])
+        graph = op_graph[k]
+        path = "op surface perop" if graph == "op surface" else "perop"
+        row = {"name": k, "route": "cuda", "source": src + "fused_stage.cu",
+               "replaces": f"yoloface_tpu/kernels/pallas_int8.py:{line}",
+               "launches": by_kernel[path].get(k, 0), "max_abs_err": err[k],
+               "ms": op_ms[(k, "fast")][0], "plain_ms": op_ms[(k, "fast")][1],
+               "bound_ms": b[0], "bound_by": b[1],
+               "library_ms": library_ms.get(k), "bits": "fast",
+               "ms_exact": op_ms[(k, "exact")][0],
+               "plain_ms_exact": op_ms[(k, "exact")][1], "graph": graph,
+               "launches_path": path}
+        if lib_ops.get(k):      # the library call's ops, the kernel on them
+            row.update(library=lib_ops[k][0], ms_on_library_ops=lib_ops[k][2])
+        if k in big_ms_by_kernel:
+            b = _bound(*big_work[k])
+            lib = big_lib.get(k)
+            row["at_scale"] = {
+                "graph": SCALE_GRAPH, "batch": BATCH_SCALE,
+                "ms": big_ms_by_kernel[k][0], "plain_ms": big_ms_by_kernel[k][1],
+                "bound_ms": b[0], "bound_by": b[1],
+                "library_ms": lib[1] if lib else None,
+                "ms_on_library_ops": lib[2] if lib else None}
         kernels.append(row)
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -151,7 +151,8 @@ def _tiny_graph(opname):
 
 @pytest.mark.parametrize("mode", ["exact", "fast", "fast2", "arena_exact",
                                   "arena", "arena2", "tiled_exact", "tiled",
-                                  "tiled2", "fused_exact", "fused"])
+                                  "tiled2", "fused_exact", "fused",
+                                  "perop_exact", "perop"])
 def test_unknown_op_raises(mode):
     """An op no mode of the port lowers yet (ROADMAP A8) is refused by
     name, in every mode."""

@@ -14,8 +14,8 @@ import torch
 
 from yoloface_tpu_torch.graph.retarget import retarget_spatial
 from yoloface_tpu_torch.io.tflite_import import load_tflite
-from yoloface_tpu_torch.kernels import (arena, fused, head, preprocess,
-                                       tiled)
+from yoloface_tpu_torch.kernels import (arena, fused, head, perop,
+                                       preprocess, tiled)
 from yoloface_tpu_torch.pipeline.e2e import load_pipeline
 from yoloface_tpu_torch.runtime.engine import Int8Engine
 
@@ -23,6 +23,15 @@ torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CORPUS = os.path.join(REPO, "checkpoints", "yoloface_corpus_int8.tflite")
 GOLDEN = os.path.join(REPO, "tests", "data", "torch_port_frames.npz")
+
+
+def _golden_tool():
+    spec = importlib.util.spec_from_file_location(
+        "make_torch_port_golden",
+        os.path.join(REPO, "tools", "make_torch_port_golden.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool
 
 
 @pytest.mark.gpu
@@ -65,11 +74,7 @@ def test_tiled2_448_on_the_card_equals_cpu():
     two golden 448x448 frames."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    spec = importlib.util.spec_from_file_location(
-        "make_torch_port_golden",
-        os.path.join(REPO, "tools", "make_torch_port_golden.py"))
-    tool = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(tool)
+    tool = _golden_tool()
     g = retarget_spatial(load_tflite(CORPUS), 8)
     x = torch.from_numpy(tool.frames448())
     card = Int8Engine(g, "tiled2", device="cuda")
@@ -98,6 +103,52 @@ def test_fused_serving_on_the_card_equals_cpu(mode, golden):
     got = card.detect_rgb565(gold["frames"])
     torch.cuda.synchronize()
     assert fused.fused_stage.launches == len(card.engine.arena.stages)
+    want = cpu.detect_rgb565(gold["frames"])
+    for k in ("valid", "count"):
+        assert torch.equal(got[k].cpu(), want[k])
+    y = card.engine(card.preprocess(gold["frames"]))
+    assert torch.equal(y.cpu(), cpu.engine(cpu.preprocess(gold["frames"])))
+    np.testing.assert_array_equal(y.cpu().numpy(), gold[golden])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", perop.BITS)
+def test_perop_kernel_matches_plain_on_the_card(bits):
+    """The per-op programs on the card equal their plain version on every
+    op output of the corpus net (the golden frames through the preprocess
+    kernel) and of the op-surface graph, in both bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    tool = _golden_tool()
+    gold = dict(np.load(GOLDEN))
+    x = preprocess.preprocess_rgb565(torch.from_numpy(gold["frames"]).cuda())
+    xs = torch.from_numpy(tool.surface_frames()).cuda()
+    for g, inp in ((load_tflite(CORPUS), x), (tool.surface_graph(), xs)):
+        plan = perop.PerOpPlan(g, bits).cuda()
+        env = plan.run_stages(inp)
+        for k, st in enumerate(plan.stages):
+            ref = [torch.empty_like(env[o]) for o in st.outputs]
+            perop.perop_plain(st, getattr(plan, f"consts{k}"),
+                              [env[i] for i in st.inputs] + ref)
+            assert torch.equal(env[st.outputs[0]], ref[0]), (g.name, k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,golden", [("perop", "head_fast"),
+                                         ("perop_exact", "head_exact")])
+def test_perop_serving_on_the_card_equals_cpu(mode, golden):
+    """``load_pipeline(corpus, mode)`` on the card (the preprocess, per-op
+    and head kernels; every op one launch) equals the CPU path: the int8
+    head bit for bit, the golden head too, and the detections."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gold = dict(np.load(GOLDEN))
+    card = load_pipeline(CORPUS, mode=mode)
+    cpu = load_pipeline(CORPUS, mode=mode, device="cpu")
+    perop.reset_launches()
+    got = card.detect_rgb565(gold["frames"])
+    torch.cuda.synchronize()
+    assert perop.perop_op.launches == len(card.engine.arena.stages) == 37
     want = cpu.detect_rgb565(gold["frames"])
     for k in ("valid", "count"):
         assert torch.equal(got[k].cpu(), want[k])

@@ -42,6 +42,9 @@ ENTRIES = {
     "fused entry point":
         "from yoloface_tpu_torch.kernels.fused import FusedPlan\n"
         "from yoloface_tpu_torch.runtime.engine import FUSED_BITS",
+    "per-op entry point":
+        "from yoloface_tpu_torch.kernels.perop import PerOpPlan\n"
+        "from yoloface_tpu_torch.runtime.engine import PEROP_BITS",
 }
 
 
@@ -53,4 +56,21 @@ def test_port_imports_without_jax(entry):
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
     if entry == "all modules":
-        assert int(res.stdout.split()[0]) >= 27      # every module imported
+        assert int(res.stdout.split()[0]) >= 28      # every module imported
+
+
+@pytest.mark.parametrize("script", ["chip_smoke.py",
+                                    "tools/torch_profile_pipeline.py"])
+def test_card_scripts_import_no_jax(script):
+    """The scripts the card's machine runs name no jax and no yoloface_tpu
+    module in any import statement, at top level or inside a function."""
+    import ast
+    with open(os.path.join(REPO, script)) as f:
+        tree = ast.parse(f.read())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+             for a in n.names]
+    names += [n.module for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom) and n.module]
+    assert any(m.startswith("yoloface_tpu_torch") for m in names)
+    assert not [m for m in names
+                if m.split(".")[0] in ("jax", "jaxlib", "yoloface_tpu")]

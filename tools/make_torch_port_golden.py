@@ -22,9 +22,11 @@ pipelines give for them:
     ``surface_exact0``, ``surface_exact1``) and the frames' sha256
     (``surface_frames_sha256``).
 chip_smoke.py holds the card's output against it without jax;
-tests/test_torch_pipeline.py, tests/test_torch_tiled.py and
-tests/test_torch_fused.py recompute the JAX side and hold it against the
-file.
+tests/test_torch_pipeline.py, tests/test_torch_tiled.py,
+tests/test_torch_fused.py and tests/test_torch_perop.py recompute the JAX
+side and hold it against the file.  ``GraphMaker``, which builds the
+op-surface graph, also builds the one-op graphs of
+tests/test_torch_perop.py.
 
 Run from the repository root, on the CPU:
     JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py
@@ -110,6 +112,60 @@ def jax_outputs_448() -> dict:
             "frames448_sha256": np.array(sha256(x))}
 
 
+class GraphMaker:
+    """An int8 graph in the port's IR, op by op, with weights, biases and
+    scales drawn from numpy seed ``seed`` (numpy only)."""
+
+    def __init__(self, seed: int):
+        self.rng = np.random.default_rng(seed)
+        self.tensors, self.ops = [], []
+
+    def tensor(self, shape, dtype=np.int8, scale=None, zp=0, data=None,
+               dim=0) -> int:
+        from yoloface_tpu_torch.graph.ir import QParams, TensorDef
+        q = None
+        if scale is not None:
+            scales = tuple(float(s) for s in np.atleast_1d(scale))
+            q = QParams(scales, (int(zp),) * len(scales), dim)
+        self.tensors.append(TensorDef(len(self.tensors),
+                                      f"t{len(self.tensors)}", tuple(shape),
+                                      np.dtype(dtype), q, data))
+        return len(self.tensors) - 1
+
+    def act(self, hw, c, scale, zp) -> int:
+        return self.tensor((1, hw, hw, c), scale=scale, zp=zp)
+
+    def op(self, name, ins, out, **attrs) -> int:
+        from yoloface_tpu_torch.graph.ir import OpDef
+        self.ops.append(OpDef(len(self.ops), name, list(ins), [out], attrs))
+        return out
+
+    def conv(self, x, co, kernel, stride, padding, out, depthwise=False):
+        """A CONV_2D (or DEPTHWISE_CONV_2D) with a ``kernel`` (kh, kw)."""
+        ci = self.tensors[x].shape[3]
+        shape = (1, *kernel, ci) if depthwise else (co, *kernel, ci)
+        s_w = self.rng.uniform(0.004, 0.012, co)
+        w = self.tensor(shape, scale=s_w, dim=3 if depthwise else 0,
+                        data=self.rng.integers(-90, 91, shape).astype(np.int8))
+        s_b = self.tensors[x].qparams.scale * s_w
+        b = self.tensor((co,), np.int32, scale=s_b,
+                        data=self.rng.integers(-3000, 3001, co)
+                        .astype(np.int32))
+        return self.op("DEPTHWISE_CONV_2D" if depthwise else "CONV_2D",
+                       [x, w, b], out, padding=padding, stride_h=stride,
+                       stride_w=stride, activation="NONE",
+                       **({"depth_multiplier": 1} if depthwise else {}))
+
+    def pad(self, x, rows, out):
+        p = self.tensor((4, 2), np.int32, data=np.asarray(rows, np.int32))
+        return self.op("PAD", [x, p], out)
+
+    def graph(self, inputs, outputs, name: str = ""):
+        from yoloface_tpu_torch.graph.ir import GraphDef
+        return GraphDef(self.tensors, self.ops, list(inputs), list(outputs),
+                        name)
+
+
 def surface_graph():
     """The op-surface graph of the fused family, in the port's IR (numpy
     only: the card's machine builds the same graph).  int8 [N,15,15,3] in;
@@ -118,69 +174,33 @@ def surface_graph():
     QUANTIZE, ADD, a x2 RESIZE, a LOGISTIC, a 3-input concat; a standalone
     PAD into a VALID 3x3 max-pool (output 0, [N,4,4,24]) and a SAME 3x3
     max-pool on its odd width (output 1, [N,5,5,24])."""
-    from yoloface_tpu_torch.graph.ir import GraphDef, OpDef, QParams, TensorDef
-    rng = np.random.default_rng(SEED_SURFACE)
-    tensors, ops = [], []
-
-    def tensor(shape, dtype=np.int8, scale=None, zp=0, data=None, dim=0):
-        q = None
-        if scale is not None:
-            scales = tuple(float(s) for s in np.atleast_1d(scale))
-            q = QParams(scales, (int(zp),) * len(scales), dim)
-        tensors.append(TensorDef(len(tensors), f"t{len(tensors)}",
-                                 tuple(shape), np.dtype(dtype), q, data))
-        return len(tensors) - 1
-
-    def act(hw, c, scale, zp):
-        return tensor((1, hw, hw, c), scale=scale, zp=zp)
-
-    def op(name, ins, out, **attrs):
-        ops.append(OpDef(len(ops), name, list(ins), [out], attrs))
-        return out
-
-    def conv(x, co, k, stride, padding, out, depthwise=False):
-        ci = tensors[x].shape[3]
-        shape = (1, k, k, ci) if depthwise else (co, k, k, ci)
-        s_w = rng.uniform(0.004, 0.012, co)
-        w = tensor(shape, scale=s_w, dim=3 if depthwise else 0,
-                   data=rng.integers(-90, 91, shape).astype(np.int8))
-        s_b = tensors[x].qparams.scale * s_w
-        b = tensor((co,), np.int32, scale=s_b,
-                   data=rng.integers(-3000, 3001, co).astype(np.int32))
-        return op("DEPTHWISE_CONV_2D" if depthwise else "CONV_2D",
-                  [x, w, b], out, padding=padding, stride_h=stride,
-                  stride_w=stride, activation="NONE",
-                  **({"depth_multiplier": 1} if depthwise else {}))
-
-    def pad(x, rows, out):
-        p = tensor((4, 2), np.int32, data=np.asarray(rows, np.int32))
-        return op("PAD", [x, p], out)
-
+    b = GraphMaker(SEED_SURFACE)
+    act, op = b.act, b.op
     x = act(15, 3, 0.05, -3)
-    p0 = pad(x, [[0, 0], [1, 1], [1, 1], [0, 0]], act(17, 3, 0.05, -3))
-    c0 = conv(p0, 8, 3, 2, "VALID", act(8, 8, 0.09, 6))
+    p0 = b.pad(x, [[0, 0], [1, 1], [1, 1], [0, 0]], act(17, 3, 0.05, -3))
+    c0 = b.conv(p0, 8, (3, 3), 2, "VALID", act(8, 8, 0.09, 6))
     l0 = op("LEAKY_RELU", [c0], act(8, 8, 0.07, -20), alpha=0.1)
-    d0 = conv(l0, 8, 3, 2, "SAME", act(4, 8, 0.06, 2), depthwise=True)
-    c1 = conv(d0, 8, 1, 1, "SAME", act(4, 8, 0.08, -5))
+    d0 = b.conv(l0, 8, (3, 3), 2, "SAME", act(4, 8, 0.06, 2), depthwise=True)
+    c1 = b.conv(d0, 8, (1, 1), 1, "SAME", act(4, 8, 0.08, -5))
     l1 = op("LEAKY_RELU", [c1], act(4, 8, 0.05, 9), alpha=0.1)
     r0 = op("RELU", [c1], act(4, 8, 0.08, -5))
     r6 = op("RELU6", [l1], act(4, 8, 0.05, 9))
     q0 = op("QUANTIZE", [r0], act(4, 8, 0.11, -30))
     a0 = op("ADD", [r6, q0], act(4, 8, 0.09, 4))
-    size = tensor((2,), np.int32, data=np.asarray([8, 8], np.int32))
+    size = b.tensor((2,), np.int32, data=np.asarray([8, 8], np.int32))
     z0 = op("RESIZE_NEAREST_NEIGHBOR", [a0, size], act(8, 8, 0.09, 4),
             align_corners=False, half_pixel_centers=False)
     s0 = op("LOGISTIC", [l0], act(8, 8, 1.0 / 256.0, -128))
     cat = op("CONCATENATION", [z0, l0, s0], act(8, 24, 0.09, 4), axis=3,
              activation="NONE")
-    p1 = pad(cat, [[0, 0], [0, 1], [1, 0], [0, 0]], act(9, 24, 0.09, 4))
+    p1 = b.pad(cat, [[0, 0], [0, 1], [1, 0], [0, 0]], act(9, 24, 0.09, 4))
     m0 = op("MAX_POOL_2D", [p1], act(4, 24, 0.09, 4), padding="VALID",
             stride_h=2, stride_w=2, filter_h=3, filter_w=3,
             activation="NONE")
     m1 = op("MAX_POOL_2D", [p1], act(5, 24, 0.09, 4), padding="SAME",
             stride_h=2, stride_w=2, filter_h=3, filter_w=3,
             activation="NONE")
-    return GraphDef(tensors, ops, [x], [m0, m1], "op_surface")
+    return b.graph([x], [m0, m1], "op_surface")
 
 
 def surface_frames(n: int = 3) -> np.ndarray:

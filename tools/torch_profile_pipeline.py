@@ -5,7 +5,8 @@ Run from the repository root on a machine with a CUDA card:
 
     python3 tools/torch_profile_pipeline.py [--batch 65536] [--arena-batch 16384]
         [--batch448 1024]
-        [--modes arena2 arena arena_exact tiled2 tiled_exact fused fused_exact]
+        [--modes arena2 arena arena_exact tiled2 tiled_exact fused fused_exact
+                 perop perop_exact]
 
 For each engine mode (default ``arena2``) it prints, each line with the
 card's name, power limit and SM clocks:
@@ -23,6 +24,10 @@ card's name, power limit and SM clocks:
     that ends at it minus that of the prefix before, summed by op kind;
   * fused breakdown (fused modes): each fused stage kernel's time and, the
     same way, the time of each of its descriptors, summed by op kind;
+  * per-op breakdown (per-op modes): the CUDA-event time (median of 7) of
+    each op's launch (the fused-stage kernel on the op's one-op program),
+    summed by per-op kernel (the ``pallas_int8.py`` kernel each op
+    replaces) and by op kind;
   * section breakdown (tiled modes): the CUDA-event time (median of 7) of
     each section kernel of the 448 net, with its ops, strips and arena;
     with ``--shares``, the 448 net's time under each strip-height target
@@ -121,22 +126,26 @@ _CODE_NAMES = ("COPY", "CONV", "DW", "MAXPOOL", "ADD", "QUANTIZE", "PAD",
                "LEAKY", "ACT", "RESIZE")   # kernels/arena.py's op codes
 
 
-def _descriptor_rows(st, prefix_ms):
-    """(ms, index, kind, stride, in C, out C, out H) of each descriptor of
-    ``st``: ``prefix_ms(k)`` (the program's first k descriptors) minus
-    ``prefix_ms(k - 1)``; and the whole program's ms."""
+def _row(ms: float, index: int, d):
+    """(ms, index, kind, stride, in C, out C, out H) of op descriptor
+    ``d``; a conv's or pool's kind names its window."""
     from yoloface_tpu_torch.kernels import arena
     F = arena.F
+    name = _CODE_NAMES[int(d[F["code"]])]
+    if name in ("CONV", "MAXPOOL"):
+        name += f"{int(d[F['kh']])}x{int(d[F['kw']])}"
+    return (ms, index, name, int(d[F["sh"]]), int(d[F["in0_c"]]),
+            int(d[F["out_c"]]), int(d[F["out_h"]]))
+
+
+def _descriptor_rows(st, prefix_ms):
+    """``_row`` of each descriptor of ``st``, its ms ``prefix_ms(k)`` (the
+    program's first k descriptors) minus ``prefix_ms(k - 1)``; and the
+    whole program's ms."""
     rows, prev = [], 0.0
     for k in range(1, len(st.descs) + 1):
         cur = prefix_ms(k)
-        d = st.descs[k - 1]
-        name = _CODE_NAMES[int(d[F["code"]])]
-        if name in ("CONV", "MAXPOOL"):
-            name += f"{int(d[F['kh']])}x{int(d[F['kw']])}"
-        rows.append((cur - prev, k - 1, name, int(d[F["sh"]]),
-                     int(d[F["in0_c"]]), int(d[F["out_c"]]),
-                     int(d[F["out_h"]])))
+        rows.append(_row(cur - prev, k - 1, st.descs[k - 1]))
         prev = cur
     return rows, prev
 
@@ -209,6 +218,29 @@ def fused_breakdown(pipe, n: int, card: str, reps: int = 7) -> None:
     _print_rows("fused", every)
 
 
+def perop_breakdown(pipe, n: int, card: str) -> None:
+    """CUDA-event time of each op's launch (``perop.perop_op``), by per-op
+    kernel and by op kind (``_descriptor_rows``'s kinds)."""
+    from yoloface_tpu_torch.kernels import perop
+    from yoloface_tpu_torch.kernels.preprocess import preprocess_rgb565
+    plan = pipe.engine.arena
+    env = plan.run_stages(preprocess_rgb565(_frames(n)))
+    rows, by_kernel = [], {}
+    for k, st in enumerate(plan.stages):
+        ins = [env[i] for i in st.inputs]
+        ms = _event_ms(lambda: perop.perop_op(
+            st, getattr(plan, f"descs{k}"), getattr(plan, f"consts{k}"),
+            ins))
+        rows.append(_row(ms, k, st.descs[0]))
+        by_kernel[st.kernel] = by_kernel.get(st.kernel, 0.0) + ms
+    total = sum(r[0] for r in rows)
+    print(f"[perop] N={n}: {len(rows)} launches {total:.3f} ms; by kernel: "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in
+                      sorted(by_kernel.items(), key=lambda kv: -kv[1]))
+          + f" ({card})")
+    _print_rows("perop", rows)
+
+
 def section_breakdown(eng, x, card: str) -> None:
     """CUDA-event time of each section kernel of a tiled plan on ``x``."""
     from yoloface_tpu_torch.kernels import arena, tiled
@@ -266,7 +298,8 @@ def main() -> int:
                     "strip-height targets (tiled.TARGET_SHARE)")
     ap.add_argument("--modes", nargs="+", default=["arena2"],
                     choices=["arena2", "arena", "arena_exact", "tiled2",
-                             "tiled", "tiled_exact", "fused", "fused_exact"])
+                             "tiled", "tiled_exact", "fused", "fused_exact",
+                             "perop", "perop_exact"])
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -275,8 +308,8 @@ def main() -> int:
     from yoloface_tpu_torch.graph.retarget import retarget_spatial
     from yoloface_tpu_torch.io.tflite_import import load_tflite
     from yoloface_tpu_torch.pipeline.e2e import load_pipeline
-    from yoloface_tpu_torch.runtime.engine import (FUSED_BITS, TILED_BITS,
-                                                   Int8Engine)
+    from yoloface_tpu_torch.runtime.engine import (FUSED_BITS, PEROP_BITS,
+                                                   TILED_BITS, Int8Engine)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,clocks.max.sm",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -298,6 +331,8 @@ def main() -> int:
         del f
         if mode in FUSED_BITS:
             fused_breakdown(pipe, args.arena_batch, card)
+        elif mode in PEROP_BITS:
+            perop_breakdown(pipe, args.arena_batch, card)
         else:
             arena_breakdown(pipe, args.arena_batch, card)
     return 0

@@ -1,6 +1,7 @@
 // Device op bodies of the int8 net's descriptor programs, shared by the
-// whole-frame arena stage (arena_stage.cu) and the tiled section
-// (tiled_section.cu).
+// whole-frame arena stage (arena_stage.cu), the tiled section
+// (tiled_section.cu) and the fused stage (fused_stage.cu, which also runs
+// the per-op programs, every view in device memory).
 //
 // The Op layout is kernels/arena.py's FIELDS tuple.  Each body computes a
 // range of output rows of one op for one frame: `rows` rows from image row

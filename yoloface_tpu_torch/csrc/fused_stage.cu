@@ -10,6 +10,17 @@
 // version the arena's executor (kernels/arena.py); the op bodies and the Op
 // layout are in arena_ops.cuh.
 //
+// It also runs the per-op programs of kernels/perop.py, one op a launch
+// with every view in device memory and only the max-pool scratch in shared
+// memory, and so replaces the eleven per-op kernels of
+// yoloface_tpu/kernels/pallas_int8.py as well: conv1x1, dwconv3x3 and
+// conv3x3 (stride 1 and 2; the window reads strided taps where JAX reads
+// the polyphase inputs of phase_split), pad_int8, maxpool_int8, add_int8,
+// requantize_int8, concat_channels, eltwise_int8, resize_nearest and
+// leaky_int8.  There each op's input and output make a round trip through
+// device memory (about 196 KB a 56x56 frame over the corpus net's 38
+// tensors).
+//
 // What bounds it on the card: integer multiply-adds and max-pool compares
 // on the CUDA cores (1.03 M MACs a 56x56 frame of the corpus net), not
 // bytes: device memory moves only each stage's inputs and outputs.  What

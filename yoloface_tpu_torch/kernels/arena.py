@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -393,6 +394,44 @@ def stage_outputs(graph: GraphDef, lops: Sequence[LOp], start: int,
     return [lp.out for lp in lops[start:end] if lp.out in later]
 
 
+def put_const(consts: bytearray, arr: np.ndarray) -> int:
+    """Append ``arr``'s bytes to ``consts`` at the next 16-byte boundary;
+    -> their offset."""
+    consts.extend(b"\0" * (-len(consts) % _ALIGN))
+    off = len(consts)
+    consts.extend(np.ascontiguousarray(arr).tobytes())
+    return off
+
+
+def op_row(code: int, out: View, in0: View = NOVIEW, in1: View = NOVIEW,
+           lp: Optional[LOp] = None, **kw) -> List[int]:
+    """One ``OP_INTS`` descriptor: the views, then ``lp``'s epilogue,
+    window and scalar constants, then the fields ``kw`` names."""
+    row = [0] * OP_INTS
+    row[F["code"]] = code
+    for name, v in (("in0", in0), ("in1", in1), ("out", out)):
+        row[F[name + "_space"]:F[name + "_space"] + 6] = v.fields()
+    if lp is not None:
+        row[F["epi"]] = lp.epi
+        row[F["kh"]:F["kh"] + 7] = list(lp.window)
+        for name in ("zp_a", "zp_b", "zp_out", "conv_zp", "lsh"):
+            row[F[name]] = getattr(lp, name)
+        row[F["m0"]:F["m0"] + 6] = list(lp.mults)
+        for name in ("f0", "f1"):
+            row[F[name]] = int(np.float32(getattr(lp, name)).view(np.int32))
+    for name, v in kw.items():
+        row[F[name]] = v
+    return row
+
+
+def conv_fields(lp: LOp, put) -> Dict[str, int]:
+    """Place a CONV/DW's requant constants, weights and bias_eff with
+    ``put``; -> their offset fields."""
+    req = ({"q_off": put(lp.qms)} if lp.epi in EXACT_EPIS
+           else {"s_off": put(lp.scale)})
+    return dict(w_off=put(lp.weights), b_off=put(lp.bias), **req)
+
+
 def plan_stage(graph: GraphDef, lops: Sequence[LOp], start: int, end: int,
                concat_alias: Dict[int, Tuple[int, int]],
                bands: Optional[Dict[int, Band]] = None,
@@ -466,13 +505,7 @@ def plan_stage(graph: GraphDef, lops: Sequence[LOp], start: int, end: int,
         return View(1 + (inputs + outputs).index(i), 0, h, w, c, c), band
 
     consts = bytearray()
-
-    def put(arr: np.ndarray) -> int:
-        consts.extend(b"\0" * (-len(consts) % _ALIGN))
-        off = len(consts)
-        consts.extend(np.ascontiguousarray(arr).tobytes())
-        return off
-
+    put = functools.partial(put_const, consts)
     rows: List[List[int]] = []
 
     none = (NOVIEW, Band(0, 0, 0))
@@ -480,23 +513,12 @@ def plan_stage(graph: GraphDef, lops: Sequence[LOp], start: int, end: int,
     def emit(code, out: Tuple[View, Band], in0: Tuple[View, Band] = none,
              in1: Tuple[View, Band] = none, lp: Optional[LOp] = None,
              **kw) -> None:
-        row = [0] * (OP_INTS if bands is None else STRIP_OP_INTS)
-        row[F["code"]] = code
-        for name, (v, band) in (("in0", in0), ("in1", in1), ("out", out)):
-            row[F[name + "_space"]:F[name + "_space"] + 6] = v.fields()
-            if bands is not None:
+        row = op_row(code, out[0], in0[0], in1[0], lp, **kw)
+        if bands is not None:
+            row += [0] * (STRIP_OP_INTS - OP_INTS)
+            for name, (_, band) in (("in0", in0), ("in1", in1),
+                                    ("out", out)):
                 row[F[name + "_m"]:F[name + "_m"] + 3] = band.fields()
-        if lp is not None:
-            row[F["epi"]] = lp.epi
-            row[F["kh"]:F["kh"] + 7] = list(lp.window)
-            for name in ("zp_a", "zp_b", "zp_out", "conv_zp", "lsh"):
-                row[F[name]] = getattr(lp, name)
-            row[F["m0"]:F["m0"] + 6] = list(lp.mults)
-            for name in ("f0", "f1"):
-                row[F[name]] = int(np.float32(getattr(lp, name))
-                                   .view(np.int32))
-        for name, v in kw.items():
-            row[F[name]] = v
         rows.append(row)
 
     loaded = set()
@@ -512,10 +534,8 @@ def plan_stage(graph: GraphDef, lops: Sequence[LOp], start: int, end: int,
                     c = _hwc(graph, i)[2]
                     emit(COPY, (out_v.channels(c0, c), out_band), view(i))
         elif lp.code in (CONV, DW):
-            req = ({"q_off": put(lp.qms)} if lp.epi in EXACT_EPIS
-                   else {"s_off": put(lp.scale)})
             emit(lp.code, view(lp.out), view(lp.ins[0]), lp=lp,
-                 w_off=put(lp.weights), b_off=put(lp.bias), **req)
+                 **conv_fields(lp, put))
         else:
             in1 = view(lp.ins[1]) if len(lp.ins) > 1 else none
             emit(lp.code, view(lp.out), view(lp.ins[0]), in1, lp=lp)
@@ -807,13 +827,21 @@ class ArenaPlan(nn.Module):
     def _launch(self, st: Stage):
         return arena_stage
 
-    def run_stages(self, x: torch.Tensor) -> Dict[int, torch.Tensor]:
-        """int8 NHWC input -> every stage input and output tensor."""
+    def run_stages(self, x: torch.Tensor, free: bool = False
+                   ) -> Dict[int, torch.Tensor]:
+        """int8 NHWC input -> every stage input and output tensor; with
+        ``free``, each tensor leaves the result after its last reader
+        unless the graph outputs it."""
+        last = {i: k for k, st in enumerate(self.stages) for i in st.inputs}
         env = {self.input_idx: x.contiguous()}
         for k, st in enumerate(self.stages):
             outs = self._launch(st)(st, getattr(self, f"descs{k}"),
                                     getattr(self, f"consts{k}"),
                                     [env[i] for i in st.inputs])
             env.update(zip(st.outputs, outs))
+            if free:
+                for i in st.inputs:
+                    if last[i] == k and i not in self.output_idxs:
+                        env.pop(i, None)
         return env
 

@@ -33,14 +33,16 @@ that is not 3x3, dilation.
 
 The CUDA kernel (``csrc/fused_stage.cu``) runs one stage: one block per
 frame, the values in dynamic shared memory.  ``fused_stage_plain`` runs the
-SAME descriptor program with torch ops (the arena's plain executor).
+SAME descriptor program with torch ops (the arena's plain executor).  The
+per-op family (``kernels/perop.py``) runs its one-op programs, every view
+in device memory, on the same kernel through ``run_stage``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Dict, List, Sequence
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -69,12 +71,13 @@ class FusedStage(Stage):
 
 
 def _refuse(op, what: str) -> None:
-    raise NotImplementedError(f"fused plan: {op.opname} (op {op.index}) "
-                              f"{what}")
+    raise NotImplementedError(f"{op.opname} (op {op.index}) {what}")
 
 
-def _check_window_op(graph: GraphDef, op) -> None:
-    """Refuse the convs and pools JAX's fused lowering gets wrong
+def _check_window_op(graph: GraphDef, op, perop: bool = False) -> None:
+    """Refuse the convs and pools JAX's fused lowering gets wrong, or with
+    ``perop`` its per-op lowering (``runtime/pallas_plan.py``), which takes
+    non-square kernels but runs a conv at stride 1 or 2 only
     (``arena.conv_lop`` refuses dilation)."""
     a = op.attrs
     if a["stride_h"] != a["stride_w"]:
@@ -84,10 +87,13 @@ def _check_window_op(graph: GraphDef, op) -> None:
     kh, kw = graph.tensor(op.inputs[1]).data.shape[1:3]
     if op.opname == "DEPTHWISE_CONV_2D" and (kh, kw) != (3, 3):
         _refuse(op, f"with a {kh}x{kw} kernel: depthwise convs are 3x3")
-    if kh != kw:
+    if kh != kw and not perop:
         _refuse(op, f"with a {kh}x{kw} kernel")
-    if kh == 1 and a["stride_h"] != 1:
+    if (kh, kw) == (1, 1) and a["stride_h"] != 1:
         _refuse(op, f"1x1 with stride {a['stride_h']}")
+    if perop and a["stride_h"] > 2:
+        _refuse(op, f"with stride {a['stride_h']}: the per-op convs run at "
+                "stride 1 or 2")
 
 
 def _pad_rows(graph: GraphDef, op) -> np.ndarray:
@@ -97,9 +103,11 @@ def _pad_rows(graph: GraphDef, op) -> np.ndarray:
     return p
 
 
-def lower_fused_ops(graph: GraphDef, bits: str = "fast") -> List[LOp]:
+def lower_fused_ops(graph: GraphDef, bits: str = "fast",
+                    perop: bool = False) -> List[LOp]:
     """Graph -> LOps in graph order, with the epilogues and constants of
-    ``bits`` (one of ``BITS``)."""
+    ``bits`` (one of ``BITS``).  With ``perop``, JAX's per-op lowering
+    (``kernels/perop.py``): no PAD is absorbed, and its refusals."""
     if bits not in BITS:
         raise ValueError(f"unknown bit semantics {bits!r}; one of {BITS}")
     exact = bits == "exact"
@@ -117,7 +125,7 @@ def lower_fused_ops(graph: GraphDef, bits: str = "fast") -> List[LOp]:
         _pad_rows(graph, op)
         out = op.outputs[0]
         cons = consumers.get(out, [])
-        if (len(cons) == 1 and cons[0].opname in _CONVS
+        if (not perop and len(cons) == 1 and cons[0].opname in _CONVS
                 and cons[0].inputs[0] == out and out not in graph.outputs):
             pads_of[out] = op
             absorbed.add(op.index)
@@ -129,7 +137,7 @@ def lower_fused_ops(graph: GraphDef, bits: str = "fast") -> List[LOp]:
         name = op.opname
         out_idx = op.outputs[0]
         if name in _CONVS:
-            _check_window_op(graph, op)
+            _check_window_op(graph, op, perop)
             pad_op = pads_of.get(op.inputs[0])
             if (pad_op is not None and t(op.inputs[1]).data.shape[1] == 1
                     and _pad_rows(graph, pad_op).any()):
@@ -144,7 +152,7 @@ def lower_fused_ops(graph: GraphDef, bits: str = "fast") -> List[LOp]:
                             window=(1, 1, 1, 1, int(p[1][0]), int(p[2][0]),
                                     int(zp))))
         elif name == "MAX_POOL_2D":
-            _check_window_op(graph, op)
+            _check_window_op(graph, op, perop)
             a = op.attrs
             h, w, _ = arena._hwc(graph, op.inputs[0])
             pt = pl = 0
@@ -184,7 +192,7 @@ def lower_fused_ops(graph: GraphDef, bits: str = "fast") -> List[LOp]:
             lops.append(LOp(arena.CONCAT, out_idx, list(op.inputs),
                             offsets=offs[:-1]))
         else:
-            raise NotImplementedError(f"fused plan: op {name}")
+            _refuse(op, "has no lowering")
     return lops
 
 
@@ -199,15 +207,21 @@ def plan_fused_stage(graph: GraphDef, lops: Sequence[LOp], start: int,
     """lops[start:end] as one stage: the values placed by liveness (concat
     inputs copied, never aliased), the max-pool scratch after them."""
     st = arena.plan_stage(graph, lops, start, end, {})
+    return FusedStage(**{f.name: getattr(st, f.name)
+                         for f in dataclasses.fields(Stage)},
+                      scratch=pool_scratch(graph, lops[start:end]))
+
+
+def pool_scratch(graph: GraphDef, lops: Sequence[LOp]) -> int:
+    """The bytes of shared memory the separable max-pools of ``lops``
+    take (the row pass's (oh - 1) * sh + kh rows), rounded up to 16."""
     scratch = 0
-    for lp in lops[start:end]:
+    for lp in lops:
         if lp.code == arena.MAXPOOL:
             kh, _, sh = lp.window[:3]
             oh, ow, c = arena._hwc(graph, lp.out)
             scratch = max(scratch, ((oh - 1) * sh + kh) * ow * c)
-    scratch = -(-scratch // arena._ALIGN) * arena._ALIGN
-    return FusedStage(**{f.name: getattr(st, f.name)
-                         for f in dataclasses.fields(Stage)}, scratch=scratch)
+    return -(-scratch // arena._ALIGN) * arena._ALIGN
 
 
 def build_fused_plan(graph: GraphDef, budget: int = FUSED_BUDGET,
@@ -249,21 +263,24 @@ def build_fused_plan(graph: GraphDef, budget: int = FUSED_BUDGET,
 fused_stage_plain = arena.arena_stage_plain
 
 
-def fused_stage(stage: FusedStage, descs: torch.Tensor, consts: torch.Tensor,
-                xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    """Run one stage on its input tensors (int8 [N,H,W,C], in
-    ``stage.inputs`` order) -> its output tensors.  CPU tensors take
-    ``fused_stage_plain``; CUDA tensors launch ``yf_fused_stage``."""
+def run_stage(stage: FusedStage, descs: torch.Tensor, consts: torch.Tensor,
+              xs: Sequence[torch.Tensor], what: str
+              ) -> Tuple[List[torch.Tensor], bool]:
+    """Run one program on its input tensors (int8 [N,H,W,C], in
+    ``stage.inputs`` order) -> (its output tensors, whether the kernel
+    launched).  CPU tensors take ``fused_stage_plain``; CUDA tensors launch
+    ``yf_fused_stage``; ``what`` names the caller's kernel in errors.  The
+    callers count their own launches."""
     outs, dev = arena.prepare(stage, xs)
     if dev.type == "cpu":
         fused_stage_plain(stage, consts, list(xs) + outs)
-        return outs
+        return outs, False
     if dev.type != "cuda":
-        raise ValueError(f"no fused-stage kernel for device {dev}")
+        raise ValueError(f"no {what} kernel for device {dev}")
     arena.check_program(stage, descs, consts, dev)
     n = xs[0].shape[0]
     if n == 0:
-        return outs
+        return outs, False
     if n >= 1 << 31:
         raise ValueError(f"{n} frames exceed one grid")
     from yoloface_tpu_torch.kernels._build import check, library
@@ -273,8 +290,15 @@ def fused_stage(stage: FusedStage, descs: torch.Tensor, consts: torch.Tensor,
         descs.data_ptr(), stage.descs.shape[0], consts.data_ptr(), ptrs,
         len(stage.globals_), n, stage.smem_bytes, stage.arena_bytes,
         arena.THREADS, torch.cuda.current_stream(dev).cuda_stream)
-    check(err, "fused_stage")
-    fused_stage.launches += 1
+    check(err, what)
+    return outs, True
+
+
+def fused_stage(stage: FusedStage, descs: torch.Tensor, consts: torch.Tensor,
+                xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Run one stage (``run_stage``) -> its output tensors."""
+    outs, launched = run_stage(stage, descs, consts, xs, "fused-stage")
+    fused_stage.launches += launched
     return outs
 
 

@@ -1,10 +1,11 @@
 """Camera frames -> detections: the port's serving path.
 
 The counterpart of ``yoloface_tpu.pipeline.e2e``.  With a kernel engine
-(``arena2``, ``arena``, ``arena_exact``; ``fused``, ``fused_exact``; the
-``tiled*`` modes) ``detect_rgb565`` runs three kernels on the card: the
-RGB565 preprocess, the arena stage(s), fused stages or tiled sections of
-the int8 net and the fused head (or, with
+(``arena2``, ``arena``, ``arena_exact``; ``fused``, ``fused_exact``;
+``perop``, ``perop_exact``; the ``tiled*`` modes) ``detect_rgb565`` runs
+three kernels on the card: the RGB565 preprocess, the arena stage(s),
+fused stages, per-op launches or tiled sections of the int8 net and the
+fused head (or, with
 ``HeadConfig(use_fused_head=False)``, the top-K kernel and the staged
 decode and NMS), as the JAX pipeline routes every ``pallas*`` mode through
 its preprocess kernel.  On the CPU the same calls take each kernel's plain

@@ -1,12 +1,14 @@
 """Int8 graph engine as a torch ``nn.Module``.
 
-The counterpart of ``yoloface_tpu.runtime.engine.Int8Engine`` for eleven
+The counterpart of ``yoloface_tpu.runtime.engine.Int8Engine`` for thirteen
 modes, each bit-identical to its JAX twin:
 
-  * ``exact``  -- per-op torch, gemmlowp fixed-point requantization (int64);
-    the parity oracle, equal to TFLite ``BUILTIN_REF``;
-  * ``fast``   -- per-op torch, float32 requantization;
-  * ``fast2``  -- per-op torch, one rounding per fused conv+leaky pair;
+  * ``exact``  -- plain torch, op by op, gemmlowp fixed-point
+    requantization (int64); the parity oracle, equal to TFLite
+    ``BUILTIN_REF``;
+  * ``fast``   -- plain torch, op by op, float32 requantization;
+  * ``fast2``  -- plain torch, op by op, one rounding per fused conv+leaky
+    pair;
   * ``arena_exact`` / ``arena`` / ``arena2`` -- the net as activation-arena
     stages (``kernels/arena.py``) in exact / fast / fast2 bits: the CUDA
     stage kernel on the card, its plain torch version on the CPU.  The
@@ -25,7 +27,12 @@ modes, each bit-identical to its JAX twin:
     LEAKY and PAD, N-ary concat): the CUDA fused-stage kernel on the card,
     its plain torch version on the CPU.  The counterparts of
     ``pallas_fused_exact`` / ``pallas_fused``, bit-identical to ``exact`` /
-    ``fast``.
+    ``fast``;
+  * ``perop_exact`` / ``perop`` -- the net one op a launch, every tensor in
+    device memory (``kernels/perop.py``: JAX's per-op lowering, so the
+    tensors are JAX's): the CUDA fused-stage kernel on one-op programs on
+    the card, its plain torch version on the CPU.  The counterparts of ``pallas_exact`` / ``pallas``,
+    bit-identical to ``exact`` / ``fast``.
 
 Weights, biases and requant constants are buffers, so ``.to(device)`` moves
 the engine.  The engine runs on the card unless the caller passes
@@ -48,11 +55,13 @@ from yoloface_tpu_torch.ops import int8_fast2 as fast2_ops
 from yoloface_tpu_torch.ops import int8_ref as ref_ops
 
 MODES = ("exact", "fast", "fast2", "arena_exact", "arena", "arena2",
-         "tiled_exact", "tiled", "tiled2", "fused_exact", "fused")
+         "tiled_exact", "tiled", "tiled2", "fused_exact", "fused",
+         "perop_exact", "perop")
 ARENA_BITS = {"arena_exact": "exact", "arena": "fast", "arena2": "fast2"}
 TILED_BITS = {"tiled_exact": "exact", "tiled": "fast", "tiled2": "fast2"}
 FUSED_BITS = {"fused_exact": "exact", "fused": "fast"}
-KERNEL_MODES = {**ARENA_BITS, **TILED_BITS, **FUSED_BITS}
+PEROP_BITS = {"perop_exact": "exact", "perop": "fast"}
+KERNEL_MODES = {**ARENA_BITS, **TILED_BITS, **FUSED_BITS, **PEROP_BITS}
 
 
 def _check_conv(op: OpDef) -> None:
@@ -100,6 +109,9 @@ class Int8Engine(nn.Module):
         elif mode in FUSED_BITS:
             from yoloface_tpu_torch.kernels.fused import FusedPlan
             self.arena = FusedPlan(graph, bits=FUSED_BITS[mode])
+        elif mode in PEROP_BITS:
+            from yoloface_tpu_torch.kernels.perop import PerOpPlan
+            self.arena = PerOpPlan(graph, bits=PEROP_BITS[mode])
         elif mode == "fast2":
             self._plan = self._lower_ops_fast2()
         else:
@@ -299,9 +311,10 @@ class Int8Engine(nn.Module):
         if x.dtype != torch.int8:
             raise ValueError(f"expected int8 input, got {x.dtype}")
 
-    def _env(self, x: torch.Tensor) -> Dict[int, torch.Tensor]:
+    def _env(self, x: torch.Tensor, free: bool = False
+             ) -> Dict[int, torch.Tensor]:
         if self.mode in KERNEL_MODES:
-            return self.arena.run_stages(x)
+            return self.arena.run_stages(x, free)
         env = {self.input_idx: x}
         for out_idx, fn in self._plan:
             env[out_idx] = fn(env)
@@ -310,17 +323,20 @@ class Int8Engine(nn.Module):
     def forward(self, x: torch.Tensor):
         """int8 frames [N,H,W,C] -> the graph's int8 output, e.g.
         [N,56,56,3] -> [N,7,7,18] (a tuple for graphs with several
-        outputs)."""
+        outputs).  A kernel mode frees each tensor after its last
+        reader."""
         self._check_input(x)
-        env = self._env(x)
+        env = self._env(x, free=True)
         outs = tuple(env[o] for o in self.output_idxs)
         return outs[0] if len(outs) == 1 else outs
 
     @torch.no_grad()
     def run_with_intermediates(self, x) -> Dict[int, np.ndarray]:
         """Every activation tensor the mode materializes (all tensors for
-        the per-op modes; the stage or section inputs and outputs for the
-        arena and tiled modes), as numpy."""
+        the plain torch modes; the input and every op output that no
+        epilogue absorbed for the per-op modes; the stage or section
+        inputs and outputs for the arena, tiled and fused modes), as
+        numpy."""
         if isinstance(x, np.ndarray):
             x = torch.from_numpy(x)
         x = x.to(self._device())
