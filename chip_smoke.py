@@ -22,7 +22,16 @@ Phases (each prints its lines; any failure ends the run with an error):
      kernel on the per-op programs (kernels/perop.py, one op a launch, the
      counterparts of the eleven pallas_int8 kernels) on every op output of
      the corpus net (N = 1, 3, 37) and of the op-surface graph (which runs
-     all eleven), in fast and exact bits;
+     all eleven), in fast and exact bits; the arena and section kernels'
+     new op cases (B2b, B6b: standalone LEAKY, RELU, RELU6, LOGISTIC,
+     RESIZE, AVERAGE_POOL_2D, a PAD kept as an op) on every stage or
+     section output of the op-surface graph, the nine .tflite test graphs
+     (tools/make_torch_port_golden.TFLITE_GRAPHS), the yolov3-tiny upsample
+     and two average pools at its size, in fast2, fast and exact bits at
+     N = 1 and 3, in one stage, one op a stage and in strips; the section
+     kernel on every section of the published yolov3-tiny at 416
+     (yolov3_tiny_graph(), 7 sections) on 2 frames in tiled2 and
+     tiled_exact bits;
   3. serving, one path after another, each with every launch count set to
      0 just before it and read just after (each of its kernels > 0):
      load_pipeline(..., device="cuda").detect_rgb565 in mode arena2 (fused
@@ -39,7 +48,12 @@ Phases (each prints its lines; any failure ends the run with an error):
      path and the golden 448 keys; then the op-surface graph,
      Int8Engine(surface, mode, device="cuda") in perop and perop_exact, held
      against the CPU path and the golden keys (the per-op launches there
-     count for the eltwise, resize and standalone leaky rows);
+     count for the eltwise, resize and standalone leaky rows); then the
+     .tflite test graphs, Int8Engine(load_tflite(...), mode) in each of
+     the ten kernel modes, against their golden keys (the arena2 launches
+     count for the B2b row); then yolov3-tiny at 416 in tiled2 and
+     tiled_exact on 2 frames, every section through the kernel (the tiled2
+     launches count for the B6b row), both heads against the plain path;
   4. timing with CUDA events (warm-up, median of 10): each kernel against
      its plain version at batch 16384 (the arena in all three bit
      semantics, the fused stages and the per-op program in both), each op
@@ -54,7 +68,15 @@ Phases (each prints its lines; any failure ends the run with an error):
      pipelines at 16384 and 65536, and their synchronised
      latency (host clock, p50 of 10); the 448 net in tiled2 and
      tiled_exact (the section kernel) at batch 1024 and at 128, against its
-     plain version at 128 (median of 3);
+     plain version at 128 (median of 3); each new op body at the upsample's
+     size (batch 1024, fast bits) as a one-op arena stage and a one-op
+     strip section, against its plain version and beside torch.clamp,
+     F.interpolate or F.avg_pool2d; yolov3-tiny at 416 in tiled2 and
+     tiled_exact at batch 256 (ms, frames/s, TMAC/s) and at 2 frames
+     against the plain path; then a program whose op code the arena or
+     section kernel has no case for must fail its launch (a child process,
+     ``chip_smoke.py --forged-op arena|tiled``, whose CUDA context the
+     trap ends);
   5. the kernels JSON line (each kernel's time beside its bound: the larger
      of the bytes its function must move over 3.35 TB/s and its
      operations over the card's peak rate for them), the card line, and
@@ -96,6 +118,13 @@ GOLD_KEYS = {"arena2": ("head", ""), "arena_exact": ("head_exact", "exact_"),
 SURFACE_ONLY = ("eltwise_int8", "resize_nearest", "leaky_int8")
 SCALE_GRAPH = "yolov3-tiny 416 upsample 13x13x128 -> 26x26x128"
 BATCH_SCALE = 1024
+# the arena and tiled kernels' op surface (B2b, B6b): the .tflite test
+# graphs (tools/make_torch_port_golden.TFLITE_GRAPHS) through every kernel
+# mode, held against their golden keys
+TFLITE_MODES = ("arena2", "arena", "arena_exact", "tiled2", "tiled",
+                "tiled_exact", "fused", "fused_exact", "perop", "perop_exact")
+STRIP_BUDGETS = (256, 384, 512, 768, 1024, 1536, 2048, 4096, 16384, 65536)
+V3_FRAMES, BATCH_V3 = 2, 256   # yolov3-tiny 416: checked on 2, timed on 256
 
 
 def _golden_tool():
@@ -130,6 +159,43 @@ def _upsample_graph(tool):
     return b.graph([x], outs, "yolov3_tiny_upsample")
 
 
+def _avgpool_graph(tool):
+    """AVERAGE_POOL_2D at the size of the FPN upsample's output (int8
+    [N,26,26,128]): 3x3 stride 1 and 3x3 stride 2, both SAME, so the edge
+    windows count fewer taps; scales from ``tool.GraphMaker``'s seed."""
+    b = tool.GraphMaker(SEED)
+    x = b.act(26, 128, 0.09, 4)
+    outs = [b.op("AVERAGE_POOL_2D", [x], b.act(26 // s, 128, 0.09, 4),
+                 padding="SAME", stride_h=s, stride_w=s, filter_h=3,
+                 filter_w=3, activation="NONE") for s in (1, 2)]
+    return b.graph([x], outs, "avgpool_26x26x128")
+
+
+def _one_op_a_stage(graph, bits):
+    """The arena plan of ``graph`` at one lowered op a stage: every op's
+    output goes through device memory, and every op is its own launch."""
+    from yoloface_tpu_torch.kernels import arena
+
+    class OneOpAStage(arena.ArenaPlan):
+        def _plan(self, graph, budget, bits):
+            lops, alias = arena.lower_arena_ops(graph, bits)
+            return [arena.plan_stage(graph, lops, k, k + 1, alias)
+                    for k in range(len(lops))]
+    return OneOpAStage(graph, bits=bits)
+
+
+def _strip_plan(graph, bits):
+    """The tiled plan of ``graph`` at the smallest of a few budgets that
+    plans it: strips as short as its widest op allows."""
+    from yoloface_tpu_torch.kernels import tiled
+    for budget in STRIP_BUDGETS:
+        try:
+            return tiled.TiledPlan(graph, budget, bits)
+        except NotImplementedError:
+            continue
+    raise SystemExit(f"chip_smoke: FAILED: no strip budget plans {graph.name}")
+
+
 def _net_work(graph):
     """(multiply-adds, max-pool compares) of one frame of an int8 graph:
     K*K*Ci MACs a conv output (K*K a depthwise one); a max-pool computed
@@ -150,23 +216,25 @@ def _net_work(graph):
 
 
 def _op_work(st):
-    """(bytes, multiply-adds, other operations) of one frame of a per-op
-    program (kernels/perop.py): each input read once and the output written
-    once; K*K*Ci MACs a conv output (K*K a depthwise one); kh*kw compares a
-    max-pool output (the full window the kernel takes); one operation an
-    output element of ADD, QUANTIZE, LEAKY and the activations; none for
-    PAD, RESIZE and concat, which only move bytes."""
+    """(bytes, multiply-adds, other operations) of one frame of a one-op
+    program (a per-op program of kernels/perop.py, or a one-op arena stage
+    or strip section with its COPYs in and out): each input read once and
+    the output written once; K*K*Ci MACs a conv output (K*K a depthwise
+    one); kh*kw compares or adds a pool output (the full window the kernel
+    takes); one operation an output element of ADD, QUANTIZE, LEAKY and the
+    activations; none for PAD, RESIZE and concat, which only move bytes."""
     from yoloface_tpu_torch.kernels import arena
     F = arena.F
     nbytes = sum(h * w * c for h, w, c in st.shapes.values())
     h, w, c = st.shapes[st.outputs[0]]
-    d = st.descs[0]
+    d = next((d for d in st.descs if d[F["code"]] != arena.COPY),
+             st.descs[0])
     kk = int(d[F["kh"]]) * int(d[F["kw"]])
     code = int(d[F["code"]])
     if code in (arena.CONV, arena.DW):
         ci = int(d[F["in0_c"]]) if code == arena.CONV else 1
         return nbytes, h * w * c * kk * ci, 0
-    if code == arena.MAXPOOL:
+    if code in (arena.MAXPOOL, arena.AVGPOOL):
         return nbytes, 0, h * w * c * kk
     if code in (arena.ADD, arena.QUANTIZE, arena.LEAKY, arena.ACT):
         return nbytes, 0, h * w * c
@@ -225,6 +293,32 @@ def _require(ok: bool, what: str) -> None:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
 
 
+def _forged_op(which: str) -> int:
+    """The trap check's child: launch the first stage of the op-surface
+    graph (``which`` "arena": whole frame on the arena kernel; "tiled": in
+    strips on the section kernel) with one op's code forged to 99, which no
+    case of the kernel handles; print how the launch failed."""
+    import torch
+    from yoloface_tpu_torch.kernels import arena, tiled
+    g = _golden_tool().surface_graph()
+    plan = (arena.ArenaPlan(g, bits="fast2") if which == "arena"
+            else _strip_plan(g, "fast2")).cuda()
+    descs = plan.descs0.clone()
+    op = int((descs[:, arena.F["code"]] != arena.COPY).nonzero()[0, 0])
+    descs[op, arena.F["code"]] = 99
+    x = torch.zeros((1, 15, 15, 3), dtype=torch.int8, device="cuda")
+    run = arena.arena_stage if which == "arena" else tiled.tiled_section
+    try:
+        run(plan.stages[0], descs, plan.consts0, [x])
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        print(f"forged op code 99 (descriptor {op}): the {which} launch "
+              f"failed: {str(e).splitlines()[0]}")
+        return 0
+    print(f"the {which} kernel ran a forged op code without failing")
+    return 1
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -241,8 +335,8 @@ def main() -> int:
     from yoloface_tpu_torch.pipeline import head as thead
     from yoloface_tpu_torch.pipeline.e2e import FacePipeline, load_pipeline
     from yoloface_tpu_torch.runtime.engine import (ARENA_BITS, FUSED_BITS,
-                                                   PEROP_BITS, TILED_BITS,
-                                                   Int8Engine)
+                                                   KERNEL_MODES, PEROP_BITS,
+                                                   TILED_BITS, Int8Engine)
 
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions: f64
     torch.backends.cudnn.allow_tf32 = False
@@ -296,6 +390,7 @@ def main() -> int:
     err = {"preprocess_rgb565": 0.0, "arena_stage": 0.0,
            "requant_epilogue": 0.0, "detect_head": 0.0, "topk_conf": 0.0,
            "tiled_section": 0.0, "fused_stage": 0.0,
+           "arena_stage_b2b": 0.0, "tiled_section_b6b": 0.0,
            **{k: 0.0 for k in perop.KERNELS}}
     gold = dict(np.load(GOLDEN))
     tool = _golden_tool()
@@ -448,6 +543,71 @@ def main() -> int:
               f"N=1/3/37) and of the op-surface graph ({len(ps.stages)} ops, "
               f"kernels {sorted({st.kernel for st in ps.stages})}); its "
               "outputs equal the golden keys")
+
+    # B2b, B6b: the rest of the arena and tiled kernels' op surface
+    # (standalone LEAKY, RELU, RELU6, LOGISTIC, RESIZE, AVERAGE_POOL_2D, a
+    # PAD kept as an op) on every stage or section output: whole frame, one
+    # op a stage, and in strips; then the published yolov3-tiny at 416
+    tflite = {name: load_tflite(tool.tflite_path(name))
+              for name in tool.TFLITE_GRAPHS}
+    surface_graphs = {"op surface": surface, **tflite,
+                      "upsample": _upsample_graph(tool),
+                      "avgpool": _avgpool_graph(tool)}
+
+    def rand_input(g, n):
+        shape = g.tensor(g.inputs[0]).shape[1:]
+        x = rng.integers(-128, 128, (n, *shape), dtype=np.int64)
+        return torch.from_numpy(x.astype(np.int8)).to(dev)
+
+    def check_b2b(p, x, tag):
+        return check_program(p, x, tag, arena.arena_stage,
+                             arena.arena_stage_plain,
+                             lambda st: "arena_stage_b2b")
+
+    def check_b6b(p, x, tag):
+        return check_program(p, x, tag, tiled.tiled_section,
+                             tiled.tiled_section_plain,
+                             lambda st: "tiled_section_b6b")
+
+    new_codes = {arena.PAD, arena.LEAKY, arena.ACT, arena.RESIZE,
+                 arena.AVGPOOL}
+    seen = {"arena": set(), "strips": set()}
+    for name, g in surface_graphs.items():
+        for bits in arena.BITS:
+            whole = arena.ArenaPlan(g, bits=bits).to(dev)
+            split = _one_op_a_stage(g, bits).to(dev)
+            strips = _strip_plan(g, bits).to(dev)
+            _require(strips.tiled and max(s.strips for s in strips.stages)
+                     >= 2, f"{name} {bits}: a section of >= 2 strips")
+            for p in (whole, split):
+                seen["arena"] |= {c for st in p.stages
+                                  for c in st.descs[:, arena.F["code"]]}
+            seen["strips"] |= {c for st in strips.stages if st.strips >= 2
+                               for c in st.descs[:, arena.F["code"]]}
+            for n in (1, 3):
+                x = rand_input(g, n)
+                check_b2b(whole, x, f"{name} {bits} N={n}")
+                check_b2b(split, x, f"{name} {bits} N={n} one op a stage")
+                check_b6b(strips, x, f"{name} {bits} N={n} strips")
+        print(f"[check] arena_stage / tiled_section new ops, {name}: fast2, "
+              "fast and exact bits, N=1/3, in 1 stage, "
+              f"{len(split.stages)} stages and {len(strips.stages)} "
+              f"sections of {[s.strips for s in strips.stages]} strips: "
+              "every stage and section output bit-exact")
+    _require(new_codes <= seen["arena"] and new_codes <= seen["strips"],
+             "every new op code ran whole-frame and in strips")
+
+    g416 = tool.yolov3_tiny_graph()
+    x416 = torch.from_numpy(tool.yolov3_tiny_frames(V3_FRAMES)).to(dev)
+    v3_plain = {}
+    for mode in ("tiled2", "tiled_exact"):
+        p = tiled.TiledPlan(g416, bits=TILED_BITS[mode]).to(dev)
+        env = check_b6b(p, x416, f"yolov3-tiny 416 {mode}")
+        v3_plain[mode] = [env[o] for o in g416.outputs]
+        print(f"[check] tiled_section yolov3-tiny 416 {mode} N={V3_FRAMES}: "
+              f"{len(p.stages)} sections of {[s.strips for s in p.stages]} "
+              f"strips, arenas {[s.arena_bytes for s in p.stages]} B: every "
+              "section output bit-exact")
 
     rng_h = np.random.default_rng(23)          # tests/test_pipeline.py:262
     yc = rng_h.integers(-128, 128, (48, 7, 7, 18), dtype=np.int64)
@@ -604,6 +764,66 @@ def main() -> int:
                      f"{path}: golden output {k}")
         print(f"[serve] {path}: both outputs bit-exact vs the CPU path and "
               "the golden keys")
+
+    # the .tflite test graphs (the JAX package's fuzz graphs and v3-tiny
+    # FPN) through every kernel mode, against their golden keys
+    tflite_x = {name: torch.from_numpy(tool.tflite_frames(name)).to(dev)
+                for name in tflite}
+    for name, x in tflite_x.items():
+        _require(hashlib.sha256(x.cpu().numpy().tobytes()).hexdigest()
+                 == str(gold[f"tflite_{name}_frames_sha256"]),
+                 f"golden {name} frames remade")
+    for mode in TFLITE_MODES:
+        bits = KERNEL_MODES[mode]
+        engines = {name: Int8Engine(g, mode, device=dev)
+                   for name, g in tflite.items()}
+        path = f"tflite {mode}"
+        zero_counts()
+        served = {name: eng(tflite_x[name]) for name, eng in engines.items()}
+        torch.cuda.synchronize()
+        read_counts(path)
+        # a small graph's tiled plan is the arena plan: the arena kernel
+        kernel = (fused.fused_stage if mode in FUSED_BITS else
+                  perop.perop_op if mode in PEROP_BITS else arena.arena_stage)
+        _require(kernel.launches == sum(len(e.arena.stages)
+                                        for e in engines.values()),
+                 f"{path}: every stage through {kernel.__name__}")
+        for name, ys in served.items():
+            for k, y in enumerate(ys if isinstance(ys, tuple) else (ys,)):
+                _require(np.array_equal(
+                    y.cpu().numpy(), gold[tool.tflite_key(name, bits, k)]),
+                    f"{path}: {name} output {k} vs its golden key")
+        print(f"[serve] {path}: Int8Engine(load_tflite(...), {mode!r}) on "
+              f"the {len(tflite)} .tflite test graphs: launches "
+              f"{launches[path]}; every output equals its golden "
+              f"{bits} key")
+
+    engines_v3 = {}
+    for mode in ("tiled2", "tiled_exact"):
+        eng = Int8Engine(g416, mode, device=dev)
+        engines_v3[mode] = eng
+        path = f"yolov3-tiny 416 {mode}"
+        zero_counts()
+        ys = eng(x416)
+        torch.cuda.synchronize()
+        read_counts(path)
+        print(f"[serve] {path}: Int8Engine(yolov3_tiny_graph(), {mode!r}) on "
+              f"{V3_FRAMES} frames: launches {launches[path]}")
+        _require(tiled.tiled_section.launches == len(eng.arena.stages)
+                 and all(isinstance(s, tiled.Section)
+                         for s in eng.arena.stages),
+                 f"{path}: every section through the kernel")
+        for k, (y, want) in enumerate(zip(ys, v3_plain[mode])):
+            _require(tuple(y.shape) == (V3_FRAMES, 13 * (k + 1),
+                                        13 * (k + 1), 255),
+                     f"{path}: head {k} shape")
+            _require(torch.equal(y, want), f"{path}: head {k} vs plain")
+            v = y.double()
+            _require(v.std().item() > 4 and (y.abs() >= 127).double().mean()
+                     < 0.2, f"{path}: head {k} spread")
+        print(f"[serve] {path}: both heads {[tuple(y.shape) for y in ys]} "
+              "bit-exact vs the plain path; head std "
+              f"{[round(y.double().std().item(), 2) for y in ys]}")
 
     # ----------------------------------------------------------- 4. timing
     n = TIMING_BATCH
@@ -831,8 +1051,129 @@ def main() -> int:
               f"plain {(p1 + p2) / 2:.4f} ms ({card})")
         print(f"[time] 448 net {mode} N={BATCH448}: {t:.3f} ms, "
               f"{BATCH448 / t * 1e3:.1f} frames/s ({card})")
+    # B2b, B6b: each new op body at the FPN upsample's size (batch
+    # BATCH_SCALE, fast bits) as a one-op arena stage and as a one-op strip
+    # section at the default budget, beside its bound and, where there is
+    # one, the PyTorch call computing it: torch.clamp (RELU, RELU6),
+    # F.interpolate on a uint8 view (RESIZE; checked equal first) and
+    # F.avg_pool2d(count_include_pad=False) on a float32 copy made before
+    # the timing (AVGPOOL; a time yardstick only, its rounding differs)
+    Fd = arena.F
+    new_ops = {}
+    for g in (_upsample_graph(tool), _avgpool_graph(tool)):
+        xb = rand_input(g, BATCH_SCALE)
+        plan = _one_op_a_stage(g, "fast").to(dev)
+        lops, alias = arena.lower_arena_ops(g, "fast")
+        env = plan.run_stages(xb)
+        for k, st in enumerate(plan.stages):
+            op = g.ops[k]
+            name = op.opname.replace("_RELU", "").replace("_NEAREST_NEIGHBOR",
+                                                          "")
+            if op.opname == "AVERAGE_POOL_2D":
+                name = f"AVGPOOL s{op.attrs['stride_h']}"
+            d = next(d for d in st.descs if d[Fd["code"]] != arena.COPY)
+            ins = [env[i] for i in st.inputs]
+            out = [torch.empty_like(env[o]) for o in st.outputs]
+            descs, consts = (getattr(plan, f"descs{k}"),
+                             getattr(plan, f"consts{k}"))
+            sec = tiled.plan_section(g, lops, k, k + 1, alias)
+            _require(sec is not None and sec.strips >= 2,
+                     f"{name}: a one-op section of >= 2 strips")
+            sd, sc = (torch.from_numpy(a).to(dev)
+                      for a in (sec.descs, sec.consts))
+            _require(torch.equal(tiled.tiled_section(sec, sd, sc, ins)[0],
+                                 env[st.outputs[0]]),
+                     f"{name}: the strip section vs the arena stage")
+            row = {
+                "ms": _time_ms(lambda: arena.arena_stage(st, descs, consts,
+                                                         ins)),
+                "plain_ms": _time_ms(lambda: arena.arena_stage_plain(
+                    st, consts, ins + out), 3),
+                "strip_ms": _time_ms(lambda: tiled.tiled_section(sec, sd, sc,
+                                                                 ins)),
+                "strips": sec.strips,
+                "strip_plain_ms": _time_ms(lambda: tiled.tiled_section_plain(
+                    sec, sc, ins + out), 3)}
+            row.update(zip(("bound_ms", "bound_by"), _bound(
+                *(BATCH_SCALE * w for w in _op_work(st)))))
+            lib = None
+            if name in ("RELU", "RELU6"):
+                lo, hi = int(d[Fd["zp_a"]]), int(d[Fd["zp_b"]])
+                lib = "torch.clamp", lambda: torch.clamp(ins[0], lo, hi)
+            elif name == "RESIZE":
+                def lib_fn():   # a byte move: the same on a uint8 view
+                    u = ins[0].view(torch.uint8).permute(0, 3, 1, 2)
+                    return tf.interpolate(u, size=(26, 26), mode="nearest"
+                                          ).permute(0, 2, 3, 1).view(
+                                              torch.int8)
+                lib = "F.interpolate", lib_fn
+            elif name.startswith("AVGPOOL"):
+                xf = ins[0].float().permute(0, 3, 1, 2)
+                s = op.attrs["stride_h"]     # SAME: (1, 1) at s1, (0, 1) at s2
+                lib = "F.avg_pool2d", lambda: tf.avg_pool2d(
+                    xf, 3, s, padding=1 if s == 1 else 0, ceil_mode=s > 1,
+                    count_include_pad=False)
+            if lib is not None:
+                if not name.startswith("AVGPOOL"):
+                    _require(torch.equal(lib[1](), env[st.outputs[0]]),
+                             f"{lib[0]} computes {name}")
+                row.update(library=lib[0], library_ms=_time_ms(lib[1]))
+            new_ops[name] = row
+            print(f"[time] new op {name} fast N={BATCH_SCALE} "
+                  f"({g.name}): arena_stage {row['ms']:.4f} ms, plain "
+                  f"{row['plain_ms']:.4f} ms; tiled_section "
+                  f"({sec.strips} strips) {row['strip_ms']:.4f} ms, plain "
+                  f"{row['strip_plain_ms']:.4f} ms; bound "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']})"
+                  + (f"; {row['library']} {row['library_ms']:.4f} ms"
+                     if lib else "") + f" ({card})")
+        del xb, env
+
+    # the published yolov3-tiny at 416: the tiled modes at BATCH_V3, and
+    # against the plain path (every section's plain version) at V3_FRAMES
+    v3_macs, v3_cmp = _net_work(g416)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    xb = torch.randint(-128, 128, (BATCH_V3, 416, 416, 3), generator=gen,
+                       device=dev, dtype=torch.int8)
+    v3 = {}
+    for mode, eng in engines_v3.items():
+        p = eng.arena
+        env = p.run_stages(x416)
+        outs = [[torch.empty_like(env[o]) for o in st.outputs]
+                for st in p.stages]
+
+        def plain_v3():
+            for k, st in enumerate(p.stages):
+                tiled.tiled_section_plain(st, getattr(p, f"consts{k}"),
+                                          [env[i] for i in st.inputs]
+                                          + outs[k])
+
+        t_small = _time_ms(lambda: eng(x416))
+        t_plain = _time_ms(plain_v3, 3)
+        t = _time_ms(lambda: eng(xb))
+        v3[mode] = {"ms": t, "frames_per_s": BATCH_V3 / t * 1e3,
+                    "tmac_per_s": v3_macs * BATCH_V3 / t / 1e9,
+                    "ms_at_plain_batch": t_small, "plain_ms": t_plain}
+        print(f"[time] yolov3-tiny 416 {mode} N={BATCH_V3}: {t:.3f} ms, "
+              f"{v3[mode]['frames_per_s']:.1f} frames/s, "
+              f"{v3[mode]['tmac_per_s']:.3f} TMAC/s; N={V3_FRAMES}: kernel "
+              f"{t_small:.3f} ms, plain {t_plain:.3f} ms ({card})")
+        del env, outs
+    del xb
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"[time] peak device memory {peak:.2f} GiB")
+
+    # an op code the arena or tiled kernel has no case for traps: the
+    # launch fails (in a child process, whose CUDA context the trap ends)
+    for which in ("arena", "tiled"):
+        res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--forged-op", which], capture_output=True,
+                             text=True, timeout=300)
+        line = (res.stdout.strip().splitlines() or [""])[-1]
+        _require(res.returncode == 0 and line.startswith("forged op code"),
+                 f"forged op code in a {which} program: rc {res.returncode}"
+                 f" {line} {res.stderr[-500:]}")
+        print(f"[check] {which}: {line}")
 
     # ------------------------------------------------------------ 5. lines
     src = "yoloface_tpu_torch/csrc/"
@@ -917,6 +1258,50 @@ def main() -> int:
                 "library_ms": lib[1] if lib else None,
                 "ms_on_library_ops": lib[2] if lib else None}
         kernels.append(row)
+    # B2b, B6b: the new op bodies at the upsample's size, summed over the
+    # ops (each op beside its own numbers); the library sum covers the ops
+    # that have a PyTorch call, beside the kernel's time on those ops
+    lib_ops_ = [r for r in new_ops.values() if "library_ms" in r]
+    for name, key, plain_key, source, tpu, path, counter in (
+            ("arena_stage_b2b", "ms", "plain_ms", "arena_stage.cu",
+             "yoloface_tpu/kernels/pallas_arena.py:870", "tflite arena2",
+             "arena_stage"),
+            ("tiled_section_b6b", "strip_ms", "strip_plain_ms",
+             "tiled_section.cu", "yoloface_tpu/kernels/pallas_tiled.py:1109",
+             "yolov3-tiny 416 tiled2", "tiled_section")):
+        b_ms = sum(r["bound_ms"] for r in new_ops.values())
+        row = {"name": name, "route": "cuda", "source": src + source,
+               "replaces": tpu, "launches": launches[path][counter],
+               "launches_path": path, "max_abs_err": err[name],
+               "ms": sum(r[key] for r in new_ops.values()),
+               "plain_ms": sum(r[plain_key] for r in new_ops.values()),
+               "bound_ms": b_ms,
+               "bound_by": ("bytes" if all(r["bound_by"] == "bytes"
+                                           for r in new_ops.values())
+                            else "operations"),
+               "library_ms": sum(r["library_ms"] for r in lib_ops_),
+               "ms_on_library_ops": sum(r[key] for r in lib_ops_),
+               "bits": ["fast2", "fast", "exact"], "timed_bits": "fast",
+               "graph": SCALE_GRAPH + " (AVGPOOL on its 26x26x128 output)",
+               "batch": BATCH_SCALE,
+               "ops": {op: {"ms": r[key], "plain_ms": r[plain_key],
+                            "bound_ms": r["bound_ms"],
+                            "bound_by": r["bound_by"],
+                            "library": r.get("library"),
+                            "library_ms": r.get("library_ms"),
+                            **({"strips": r["strips"]}
+                               if key == "strip_ms" else {})}
+                       for op, r in new_ops.items()}}
+        if name == "tiled_section_b6b":
+            b = _bound(BATCH_V3 * (416 * 416 * 3 + (13 * 13 + 26 * 26) * 255),
+                       BATCH_V3 * v3_macs, BATCH_V3 * v3_cmp)
+            row["yolov3_tiny_416"] = {
+                "batch": BATCH_V3, "plain_batch": V3_FRAMES,
+                "macs_per_frame": v3_macs, "bound_ms": b[0], "bound_by": b[1],
+                **{mode: dict(r, launches=launches[
+                    f"yolov3-tiny 416 {mode}"]["tiled_section"])
+                   for mode, r in v3.items()}}
+        kernels.append(row)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -926,4 +1311,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--forged-op"]:
+        sys.exit(_forged_op(sys.argv[2]))
     sys.exit(main())

@@ -1,25 +1,68 @@
 """The arena planner and its plain executor (the CUDA stage kernel's plain
-version) against JAX ``fast2``, bit for bit (tolerance 0) on every stage
-output: one stage and a >= 3-stage split, concat aliasing, fuzz seed 4."""
+version) against the JAX package, bit for bit (tolerance 0) on every stage
+output: the corpus in one stage and a >= 3-stage split, concat aliasing;
+fuzz seeds 0-7, the v3-tiny FPN, the op-surface graph and the eltwise
+chain in ``arena2`` / ``arena`` / ``arena_exact`` against JAX ``fast2`` /
+``fast`` / ``exact`` (and, under ``slow``, the v3-tiny FPN against
+``pallas_mxu2`` / ``pallas_mxu`` / ``pallas_mxu_exact``, which take 13-21 s
+each in interpret mode); the .tflite test graphs in every kernel mode
+against their golden keys."""
 
+import importlib.util
 import os
 
 import numpy as np
 import pytest
 import torch
 
+import test_darknet_ptq as ptq
 from test_tiled_fuzz import _int8_graph
+from test_torch_fused import _chain_graph
+from yoloface_tpu.io.darknet_cfg import DarknetNet, template_from_darknet
 from yoloface_tpu.io.tflite_import import load_tflite as jax_load_tflite
+from yoloface_tpu.quantize.calibrate import calibrate_from_weights
 from yoloface_tpu.runtime.engine import Int8Engine as JaxEngine
 from yoloface_tpu_torch.convert import graph_from_jax
+from yoloface_tpu_torch.graph import ir
 from yoloface_tpu_torch.graph.ir import GraphDef, OpDef, QParams, TensorDef
+from yoloface_tpu_torch.io.tflite_import import load_tflite
 from yoloface_tpu_torch.kernels import arena
-from yoloface_tpu_torch.runtime.engine import Int8Engine
+from yoloface_tpu_torch.runtime.engine import (ARENA_BITS, KERNEL_MODES,
+                                               Int8Engine)
 
 torch.set_num_threads(1)
-CORPUS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "checkpoints", "yoloface_corpus_int8.tflite")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CORPUS = os.path.join(REPO, "checkpoints", "yoloface_corpus_int8.tflite")
+GOLDEN = os.path.join(REPO, "tests", "data", "torch_port_frames.npz")
 SMALL = 18 * 1024          # forces the corpus graph into 4 stages
+JAX_MXU = {"arena2": "pallas_mxu2", "arena": "pallas_mxu",
+           "arena_exact": "pallas_mxu_exact"}
+
+
+def _golden_tool():
+    spec = importlib.util.spec_from_file_location(
+        "make_torch_port_golden",
+        os.path.join(REPO, "tools", "make_torch_port_golden.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+TOOL = _golden_tool()         # numpy at import; jax only inside functions
+
+
+class OneOpAStage(arena.ArenaPlan):
+    """The arena plan at one lowered op a stage."""
+
+    def _plan(self, graph, budget, bits):
+        lops, alias = arena.lower_arena_ops(graph, bits)
+        return [arena.plan_stage(graph, lops, k, k + 1, alias)
+                for k in range(len(lops))]
+
+
+def _assert_equal(got, want):
+    for k, v in got.items():
+        np.testing.assert_array_equal(v, np.asarray(want[k]), err_msg=f"t{k}")
 
 
 @pytest.fixture(scope="module")
@@ -83,18 +126,26 @@ def test_split_crosses_stages_through_globals(corpus):
     assert jg.outputs[0] in stages[-1].outputs
 
 
-@pytest.mark.parametrize("budget", [arena.ARENA_BUDGET, 2400])
-def test_fuzz_seed4_stage_outputs_equal_fast2(budget):
-    jg, rng = _int8_graph(4)
+@pytest.mark.parametrize("seed", range(8))
+@pytest.mark.parametrize("mode", ["arena2", "arena", "arena_exact"])
+def test_fuzz_stage_outputs_equal_jax(seed, mode):
+    """Fuzz seeds 0-7 (standalone LEAKY, RELU, RESIZE, SAME and stride-1
+    pools, absorbed PADs, concats, ADDs): every stage output of the arena
+    mode equals the JAX engine of the same bits, in one stage through the
+    engine and at one op a stage (every op's output through device
+    memory).  Seed 4's whole-frame concat of two QUANTIZEs aliases."""
+    jg, rng = _int8_graph(seed)
     x = rng.integers(-128, 128, (3, 14, 14, 3), dtype=np.int64).astype(np.int8)
-    want = JaxEngine(jg, "fast2").run_with_intermediates(x)
-    plan = arena.ArenaPlan(graph_from_jax(jg), budget)
-    if budget == 2400:
-        assert len(plan.stages) >= 2
-    else:    # the concat of the two QUANTIZEs aliases: no COPY into it
-        assert _codes(plan.stages[0]).count(arena.COPY) == 2
-    for k, v in _run_plan(plan, x).items():
-        np.testing.assert_array_equal(v, want[k], err_msg=f"t{k}")
+    want = JaxEngine(jg, ARENA_BITS[mode]).run_with_intermediates(x)
+    g = graph_from_jax(jg)
+    eng = Int8Engine(g, mode, device="cpu")
+    assert len(eng.arena.stages) == 1
+    if seed == 4:
+        assert _codes(eng.arena.stages[0]).count(arena.COPY) == 2
+    _assert_equal(eng.run_with_intermediates(x), want)
+    plan = OneOpAStage(g, bits=ARENA_BITS[mode])
+    assert len(plan.stages) >= 5
+    _assert_equal(_run_plan(plan, x), want)
 
 
 @pytest.mark.parametrize("n", [1, 7])
@@ -125,3 +176,104 @@ def test_pad_into_non_window_op_raises():
            OpDef(1, "QUANTIZE", [2], [3], {})]
     with pytest.raises(NotImplementedError, match="PAD"):
         arena.build_arena_plan(GraphDef(tensors, ops, [0], [3]))
+
+
+@pytest.fixture(scope="module")
+def v3tiny():
+    """tests/test_darknet_ptq.py's two-headed v3-tiny FPN, int8."""
+    net = DarknetNet(ptq.V3_TINY_CFG)
+    template, weights = template_from_darknet(net, ptq._random_params(net))
+    rep = np.random.default_rng(5).uniform(0, 1, (16, 32, 32, 3))
+    return calibrate_from_weights(weights, rep.astype(np.float32), template)
+
+
+def _v3tiny_frames():
+    return np.random.default_rng(11).integers(
+        -128, 128, (2, 32, 32, 3), dtype=np.int64).astype(np.int8)
+
+
+@pytest.mark.parametrize("mode", list(ARENA_BITS))
+def test_v3tiny_heads_equal_jax(v3tiny, mode):
+    """The two-headed FPN (a RESIZE into a concat, two outputs in order):
+    every stage output equals the JAX engine of the mode's bits."""
+    x = _v3tiny_frames()
+    want = JaxEngine(v3tiny, ARENA_BITS[mode]).run_with_intermediates(x)
+    eng = Int8Engine(graph_from_jax(v3tiny), mode, device="cpu")
+    assert arena.RESIZE in _codes(eng.arena.stages[0])
+    _assert_equal(eng.run_with_intermediates(x), want)
+    got = eng(torch.from_numpy(x))
+    assert len(got) == 2
+    for y, o in zip(got, v3tiny.outputs):
+        np.testing.assert_array_equal(y.numpy(), want[o])
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("mode", list(ARENA_BITS))
+def test_v3tiny_heads_equal_pallas_mxu(v3tiny, mode):
+    """Both heads equal JAX ``pallas_mxu2`` / ``pallas_mxu`` /
+    ``pallas_mxu_exact`` (tests/test_darknet_ptq.py:201) in interpret
+    mode."""
+    x = _v3tiny_frames()
+    want = JaxEngine(v3tiny, JAX_MXU[mode])(x)
+    got = Int8Engine(graph_from_jax(v3tiny), mode,
+                     device="cpu")(torch.from_numpy(x))
+    for y, w in zip(got, want):
+        np.testing.assert_array_equal(y.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("mode", list(ARENA_BITS))
+def test_op_surface_equals_jax_and_golden(mode):
+    """The op-surface graph: a standalone LEAKY, RELU, RELU6, LOGISTIC and
+    RESIZE, and a PAD that a SAME max-pool would pad again, kept as an op.
+    Every stage output equals the JAX engine of the mode's bits, in one
+    stage and split at a small budget, and the outputs equal the golden
+    keys."""
+    g, x = TOOL.surface_graph(), TOOL.surface_frames()
+    bits = ARENA_BITS[mode]
+    want = JaxEngine(TOOL.jax_graph(g), bits).run_with_intermediates(x)
+    gold = np.load(GOLDEN)
+    eng = Int8Engine(g, mode, device="cpu")
+    assert set(_codes(eng.arena.stages[0])) == {
+        arena.COPY, arena.CONV, arena.DW, arena.MAXPOOL, arena.ADD,
+        arena.QUANTIZE, arena.PAD, arena.LEAKY, arena.ACT, arena.RESIZE}
+    _assert_equal(eng.run_with_intermediates(x), want)
+    for k, y in enumerate(eng(torch.from_numpy(x))):
+        np.testing.assert_array_equal(y.numpy(), gold[f"surface_{bits}{k}"])
+    plan = OneOpAStage(g, bits=bits)
+    assert len(plan.stages) == 14
+    _assert_equal(_run_plan(plan, x), want)
+
+
+@pytest.mark.parametrize("mode", list(ARENA_BITS))
+def test_eltwise_activation_ops(mode):
+    """The port's counterpart of tests/test_tiled_fuzz.py::
+    test_eltwise_activation_ops: RELU, RELU6, QUANTIZE and LOGISTIC as
+    arena ops equal the JAX engine of the mode's bits on every tensor, one
+    op a stage too."""
+    from yoloface_tpu.graph import ir as jir
+    x = np.random.default_rng(7).integers(-128, 128, (2, 10, 10, 5),
+                                          dtype=np.int64).astype(np.int8)
+    want = JaxEngine(_chain_graph(jir), ARENA_BITS[mode]
+                     ).run_with_intermediates(x)
+    assert (want[4] != x).any()                    # the chain acts
+    g = _chain_graph(ir)
+    for plan in (arena.ArenaPlan(g, bits=ARENA_BITS[mode]),
+                 OneOpAStage(g, bits=ARENA_BITS[mode])):
+        _assert_equal(_run_plan(plan, x), want)
+
+
+@pytest.mark.parametrize("name", TOOL.TFLITE_GRAPHS)
+def test_tflite_graph_every_kernel_mode_equals_golden(name):
+    """The .tflite test graphs as the port's importer reads them: every
+    kernel mode's outputs equal the golden keys of its bits (the JAX
+    engines' outputs on the same file)."""
+    g = load_tflite(TOOL.tflite_path(name))
+    x = TOOL.tflite_frames(name)
+    gold = np.load(GOLDEN)
+    assert str(gold[f"tflite_{name}_frames_sha256"]) == TOOL.sha256(x)
+    for mode, bits in KERNEL_MODES.items():
+        ys = Int8Engine(g, mode, device="cpu")(x)
+        for k, y in enumerate(ys if isinstance(ys, tuple) else (ys,)):
+            np.testing.assert_array_equal(
+                y.numpy(), gold[TOOL.tflite_key(name, bits, k)],
+                err_msg=f"{mode} output {k}")

@@ -155,3 +155,65 @@ def test_perop_serving_on_the_card_equals_cpu(mode, golden):
     y = card.engine(card.preprocess(gold["frames"]))
     assert torch.equal(y.cpu(), cpu.engine(cpu.preprocess(gold["frames"])))
     np.testing.assert_array_equal(y.cpu().numpy(), gold[golden])
+
+
+def _avgpool_graph():
+    """Two SAME 3x3 average pools (stride 1 and 2) on int8 [N,12,12,8]."""
+    from yoloface_tpu_torch.graph import ir
+    q = ir.QParams((0.05,), (3,))
+    i8 = np.dtype(np.int8)
+    tensors = [ir.TensorDef(0, "in", (1, 12, 12, 8), i8, q),
+               ir.TensorDef(1, "s1", (1, 12, 12, 8), i8, q),
+               ir.TensorDef(2, "s2", (1, 6, 6, 8), i8, q)]
+    ops = [ir.OpDef(k, "AVERAGE_POOL_2D", [0], [k + 1],
+                    {"padding": "SAME", "stride_h": s, "stride_w": s,
+                     "filter_h": 3, "filter_w": 3, "activation": "NONE"})
+           for k, s in enumerate((1, 2))]
+    return ir.GraphDef(tensors, ops, [0], [1, 2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", arena.BITS)
+def test_new_ops_match_plain_on_the_card(bits):
+    """The arena kernel (whole frame) and the section kernel (in strips of
+    a small budget) on the op-surface graph, fuzz graph 5 (RELU, standalone
+    LEAKY, RESIZE) and two average pools: every stage and section output
+    equals the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    tool = _golden_tool()
+    graphs = [tool.surface_graph(),
+              load_tflite(tool.tflite_path("fuzz5")), _avgpool_graph()]
+    for g in graphs:
+        shape = g.tensor(g.inputs[0]).shape[1:]
+        x = torch.from_numpy(np.random.default_rng(1).integers(
+            -128, 128, (3, *shape), dtype=np.int64).astype(np.int8)).cuda()
+        for plan, plain in ((arena.ArenaPlan(g, bits=bits),
+                             arena.arena_stage_plain),
+                            (tiled.TiledPlan(g, 1024, bits),
+                             tiled.tiled_section_plain)):
+            plan = plan.cuda()
+            env = plan.run_stages(x)
+            for k, st in enumerate(plan.stages):
+                ref = [torch.empty_like(env[o]) for o in st.outputs]
+                plain(st, getattr(plan, f"consts{k}"),
+                      [env[i] for i in st.inputs] + ref)
+                for o, t in zip(st.outputs, ref):
+                    assert torch.equal(env[o], t), (g.name, k, o)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["arena", "tiled"])
+def test_forged_op_code_fails_the_launch(which):
+    """An op code the kernel has no case for traps: the launch fails
+    instead of running as another op (in a child process, whose CUDA
+    context the trap ends)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import subprocess
+    import sys
+    res = subprocess.run([sys.executable, os.path.join(REPO, "chip_smoke.py"),
+                          "--forged-op", which], capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "launch failed" in res.stdout

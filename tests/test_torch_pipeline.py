@@ -101,7 +101,9 @@ def test_golden_file_equals_recomputed_jax_side():
     np.testing.assert_array_equal(tool.golden_frames(), gold["frames"])
     want = tool.jax_outputs(gold["frames"])
     assert sorted(want) == sorted(k for k in gold if k not in
-                                  ("frames",) + KEYS448 + KEYS_SURFACE)
+                                  ("frames",) + KEYS448 + KEYS_SURFACE
+                                  + tool.KEYS_SURFACE_FAST2
+                                  + tool.KEYS_TFLITE)
     for k, v in want.items():
         np.testing.assert_array_equal(v, gold[k], err_msg=k)
     assert gold["count"].sum() >= 7       # faces on seven of the frames
@@ -109,9 +111,12 @@ def test_golden_file_equals_recomputed_jax_side():
 
 def test_golden_fast2_keys_unchanged():
     gold = np.load(GOLDEN)
+    tool = _golden_tool()
     assert sorted(gold.files) == sorted([*FAST2_DIGESTS, *EXACT_KEYS,
                                          "head_fast", *KEYS448,
-                                         *KEYS_SURFACE])
+                                         *KEYS_SURFACE,
+                                         *tool.KEYS_SURFACE_FAST2,
+                                         *tool.KEYS_TFLITE])
     for k, digest in FAST2_DIGESTS.items():
         assert hashlib.sha256(gold[k].tobytes()).hexdigest() == digest, k
 

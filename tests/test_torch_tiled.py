@@ -9,7 +9,16 @@ the plan is the arena plan, and a small one that cuts the net into seven
 strip programs) and at full width, factor 8 (448x448).  ``tiled2`` also
 equals the JAX ``pallas_tiled2`` mode (the Pallas section kernel in
 interpret mode).  The golden 448 keys of ``tests/data/torch_port_frames.npz``
-are pinned by sha256 and recomputed."""
+are pinned by sha256 and recomputed.
+
+The rest of the op surface in strips (under a budget that forces them):
+fuzz seeds 0-7, the v3-tiny FPN (also against JAX ``pallas_tiled2``, and
+``pallas_tiled_exact`` under ``slow``: 13 s in interpret mode), the
+op-surface graph, the eltwise chain, the configurations at which JAX cuts
+its tiled prefix, and the published yolov3-tiny reduced in width
+(``tools/make_torch_port_golden.yolov3_tiny_graph``) with its upsample and
+concat cut into strips; the .tflite test graphs and their golden keys
+against the JAX side recomputed."""
 
 import hashlib
 import importlib.util
@@ -19,7 +28,13 @@ import numpy as np
 import pytest
 import torch
 
+import test_darknet_ptq as ptq
+from test_tiled_fuzz import (DW5_CFG, STRIDED_1X1_CFG, UPSAMPLE_CFG,
+                             _cfg_graph, _int8_graph)
+from test_torch_fused import _chain_graph
 from yoloface_tpu.graph import ir as jir
+from yoloface_tpu.io.darknet_cfg import DarknetNet, template_from_darknet
+from yoloface_tpu.quantize.calibrate import calibrate_from_weights
 from yoloface_tpu.graph.retarget import retarget_spatial as jax_retarget
 from yoloface_tpu.io.tflite_import import load_tflite as jax_load_tflite
 from yoloface_tpu.runtime.engine import Int8Engine as JaxEngine
@@ -267,11 +282,14 @@ def _quantize_graph():
                        [0], [1])
 
 
-def _logistic_graph():
+def _softmax_graph():
+    """A SOFTMAX, which JAX's arena lowering (``pallas_arena.
+    lower_arena_ops``) has no branch for either."""
     q = ir.QParams((0.05,), (3,))
     tensors = [ir.TensorDef(0, "in", (1, 8, 8, 2), np.dtype(np.int8), q),
-               ir.TensorDef(1, "out", (1, 8, 8, 2), np.dtype(np.int8), q)]
-    return ir.GraphDef(tensors, [ir.OpDef(0, "LOGISTIC", [0], [1], {})],
+               ir.TensorDef(1, "out", (1, 8, 8, 2), np.dtype(np.int8),
+                            ir.QParams((1.0 / 256.0,), (-128,)))]
+    return ir.GraphDef(tensors, [ir.OpDef(0, "SOFTMAX", [0], [1], {})],
                        [0], [1])
 
 
@@ -281,7 +299,7 @@ def test_tiled_modes_refuse_what_arena_modes_refuse(mode):
     mode refuses the graphs its arena twin refuses, with the same error."""
     twin = {"tiled_exact": "arena_exact", "tiled": "arena",
             "tiled2": "arena2"}[mode]
-    cases = [(_logistic_graph(), "LOGISTIC")]
+    cases = [(_softmax_graph(), "SOFTMAX")]
     if mode == "tiled_exact":
         cases.append((_quantize_graph(), "int32"))
     else:       # fast bits take it, in strips too
@@ -351,3 +369,215 @@ def test_448_entry_point_on_golden_frames(mode, key):
     y = eng(torch.from_numpy(_golden_tool().frames448()))
     assert y.shape == (2, 56, 56, 18) and y.dtype == torch.int8
     np.testing.assert_array_equal(y.numpy(), np.load(GOLDEN)[key])
+
+
+TOOL = _golden_tool()         # numpy at import; jax only inside functions
+JAX_TILED = {"tiled2": "pallas_tiled2", "tiled_exact": "pallas_tiled_exact"}
+
+
+def _assert_equal(got, want):
+    for k, v in got.items():
+        np.testing.assert_array_equal(v, np.asarray(want[k]), err_msg=f"t{k}")
+
+
+def _strip_plan(g, bits):
+    """The tiled plan at the smallest of a few budgets that plans ``g``:
+    strips as short as its widest op allows."""
+    for budget in (256, 384, 512, 768, 1024, 1536, 2048, 4096):
+        try:
+            return tiled.TiledPlan(g, budget, bits)
+        except NotImplementedError:
+            continue
+    raise AssertionError("no strip budget plans the graph")
+
+
+def _sections_equal_jax(g, x, want, bits):
+    """The strip plan of ``g``: >= 1 section of >= 2 strips, every section
+    output equal to ``want``; -> the plan."""
+    plan = _strip_plan(g, bits)
+    assert plan.tiled and max(s.strips for s in plan.stages) >= 2
+    got = {k: v.numpy() for k, v in
+           plan.run_stages(torch.from_numpy(x)).items()}
+    assert set(got) == {g.inputs[0]} | {o for s in plan.stages
+                                        for o in s.outputs}
+    _assert_equal(got, want)
+    return plan
+
+
+@pytest.mark.parametrize("seed", range(8))
+@pytest.mark.parametrize("mode", list(TILED_BITS))
+def test_fuzz_sections_equal_jax(seed, mode):
+    """Fuzz seeds 0-7 in strips: every section output equals the JAX
+    engine of the mode's bits; the whole-frame engine path too."""
+    jg, rng = _int8_graph(seed)
+    x = rng.integers(-128, 128, (3, 14, 14, 3), dtype=np.int64).astype(np.int8)
+    bits = TILED_BITS[mode]
+    want = JaxEngine(jg, bits).run_with_intermediates(x)
+    g = graph_from_jax(jg)
+    _sections_equal_jax(g, x, want, bits)
+    _assert_equal(Int8Engine(g, mode, device="cpu").run_with_intermediates(x),
+                  want)
+
+
+@pytest.fixture(scope="module")
+def v3tiny():
+    """tests/test_darknet_ptq.py's two-headed v3-tiny FPN, int8."""
+    net = DarknetNet(ptq.V3_TINY_CFG)
+    template, weights = template_from_darknet(net, ptq._random_params(net))
+    rep = np.random.default_rng(5).uniform(0, 1, (16, 32, 32, 3))
+    return calibrate_from_weights(weights, rep.astype(np.float32), template)
+
+
+@pytest.mark.parametrize("mode", list(TILED_BITS))
+def test_v3tiny_sections_equal_jax(v3tiny, mode):
+    """The two-headed FPN in strips, its RESIZE and concat in a section of
+    >= 2 strips: every section output equals the JAX engine."""
+    x = _frames(11, 2, 32)
+    bits = TILED_BITS[mode]
+    want = JaxEngine(v3tiny, bits).run_with_intermediates(x)
+    plan = _sections_equal_jax(graph_from_jax(v3tiny), x, want, bits)
+    assert any(s.strips >= 2 and arena.RESIZE in s.descs[:, arena.F["code"]]
+               for s in plan.stages)
+
+
+@pytest.mark.parametrize("mode", [
+    "tiled2", pytest.param("tiled_exact", marks=pytest.mark.slow)])
+def test_v3tiny_heads_equal_pallas_tiled(v3tiny, mode, monkeypatch):
+    """Both heads in strips equal JAX ``pallas_tiled2`` /
+    ``pallas_tiled_exact`` with every plane tiled
+    (tests/test_darknet_ptq.py:216): the same bits, though JAX ends its
+    tiled prefix at the upsample and the port does not."""
+    import yoloface_tpu.kernels.pallas_tiled as pt
+    monkeypatch.setenv("YOLOFACE_TPU_TILE_XLA", "none")
+    monkeypatch.setattr(pt, "TILE_THRESHOLD", 0)
+    monkeypatch.setattr(pt, "_NW_CAP", 2)
+    monkeypatch.setattr(pt, "_VMEM_TARGET", 1)
+    monkeypatch.setattr(pt, "_CHUNK_TARGET", 1 << 20)
+    x = _frames(11, 2, 32)
+    want = JaxEngine(v3tiny, JAX_TILED[mode])(x)
+    g = graph_from_jax(v3tiny)
+    env = _strip_plan(g, TILED_BITS[mode]).run_stages(torch.from_numpy(x))
+    for o, w in zip(g.outputs, want):
+        np.testing.assert_array_equal(env[o].numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("mode", list(TILED_BITS))
+def test_op_surface_in_strips_equals_golden(mode):
+    """The op-surface graph in strips (a standalone PAD, LEAKY, RELU,
+    RELU6, LOGISTIC and RESIZE in strip programs): every section output
+    equals the JAX engine, the outputs the golden keys."""
+    g, x = TOOL.surface_graph(), TOOL.surface_frames()
+    bits = TILED_BITS[mode]
+    want = JaxEngine(TOOL.jax_graph(g), bits).run_with_intermediates(x)
+    plan = _sections_equal_jax(g, x, want, bits)
+    codes = {c for s in plan.stages if s.strips >= 2
+             for c in s.descs[:, arena.F["code"]].tolist()}
+    assert {arena.PAD, arena.LEAKY, arena.ACT, arena.RESIZE} <= codes
+    gold = np.load(GOLDEN)
+    env = plan.run_stages(torch.from_numpy(x))
+    for k, o in enumerate(g.outputs):
+        np.testing.assert_array_equal(env[o].numpy(),
+                                      gold[f"surface_{bits}{k}"])
+    for k, y in enumerate(Int8Engine(g, mode, device="cpu")(x)):
+        np.testing.assert_array_equal(y.numpy(), gold[f"surface_{bits}{k}"])
+
+
+@pytest.mark.parametrize("mode", list(TILED_BITS))
+def test_eltwise_activation_ops_in_strips(mode):
+    """The port's counterpart of tests/test_tiled_fuzz.py::
+    test_eltwise_activation_ops in strips: RELU, RELU6, QUANTIZE and
+    LOGISTIC row by row equal the JAX engine on every tensor."""
+    x = np.random.default_rng(7).integers(-128, 128, (2, 10, 10, 5),
+                                          dtype=np.int64).astype(np.int8)
+    bits = TILED_BITS[mode]
+    want = JaxEngine(_chain_graph(jir), bits).run_with_intermediates(x)
+    plan = tiled.TiledPlan(_chain_graph(ir), 256, bits)
+    assert [s.strips for s in plan.stages] == [5]
+    got = plan.run_stages(torch.from_numpy(x))
+    _assert_equal({k: v.numpy() for k, v in got.items()}, want)
+
+
+@pytest.mark.parametrize("cfg", ["upsample", "strided 1x1", "dw 5x5"])
+@pytest.mark.parametrize("mode", list(TILED_BITS))
+def test_tiled_prefix_cut_configs_equal_jax(cfg, mode):
+    """The port's counterpart of tests/test_tiled_fuzz.py::
+    test_tiled_prefix_cut_at_unsupported_op: where JAX ends its tiled
+    prefix (an upsample, a strided 1x1 conv, a 5x5 depthwise conv) the
+    port runs on in strips, and every section output equals JAX's bits."""
+    text = {"upsample": UPSAMPLE_CFG, "strided 1x1": STRIDED_1X1_CFG,
+            "dw 5x5": DW5_CFG}[cfg]
+    jg, rng = _cfg_graph(text)
+    x = rng.integers(-128, 128, (2, 14, 14, 3), dtype=np.int64).astype(np.int8)
+    bits = TILED_BITS[mode]
+    want = JaxEngine(jg, bits).run_with_intermediates(x)
+    plan = _sections_equal_jax(graph_from_jax(jg), x, want, bits)
+    assert plan.stages[-1].end == len(arena.lower_arena_ops(
+        graph_from_jax(jg), bits)[0])
+
+
+@pytest.mark.parametrize("size,budget", [(32, arena.ARENA_BUDGET), (32, 400),
+                                         (416, 8192)])
+@pytest.mark.parametrize("mode", list(TILED_BITS))
+def test_yolov3_tiny_reduced_equals_jax(size, budget, mode):
+    """The published yolov3-tiny at width / 16: at 32x32 whole-frame (the
+    arena plan) and in strips; at 416x416 in strips down to the upsample
+    and the concat of route 20, which run in a section of >= 2 strips.
+    Every stage or section output equals the JAX engine."""
+    g = TOOL.yolov3_tiny_graph(size, 16)
+    x = TOOL.yolov3_tiny_frames(1, size)
+    bits = TILED_BITS[mode]
+    want = JaxEngine(TOOL.jax_graph(g), bits).run_with_intermediates(x)
+    plan = tiled.TiledPlan(g, budget, bits)
+    assert plan.tiled == (budget < arena.ARENA_BUDGET)
+    if size == 416:
+        resize = [s for s in plan.stages
+                  if arena.RESIZE in s.descs[:, arena.F["code"]]]
+        assert resize and resize[0].strips >= 2
+    got = plan.run_stages(torch.from_numpy(x))
+    _assert_equal({k: v.numpy() for k, v in got.items()}, want)
+
+
+def test_yolov3_tiny_full_width_graph():
+    """The 416 graph is the published one: 2,782,480,896 MACs and 8,845,488
+    int8 weights a frame, 13 convs, 11 leakys, 6 max-pools, two
+    255-channel heads; every conv inside the exact domain."""
+    g = TOOL.yolov3_tiny_graph()
+    macs = sum(int(np.prod(g.tensor(op.outputs[0]).shape[1:]))
+               * int(np.prod(g.tensor(op.inputs[1]).shape[1:]))
+               for op in g.ops if op.opname == "CONV_2D")
+    assert macs == 2_782_480_896
+    assert sum(g.tensor(op.inputs[1]).data.size for op in g.ops
+               if op.opname == "CONV_2D") == 8_845_488
+    names = [op.opname for op in g.ops]
+    assert [names.count(n) for n in ("CONV_2D", "LEAKY_RELU", "MAX_POOL_2D",
+                                     "RESIZE_NEAREST_NEIGHBOR",
+                                     "CONCATENATION")] == [13, 11, 6, 1, 1]
+    assert [g.tensor(o).shape for o in g.outputs] == [(1, 13, 13, 255),
+                                                     (1, 26, 26, 255)]
+    arena.lower_arena_ops(g, "exact")         # check_exact_domain holds
+
+
+def test_golden_tflite_keys_equal_recomputed_jax_side():
+    gold = np.load(GOLDEN)
+    want = TOOL.jax_outputs_tflite()
+    assert sorted(want) == sorted(TOOL.KEYS_TFLITE)
+    for k, v in want.items():
+        np.testing.assert_array_equal(v, gold[k], err_msg=k)
+    fast2 = TOOL.jax_outputs_surface_fast2()
+    assert sorted(fast2) == sorted(TOOL.KEYS_SURFACE_FAST2)
+    for k, v in fast2.items():
+        np.testing.assert_array_equal(v, gold[k], err_msg=k)
+
+
+def test_tflite_files_are_the_exported_graphs(tmp_path, monkeypatch):
+    """The committed .tflite test graphs are what the tool writes today
+    from tests/test_tiled_fuzz.py and tests/test_darknet_ptq.py."""
+    monkeypatch.setattr(TOOL, "tflite_path",
+                        lambda name: str(tmp_path / f"{name}.tflite"))
+    TOOL.write_tflite_graphs()
+    for name in TOOL.TFLITE_GRAPHS:
+        with open(tmp_path / f"{name}.tflite", "rb") as f:
+            fresh = f.read()
+        with open(os.path.join(REPO, "tests", "data",
+                               f"{name}_int8.tflite"), "rb") as f:
+            assert f.read() == fresh, name

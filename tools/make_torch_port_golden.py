@@ -20,13 +20,22 @@ pipelines give for them:
     from JAX ``pallas_fused`` and ``pallas_fused_exact`` (interpret mode) on
     ``surface_frames()`` (``surface_fast0``, ``surface_fast1``,
     ``surface_exact0``, ``surface_exact1``) and the frames' sha256
-    (``surface_frames_sha256``).
+    (``surface_frames_sha256``), and from the JAX ``fast2`` engine
+    (``surface_fast20``, ``surface_fast21``);
+  * the .tflite test graphs (``TFLITE_GRAPHS``): the fuzz graphs of
+    tests/test_tiled_fuzz.py (seeds 0-7) and the v3-tiny FPN of
+    tests/test_darknet_ptq.py, written as int8 .tflite under tests/data/ by
+    the JAX package's exporter; the JAX ``fast2``, ``fast`` and ``exact``
+    outputs of each as the JAX importer reads it back, on
+    ``tflite_frames(name)`` (``tflite_<name>_<bits><k>``), and the frames'
+    sha256 (``tflite_<name>_frames_sha256``).
 chip_smoke.py holds the card's output against it without jax;
 tests/test_torch_pipeline.py, tests/test_torch_tiled.py,
-tests/test_torch_fused.py and tests/test_torch_perop.py recompute the JAX
-side and hold it against the file.  ``GraphMaker``, which builds the
-op-surface graph, also builds the one-op graphs of
-tests/test_torch_perop.py.
+tests/test_torch_fused.py, tests/test_torch_perop.py and
+tests/test_torch_arena.py recompute the JAX side and hold it against the
+file.  ``GraphMaker``, which builds the op-surface graph, also builds the
+one-op graphs of tests/test_torch_perop.py and the published yolov3-tiny
+(``yolov3_tiny_graph``).
 
 Run from the repository root, on the CPU:
     JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py
@@ -52,6 +61,25 @@ KEYS448 = ("head448", "head448_exact", "frames448_sha256")
 SEED_SURFACE = 7
 KEYS_SURFACE = ("surface_fast0", "surface_fast1", "surface_exact0",
                 "surface_exact1", "surface_frames_sha256")
+SEED_V3TINY = 416
+SEED_TFLITE = 60
+TFLITE_GRAPHS = tuple(f"fuzz{s}" for s in range(8)) + ("v3tiny_fpn",)
+TFLITE_INPUTS = {**{f"fuzz{s}": (3, 14) for s in range(8)},
+                 "v3tiny_fpn": (2, 32)}
+KEYS_SURFACE_FAST2 = ("surface_fast20", "surface_fast21")
+
+
+def tflite_key(name: str, bits: str, k: int) -> str:
+    """The golden key of output ``k`` of a .tflite test graph."""
+    return f"tflite_{name}_{bits}{k}"
+
+
+KEYS_TFLITE = tuple(
+    key for name in TFLITE_GRAPHS
+    for key in (f"tflite_{name}_frames_sha256",
+                *(tflite_key(name, bits, k) for bits in ("fast2", "fast",
+                                                         "exact")
+                  for k in range(2 if name == "v3tiny_fpn" else 1))))
 
 
 def golden_frames() -> np.ndarray:
@@ -210,6 +238,140 @@ def surface_frames(n: int = 3) -> np.ndarray:
                         ).astype(np.int8)
 
 
+def yolov3_tiny_graph(size: int = 416, div: int = 1, seed: int = SEED_V3TINY):
+    """The published yolov3-tiny (darknet's ``yolov3-tiny.cfg``, layers
+    0-23) as an int8 graph in the port's IR, weights from numpy seed
+    ``seed`` (numpy only: the card's machine builds the same graph).
+
+    int8 [N,size,size,3] in; 13 convs (3x3 SAME, or 1x1), each but the two
+    255-channel heads followed by a LEAKY_RELU (alpha 0.1); 6 max-pools,
+    the sixth 2x2 stride 1 SAME; the route of layer 13, a 1x1 conv, a x2
+    RESIZE and the concat with layer 8.  Outputs: the two heads,
+    [N,size/32,size/32,255] and [N,size/16,size/16,255].  ``div`` divides
+    every channel count (rounded up) for a small test graph; ``size`` must
+    be a multiple of 32.
+
+    Scales: a conv's output scale is its input scale times sqrt(K) * 0.52,
+    so that an int8 input spread of about 50 and the weights' spread of
+    about 52 (GraphMaker draws them from -90..90 at scales 0.004-0.012)
+    give outputs of about 40 codes.  The effective requant multiplier then
+    stays below 0.005, its shift is negative, and
+    ``specs.check_exact_domain`` holds for every conv at full width: at
+    K = 4,608 (layer 12) the largest |acc| bound is 128 * 4,608 * 90 plus
+    the zero-point fold, about 2**26.7."""
+    b = GraphMaker(seed)
+
+    def ch(c):
+        return -(-c // div)
+
+    def conv(x, co, k, leaky=True, out_q=None):
+        _, hw, _, ci = b.tensors[x].shape
+        s_c = b.tensors[x].qparams.scale * np.sqrt(k * k * ci) * 0.52
+        y = b.conv(x, co, (k, k), 1, "SAME",
+                   b.act(hw, co, s_c, int(b.rng.integers(-8, 9))))
+        if not leaky:
+            return y
+        s, zp = out_q or (s_c * 0.75, -90)
+        return b.op("LEAKY_RELU", [y], b.act(hw, co, s, zp), alpha=0.1)
+
+    def pool(x, stride):
+        _, hw, _, c = b.tensors[x].shape
+        q = b.tensors[x].qparams
+        return b.op("MAX_POOL_2D", [x],
+                    b.act(-(-hw // stride), c, q.scale, q.zero_point),
+                    padding="SAME", stride_h=stride, stride_w=stride,
+                    filter_h=2, filter_w=2, activation="NONE")
+
+    x = b.act(size, 3, 1.0 / 255.0, -128)
+    y = x
+    for k, co in enumerate((16, 32, 64, 128, 256, 512)):       # layers 0-11
+        y = conv(y, ch(co), 3)
+        if co == 256:
+            route8 = y
+        y = pool(y, 2 if co < 512 else 1)
+    y = conv(y, ch(1024), 3)                                     # 12
+    route13 = conv(y, ch(256), 1)                                # 13
+    head0 = conv(conv(route13, ch(512), 3), ch(255), 1, leaky=False)
+    q8 = b.tensors[route8].qparams
+    y = conv(route13, ch(128), 1, out_q=(q8.scale, q8.zero_point))  # 18
+    _, hw, _, c = b.tensors[y].shape
+    size_t = b.tensor((2,), np.int32,
+                      data=np.asarray([2 * hw, 2 * hw], np.int32))
+    up = b.op("RESIZE_NEAREST_NEIGHBOR", [y, size_t],              # 19
+              b.act(2 * hw, c, q8.scale, q8.zero_point),
+              align_corners=False, half_pixel_centers=False)
+    cat = b.op("CONCATENATION", [up, route8],                       # 20
+               b.act(2 * hw, c + b.tensors[route8].shape[3], q8.scale,
+                     q8.zero_point), axis=3, activation="NONE")
+    head1 = conv(conv(cat, ch(256), 3), ch(255), 1, leaky=False)  # 21-22
+    return b.graph([x], [head0, head1], f"yolov3_tiny_{size}")
+
+
+def yolov3_tiny_frames(n: int, size: int = 416) -> np.ndarray:
+    """int8 [n,size,size,3] inputs of ``yolov3_tiny_graph`` (numpy only)."""
+    rng = np.random.default_rng(SEED_V3TINY + 1)
+    return rng.integers(-128, 128, (n, size, size, 3), dtype=np.int64
+                        ).astype(np.int8)
+
+
+# --------------------------------------------------------------------------
+# the .tflite test graphs: the JAX package's fuzz graphs and v3-tiny FPN
+# --------------------------------------------------------------------------
+def tflite_path(name: str) -> str:
+    return os.path.join(REPO, "tests", "data", f"{name}_int8.tflite")
+
+
+def tflite_frames(name: str) -> np.ndarray:
+    """int8 inputs of a .tflite test graph (numpy only): 3 frames of
+    14x14x3 for ``fuzz<seed>``, 2 of 32x32x3 for ``v3tiny_fpn``."""
+    n, hw = TFLITE_INPUTS[name]
+    rng = np.random.default_rng(SEED_TFLITE + TFLITE_GRAPHS.index(name))
+    return rng.integers(-128, 128, (n, hw, hw, 3), dtype=np.int64
+                        ).astype(np.int8)
+
+
+def write_tflite_graphs() -> None:
+    """The fuzz graphs of tests/test_tiled_fuzz.py (seeds 0-7) and the
+    two-headed v3-tiny FPN of tests/test_darknet_ptq.py (32x32, calibrated
+    as tests/test_torch_fused.py does) as int8 .tflite under tests/data/,
+    through the JAX package's exporter."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import test_darknet_ptq as ptq
+    from test_tiled_fuzz import _int8_graph
+    from yoloface_tpu.io.darknet_cfg import DarknetNet, template_from_darknet
+    from yoloface_tpu.io.tflite_export import save_tflite
+    from yoloface_tpu.quantize.calibrate import calibrate_from_weights
+    for name in TFLITE_GRAPHS:
+        if name.startswith("fuzz"):
+            g, _ = _int8_graph(int(name[4:]))
+        else:
+            net = DarknetNet(ptq.V3_TINY_CFG)
+            template, weights = template_from_darknet(
+                net, ptq._random_params(net))
+            rep = np.random.default_rng(5).uniform(0, 1, (16, 32, 32, 3))
+            g = calibrate_from_weights(weights, rep.astype(np.float32),
+                                       template)
+        save_tflite(g, tflite_path(name))
+
+
+def jax_outputs_tflite() -> dict:
+    """The JAX fast2, fast and exact outputs of each .tflite test graph (as
+    the JAX importer reads it back) on ``tflite_frames``, and the frames'
+    sha256."""
+    from yoloface_tpu.io.tflite_import import load_tflite
+    from yoloface_tpu.runtime.engine import Int8Engine
+    out = {}
+    for name in TFLITE_GRAPHS:
+        g = load_tflite(tflite_path(name))
+        x = tflite_frames(name)
+        out[f"tflite_{name}_frames_sha256"] = np.array(sha256(x))
+        for bits in ("fast2", "fast", "exact"):
+            ys = Int8Engine(g, bits)(x)
+            for k, y in enumerate(ys if isinstance(ys, tuple) else (ys,)):
+                out[tflite_key(name, bits, k)] = np.asarray(y)
+    return out
+
+
 def jax_graph(g):
     """The port's GraphDef -> the JAX package's, field by field."""
     from yoloface_tpu.graph import ir
@@ -238,13 +400,23 @@ def jax_outputs_surface() -> dict:
     return out
 
 
+def jax_outputs_surface_fast2() -> dict:
+    """The op-surface graph's outputs from the JAX ``fast2`` engine on
+    ``surface_frames()``: what ``arena2`` and ``tiled2`` give."""
+    from yoloface_tpu.runtime.engine import Int8Engine
+    ys = Int8Engine(jax_graph(surface_graph()), "fast2")(surface_frames())
+    return {f"surface_fast2{k}": np.asarray(y) for k, y in enumerate(ys)}
+
+
 def main() -> int:
     if REPO not in sys.path:
         sys.path.insert(0, REPO)
     frames = golden_frames()
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
+    write_tflite_graphs()
     np.savez_compressed(OUT, frames=frames, **jax_outputs(frames),
-                        **jax_outputs_448(), **jax_outputs_surface())
+                        **jax_outputs_448(), **jax_outputs_surface(),
+                        **jax_outputs_surface_fast2(), **jax_outputs_tflite())
     print(f"wrote {OUT}")
     return 0
 

@@ -4,7 +4,7 @@
 Run from the repository root on a machine with a CUDA card:
 
     python3 tools/torch_profile_pipeline.py [--batch 65536] [--arena-batch 16384]
-        [--batch448 1024]
+        [--batch448 1024] [--tiled-graph 448 | yolov3-tiny] [--batch-v3 256]
         [--modes arena2 arena arena_exact tiled2 tiled_exact fused fused_exact
                  perop perop_exact]
 
@@ -32,6 +32,10 @@ card's name, power limit and SM clocks:
     each section kernel of the 448 net, with its ops, strips and arena;
     with ``--shares``, the 448 net's time under each strip-height target
     ``tiled.TARGET_SHARE`` (strip arenas of the budget over that share).
+    ``--tiled-graph yolov3-tiny`` runs the tiled modes on the published
+    yolov3-tiny at 416x416 instead (``tools/make_torch_port_golden.
+    yolov3_tiny_graph``, random int8 weights from its seed) at
+    ``--batch-v3`` frames.
 
 Imports nothing of JAX; builds the kernels like ``chip_smoke.py``.
 """
@@ -56,6 +60,17 @@ def _frames(n: int, seed: int = 0):
     rng = np.random.default_rng(seed)
     f = rng.integers(0, 1 << 16, (n, 112, 112), dtype=np.int64)
     return torch.from_numpy(f.astype(np.uint16)).cuda()
+
+
+def _golden_tool():
+    """tools/make_torch_port_golden.py (numpy at import)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "make_torch_port_golden",
+        os.path.join(ROOT, "tools", "make_torch_port_golden.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _int8_frames(n: int, hw: int, seed: int = 0):
@@ -248,7 +263,9 @@ def section_breakdown(eng, x, card: str) -> None:
     env = plan.run_stages(x)
     names = {arena.COPY: "copy", arena.CONV: "conv", arena.DW: "dw",
              arena.MAXPOOL: "pool", arena.ADD: "add",
-             arena.QUANTIZE: "quant"}
+             arena.QUANTIZE: "quant", arena.PAD: "pad", arena.LEAKY: "leaky",
+             arena.ACT: "act", arena.RESIZE: "resize",
+             arena.AVGPOOL: "avgpool"}
     rows = []
     for k, st in enumerate(plan.stages):
         ins = [env[i] for i in st.inputs]
@@ -296,6 +313,10 @@ def main() -> int:
     ap.add_argument("--shares", nargs="*", type=int, default=[],
                     help="tiled modes: time the 448 net at these "
                     "strip-height targets (tiled.TARGET_SHARE)")
+    ap.add_argument("--tiled-graph", default="448",
+                    choices=["448", "yolov3-tiny"],
+                    help="tiled modes: the 448 net, or yolov3-tiny at 416")
+    ap.add_argument("--batch-v3", type=int, default=256)
     ap.add_argument("--modes", nargs="+", default=["arena2"],
                     choices=["arena2", "arena", "arena_exact", "tiled2",
                              "tiled", "tiled_exact", "fused", "fused_exact",
@@ -317,12 +338,17 @@ def main() -> int:
     for mode in args.modes:
         print(f"[mode] {mode}")
         if mode in TILED_BITS:
-            g448 = retarget_spatial(load_tflite(CORPUS), 8)
-            eng = Int8Engine(g448, mode, device="cuda")
-            x = _int8_frames(args.batch448, 448)
-            profile_pipeline(lambda: eng(x), args.batch448, card)
+            if args.tiled_graph == "448":
+                g, n, hw = (retarget_spatial(load_tflite(CORPUS), 8),
+                            args.batch448, 448)
+            else:
+                g, n, hw = (_golden_tool().yolov3_tiny_graph(),
+                            args.batch_v3, 416)
+            eng = Int8Engine(g, mode, device="cuda")
+            x = _int8_frames(n, hw)
+            profile_pipeline(lambda: eng(x), n, card)
             section_breakdown(eng, x, card)
-            share_sweep(g448, mode, args.shares, x, card)
+            share_sweep(g, mode, args.shares, x, card)
             del x
             continue
         pipe = load_pipeline(CORPUS, mode=mode, device="cuda")

@@ -19,12 +19,15 @@
 // input window is a shared-memory broadcast across the threads of
 // neighbouring channels; weights come through the read-only cache.
 //
-// The bodies after eltwise_op serve the fused stages (fused_stage.cu):
+// The bodies after eltwise_op came with the fused stages (fused_stage.cu):
 // copy_op (16-byte moves of dense views), pad_op, leaky_op, act_op
 // (RELU / RELU6 clips, LOGISTIC), resize_op and the separable
 // maxpool_sep_op, which needs a scratch of ((rows - 1) * sh + kh) * out.w *
 // out.c bytes.  They take the same row origin and count as the bodies
-// above, so the arena and tiled kernels can take them up unchanged.
+// above, so the arena and tiled kernels run pad_op, leaky_op, act_op and
+// resize_op too; avgpool_op runs in the arena and tiled kernels only.
+// Each kernel's switch traps on an op code it has no case for, so a code
+// it lacks can never run as another op.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -38,9 +41,8 @@ namespace yf {
 constexpr int kMaxGlobals = 16;
 enum Code {
   COPY = 0, CONV = 1, DW = 2, MAXPOOL = 3, ADD = 4, QUANTIZE = 5,
-  // the fused stages' ops (fused_stage.cu); no arena or tiled program
-  // emits them yet
-  PAD = 6, LEAKY = 7, ACT = 8, RESIZE = 9
+  PAD = 6, LEAKY = 7, ACT = 8, RESIZE = 9,
+  AVGPOOL = 10   // the arena and tiled programs only
 };
 enum Act { ACT_CLIP = 0, ACT_LOGISTIC = 1 };   // ACT's epi
 enum Epi {
@@ -164,6 +166,38 @@ static __device__ void maxpool_op(const Op& op, const int8_t* in, int in_y0,
       }
     }
     out[p * op.out.cs + c] = static_cast<int8_t>(m);
+  }
+}
+
+// AVERAGE_POOL_2D over output rows [oy0, oy0 + rows); `out` points at row
+// oy0.  The sum of the raw int8 values of the taps inside the image (the
+// zero fill adds nothing), divided by the count of those taps, rounding
+// half away from zero in integer division: (sum +- count / 2) / count.
+static __device__ void avgpool_op(const Op& op, const int8_t* in, int in_y0,
+                                  int8_t* out, int oy0, int rows) {
+  const int c_n = op.out.c;
+  const int total = rows * op.out.w * c_n;
+  for (int e = threadIdx.x; e < total; e += blockDim.x) {
+    const int c = e % c_n;
+    const int p = e / c_n;
+    const int ox = p % op.out.w, oy = oy0 + p / op.out.w;
+    int sum = 0, taps_h = 0, taps_w = 0;
+    for (int dy = 0; dy < op.kh; ++dy) {
+      const int iy = oy * op.sh - op.pt + dy;
+      if (iy < 0 || iy >= op.in0.h) continue;
+      ++taps_h;
+      taps_w = 0;
+      for (int dx = 0; dx < op.kw; ++dx) {
+        const int ix = ox * op.sw - op.pl + dx;
+        if (ix < 0 || ix >= op.in0.w) continue;
+        ++taps_w;
+        sum += in[((iy - in_y0) * op.in0.w + ix) * op.in0.cs + c];
+      }
+    }
+    const int count = taps_h * taps_w;
+    const int half = count / 2;
+    const int mean = sum >= 0 ? (sum + half) / count : -((half - sum) / count);
+    out[p * op.out.cs + c] = static_cast<int8_t>(clip_i8(mean));
   }
 }
 

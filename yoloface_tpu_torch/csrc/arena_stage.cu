@@ -8,7 +8,12 @@
 // op by the descriptor's epilogue code.  The host planner and the plain
 // version of this kernel are in kernels/arena.py; the op bodies and the Op
 // layout (its FIELDS tuple) are in arena_ops.cuh, shared with the tiled
-// section kernel.
+// section kernel.  Besides the conv, depthwise, max-pool, ADD, QUANTIZE
+// and COPY ops of the corpus net it runs the rest of the stage kernel's
+// emits: AVERAGE_POOL_2D (pallas_arena.py:612), RELU / RELU6 / LOGISTIC
+// (:654), standalone LEAKY_RELU (:738), RESIZE_NEAREST_NEIGHBOR (:753),
+// and a PAD that a SAME window would pad again.  An op code with no case
+// traps, which fails the launch (the error shows at the next sync).
 //
 // What bounds it on the card: integer multiply-adds on the CUDA cores
 // (1.03 M MACs a 56x56 frame) and shared-memory reads of the windows.
@@ -49,9 +54,29 @@ __global__ void arena_stage_kernel(const Op* __restrict__ ops, int n_ops,
       case yf::MAXPOOL:
         yf::maxpool_op(op, in0, 0, out, 0, op.out.h);
         break;
-      default:
+      case yf::AVGPOOL:
+        yf::avgpool_op(op, in0, 0, out, 0, op.out.h);
+        break;
+      case yf::PAD:
+        yf::pad_op(op, in0, 0, out, 0, op.out.h);
+        break;
+      case yf::LEAKY:
+        yf::leaky_op(op, in0, out, op.out.h);
+        break;
+      case yf::ACT:
+        yf::act_op(op, in0, out, op.out.h);
+        break;
+      case yf::RESIZE:
+        yf::resize_op(op, in0, 0, out, 0, op.out.h);
+        break;
+      case yf::COPY:
+      case yf::ADD:
+      case yf::QUANTIZE:
         yf::eltwise_op(op, in0, yf::base(op.in1, arena, g, frame), out,
                        op.out.h);
+        break;
+      default:           // an op code this kernel has no case for
+        __trap();
     }
     __syncthreads();
   }

@@ -7,7 +7,12 @@
 // pallas_int8.py::apply_requant_leaky inside it (epilogue.cuh): fast2, fast
 // (v1) and exact bits, chosen per op by the descriptor's epilogue code.
 // The host planner and the plain version are in kernels/tiled.py; the op
-// bodies are arena_ops.cuh's, shared with the arena stage.
+// bodies are arena_ops.cuh's, shared with the arena stage, and it runs
+// every op the arena stage runs, in strips: RELU / RELU6 / LOGISTIC
+// (pallas_tiled.py:944) and standalone LEAKY_RELU (:959) row by row,
+// RESIZE_NEAREST_NEIGHBOR through its own row origin (output row y reads
+// input row y / kh), AVERAGE_POOL_2D and PAD as windows.  An op code with
+// no case traps, which fails the launch.
 //
 // What bounds it on the card: integer multiply-adds on the CUDA cores
 // (65.9 M MACs a 448x448 frame, plus the halo rows a strip recomputes) and
@@ -60,10 +65,15 @@ __device__ __forceinline__ int origin(const View& v, const Band& b, int j) {
   return v.space == 0 ? j * b.m - b.a : 0;
 }
 
-__global__ void tiled_section_kernel(const StripOp* __restrict__ ops,
-                                     int n_ops,
-                                     const uint8_t* __restrict__ consts,
-                                     Globals g, int strips) {
+// Four 256-thread blocks an SM (the planner sizes strip arenas for a
+// quarter of the shared memory) need at most 64 registers a thread: without
+// the bound the op cases of B6b take the kernel to 71, three blocks an SM,
+// and the 448 net runs about 11% slower (PERF.md section 6); with it, 64
+// and no spills.
+__global__ void __launch_bounds__(256, 4)
+    tiled_section_kernel(const StripOp* __restrict__ ops, int n_ops,
+                         const uint8_t* __restrict__ consts, Globals g,
+                         int strips) {
   extern __shared__ __align__(16) int8_t arena[];
   const long long frame = blockIdx.x / strips;
   const int j = blockIdx.x % strips;
@@ -77,6 +87,8 @@ __global__ void tiled_section_kernel(const StripOp* __restrict__ ops,
       const int8_t* in0 = yf::base(op.in0, arena, g, frame);
       int8_t* out = yf::base(op.out, arena, g, frame) +
                     (lo - origin(op.out, s.out, j)) * op.out.w * op.out.cs;
+      // the row-local ops read the same rows of in0 as they write
+      const int8_t* in0_rows = in0 + (lo - in0_y0) * op.in0.w * op.in0.cs;
       switch (op.code) {
         case yf::CONV:
           yf::conv_op<false>(op, in0, in0_y0, out, lo, hi - lo, consts);
@@ -87,13 +99,32 @@ __global__ void tiled_section_kernel(const StripOp* __restrict__ ops,
         case yf::MAXPOOL:
           yf::maxpool_op(op, in0, in0_y0, out, lo, hi - lo);
           break;
-        default: {     // same rows of every operand
+        case yf::AVGPOOL:
+          yf::avgpool_op(op, in0, in0_y0, out, lo, hi - lo);
+          break;
+        case yf::PAD:
+          yf::pad_op(op, in0, in0_y0, out, lo, hi - lo);
+          break;
+        case yf::RESIZE:   // input rows lo / kh .. (hi - 1) / kh
+          yf::resize_op(op, in0, in0_y0, out, lo, hi - lo);
+          break;
+        case yf::LEAKY:
+          yf::leaky_op(op, in0_rows, out, hi - lo);
+          break;
+        case yf::ACT:
+          yf::act_op(op, in0_rows, out, hi - lo);
+          break;
+        case yf::COPY:
+        case yf::ADD:
+        case yf::QUANTIZE: {
           const int8_t* in1 = yf::base(op.in1, arena, g, frame) +
                               (lo - origin(op.in1, s.in1, j)) * op.in1.w *
                                   op.in1.cs;
-          yf::eltwise_op(op, in0 + (lo - in0_y0) * op.in0.w * op.in0.cs, in1,
-                         out, hi - lo);
+          yf::eltwise_op(op, in0_rows, in1, out, hi - lo);
+          break;
         }
+        default:         // an op code this kernel has no case for
+          __trap();
       }
     }
     __syncthreads();

@@ -16,7 +16,12 @@ op descriptors per stage:
     (v1) and exact bits;
   * PAD ops dissolve into the consumer's window: reads outside the input
     return the op's fill value (the PAD zero-point, the conv input
-    zero-point for SAME convs, -128 for SAME max-pools);
+    zero-point for SAME convs, -128 for SAME max-pools, 0 for average
+    pools); a PAD that a SAME window would pad again stays an op;
+  * standalone LEAKY_RELU (fast or exact bits: it has no fast2 form),
+    RELU, RELU6, LOGISTIC, RESIZE_NEAREST_NEIGHBOR and AVERAGE_POOL_2D (a
+    window op whose fill 0 stays out of its tap count) are ops of their
+    own;
   * single-consumer CONCATENATION inputs produced in the same stage alias
     channel ranges of the concat output, so their producers write in place;
     other inputs are copied;
@@ -54,8 +59,9 @@ from yoloface_tpu_torch.ops.int8_fast import (add_int8_fast,
 from yoloface_tpu_torch.ops.int8_fast2 import epilogue_v2
 from yoloface_tpu_torch.ops.int8_ref import (_conv_acc, _dw_acc,
                                              _same_pad_amounts, _window_max,
-                                             add_int8, leaky_relu_int8,
-                                             logistic_int8, requantize_int8)
+                                             _window_sum, add_int8,
+                                             leaky_relu_int8, logistic_int8,
+                                             requantize_int8, window_mean)
 
 BITS = ("fast", "fast2", "exact")
 # op codes and epilogues; the field layout below is the ``Op`` struct of
@@ -64,12 +70,10 @@ BITS = ("fast", "fast2", "exact")
 # says fast (EPI_REQUANT) or exact (EPI_REQUANT_EXACT) for ADD, QUANTIZE
 # and LEAKY.
 COPY, CONV, DW, MAXPOOL, ADD, QUANTIZE = range(6)
-# op bodies the fused stages run (kernels/fused.py); the plain executor
-# below runs them too, the arena and tiled planners do not emit them yet.
 # A PAD is a 1x1 window (pt, pl, fill); a RESIZE's factors are kh, kw; an
 # ACT clips to [zp_a, zp_b] (RELU, RELU6) or is the LOGISTIC of
-# (x - zp_a) * f0, as its epi says.
-PAD, LEAKY, ACT, RESIZE = range(6, 10)
+# (x - zp_a) * f0, as its epi says; an AVGPOOL is a window with fill 0.
+PAD, LEAKY, ACT, RESIZE, AVGPOOL = range(6, 11)
 ACT_CLIP, ACT_LOGISTIC = range(2)
 CONCAT = 100                       # planner-only: becomes COPYs or nothing
 (EPI_REQUANT, EPI_LEAKY_V2, EPI_LEAKY_V1, EPI_REQUANT_EXACT,
@@ -174,35 +178,93 @@ def _hwc(graph: GraphDef, i: int) -> Tuple[int, int, int]:
     return int(s[1]), int(s[2]), int(s[3])
 
 
+_POOLS = ("MAX_POOL_2D", "AVERAGE_POOL_2D")
+NOPADS = ((0, 0), (0, 0))
+
+
+def _same_pads(graph: GraphDef, op):
+    """((top, bottom), (left, right)) SAME pads of a conv/pool; none for
+    VALID."""
+    if op.attrs.get("padding") != "SAME":
+        return NOPADS
+    if op.opname in _POOLS:
+        kh, kw = op.attrs["filter_h"], op.attrs["filter_w"]
+    else:
+        kh, kw = graph.tensor(op.inputs[1]).data.shape[1:3]
+    h, w, _ = _hwc(graph, op.inputs[0])
+    return (_same_pad_amounts(h, op.attrs["stride_h"], kh),
+            _same_pad_amounts(w, op.attrs["stride_w"], kw))
+
+
 def _window_req(graph: GraphDef, op, pads_of: Dict[int, object]):
     """(input tensor, pad_top, pad_left, fill) of a conv/pool, absorbing an
     upstream PAD (its pads are ((n),(h),(w),(c)) rows of the pad tensor)."""
     t = graph.tensor
     x_idx = op.inputs[0]
-    if op.opname == "MAX_POOL_2D":
-        kh, kw = op.attrs["filter_h"], op.attrs["filter_w"]
-    else:
-        wd = t(op.inputs[1]).data
-        kh, kw = wd.shape[1], wd.shape[2]
-    same = (0, 0), (0, 0)
-    if op.attrs.get("padding") == "SAME":
-        h, w, _ = _hwc(graph, x_idx)
-        same = (_same_pad_amounts(h, op.attrs["stride_h"], kh),
-                _same_pad_amounts(w, op.attrs["stride_w"], kw))
+    same = _same_pads(graph, op)
     pad_op = pads_of.get(x_idx)
     if pad_op is not None:
         p = t(pad_op.inputs[1]).data.astype(np.int64)
         if p[0].any() or p[3].any():
             raise NotImplementedError(
                 f"arena plan: PAD {pad_op.index} pads batch or channels")
-        if same != ((0, 0), (0, 0)):
+        if same != NOPADS:
             raise NotImplementedError(
                 f"arena plan: op {op.index} pads twice (PAD and SAME)")
         zp = t(pad_op.outputs[0]).qparams.zero_point
         return pad_op.inputs[0], int(p[1][0]), int(p[2][0]), int(zp)
-    fill = (-128 if op.opname == "MAX_POOL_2D"
-            else t(x_idx).qparams.zero_point)
+    fill = {"MAX_POOL_2D": -128, "AVERAGE_POOL_2D": 0}.get(
+        op.opname, t(x_idx).qparams.zero_point)
     return x_idx, same[0][0], same[1][0], int(fill)
+
+
+def pool_lop(graph: GraphDef, op, window: Tuple[int, int, int, int]) -> LOp:
+    """A MAX_POOL_2D or AVERAGE_POOL_2D over ``window``, its (input tensor,
+    pad_top, pad_left, fill)."""
+    x_idx, pt, pl, fill = window
+    a = op.attrs
+    return LOp(MAXPOOL if op.opname == "MAX_POOL_2D" else AVGPOOL,
+               op.outputs[0], [x_idx], window=(
+                   a["filter_h"], a["filter_w"], a["stride_h"], a["stride_w"],
+                   pt, pl, fill))
+
+
+def pad_lop(graph: GraphDef, op, rows: np.ndarray) -> LOp:
+    """A PAD kept as an op: a 1x1 window over its input whose reads
+    outside the image take the PAD's zero-point; ``rows`` are its
+    ((n),(h),(w),(c)) pads."""
+    zp = graph.tensor(op.outputs[0]).qparams.zero_point
+    return LOp(PAD, op.outputs[0], [op.inputs[0]],
+               window=(1, 1, 1, 1, int(rows[1][0]), int(rows[2][0]), int(zp)))
+
+
+def leaky_lop(graph: GraphDef, op, exact: bool) -> LOp:
+    """A standalone LEAKY_RELU: the fast (f32) leaky, or the exact one.  It
+    has no fast2 form, in JAX's arena and base ``fast2`` alike."""
+    lk = specs.leaky_spec(graph, op)
+    lop = LOp(LEAKY, op.outputs[0], [op.inputs[0]], zp_a=lk.zp_in,
+              zp_out=lk.zp_out, f0=lk.s_id, f1=lk.s_al)
+    if exact:
+        specs.check_exact_domain(255, [lk.m_id[1], lk.m_al[1]],
+                                 f"op {op.index}")
+        lop.epi = EPI_REQUANT_EXACT
+        lop.mults = lk.m_id + lk.m_al + (0, 0)
+    return lop
+
+
+def act_lop(graph: GraphDef, op) -> LOp:
+    """RELU or RELU6 (a clip of the int8 value) or LOGISTIC."""
+    sp = specs.activation_spec(op.opname, graph.tensor(op.inputs[0]).qparams)
+    return LOp(ACT, op.outputs[0], [op.inputs[0]],
+               epi=ACT_LOGISTIC if sp.logistic else ACT_CLIP,
+               zp_a=sp.zp if sp.logistic else sp.lo, zp_b=sp.hi, f0=sp.scale)
+
+
+def resize_lop(graph: GraphDef, op) -> LOp:
+    """RESIZE_NEAREST_NEIGHBOR by integer factors: (fh, fw) in the window."""
+    fh, fw = specs.resize_factors(graph, op)
+    return LOp(RESIZE, op.outputs[0], [op.inputs[0]],
+               window=(fh, fw, 1, 1, 0, 0, 0))
 
 
 def conv_lop(graph: GraphDef, op, window: Tuple[int, int, int, int],
@@ -319,8 +381,12 @@ def lower_arena_ops(graph: GraphDef, bits: str = "fast2"):
     pads_of: Dict[int, object] = {}
     for op in graph.ops:
         if op.opname == "PAD":
+            # an average pool would count a PAD's cells as taps holding its
+            # zero-point, which no window fill expresses: refused, as is a
+            # PAD into anything but a conv or max-pool window
             out = op.outputs[0]
-            bad = [c.opname for c in consumers.get(out, [])
+            cons = consumers.get(out, [])
+            bad = [c.opname for c in cons
                    if c.opname not in ("CONV_2D", "DEPTHWISE_CONV_2D",
                                        "MAX_POOL_2D")
                    or c.inputs[0] != out]
@@ -328,8 +394,9 @@ def lower_arena_ops(graph: GraphDef, bits: str = "fast2"):
                 raise NotImplementedError(
                     f"arena plan: PAD {op.index} feeds {bad or 'an output'}"
                     "; only conv/pool windows absorb a PAD")
-            pads_of[out] = op
-            absorbed.add(op.index)
+            if all(_same_pads(graph, c) == NOPADS for c in cons):
+                pads_of[out] = op
+                absorbed.add(op.index)
 
     concat_alias: Dict[int, Tuple[int, int]] = {}
     lops: List[LOp] = []
@@ -341,11 +408,20 @@ def lower_arena_ops(graph: GraphDef, bits: str = "fast2"):
         if name in ("CONV_2D", "DEPTHWISE_CONV_2D"):
             lops.append(conv_lop(graph, op, _window_req(graph, op, pads_of),
                                  bits, fused_leaky.get(op.index)))
-        elif name == "MAX_POOL_2D":
-            x_idx, pt, pl, fill = _window_req(graph, op, pads_of)
-            lops.append(LOp(MAXPOOL, out_idx, [x_idx], window=(
-                op.attrs["filter_h"], op.attrs["filter_w"],
-                op.attrs["stride_h"], op.attrs["stride_w"], pt, pl, fill)))
+        elif name in _POOLS:
+            lops.append(pool_lop(graph, op, _window_req(graph, op, pads_of)))
+        elif name == "PAD":            # a SAME window pads its output again
+            p = graph.tensor(op.inputs[1]).data.astype(np.int64)
+            if p[0].any() or p[3].any():
+                raise NotImplementedError(
+                    f"arena plan: PAD {op.index} pads batch or channels")
+            lops.append(pad_lop(graph, op, p))
+        elif name == "LEAKY_RELU":
+            lops.append(leaky_lop(graph, op, exact))
+        elif name in ("RELU", "RELU6", "LOGISTIC"):
+            lops.append(act_lop(graph, op))
+        elif name == "RESIZE_NEAREST_NEIGHBOR":
+            lops.append(resize_lop(graph, op))
         elif name == "ADD":
             lops.append(add_lop(graph, op, exact))
         elif name == "QUANTIZE":
@@ -693,6 +769,20 @@ def _plain_op(d: List[int], j: int, consts: torch.Tensor,
     elif code == MAXPOOL:
         res = _window_max(_padded_window(x, y0, d, in0, out, lo, hi),
                           (d[F["kh"]], d[F["kw"]]), (d[F["sh"]], d[F["sw"]]))
+    elif code == AVGPOOL:
+        kh, kw, sh, sw, pt, pl = (d[F[k]] for k in
+                                  ("kh", "kw", "sh", "sw", "pt", "pl"))
+        acc = _window_sum(_padded_window(x, y0, d, in0, out, lo, hi),
+                          (kh, kw), (sh, sw))
+
+        def taps(o0, o1, s, p, k, size):     # valid taps along one axis
+            o = torch.arange(o0, o1, device=x.device)[:, None] * s - p
+            i = o + torch.arange(k, device=x.device)
+            return ((i >= 0) & (i < size)).sum(1, dtype=torch.int32)
+
+        counts = (taps(lo, hi, sh, pt, kh, in0.h)[:, None]
+                  * taps(0, out.w, sw, pl, kw, in0.w)[None, :])
+        res = window_mean(acc, counts[None, :, :, None])
     elif code == ADD:
         kw = dict(zp1=d[F["zp_a"]], zp2=d[F["zp_b"]], zp_out=d[F["zp_out"]])
         b = rows(*_realize(in1, b_in1, j, arena, gl))

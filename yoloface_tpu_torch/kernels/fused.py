@@ -50,7 +50,6 @@ import torch
 from yoloface_tpu_torch.graph.ir import GraphDef
 from yoloface_tpu_torch.kernels import arena, specs
 from yoloface_tpu_torch.kernels.arena import LOp, Stage
-from yoloface_tpu_torch.ops.int8_ref import _same_pad_amounts
 
 BITS = ("fast", "exact")
 FUSED_BUDGET = 6 * 1024 * 1024 // 128   # op output bytes a frame a stage
@@ -146,43 +145,17 @@ def lower_fused_ops(graph: GraphDef, bits: str = "fast",
                 graph, op, arena._window_req(graph, op, pads_of), bits,
                 fused_leaky.get(op.index)))
         elif name == "PAD":
-            p = _pad_rows(graph, op)
-            zp = t(out_idx).qparams.zero_point
-            lops.append(LOp(arena.PAD, out_idx, [op.inputs[0]],
-                            window=(1, 1, 1, 1, int(p[1][0]), int(p[2][0]),
-                                    int(zp))))
+            lops.append(arena.pad_lop(graph, op, _pad_rows(graph, op)))
         elif name == "MAX_POOL_2D":
             _check_window_op(graph, op, perop)
-            a = op.attrs
-            h, w, _ = arena._hwc(graph, op.inputs[0])
-            pt = pl = 0
-            if a["padding"] == "SAME":
-                pt = _same_pad_amounts(h, a["stride_h"], a["filter_h"])[0]
-                pl = _same_pad_amounts(w, a["stride_w"], a["filter_w"])[0]
-            lops.append(LOp(arena.MAXPOOL, out_idx, [op.inputs[0]], window=(
-                a["filter_h"], a["filter_w"], a["stride_h"], a["stride_w"],
-                pt, pl, -128)))
+            lops.append(arena.pool_lop(graph, op,
+                                       arena._window_req(graph, op, {})))
         elif name == "LEAKY_RELU":
-            lk = specs.leaky_spec(graph, op)
-            lop = LOp(arena.LEAKY, out_idx, [op.inputs[0]], zp_a=lk.zp_in,
-                      zp_out=lk.zp_out, f0=lk.s_id, f1=lk.s_al)
-            if exact:
-                specs.check_exact_domain(255, [lk.m_id[1], lk.m_al[1]],
-                                         f"op {op.index}")
-                lop.epi = arena.EPI_REQUANT_EXACT
-                lop.mults = lk.m_id + lk.m_al + (0, 0)
-            lops.append(lop)
+            lops.append(arena.leaky_lop(graph, op, exact))
         elif name in ("RELU", "RELU6", "LOGISTIC"):
-            sp = specs.activation_spec(name, t(op.inputs[0]).qparams)
-            lops.append(LOp(arena.ACT, out_idx, [op.inputs[0]],
-                            epi=arena.ACT_LOGISTIC if sp.logistic
-                            else arena.ACT_CLIP,
-                            zp_a=sp.zp if sp.logistic else sp.lo,
-                            zp_b=sp.hi, f0=sp.scale))
+            lops.append(arena.act_lop(graph, op))
         elif name == "RESIZE_NEAREST_NEIGHBOR":
-            fh, fw = specs.resize_factors(graph, op)
-            lops.append(LOp(arena.RESIZE, out_idx, [op.inputs[0]],
-                            window=(fh, fw, 1, 1, 0, 0, 0)))
+            lops.append(arena.resize_lop(graph, op))
         elif name == "ADD":
             lops.append(arena.add_lop(graph, op, exact))
         elif name == "QUANTIZE":

@@ -11,17 +11,22 @@ whole frame (the 56x56 suffix included: its concat alone needs 301,056 B),
 so every op runs tiled.  The plan:
 
   * the graph lowers through ``arena.lower_arena_ops``: the same conv+leaky
-    fusion, PAD absorption and concat aliasing as the arena;
+    fusion, PAD absorption and concat aliasing as the arena, and the same
+    op surface, so every op runs in strips (JAX ends its tiled prefix at
+    the first op its sections lack and runs the rest whole-frame; here
+    nothing is cut, and the bits are the same);
   * the lowered ops split into sections, each one strip program: a block
     runs one strip of rows of one frame through every op of the section,
     with the strip's part of each tensor (its ``Band``) in shared memory;
   * bands come from a backward pass over the section: an op computing
     output rows ``[y0, y1)`` reads input rows ``[y0*s - p, (y1-1)*s - p +
-    k)``, so each tensor's band is its strip's rows plus a top halo ``a``
-    and a bottom halo ``b`` that do not depend on the strip height.  Halo
-    rows are recomputed by every strip that needs them; reads outside the
-    image return the op's fill (bounds checks against the image, as in the
-    arena), so edge strips need nothing of their own;
+    k)`` (a RESIZE by k reads ``[y0 // k, (y1-1) // k + 1)``, its rows
+    standing at 1/k of its output's), so each tensor's band is its strip's
+    rows plus a top halo ``a`` and a bottom halo ``b`` that do not depend
+    on the strip height.  Halo rows are recomputed by every strip that
+    needs them; reads outside the image return the op's fill (bounds
+    checks against the image, as in the arena), so edge strips need
+    nothing of their own;
   * strips are cut at ``u`` rows of the section's coarsest tensor (``u *
     r`` rows of a tensor ``r`` times taller); section outputs go to device
     memory as int8 NHWC, each strip writing the rows it owns;
@@ -55,8 +60,9 @@ import torch
 
 from yoloface_tpu_torch.graph.ir import GraphDef
 from yoloface_tpu_torch.kernels import arena
-from yoloface_tpu_torch.kernels.arena import (ARENA_BUDGET, CONV, DW,
-                                              MAXPOOL, Band, LOp, Stage)
+from yoloface_tpu_torch.kernels.arena import (ARENA_BUDGET, AVGPOOL, CONV,
+                                              DW, MAXPOOL, RESIZE, Band, LOp,
+                                              Stage)
 
 RECOMPUTE_BOUND = 1.10      # work a section does over the work it needs
 TARGET_SHARE = 4            # prefer strip arenas of budget / TARGET_SHARE
@@ -80,8 +86,9 @@ def _row_ratios(graph: GraphDef, sec: Sequence[LOp]) -> Dict[int, int]:
     row; a section whose strides disagree raises."""
     edges: Dict[int, List[Tuple[int, Fraction]]] = {}
     for lp in sec:
-        for i in lp.ins:      # r[i] = s * r[out]
-            s = Fraction(lp.window[2])
+        for i in lp.ins:      # r[i] = s * r[out]; a RESIZE's s is 1 / kh
+            s = (Fraction(1, lp.window[0]) if lp.code == RESIZE
+                 else Fraction(lp.window[2]))
             edges.setdefault(i, []).append((lp.out, 1 / s))
             edges.setdefault(lp.out, []).append((i, s))
     ratio: Dict[int, Fraction] = {}
@@ -109,13 +116,18 @@ def _row_ratios(graph: GraphDef, sec: Sequence[LOp]) -> Dict[int, int]:
 def _bands(sec: Sequence[LOp], outputs: Sequence[int],
            m: Dict[int, int]) -> Dict[int, Band]:
     """Backward halo pass: each tensor's band from its consumers' windows.
-    The strip owns rows ``[j*m, (j+1)*m)`` of each output."""
+    The strip owns rows ``[j*m, (j+1)*m)`` of each output.  Output rows
+    ``[y0, y1)`` of a RESIZE by kh read input rows ``[y0 // kh, (y1 - 1)
+    // kh + 1)``: halos ``ceil(a / kh)`` and ``ceil(b / kh)``."""
     halo: Dict[int, Tuple[int, int]] = {o: (0, 0) for o in outputs}
     for lp in reversed(sec):
         ao, bo = halo[lp.out]
         kh, _, sh, _, pt, _, _ = lp.window
         for i in lp.ins:
-            a, b = ao * sh + pt, bo * sh + kh - sh - pt
+            if lp.code == RESIZE:
+                a, b = -(-ao // kh), -(-bo // kh)
+            else:
+                a, b = ao * sh + pt, bo * sh + kh - sh - pt
             if i in halo:
                 a, b = max(a, halo[i][0]), max(b, halo[i][1])
             halo[i] = (a, b)
@@ -123,12 +135,12 @@ def _bands(sec: Sequence[LOp], outputs: Sequence[int],
 
 
 def _op_cost(graph: GraphDef, lp: LOp) -> int:
-    """Work of one output row: MACs for convs, compares for pools, one
-    per element otherwise."""
+    """Work of one output row: MACs for convs, compares or adds for pools,
+    one per element otherwise."""
     h, w, c = arena._hwc(graph, lp.out)
     kh, kw = lp.window[:2]
     per = {CONV: kh * kw * arena._hwc(graph, lp.ins[0])[2], DW: kh * kw,
-           MAXPOOL: kh * kw}.get(lp.code, 1)
+           MAXPOOL: kh * kw, AVGPOOL: kh * kw}.get(lp.code, 1)
     return w * c * per
 
 

@@ -176,6 +176,72 @@ def resize_nearest_int8(x: torch.Tensor, *, out_hw: Tuple[int, int]
     return x.repeat_interleave(oh // h, 1).repeat_interleave(ow // w, 2)
 
 
+def window_mean(acc: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    """The int8 mean of window sums ``acc`` over ``counts`` taps: integer
+    division rounding half away from zero (``(sum +- count/2) / count`` in
+    C), clipped to int8."""
+    half = counts // 2
+    mean = torch.where(acc >= 0, (acc + half) // counts,
+                       -((-acc + half) // counts))
+    return mean.clamp(INT8_MIN, INT8_MAX).to(torch.int8)
+
+
+def _window_sum(x: torch.Tensor, filter_hw: Tuple[int, int],
+                stride: Tuple[int, int]) -> torch.Tensor:
+    """int32 VALID sum over the (padded) window."""
+    out = None
+    for _, _, sl in _taps(x.to(torch.int32), filter_hw[0], filter_hw[1],
+                          stride):
+        out = sl if out is None else out + sl
+    return out
+
+
+def avgpool_int8(x: torch.Tensor, *, filter_hw: Tuple[int, int],
+                 stride: Tuple[int, int], padding: str) -> torch.Tensor:
+    """TFLite AVERAGE_POOL_2D (int8): the sum of the raw int8 values over a
+    zero-filled window, divided by the count of taps inside the image
+    (``window_mean``)."""
+    ph, pw = same_pads(x, *filter_hw, stride, padding)
+    ones = torch.ones((1, x.shape[1], x.shape[2], 1), dtype=torch.int32,
+                      device=x.device)
+    return window_mean(
+        _window_sum(pad_spatial(x, ph, pw, 0), filter_hw, stride),
+        _window_sum(pad_spatial(ones, ph, pw, 0), filter_hw, stride))
+
+
+def reshape_int8(x: torch.Tensor, new_shape) -> torch.Tensor:
+    """TFLite RESHAPE: batch-aware (the leading dim is kept)."""
+    return x.reshape((x.shape[0],) + tuple(int(d) for d in new_shape[1:]))
+
+
+def fully_connected_int8(x: torch.Tensor, weights: torch.Tensor,
+                         bias: torch.Tensor, *, input_zp: int,
+                         output_zp: int, qm, shift) -> torch.Tensor:
+    """TFLite ``reference_integer_ops::FullyConnected``, exact: the 1x1 conv
+    math on the last axis of int8 ``x`` [N, ..., K] with int8 ``weights``
+    [Co, K] (per-tensor or per-channel ``qm``/``shift``) and int32 ``bias``
+    [Co].  The accumulator is a float64 matmul, exact below 2**53."""
+    acc = torch.matmul(x.to(torch.float64),
+                       weights.to(torch.float64).T).to(torch.int64)
+    corr = weights.to(torch.int64).sum(1) * int(input_zp)
+    return requant_exact(acc + (bias.to(torch.int64) - corr), qm, shift,
+                         output_zp)
+
+
+def softmax_int8(x: torch.Tensor, *, input_scale: float, input_zp: int,
+                 beta: float = 1.0) -> torch.Tensor:
+    """TFLite SOFTMAX (int8) on the last axis: fixed output scale 1/256,
+    zero-point -128, computed in float32 (stable shifted exp), as the JAX
+    package computes it."""
+    v = (x.to(torch.float32) - int(input_zp)) * float(
+        np.float32(input_scale * beta))
+    v = v - v.amax(-1, keepdim=True)
+    e = torch.exp(v)
+    p = e / e.sum(-1, keepdim=True)
+    return torch.clamp(torch.round(p * 256.0) - 128, INT8_MIN,
+                       INT8_MAX).to(torch.int8)
+
+
 # --------------------------------------------------------------------------
 # exact bits: gemmlowp fixed-point requantization
 # --------------------------------------------------------------------------

@@ -34,10 +34,18 @@ modes, each bit-identical to its JAX twin:
     the card, its plain torch version on the CPU.  The counterparts of ``pallas_exact`` / ``pallas``,
     bit-identical to ``exact`` / ``fast``.
 
+The base modes also lower AVERAGE_POOL_2D, FULLY_CONNECTED (exact bits in
+every mode, as JAX computes it), SOFTMAX and RESHAPE; the arena and tiled
+modes every op of the arena plan (``arena.lower_arena_ops``: AVERAGE_POOL_2D,
+RELU, RELU6, LOGISTIC, RESIZE and standalone LEAKY_RELU besides the corpus
+ops).
+
 Weights, biases and requant constants are buffers, so ``.to(device)`` moves
 the engine.  The engine runs on the card unless the caller passes
 ``device="cpu"``; without a card the default raises.  Activations are int8
-NHWC ``[N,H,W,C]`` at every public function.
+NHWC ``[N,H,W,C]`` at every public function; the input may be a tensor or
+numpy (as the JAX engine takes it), and goes to the engine's device.
+``quantize_input`` / ``dequantize_output`` convert at the float edges.
 """
 
 from __future__ import annotations
@@ -48,6 +56,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from yoloface_tpu_torch.core.fixedpoint import quantize_multiplier_arr
 from yoloface_tpu_torch.graph.ir import GraphDef, OpDef
 from yoloface_tpu_torch.kernels import specs
 from yoloface_tpu_torch.ops import int8_fast as fast_ops
@@ -94,6 +103,7 @@ class Int8Engine(nn.Module):
                 f"Int8Engine requires a full-int8 quantized graph; input "
                 f"tensor {in_t.name!r} is {in_t.dtype}")
         self.mode = mode
+        self._home = device          # the device of an engine with no buffers
         self.graph = graph
         self.input_idx = graph.inputs[0]
         self.output_idxs = list(graph.outputs)
@@ -119,6 +129,10 @@ class Int8Engine(nn.Module):
         self.to(device)
 
     # ---------------------------------------------------------------- quant
+    @property
+    def input_qparams(self):
+        return self.graph.tensor(self.input_idx).qparams
+
     @property
     def output_qparams(self):
         return self.graph.tensor(self.output_idx).qparams
@@ -259,6 +273,53 @@ class Int8Engine(nn.Module):
             def fn(env):
                 return ref_ops.resize_nearest_int8(env[x_idx], out_hw=out_hw)
 
+        elif name == "AVERAGE_POOL_2D":
+            (x_idx,) = op.inputs
+            kw = dict(filter_hw=(op.attrs["filter_h"], op.attrs["filter_w"]),
+                      stride=(op.attrs["stride_h"], op.attrs["stride_w"]),
+                      padding=op.attrs["padding"])
+
+            def fn(env):
+                return ref_ops.avgpool_int8(env[x_idx], **kw)
+
+        elif name == "FULLY_CONNECTED":      # exact bits in every mode
+            x_idx, w_idx = op.inputs[0], op.inputs[1]
+            b_idx = op.inputs[2] if len(op.inputs) > 2 else -1
+            w = t(w_idx)
+            in_q, out_q = t(x_idx).qparams, t(out_idx).qparams
+            qm, shift = quantize_multiplier_arr(
+                np.float64(in_q.scale) * np.asarray(w.qparams.scales,
+                                                    np.float64)
+                / np.float64(out_q.scale))
+            bias = (t(b_idx).data if b_idx >= 0 and t(b_idx).data is not None
+                    else np.zeros(w.data.shape[0]))
+            wn = self._const(f"w{op.index}", w.data.astype(np.int8))
+            bn = self._const(f"b{op.index}", bias.astype(np.int32))
+            qn = self._const(f"qm{op.index}", qm)
+            sn = self._const(f"sh{op.index}", shift)
+            kw = dict(input_zp=in_q.zero_point, output_zp=out_q.zero_point)
+
+            def fn(env):
+                return ref_ops.fully_connected_int8(
+                    env[x_idx], getattr(self, wn), getattr(self, bn),
+                    qm=getattr(self, qn), shift=getattr(self, sn), **kw)
+
+        elif name == "SOFTMAX":
+            (x_idx,) = op.inputs
+            in_q = t(x_idx).qparams
+            kw = dict(input_scale=float(in_q.scale), input_zp=in_q.zero_point,
+                      beta=float(op.attrs.get("beta", 1.0)))
+
+            def fn(env):
+                return ref_ops.softmax_int8(env[x_idx], **kw)
+
+        elif name == "RESHAPE":
+            x_idx = op.inputs[0]
+            new_shape = tuple(t(out_idx).shape)
+
+            def fn(env):
+                return ref_ops.reshape_int8(env[x_idx], new_shape)
+
         else:
             raise NotImplementedError(f"op {name} not supported")
         return out_idx, fn
@@ -302,7 +363,11 @@ class Int8Engine(nn.Module):
         return plan
 
     # ------------------------------------------------------------ execution
-    def _check_input(self, x: torch.Tensor) -> None:
+    def _input(self, x) -> torch.Tensor:
+        """int8 frames [N,H,W,C] (a tensor, or numpy as the JAX engine takes
+        them), checked, on the engine's device."""
+        if isinstance(x, np.ndarray):
+            x = torch.from_numpy(np.ascontiguousarray(x))
         if x.dim() != len(self.input_shape) + 1 or \
                 tuple(x.shape[1:]) != self.input_shape:
             raise ValueError(
@@ -310,6 +375,7 @@ class Int8Engine(nn.Module):
                 f"got {tuple(x.shape)}")
         if x.dtype != torch.int8:
             raise ValueError(f"expected int8 input, got {x.dtype}")
+        return x.to(self._device())
 
     def _env(self, x: torch.Tensor, free: bool = False
              ) -> Dict[int, torch.Tensor]:
@@ -320,13 +386,12 @@ class Int8Engine(nn.Module):
             env[out_idx] = fn(env)
         return env
 
-    def forward(self, x: torch.Tensor):
-        """int8 frames [N,H,W,C] -> the graph's int8 output, e.g.
-        [N,56,56,3] -> [N,7,7,18] (a tuple for graphs with several
-        outputs).  A kernel mode frees each tensor after its last
-        reader."""
-        self._check_input(x)
-        env = self._env(x, free=True)
+    def forward(self, x):
+        """int8 frames [N,H,W,C], a tensor or numpy -> the graph's int8
+        output on the engine's device, e.g. [N,56,56,3] -> [N,7,7,18] (a
+        tuple for graphs with several outputs).  A kernel mode frees each
+        tensor after its last reader."""
+        env = self._env(self._input(x), free=True)
         outs = tuple(env[o] for o in self.output_idxs)
         return outs[0] if len(outs) == 1 else outs
 
@@ -337,13 +402,32 @@ class Int8Engine(nn.Module):
         epilogue absorbed for the per-op modes; the stage or section
         inputs and outputs for the arena, tiled and fused modes), as
         numpy."""
-        if isinstance(x, np.ndarray):
-            x = torch.from_numpy(x)
-        x = x.to(self._device())
-        self._check_input(x)
-        return {k: v.cpu().numpy() for k, v in self._env(x).items()}
+        return {k: v.cpu().numpy()
+                for k, v in self._env(self._input(x)).items()}
 
     def _device(self) -> torch.device:
         for b in self.buffers():
             return b.device
-        return torch.device("cpu")
+        return self._home
+
+    # ------------------------------------------------- float-domain helpers
+    def quantize_input(self, frames_f32) -> torch.Tensor:
+        """float frames (the converter's input domain) -> int8 on the
+        engine's device: round(x / scale) + zero_point in float32,
+        clipped."""
+        q = self.input_qparams
+        if not isinstance(frames_f32, torch.Tensor):
+            frames_f32 = torch.from_numpy(np.array(frames_f32, np.float32))
+        x = frames_f32.to(self._device(), torch.float32)
+        v = torch.round(x / torch.tensor([q.scale], dtype=torch.float32,
+                                         device=x.device)) + q.zero_point
+        return v.clamp(-128, 127).to(torch.int8)
+
+    def dequantize_output(self, y_int8) -> torch.Tensor:
+        """int8 output -> float32: (y - zero_point) * scale."""
+        q = self.output_qparams
+        if not isinstance(y_int8, torch.Tensor):
+            y_int8 = torch.from_numpy(np.array(y_int8))
+        y = y_int8.to(self._device())
+        scale = float(np.float32(q.scale))
+        return (y.to(torch.float32) - q.zero_point) * scale
