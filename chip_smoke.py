@@ -77,6 +77,14 @@ Phases (each prints its lines; any failure ends the run with an error):
      section kernel has no case for must fail its launch (a child process,
      ``chip_smoke.py --forged-op arena|tiled``, whose CUDA context the
      trap ends);
+  4b. the tools/ probes (B9.1-B9.12, yoloface_tpu_torch/probes/), each at
+     the JAX tool's defaults: every variant of the probe kernels
+     (csrc/probe_{copy,dw,conv}.cu; B6 for the 448 stage probe) against
+     its plain version bit for bit on the input it is timed on, then
+     timed (the 1x1 probe also at yolov3-tiny's layer 13, 1024 -> 256 at
+     13x13, batch 256, beside B6 on that conv as a one-op strip section),
+     the debug448 stream-order checks printing BIT-EXACT a variant; one
+     kernels row a probe, its launches counted over its own run;
   5. the kernels JSON line (each kernel's time beside its bound: the larger
      of the bytes its function must move over 3.35 TB/s and its
      operations over the card's peak rate for them), the card line, and
@@ -103,10 +111,6 @@ TIMING_BATCH = 16384
 BATCH448, PLAIN_BATCH448 = 1024, 128
 TILE_SMALL = 16 * 1024     # the 112 net in 7 sections of 2-28 strips
 REPS = 10
-# the H100 SXM's published peaks: HBM bytes/s;
-# int8 tensor-core ops/s (2 a multiply-add); float32 outside the tensor
-# cores, the most the CUDA cores' compares and integer ops could reach
-HBM_RATE, INT8_RATE, CORE_RATE = 3.35e12, 1979e12, 67e12
 # mode: (golden int8 head, prefix of its golden detections or None)
 GOLD_KEYS = {"arena2": ("head", ""), "arena_exact": ("head_exact", "exact_"),
              "fused": ("head_fast", None),
@@ -241,16 +245,6 @@ def _op_work(st):
     return nbytes, 0, 0
 
 
-def _bound(nbytes: float, macs: float = 0, core_ops: float = 0):
-    """(ms, "bytes" | "operations"): the least time the card could take,
-    the larger of the bytes over the HBM rate and the operations over
-    their peak (multiply-adds on the int8 tensor cores, other integer ops
-    at the CUDA cores' rate, each unit at its own peak at once)."""
-    t_bytes = nbytes / HBM_RATE * 1e3
-    t_ops = max(2 * macs / INT8_RATE, core_ops / CORE_RATE) * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def _smi(fields: str) -> str:
     return subprocess.run(
         ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
@@ -319,6 +313,91 @@ def _forged_op(which: str) -> int:
     return 1
 
 
+def _probe_rows(dev, card, g416):
+    """The tools/ probes (B9.1-B9.12) through yoloface_tpu_torch/probes/:
+    each checks its kernel variants against their plain versions bit for
+    bit on the input it times (raising on a mismatch), times them at the
+    JAX tool's defaults and returns a record; -> one kernels row a probe,
+    its launches counted over its own run.  ``g416``: yolov3-tiny at 416,
+    whose layer-13 1x1 B6 runs beside the 1x1 probe at that shape."""
+    import torch
+    from yoloface_tpu_torch.kernels import probes as kprobe
+    from yoloface_tpu_torch.kernels import tiled
+    from yoloface_tpu_torch.probes import bound, debug448, probe448
+    from yoloface_tpu_torch.probes import microbench as mb
+    from yoloface_tpu_torch.probes import probe448_micro as pm
+    probes = (   # (row, id, the TPU kernel's function, source, the probe)
+        ("probe_conv1x1", "B9.1", "tools/microbench.py:23", "probe_conv.cu",
+         lambda: mb.conv1x1_probe(device=dev)),
+        ("probe_whcn", "B9.2", "tools/microbench.py:131", "probe_conv.cu",
+         lambda: mb.whcn_probe(device=dev)),
+        ("probe_inkernel", "B9.3", "tools/microbench.py:264",
+         "probe_conv.cu", lambda: mb.inkernel_probe(device=dev)),
+        ("probe_dw16", "B9.4", "tools/microbench.py:412", "probe_dw.cu",
+         lambda: mb.dw16_probe(device=dev)),
+        ("probe_packdot", "B9.5", "tools/microbench.py:496", "probe_conv.cu",
+         lambda: mb.packdot_probe(device=dev)),
+        ("probe_dw_main", "B9.6", "tools/microbench.py:633", "probe_dw.cu",
+         lambda: mb.dw_main(device=dev)),
+        ("probe_448_micro", "B9.7", "tools/probe448_micro.py:20",
+         "probe_conv.cu", lambda: pm.micro("main", device=dev)),
+        ("probe_448_micro2", "B9.8", "tools/probe448_micro.py:120",
+         "probe_conv.cu", lambda: pm.micro("main2", device=dev)),
+        ("probe_448_stage", "B9.9", "tools/probe448.py:38",
+         "tiled_section.cu", lambda: probe448.stage(device=dev)),
+        ("probe_448_fix", "B9.10", "tools/debug448_fix.py:32",
+         "probe_copy.cu", lambda: debug448.fix(device=dev)),
+        ("probe_448_rep", "B9.11", "tools/debug448_rep.py:22",
+         "probe_copy.cu", lambda: debug448.rep(device=dev)),
+        ("probe_448_min", "B9.12", "tools/debug448_min.py:29",
+         "probe_copy.cu", lambda: debug448.min_(device=dev)),
+    )
+    rows = []
+    t0 = time.perf_counter()
+    for name, bid, tpu, source, run in probes:
+        kprobe.reset_launches()
+        tiled.tiled_section.launches = 0
+        t1 = time.perf_counter()
+        rec = run()
+        torch.cuda.synchronize()
+        launches = kprobe.launches() + tiled.tiled_section.launches
+        _require(launches > 0, f"{name}: its kernels launched")
+        if name == "probe_448_stage":     # B6 on ops 0-7, bit-exact or raised
+            head = {"ms": rec["tiled_section_ms"], "work": rec["work"]}
+            variants = {k: rec[k] for k in (
+                "twin_fast_ms", "speedup", "bit_exact_vs_fast", "strips",
+                "lowered_ops", "outputs")}
+            err = 0.0
+        else:
+            head = rec["variants"][rec["headline"]]
+            variants, err = rec["variants"], rec["max_abs_err"]
+        b = bound(*head["work"])
+        row = {"name": name, "id": bid, "route": "cuda",
+               "source": "yoloface_tpu_torch/csrc/" + source, "replaces": tpu,
+               "launches": launches, "max_abs_err": err, "ms": head["ms"],
+               "plain_ms": rec["plain_ms"], "bound_ms": b[0], "bound_by": b[1],
+               "library_ms": head.get("library_ms"),
+               "headline": rec.get("headline", "section ops 0-7"),
+               "batch": rec.get("batch"), "variants": variants}
+        if name == "probe_conv1x1":      # again at yolov3-tiny's layer 13
+            kprobe.reset_launches()
+            tiled.tiled_section.launches = 0
+            big = mb.conv1x1_probe(BATCH_V3, 1024, 256, 13, device=dev)
+            b6 = mb.section_1x1(g416, BATCH_V3, 1024, 256, 13, device=dev)
+            row["yolov3_tiny_layer13"] = {
+                "batch": BATCH_V3, "shape": big["shape"],
+                "variants": big["variants"], "plain_ms": big["plain_ms"],
+                "launches": kprobe.launches(), "b6_section": dict(
+                    b6, launches=tiled.tiled_section.launches)}
+        rows.append(row)
+        print(f"[probe] {bid} {name}: {launches} launches, every variant "
+              f"bit-exact; {row['headline']} {head['ms']:.4f} ms, plain "
+              f"{rec['plain_ms']:.4f} ms, bound {b[0]:.4f} ms ({b[1]}) "
+              f"({card}; {time.perf_counter() - t1:.1f} s)")
+    print(f"[probe] the probes phase: {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -334,6 +413,7 @@ def main() -> int:
     from yoloface_tpu_torch.kernels import preprocess as kpre
     from yoloface_tpu_torch.pipeline import head as thead
     from yoloface_tpu_torch.pipeline.e2e import FacePipeline, load_pipeline
+    from yoloface_tpu_torch.probes import bound
     from yoloface_tpu_torch.runtime.engine import (ARENA_BITS, FUSED_BITS,
                                                    KERNEL_MODES, PEROP_BITS,
                                                    TILED_BITS, Int8Engine)
@@ -1094,7 +1174,7 @@ def main() -> int:
                 "strips": sec.strips,
                 "strip_plain_ms": _time_ms(lambda: tiled.tiled_section_plain(
                     sec, sc, ins + out), 3)}
-            row.update(zip(("bound_ms", "bound_by"), _bound(
+            row.update(zip(("bound_ms", "bound_by"), bound(
                 *(BATCH_SCALE * w for w in _op_work(st)))))
             lib = None
             if name in ("RELU", "RELU6"):
@@ -1175,6 +1255,13 @@ def main() -> int:
                  f" {line} {res.stderr[-500:]}")
         print(f"[check] {which}: {line}")
 
+    # ------------------------------------------------ 4b. the tools/ probes
+    # each probe holds every variant of its kernels against the plain
+    # version bit for bit on the input it times (raising on a mismatch),
+    # then times it at the JAX tool's defaults; its launch count is read
+    # after its own run
+    probe_rows = _probe_rows(dev, card, g416)
+
     # ------------------------------------------------------------ 5. lines
     src = "yoloface_tpu_torch/csrc/"
     meta = {   # name: (source, TPU kernel, path whose launches count)
@@ -1207,17 +1294,17 @@ def main() -> int:
     ms["tiled_section"] = ms["tiled_section fast2"]
     # the bound of each timed call, from this run's shapes
     n, k_det, cells = TIMING_BATCH, 16, 7 * 7 * 3
-    net = _bound(n * (56 * 56 * 3 + 7 * 7 * 18), *(
+    net = bound(n * (56 * 56 * 3 + 7 * 7 * 18), *(
         n * w for w in _net_work(corpus)))
     bounds = {
-        "preprocess_rgb565": _bound(n * (112 * 112 * 2 + 56 * 56 * 3),
+        "preprocess_rgb565": bound(n * (112 * 112 * 2 + 56 * 56 * 3),
                                     core_ops=n * 56 * 56 * 3 * 5),
         "arena_stage": net, "requant_epilogue": net, "fused_stage": net,
-        "detect_head": _bound(n * (7 * 7 * 18 + k_det * 21),
+        "detect_head": bound(n * (7 * 7 * 18 + k_det * 21),
                               core_ops=n * (k_det * cells + k_det ** 2)),
-        "topk_conf": _bound(n * (7 * 7 * 18 + k_det * 4),
+        "topk_conf": bound(n * (7 * 7 * 18 + k_det * 4),
                             core_ops=n * k_det * cells),
-        "tiled_section": _bound(BATCH448 * (448 * 448 * 3 + 56 * 56 * 18),
+        "tiled_section": bound(BATCH448 * (448 * 448 * 3 + 56 * 56 * 18),
                                 *(BATCH448 * w for w in _net_work(g448))),
     }
     kernels = []
@@ -1234,7 +1321,7 @@ def main() -> int:
                        ms_at_plain_batch=ms[k][2])
         kernels.append(row)
     for k, (line, _) in perop.KERNELS.items():   # B8.1-B8.11 by op
-        b = _bound(*work[k])
+        b = bound(*work[k])
         graph = op_graph[k]
         path = "op surface perop" if graph == "op surface" else "perop"
         row = {"name": k, "route": "cuda", "source": src + "fused_stage.cu",
@@ -1249,7 +1336,7 @@ def main() -> int:
         if lib_ops.get(k):      # the library call's ops, the kernel on them
             row.update(library=lib_ops[k][0], ms_on_library_ops=lib_ops[k][2])
         if k in big_ms_by_kernel:
-            b = _bound(*big_work[k])
+            b = bound(*big_work[k])
             lib = big_lib.get(k)
             row["at_scale"] = {
                 "graph": SCALE_GRAPH, "batch": BATCH_SCALE,
@@ -1293,7 +1380,7 @@ def main() -> int:
                                if key == "strip_ms" else {})}
                        for op, r in new_ops.items()}}
         if name == "tiled_section_b6b":
-            b = _bound(BATCH_V3 * (416 * 416 * 3 + (13 * 13 + 26 * 26) * 255),
+            b = bound(BATCH_V3 * (416 * 416 * 3 + (13 * 13 + 26 * 26) * 255),
                        BATCH_V3 * v3_macs, BATCH_V3 * v3_cmp)
             row["yolov3_tiny_416"] = {
                 "batch": BATCH_V3, "plain_batch": V3_FRAMES,
@@ -1302,6 +1389,7 @@ def main() -> int:
                     f"yolov3-tiny 416 {mode}"]["tiled_section"])
                    for mode, r in v3.items()}}
         kernels.append(row)
+    kernels.extend(probe_rows)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

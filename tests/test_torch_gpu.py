@@ -217,3 +217,131 @@ def test_forged_op_code_fails_the_launch(which):
                          text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
     assert "launch failed" in res.stdout
+
+
+def _probe_ints(shape, lo, hi, seed, dtype=torch.int8):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(lo, hi, shape).astype(
+        {torch.int8: np.int8, torch.int32: np.int32}[dtype])).cuda()
+
+
+@pytest.mark.gpu
+def test_probe_copy_matches_plain_on_the_card():
+    """csrc/probe_copy.cu: the flat, per-frame and strip-blocked copies and
+    the phase select equal Tensor.clone and x[:, ::2], with 16-byte moves
+    and with byte moves (rows not a multiple of 16)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from yoloface_tpu_torch.kernels import probes
+    for shape in ((3, 28, 28, 24), (5, 7, 9, 3)):
+        x = _probe_ints(shape, -128, 128, 0)
+        for schedule, strips in (("flat", 1), ("frame", 1), ("strip", 7)):
+            got = probes.probe_copy(x, schedule, strips)
+            assert torch.equal(got, probes.probe_copy_plain(x)), schedule
+        xw = _probe_ints((3, 8, *shape[1:]), -128, 128, 1)
+        assert torch.equal(probes.probe_phase_select(xw),
+                           probes.probe_phase_select_plain(xw))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_probe_dw_matches_plain_on_the_card():
+    """csrc/probe_dw.cu: every kernel instance (NHWC and frame innermost,
+    int8 and int32 input, >> 7, fast, exact and raw epilogues, offsets or
+    none, stride 1 and 2, copied, zero and absent borders, R = 1 and 16,
+    int32 and 16-bit arithmetic, taps past int16) and the requant chain
+    equal their plain versions bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from yoloface_tpu_torch.kernels import probes
+    c, sp = 12, 16
+    taps = _probe_ints((9, c), -128, 128, 2, torch.int32)
+    taps16 = _probe_ints((9, c), -8, 8, 3, torch.int32)
+    tapsw = _probe_ints((9, c), -40000, 40000, 6, torch.int32)  # past int16
+    scale = torch.linspace(0.001, 0.011, c, dtype=torch.float32).cuda()
+    x8 = _probe_ints((3, sp, sp, c), -128, 128, 4)
+    xf = _probe_ints((sp, sp, c, 8), -128, 128, 5)
+    cases = [(x8, taps, dict(so=sp - 2, offs=False)),
+             (x8, taps, dict(so=sp - 2)),
+             (x8, taps, dict(so=sp - 2, epi="fast", scale=scale)),
+             (x8, taps, dict(so=sp - 2, epi="exact", qm=1518500250,
+                             shift=-7)),
+             (x8.to(torch.int32), taps, dict(so=(sp - 2) // 2, stride=2)),
+             (x8.to(torch.int32), taps, dict(so=sp - 2, epi="fast",
+                                             scale=scale)),
+             (x8, taps, dict(so=sp - 2, border="zero", epi="raw", reps=16)),
+             (xf, taps, dict(so=sp - 4, layout="fi", origin=1)),
+             (xf, taps, dict(so=(sp - 4) // 2, layout="fi", origin=1,
+                             stride=2)),
+             (xf, taps16, dict(so=sp - 2, layout="fi", border="none",
+                               epi="raw", reps=16)),
+             (xf, taps16, dict(so=sp - 2, layout="fi", border="none",
+                               epi="raw", reps=16, arith="i16")),
+             (xf, tapsw, dict(so=sp - 2, layout="fi", border="none",
+                              epi="raw", reps=16, arith="i16"))]
+    for k, (x, t, kw) in enumerate(cases):
+        assert torch.equal(probes.probe_dw(x, t, **kw),
+                           probes.probe_dw_plain(x, t, **kw)), (k, kw)
+    assert torch.equal(probes.probe_requant_chain(x8, 16),
+                       probes.probe_requant_chain_plain(x8, 16))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_probe_conv_matches_plain_on_the_card():
+    """csrc/probe_conv.cu: every variant (the loop, byte multiply-adds and
+    __dp4a from shared memory, int8 and bf16 mma, frame innermost one and
+    four frames a thread) in every epilogue it takes, at K of 6, 18, 36
+    and 1024 and ragged row counts, R = 1 and 16, equals its plain version
+    bit for bit; int8(acc) wraps on both sides, and so do weights plus r
+    near the int8 ends, with one tile a block and several."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from yoloface_tpu_torch.kernels import probes
+    for k, nout, rows in ((6, 36, 100), (18, 6, 77), (36, 24, 300),
+                          (1024, 72, 65)):
+        x = _probe_ints((rows, k), -128, 128, k)
+        w = _probe_ints((nout, k), -64, 64, k + 1)
+        for variant in ("loop", "imad", "dp4a", "mma", "mma_bf16"):
+            if variant != "loop" and \
+                    probes.conv_smem_bytes(variant, k) > probes.SMEM_LIMIT:
+                continue
+            for epi in ("raw", "wrap", "shift"):
+                if epi == "shift" and nout > k:
+                    continue
+                for reps in (1, 16):
+                    if variant == "mma_bf16" and not probes.bf16_exact(k,
+                                                                       reps):
+                        continue
+                    kw = dict(variant=variant, epi=epi, reps=reps)
+                    assert torch.equal(probes.probe_conv(x, w, **kw),
+                                       probes.probe_conv_plain(x, w, **kw)), \
+                        (k, nout, kw)
+        if k <= 64:
+            xf = _probe_ints((5, k, 12), -128, 128, k + 2)
+            for variant in ("fi", "fi4"):
+                for epi, reps in (("shift", 1), ("raw", 16), ("wrap", 1)):
+                    if epi == "shift" and nout > k:
+                        continue
+                    kw = dict(variant=variant, epi=epi, reps=reps)
+                    assert torch.equal(probes.probe_conv(xf, w, **kw),
+                                       probes.probe_conv_plain(xf, w, **kw)), \
+                        (k, nout, kw)
+    # weights over the whole int8 range, R = 16: w + r wraps in every
+    # variant; the tile variants also walk several tiles a block, their
+    # staged weights restored between tiles
+    x = _probe_ints((1000, 36), -128, 128, 7)
+    w = _probe_ints((24, 36), -128, 128, 8)
+    w[0, :3] = torch.tensor([127, 120, -128], dtype=torch.int8)
+    for variant in ("loop", "imad", "dp4a", "mma", "mma_bf16"):
+        for tiles in ((None,) if variant == "loop" else (1, 4, 16)):
+            kw = dict(variant=variant, epi="raw", reps=16,
+                      tiles_per_block=tiles)
+            assert torch.equal(probes.probe_conv(x, w, **kw),
+                               probes.probe_conv_plain(x, w, **kw)), kw
+    xf = _probe_ints((9, 36, 8), -128, 128, 9)
+    for variant in ("fi", "fi4"):
+        kw = dict(variant=variant, epi="raw", reps=16)
+        assert torch.equal(probes.probe_conv(xf, w, **kw),
+                           probes.probe_conv_plain(xf, w, **kw)), kw
+    torch.cuda.synchronize()

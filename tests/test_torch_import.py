@@ -45,6 +45,10 @@ ENTRIES = {
     "per-op entry point":
         "from yoloface_tpu_torch.kernels.perop import PerOpPlan\n"
         "from yoloface_tpu_torch.runtime.engine import PEROP_BITS",
+    "probes entry points":
+        "from yoloface_tpu_torch.kernels import probes\n"
+        "from yoloface_tpu_torch.probes import (debug448, microbench,\n"
+        "                                       probe448, probe448_micro)",
 }
 
 

@@ -45,6 +45,13 @@ SIGNATURES = {
                        _F, _I, _P, _P],
     # (y, idx i32 [n,k], n, g, a, k, scale, zp, thr, stream)
     "yf_topk_conf": [_P, _P, _I, _I, _I, _I, _F, _F, _F, _P],
+    # the tools/ probes (kernels/probes.py): pointers, host int params,
+    # stream.  (src, dst, params, stream)
+    "yf_probe_copy": [_P, _P, _P, _P],
+    # (x, taps, scale, out, params, stream)
+    "yf_probe_dw": [_P, _P, _P, _P, _P, _P],
+    # (a, w, out, params, stream)
+    "yf_probe_conv": [_P, _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()
