@@ -5,7 +5,9 @@ Run:  python3 chip_smoke.py   (paths resolve from this file's directory)
 
 Phases (each prints its lines; any failure ends the run with an error):
   1. environment: torch, CUDA, nvcc, the card's name and power limit; the
-     kernel build from yoloface_tpu_torch/csrc/ into build/yoloface_tpu_torch/;
+     kernel build from yoloface_tpu_torch/csrc/ into build/yoloface_tpu_torch/
+     and the section kernel's registers and local memory as built (a
+     spill, local memory past its 128 B stack frame, fails);
   2. each kernel against its plain torch version on the card, bit for bit,
      at the serving path's shapes: the preprocess; the arena stage in each
      bit semantics (fast2, fast, exact) in 1 and 4 stages; the fused head
@@ -22,7 +24,13 @@ Phases (each prints its lines; any failure ends the run with an error):
      kernel on the per-op programs (kernels/perop.py, one op a launch, the
      counterparts of the eleven pallas_int8 kernels) on every op output of
      the corpus net (N = 1, 3, 37) and of the op-surface graph (which runs
-     all eleven), in fast and exact bits; the arena and section kernels'
+     all eleven), in fast and exact bits; the per-op table kernel
+     (csrc/eltwise_lut.cu, the RELU / RELU6 / LOGISTIC programs) against
+     its plain version on all 256 int8 inputs, a size whose bytes are not a
+     multiple of 16, a view one byte into its storage and a flat size past
+     twice one round of its largest grid, for each activation of the
+     op-surface graph and the yolov3-tiny upsample in fast and exact bits;
+     the arena and section kernels'
      new op cases (B2b, B6b: standalone LEAKY, RELU, RELU6, LOGISTIC,
      RESIZE, AVERAGE_POOL_2D, a PAD kept as an op) on every stage or
      section output of the op-surface graph, the nine .tflite test graphs
@@ -39,9 +47,10 @@ Phases (each prints its lines; any failure ends the run with an error):
      HeadConfig(use_fused_head=False) (the top-K kernel and the staged
      head), arena (fused head), fused and fused_exact (the preprocess, the
      fused stages, the fused head), perop and perop_exact (the preprocess,
-     the per-op programs, the fused head); detections are held against the CPU
-     path of the same mode (the plain versions) and the int8 head against
-     the golden file tests/data/torch_port_frames.npz (head, head_exact,
+     the per-op programs (the table kernel among them), the fused head);
+     detections are held against the CPU path of the same mode (the plain
+     versions) and the int8 head against the golden file
+     tests/data/torch_port_frames.npz (head, head_exact,
      head_fast; the golden detections for arena2, arena_exact, fused_exact
      and perop_exact); then the 448 net, Int8Engine(g448, mode,
      device="cuda") in modes tiled2 and tiled_exact, held against the CPU
@@ -57,9 +66,14 @@ Phases (each prints its lines; any failure ends the run with an error):
   4. timing with CUDA events (warm-up, median of 10): each kernel against
      its plain version at batch 16384 (the arena in all three bit
      semantics, the fused stages and the per-op program in both), each op
-     of the per-op program on its own, summed by per-op kernel (the corpus
-     net's ops; the op-surface graph's for the eltwise, resize and leaky
-     kernels, and again at a real model's size on the FPN upsample of the
+     of the per-op program on its own, first held against its plain
+     version on the inputs it is timed on (device time: each window opens
+     behind a spin on the stream, so the wrapper's host work stays out of
+     it; also with the host work in the window, and the host time to queue
+     one call; kernel, plain version and library call alike), summed by per-op
+     kernel (the corpus net's ops; the op-surface graph's for the eltwise,
+     resize and leaky kernels, and again at a real model's size on the FPN
+     upsample of the
      published yolov3-tiny at batch 1024), the one PyTorch call that
      computes a kernel's function where there is one (torch.topk for the
      top-K kernel; F.pad, torch.cat, torch.clamp, F.interpolate and, where
@@ -408,12 +422,13 @@ def main() -> int:
 
     from yoloface_tpu_torch.graph.retarget import retarget_spatial
     from yoloface_tpu_torch.io.tflite_import import load_tflite
-    from yoloface_tpu_torch.kernels import _build, arena, fused, perop, tiled
+    from yoloface_tpu_torch.kernels import (_build, arena, eltwise, fused,
+                                            perop, tiled)
     from yoloface_tpu_torch.kernels import head as khead
     from yoloface_tpu_torch.kernels import preprocess as kpre
     from yoloface_tpu_torch.pipeline import head as thead
     from yoloface_tpu_torch.pipeline.e2e import FacePipeline, load_pipeline
-    from yoloface_tpu_torch.probes import bound
+    from yoloface_tpu_torch.probes import CYCLES_PER_S, bound, time_ms
     from yoloface_tpu_torch.runtime.engine import (ARENA_BITS, FUSED_BITS,
                                                    KERNEL_MODES, PEROP_BITS,
                                                    TILED_BITS, Int8Engine)
@@ -435,6 +450,18 @@ def main() -> int:
     nvcc_s = _build.build_seconds
     print(f"[build] {_build.BUILD_DIR} in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {'cached' if nvcc_s is None else f'{nvcc_s:.2f} s'})")
+    import ctypes
+    attrs = (ctypes.c_int * 3)()
+    _build.check(_build.library().yf_tiled_section_attrs(attrs),
+                 "tiled_section attributes")
+    regs, local, static_smem = list(attrs)
+    print(f"[build] tiled_section_kernel: {regs} registers a thread, {local} "
+          f"B local memory a thread (its stack frame, spills included), "
+          f"{static_smem} B static shared memory")
+    # __launch_bounds__(256, 4) caps the registers at 64; what it can cost
+    # is spilling, which grows the local memory past the 128 B frame
+    _require(local <= 128, f"the section kernel spills: {local} B of local "
+             "memory a thread > its 128 B frame")
 
     rng = np.random.default_rng(SEED)
 
@@ -460,7 +487,7 @@ def main() -> int:
     head_kw = dict(scale=pipe._out_scale, zero_point=pipe._out_zp)
     counted = (kpre.preprocess_rgb565, arena.arena_stage, khead.detect_head,
                khead.topk_conf, tiled.tiled_section, fused.fused_stage,
-               perop.perop_op)
+               perop.perop_op, eltwise.eltwise_lut)
 
     def zero_counts():
         for fn in counted:
@@ -623,6 +650,49 @@ def main() -> int:
               f"N=1/3/37) and of the op-surface graph ({len(ps.stages)} ops, "
               f"kernels {sorted({st.kernel for st in ps.stages})}); its "
               "outputs equal the golden keys")
+
+    # the per-op table kernel on its own: all 256 int8 inputs, a size
+    # whose bytes are not a multiple of 16, a view one byte into its
+    # storage (the byte loop), and a flat size past twice the bytes the
+    # largest grid covers in one round of four 16-byte loads a thread (the
+    # grid-stride loop with loads in flight, which the timed sizes run),
+    # for each activation program of the op-surface graph and the
+    # yolov3-tiny upsample, in both bits
+    every = torch.arange(-128, 128, dtype=torch.int8, device=dev)
+    odd = int8_frames(7, 15)
+    one_off = torch.from_numpy(rng.integers(-128, 128, 1 + 7 * 26 * 26 * 128)
+                               .astype(np.int8)).to(dev)[1:].view(7, 26, 26,
+                                                                  128)
+    props = torch.cuda.get_device_properties(dev)
+    span = 4 * 16 * 256 * props.multi_processor_count * (getattr(
+        props, "max_threads_per_multi_processor", 2048) // 256)
+    big = torch.randint(-128, 128, (2 * span + 13,), dtype=torch.int8,
+                        device=dev,
+                        generator=torch.Generator(dev).manual_seed(SEED))
+    for name, g in (("op surface", surface),
+                    ("upsample", _upsample_graph(tool))):
+        for bits in perop.BITS:
+            p = perop.PerOpPlan(g, bits).to(dev)
+            k_act = [k for k, st in enumerate(p.stages)
+                     if perop.card_kernel(st) == "eltwise_lut"]
+            _require(len(k_act) == 3, f"{name}: three activation programs")
+            for k in k_act:
+                d = getattr(p, f"descs{k}")
+                for tag, x in (("all 256 inputs", every.view(1, 1, 16, 16)),
+                               ("15x15x3", odd), ("one byte in", one_off),
+                               (f"{big.numel()} B flat", big)):
+                    got = eltwise.eltwise_lut(d, x)
+                    want = eltwise.eltwise_lut_plain(d, x)
+                    torch.cuda.synchronize()
+                    _require(torch.equal(got, want),
+                             f"eltwise_lut {name} {bits} op {k} {tag}")
+                    err["eltwise_int8"] = max(err["eltwise_int8"],
+                                              _max_err([(got, want)]))
+        print(f"[check] eltwise_lut {name}: the 3 activation programs in fast "
+              "and exact bits, on all 256 inputs, [7,15,15,3], a view one "
+              f"byte in and {big.numel()} B flat (twice the {span} B one "
+              "round of the largest grid covers): bit-exact")
+    del big
 
     # B2b, B6b: the rest of the arena and tiled kernels' op surface
     # (standalone LEAKY, RELU, RELU6, LOGISTIC, RESIZE, AVERAGE_POOL_2D, a
@@ -837,6 +907,9 @@ def main() -> int:
         _require(perop.perop_op.launches == len(eng.arena.stages)
                  and set(by_kernel[path]) == set(perop.KERNELS),
                  f"{path}: every op through the kernel, all eleven kernels")
+        _require(eltwise.eltwise_lut.launches
+                 == by_kernel[path]["eltwise_int8"] > 0,
+                 f"{path}: the activation programs through eltwise_lut")
         cpu = Int8Engine(surface, mode, device="cpu")(xs_surface.cpu())
         for k, (u, v) in enumerate(zip(served, cpu)):
             _require(torch.equal(u.cpu(), v), f"{path}: output {k} vs CPU")
@@ -1006,13 +1079,47 @@ def main() -> int:
             return "F.interpolate", resize
         return None
 
+    def op_time(fn):
+        """Device milliseconds of one call: CUDA events behind a spin on
+        the stream, so the wrapper's host work stays out of the window
+        (``probes.time_ms``; median of ``REPS``)."""
+        return time_ms(fn, dev, REPS)
+
+    def host_ms(fn):
+        """Host milliseconds to queue one call of ``fn``: the wrapper's
+        own work (checks, allocation, the launch), each call behind a spin
+        so that none waits on the card; median of ``REPS``."""
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(REPS):
+            torch.cuda._sleep(int(2e-3 * CYCLES_PER_S))
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+        times.sort()
+        return times[len(times) // 2]
+
+    def times(fn):
+        """{device: ``op_time``, host_in: ``_time_ms`` (the window holds
+        the call's host work too, PR 5-7's method), host: ``host_ms``}."""
+        return {"device": op_time(fn), "host_in": _time_ms(fn),
+                "host": host_ms(fn)}
+
+    def add(acc, got):
+        for key, t in got.items():
+            acc[key] = acc.get(key, 0.0) + t
+
     def time_ops(plan, inp, keep, bits, op_ms, work, lib_ops):
-        """Time each op of ``plan`` that ``keep(st)`` selects on the
-        program's own tensors from ``inp``: kernel and plain summed by
-        kernel into ``op_ms[(kernel, bits)]``; in fast bits its work into
+        """Check, then time, each op of ``plan`` that ``keep(st)`` selects
+        on the program's own tensors from ``inp``: the wrapper must equal
+        its plain version on the very inputs it is timed on.  Kernel times
+        (``times``) and plain times summed by kernel into
+        ``op_ms[(kernel, bits)]``; in fast bits its work into
         ``work[kernel]`` and the library call (checked equal first) with
-        the kernel on the same ops into ``lib_ops[kernel]`` (None where the
-        card has none)."""
+        the kernel on the same ops into ``lib_ops[kernel]`` (None where
+        the card has none; on the table kernel's ops a mismatch fails)."""
         env = plan.run_stages(inp)
         for k, st in enumerate(plan.stages):
             if not keep(st):
@@ -1021,11 +1128,25 @@ def main() -> int:
             descs, consts = (getattr(plan, f"descs{k}"),
                              getattr(plan, f"consts{k}"))
             out = [torch.empty_like(env[st.outputs[0]])]
-            acc = op_ms.setdefault((st.kernel, bits), [0.0, 0.0])
-            t_k = _time_ms(lambda: perop.perop_op(st, descs, consts, ins))
-            acc[0] += t_k
-            acc[1] += _time_ms(lambda: perop.perop_plain(st, consts,
-                                                         ins + out))
+            if perop.card_kernel(st) == "eltwise_lut":   # its own plain
+                def plain():
+                    return eltwise.eltwise_lut_plain(descs, ins[0])
+            else:
+                def plain():
+                    perop.perop_plain(st, consts, ins + out)
+                    return out[0]
+
+            def kern():
+                return perop.perop_op(st, descs, consts, ins)
+            got = kern()[0]
+            _require(torch.equal(got, plain()) and torch.equal(
+                got, env[st.outputs[0]]), f"perop {st.kernel} {bits} op {k} "
+                f"on its timed inputs {tuple(ins[0].shape)}")
+            err[st.kernel] = max(err[st.kernel], _max_err([(got, plain())]))
+            acc = op_ms.setdefault((st.kernel, bits), {})
+            t_k = times(kern)
+            add(acc, t_k)
+            add(acc, {"plain": op_time(plain)})
             if bits != "fast":
                 continue
             w = work.setdefault(st.kernel, [0, 0, 0])
@@ -1036,18 +1157,26 @@ def main() -> int:
                 continue
             lname, fn = lib
             try:
-                same = torch.equal(fn(), env[st.outputs[0]])
+                same = torch.equal(fn(), got)
             except (RuntimeError, NotImplementedError) as e:
                 same = str(e).splitlines()[0]
+            _require(same is True or st.kernel != "eltwise_int8",
+                     f"{lname} against eltwise_int8 op {k} "
+                     f"{tuple(ins[0].shape)}: {same or 'other values'}")
             if same is not True:
                 print(f"[time] {lname} on {st.kernel} op {k}: none for "
                       f"int8 on this card ({same or 'other values'})")
                 lib_ops[st.kernel] = None
             if lib_ops.get(st.kernel, 0) is None:
                 continue
-            got = lib_ops.setdefault(st.kernel, [lname, 0.0, 0.0])
-            got[1] += _time_ms(fn)
-            got[2] += t_k
+            acc = lib_ops.setdefault(st.kernel, {"name": lname, "lib": {},
+                                                 "kernel": {}})
+            add(acc["lib"], times(fn))
+            add(acc["kernel"], t_k)
+
+    def show(t):
+        return (f"{t['device']:.4f} ms device, {t['host_in']:.4f} with the "
+                f"host work in the window, {t['host']:.4f} host")
 
     op_ms, work, lib_ops = {}, {}, {}
     surface_n = int8_frames(n, 15)
@@ -1060,15 +1189,16 @@ def main() -> int:
                  lambda st: st.kernel in SURFACE_ONLY, bits, op_ms, work,
                  lib_ops)
     del surface_n
-    for (name, bits), (t_k, t_p) in op_ms.items():
-        print(f"[time] perop {name} {bits} N={n} ({op_graph[name]}): kernel "
-              f"{t_k:.4f} ms, plain {t_p:.4f} ms, summed over its ops "
+    for (name, bits), t in op_ms.items():
+        print(f"[time] perop {name} {bits} N={n} ({op_graph[name]}), summed "
+              f"over its ops: kernel {show(t)}; plain {t['plain']:.4f} ms "
               f"({card})")
     for name, got in lib_ops.items():
         if got is not None:
-            library_ms[name] = got[1]
-            print(f"[time] {got[0]} for {name} N={n}: {got[1]:.4f} ms, the "
-                  f"kernel {got[2]:.4f} ms on the same ops ({card})")
+            library_ms[name] = got["lib"]["device"]
+            print(f"[time] {got['name']} for {name} N={n}: {show(got['lib'])}"
+                  f"; the kernel on the same ops {show(got['kernel'])} "
+                  f"({card})")
     # the op-surface graph gives those three kernels 128-512 B a frame; at
     # a real model's size they run on the FPN upsample of the published
     # yolov3-tiny (SCALE_GRAPH): every op of that graph, fast bits
@@ -1081,12 +1211,13 @@ def main() -> int:
              "fast", big_ms, big_work, big_lib)
     del x_up
     big_ms_by_kernel = {name: t for (name, _), t in big_ms.items()}
-    for name, (t_k, t_p) in big_ms_by_kernel.items():
+    for name, t in big_ms_by_kernel.items():
         lib = big_lib.get(name)
         print(f"[time] perop {name} fast N={BATCH_SCALE} ({SCALE_GRAPH}): "
-              f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms"
-              + ("" if not lib else f", {lib[0]} {lib[1]:.4f} ms (the kernel "
-                 f"{lib[2]:.4f} ms on the same ops)") + f" ({card})")
+              f"kernel {show(t)}; plain {t['plain']:.4f} ms"
+              + ("" if not lib else f"; {lib['name']} {show(lib['lib'])}; the "
+                 f"kernel on the same ops {show(lib['kernel'])}")
+              + f" ({card})")
 
     for mode in ("arena2", "arena_exact", "fused", "fused_exact", "perop",
                  "perop_exact"):
@@ -1318,32 +1449,47 @@ def main() -> int:
             row["bits"] = bits[k]
         if k == "tiled_section":     # the kernel at 1024, both at 128
             row.update(batch=BATCH448, plain_batch=PLAIN_BATCH448,
-                       ms_at_plain_batch=ms[k][2])
+                       ms_at_plain_batch=ms[k][2], registers=regs,
+                       local_bytes=local)
         kernels.append(row)
     for k, (line, _) in perop.KERNELS.items():   # B8.1-B8.11 by op
         b = bound(*work[k])
         graph = op_graph[k]
         path = "op surface perop" if graph == "op surface" else "perop"
-        row = {"name": k, "route": "cuda", "source": src + "fused_stage.cu",
+        row = {"name": k, "route": "cuda",
+               "source": src + ("eltwise_lut.cu" if k in perop.TABLE_KERNELS
+                                else "fused_stage.cu"),
                "replaces": f"yoloface_tpu/kernels/pallas_int8.py:{line}",
                "launches": by_kernel[path].get(k, 0), "max_abs_err": err[k],
-               "ms": op_ms[(k, "fast")][0], "plain_ms": op_ms[(k, "fast")][1],
+               "ms": op_ms[(k, "fast")]["device"],
+               "plain_ms": op_ms[(k, "fast")]["plain"],
+               "ms_host_in": op_ms[(k, "fast")]["host_in"],
+               "host_ms": op_ms[(k, "fast")]["host"],
                "bound_ms": b[0], "bound_by": b[1],
                "library_ms": library_ms.get(k), "bits": "fast",
-               "ms_exact": op_ms[(k, "exact")][0],
-               "plain_ms_exact": op_ms[(k, "exact")][1], "graph": graph,
+               "ms_exact": op_ms[(k, "exact")]["device"],
+               "plain_ms_exact": op_ms[(k, "exact")]["plain"], "graph": graph,
                "launches_path": path}
         if lib_ops.get(k):      # the library call's ops, the kernel on them
-            row.update(library=lib_ops[k][0], ms_on_library_ops=lib_ops[k][2])
+            row.update(library=lib_ops[k]["name"],
+                       ms_on_library_ops=lib_ops[k]["kernel"]["device"],
+                       library_host_in=lib_ops[k]["lib"]["host_in"],
+                       ms_host_in_on_library_ops=lib_ops[k]["kernel"][
+                           "host_in"])
         if k in big_ms_by_kernel:
             b = bound(*big_work[k])
             lib = big_lib.get(k)
+            t = big_ms_by_kernel[k]
             row["at_scale"] = {
                 "graph": SCALE_GRAPH, "batch": BATCH_SCALE,
-                "ms": big_ms_by_kernel[k][0], "plain_ms": big_ms_by_kernel[k][1],
+                "ms": t["device"], "plain_ms": t["plain"],
+                "ms_host_in": t["host_in"], "host_ms": t["host"],
                 "bound_ms": b[0], "bound_by": b[1],
-                "library_ms": lib[1] if lib else None,
-                "ms_on_library_ops": lib[2] if lib else None}
+                "library_ms": lib["lib"]["device"] if lib else None,
+                "ms_on_library_ops": lib["kernel"]["device"] if lib else None,
+                "library_host_in": lib["lib"]["host_in"] if lib else None,
+                "ms_host_in_on_library_ops": (lib["kernel"]["host_in"]
+                                              if lib else None)}
         kernels.append(row)
     # B2b, B6b: the new op bodies at the upsample's size, summed over the
     # ops (each op beside its own numbers); the library sum covers the ops

@@ -14,7 +14,7 @@ import torch
 
 from yoloface_tpu_torch.graph.retarget import retarget_spatial
 from yoloface_tpu_torch.io.tflite_import import load_tflite
-from yoloface_tpu_torch.kernels import (arena, fused, head, perop,
+from yoloface_tpu_torch.kernels import (arena, eltwise, fused, head, perop,
                                        preprocess, tiled)
 from yoloface_tpu_torch.pipeline.e2e import load_pipeline
 from yoloface_tpu_torch.runtime.engine import Int8Engine
@@ -200,6 +200,88 @@ def test_new_ops_match_plain_on_the_card(bits):
                       [env[i] for i in st.inputs] + ref)
                 for o, t in zip(st.outputs, ref):
                     assert torch.equal(env[o], t), (g.name, k, o)
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", perop.BITS)
+def test_eltwise_lut_matches_plain_on_the_card(bits):
+    """csrc/eltwise_lut.cu on each activation program (RELU, RELU6,
+    LOGISTIC) of the op-surface graph and the yolov3-tiny upsample equals
+    its plain version on all 256 int8 inputs, on [5,15,15,3] (675 bytes a
+    frame: the tail loop), on a view one byte into its storage (the
+    byte loop) and on a flat size past twice what one round of four
+    16-byte loads a thread covers at the largest grid (the grid-stride
+    loop with loads in flight), and the per-op program routes there."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    tool = _golden_tool()
+    rng = np.random.default_rng(3)
+    props = torch.cuda.get_device_properties(0)
+    span = 4 * 16 * 256 * props.multi_processor_count * (getattr(
+        props, "max_threads_per_multi_processor", 2048) // 256)
+    big = torch.randint(-128, 128, (2 * span + 13,), dtype=torch.int8,
+                        device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(5))
+    every = torch.arange(-128, 128, dtype=torch.int8).cuda().view(1, 4, 4, 16)
+    odd = torch.from_numpy(rng.integers(-128, 128, (5, 15, 15, 3))
+                           .astype(np.int8)).cuda()
+    one_off = torch.from_numpy(rng.integers(-128, 128, 1 + 4096)
+                               .astype(np.int8)).cuda()[1:].view(1, 16, 16, 16)
+    for g in (tool.surface_graph(), _chip_smoke()._upsample_graph(tool)):
+        plan = perop.PerOpPlan(g, bits).cuda()
+        routed = [k for k, st in enumerate(plan.stages)
+                  if perop.card_kernel(st) == "eltwise_lut"]
+        assert len(routed) == 3
+        for k in routed:
+            d = getattr(plan, f"descs{k}")
+            for x in (every, odd, one_off, big):
+                assert torch.equal(eltwise.eltwise_lut(d, x),
+                                   eltwise.eltwise_lut_plain(d, x)), (g.name,
+                                                                      k)
+        xs = torch.from_numpy(rng.integers(
+            -128, 128, (3, *g.tensor(g.inputs[0]).shape[1:]))
+            .astype(np.int8)).cuda()
+        eltwise.eltwise_lut.launches = 0
+        env = plan.run_stages(xs)
+        assert eltwise.eltwise_lut.launches == 3
+        for k, st in enumerate(plan.stages):
+            ref = [torch.empty_like(env[o]) for o in st.outputs]
+            perop.perop_plain(st, getattr(plan, f"consts{k}"),
+                              [env[i] for i in st.inputs] + ref)
+            assert torch.equal(env[st.outputs[0]], ref[0]), (g.name, k)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", arena.BITS)
+def test_one_op_arena_stages_match_plain_on_the_card(bits):
+    """The arena kernel's byte-bound bodies (16-byte staging, the table
+    ops, the chunked RESIZE and average pools) as one-op stages of the
+    yolov3-tiny upsample and the average pools at its size equal
+    ``arena_stage_plain``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    smoke, tool = _chip_smoke(), _golden_tool()
+    for g in (smoke._upsample_graph(tool), smoke._avgpool_graph(tool)):
+        x = torch.from_numpy(np.random.default_rng(4).integers(
+            -128, 128, (3, *g.tensor(g.inputs[0]).shape[1:]))
+            .astype(np.int8)).cuda()
+        plan = smoke._one_op_a_stage(g, bits).cuda()
+        env = plan.run_stages(x)
+        for k, st in enumerate(plan.stages):
+            ref = [torch.empty_like(env[o]) for o in st.outputs]
+            arena.arena_stage_plain(st, getattr(plan, f"consts{k}"),
+                                    [env[i] for i in st.inputs] + ref)
+            for o, t in zip(st.outputs, ref):
+                assert torch.equal(env[o], t), (g.name, k)
 
 
 @pytest.mark.gpu

@@ -45,6 +45,9 @@ ENTRIES = {
     "per-op entry point":
         "from yoloface_tpu_torch.kernels.perop import PerOpPlan\n"
         "from yoloface_tpu_torch.runtime.engine import PEROP_BITS",
+    "elementwise table kernel":
+        "from yoloface_tpu_torch.kernels.eltwise import (eltwise_lut,\n"
+        "                                               eltwise_lut_plain)",
     "probes entry points":
         "from yoloface_tpu_torch.kernels import probes\n"
         "from yoloface_tpu_torch.probes import (debug448, microbench,\n"

@@ -22,8 +22,11 @@
 // What the design does about it, in this first version: one block per
 // frame keeps the whole net in shared memory (23.5 KB for the corpus
 // graph, so several blocks share an SM); each op body computes every row
-// of its output (arena_ops.cuh).  Tensor cores (int8 mma/wgmma for the 1x1
-// convs) are later work.
+// of its output (arena_ops.cuh).  A stage's inputs come in and its outputs
+// go out through copy_op, 16 bytes a thread step with four loads in flight,
+// since a one-op stage at a real size (26x26x128, 173 KB of arena: one
+// block an SM) is bound by those moves.  Tensor cores (int8 mma/wgmma for
+// the 1x1 convs) are later work.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -61,15 +64,15 @@ __global__ void arena_stage_kernel(const Op* __restrict__ ops, int n_ops,
         yf::pad_op(op, in0, 0, out, 0, op.out.h);
         break;
       case yf::LEAKY:
-        yf::leaky_op(op, in0, out, op.out.h);
-        break;
       case yf::ACT:
-        yf::act_op(op, in0, out, op.out.h);
+        yf::table_op(op, in0, out, op.out.h);
         break;
       case yf::RESIZE:
         yf::resize_op(op, in0, 0, out, 0, op.out.h);
         break;
       case yf::COPY:
+        yf::copy_op(op, in0, out, op.out.h);
+        break;
       case yf::ADD:
       case yf::QUANTIZE:
         yf::eltwise_op(op, in0, yf::base(op.in1, arena, g, frame), out,

@@ -109,10 +109,8 @@ __global__ void __launch_bounds__(256, 4)
           yf::resize_op(op, in0, in0_y0, out, lo, hi - lo);
           break;
         case yf::LEAKY:
-          yf::leaky_op(op, in0_rows, out, hi - lo);
-          break;
         case yf::ACT:
-          yf::act_op(op, in0_rows, out, hi - lo);
+          yf::table_op(op, in0_rows, out, hi - lo);
           break;
         case yf::COPY:
         case yf::ADD:
@@ -154,4 +152,18 @@ extern "C" int yf_tiled_section(const void* descs, int n_ops,
       static_cast<const StripOp*>(descs), n_ops,
       static_cast<const uint8_t*>(consts), g, strips);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The section kernel as the build compiled it: registers a thread, local
+// bytes a thread (its stack frame, spills included) and static shared
+// bytes, into out[0..2].  The launch bound above holds the registers to
+// 64.
+extern "C" int yf_tiled_section_attrs(int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, tiled_section_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = a.numRegs;
+  out[1] = static_cast<int>(a.localSizeBytes);
+  out[2] = static_cast<int>(a.sharedSizeBytes);
+  return 0;
 }

@@ -27,6 +27,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 SIGNATURES = {
     # (frames u16, out i8, n, stream)
     "yf_preprocess_rgb565": [_P, _P, _I, _P],
@@ -36,9 +37,13 @@ SIGNATURES = {
     # (descs, n_ops, consts, host ptr table, n_globals, n_frames, strips,
     #  arena_bytes, threads, stream)
     "yf_tiled_section": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
+    # (int out[3]: registers, local bytes, static shared bytes)
+    "yf_tiled_section_attrs": [_P],
     # (descs, n_ops, consts, host ptr table, n_globals, n_frames,
     #  smem_bytes, scratch_off, threads, stream)
     "yf_fused_stage": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
+    # (descriptor, x, y, bytes, stream)
+    "yf_eltwise_lut": [_P, _P, _P, _L, _P],
     # (y, boxes, scores, valid, n, g, a, k, scale, zp, thr, iou_thr,
     #  stride, box_limit, apply_nms, host anchors[8], stream)
     "yf_detect_head": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F,

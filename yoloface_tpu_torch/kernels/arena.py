@@ -99,7 +99,11 @@ STRIP_OP_INTS = 64                 # OP_INTS + BAND_FIELDS padded to 256 B
 F = {name: i for i, name in enumerate(FIELDS)}
 F.update({name: OP_INTS + i for i, name in enumerate(BAND_FIELDS)})
 
-ARENA_BUDGET = 227 * 1024          # H100: 232,448 B of shared memory a block
+SMEM_PER_BLOCK = 227 * 1024        # H100: 232,448 B of shared memory a block
+# the static shared memory of the stage kernels (csrc/arena_ops.cuh
+# kTableBytes: the table of an elementwise op), which an arena leaves free
+TABLE_BYTES = 256
+ARENA_BUDGET = SMEM_PER_BLOCK - TABLE_BYTES
 MAX_GLOBALS = 16                   # device tensors one stage may touch
 THREADS = 256
 _ALIGN = 16

@@ -22,7 +22,8 @@ starts when the next op's output would take the stage past ``budget``
 (``FUSED_BUDGET`` is JAX's 6 MiB over its 128-frame tile), so the stage
 outputs -- the tensors a stage produces that a later stage or the graph
 reads -- are JAX's, stage for stage.  A stage is also cut where its shared
-memory would pass the card's 232,448 B a block.  Inside a stage placement
+memory would pass the card's 232,448 B a block (less the stage kernels'
+static table).  Inside a stage placement
 is free: the arena planner (``arena.plan_stage``) places the values by
 liveness, and the max-pool's row-pass scratch follows them.
 
@@ -53,7 +54,7 @@ from yoloface_tpu_torch.kernels.arena import LOp, Stage
 
 BITS = ("fast", "exact")
 FUSED_BUDGET = 6 * 1024 * 1024 // 128   # op output bytes a frame a stage
-SMEM_BYTES = arena.ARENA_BUDGET         # 232,448 B of shared memory a block
+SMEM_BYTES = arena.ARENA_BUDGET         # a block's, less the static table
 _CONVS = ("CONV_2D", "DEPTHWISE_CONV_2D")
 
 

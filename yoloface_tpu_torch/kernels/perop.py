@@ -32,7 +32,10 @@ dimension, dilation.
 
 Each op is one program of ``arena.OP_INTS`` descriptors (one, or one a
 concat input) whose views all lie in device memory (space 1.. the op's
-inputs, then its output).  On the card it runs on the fused-stage kernel
+inputs, then its output).  On the card the RELU, RELU6 and LOGISTIC
+programs (kernel ``eltwise_int8``) run on the flat table kernel
+(``kernels/eltwise.py``, ``csrc/eltwise_lut.cu``), one map over the op's
+dense bytes; every other program runs on the fused-stage kernel
 (``csrc/fused_stage.cu``, one block a frame, through ``fused.run_stage``)
 with no values in shared memory: only a max-pool's row-pass scratch is
 there.  ``perop_plain`` runs the same program with the arena's plain
@@ -50,7 +53,7 @@ import numpy as np
 import torch
 
 from yoloface_tpu_torch.graph.ir import GraphDef
-from yoloface_tpu_torch.kernels import arena
+from yoloface_tpu_torch.kernels import arena, eltwise
 from yoloface_tpu_torch.kernels.arena import LOp, Stage, View
 from yoloface_tpu_torch.kernels.fused import (FusedStage, lower_fused_ops,
                                               pool_scratch, run_stage)
@@ -69,6 +72,8 @@ KERNELS = {"conv1x1": (436, arena.CONV), "dwconv3x3": (483, arena.DW),
            "leaky_int8": (990, arena.LEAKY)}
 _BY_CODE = {code: name for name, (_, code) in KERNELS.items()
             if code != arena.CONV}
+# the B8 kernels whose programs run on the table kernel on the card
+TABLE_KERNELS = ("eltwise_int8",)
 
 
 @dataclasses.dataclass
@@ -129,12 +134,25 @@ def build_perop_plan(graph: GraphDef, bits: str = "fast"
 perop_plain = arena.arena_stage_plain
 
 
+def card_kernel(stage: PerOpStage) -> str:
+    """The CUDA kernel that runs ``stage`` on the card: ``eltwise_lut``
+    for the ``TABLE_KERNELS`` programs, else ``fused_stage``."""
+    return "eltwise_lut" if stage.kernel in TABLE_KERNELS else "fused_stage"
+
+
 def perop_op(stage: PerOpStage, descs: torch.Tensor, consts: torch.Tensor,
              xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """Run one op on its input tensors (int8 [N,H,W,C], in
     ``stage.inputs`` order) -> [its output].  CPU tensors take
-    ``perop_plain``; CUDA tensors launch ``yf_fused_stage``."""
-    outs, launched = run_stage(stage, descs, consts, xs, "per-op")
+    ``perop_plain``; CUDA tensors launch ``yf_eltwise_lut`` or
+    ``yf_fused_stage`` (``card_kernel``)."""
+    if card_kernel(stage) == "eltwise_lut" and xs[0].device.type == "cuda":
+        outs, dev = arena.prepare(stage, xs)
+        arena.check_program(stage, descs, consts, dev)
+        eltwise.eltwise_lut(descs, xs[0], out=outs[0])
+        launched = True
+    else:
+        outs, launched = run_stage(stage, descs, consts, xs, "per-op")
     if launched:
         perop_op.launches += 1
         perop_op.by_kernel[stage.kernel] += 1
