@@ -30,6 +30,12 @@ Phases (each prints its lines; any failure ends the run with an error):
      multiple of 16, a view one byte into its storage and a flat size past
      twice one round of its largest grid, for each activation of the
      op-surface graph and the yolov3-tiny upsample in fast and exact bits;
+     the per-op byte-move kernels (csrc/resize_nearest.cu,
+     csrc/concat_channels.cu) against their plain versions on ragged frame
+     counts, channel counts 1-18 and 128, 1 to 16 inputs, a row wider than
+     a tile, views one byte in and a flat size past twice one round of
+     their largest grid, and on the op surface's RESIZE and 3-input
+     CONCATENATION programs in both bits;
      the arena and section kernels'
      new op cases (B2b, B6b: standalone LEAKY, RELU, RELU6, LOGISTIC,
      RESIZE, AVERAGE_POOL_2D, a PAD kept as an op) on every stage or
@@ -47,7 +53,8 @@ Phases (each prints its lines; any failure ends the run with an error):
      HeadConfig(use_fused_head=False) (the top-K kernel and the staged
      head), arena (fused head), fused and fused_exact (the preprocess, the
      fused stages, the fused head), perop and perop_exact (the preprocess,
-     the per-op programs (the table kernel among them), the fused head);
+     the per-op programs (the table kernel and, for both CONCATENATIONs,
+     the concat kernel among them), the fused head);
      detections are held against the CPU path of the same mode (the plain
      versions) and the int8 head against the golden file
      tests/data/torch_port_frames.npz (head, head_exact,
@@ -57,7 +64,8 @@ Phases (each prints its lines; any failure ends the run with an error):
      path and the golden 448 keys; then the op-surface graph,
      Int8Engine(surface, mode, device="cuda") in perop and perop_exact, held
      against the CPU path and the golden keys (the per-op launches there
-     count for the eltwise, resize and standalone leaky rows); then the
+     count for the eltwise, resize and standalone leaky rows; the RESIZE
+     and CONCATENATION programs must launch their own kernels); then the
      .tflite test graphs, Int8Engine(load_tflite(...), mode) in each of
      the ten kernel modes, against their golden keys (the arena2 launches
      count for the B2b row); then yolov3-tiny at 416 in tiled2 and
@@ -423,7 +431,7 @@ def main() -> int:
     from yoloface_tpu_torch.graph.retarget import retarget_spatial
     from yoloface_tpu_torch.io.tflite_import import load_tflite
     from yoloface_tpu_torch.kernels import (_build, arena, eltwise, fused,
-                                            perop, tiled)
+                                            move, perop, tiled)
     from yoloface_tpu_torch.kernels import head as khead
     from yoloface_tpu_torch.kernels import preprocess as kpre
     from yoloface_tpu_torch.pipeline import head as thead
@@ -487,7 +495,8 @@ def main() -> int:
     head_kw = dict(scale=pipe._out_scale, zero_point=pipe._out_zp)
     counted = (kpre.preprocess_rgb565, arena.arena_stage, khead.detect_head,
                khead.topk_conf, tiled.tiled_section, fused.fused_stage,
-               perop.perop_op, eltwise.eltwise_lut)
+               perop.perop_op, eltwise.eltwise_lut, move.resize_nearest,
+               move.concat_channels)
 
     def zero_counts():
         for fn in counted:
@@ -694,6 +703,85 @@ def main() -> int:
               "round of the largest grid covers): bit-exact")
     del big
 
+    # the per-op byte-move kernels on their own (B8.10
+    # csrc/resize_nearest.cu, B8.8 csrc/concat_channels.cu): ragged frame
+    # counts and rows, channel counts 3, 5 and 18, factors 2x2, 2x3 and
+    # 3x1, 1 to 16 inputs, a row wider than a tile, inputs and an output
+    # one byte into their storage (the element path), and a flat size past
+    # one round of the largest grid (the grid-stride loop); then the op
+    # surface's RESIZE and 3-input CONCATENATION programs on the inputs
+    # their plan gives them, in both bits.  The FPN upsample at
+    # BATCH_SCALE and the corpus concats at TIMING_BATCH are checked on the
+    # very inputs they are timed on (phase 4).
+    move_span = move.TILE_BYTES * props.multi_processor_count * (getattr(
+        props, "max_threads_per_multi_processor", 2048) // 256)
+
+    def int8_tensor(shape, one_off=False):
+        t = torch.from_numpy(rng.integers(-128, 128, int(one_off) + int(
+            np.prod(shape)), dtype=np.int64).astype(np.int8)).to(dev)
+        return t[int(one_off):].view(*shape)
+
+    def check_move(name, fn, plain, shapes, tag):
+        for one_off in (False, True):
+            xs = [int8_tensor(shape, one_off) for shape in shapes]
+            want = plain(xs)
+            got = fn(xs, None)
+            out = int8_tensor(tuple(want.shape), one_off)
+            fn(xs, out)
+            torch.cuda.synchronize()
+            _require(torch.equal(got, want) and torch.equal(out, want),
+                     f"{name} {tag}{' one byte in' if one_off else ''}")
+            err[name] = max(err[name], _max_err([(got, want), (out, want)]))
+
+    big_rows = -(-2 * move_span // (13 * 13 * 128)) + 3
+    for shape, kh, kw in (((37, 4, 4, 8), 2, 2),        # the op surface's
+                          ((1001, 15, 15, 3), 2, 3),
+                          ((13, 7, 5, 5), 3, 1), ((37, 14, 14, 18), 2, 2),
+                          ((3, 2, 300, 128), 2, 2),
+                          ((big_rows, 13, 13, 128), 2, 2)):
+        check_move("resize_nearest",
+                   lambda xs, out: move.resize_nearest(xs[0], kh, kw, out),
+                   lambda xs: move.resize_nearest_plain(xs[0], kh, kw),
+                   [shape], f"{shape} x{kh}x{kw}")
+    big_px = -(-2 * move_span // (14 * 14 * 36)) + 3
+    for shapes in ([(37, 14, 14, 18)] * 2, [(37, 7, 7, 24)] * 2,
+                   [(37, 8, 8, 8)] * 3,                  # the op surface's
+                   [(1001, 3, 3, 3), (1001, 3, 3, 5), (1001, 3, 3, 18)],
+                   [(5, 4, 4, 128), (5, 4, 4, 256)],
+                   [(9, 5, 5, c) for c in range(1, 9)],
+                   [(2, 3, 3, 2)] * move.MAX_INPUTS,
+                   [(big_px, 14, 14, 18)] * 2):
+        check_move("concat_channels", move.concat_channels,
+                   move.concat_channels_plain, shapes,
+                   f"{[s[3] for s in shapes]} N={shapes[0][0]}")
+    print(f"[check] resize_nearest, concat_channels: ragged frame counts, "
+          "C = 1, 3, 5, 8, 18, 128, a row wider than a tile, 1 to "
+          f"{move.MAX_INPUTS} inputs, views one byte in, {big_rows} and "
+          f"{big_px} frames (past twice the {move_span} B one round of the "
+          "largest grid covers): bit-exact")
+    for bits in perop.BITS:
+        p = perop.PerOpPlan(surface, bits).to(dev)
+        env = p.run_stages(int8_frames(37, 15))
+        own = [k for k, st in enumerate(p.stages)
+               if st.kernel in perop.OWN_KERNELS]
+        _require(sorted(p.stages[k].kernel for k in own)
+                 == ["concat_channels", "resize_nearest"],
+                 f"op surface {bits}: one RESIZE, one CONCATENATION")
+        for k in own:
+            st = p.stages[k]
+            ins = [env[i] for i in st.inputs]
+            got = perop.perop_op(st, getattr(p, f"descs{k}"),
+                                 getattr(p, f"consts{k}"), ins)[0]
+            want = (move.resize_nearest_plain(ins[0], *st.args)
+                    if st.kernel == "resize_nearest" else
+                    move.concat_channels_plain([ins[j] for j in st.args]))
+            _require(torch.equal(got, want) and torch.equal(
+                got, env[st.outputs[0]]), f"perop {st.kernel} {bits} on "
+                "the op surface's own inputs")
+    print("[check] perop op surface, fast and exact bits: the RESIZE "
+          "(x2x2, 8 channels) and the 3-input CONCATENATION programs "
+          "through their kernels equal the plain versions")
+
     # B2b, B6b: the rest of the arena and tiled kernels' op surface
     # (standalone LEAKY, RELU, RELU6, LOGISTIC, RESIZE, AVERAGE_POOL_2D, a
     # PAD kept as an op) on every stage or section output: whole frame, one
@@ -805,9 +893,9 @@ def main() -> int:
         "fused_exact": (pipes["fused_exact"], None, (8, 256),
                         (counted[0], counted[5], counted[2])),
         "perop": (pipes["perop"], None, (8, 256),
-                  (counted[0], counted[6], counted[2])),
+                  (counted[0], counted[6], counted[9], counted[2])),
         "perop_exact": (pipes["perop_exact"], None, (8, 256),
-                        (counted[0], counted[6], counted[2])),
+                        (counted[0], counted[6], counted[9], counted[2])),
     }
     launches, by_kernel = {}, {}
 
@@ -837,6 +925,12 @@ def main() -> int:
               + (f", per-op {by_kernel[path]}" if by_kernel[path] else ""))
         _require(all(fn.launches > 0 for fn in kernels),
                  f"{path}: every kernel of the path launched")
+        if by_kernel[path]:          # the corpus net's per-op programs
+            _require(move.concat_channels.launches
+                     == by_kernel[path]["concat_channels"]
+                     and move.resize_nearest.launches == 0,
+                     f"{path}: the CONCATENATION programs through "
+                     "concat_channels")
         eng = p.engine
         cpu_pipe = load_pipeline(CORPUS, mode=eng.mode, device="cpu",
                                  head_config=cfg)
@@ -910,6 +1004,10 @@ def main() -> int:
         _require(eltwise.eltwise_lut.launches
                  == by_kernel[path]["eltwise_int8"] > 0,
                  f"{path}: the activation programs through eltwise_lut")
+        for fn in (move.resize_nearest, move.concat_channels):
+            _require(fn.launches == by_kernel[path][fn.__name__] > 0,
+                     f"{path}: the {fn.__name__} programs through "
+                     "their kernel")
         cpu = Int8Engine(surface, mode, device="cpu")(xs_surface.cpu())
         for k, (u, v) in enumerate(zip(served, cpu)):
             _require(torch.equal(u.cpu(), v), f"{path}: output {k} vs CPU")
@@ -1128,9 +1226,17 @@ def main() -> int:
             descs, consts = (getattr(plan, f"descs{k}"),
                              getattr(plan, f"consts{k}"))
             out = [torch.empty_like(env[st.outputs[0]])]
-            if perop.card_kernel(st) == "eltwise_lut":   # its own plain
+            runs_on = perop.card_kernel(st)
+            if runs_on == "eltwise_lut":                 # its own plain
                 def plain():
                     return eltwise.eltwise_lut_plain(descs, ins[0])
+            elif runs_on == "resize_nearest":
+                def plain():
+                    return move.resize_nearest_plain(ins[0], *st.args)
+            elif runs_on == "concat_channels":
+                def plain():
+                    return move.concat_channels_plain(
+                        [ins[j] for j in st.args])
             else:
                 def plain():
                     perop.perop_plain(st, consts, ins + out)
@@ -1456,11 +1562,15 @@ def main() -> int:
         b = bound(*work[k])
         graph = op_graph[k]
         path = "op surface perop" if graph == "op surface" else "perop"
-        row = {"name": k, "route": "cuda",
-               "source": src + ("eltwise_lut.cu" if k in perop.TABLE_KERNELS
-                                else "fused_stage.cu"),
+        runs_on = ("eltwise_lut" if k in perop.TABLE_KERNELS else
+                   k if k in perop.OWN_KERNELS else "fused_stage")
+        row = {"name": k, "route": "cuda", "source": src + runs_on + ".cu",
                "replaces": f"yoloface_tpu/kernels/pallas_int8.py:{line}",
-               "launches": by_kernel[path].get(k, 0), "max_abs_err": err[k],
+               # an own kernel's wrapper count, else the per-op count
+               "launches": (launches[path][runs_on]
+                            if k in perop.OWN_KERNELS
+                            else by_kernel[path].get(k, 0)),
+               "max_abs_err": err[k],
                "ms": op_ms[(k, "fast")]["device"],
                "plain_ms": op_ms[(k, "fast")]["plain"],
                "ms_host_in": op_ms[(k, "fast")]["host_in"],
@@ -1536,7 +1646,7 @@ def main() -> int:
                    for mode, r in v3.items()}}
         kernels.append(row)
     kernels.extend(probe_rows)
-    print(card)
+    print(_smi("name,power.limit"))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

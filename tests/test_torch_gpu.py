@@ -14,8 +14,8 @@ import torch
 
 from yoloface_tpu_torch.graph.retarget import retarget_spatial
 from yoloface_tpu_torch.io.tflite_import import load_tflite
-from yoloface_tpu_torch.kernels import (arena, eltwise, fused, head, perop,
-                                       preprocess, tiled)
+from yoloface_tpu_torch.kernels import (arena, eltwise, fused, head, move,
+                                       perop, preprocess, tiled)
 from yoloface_tpu_torch.pipeline.e2e import load_pipeline
 from yoloface_tpu_torch.runtime.engine import Int8Engine
 
@@ -427,3 +427,102 @@ def test_probe_conv_matches_plain_on_the_card():
         assert torch.equal(probes.probe_conv(xf, w, **kw),
                            probes.probe_conv_plain(xf, w, **kw)), kw
     torch.cuda.synchronize()
+
+
+def _grid_span(tile_bytes):
+    """Bytes one round of the largest grid of a byte-move kernel covers:
+    the card's SMs x the 256-thread blocks an SM holds x a tile."""
+    props = torch.cuda.get_device_properties(0)
+    return tile_bytes * props.multi_processor_count * (getattr(
+        props, "max_threads_per_multi_processor", 2048) // 256)
+
+
+def _one_byte_in(rng, shape):
+    """A CUDA int8 tensor of ``shape`` one byte into its storage."""
+    buf = rng.integers(-128, 128, 1 + int(np.prod(shape))).astype(np.int8)
+    return torch.from_numpy(buf).cuda()[1:].view(*shape)
+
+
+# (N, H, W, C), kh, kw: the op surface's 4x4x8, ragged frame counts and
+# rows, C = 3 / 5 / 18, the FPN upsample's 13x13x128, a row wider than a
+# tile (segments of a row)
+RESIZE_SHAPES = [((37, 4, 4, 8), 2, 2), ((1001, 15, 15, 3), 2, 3),
+                 ((13, 7, 5, 5), 3, 1), ((37, 14, 14, 18), 2, 2),
+                 ((37, 13, 13, 128), 2, 2), ((3, 2, 300, 128), 2, 2),
+                 ((5, 3, 3, 1), 1, 1)]
+
+
+@pytest.mark.gpu
+def test_resize_nearest_matches_plain_on_the_card():
+    """csrc/resize_nearest.cu equals its plain version bit for bit on
+    ragged frame counts and channel counts 1, 3, 5, 8, 18 and 128, on
+    factors 2x2, 2x3 and 3x1, on a row wider than its tile, on an input
+    and an output one byte into their storage (the element path), and on
+    a flat size past one round of its largest grid; the op-surface per-op
+    program routes its RESIZE there."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(11)
+    rounds = -(-_grid_span(move.TILE_BYTES) // (13 * 13 * 128))
+    shapes = RESIZE_SHAPES + [((2 * rounds + 3, 13, 13, 128), 2, 2)]
+    for shape, kh, kw in shapes:
+        x = torch.from_numpy(rng.integers(-128, 128, shape)
+                             .astype(np.int8)).cuda()
+        want = move.resize_nearest_plain(x, kh, kw)
+        assert torch.equal(move.resize_nearest(x, kh, kw), want), shape
+        off = _one_byte_in(rng, shape)
+        assert torch.equal(move.resize_nearest(off, kh, kw),
+                           move.resize_nearest_plain(off, kh, kw)), shape
+        out = torch.empty(1 + want.numel(), dtype=torch.int8,
+                          device="cuda")[1:].view(want.shape)
+        move.resize_nearest(off, kh, kw, out=out)
+        assert torch.equal(out, move.resize_nearest_plain(off, kh, kw)), shape
+    tool = _golden_tool()
+    plan = perop.PerOpPlan(tool.surface_graph(), "fast").cuda()
+    move.resize_nearest.launches = 0
+    plan.run_stages(torch.from_numpy(tool.surface_frames()).cuda())
+    torch.cuda.synchronize()
+    assert move.resize_nearest.launches == 1
+
+
+# input shapes: the corpus concats, the op surface's 3 inputs, channel
+# counts 3 + 5 + 18 on a ragged frame count, 128 + 256 (one read a chunk),
+# a single input, eight and sixteen inputs
+CONCAT_SHAPES = [[(37, 14, 14, 18)] * 2, [(37, 7, 7, 24)] * 2,
+                 [(37, 8, 8, 8)] * 3,
+                 [(1001, 3, 3, 3), (1001, 3, 3, 5), (1001, 3, 3, 18)],
+                 [(5, 4, 4, 128), (5, 4, 4, 256)], [(3, 2, 2, 1)],
+                 [(9, 5, 5, c) for c in range(1, 9)],
+                 [(2, 3, 3, 2)] * 16]
+
+
+@pytest.mark.gpu
+def test_concat_channels_matches_plain_on_the_card():
+    """csrc/concat_channels.cu equals its plain version bit for bit on the
+    corpus concats, the op surface's three inputs, channel counts 3, 5 and
+    18 on a ragged frame count, 1 to 16 inputs, inputs and an output one
+    byte into their storage (the element path), and a flat size past one
+    round of its largest grid; the corpus per-op program routes both its
+    CONCATENATIONs there."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(12)
+    rounds = -(-_grid_span(move.TILE_BYTES) // (14 * 14 * 36))
+    shapes = CONCAT_SHAPES + [[(2 * rounds + 3, 14, 14, 18)] * 2]
+    for shapes_ in shapes:
+        xs = [torch.from_numpy(rng.integers(-128, 128, s).astype(np.int8))
+              .cuda() for s in shapes_]
+        want = move.concat_channels_plain(xs)
+        assert torch.equal(move.concat_channels(xs), want), shapes_
+        offs = [_one_byte_in(rng, s) for s in shapes_]
+        out = torch.empty(1 + want.numel(), dtype=torch.int8,
+                          device="cuda")[1:].view(want.shape)
+        move.concat_channels(offs, out=out)
+        assert torch.equal(out, move.concat_channels_plain(offs)), shapes_
+    gold = dict(np.load(GOLDEN))
+    x = preprocess.preprocess_rgb565(torch.from_numpy(gold["frames"]).cuda())
+    plan = perop.PerOpPlan(load_tflite(CORPUS), "fast").cuda()
+    move.concat_channels.launches = 0
+    plan.run_stages(x)
+    torch.cuda.synchronize()
+    assert move.concat_channels.launches == 2

@@ -48,6 +48,9 @@ ENTRIES = {
     "elementwise table kernel":
         "from yoloface_tpu_torch.kernels.eltwise import (eltwise_lut,\n"
         "                                               eltwise_lut_plain)",
+    "byte-move kernels":
+        "from yoloface_tpu_torch.kernels.move import (concat_channels,\n"
+        "                                            resize_nearest)",
     "probes entry points":
         "from yoloface_tpu_torch.kernels import probes\n"
         "from yoloface_tpu_torch.probes import (debug448, microbench,\n"

@@ -35,11 +35,15 @@ concat input) whose views all lie in device memory (space 1.. the op's
 inputs, then its output).  On the card the RELU, RELU6 and LOGISTIC
 programs (kernel ``eltwise_int8``) run on the flat table kernel
 (``kernels/eltwise.py``, ``csrc/eltwise_lut.cu``), one map over the op's
-dense bytes; every other program runs on the fused-stage kernel
-(``csrc/fused_stage.cu``, one block a frame, through ``fused.run_stage``)
-with no values in shared memory: only a max-pool's row-pass scratch is
-there.  ``perop_plain`` runs the same program with the arena's plain
-executor, so the CPU runs the card's very program.
+dense bytes; the RESIZE and CONCATENATION programs (``resize_nearest``,
+``concat_channels``) on the flat byte-move kernels of ``kernels/move.py``
+(``csrc/resize_nearest.cu``, ``csrc/concat_channels.cu``), with their
+factors and input order taken from the program once, at plan time; every
+other program runs on the fused-stage kernel (``csrc/fused_stage.cu``, one
+block a frame, through ``fused.run_stage``) with no values in shared
+memory: only a max-pool's row-pass scratch is there.  ``perop_plain``
+runs the same program with the arena's plain executor, so the CPU runs
+the card's very program.
 """
 
 from __future__ import annotations
@@ -47,13 +51,13 @@ from __future__ import annotations
 import collections
 import dataclasses
 import functools
-from typing import List, Sequence
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from yoloface_tpu_torch.graph.ir import GraphDef
-from yoloface_tpu_torch.kernels import arena, eltwise
+from yoloface_tpu_torch.kernels import arena, eltwise, move
 from yoloface_tpu_torch.kernels.arena import LOp, Stage, View
 from yoloface_tpu_torch.kernels.fused import (FusedStage, lower_fused_ops,
                                               pool_scratch, run_stage)
@@ -74,14 +78,20 @@ _BY_CODE = {code: name for name, (_, code) in KERNELS.items()
             if code != arena.CONV}
 # the B8 kernels whose programs run on the table kernel on the card
 TABLE_KERNELS = ("eltwise_int8",)
+# the B8 kernels whose programs run on a kernel of their own on the card,
+# a wrapper of kernels/move.py of the same name
+OWN_KERNELS = ("resize_nearest", "concat_channels")
+F = arena.F
 
 
 @dataclasses.dataclass
 class PerOpStage(FusedStage):
     """One op as a program: no arena, its output in device memory;
-    ``kernel`` names the B8 kernel it replaces."""
+    ``kernel`` names the B8 kernel it replaces; ``args`` holds what an
+    ``OWN_KERNELS`` launch takes from the program (``launch_args``)."""
 
     kernel: str = ""
+    args: Tuple[int, ...] = ()
 
 
 def kernel_name(lp: LOp) -> str:
@@ -112,11 +122,26 @@ def plan_perop(graph: GraphDef, lp: LOp) -> PerOpStage:
     else:
         in1 = view(lp.ins[1]) if len(lp.ins) > 1 else arena.NOVIEW
         rows = [arena.op_row(lp.code, out, view(lp.ins[0]), in1, lp)]
-    return PerOpStage(np.asarray(rows, np.int32),
+    descs = np.asarray(rows, np.int32)
+    kernel = kernel_name(lp)
+    return PerOpStage(descs,
                       np.frombuffer(bytes(consts) or b"\0", np.uint8).copy(),
                       0, inputs, [lp.out], shapes,
-                      scratch=pool_scratch(graph, [lp]),
-                      kernel=kernel_name(lp))
+                      scratch=pool_scratch(graph, [lp]), kernel=kernel,
+                      args=launch_args(kernel, descs))
+
+
+def launch_args(kernel: str, descs: np.ndarray) -> Tuple[int, ...]:
+    """What the ``OWN_KERNELS`` launch of a program takes from its host
+    descriptors: a resize's factors (kh, kw); a concat's inputs in channel
+    order, as indices into the stage's inputs (one COPY row each, its
+    in0_space 1 + that index); nothing for other kernels."""
+    if kernel == "resize_nearest":
+        return int(descs[0, F["kh"]]), int(descs[0, F["kw"]])
+    if kernel == "concat_channels":
+        rows = sorted(descs, key=lambda d: int(d[F["out_off"]]))
+        return tuple(int(d[F["in0_space"]]) - 1 for d in rows)
+    return ()
 
 
 def build_perop_plan(graph: GraphDef, bits: str = "fast"
@@ -136,21 +161,34 @@ perop_plain = arena.arena_stage_plain
 
 def card_kernel(stage: PerOpStage) -> str:
     """The CUDA kernel that runs ``stage`` on the card: ``eltwise_lut``
-    for the ``TABLE_KERNELS`` programs, else ``fused_stage``."""
-    return "eltwise_lut" if stage.kernel in TABLE_KERNELS else "fused_stage"
+    for the ``TABLE_KERNELS`` programs, their own for the ``OWN_KERNELS``
+    programs, else ``fused_stage``."""
+    if stage.kernel in TABLE_KERNELS:
+        return "eltwise_lut"
+    return stage.kernel if stage.kernel in OWN_KERNELS else "fused_stage"
 
 
 def perop_op(stage: PerOpStage, descs: torch.Tensor, consts: torch.Tensor,
              xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """Run one op on its input tensors (int8 [N,H,W,C], in
     ``stage.inputs`` order) -> [its output].  CPU tensors take
-    ``perop_plain``; CUDA tensors launch ``yf_eltwise_lut`` or
-    ``yf_fused_stage`` (``card_kernel``)."""
-    if card_kernel(stage) == "eltwise_lut" and xs[0].device.type == "cuda":
+    ``perop_plain``; CUDA tensors launch ``yf_eltwise_lut``,
+    ``yf_resize_nearest``, ``yf_concat_channels`` or ``yf_fused_stage``
+    (``card_kernel``).  The byte-move launches check the input shapes and
+    nothing of the program: their arguments are ``stage.args``."""
+    card = card_kernel(stage)
+    if card != "fused_stage" and xs[0].device.type == "cuda":
         outs, dev = arena.prepare(stage, xs)
-        arena.check_program(stage, descs, consts, dev)
-        eltwise.eltwise_lut(descs, xs[0], out=outs[0])
         launched = True
+        if card == "eltwise_lut":
+            arena.check_program(stage, descs, consts, dev)
+            eltwise.eltwise_lut(descs, xs[0], out=outs[0])
+        elif not xs[0].shape[0]:
+            launched = False
+        elif card == "resize_nearest":
+            move.launch_resize_nearest(xs[0], outs[0], *stage.args)
+        else:
+            move.launch_concat_channels([xs[j] for j in stage.args], outs[0])
     else:
         outs, launched = run_stage(stage, descs, consts, xs, "per-op")
     if launched:
