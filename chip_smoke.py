@@ -31,11 +31,12 @@ Phases (each prints its lines; any failure ends the run with an error):
      twice one round of its largest grid, for each activation of the
      op-surface graph and the yolov3-tiny upsample in fast and exact bits;
      the per-op byte-move kernels (csrc/resize_nearest.cu,
-     csrc/concat_channels.cu) against their plain versions on ragged frame
-     counts, channel counts 1-18 and 128, 1 to 16 inputs, a row wider than
-     a tile, views one byte in and a flat size past twice one round of
-     their largest grid, and on the op surface's RESIZE and 3-input
-     CONCATENATION programs in both bits;
+     csrc/concat_channels.cu, csrc/pad_int8.cu) against their plain
+     versions on ragged frame counts, channel counts 1-24 and 128, 1 to 16
+     inputs, the corpus's and the op surface's PADs and asymmetric pads, a
+     row wider than a tile, views one byte in and a flat size past twice
+     one round of their largest grid, and on the op surface's RESIZE,
+     3-input CONCATENATION and two PAD programs in both bits;
      the arena and section kernels'
      new op cases (B2b, B6b: standalone LEAKY, RELU, RELU6, LOGISTIC,
      RESIZE, AVERAGE_POOL_2D, a PAD kept as an op) on every stage or
@@ -53,8 +54,9 @@ Phases (each prints its lines; any failure ends the run with an error):
      HeadConfig(use_fused_head=False) (the top-K kernel and the staged
      head), arena (fused head), fused and fused_exact (the preprocess, the
      fused stages, the fused head), perop and perop_exact (the preprocess,
-     the per-op programs (the table kernel and, for both CONCATENATIONs,
-     the concat kernel among them), the fused head);
+     the per-op programs (the table kernel and, for both CONCATENATIONs
+     and the three PADs, the concat and pad kernels among them), the fused
+     head);
      detections are held against the CPU path of the same mode (the plain
      versions) and the int8 head against the golden file
      tests/data/torch_port_frames.npz (head, head_exact,
@@ -64,8 +66,8 @@ Phases (each prints its lines; any failure ends the run with an error):
      path and the golden 448 keys; then the op-surface graph,
      Int8Engine(surface, mode, device="cuda") in perop and perop_exact, held
      against the CPU path and the golden keys (the per-op launches there
-     count for the eltwise, resize and standalone leaky rows; the RESIZE
-     and CONCATENATION programs must launch their own kernels); then the
+     count for the eltwise, resize and standalone leaky rows; the RESIZE,
+     CONCATENATION and PAD programs must launch their own kernels); then the
      .tflite test graphs, Int8Engine(load_tflite(...), mode) in each of
      the ten kernel modes, against their golden keys (the arena2 launches
      count for the B2b row); then yolov3-tiny at 416 in tiled2 and
@@ -496,7 +498,7 @@ def main() -> int:
     counted = (kpre.preprocess_rgb565, arena.arena_stage, khead.detect_head,
                khead.topk_conf, tiled.tiled_section, fused.fused_stage,
                perop.perop_op, eltwise.eltwise_lut, move.resize_nearest,
-               move.concat_channels)
+               move.concat_channels, move.pad_int8)
 
     def zero_counts():
         for fn in counted:
@@ -759,14 +761,43 @@ def main() -> int:
           f"{move.MAX_INPUTS} inputs, views one byte in, {big_rows} and "
           f"{big_px} frames (past twice the {move_span} B one round of the "
           "largest grid covers): bit-exact")
+    # B8.4 csrc/pad_int8.cu: the corpus's three PADs and the op surface's
+    # two, ragged frame counts, C = 1, 3, 5, 18, 24 and 128, asymmetric
+    # pads, rows of fewer than 16 bytes, a 448-wide row of 48 channels
+    # (wider than a tile), and a flat size past twice one round of the
+    # largest grid; each input and output also one byte in
+    big_pads = -(-2 * move_span // (29 * 29 * 18)) + 3
+    for shape, pads, fill in (((37, 56, 56, 3), (1, 0, 1, 0), -128),
+                              ((37, 28, 28, 18), (1, 0, 1, 0), -109),
+                              ((37, 14, 14, 24), (1, 0, 1, 0), -103),
+                              ((37, 15, 15, 3), (1, 1, 1, 1), -3),
+                              ((37, 8, 8, 24), (0, 1, 1, 0), 4),
+                              ((1001, 14, 14, 24), (1, 0, 1, 0), 0),
+                              ((1001, 5, 6, 1), (2, 1, 0, 3), 127),
+                              ((13, 5, 6, 5), (2, 1, 0, 3), -1),
+                              ((7, 9, 9, 3), (2, 3, 4, 5), 3),
+                              ((5, 5, 6, 128), (0, 2, 3, 0), 5),
+                              ((2, 3, 448, 48), (1, 1, 1, 1), 9),
+                              ((big_pads, 28, 28, 18), (1, 0, 1, 0), 7)):
+        check_move("pad_int8",
+                   lambda xs, out: move.pad_int8(xs[0], *pads, fill, out),
+                   lambda xs: move.pad_int8_plain(xs[0], *pads, fill),
+                   [shape], f"{shape} pads {pads} fill {fill}")
+    print("[check] pad_int8: the corpus's three PADs and the op surface's "
+          "two, ragged frame counts, C = 1, 3, 5, 18, 24, 128, asymmetric "
+          "pads, a 448-wide row of 48 channels (wider than a tile), views "
+          f"one byte in, {big_pads} frames of 28x28x18 (past twice the "
+          f"{move_span} B one round of the largest grid covers): bit-exact")
     for bits in perop.BITS:
         p = perop.PerOpPlan(surface, bits).to(dev)
         env = p.run_stages(int8_frames(37, 15))
         own = [k for k, st in enumerate(p.stages)
                if st.kernel in perop.OWN_KERNELS]
         _require(sorted(p.stages[k].kernel for k in own)
-                 == ["concat_channels", "resize_nearest"],
-                 f"op surface {bits}: one RESIZE, one CONCATENATION")
+                 == ["concat_channels", "pad_int8", "pad_int8",
+                     "resize_nearest"],
+                 f"op surface {bits}: one RESIZE, one CONCATENATION, two "
+                 "PADs")
         for k in own:
             st = p.stages[k]
             ins = [env[i] for i in st.inputs]
@@ -774,13 +805,15 @@ def main() -> int:
                                  getattr(p, f"consts{k}"), ins)[0]
             want = (move.resize_nearest_plain(ins[0], *st.args)
                     if st.kernel == "resize_nearest" else
+                    move.pad_int8_plain(ins[0], *st.args)
+                    if st.kernel == "pad_int8" else
                     move.concat_channels_plain([ins[j] for j in st.args]))
             _require(torch.equal(got, want) and torch.equal(
                 got, env[st.outputs[0]]), f"perop {st.kernel} {bits} on "
                 "the op surface's own inputs")
     print("[check] perop op surface, fast and exact bits: the RESIZE "
-          "(x2x2, 8 channels) and the 3-input CONCATENATION programs "
-          "through their kernels equal the plain versions")
+          "(x2x2, 8 channels), the 3-input CONCATENATION and the two PAD "
+          "programs through their kernels equal the plain versions")
 
     # B2b, B6b: the rest of the arena and tiled kernels' op surface
     # (standalone LEAKY, RELU, RELU6, LOGISTIC, RESIZE, AVERAGE_POOL_2D, a
@@ -893,9 +926,11 @@ def main() -> int:
         "fused_exact": (pipes["fused_exact"], None, (8, 256),
                         (counted[0], counted[5], counted[2])),
         "perop": (pipes["perop"], None, (8, 256),
-                  (counted[0], counted[6], counted[9], counted[2])),
+                  (counted[0], counted[6], counted[9], counted[10],
+                   counted[2])),
         "perop_exact": (pipes["perop_exact"], None, (8, 256),
-                        (counted[0], counted[6], counted[9], counted[2])),
+                        (counted[0], counted[6], counted[9], counted[10],
+                         counted[2])),
     }
     launches, by_kernel = {}, {}
 
@@ -931,6 +966,9 @@ def main() -> int:
                      and move.resize_nearest.launches == 0,
                      f"{path}: the CONCATENATION programs through "
                      "concat_channels")
+            _require(move.pad_int8.launches == by_kernel[path]["pad_int8"]
+                     == 3 * len(batches),
+                     f"{path}: the 3 PAD programs a batch through pad_int8")
         eng = p.engine
         cpu_pipe = load_pipeline(CORPUS, mode=eng.mode, device="cpu",
                                  head_config=cfg)
@@ -1004,7 +1042,7 @@ def main() -> int:
         _require(eltwise.eltwise_lut.launches
                  == by_kernel[path]["eltwise_int8"] > 0,
                  f"{path}: the activation programs through eltwise_lut")
-        for fn in (move.resize_nearest, move.concat_channels):
+        for fn in (move.resize_nearest, move.concat_channels, move.pad_int8):
             _require(fn.launches == by_kernel[path][fn.__name__] > 0,
                      f"{path}: the {fn.__name__} programs through "
                      "their kernel")
@@ -1209,15 +1247,16 @@ def main() -> int:
         for key, t in got.items():
             acc[key] = acc.get(key, 0.0) + t
 
-    def time_ops(plan, inp, keep, bits, op_ms, work, lib_ops):
+    def time_ops(plan, inp, keep, bits, op_ms, work, lib_ops, each):
         """Check, then time, each op of ``plan`` that ``keep(st)`` selects
         on the program's own tensors from ``inp``: the wrapper must equal
         its plain version on the very inputs it is timed on.  Kernel times
         (``times``) and plain times summed by kernel into
-        ``op_ms[(kernel, bits)]``; in fast bits its work into
-        ``work[kernel]`` and the library call (checked equal first) with
-        the kernel on the same ops into ``lib_ops[kernel]`` (None where
-        the card has none; on the table kernel's ops a mismatch fails)."""
+        ``op_ms[(kernel, bits)]`` and op by op into ``each[(kernel,
+        bits)]``; in fast bits its work into ``work[kernel]`` and the
+        library call (checked equal first) with the kernel on the same ops
+        into ``lib_ops[kernel]`` (None where the card has none; on the
+        table kernel's ops a mismatch fails)."""
         env = plan.run_stages(inp)
         for k, st in enumerate(plan.stages):
             if not keep(st):
@@ -1237,6 +1276,9 @@ def main() -> int:
                 def plain():
                     return move.concat_channels_plain(
                         [ins[j] for j in st.args])
+            elif runs_on == "pad_int8":
+                def plain():
+                    return move.pad_int8_plain(ins[0], *st.args)
             else:
                 def plain():
                     perop.perop_plain(st, consts, ins + out)
@@ -1250,14 +1292,19 @@ def main() -> int:
                 f"on its timed inputs {tuple(ins[0].shape)}")
             err[st.kernel] = max(err[st.kernel], _max_err([(got, plain())]))
             acc = op_ms.setdefault((st.kernel, bits), {})
-            t_k = times(kern)
+            t_k, t_p = times(kern), op_time(plain)
             add(acc, t_k)
-            add(acc, {"plain": op_time(plain)})
+            add(acc, {"plain": t_p})
+            rec = {"op": k, "input": list(ins[0].shape), "ms": t_k["device"],
+                   "plain_ms": t_p}
+            each.setdefault((st.kernel, bits), []).append(rec)
             if bits != "fast":
                 continue
             w = work.setdefault(st.kernel, [0, 0, 0])
             for j, v in enumerate(_op_work(st)):
                 w[j] += len(inp) * v
+            rec.update(zip(("bound_ms", "bound_by"), bound(
+                *(len(inp) * v for v in _op_work(st)))))
             lib = library_call(st, ins)
             if lib is None:
                 continue
@@ -1277,28 +1324,37 @@ def main() -> int:
                 continue
             acc = lib_ops.setdefault(st.kernel, {"name": lname, "lib": {},
                                                  "kernel": {}})
-            add(acc["lib"], times(fn))
+            t_lib = times(fn)
+            rec["library_ms"] = t_lib["device"]
+            add(acc["lib"], t_lib)
             add(acc["kernel"], t_k)
 
     def show(t):
         return (f"{t['device']:.4f} ms device, {t['host_in']:.4f} with the "
                 f"host work in the window, {t['host']:.4f} host")
 
-    op_ms, work, lib_ops = {}, {}, {}
+    op_ms, work, lib_ops, each_op = {}, {}, {}, {}
     surface_n = int8_frames(n, 15)
     op_graph = {k: "op surface" if k in SURFACE_ONLY else "corpus"
                 for k in perop.KERNELS}
     for bits in perop.BITS:
         time_ops(pplans[bits], x, lambda st: st.kernel not in SURFACE_ONLY,
-                 bits, op_ms, work, lib_ops)
+                 bits, op_ms, work, lib_ops, each_op)
         time_ops(perop.PerOpPlan(surface, bits).to(dev), surface_n,
                  lambda st: st.kernel in SURFACE_ONLY, bits, op_ms, work,
-                 lib_ops)
+                 lib_ops, each_op)
     del surface_n
     for (name, bits), t in op_ms.items():
         print(f"[time] perop {name} {bits} N={n} ({op_graph[name]}), summed "
               f"over its ops: kernel {show(t)}; plain {t['plain']:.4f} ms "
               f"({card})")
+    for name in perop.OWN_KERNELS:      # the byte-move kernels op by op
+        for r in each_op.get((name, "fast"), ()):
+            print(f"[time] perop {name} op {r['op']} {r['input']} fast: "
+                  f"kernel {r['ms']:.4f} ms device, plain "
+                  f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f}"
+                  + (f", library {r['library_ms']:.4f}"
+                     if "library_ms" in r else "") + f" ({card})")
     for name, got in lib_ops.items():
         if got is not None:
             library_ms[name] = got["lib"]["device"]
@@ -1308,13 +1364,13 @@ def main() -> int:
     # the op-surface graph gives those three kernels 128-512 B a frame; at
     # a real model's size they run on the FPN upsample of the published
     # yolov3-tiny (SCALE_GRAPH): every op of that graph, fast bits
-    big_ms, big_work, big_lib = {}, {}, {}
+    big_ms, big_work, big_lib, big_each = {}, {}, {}, {}
     g_up = _upsample_graph(tool)
     x_up = torch.from_numpy(rng.integers(
         -128, 128, (BATCH_SCALE, 13, 13, 128), dtype=np.int64
     ).astype(np.int8)).to(dev)
     time_ops(perop.PerOpPlan(g_up, "fast").to(dev), x_up, lambda st: True,
-             "fast", big_ms, big_work, big_lib)
+             "fast", big_ms, big_work, big_lib, big_each)
     del x_up
     big_ms_by_kernel = {name: t for (name, _), t in big_ms.items()}
     for name, t in big_ms_by_kernel.items():
@@ -1580,6 +1636,9 @@ def main() -> int:
                "ms_exact": op_ms[(k, "exact")]["device"],
                "plain_ms_exact": op_ms[(k, "exact")]["plain"], "graph": graph,
                "launches_path": path}
+        if k in perop.OWN_KERNELS:      # op by op, with its exact time
+            row["ops"] = [dict(r, ms_exact=e["ms"]) for r, e in zip(
+                each_op[(k, "fast")], each_op[(k, "exact")])]
         if lib_ops.get(k):      # the library call's ops, the kernel on them
             row.update(library=lib_ops[k]["name"],
                        ms_on_library_ops=lib_ops[k]["kernel"]["device"],

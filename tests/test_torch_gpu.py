@@ -311,10 +311,23 @@ def _probe_ints(shape, lo, hi, seed, dtype=torch.int8):
 def test_probe_copy_matches_plain_on_the_card():
     """csrc/probe_copy.cu: the flat, per-frame and strip-blocked copies and
     the phase select equal Tensor.clone and x[:, ::2], with 16-byte moves
-    and with byte moves (rows not a multiple of 16)."""
+    and with byte moves (rows not a multiple of 16); the per-frame copy
+    also at t73's shape (128 frames of 301,056 B: nine rounds of 512
+    threads x 4 loads in flight, then a partial one) and at ragged sizes
+    (frames of 2, 45 and 1,344 16-byte chunks, less than one round; a
+    frame of 189 B, moved in bytes; a view one byte in)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from yoloface_tpu_torch.kernels import probes
+    for k, shape in enumerate(((128, 112, 112, 24), (3, 1, 1, 32),
+                               (7, 5, 3, 48), (2, 3, 7, 1024),
+                               (5, 7, 9, 3))):
+        x = _probe_ints(shape, -128, 128, 10 + k)
+        assert torch.equal(probes.probe_copy(x, "frame"), x.clone()), shape
+    off = torch.from_numpy(np.random.default_rng(9).integers(
+        -128, 128, 1 + 4 * 3 * 5 * 16).astype(np.int8)).cuda()[1:]
+    off = off.view(4, 3, 5, 16)
+    assert torch.equal(probes.probe_copy(off, "frame"), off.clone())
     for shape in ((3, 28, 28, 24), (5, 7, 9, 3)):
         x = _probe_ints(shape, -128, 128, 0)
         for schedule, strips in (("flat", 1), ("frame", 1), ("strip", 7)):
@@ -526,3 +539,52 @@ def test_concat_channels_matches_plain_on_the_card():
     plan.run_stages(x)
     torch.cuda.synchronize()
     assert move.concat_channels.launches == 2
+
+
+# (N, H, W, C), (pt, pb, pl, pr), fill: the corpus's three PADs (one frame
+# count ragged), C = 1, 3, 5, 18 and 128, asymmetric pads, rows of fewer
+# than 16 bytes, a 448-wide row of 48 channels (wider than a tile), an
+# output row far wider than its input, no pad
+PAD_SHAPES = [((37, 56, 56, 3), (1, 0, 1, 0), -128),
+              ((37, 28, 28, 18), (1, 0, 1, 0), -109),
+              ((1001, 14, 14, 24), (1, 0, 1, 0), -103),
+              ((1001, 5, 6, 1), (2, 1, 0, 3), 0),
+              ((13, 5, 6, 5), (2, 1, 0, 3), 127),
+              ((7, 9, 9, 3), (2, 3, 4, 5), -1),
+              ((5, 5, 6, 128), (0, 2, 3, 0), 5),
+              ((2, 3, 448, 48), (1, 1, 1, 1), 9),
+              ((2, 1, 1, 1), (0, 0, 20000, 3), 4),
+              ((3, 4, 4, 3), (0, 0, 0, 0), 1)]
+
+
+@pytest.mark.gpu
+def test_pad_int8_matches_plain_on_the_card():
+    """csrc/pad_int8.cu equals its plain version (F.pad) bit for bit on the
+    corpus's three PADs, ragged frame counts, C = 1, 3, 5, 18, 24 and 128,
+    asymmetric pads, a row wider than its tile, an input and an output one
+    byte into their storage (the element path), and a flat size past one
+    round of its largest grid; the corpus per-op program routes its three
+    PADs there and none to the fused-stage kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(13)
+    rounds = -(-_grid_span(move.TILE_BYTES) // (29 * 29 * 18))
+    shapes = PAD_SHAPES + [((2 * rounds + 3, 28, 28, 18), (1, 0, 1, 0), 7)]
+    for shape, pads, fill in shapes:
+        x = torch.from_numpy(rng.integers(-128, 128, shape)
+                             .astype(np.int8)).cuda()
+        want = move.pad_int8_plain(x, *pads, fill)
+        assert torch.equal(move.pad_int8(x, *pads, fill), want), shape
+        off = _one_byte_in(rng, shape)
+        out = torch.empty(1 + want.numel(), dtype=torch.int8,
+                          device="cuda")[1:].view(want.shape)
+        move.pad_int8(off, *pads, fill, out=out)
+        assert torch.equal(out, move.pad_int8_plain(off, *pads, fill)), shape
+    gold = dict(np.load(GOLDEN))
+    x = preprocess.preprocess_rgb565(torch.from_numpy(gold["frames"]).cuda())
+    plan = perop.PerOpPlan(load_tflite(CORPUS), "fast").cuda()
+    move.pad_int8.launches = 0
+    perop.reset_launches()
+    plan.run_stages(x)
+    torch.cuda.synchronize()
+    assert move.pad_int8.launches == 3 == perop.perop_op.by_kernel["pad_int8"]

@@ -70,7 +70,8 @@ def test_port_imports_without_jax(entry):
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py",
-                                    "tools/torch_profile_pipeline.py"])
+                                    "tools/torch_profile_pipeline.py",
+                                    "tools/torch_variant_sweep.py"])
 def test_card_scripts_import_no_jax(script):
     """The scripts the card's machine runs name no jax and no yoloface_tpu
     module in any import statement, at top level or inside a function."""

@@ -1,15 +1,16 @@
 """The per-op byte-move kernels (``kernels/move.py``:
-``csrc/resize_nearest.cu``, ``csrc/concat_channels.cu``) against the JAX
-package on the CPU.
+``csrc/resize_nearest.cu``, ``csrc/concat_channels.cu``,
+``csrc/pad_int8.cu``) against the JAX package on the CPU.
 
-Tolerance 0 everywhere: a resize and a concat move bytes.  The plain
-versions equal JAX's ``pallas_int8.resize_nearest`` and
-``concat_channels`` on ``[C,W,H,N]`` transposes of the same seeded inputs
-(in interpret mode, as ``tests/test_torch_perop.py`` runs the per-op
-kernels; a concat of three inputs through two pairwise JAX concats, as
-JAX's per-op lowering folds it), and the per-op programs' plain executor
-(``perop.perop_plain``) on the corpus net's two concats, the op surface's
-resize and 3-input concat and the yolov3-tiny FPN upsample.  The kernels
+Tolerance 0 everywhere: a resize, a concat and a pad move bytes.  The
+plain versions equal JAX's ``pallas_int8.resize_nearest``,
+``concat_channels`` and ``pad_int8`` on ``[C,W,H,N]`` transposes of the
+same seeded inputs (in interpret mode, as ``tests/test_torch_perop.py``
+runs the per-op kernels; a concat of three inputs through two pairwise JAX
+concats, as JAX's per-op lowering folds it), and the per-op programs'
+plain executor (``perop.perop_plain``) on the corpus net's three pads and
+two concats, the op surface's two pads, resize and 3-input concat and the
+yolov3-tiny FPN upsample.  The kernels
 themselves run on the card only (``tests/test_torch_gpu.py``); here the
 wrappers take their plain versions."""
 
@@ -91,6 +92,30 @@ def test_concat_plain_equals_pairwise_jax(widths):
     np.testing.assert_array_equal(got.numpy(), _cwhn(np.asarray(want)))
 
 
+# (N, H, W, C), (pt, pb, pl, pr), fill: the corpus net's three PADs (its
+# zero-points), asymmetric pads with a pad of 0 on a side, C = 1, 5 and
+# 128, fills -128, 0 and 127, no pad at all
+PADS = [((2, 56, 56, 3), (1, 0, 1, 0), -128),
+        ((2, 28, 28, 18), (1, 0, 1, 0), -109),
+        ((3, 14, 14, 24), (1, 0, 1, 0), -103),
+        ((2, 5, 6, 4), (2, 1, 0, 3), 0), ((3, 4, 5, 1), (0, 2, 1, 0), 127),
+        ((2, 5, 4, 5), (2, 1, 0, 3), -128),
+        ((2, 3, 4, 128), (1, 1, 2, 2), 127), ((2, 3, 3, 7), (0, 0, 0, 0), 0)]
+
+
+@pytest.mark.parametrize("shape,pads,fill", PADS)
+def test_pad_plain_equals_jax(shape, pads, fill):
+    pt, pb, pl, pr = pads
+    x = _int8(np.random.default_rng(sum(shape) + fill + 128), shape)
+    want = _cwhn(np.asarray(pk.pad_int8(jnp.asarray(_cwhn(x)),
+                                        ((pl, pr), (pt, pb)), fill)))
+    got = move.pad_int8(torch.from_numpy(x), pt, pb, pl, pr, fill)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        move.pad_int8_plain(torch.from_numpy(x), pt, pb, pl, pr,
+                            fill).numpy(), want)
+
+
 # --------------------------------------------------------------------------
 # the plain versions against the per-op programs
 # --------------------------------------------------------------------------
@@ -98,8 +123,10 @@ GRAPHS = {"corpus": lambda: load_tflite(CORPUS),
           "op surface": TOOL.surface_graph,
           "upsample": lambda: SMOKE._upsample_graph(TOOL)}
 # the programs each graph gives the byte-move kernels
-OWN = {"corpus": ["concat_channels", "concat_channels"],
-       "op surface": ["resize_nearest", "concat_channels"],
+OWN = {"corpus": ["pad_int8", "pad_int8", "concat_channels", "pad_int8",
+                  "concat_channels"],
+       "op surface": ["pad_int8", "resize_nearest", "concat_channels",
+                      "pad_int8"],
        "upsample": ["resize_nearest"]}
 
 
@@ -118,10 +145,10 @@ def _run_own(plan, x, check):
 @pytest.mark.parametrize("graph", GRAPHS)
 @pytest.mark.parametrize("bits", perop.BITS)
 def test_wrappers_equal_the_perop_programs(graph, bits):
-    """Each RESIZE and CONCATENATION program's output (the plain executor
-    of its descriptors) equals the wrapper on the program's inputs, taken
-    in the order and with the factors ``stage.args`` holds; also on inputs
-    one byte into their storage."""
+    """Each RESIZE, CONCATENATION and PAD program's output (the plain
+    executor of its descriptors) equals the wrapper on the program's
+    inputs, taken in the order and with the factors or pads
+    ``stage.args`` holds; also on inputs one byte into their storage."""
     g = GRAPHS[graph]()
     rng = np.random.default_rng(5)
     x = torch.from_numpy(_int8(rng, (3,) + g.tensor(g.inputs[0]).shape[1:]))
@@ -130,6 +157,8 @@ def test_wrappers_equal_the_perop_programs(graph, bits):
         def wrapper(ins):
             if st.kernel == "resize_nearest":
                 return move.resize_nearest(ins[0], *st.args)
+            if st.kernel == "pad_int8":
+                return move.pad_int8(ins[0], *st.args)
             return move.concat_channels([ins[j] for j in st.args])
         assert torch.equal(wrapper(ins), out), st.kernel
         buf = [torch.from_numpy(_int8(rng, 1 + t.numel())) for t in ins]
@@ -169,14 +198,17 @@ def test_concat_of_a_repeated_input():
 @pytest.mark.parametrize("graph", GRAPHS)
 @pytest.mark.parametrize("bits", perop.BITS)
 def test_card_kernel_routes_exactly_concat_and_resize(graph, bits):
-    """On the card the RESIZE programs go to ``resize_nearest`` and the
+    """On the card the RESIZE programs go to ``resize_nearest``, the
     CONCATENATION programs (COPY rows into channel slices) to
-    ``concat_channels``; the ACT programs stay on the table kernel and
-    every other program on the fused-stage kernel, as before."""
+    ``concat_channels`` and the PAD programs to ``pad_int8``; the ACT
+    programs stay on the table kernel and every other program on the
+    fused-stage kernel, as before."""
     for st in perop.PerOpPlan(GRAPHS[graph](), bits).stages:
         codes = set(st.descs[:, F["code"]].tolist())
         if codes == {arena.RESIZE}:
             want = "resize_nearest"
+        elif codes == {arena.PAD}:
+            want = "pad_int8"
         elif codes == {arena.COPY}:
             want = "concat_channels"
         elif codes == {arena.ACT}:
@@ -189,9 +221,27 @@ def test_card_kernel_routes_exactly_concat_and_resize(graph, bits):
 
 
 def test_launch_args_come_from_the_host_program():
-    """A resize's factors and a concat's input order are read from the
-    program's host descriptors at plan time."""
-    plan = perop.PerOpPlan(TOOL.surface_graph())
+    """A resize's factors, a concat's input order and a pad's (pt, pb, pl,
+    pr, fill) are read from the program's host descriptors at plan time:
+    the op surface's two PADs, ((1, 1), (1, 1)) with fill -3 and ((0, 1),
+    (1, 0)) with fill 4, and the corpus's three, (1, 0, 1, 0) with the
+    output zero-points."""
+    g = TOOL.surface_graph()
+    plan = perop.PerOpPlan(g)
+    pads = [st.args for st in plan.stages if st.kernel == "pad_int8"]
+    assert pads == [(1, 1, 1, 1, -3), (0, 1, 1, 0, 4)]
+    for st, op in zip((st for st in plan.stages if st.kernel == "pad_int8"),
+                      (op for op in g.ops if op.opname == "PAD")):
+        p = g.tensor(op.inputs[1]).data
+        d = st.descs[0]
+        assert st.args == (p[1][0], p[1][1], p[2][0], p[2][1],
+                           g.tensor(op.outputs[0]).qparams.zero_point)
+        assert (d[F["pt"]], d[F["pl"]], d[F["fill"]]) == st.args[::2]
+    corpus = load_tflite(CORPUS)
+    assert [st.args for st in perop.PerOpPlan(corpus).stages
+            if st.kernel == "pad_int8"] == [
+        (1, 0, 1, 0, corpus.tensor(op.outputs[0]).qparams.zero_point)
+        for op in corpus.ops if op.opname == "PAD"]
     for st in plan.stages:
         if st.kernel == "resize_nearest":
             assert st.args == (2, 2) == tuple(st.descs[0, [F["kh"], F["kw"]]])
@@ -239,6 +289,24 @@ REFUSED = {
         [_x(1, 2, 2, 3).to("meta")]), "no concat kernel"),
     "concat out of another shape": (lambda: move.concat_channels(
         [_x(1, 2, 2, 3)] * 2, out=_x(1, 2, 2, 5)), "out must be"),
+    "pad float input": (lambda: move.pad_int8(_x(2, 4, 4, 3).float(), 1, 0,
+                                              1, 0, 0), "int8"),
+    "pad strided input": (lambda: move.pad_int8(
+        _x(2, 3, 4, 4).permute(0, 2, 3, 1), 1, 0, 1, 0, 0), "contiguous"),
+    "pad 3-d input": (lambda: move.pad_int8(_x(4, 4, 3), 1, 0, 1, 0, 0),
+                      r"\[N,H,W,C\]"),
+    "pad negative pad": (lambda: move.pad_int8(_x(2, 4, 4, 3), 1, -1, 1, 0,
+                                               0), "pads"),
+    "pad pad 1.5": (lambda: move.pad_int8(_x(2, 4, 4, 3), 1, 0, 1.5, 0, 0),
+                    "pads"),
+    "pad fill 128": (lambda: move.pad_int8(_x(2, 4, 4, 3), 1, 0, 1, 0, 128),
+                     "fill"),
+    "pad fill -129": (lambda: move.pad_int8(_x(2, 4, 4, 3), 1, 0, 1, 0,
+                                            -129), "fill"),
+    "pad another device": (lambda: move.pad_int8(
+        _x(2, 4, 4, 3).to("meta"), 1, 0, 1, 0, 0), "no pad kernel"),
+    "pad out of another shape": (lambda: move.pad_int8(
+        _x(2, 4, 4, 3), 1, 0, 1, 0, 0, out=_x(2, 5, 4, 3)), "out must be"),
 }
 
 
@@ -250,8 +318,8 @@ def test_wrappers_refuse(case):
 
 
 def test_a_program_on_another_device_raises():
-    """A RESIZE or CONCATENATION program on a device that is neither the
-    CPU nor the card raises, as every per-op program does."""
+    """A RESIZE, CONCATENATION or PAD program on a device that is neither
+    the CPU nor the card raises, as every per-op program does."""
     plan = perop.PerOpPlan(TOOL.surface_graph())
     for k, st in enumerate(plan.stages):
         if st.kernel in perop.OWN_KERNELS:
@@ -270,7 +338,7 @@ def test_cpu_engine_outputs_unchanged(mode):
     pipeline still give the golden keys, with no launch of any kernel."""
     gold = np.load(GOLDEN)
     bits = PEROP_BITS[mode]
-    counters = (move.resize_nearest, move.concat_channels,
+    counters = (move.resize_nearest, move.concat_channels, move.pad_int8,
                 eltwise.eltwise_lut, fused.fused_stage)
     for fn in counters:
         fn.launches = 0

@@ -1,10 +1,10 @@
-// What the per-op byte-move kernels (resize_nearest.cu, concat_channels.cu)
-// share: the tile of shared memory a block stages its input through and
-// the staging itself, the grid and the tile size, and the packing of a
-// 16-byte output chunk gathered from the tile in elements of T (1, 2, 4, 8
-// or 16 bytes: the largest power of two that divides the channel counts
-// and the output's first byte, so a chunk takes 16 / sizeof(T)
-// shared-memory reads, not 16).
+// What the per-op byte-move kernels (resize_nearest.cu, concat_channels.cu,
+// pad_int8.cu) share: the tile of shared memory a block stages its input
+// through and the staging itself, the grid and the tile size, and the
+// packing of a 16-byte output chunk gathered from the tile in elements of
+// T (1, 2, 4, 8 or 16 bytes: the largest power of two that divides the
+// channel counts and the output's first byte, so a chunk takes
+// 16 / sizeof(T) shared-memory reads, not 16).
 #pragma once
 
 #include <cuda_runtime.h>

@@ -12,15 +12,21 @@
 //
 // What bounds it on the card: device-memory bandwidth, every byte read once
 // and written once.  What the design does about it: 16-byte loads and
-// stores wherever the rows and pointers allow, with byte moves otherwise.
-// Two schedules: FLAT, a grid-stride walk of the whole tensor (the floor
-// the probes state as a share of 3.35 TB/s), and ROWS, one block a row on a
-// 2-D grid (row = blockIdx.y * gridDim.x + blockIdx.x), which is the
-// per-frame copy (a row a frame), the strip-blocked copy (gridDim.x strips
-// of each frame) and, with a source stride of two rows, the phase select.
-// It launches on the caller's stream and never synchronises, so a torch op
-// queued after it on that stream reads what it wrote: the question the
-// debug448 counterparts ask on the card.
+// stores wherever the rows and pointers allow, with byte moves otherwise,
+// and kCopyInFlight independent 16-byte loads a thread issued before its
+// first store (the last round predicated), so that a schedule of one block
+// a row still has the bytes in flight that 3.35 TB/s needs: by Little's
+// law about 20 KB an SM, where one load at a time gave 4 KB (256 threads)
+// and the per-frame copy of 128 frames on 132 SMs ran at 1.73x
+// Tensor.clone.  Two schedules: FLAT, a grid-stride walk of the whole
+// tensor (the floor the probes state as a share of 3.35 TB/s), and ROWS,
+// one block a row on a 2-D grid (row = blockIdx.y * gridDim.x +
+// blockIdx.x), which is the per-frame copy (a row a frame), the
+// strip-blocked copy (gridDim.x strips of each frame) and, with a source
+// stride of two rows, the phase select.  It launches on the caller's
+// stream and never synchronises, so a torch op queued after it on that
+// stream reads what it wrote: the question the debug448 counterparts ask
+// on the card.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -28,16 +34,24 @@
 namespace {
 
 enum Mode { FLAT = 0, ROWS = 1 };
+// threads a block, and the 16-byte loads a thread has in flight: of 256
+// and 512 threads with 1, 4 or 8 loads, 512 x 4 ran the per-frame copies of
+// t73 and t99 at 128 fastest on an H100 (1.05x and 0.87x Tensor.clone;
+// 256 x 1, the old form, 1.32x and 0.94x; 512 x 8 1.05x and 1.00x:
+// tools/torch_variant_sweep.py copy)
+constexpr int kCopyThreads = 512;
+constexpr int kCopyInFlight = 4;
 
 template <int kMode, bool kVec>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(kCopyThreads)
     probe_copy_kernel(const int8_t* __restrict__ src, int8_t* __restrict__ dst,
                       long long bytes, int row_bytes, long long src_stride) {
   const int8_t* s = src;
   int8_t* d = dst;
   long long n = bytes;
-  long long i0 = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  long long i0 =
+      static_cast<long long>(blockIdx.x) * kCopyThreads + threadIdx.x;
+  long long step = static_cast<long long>(gridDim.x) * kCopyThreads;
   if constexpr (kMode == ROWS) {
     const long long r =
         static_cast<long long>(blockIdx.y) * gridDim.x + blockIdx.x;
@@ -45,14 +59,22 @@ __global__ void __launch_bounds__(256)
     d = dst + r * row_bytes;
     n = row_bytes;
     i0 = threadIdx.x;
-    step = blockDim.x;
+    step = kCopyThreads;
   }
   long long done = 0;
   if constexpr (kVec) {
     const int4* s4 = reinterpret_cast<const int4*>(s);
     int4* d4 = reinterpret_cast<int4*>(d);
     const long long n16 = n >> 4;
-    for (long long i = i0; i < n16; i += step) d4[i] = __ldg(s4 + i);
+    for (long long g = i0; g < n16; g += kCopyInFlight * step) {
+      int4 v[kCopyInFlight];
+#pragma unroll
+      for (int u = 0; u < kCopyInFlight; ++u)
+        if (g + u * step < n16) v[u] = __ldg(s4 + g + u * step);
+#pragma unroll
+      for (int u = 0; u < kCopyInFlight; ++u)
+        if (g + u * step < n16) d4[g + u * step] = v[u];
+    }
     done = n16 << 4;
   }
   for (long long i = done + i0; i < n; i += step) d[i] = s[i];
@@ -61,7 +83,7 @@ __global__ void __launch_bounds__(256)
 template <int kMode, bool kVec>
 void launch(dim3 grid, const int8_t* src, int8_t* dst, long long bytes,
             int row_bytes, long long src_stride, cudaStream_t stream) {
-  probe_copy_kernel<kMode, kVec><<<grid, 256, 0, stream>>>(
+  probe_copy_kernel<kMode, kVec><<<grid, kCopyThreads, 0, stream>>>(
       src, dst, bytes, row_bytes, src_stride);
 }
 
@@ -83,8 +105,10 @@ extern "C" int yf_probe_copy(const void* src, void* dst, const int* params,
     const long long bytes =
         static_cast<long long>(rows_x) * rows_y * row_bytes;
     const long long units = vec ? (bytes >> 4) : bytes;
-    long long blocks = (units + 255) / 256;
-    if (blocks > 132 * 16) blocks = 132 * 16;
+    long long blocks = (units + kCopyThreads - 1) / kCopyThreads;
+    // at most 132 SMs x 4096 threads (16 blocks of 256 an SM)
+    if (blocks > 132 * 4096 / kCopyThreads)
+      blocks = 132 * 4096 / kCopyThreads;
     if (blocks < 1) blocks = 1;
     const dim3 grid(static_cast<unsigned>(blocks));
     if (vec) launch<FLAT, true>(grid, s, d, bytes, 0, 0, st);

@@ -48,6 +48,8 @@ SIGNATURES = {
     "yf_resize_nearest": [_P, _P, _L, _I, _I, _I, _I, _P],
     # (host input pointers[n], host channels[n], n, y, pixels N*H*W, stream)
     "yf_concat_channels": [_P, _P, _I, _P, _L, _P],
+    # (x, y, N, H, W, C, pt, pb, pl, pr, fill, stream)
+    "yf_pad_int8": [_P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # (y, boxes, scores, valid, n, g, a, k, scale, zp, thr, iou_thr,
     #  stride, box_limit, apply_nms, host anchors[8], stream)
     "yf_detect_head": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F,

@@ -1,20 +1,23 @@
-"""The per-op byte-move kernels: RESIZE_NEAREST_NEIGHBOR and CONCATENATION.
+"""The per-op byte-move kernels: RESIZE_NEAREST_NEIGHBOR, CONCATENATION, PAD.
 
-Replace ``yoloface_tpu.kernels.pallas_int8.resize_nearest`` and
-``concat_channels`` for the per-op programs of ``kernels/perop.py`` whose
-kernel is ``resize_nearest`` or ``concat_channels``: ``perop_op`` sends
-those programs here on CUDA tensors, in ``perop`` and ``perop_exact``
-alike (a byte move has one semantics).  The per-op views are dense
-tensors, so each op is one flat launch over the batch: the input rows of
-a resize, the pixels of a concat.
+Replace ``yoloface_tpu.kernels.pallas_int8.resize_nearest``,
+``concat_channels`` and ``pad_int8`` for the per-op programs of
+``kernels/perop.py`` whose kernel is ``resize_nearest``,
+``concat_channels`` or ``pad_int8``: ``perop_op`` sends those programs
+here on CUDA tensors, in ``perop`` and ``perop_exact`` alike (a byte move
+has one semantics).  The per-op views are dense tensors, so each op is one
+flat launch over the batch: the input rows of a resize, the pixels of a
+concat, the output rows of a pad.
 
-``resize_nearest`` launches ``csrc/resize_nearest.cu`` and
-``concat_channels`` launches ``csrc/concat_channels.cu``: each block
-stages a tile of its input in shared memory with 16-byte loads and writes
-the output in 16-byte stores gathered from there.  ``resize_nearest_plain``
-(``repeat_interleave`` on H, then on W) and ``concat_channels_plain``
-(``torch.cat`` on the channel axis) are the same functions in torch; only
-the checks call them on the card.
+``resize_nearest`` launches ``csrc/resize_nearest.cu``,
+``concat_channels`` ``csrc/concat_channels.cu`` and ``pad_int8``
+``csrc/pad_int8.cu``: each block stages a tile of its input in shared
+memory with 16-byte loads and writes the output in 16-byte stores
+gathered from there (a pad's chunks wholly in the pad are the fill).
+``resize_nearest_plain`` (``repeat_interleave`` on H, then on W),
+``concat_channels_plain`` (``torch.cat`` on the channel axis) and
+``pad_int8_plain`` (``F.pad``) are the same functions in torch; only the
+checks call them on the card.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import ctypes
 from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as tf
 
 MAX_INPUTS = 16          # csrc/concat_channels.cu kMaxInputs
 # bytes of one tile of shared memory (csrc/move.cuh kMoveTileBytes): a
@@ -39,6 +43,13 @@ def resize_nearest_plain(x: torch.Tensor, kh: int, kw: int) -> torch.Tensor:
 def concat_channels_plain(xs: Sequence[torch.Tensor]) -> torch.Tensor:
     """int8 [N,H,W,Ci] each -> [N,H,W,sum Ci], in order."""
     return torch.cat(list(xs), dim=3)
+
+
+def pad_int8_plain(x: torch.Tensor, pt: int, pb: int, pl: int, pr: int,
+                   fill: int) -> torch.Tensor:
+    """int8 [N,H,W,C] -> [N,H+pt+pb,W+pl+pr,C]: ``x`` at (pt, pl), ``fill``
+    elsewhere."""
+    return tf.pad(x, (0, 0, pl, pr, pt, pb), value=fill)
 
 
 def _dense(x: torch.Tensor, what: str) -> None:
@@ -150,3 +161,42 @@ def launch_concat_channels(xs: Sequence[torch.Tensor],
 
 
 concat_channels.launches = 0
+
+
+def pad_int8(x: torch.Tensor, pt: int, pb: int, pl: int, pr: int, fill: int,
+             out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """int8 ``x`` [N,H,W,C] -> ``out`` [N,H+pt+pb,W+pl+pr,C] (a new tensor
+    by default): ``x`` at rows pt.., columns pl.., the int8 ``fill``
+    elsewhere.  CPU tensors take ``pad_int8_plain``; CUDA tensors launch
+    ``yf_pad_int8``."""
+    _dense(x, "x")
+    pads = (pt, pb, pl, pr)
+    if any(int(p) != p or p < 0 for p in pads):
+        raise ValueError(f"pads must be integers >= 0, got {pads}")
+    if int(fill) != fill or not -128 <= fill <= 127:
+        raise ValueError(f"the fill must be an int8 value, got {fill}")
+    n, h, w, c = x.shape
+    out = _out(out, (n, h + pt + pb, w + pl + pr, c), x)
+    if not _device(x, "pad"):
+        return out.copy_(pad_int8_plain(x, pt, pb, pl, pr, fill))
+    if out.numel():
+        launch_pad_int8(x, out, int(pt), int(pb), int(pl), int(pr),
+                        int(fill))
+    return out
+
+
+def launch_pad_int8(x: torch.Tensor, out: torch.Tensor, pt: int, pb: int,
+                    pl: int, pr: int, fill: int) -> None:
+    """Launch ``yf_pad_int8``: ``x`` and ``out`` dense int8 CUDA tensors of
+    the shapes ``pad_int8`` checks (``perop.perop_op`` calls it on tensors
+    ``arena.prepare`` checked)."""
+    from yoloface_tpu_torch.kernels._build import check, library
+    n, h, w, c = x.shape
+    err = library().yf_pad_int8(
+        x.data_ptr(), out.data_ptr(), n, h, w, c, pt, pb, pl, pr, fill,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    check(err, "pad_int8")
+    pad_int8.launches += 1
+
+
+pad_int8.launches = 0

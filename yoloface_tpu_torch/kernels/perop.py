@@ -35,13 +35,15 @@ concat input) whose views all lie in device memory (space 1.. the op's
 inputs, then its output).  On the card the RELU, RELU6 and LOGISTIC
 programs (kernel ``eltwise_int8``) run on the flat table kernel
 (``kernels/eltwise.py``, ``csrc/eltwise_lut.cu``), one map over the op's
-dense bytes; the RESIZE and CONCATENATION programs (``resize_nearest``,
-``concat_channels``) on the flat byte-move kernels of ``kernels/move.py``
-(``csrc/resize_nearest.cu``, ``csrc/concat_channels.cu``), with their
-factors and input order taken from the program once, at plan time; every
-other program runs on the fused-stage kernel (``csrc/fused_stage.cu``, one
-block a frame, through ``fused.run_stage``) with no values in shared
-memory: only a max-pool's row-pass scratch is there.  ``perop_plain``
+dense bytes; the RESIZE, CONCATENATION and PAD programs
+(``resize_nearest``, ``concat_channels``, ``pad_int8``) on the flat
+byte-move kernels of ``kernels/move.py`` (``csrc/resize_nearest.cu``,
+``csrc/concat_channels.cu``, ``csrc/pad_int8.cu``), with their factors,
+input order and pads taken from the program once, at plan time; the
+convs, depthwise convs, max-pools, ADDs, QUANTIZEs and standalone LEAKYs
+run on the fused-stage kernel (``csrc/fused_stage.cu``, one block a
+frame, through ``fused.run_stage``) with no values in shared memory: only
+a max-pool's row-pass scratch is there.  ``perop_plain``
 runs the same program with the arena's plain executor, so the CPU runs
 the card's very program.
 """
@@ -80,7 +82,7 @@ _BY_CODE = {code: name for name, (_, code) in KERNELS.items()
 TABLE_KERNELS = ("eltwise_int8",)
 # the B8 kernels whose programs run on a kernel of their own on the card,
 # a wrapper of kernels/move.py of the same name
-OWN_KERNELS = ("resize_nearest", "concat_channels")
+OWN_KERNELS = ("resize_nearest", "concat_channels", "pad_int8")
 F = arena.F
 
 
@@ -135,12 +137,19 @@ def launch_args(kernel: str, descs: np.ndarray) -> Tuple[int, ...]:
     """What the ``OWN_KERNELS`` launch of a program takes from its host
     descriptors: a resize's factors (kh, kw); a concat's inputs in channel
     order, as indices into the stage's inputs (one COPY row each, its
-    in0_space 1 + that index); nothing for other kernels."""
+    in0_space 1 + that index); a pad's (pt, pb, pl, pr, fill), pt, pl and
+    the fill from its window, pb and pr from its views' sizes; nothing for
+    other kernels."""
+    d = descs[0]
     if kernel == "resize_nearest":
-        return int(descs[0, F["kh"]]), int(descs[0, F["kw"]])
+        return int(d[F["kh"]]), int(d[F["kw"]])
+    if kernel == "pad_int8":
+        pt, pl = int(d[F["pt"]]), int(d[F["pl"]])
+        return (pt, int(d[F["out_h"]] - d[F["in0_h"]]) - pt, pl,
+                int(d[F["out_w"]] - d[F["in0_w"]]) - pl, int(d[F["fill"]]))
     if kernel == "concat_channels":
-        rows = sorted(descs, key=lambda d: int(d[F["out_off"]]))
-        return tuple(int(d[F["in0_space"]]) - 1 for d in rows)
+        rows = sorted(descs, key=lambda r: int(r[F["out_off"]]))
+        return tuple(int(r[F["in0_space"]]) - 1 for r in rows)
     return ()
 
 
@@ -173,9 +182,10 @@ def perop_op(stage: PerOpStage, descs: torch.Tensor, consts: torch.Tensor,
     """Run one op on its input tensors (int8 [N,H,W,C], in
     ``stage.inputs`` order) -> [its output].  CPU tensors take
     ``perop_plain``; CUDA tensors launch ``yf_eltwise_lut``,
-    ``yf_resize_nearest``, ``yf_concat_channels`` or ``yf_fused_stage``
-    (``card_kernel``).  The byte-move launches check the input shapes and
-    nothing of the program: their arguments are ``stage.args``."""
+    ``yf_resize_nearest``, ``yf_concat_channels``, ``yf_pad_int8`` or
+    ``yf_fused_stage`` (``card_kernel``).  The byte-move launches check
+    the input shapes and nothing of the program: their arguments are
+    ``stage.args``."""
     card = card_kernel(stage)
     if card != "fused_stage" and xs[0].device.type == "cuda":
         outs, dev = arena.prepare(stage, xs)
@@ -187,6 +197,8 @@ def perop_op(stage: PerOpStage, descs: torch.Tensor, consts: torch.Tensor,
             launched = False
         elif card == "resize_nearest":
             move.launch_resize_nearest(xs[0], outs[0], *stage.args)
+        elif card == "pad_int8":
+            move.launch_pad_int8(xs[0], outs[0], *stage.args)
         else:
             move.launch_concat_channels([xs[j] for j in stage.args], outs[0])
     else:

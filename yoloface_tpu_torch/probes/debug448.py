@@ -42,7 +42,8 @@ import torch
 from yoloface_tpu_torch.graph.ir import GraphDef
 from yoloface_tpu_torch.kernels import arena, tiled
 from yoloface_tpu_torch.kernels import probes as K
-from yoloface_tpu_torch.probes import card, randint, record, time_chain, variant
+from yoloface_tpu_torch.probes import (card, randint, record, same,
+                                       time_chain, variant)
 from yoloface_tpu_torch.probes.probe448 import graph448
 from yoloface_tpu_torch.runtime.engine import Int8Engine
 
@@ -65,7 +66,14 @@ def _report(name: str, got: torch.Tensor, want: torch.Tensor) -> None:
 
 def _copy_row(x: torch.Tensor, runs: int, **kw) -> Dict:
     """The copy kernel's time on ``x`` beside Tensor.clone's, each a call
-    in a chain of 20 (each copying the last one's output)."""
+    in a chain of 20 (each copying the last one's output); first one call
+    and one chain of the kernel are held against Tensor.clone of ``x`` bit
+    for bit (raising on a mismatch)."""
+    v = x
+    for _ in range(20):
+        v = K.probe_copy(v, **kw)
+    same(K.probe_copy(x, **kw), K.probe_copy_plain(x), f"copy {kw}")
+    same(v, K.probe_copy_plain(x), f"a chain of 20 copies {kw}")
     return variant(time_chain(lambda y: K.probe_copy(y, **kw), x, 20, runs),
                    (2 * x.numel(), 0, 0), library="Tensor.clone",
                    library_ms=time_chain(torch.clone, x, 20, runs))
