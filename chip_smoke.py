@@ -6,8 +6,10 @@ Run:  python3 chip_smoke.py   (paths resolve from this file's directory)
 Phases (each prints its lines; any failure ends the run with an error):
   1. environment: torch, CUDA, nvcc, the card's name and power limit; the
      kernel build from yoloface_tpu_torch/csrc/ into build/yoloface_tpu_torch/
-     and the section kernel's registers and local memory as built (a
-     spill, local memory past its 128 B stack frame, fails);
+     and the registers and local memory of both instantiations of the
+     section kernel as built (the second runs the tensor-core convs of
+     csrc/conv_mma.cuh; more than 64 registers or a spill, local memory
+     past the 128 B stack frame, fails);
   2. each kernel against its plain torch version on the card, bit for bit,
      at the serving path's shapes: the preprocess; the arena stage in each
      bit semantics (fast2, fast, exact) in 1 and 4 stages; the fused head
@@ -36,7 +38,10 @@ Phases (each prints its lines; any failure ends the run with an error):
      inputs, the corpus's and the op surface's PADs and asymmetric pads, a
      row wider than a tile, views one byte in and a flat size past twice
      one round of their largest grid, and on the op surface's RESIZE,
-     3-input CONCATENATION and two PAD programs in both bits;
+     3-input CONCATENATION and two PAD programs in both bits; the per-op
+     programs past the concat and resize kernels' limits
+     (tools/make_torch_port_golden.wide_move_graphs: a 17-input concat, a
+     concat and a resize of 16,400 channels) on the fused-stage kernel;
      the arena and section kernels'
      new op cases (B2b, B6b: standalone LEAKY, RELU, RELU6, LOGISTIC,
      RESIZE, AVERAGE_POOL_2D, a PAD kept as an op) on every stage or
@@ -46,11 +51,13 @@ Phases (each prints its lines; any failure ends the run with an error):
      N = 1 and 3, in one stage, one op a stage and in strips; the section
      kernel on every section of the published yolov3-tiny at 416
      (yolov3_tiny_graph(), 7 sections) on 2 frames in tiled2 and
-     tiled_exact bits;
+     tiled_exact bits, and on yolov3-tiny narrowed (64x64 at full width,
+     96x96 at half) in all three bits with an input one byte in, its
+     marked convs on the tensor cores;
   3. serving, one path after another, each with every launch count set to
      0 just before it and read just after (each of its kernels > 0):
-     load_pipeline(..., device="cuda").detect_rgb565 in mode arena2 (fused
-     head), arena_exact (fused head), arena_exact with
+     load_pipeline(..., device="cuda").detect_rgb565_device in mode arena2
+     (fused head), arena_exact (fused head), arena_exact with
      HeadConfig(use_fused_head=False) (the top-K kernel and the staged
      head), arena (fused head), fused and fused_exact (the preprocess, the
      fused stages, the fused head), perop and perop_exact (the preprocess,
@@ -71,8 +78,9 @@ Phases (each prints its lines; any failure ends the run with an error):
      .tflite test graphs, Int8Engine(load_tflite(...), mode) in each of
      the ten kernel modes, against their golden keys (the arena2 launches
      count for the B2b row); then yolov3-tiny at 416 in tiled2 and
-     tiled_exact on 2 frames, every section through the kernel (the tiled2
-     launches count for the B6b row), both heads against the plain path;
+     tiled_exact on 2 frames, every section through the kernel and every
+     marked conv on the tensor cores (the tiled2 launches count for the
+     B6b row), both heads against the plain path;
   4. timing with CUDA events (warm-up, median of 10): each kernel against
      its plain version at batch 16384 (the arena in all three bit
      semantics, the fused stages and the per-op program in both), each op
@@ -461,17 +469,25 @@ def main() -> int:
     print(f"[build] {_build.BUILD_DIR} in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {'cached' if nvcc_s is None else f'{nvcc_s:.2f} s'})")
     import ctypes
-    attrs = (ctypes.c_int * 3)()
-    _build.check(_build.library().yf_tiled_section_attrs(attrs),
-                 "tiled_section attributes")
-    regs, local, static_smem = list(attrs)
-    print(f"[build] tiled_section_kernel: {regs} registers a thread, {local} "
-          f"B local memory a thread (its stack frame, spills included), "
-          f"{static_smem} B static shared memory")
-    # __launch_bounds__(256, 4) caps the registers at 64; what it can cost
-    # is spilling, which grows the local memory past the 128 B frame
-    _require(local <= 128, f"the section kernel spills: {local} B of local "
-             "memory a thread > its 128 B frame")
+    section_attrs = {}
+    for mma in (False, True):       # the instantiations of the kernel
+        attrs = (ctypes.c_int * 3)()
+        _build.check(_build.library().yf_tiled_section_attrs(int(mma), attrs),
+                     "tiled_section attributes")
+        regs, local, static_smem = list(attrs)
+        name = f"tiled_section_kernel<{str(mma).lower()}>"
+        section_attrs[name] = {"registers": regs, "local_bytes": local,
+                               "static_smem": static_smem}
+        print(f"[build] {name}: {regs} registers a thread, {local} B local "
+              f"memory a thread (its stack frame, spills included), "
+              f"{static_smem} B static shared memory")
+        # the launch bounds cap the registers (64 at four blocks an SM,
+        # 128 at two); what they can cost is spilling, which grows the
+        # local memory past the 128 B frame
+        _require(local <= 128, f"{name} spills: {local} B of local memory "
+                 "a thread > its 128 B frame")
+    _require(section_attrs["tiled_section_kernel<false>"]["registers"] <= 64,
+             "the section kernel's first instantiation within 64 registers")
 
     rng = np.random.default_rng(SEED)
 
@@ -504,6 +520,7 @@ def main() -> int:
         for fn in counted:
             fn.launches = 0
         perop.reset_launches()
+        tiled.tiled_section.mma_convs = 0
 
     err = {"preprocess_rgb565": 0.0, "arena_stage": 0.0,
            "requant_epilogue": 0.0, "detect_head": 0.0, "topk_conf": 0.0,
@@ -814,6 +831,25 @@ def main() -> int:
     print("[check] perop op surface, fast and exact bits: the RESIZE "
           "(x2x2, 8 channels), the 3-input CONCATENATION and the two PAD "
           "programs through their kernels equal the plain versions")
+    # the per-op programs past the concat and resize kernels' limits (a
+    # 17-input concat; a concat and a resize of 16,400 channels) run on
+    # the fused-stage kernel, as card_kernel decides from the program
+    for name, (g, shape) in tool.wide_move_graphs().items():
+        for bits in perop.BITS:
+            p = perop.PerOpPlan(g, bits).to(dev)
+            wide = [st for st in p.stages if st.kernel in perop.OWN_KERNELS]
+            _require(wide and all(perop.card_kernel(st) == "fused_stage"
+                                  for st in wide),
+                     f"{name} {bits}: on the fused-stage kernel")
+            perop.reset_launches()
+            check_perop(p, torch.from_numpy(rng.integers(
+                -128, 128, (5, *shape), dtype=np.int64).astype(np.int8)
+            ).to(dev), f"{name} {bits}")
+            _require(perop.perop_op.launches == len(p.stages),
+                     f"{name} {bits}: every op launched")
+        print(f"[check] perop {name} ({[st.kernel for st in wide]} on "
+              "fused_stage), fast and exact bits, N=5: every op output "
+              "bit-exact")
 
     # B2b, B6b: the rest of the arena and tiled kernels' op surface
     # (standalone LEAKY, RELU, RELU6, LOGISTIC, RESIZE, AVERAGE_POOL_2D, a
@@ -877,8 +913,32 @@ def main() -> int:
         v3_plain[mode] = [env[o] for o in g416.outputs]
         print(f"[check] tiled_section yolov3-tiny 416 {mode} N={V3_FRAMES}: "
               f"{len(p.stages)} sections of {[s.strips for s in p.stages]} "
-              f"strips, arenas {[s.arena_bytes for s in p.stages]} B: every "
-              "section output bit-exact")
+              f"strips, arenas {[s.arena_bytes for s in p.stages]} B, "
+              f"{[s.mma_convs for s in p.stages]} convs on the tensor cores: "
+              "every section output bit-exact")
+    # the tensor-core convs (csrc/conv_mma.cuh) on yolov3-tiny narrowed:
+    # ci multiples of 16 and 32, the heads' 255 channels (a ragged n8
+    # tile) at full width, rows of 2-6 pixels (ragged m16 tiles), strips
+    # from the top to the bottom, a concat's channel slices, and an input
+    # one byte into its storage (the section's byte loops)
+    for size, div, budget in ((64, 1, 32768), (96, 2, 16384)):
+        g = tool.yolov3_tiny_graph(size, div)
+        for bits in arena.BITS:
+            p = tiled.TiledPlan(g, budget, bits).to(dev)
+            _require(sum(s.mma_convs for s in p.stages) >= 5 and any(
+                s.mma_convs and s.strips >= 2 for s in p.stages),
+                f"yolov3-tiny {size}/{div}: marked convs in strips")
+            for n in (1, 3):
+                x = rand_input(g, n)
+                x = torch.cat([x.new_zeros(1), x.flatten()])[1:].view(
+                    x.shape)
+                check_b6b(p, x, f"yolov3-tiny {size}/{div} {bits} N={n} "
+                          "one byte in")
+        print(f"[check] tiled_section yolov3-tiny {size}x{size} width "
+              f"1/{div}, fast2, fast and exact bits, N=1/3 one byte in: "
+              f"{[s.strips for s in p.stages]} strips, "
+              f"{[s.mma_convs for s in p.stages]} convs on the tensor cores: "
+              "every section output bit-exact")
 
     rng_h = np.random.default_rng(23)          # tests/test_pipeline.py:262
     yc = rng_h.integers(-128, 128, (48, 7, 7, 18), dtype=np.int64)
@@ -936,6 +996,8 @@ def main() -> int:
 
     def read_counts(path):
         launches[path] = {fn.__name__: fn.launches for fn in counted}
+        launches[path]["tiled_section_mma_convs"] = \
+            tiled.tiled_section.mma_convs
         by_kernel[path] = dict(perop.perop_op.by_kernel)
 
     def close(got, want, tag):
@@ -952,10 +1014,11 @@ def main() -> int:
         p = FacePipeline(eng_pipe.engine, cfg)
         batches = {n: gold_frames if n == 8 else frames(n) for n in sizes}
         zero_counts()
-        served = {n: p.detect_rgb565(f) for n, f in batches.items()}
+        served = {n: p.detect_rgb565_device(f) for n, f in batches.items()}
         torch.cuda.synchronize()
         read_counts(path)
-        print(f"[serve] {path}: detect_rgb565 on batches {list(batches)}: "
+        print(f"[serve] {path}: detect_rgb565_device on batches "
+              f"{list(batches)}: "
               f"launches {launches[path]}"
               + (f", per-op {by_kernel[path]}" if by_kernel[path] else ""))
         _require(all(fn.launches > 0 for fn in kernels),
@@ -973,8 +1036,7 @@ def main() -> int:
         cpu_pipe = load_pipeline(CORPUS, mode=eng.mode, device="cpu",
                                  head_config=cfg)
         for n, f in batches.items():
-            want = cpu_pipe.detect_rgb565(f.cpu())
-            close(served[n], {k: v.numpy() for k, v in want.items()},
+            close(served[n], cpu_pipe.detect_rgb565(f.cpu()),
                   f"{path} N={n}")
             y_card = eng(p.preprocess(f))
             y_cpu = cpu_pipe.engine(cpu_pipe.preprocess(f.cpu()))
@@ -1015,8 +1077,15 @@ def main() -> int:
         read_counts(path)
         print(f"[serve] {path}: Int8Engine(g448) on the golden and a random "
               f"pair of frames: launches {launches[path]}")
-        _require(tiled.tiled_section.launches == 2 * len(eng.arena.stages),
+        _require(tiled.tiled_section.launches == 2 * len(eng.arena.stages)
+                 and tiled.tiled_section.mma_convs == 2 * sum(
+                     s.mma_convs for s in eng.arena.stages),
                  f"{path}: every section through the kernel")
+        for st in eng.arena.stages:    # its instantiations: 64 registers
+            inst = str(st.mma_convs > 0).lower()
+            a = section_attrs[f"tiled_section_kernel<{inst}>"]
+            _require(a["registers"] <= 64 and a["local_bytes"] <= 128,
+                     f"{path}: an instantiation past 64 registers")
         cpu = Int8Engine(g448, mode, device="cpu")
         for b, f in batches.items():
             _require(torch.equal(served[b].cpu(), cpu(f.cpu())),
@@ -1102,6 +1171,9 @@ def main() -> int:
                  and all(isinstance(s, tiled.Section)
                          for s in eng.arena.stages),
                  f"{path}: every section through the kernel")
+        _require(tiled.tiled_section.mma_convs == sum(
+            s.mma_convs for s in eng.arena.stages) > 0,
+            f"{path}: the marked convs on the tensor cores")
         for k, (y, want) in enumerate(zip(ys, v3_plain[mode])):
             _require(tuple(y.shape) == (V3_FRAMES, 13 * (k + 1),
                                         13 * (k + 1), 255),
@@ -1385,13 +1457,14 @@ def main() -> int:
                  "perop_exact"):
         for n in (16384, 65536):
             f = frames(n)
-            t = _time_ms(lambda: pipes[mode].detect_rgb565(f))
-            print(f"[time] pipeline {mode} detect_rgb565 N={n}: {t:.3f} ms, "
+            t = _time_ms(lambda: pipes[mode].detect_rgb565_device(f))
+            print(f"[time] pipeline {mode} detect_rgb565_device N={n}: "
+                  f"{t:.3f} ms, "
                   f"{n / t * 1e3:.0f} frames/s ({card})")
             lat = []
             for _ in range(REPS):
                 t0 = time.perf_counter()
-                pipes[mode].detect_rgb565(f)
+                pipes[mode].detect_rgb565_device(f)
                 torch.cuda.synchronize()
                 lat.append((time.perf_counter() - t0) * 1e3)
             p50 = sorted(lat)[len(lat) // 2]
@@ -1498,7 +1571,9 @@ def main() -> int:
                   f"({sec.strips} strips) {row['strip_ms']:.4f} ms, plain "
                   f"{row['strip_plain_ms']:.4f} ms; bound "
                   f"{row['bound_ms']:.4f} ms ({row['bound_by']})"
-                  + (f"; {row['library']} {row['library_ms']:.4f} ms"
+                  + (f"; {row['library']} {row['library_ms']:.4f} ms (the "
+                     f"stage {row['ms'] / row['library_ms']:.2f}x, the "
+                     f"section {row['strip_ms'] / row['library_ms']:.2f}x it)"
                      if lib else "") + f" ({card})")
         del xb, env
 
@@ -1611,8 +1686,9 @@ def main() -> int:
             row["bits"] = bits[k]
         if k == "tiled_section":     # the kernel at 1024, both at 128
             row.update(batch=BATCH448, plain_batch=PLAIN_BATCH448,
-                       ms_at_plain_batch=ms[k][2], registers=regs,
-                       local_bytes=local)
+                       ms_at_plain_batch=ms[k][2],
+                       instantiations=section_attrs,
+                       mma_convs=launches[path]["tiled_section_mma_convs"])
         kernels.append(row)
     for k, (line, _) in perop.KERNELS.items():   # B8.1-B8.11 by op
         b = bound(*work[k])
@@ -1701,7 +1777,9 @@ def main() -> int:
                 "batch": BATCH_V3, "plain_batch": V3_FRAMES,
                 "macs_per_frame": v3_macs, "bound_ms": b[0], "bound_by": b[1],
                 **{mode: dict(r, launches=launches[
-                    f"yolov3-tiny 416 {mode}"]["tiled_section"])
+                    f"yolov3-tiny 416 {mode}"]["tiled_section"],
+                    mma_convs=launches[f"yolov3-tiny 416 {mode}"][
+                        "tiled_section_mma_convs"])
                    for mode, r in v3.items()}}
         kernels.append(row)
     kernels.extend(probe_rows)

@@ -331,10 +331,12 @@ def test_serving_on_golden_frames(mode, key):
     got = pipe.detect_rgb565(gold["frames"])
     if mode == "fused_exact":
         for k in ("valid", "count"):
-            np.testing.assert_array_equal(got[k].numpy(), gold["exact_" + k])
-        np.testing.assert_allclose(got["boxes"].numpy(), gold["exact_boxes"],
-                                   rtol=0, atol=thead.BOX_ATOL)
-        np.testing.assert_allclose(got["scores"].numpy(),
+            np.testing.assert_array_equal(np.asarray(got[k]),
+                                          gold["exact_" + k])
+        np.testing.assert_allclose(np.asarray(got["boxes"]),
+                                   gold["exact_boxes"], rtol=0,
+                                   atol=thead.BOX_ATOL)
+        np.testing.assert_allclose(np.asarray(got["scores"]),
                                    gold["exact_scores"], rtol=0,
                                    atol=thead.SCORE_ATOL)
     assert got["count"].sum() >= 7

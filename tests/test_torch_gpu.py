@@ -105,7 +105,7 @@ def test_fused_serving_on_the_card_equals_cpu(mode, golden):
     assert fused.fused_stage.launches == len(card.engine.arena.stages)
     want = cpu.detect_rgb565(gold["frames"])
     for k in ("valid", "count"):
-        assert torch.equal(got[k].cpu(), want[k])
+        np.testing.assert_array_equal(np.asarray(got[k]), np.asarray(want[k]))
     y = card.engine(card.preprocess(gold["frames"]))
     assert torch.equal(y.cpu(), cpu.engine(cpu.preprocess(gold["frames"])))
     np.testing.assert_array_equal(y.cpu().numpy(), gold[golden])
@@ -151,7 +151,7 @@ def test_perop_serving_on_the_card_equals_cpu(mode, golden):
     assert perop.perop_op.launches == len(card.engine.arena.stages) == 37
     want = cpu.detect_rgb565(gold["frames"])
     for k in ("valid", "count"):
-        assert torch.equal(got[k].cpu(), want[k])
+        np.testing.assert_array_equal(np.asarray(got[k]), np.asarray(want[k]))
     y = card.engine(card.preprocess(gold["frames"]))
     assert torch.equal(y.cpu(), cpu.engine(cpu.preprocess(gold["frames"])))
     np.testing.assert_array_equal(y.cpu().numpy(), gold[golden])
@@ -588,3 +588,83 @@ def test_pad_int8_matches_plain_on_the_card():
     plan.run_stages(x)
     torch.cuda.synchronize()
     assert move.pad_int8.launches == 3 == perop.perop_op.by_kernel["pad_int8"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", perop.BITS)
+def test_wide_move_programs_match_plain_on_the_card(bits):
+    """The per-op programs past the concat and resize kernels' limits (a
+    17-input concat; a concat and a resize of 16,400 channels) run on the
+    fused-stage kernel, chosen at plan time, and equal their plain
+    version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(7)
+    for name, (g, shape) in _golden_tool().wide_move_graphs().items():
+        plan = perop.PerOpPlan(g, bits).cuda()
+        x = torch.from_numpy(rng.integers(-128, 128, (3, *shape),
+                                          dtype=np.int64).astype(np.int8))
+        fused.fused_stage.launches = 0
+        perop.reset_launches()
+        env = plan.run_stages(x.cuda())
+        torch.cuda.synchronize()
+        wide = [st for st in plan.stages if st.kernel in perop.OWN_KERNELS]
+        assert wide and all(perop.card_kernel(st) == "fused_stage"
+                            for st in wide)
+        assert perop.perop_op.launches == len(plan.stages)
+        for k, st in enumerate(plan.stages):
+            ref = [torch.empty_like(env[o]) for o in st.outputs]
+            perop.perop_plain(st, getattr(plan, f"consts{k}"),
+                              [env[i] for i in st.inputs] + ref)
+            assert torch.equal(env[st.outputs[0]], ref[0]), (name, k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", arena.BITS)
+@pytest.mark.parametrize("size,div,budget", [(64, 1, 32768),
+                                             (96, 2, 16384)])
+def test_mma_sections_match_plain_on_the_card(size, div, budget, bits):
+    """The section kernel with its big-K convs on the int8 tensor cores
+    (csrc/conv_mma.cuh) equals the plain version on every section output
+    of yolov3-tiny narrowed (ci multiples of 16 and 32; at full width the
+    heads' 255 channels end in a ragged n8 tile; rows of 2-6 pixels leave
+    the m16 tiles ragged), in strips from the image's top to its bottom,
+    with sections whose first op is a marked conv on a section input, a
+    concat's channel slices (copies with a channel stride past the
+    channel count) and inputs one byte into their storage (the byte
+    loops)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    tool = _golden_tool()
+    g = tool.yolov3_tiny_graph(size, div)
+    plan = tiled.TiledPlan(g, budget, bits).cuda()
+    F = arena.F
+    secs = plan.stages
+    assert all(isinstance(s, tiled.Section) for s in secs)
+    assert sum(s.mma_convs for s in secs) >= 5
+    assert any(s.mma_convs and s.strips >= 2 for s in secs)
+    assert any(d[F["code"]] == arena.COPY and d[F["out_cs"]] != d[F["out_c"]]
+               for s in secs for d in s.descs)
+    rng = np.random.default_rng(size + div)
+    for n, one_off in ((1, False), (3, True)):
+        flat = rng.integers(-128, 128, int(one_off) + n * size * size * 3,
+                            dtype=np.int64).astype(np.int8)
+        x = torch.from_numpy(flat).cuda()[int(one_off):].view(
+            n, size, size, 3)
+        env = {plan.input_idx: x}
+        for k, st in enumerate(secs):
+            ins = [env[i] for i in st.inputs]
+            if one_off:    # each section input one byte in as well
+                ins = [torch.cat([t.new_zeros(1), t.flatten()])[1:].view(
+                    t.shape) for t in ins]
+            tiled.tiled_section.mma_convs = 0
+            outs = tiled.tiled_section(st, getattr(plan, f"descs{k}"),
+                                       getattr(plan, f"consts{k}"), ins)
+            torch.cuda.synchronize()
+            assert tiled.tiled_section.mma_convs == st.mma_convs
+            ref = [torch.empty_like(o) for o in outs]
+            tiled.tiled_section_plain(st, getattr(plan, f"consts{k}"),
+                                      ins + ref)
+            for o, u, v in zip(st.outputs, outs, ref):
+                assert torch.equal(u, v), (size, div, bits, k, o, n)
+            env.update(zip(st.outputs, outs))

@@ -463,13 +463,53 @@ def test_serving_on_golden_frames(mode, key):
     got = pipe.detect_rgb565(gold["frames"])
     if mode == "perop_exact":
         for k in ("valid", "count"):
-            np.testing.assert_array_equal(got[k].numpy(), gold["exact_" + k])
-        np.testing.assert_allclose(got["boxes"].numpy(), gold["exact_boxes"],
-                                   rtol=0, atol=thead.BOX_ATOL)
-        np.testing.assert_allclose(got["scores"].numpy(),
+            np.testing.assert_array_equal(np.asarray(got[k]),
+                                          gold["exact_" + k])
+        np.testing.assert_allclose(np.asarray(got["boxes"]),
+                                   gold["exact_boxes"], rtol=0,
+                                   atol=thead.BOX_ATOL)
+        np.testing.assert_allclose(np.asarray(got["scores"]),
                                    gold["exact_scores"], rtol=0,
                                    atol=thead.SCORE_ATOL)
     assert got["count"].sum() >= 7
+
+
+@pytest.mark.parametrize("bits", perop.BITS)
+def test_card_kernel_routes_by_the_program(corpus, surface, bits):
+    """``card_kernel`` decides from the program: the 17-input concat, the
+    16,400-channel concat and the 16,400-channel resize (past the concat
+    and resize kernels' 16 inputs and 16,384 channels) go to the
+    fused-stage kernel; every program of the corpus and the op surface
+    keeps its own kernel."""
+    wide = TOOL.wide_move_graphs()
+    got = {name: [perop.card_kernel(st)
+                  for st in perop.PerOpPlan(g, bits).stages
+                  if st.kernel != "eltwise_int8"]
+           for name, (g, _) in wide.items()}
+    assert got == {"17-input concat": ["fused_stage"],
+                   "16400 channels": ["fused_stage", "fused_stage"]}
+    for g in (graph_from_jax(corpus[0]), surface[1]):
+        for st in perop.PerOpPlan(g, bits).stages:
+            want = ("eltwise_lut" if st.kernel in perop.TABLE_KERNELS else
+                    st.kernel if st.kernel in perop.OWN_KERNELS
+                    else "fused_stage")
+            assert perop.card_kernel(st) == want, st.kernel
+
+
+@pytest.mark.parametrize("bits", perop.BITS)
+@pytest.mark.parametrize("name,jax_mode", [("17-input concat", "pallas"),
+                                           ("16400 channels", "exact")])
+def test_wide_move_programs_equal_jax(name, jax_mode, bits):
+    """The programs past the move kernels' limits equal JAX: the 17-input
+    concat JAX ``pallas`` (its pairwise fold of ``concat_channels``, in
+    interpret mode), the 16,400-channel concat and resize JAX ``exact``
+    (a byte move is the same in every mode)."""
+    g, shape = TOOL.wide_move_graphs()[name]
+    x = _int8(np.random.default_rng(19), (2, *shape))
+    want = JaxEngine(TOOL.jax_graph(g), jax_mode).run_with_intermediates(x)
+    got = Int8Engine(g, MODE[bits], device="cpu").run_with_intermediates(x)
+    assert set(got) <= set(want) and g.outputs[0] in got
+    _assert_equal(got, {k: want[k] for k in got})
 
 
 def test_default_device_is_the_card(corpus):

@@ -64,11 +64,12 @@ def port_pipe():
 
 
 def assert_detections_close(got, want):
+    """``got`` numpy arrays or CPU tensors (``np.asarray`` takes both)."""
     for k in ("valid", "count"):
-        np.testing.assert_array_equal(got[k].numpy(), want[k], err_msg=k)
-    np.testing.assert_allclose(got["boxes"].numpy(), want["boxes"], rtol=0,
-                               atol=thead.BOX_ATOL)
-    np.testing.assert_allclose(got["scores"].numpy(), want["scores"],
+        np.testing.assert_array_equal(np.asarray(got[k]), want[k], err_msg=k)
+    np.testing.assert_allclose(np.asarray(got["boxes"]), want["boxes"],
+                               rtol=0, atol=thead.BOX_ATOL)
+    np.testing.assert_allclose(np.asarray(got["scores"]), want["scores"],
                                rtol=0, atol=thead.SCORE_ATOL)
 
 
@@ -84,6 +85,32 @@ def test_rgb565_pipeline_equals_jax(jax_pipe, port_pipe, n):
     np.testing.assert_array_equal(
         head.numpy(),
         np.asarray(jax_pipe.engine(jpre.rgb565_to_int8_input(frames))))
+
+
+@pytest.mark.parametrize("kind", ["rgb565", "int8"])
+def test_return_types_are_jax_s(jax_pipe, port_pipe, kind):
+    """``detect_rgb565`` and ``detect_int8`` return numpy arrays with the
+    JAX pipeline's keys, dtypes and shapes; ``detect_*_device`` return
+    tensors on the pipeline's device holding the same values."""
+    rng = np.random.default_rng(47)
+    if kind == "rgb565":
+        x = rng.integers(0, 1 << 16, (3, 112, 112),
+                         dtype=np.int64).astype(np.uint16)
+    else:
+        x = rng.integers(-128, 128, (3, 56, 56, 3),
+                         dtype=np.int64).astype(np.int8)
+    got = getattr(port_pipe, f"detect_{kind}")(x)
+    want = getattr(jax_pipe, f"detect_{kind}")(x)
+    assert sorted(got) == sorted(want)
+    for k, v in got.items():
+        assert isinstance(v, np.ndarray) and isinstance(want[k], np.ndarray)
+        assert (v.dtype, v.shape) == (want[k].dtype, want[k].shape), k
+    assert_detections_close(got, want)
+    dev = getattr(port_pipe, f"detect_{kind}_device")(x)
+    assert sorted(dev) == sorted(got)
+    for k, v in dev.items():
+        assert isinstance(v, torch.Tensor) and v.device == port_pipe.device
+        np.testing.assert_array_equal(v.numpy(), got[k], err_msg=k)
 
 
 def _golden_tool():

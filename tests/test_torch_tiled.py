@@ -581,3 +581,183 @@ def test_tflite_files_are_the_exported_graphs(tmp_path, monkeypatch):
         with open(os.path.join(REPO, "tests", "data",
                                f"{name}_int8.tflite"), "rb") as f:
             assert f.read() == fresh, name
+
+
+# the tensor-core convs (csrc/conv_mma.cuh): the planner's marks and the
+# packed B fragments, which the CPU cannot run, held by their plain meaning
+MMA_PLANS = {   # name: (graph, budget); each plan cuts the net into sections
+    "v3tiny64": (lambda: TOOL.yolov3_tiny_graph(64, 8), 4096),
+    "v3tiny96": (lambda: TOOL.yolov3_tiny_graph(96, 2), 16384),
+    "v3tiny416": (lambda: TOOL.yolov3_tiny_graph(), arena.ARENA_BUDGET),
+    "corpus448": (lambda: retarget_spatial(load_tflite(CORPUS), 8),
+                  arena.ARENA_BUDGET),
+}
+# sha256 of each plan's programs as planned before the tensor-core convs
+# existed: every section's descriptors, then its constants zero-padded to
+# 16 bytes (_program_digest)
+PROGRAM_DIGESTS = {
+    ("v3tiny64", "fast2"):
+        "8b2657a2819669e4dd818e0b82aeaf61f0d79bbdcd4574c54774a3cab429d332",
+    ("v3tiny64", "fast"):
+        "460b6e6f117235617a1d5339a5fbc8250c7e9769abca22038bad505b550f5e0e",
+    ("v3tiny64", "exact"):
+        "ddcc4f6228bce5b0b049d7fa6dd0fe5baa130fbdbe89465c8cff5dd50bfc642b",
+    ("v3tiny96", "fast2"):
+        "a101dcbd061eba99800c6be94b1fd70c8b6a1b1ae29c9f107e8fbd5f10308257",
+    ("v3tiny96", "fast"):
+        "1e53f9b96a8752a64a6303a98712a829aa9a9aa6b7a4bcebaaa5ddd144c7a6e6",
+    ("v3tiny96", "exact"):
+        "217bc2baa735eb8c4ee0b51d827644accfa54d49d079131cccf05ac27a597d0b",
+    ("v3tiny416", "fast2"):
+        "00f8232742634929b27437b6e40d58a94f393bd58ec7caad3f233dba2db1bc55",
+    ("v3tiny416", "fast"):
+        "ac05af285ba9fd43330a388978d9467024877772c205adc4b6aba17bdd36abb4",
+    ("v3tiny416", "exact"):
+        "b1603e48d6cf151c54ffeb5a355775aec73e125d51d9ab98b829e2c9ae5ef41c",
+    ("corpus448", "fast2"):
+        "4a3be50e3cfadb01f37824acbdab4eaf14cc25d48c63250e67bc81d75eafcb89",
+    ("corpus448", "fast"):
+        "fd04520e6ad485813d25a4b76b42ed62c0810334baa9f3523327fdf0d74cd362",
+    ("corpus448", "exact"):
+        "396746c23bf1279bfed7ea8f4bf7444c1109932168e3f260d7937935f12ab467",
+}
+MMA = arena.F[arena.MMA_FIELD]
+
+
+def _mma_plan(name, bits="fast2"):
+    graph, budget = MMA_PLANS[name]
+    stages = tiled.build_tiled_plan(graph(), budget, bits)
+    assert all(isinstance(s, tiled.Section) for s in stages)
+    return stages
+
+
+def _program_digest(stages, strip):
+    """sha256 over the sections' programs; with ``strip``, each marked
+    program with its ``MMA_FIELD`` zeroed and its constants cut where the
+    first packed copy starts (they are appended after the rest)."""
+    h = hashlib.sha256()
+    for s in stages:
+        descs, consts = s.descs.copy(), s.consts.tobytes()
+        if strip and s.mma_convs:
+            consts = consts[:int(descs[descs[:, MMA] != 0, MMA].min())]
+            descs[:, MMA] = 0
+        h.update(descs.tobytes())
+        h.update(consts + b"\0" * (-len(consts) % 16))
+    return h.hexdigest()
+
+
+def _marked(d):
+    """Whether a strip descriptor is a conv the planner should mark."""
+    F = arena.F
+    ci = int(d[F["in0_c"]])
+    return (d[F["code"]] == arena.CONV and ci % 16 == 0
+            and d[F["kh"]] * d[F["kw"]] * ci >= tiled.MMA_MIN_K)
+
+
+@pytest.mark.parametrize("bits", list(arena.BITS))
+@pytest.mark.parametrize("name", list(MMA_PLANS))
+def test_programs_unchanged_but_for_the_mma_marks(name, bits, monkeypatch):
+    """Each section marks exactly the convs ``MMA_MIN_K`` names (and
+    launches the tensor-core instantiation exactly when it holds one);
+    with the marks and the packed copies taken away every program is
+    byte-identical to its form before the tensor-core convs, and an
+    unmarked program is so as it stands.  With no conv past the threshold
+    nothing is marked."""
+    stages = _mma_plan(name, bits)
+    for s in stages:
+        want = [_marked(d) for d in s.descs]
+        assert [bool(v) for v in s.descs[:, MMA]] == want
+        assert s.mma_convs == sum(want)
+    assert _program_digest(stages, True) == PROGRAM_DIGESTS[(name, bits)]
+    assert any(s.mma_convs for s in stages) == (name != "corpus448")
+    monkeypatch.setattr(tiled, "MMA_MIN_K", 1 << 30)
+    assert _program_digest(_mma_plan(name, bits), False) == \
+        PROGRAM_DIGESTS[(name, bits)]
+
+
+def _unpack_mma(frags, co, kh, kw, ci):
+    """The plain meaning of ``tiled.pack_mma``: lane ``4 * g + t`` of n8
+    tile ``n`` at k32 step ``s`` holds W[8n + g][32s + 4t + b] at byte b
+    and W[8n + g][32s + 16 + 4t + b] at byte 4 + b; -> OHWI [nt * 8, kh,
+    kw, ci padded to 32] int8."""
+    frags = torch.as_tensor(frags)
+    nt, ks = frags.shape[:2]
+    w = torch.zeros((nt * 8, ks * 32), dtype=torch.int8)
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        for half in range(2):
+            for b in range(4):
+                k = torch.arange(ks) * 32 + 16 * half + 4 * t + b
+                w[torch.arange(nt)[:, None] * 8 + g, k[None, :]] = \
+                    frags[:, :, lane, 4 * half + b]
+    return w.reshape(nt * 8, kh, kw, -1)
+
+
+def _marked_convs(name, bits, monkeypatch):
+    """(section, descriptor) of every marked conv of the plan; the 448
+    net's 1x1s (K 32 and 48) marked too."""
+    if name == "corpus448":
+        monkeypatch.setattr(tiled, "MMA_MIN_K", 16)
+    got = [(s, [int(v) for v in d]) for s in _mma_plan(name, bits)
+           for d in s.descs if d[MMA]]
+    assert got
+    return got
+
+
+@pytest.mark.parametrize("name", ["v3tiny64", "v3tiny416", "corpus448"])
+def test_packed_fragments_unpack_to_the_weights(name, monkeypatch):
+    """Each marked conv's packed copy, read back lane by lane, is its OHWI
+    weights with co zero-padded to a multiple of 8 and each tap's ci to a
+    multiple of 32."""
+    F = arena.F
+    for s, d in _marked_convs(name, "fast2", monkeypatch):
+        co, kh, kw, ci = d[F["out_c"]], d[F["kh"]], d[F["kw"]], d[F["in0_c"]]
+        cp, nt = -(-ci // 32) * 32, -(-co // 8)
+        frags = s.consts[d[MMA]:d[MMA] + nt * 8 * kh * kw * cp]
+        got = _unpack_mma(frags.view(np.int8).reshape(nt, -1, 32, 8), co, kh,
+                          kw, ci)
+        w = s.consts[d[F["w_off"]]:d[F["w_off"]] + co * kh * kw * ci]
+        want = torch.zeros((nt * 8, kh, kw, cp), dtype=torch.int8)
+        want[:co, :, :, :ci] = torch.from_numpy(
+            w.view(np.int8).reshape(co, kh, kw, ci).copy())
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("bits", list(arena.BITS))
+@pytest.mark.parametrize("name", ["v3tiny64", "corpus448"])
+def test_packed_gemm_equals_plain_accumulators(name, bits, monkeypatch):
+    """The tensor-core conv as an int32 GEMM over the packed layout: the
+    im2col of a random input with the fill at every tap outside the image
+    (and in the padded channels), times the unpacked fragments, plus the
+    bias, equals the accumulators of the section's plain version
+    (``_conv_acc`` over the fill-padded window) at every output pixel."""
+    F = arena.F
+    rng = np.random.default_rng(61)
+    for s, d in _marked_convs(name, bits, monkeypatch):
+        co, kh, kw, ci = d[F["out_c"]], d[F["kh"]], d[F["kw"]], d[F["in0_c"]]
+        sh, sw, pt, pl, fill = (d[F[k]] for k in ("sh", "sw", "pt", "pl",
+                                                  "fill"))
+        in0 = arena.View(*d[F["in0_space"]:F["in0_space"] + 6])
+        out = arena.View(*d[F["out_space"]:F["out_space"] + 6])
+        x = torch.from_numpy(rng.integers(-128, 128, (2, in0.h, in0.w, ci),
+                                          dtype=np.int64).astype(np.int8))
+        consts = torch.from_numpy(s.consts)
+        w = arena._const(consts, d[F["w_off"]], co * kh * kw * ci,
+                         torch.int8).reshape(co, kh, kw, ci)
+        bias = arena._const(consts, d[F["b_off"]], co, torch.int32)
+        want = arena._conv_acc(arena._padded_window(x, 0, d, in0, out, 0,
+                                                    out.h), w, (sh, sw))
+        cp, nt = -(-ci // 32) * 32, -(-co // 8)
+        frags = s.consts[d[MMA]:d[MMA] + nt * 8 * kh * kw * cp]
+        b = _unpack_mma(frags.view(np.int8).reshape(nt, -1, 32, 8), co, kh,
+                        kw, ci).reshape(nt * 8, -1).to(torch.int64)
+        xp = torch.full((2, in0.h + 2 * kh, in0.w + 2 * kw, cp), fill,
+                        dtype=torch.int64)
+        xp[:, kh:kh + in0.h, kw:kw + in0.w, :ci] = x
+        oy = torch.arange(out.h)[:, None] * sh - pt + kh
+        ox = torch.arange(out.w)[None, :] * sw - pl + kw
+        cols = torch.stack([xp[:, oy + dy, ox + dx] for dy in range(kh)
+                            for dx in range(kw)], 3)
+        acc = cols.reshape(2, out.h, out.w, -1) @ b.T
+        assert torch.equal((acc[..., :co] + bias).to(torch.int32),
+                           want + bias), (name, d[F["out_c"]], ci)

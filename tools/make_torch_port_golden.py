@@ -231,6 +231,35 @@ def surface_graph():
     return b.graph([x], [m0, m1], "op_surface")
 
 
+def wide_move_graphs():
+    """The per-op programs past the byte-move kernels' limits, in the port's
+    IR (numpy only), each with its int8 input shape: "17-input concat", a
+    CONCATENATION of 17 inputs (x, its RELU and its RELU6 in turn: three
+    distinct tensors) of [N,4,4,3] -> [N,4,4,51]; "16400 channels", x
+    [N,1,2,8200] concatenated with its RELU to 16,400 channels, then a x2
+    RESIZE of those to [N,2,4,16400]."""
+    b = GraphMaker(SEED_SURFACE)
+    x = b.act(4, 3, 0.05, -3)
+    ts = [x, b.op("RELU", [x], b.act(4, 3, 0.05, -3)),
+          b.op("RELU6", [x], b.act(4, 3, 0.05, -3))]
+    cat = b.op("CONCATENATION", [ts[k % 3] for k in range(17)],
+               b.act(4, 51, 0.05, -3), axis=3, activation="NONE")
+    many = b.graph([x], [cat], "concat17")
+    b = GraphMaker(SEED_SURFACE)
+    x = b.tensor((1, 1, 2, 8200), scale=0.05, zp=-3)
+    r = b.op("RELU", [x], b.tensor((1, 1, 2, 8200), scale=0.05, zp=-3))
+    cat = b.op("CONCATENATION", [x, r], b.tensor((1, 1, 2, 16400),
+                                                 scale=0.05, zp=-3),
+               axis=3, activation="NONE")
+    size = b.tensor((2,), np.int32, data=np.asarray([2, 4], np.int32))
+    up = b.op("RESIZE_NEAREST_NEIGHBOR", [cat, size],
+              b.tensor((1, 2, 4, 16400), scale=0.05, zp=-3),
+              align_corners=False, half_pixel_centers=False)
+    wide = b.graph([x], [up], "channels16400")
+    return {"17-input concat": (many, (4, 4, 3)),
+            "16400 channels": (wide, (1, 2, 8200))}
+
+
 def surface_frames(n: int = 3) -> np.ndarray:
     """int8 [n,15,15,3] inputs of the op-surface graph (numpy only)."""
     rng = np.random.default_rng(SEED_SURFACE + 1)

@@ -11,8 +11,8 @@ Run from the repository root on a machine with a CUDA card:
 For each engine mode (default ``arena2``) it prints, each line with the
 card's name, power limit and SM clocks:
 
-  * pipeline: ``FacePipeline.detect_rgb565`` with the frames on the card
-    (an arena mode), or the 448 net ``Int8Engine(retarget_spatial(corpus,
+  * pipeline: ``FacePipeline.detect_rgb565_device`` with the frames on the
+    card (an arena mode), or the 448 net ``Int8Engine(retarget_spatial(corpus,
     8), mode)`` on int8 448x448 frames on the card (a tiled mode), back to
     back (host clock over 5 batches) and synchronised (p50 of 10 calls,
     each ending in ``torch.cuda.synchronize()``);
@@ -353,7 +353,8 @@ def main() -> int:
             continue
         pipe = load_pipeline(CORPUS, mode=mode, device="cuda")
         f = _frames(args.batch)
-        profile_pipeline(lambda: pipe.detect_rgb565(f), args.batch, card)
+        profile_pipeline(lambda: pipe.detect_rgb565_device(f), args.batch,
+                         card)
         del f
         if mode in FUSED_BITS:
             fused_breakdown(pipe, args.arena_batch, card)

@@ -101,6 +101,33 @@ __device__ __forceinline__ int8_t* base(const View& v, int8_t* arena,
   return g.p[v.space - 1] + frame * v.h * v.w * v.cs + v.offset;
 }
 
+// The int8 output of a conv's int32 accumulator `acc` (bias included) at
+// output channel `co`, by the op's epilogue: fast requant, the fused
+// leaky's v2 (fast2) or v1 (fast) form, exact requant or the exact fused
+// leaky.  `scale` and `qms` are the op's constants (f32 scale[C]; exact:
+// int32 qm[C] then shift[C]).  Every conv body stores through it.
+__device__ __forceinline__ int8_t conv_epilogue(const Op& op, int acc, int co,
+                                                const float* scale,
+                                                const int* qms) {
+  switch (op.epi) {    // uniform across the block: no divergence
+    case EPI_LEAKY_V2:
+      return requant_leaky_v2(acc, __ldg(scale + co), op.conv_zp, op.f0,
+                              op.f1, op.zp_out);
+    case EPI_LEAKY_V1:
+      return requant_leaky_v1(acc, __ldg(scale + co), op.conv_zp, op.f0,
+                              op.f1, op.zp_out);
+    case EPI_REQUANT_EXACT:
+      return requant_exact(acc, __ldg(qms + co), __ldg(qms + op.out.c + co),
+                           op.zp_out);
+    case EPI_LEAKY_EXACT:
+      return requant_leaky_exact(acc, __ldg(qms + co),
+                                 __ldg(qms + op.out.c + co), op.conv_zp,
+                                 op.m0, op.e0, op.m1, op.e1, op.zp_out);
+    default:
+      return requant_fast(acc, __ldg(scale + co), op.zp_out);
+  }
+}
+
 // conv (CONV: OHWI weights; DW: [1,kh,kw,c] weights) + epilogue over output
 // rows [oy0, oy0 + rows); `out` points at output row oy0.
 template <bool kDepthwise>
@@ -137,29 +164,7 @@ static __device__ void conv_op(const Op& op, const int8_t* in, int in_y0,
         }
       }
     }
-    int8_t r;
-    switch (op.epi) {    // uniform across the block: no divergence
-      case EPI_LEAKY_V2:
-        r = requant_leaky_v2(acc, __ldg(scale + co), op.conv_zp, op.f0, op.f1,
-                             op.zp_out);
-        break;
-      case EPI_LEAKY_V1:
-        r = requant_leaky_v1(acc, __ldg(scale + co), op.conv_zp, op.f0, op.f1,
-                             op.zp_out);
-        break;
-      case EPI_REQUANT_EXACT:
-        r = requant_exact(acc, __ldg(qms + co), __ldg(qms + co_n + co),
-                          op.zp_out);
-        break;
-      case EPI_LEAKY_EXACT:
-        r = requant_leaky_exact(acc, __ldg(qms + co), __ldg(qms + co_n + co),
-                                op.conv_zp, op.m0, op.e0, op.m1, op.e1,
-                                op.zp_out);
-        break;
-      default:
-        r = requant_fast(acc, __ldg(scale + co), op.zp_out);
-    }
-    out[p * op.out.cs + co] = r;
+    out[p * op.out.cs + co] = conv_epilogue(op, acc, co, scale, qms);
   }
 }
 

@@ -35,10 +35,11 @@ SIGNATURES = {
     #  arena_bytes, threads, stream)
     "yf_arena_stage": [_P, _I, _P, _P, _I, _I, _I, _I, _P],
     # (descs, n_ops, consts, host ptr table, n_globals, n_frames, strips,
-    #  arena_bytes, threads, stream)
-    "yf_tiled_section": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
-    # (int out[3]: registers, local bytes, static shared bytes)
-    "yf_tiled_section_attrs": [_P],
+    #  arena_bytes, threads, mma instantiation, stream)
+    "yf_tiled_section": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # (mma instantiation, int out[3]: registers, local bytes, static
+    #  shared bytes)
+    "yf_tiled_section_attrs": [_I, _P],
     # (descs, n_ops, consts, host ptr table, n_globals, n_frames,
     #  smem_bytes, scratch_off, threads, stream)
     "yf_fused_stage": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P],

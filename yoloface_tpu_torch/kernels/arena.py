@@ -92,12 +92,17 @@ FIELDS = ("code", "epi",
           "q_off", "m0", "e0", "m1", "e1", "m2", "e2", "lsh")
 OP_INTS = 48                       # FIELDS padded to 192 bytes
 # a strip program (kernels/tiled.py) appends the ``Band`` of in0, in1 and
-# out to each descriptor: the ``StripOp`` struct of csrc/tiled_section.cu
+# out to each descriptor, then ``MMA_FIELD``: the byte offset in the
+# section's constants of a CONV's weights in tensor-core fragment order,
+# 0 for an op that runs without them (kernels/tiled.py ``mark_mma``); the
+# ``StripOp`` struct of csrc/tiled_section.cu
 BAND_FIELDS = tuple(f"{v}_{k}" for v in ("in0", "in1", "out")
                     for k in ("m", "a", "rows"))
-STRIP_OP_INTS = 64                 # OP_INTS + BAND_FIELDS padded to 256 B
+MMA_FIELD = "mma_off"
+STRIP_OP_INTS = 64                 # OP_INTS + BAND_FIELDS + MMA_FIELD, 256 B
 F = {name: i for i, name in enumerate(FIELDS)}
-F.update({name: OP_INTS + i for i, name in enumerate(BAND_FIELDS)})
+F.update({name: OP_INTS + i
+          for i, name in enumerate(BAND_FIELDS + (MMA_FIELD,))})
 
 SMEM_PER_BLOCK = 227 * 1024        # H100: 232,448 B of shared memory a block
 # the static shared memory of the stage kernels (csrc/arena_ops.cuh

@@ -257,6 +257,9 @@ def run_stage(stage: FusedStage, descs: torch.Tensor, consts: torch.Tensor,
         return outs, False
     if n >= 1 << 31:
         raise ValueError(f"{n} frames exceed one grid")
+    if len(stage.globals_) > arena.MAX_GLOBALS:
+        raise ValueError(f"{what}: a program of {len(stage.globals_)} device "
+                         f"tensors exceeds the kernel's {arena.MAX_GLOBALS}")
     from yoloface_tpu_torch.kernels._build import check, library
     ptrs = (ctypes.c_uint64 * arena.MAX_GLOBALS)(
         *[t.data_ptr() for t in list(xs) + outs])

@@ -22,7 +22,12 @@ tensor for tensor (``fused.lower_fused_ops(..., perop=True)``):
     RELU, RELU6, LOGISTIC, RESIZE_NEAREST_NEIGHBOR and CONCATENATION are
     one op each; a concat of any number of inputs writes each input into a
     channel slice of its output (JAX's pairwise partial results are in no
-    env).
+    env).  On the card a concat of up to ``move.MAX_INPUTS`` inputs and
+    ``move.TILE_BYTES`` output channels runs on the concat kernel, any
+    other on the fused-stage kernel, whose program touches at most
+    ``arena.MAX_GLOBALS`` distinct device tensors (a concat of more than
+    15 distinct inputs runs on the CPU only: the card refuses it before
+    launching).
 
 What JAX's per-op lowering would compute wrongly is refused, not copied: a
 conv, depthwise conv or max-pool with a non-square stride, a conv at a
@@ -36,10 +41,13 @@ inputs, then its output).  On the card the RELU, RELU6 and LOGISTIC
 programs (kernel ``eltwise_int8``) run on the flat table kernel
 (``kernels/eltwise.py``, ``csrc/eltwise_lut.cu``), one map over the op's
 dense bytes; the RESIZE, CONCATENATION and PAD programs
-(``resize_nearest``, ``concat_channels``, ``pad_int8``) on the flat
-byte-move kernels of ``kernels/move.py`` (``csrc/resize_nearest.cu``,
-``csrc/concat_channels.cu``, ``csrc/pad_int8.cu``), with their factors,
-input order and pads taken from the program once, at plan time; the
+(``resize_nearest``, ``concat_channels``, ``pad_int8``) that fit them on
+the flat byte-move kernels of ``kernels/move.py``
+(``csrc/resize_nearest.cu``, ``csrc/concat_channels.cu``,
+``csrc/pad_int8.cu``), with their factors, input order and pads taken
+from the program once, at plan time (``card_kernel`` decides from the
+program: a RESIZE of more than ``move.TILE_BYTES`` channels, or a concat
+past the concat kernel's limits, runs on the fused-stage kernel); the
 convs, depthwise convs, max-pools, ADDs, QUANTIZEs and standalone LEAKYs
 run on the fused-stage kernel (``csrc/fused_stage.cu``, one block a
 frame, through ``fused.run_stage``) with no values in shared memory: only
@@ -168,13 +176,27 @@ def build_perop_plan(graph: GraphDef, bits: str = "fast"
 perop_plain = arena.arena_stage_plain
 
 
+def fits_own_kernel(stage: PerOpStage) -> bool:
+    """Whether an ``OWN_KERNELS`` program is within its kernel's limits: a
+    concat of at most ``move.MAX_INPUTS`` inputs and ``move.TILE_BYTES``
+    output channels, a resize of at most ``move.TILE_BYTES`` channels (a
+    pad has no limit)."""
+    c = stage.shapes[stage.outputs[0]][2]
+    if stage.kernel == "concat_channels":
+        return len(stage.args) <= move.MAX_INPUTS and c <= move.TILE_BYTES
+    return stage.kernel != "resize_nearest" or c <= move.TILE_BYTES
+
+
 def card_kernel(stage: PerOpStage) -> str:
-    """The CUDA kernel that runs ``stage`` on the card: ``eltwise_lut``
-    for the ``TABLE_KERNELS`` programs, their own for the ``OWN_KERNELS``
-    programs, else ``fused_stage``."""
+    """The CUDA kernel that runs ``stage`` on the card, decided from the
+    program: ``eltwise_lut`` for the ``TABLE_KERNELS`` programs, their own
+    for the ``OWN_KERNELS`` programs within its limits
+    (``fits_own_kernel``), else ``fused_stage``."""
     if stage.kernel in TABLE_KERNELS:
         return "eltwise_lut"
-    return stage.kernel if stage.kernel in OWN_KERNELS else "fused_stage"
+    if stage.kernel in OWN_KERNELS and fits_own_kernel(stage):
+        return stage.kernel
+    return "fused_stage"
 
 
 def perop_op(stage: PerOpStage, descs: torch.Tensor, consts: torch.Tensor,
@@ -185,7 +207,8 @@ def perop_op(stage: PerOpStage, descs: torch.Tensor, consts: torch.Tensor,
     ``yf_resize_nearest``, ``yf_concat_channels``, ``yf_pad_int8`` or
     ``yf_fused_stage`` (``card_kernel``).  The byte-move launches check
     the input shapes and nothing of the program: their arguments are
-    ``stage.args``."""
+    ``stage.args``, and ``card_kernel`` sends them only programs within
+    their limits."""
     card = card_kernel(stage)
     if card != "fused_stage" and xs[0].device.type == "cuda":
         outs, dev = arena.prepare(stage, xs)
@@ -195,12 +218,16 @@ def perop_op(stage: PerOpStage, descs: torch.Tensor, consts: torch.Tensor,
             eltwise.eltwise_lut(descs, xs[0], out=outs[0])
         elif not xs[0].shape[0]:
             launched = False
-        elif card == "resize_nearest":
-            move.launch_resize_nearest(xs[0], outs[0], *stage.args)
-        elif card == "pad_int8":
-            move.launch_pad_int8(xs[0], outs[0], *stage.args)
         else:
-            move.launch_concat_channels([xs[j] for j in stage.args], outs[0])
+            # card_kernel sends no program past its kernel's limits here
+            assert fits_own_kernel(stage), stage.kernel
+            if card == "resize_nearest":
+                move.launch_resize_nearest(xs[0], outs[0], *stage.args)
+            elif card == "pad_int8":
+                move.launch_pad_int8(xs[0], outs[0], *stage.args)
+            else:
+                move.launch_concat_channels([xs[j] for j in stage.args],
+                                            outs[0])
     else:
         outs, launched = run_stage(stage, descs, consts, xs, "per-op")
     if launched:

@@ -43,6 +43,16 @@ Where every op of the graph fits ``budget`` on a whole frame the plan is
 the arena plan (``arena.build_arena_plan``), as the JAX package falls back
 to its arena for small graphs.
 
+The big-K convs run on the int8 tensor cores (``csrc/conv_mma.cuh``): each
+section marks its CONV ops (not depthwise) whose input has a multiple of
+16 channels and whose K (taps x ci) is at least ``MMA_MIN_K``
+(``mark_mma``), appends a second copy of each marked conv's weights to its
+constants in m16n8k32 B-fragment order (``pack_mma``) and names its offset
+in the descriptor's ``arena.MMA_FIELD``; a section holding a marked conv
+launches the kernel's tensor-core instantiation (``Section.mma_convs``).
+Nothing else of a program changes: the OHWI weights stay for ``conv_op``
+and the plain version, which ignores the mark.
+
 ``tiled_section_plain`` runs a section's program strip by strip with torch
 ops over an ``[N, arena_bytes]`` int8 tensor; ``tiled_section`` launches
 the CUDA kernel (``csrc/tiled_section.cu``) on CUDA tensors.
@@ -56,6 +66,7 @@ from fractions import Fraction
 from math import lcm
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from yoloface_tpu_torch.graph.ir import GraphDef
@@ -66,6 +77,12 @@ from yoloface_tpu_torch.kernels.arena import (ARENA_BUDGET, AVGPOOL, CONV,
 
 RECOMPUTE_BOUND = 1.10      # work a section does over the work it needs
 TARGET_SHARE = 4            # prefer strip arenas of budget / TARGET_SHARE
+# a CONV whose input has a multiple of 16 channels and whose K (taps x ci)
+# is at least this runs on the tensor cores: all of yolov3-tiny's but the
+# stem (K >= 144), none of the 448 net's (1x1s of K <= 48), whose sections
+# keep the 64-register instantiation (tools/torch_variant_sweep.py mma)
+MMA_MIN_K = 64
+MMA_K = 32                  # the k depth of one m16n8k32 step
 
 
 @dataclasses.dataclass
@@ -78,6 +95,51 @@ class Section(Stage):
     end: int = 0
     unit: int = 0
     recompute: float = 1.0
+
+    @property
+    def mma_convs(self) -> int:
+        """The marked convs, which run on the tensor cores."""
+        return int(np.count_nonzero(self.descs[:, arena.F[arena.MMA_FIELD]]))
+
+
+def pack_mma(w: np.ndarray) -> np.ndarray:
+    """int8 OHWI conv weights [co, kh, kw, ci] -> the m16n8k32 B fragments
+    of ``csrc/conv_mma.cuh``, int8 [nt, ks, 32, 8]: K is the taps in
+    (dy, dx) order, each tap's ci zero-padded to a multiple of ``MMA_K``;
+    co is zero-padded to nt * 8.  Lane ``4 * g + t`` of n8 tile ``n`` at
+    k32 step ``s`` holds W[8n + g][32s + 4t .. + 4] then W[8n + g][32s +
+    16 + 4t .. + 4]."""
+    co, kh, kw, ci = w.shape
+    cp = -(-ci // MMA_K) * MMA_K
+    nt, ks = -(-co // 8), kh * kw * cp // MMA_K
+    wp = np.zeros((nt * 8, kh, kw, cp), np.int8)
+    wp[:co, :, :, :ci] = w
+    # [n, g, s, half, t, byte] -> [n, s, g, t, half, byte]
+    return np.ascontiguousarray(
+        wp.reshape(nt, 8, ks, 2, 4, 4).transpose(0, 2, 1, 4, 3, 5)
+    ).reshape(nt, ks, 32, 8)
+
+
+def mark_mma(sec: Section) -> Section:
+    """``sec`` with its tensor-core convs marked: each CONV row whose input
+    (a dense arena view) has a multiple of 16 channels and whose K (taps x
+    ci) is at least ``MMA_MIN_K`` gets ``pack_mma`` of its weights appended
+    to the constants and their offset in ``arena.MMA_FIELD``."""
+    F = arena.F
+    descs = sec.descs.copy()
+    consts = bytearray(sec.consts.tobytes())
+    for d in descs:
+        ci = int(d[F["in0_c"]])
+        shape = (int(d[F["out_c"]]), int(d[F["kh"]]), int(d[F["kw"]]), ci)
+        if (d[F["code"]] != CONV or ci % 16 or np.prod(shape[1:]) < MMA_MIN_K
+                or d[F["in0_space"]] != 0 or d[F["in0_cs"]] != ci):
+            continue
+        w0 = int(d[F["w_off"]])
+        w = sec.consts[w0:w0 + int(np.prod(shape))].view(np.int8)
+        d[F[arena.MMA_FIELD]] = arena.put_const(consts,
+                                                pack_mma(w.reshape(shape)))
+    return dataclasses.replace(
+        sec, descs=descs, consts=np.frombuffer(bytes(consts), np.uint8).copy())
 
 
 def _row_ratios(graph: GraphDef, sec: Sequence[LOp]) -> Dict[int, int]:
@@ -196,7 +258,7 @@ def plan_section(graph: GraphDef, lops: Sequence[LOp], start: int, end: int,
             else:
                 hi = mid - 1
         if best is not None:
-            return best
+            return mark_mma(best)
     return None
 
 
@@ -238,7 +300,8 @@ def tiled_section(sec: Stage, descs: torch.Tensor, consts: torch.Tensor,
                   xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """Run one section on its input tensors (int8 [N,H,W,C], in
     ``sec.inputs`` order) -> its output tensors.  CPU tensors take
-    ``tiled_section_plain``; CUDA tensors launch ``yf_tiled_section``."""
+    ``tiled_section_plain``; CUDA tensors launch ``yf_tiled_section``, its
+    tensor-core instantiation where ``sec.mma_convs``."""
     if sec.bands is None:
         raise ValueError("a whole-frame stage runs on arena.arena_stage")
     outs, dev = arena.prepare(sec, xs)
@@ -259,13 +322,15 @@ def tiled_section(sec: Stage, descs: torch.Tensor, consts: torch.Tensor,
     err = library().yf_tiled_section(
         descs.data_ptr(), sec.descs.shape[0], consts.data_ptr(), ptrs,
         len(sec.globals_), n, sec.strips, sec.arena_bytes, arena.THREADS,
-        torch.cuda.current_stream(dev).cuda_stream)
+        int(sec.mma_convs > 0), torch.cuda.current_stream(dev).cuda_stream)
     check(err, "tiled_section")
     tiled_section.launches += 1
+    tiled_section.mma_convs += sec.mma_convs
     return outs
 
 
 tiled_section.launches = 0
+tiled_section.mma_convs = 0     # marked convs the launches ran (conv_mma)
 
 
 class TiledPlan(arena.ArenaPlan):

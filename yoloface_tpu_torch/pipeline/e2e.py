@@ -9,7 +9,9 @@ fused head (or, with
 ``HeadConfig(use_fused_head=False)``, the top-K kernel and the staged
 decode and NMS), as the JAX pipeline routes every ``pallas*`` mode through
 its preprocess kernel.  On the CPU the same calls take each kernel's plain
-torch version.  No batch padding: any N works.
+torch version.  No batch padding: any N works.  As in the JAX pipeline,
+``detect_rgb565`` and ``detect_int8`` return numpy arrays and
+``detect_rgb565_device`` and ``detect_int8_device`` the device's tensors.
 
 ``load_pipeline`` defaults to ``arena2`` (fast2 bits, the serving mode) on
 the card (``device="cpu"`` runs the plain versions); the JAX package's
@@ -60,9 +62,15 @@ class FacePipeline(nn.Module):
         return a.to(self.device).contiguous()
 
     @torch.no_grad()
-    def detect_int8(self, x_int8) -> Dict[str, torch.Tensor]:
-        """int8 network inputs [N,56,56,3] -> detections dict."""
+    def detect_int8_device(self, x_int8) -> Dict[str, torch.Tensor]:
+        """int8 network inputs [N,56,56,3] -> detections dict of tensors
+        on the pipeline's device (no host transfer)."""
         return self._head(self.engine(self._on_device(x_int8)))
+
+    def detect_int8(self, x_int8) -> Dict[str, np.ndarray]:
+        """int8 network inputs [N,56,56,3] -> detections dict of numpy
+        arrays (``detect_rgb565``'s keys and dtypes)."""
+        return _to_numpy(self.detect_int8_device(x_int8))
 
     @torch.no_grad()
     def preprocess(self, frames) -> torch.Tensor:
@@ -73,11 +81,22 @@ class FacePipeline(nn.Module):
         return rgb565_to_int8_input(f)
 
     @torch.no_grad()
-    def detect_rgb565(self, frames) -> Dict[str, torch.Tensor]:
-        """uint16 RGB565 camera frames [N,112,112] -> detections dict on
-        the pipeline's device.  Keys: boxes [N,K,4] xyxy in the 56x56
-        frame, scores [N,K], valid [N,K] bool, count [N] int32."""
+    def detect_rgb565_device(self, frames) -> Dict[str, torch.Tensor]:
+        """``detect_rgb565`` with the detections left on the pipeline's
+        device as tensors (no host transfer): the form to time and to
+        serve from."""
         return self._head(self.engine(self.preprocess(frames)))
+
+    def detect_rgb565(self, frames) -> Dict[str, np.ndarray]:
+        """uint16 RGB565 camera frames [N,112,112] -> detections dict of
+        numpy arrays, as the JAX pipeline returns them.  Keys: boxes
+        [N,K,4] float32 xyxy in the 56x56 frame, scores [N,K] float32,
+        valid [N,K] bool, count [N] int32."""
+        return _to_numpy(self.detect_rgb565_device(frames))
+
+
+def _to_numpy(dets: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    return {k: v.cpu().numpy() for k, v in dets.items()}
 
 
 def load_pipeline(tflite_path: str, mode: str = "arena2", device="cuda",
