@@ -55,7 +55,9 @@ Phases (each prints its lines; any failure ends the run with an error):
      96x96 at half) in all three bits with an input one byte in, its
      marked convs on the tensor cores;
   3. serving, one path after another, each with every launch count set to
-     0 just before it and read just after (each of its kernels > 0):
+     0 just before it and read just after (each of its kernels > 0; the
+     arena, fused and per-op paths also with their net kernel's
+     marked-conv counter equal to the plan's 16 marks a batch):
      load_pipeline(..., device="cuda").detect_rgb565_device in mode arena2
      (fused head), arena_exact (fused head), arena_exact with
      HeadConfig(use_fused_head=False) (the top-K kernel and the staged
@@ -98,7 +100,10 @@ Phases (each prints its lines; any failure ends the run with an error):
      the card has it for int8, F.max_pool2d for per-op kernels), the
      arena2, arena_exact, fused, fused_exact, perop and perop_exact
      pipelines at 16384 and 65536, and their synchronised
-     latency (host clock, p50 of 10); the 448 net in tiled2 and
+     latency (host clock, p50 of 10); the arena stage (arena2, arena) and
+     the fused stages (fused) at 16384 by op kind
+     (tools/torch_profile_pipeline.py's descriptor-prefix times); the 448
+     net in tiled2 and
      tiled_exact (the section kernel) at batch 1024 and at 128, against its
      plain version at 128 (median of 3); each new op body at the upsample's
      size (batch 1024, fast bits) as a one-op arena stage and a one-op
@@ -171,6 +176,17 @@ def _golden_tool():
     spec = importlib.util.spec_from_file_location(
         "make_torch_port_golden",
         os.path.join(ROOT, "tools", "make_torch_port_golden.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _profile_tool():
+    """tools/torch_profile_pipeline.py (the by-kind breakdowns)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_profile_pipeline",
+        os.path.join(ROOT, "tools", "torch_profile_pipeline.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -488,6 +504,36 @@ def main() -> int:
                  "a thread > its 128 B frame")
     _require(section_attrs["tiled_section_kernel<false>"]["registers"] <= 64,
              "the section kernel's first instantiation within 64 registers")
+    # the whole-frame kernels (one instantiation each), with their 1x1
+    # convs on the tensor cores and the depthwise word body
+    # (csrc/stage_ops.cuh): blocks an SM at the corpus plans' shared memory
+    stage_attrs = {}
+    corpus_smem = {"arena_stage_kernel": max(
+        st.arena_bytes for st in arena.build_arena_plan(load_tflite(CORPUS))),
+        "fused_stage_kernel": max(st.smem_bytes for st in
+                                  fused.build_fused_plan(load_tflite(CORPUS)))}
+    for name, fn in (("arena_stage_kernel",
+                      _build.library().yf_arena_stage_attrs),
+                     ("fused_stage_kernel",
+                      _build.library().yf_fused_stage_attrs)):
+        attrs = (ctypes.c_int * 4)()
+        _build.check(fn(arena.THREADS, corpus_smem[name], attrs),
+                     f"{name} attributes")
+        regs, local, static_smem, blocks = list(attrs)
+        stage_attrs[name] = {"registers": regs, "local_bytes": local,
+                             "static_smem": static_smem,
+                             "blocks_per_sm": blocks,
+                             "dynamic_smem": corpus_smem[name]}
+        print(f"[build] {name}: {regs} registers a thread, {local} B local "
+              f"memory a thread (its stack frame, spills included), "
+              f"{static_smem} B static shared memory; {blocks} blocks of "
+              f"{arena.THREADS} threads an SM at the corpus plan's "
+              f"{corpus_smem[name]} B of shared memory")
+        _require(local <= 128, f"{name} spills: {local} B of local memory "
+                 "a thread > its 128 B frame")
+        _require(regs <= 64 and blocks >= 4,
+                 f"{name}: within its launch bound (64 registers, 4 blocks "
+                 "an SM)")
 
     rng = np.random.default_rng(SEED)
 
@@ -520,7 +566,8 @@ def main() -> int:
         for fn in counted:
             fn.launches = 0
         perop.reset_launches()
-        tiled.tiled_section.mma_convs = 0
+        for fn in (tiled.tiled_section, arena.arena_stage, fused.fused_stage):
+            fn.mma_convs = 0
 
     err = {"preprocess_rgb565": 0.0, "arena_stage": 0.0,
            "requant_epilogue": 0.0, "detect_head": 0.0, "topk_conf": 0.0,
@@ -613,12 +660,17 @@ def main() -> int:
                   f"{[st.arena_bytes for st in p.stages]} B: every section "
                   "output bit-exact")
 
-    def check_program(p, x, tag, kernel, plain, key):
+    def check_program(p, x, tag, kernel, plain, key, one_byte_in=False):
         """Each stage (or op) of ``p`` through ``kernel`` and ``plain``,
-        its error kept under ``key(stage)``; -> the kernel's tensors."""
+        its error kept under ``key(stage)``, with ``one_byte_in`` each
+        input copied one byte into its storage; -> the kernel's
+        tensors."""
         env = {p.input_idx: x}
         for k, st in enumerate(p.stages):
             ins = [env[i] for i in st.inputs]
+            if one_byte_in:
+                ins = [torch.cat([t.new_zeros(1), t.flatten()])[1:].view(
+                    t.shape) for t in ins]
             outs = kernel(st, getattr(p, f"descs{k}"),
                           getattr(p, f"consts{k}"), ins)
             ref = [torch.empty_like(o) for o in outs]
@@ -634,9 +686,9 @@ def main() -> int:
         return check_program(p, x, tag, fused.fused_stage,
                              fused.fused_stage_plain, lambda st: "fused_stage")
 
-    def check_perop(p, x, tag):
+    def check_perop(p, x, tag, one_byte_in=False):
         return check_program(p, x, tag, perop.perop_op, perop.perop_plain,
-                             lambda st: st.kernel)
+                             lambda st: st.kernel, one_byte_in)
 
     surface = tool.surface_graph()
     for bits in fused.BITS:
@@ -678,6 +730,62 @@ def main() -> int:
               f"N=1/3/37) and of the op-surface graph ({len(ps.stages)} ops, "
               f"kernels {sorted({st.kernel for st in ps.stages})}); its "
               "outputs equal the golden keys")
+
+    # the whole-frame kernels' 1x1 convs on the tensor cores and their
+    # depthwise word body (csrc/stage_ops.cuh) against the plain versions:
+    # every stage (or per-op program) of the corpus net, whose marked
+    # convs take ci = 4, 6, 8, 18, 24, 32, 36, 40 and 48 (A words by byte at
+    # 6 and 18) and co = 4 to 40, at N = 1, 3 and 37, in every bit
+    # semantics; the per-op programs also with every input one byte into
+    # its storage (the A words and depthwise taps gathered by byte), and
+    # each marked conv counted where it launched
+    mma_ci = set()
+    for bits in arena.BITS:
+        p = arena.ArenaPlan(corpus, bits=bits).to(dev)
+        p_f = (fused.FusedPlan(corpus, bits=bits).to(dev)
+               if bits in fused.BITS else None)
+        p_p = (perop.PerOpPlan(corpus, bits).to(dev)
+               if bits in perop.BITS else None)
+        for plan in filter(None, (p, p_f, p_p)):
+            marks = [int(d[arena.F["in0_c"]]) for st in plan.stages
+                     for d in st.descs if d[arena.F[arena.FRAG_FIELD]]]
+            _require(len(marks) == 16, f"{bits}: the corpus's 16 1x1 convs "
+                     f"marked ({len(marks)})")
+            mma_ci |= set(marks)
+        for n in (1, 3, 37):
+            x = int8_frames(n, 56)
+            zero_counts()
+            check_stages(p, x, f"{bits} N={n} tensor cores")
+            _require(arena.arena_stage.mma_convs == p.stages[0].mma_convs,
+                     f"arena {bits}: every marked conv launched")
+            if p_f is not None:
+                check_fused(p_f, x, f"{bits} N={n} tensor cores")
+                check_perop(p_p, x, f"perop {bits} N={n} tensor cores")
+                check_perop(p_p, x, f"perop {bits} N={n} one byte in",
+                            one_byte_in=True)
+                _require(fused.fused_stage.mma_convs == 16
+                         and perop.perop_op.mma_convs == 32,
+                         f"{bits}: every marked conv launched, fused and "
+                         "per-op")
+        print(f"[check] tensor-core 1x1 convs and depthwise word body, "
+              f"{bits} bits, N=1/3/37: the arena stage"
+              + (", the fused stages and the per-op programs (also one "
+                 "byte in)" if p_f is not None else "")
+              + " bit-exact; 16 marked convs a plan, each launched")
+    _require({4, 6, 18, 48} <= mma_ci, f"marked ci {sorted(mma_ci)}")
+    # a 1x1 at stride 2 through an absorbed PAD: the window reads outside
+    # the image (the fill), ragged m16 and n8 tiles
+    g1 = tool.strided_1x1_graph()
+    for bits in arena.BITS:
+        p = arena.ArenaPlan(g1, bits=bits).to(dev)
+        _require(p.stages[0].mma_convs == 1, "the strided 1x1 is marked")
+        for n in (1, 37):
+            x1 = rng.integers(-128, 128, (n, 7, 7, 6), dtype=np.int64)
+            check_stages(p, torch.from_numpy(x1.astype(np.int8)).to(dev),
+                         f"strided 1x1 {bits} N={n}")
+    print("[check] tensor-core 1x1 at stride 2 through a PAD (reads "
+          "outside the image), fast2, fast and exact bits, N=1/37: "
+          "bit-exact")
 
     # the per-op table kernel on its own: all 256 int8 inputs, a size
     # whose bytes are not a multiple of 16, a view one byte into its
@@ -831,25 +939,30 @@ def main() -> int:
     print("[check] perop op surface, fast and exact bits: the RESIZE "
           "(x2x2, 8 channels), the 3-input CONCATENATION and the two PAD "
           "programs through their kernels equal the plain versions")
-    # the per-op programs past the concat and resize kernels' limits (a
-    # 17-input concat; a concat and a resize of 16,400 channels) run on
-    # the fused-stage kernel, as card_kernel decides from the program
+    # the per-op programs past the byte-move kernels' limits: the concats
+    # of 17 inputs (3 and 17 distinct tensors) on the concat kernel in two
+    # groups, each into its channel slice of the output; a concat and a
+    # resize of 16,400 channels on the fused-stage kernel, as card_kernel
+    # decides from the program
     for name, (g, shape) in tool.wide_move_graphs().items():
+        to_fused = name == "16400 channels"
         for bits in perop.BITS:
             p = perop.PerOpPlan(g, bits).to(dev)
             wide = [st for st in p.stages if st.kernel in perop.OWN_KERNELS]
-            _require(wide and all(perop.card_kernel(st) == "fused_stage"
-                                  for st in wide),
-                     f"{name} {bits}: on the fused-stage kernel")
-            perop.reset_launches()
+            _require(wide and all(perop.card_kernel(st) == (
+                "fused_stage" if to_fused else "concat_channels")
+                for st in wide), f"{name} {bits}: routed by card_kernel")
+            zero_counts()
             check_perop(p, torch.from_numpy(rng.integers(
                 -128, 128, (5, *shape), dtype=np.int64).astype(np.int8)
             ).to(dev), f"{name} {bits}")
             _require(perop.perop_op.launches == len(p.stages),
                      f"{name} {bits}: every op launched")
+            _require(to_fused or move.concat_channels.launches == 2,
+                     f"{name} {bits}: the concat in two launches")
         print(f"[check] perop {name} ({[st.kernel for st in wide]} on "
-              "fused_stage), fast and exact bits, N=5: every op output "
-              "bit-exact")
+              f"{'fused_stage' if to_fused else 'concat_channels, two groups'}"
+              "), fast and exact bits, N=5: every op output bit-exact")
 
     # B2b, B6b: the rest of the arena and tiled kernels' op surface
     # (standalone LEAKY, RELU, RELU6, LOGISTIC, RESIZE, AVERAGE_POOL_2D, a
@@ -996,8 +1109,9 @@ def main() -> int:
 
     def read_counts(path):
         launches[path] = {fn.__name__: fn.launches for fn in counted}
-        launches[path]["tiled_section_mma_convs"] = \
-            tiled.tiled_section.mma_convs
+        for fn in (tiled.tiled_section, arena.arena_stage, fused.fused_stage,
+                   perop.perop_op):
+            launches[path][f"{fn.__name__}_mma_convs"] = fn.mma_convs
         by_kernel[path] = dict(perop.perop_op.by_kernel)
 
     def close(got, want, tag):
@@ -1023,6 +1137,12 @@ def main() -> int:
               + (f", per-op {by_kernel[path]}" if by_kernel[path] else ""))
         _require(all(fn.launches > 0 for fn in kernels),
                  f"{path}: every kernel of the path launched")
+        # every marked 1x1 conv of the plan on the tensor cores, each batch
+        net_kernel = kernels[1]
+        marks = sum(st.mma_convs for st in p.engine.arena.stages)
+        _require(marks == 16 and net_kernel.mma_convs == marks * len(batches),
+                 f"{path}: {net_kernel.mma_convs} marked convs launched, "
+                 f"{marks} a batch planned")
         if by_kernel[path]:          # the corpus net's per-op programs
             _require(move.concat_channels.launches
                      == by_kernel[path]["concat_channels"]
@@ -1453,11 +1573,13 @@ def main() -> int:
                  f"kernel on the same ops {show(lib['kernel'])}")
               + f" ({card})")
 
+    pipeline_fps = {}
     for mode in ("arena2", "arena_exact", "fused", "fused_exact", "perop",
                  "perop_exact"):
         for n in (16384, 65536):
             f = frames(n)
             t = _time_ms(lambda: pipes[mode].detect_rgb565_device(f))
+            pipeline_fps.setdefault(mode, {})[n] = n / t * 1e3
             print(f"[time] pipeline {mode} detect_rgb565_device N={n}: "
                   f"{t:.3f} ms, "
                   f"{n / t * 1e3:.0f} frames/s ({card})")
@@ -1471,6 +1593,13 @@ def main() -> int:
             print(f"[time] pipeline {mode} sync latency N={n}: p50 "
                   f"{p50:.3f} ms of {REPS} calls, host clock ({card})")
             del f
+    # where the whole-frame kernels' time goes by op kind: the time of each
+    # descriptor as that of the program prefix ending at it less the one
+    # before (tools/torch_profile_pipeline.py), at TIMING_BATCH
+    prof = _profile_tool()
+    by_kind = {mode: (prof.fused_breakdown if mode == "fused" else
+                      prof.arena_breakdown)(pipes[mode], TIMING_BATCH, card)
+               for mode in ("arena2", "arena", "fused")}
     for mode, eng in engines448.items():
         bits = TILED_BITS[mode]
         p = eng.arena
@@ -1684,6 +1813,22 @@ def main() -> int:
                "library_ms": library_ms.get(k)}
         if k in bits:
             row["bits"] = bits[k]
+        if k in ("arena_stage", "fused_stage"):   # the whole-frame kernels
+            kern = f"{k}_kernel"
+            row.update(instantiations={kern: stage_attrs[kern]},
+                       mma_convs=launches[path][f"{k}_mma_convs"],
+                       by_kind={m: by_kind[m] for m in by_kind
+                                if (m == "fused") == (k == "fused_stage")},
+                       pipeline_fps={m: pipeline_fps[m] for m in pipeline_fps
+                                     if m.startswith(k.split("_")[0])})
+        if k == "arena_stage":
+            row.update(ms_fast=ms["arena_stage fast"][0],
+                       plain_ms_fast=ms["arena_stage fast"][1],
+                       ms_exact=ms["requant_epilogue"][0],
+                       plain_ms_exact=ms["requant_epilogue"][1])
+        if k == "fused_stage":
+            row.update(ms_exact=ms["fused_stage exact"][0],
+                       plain_ms_exact=ms["fused_stage exact"][1])
         if k == "tiled_section":     # the kernel at 1024, both at 128
             row.update(batch=BATCH448, plain_batch=PLAIN_BATCH448,
                        ms_at_plain_batch=ms[k][2],

@@ -593,10 +593,11 @@ def test_pad_int8_matches_plain_on_the_card():
 @pytest.mark.gpu
 @pytest.mark.parametrize("bits", perop.BITS)
 def test_wide_move_programs_match_plain_on_the_card(bits):
-    """The per-op programs past the concat and resize kernels' limits (a
-    17-input concat; a concat and a resize of 16,400 channels) run on the
-    fused-stage kernel, chosen at plan time, and equal their plain
-    version."""
+    """The per-op programs past the byte-move kernels' limits equal their
+    plain version: the concats of 17 inputs (3 and 17 distinct tensors)
+    on the concat kernel in two launches, each into its channel slice; a
+    concat and a resize of 16,400 channels on the fused-stage kernel,
+    chosen at plan time."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     rng = np.random.default_rng(7)
@@ -605,13 +606,17 @@ def test_wide_move_programs_match_plain_on_the_card(bits):
         x = torch.from_numpy(rng.integers(-128, 128, (3, *shape),
                                           dtype=np.int64).astype(np.int8))
         fused.fused_stage.launches = 0
+        move.concat_channels.launches = 0
         perop.reset_launches()
         env = plan.run_stages(x.cuda())
         torch.cuda.synchronize()
         wide = [st for st in plan.stages if st.kernel in perop.OWN_KERNELS]
-        assert wide and all(perop.card_kernel(st) == "fused_stage"
-                            for st in wide)
+        want = "fused_stage" if name == "16400 channels" else \
+            "concat_channels"
+        assert wide and all(perop.card_kernel(st) == want for st in wide)
         assert perop.perop_op.launches == len(plan.stages)
+        assert move.concat_channels.launches == (
+            0 if want == "fused_stage" else 2)
         for k, st in enumerate(plan.stages):
             ref = [torch.empty_like(env[o]) for o in st.outputs]
             perop.perop_plain(st, getattr(plan, f"consts{k}"),
@@ -668,3 +673,67 @@ def test_mma_sections_match_plain_on_the_card(size, div, budget, bits):
             for o, u, v in zip(st.outputs, outs, ref):
                 assert torch.equal(u, v), (size, div, bits, k, o, n)
             env.update(zip(st.outputs, outs))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", arena.BITS)
+def test_stage_bodies_match_plain_on_the_card(bits):
+    """The whole-frame kernels' 1x1 convs on the int8 tensor cores and
+    their depthwise word body (csrc/stage_ops.cuh) equal the plain
+    version on every stage (or per-op program) of the corpus net, at N =
+    1, 3 and 37, the per-op programs also with every input one byte into
+    its storage; each plan's 16 marked convs count where they launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = load_tflite(CORPUS)
+    plans = [(arena.ArenaPlan(g, bits=bits).cuda(), arena.arena_stage,
+              arena.arena_stage_plain)]
+    if bits in fused.BITS:
+        plans += [(fused.FusedPlan(g, bits=bits).cuda(), fused.fused_stage,
+                   fused.fused_stage_plain),
+                  (perop.PerOpPlan(g, bits).cuda(), perop.perop_op,
+                   perop.perop_plain)]
+    rng = np.random.default_rng(31)
+    for n in (1, 3, 37):
+        x = torch.from_numpy(rng.integers(-128, 128, (n, 56, 56, 3)).astype(
+            np.int8)).cuda()
+        for plan, kernel, plain in plans:
+            for one_off in (False, True) if kernel is perop.perop_op else \
+                    (False,):
+                kernel.mma_convs = 0
+                env = {plan.input_idx: x}
+                for k, st in enumerate(plan.stages):
+                    ins = [env[i] for i in st.inputs]
+                    if one_off:
+                        ins = [torch.cat([t.new_zeros(1), t.flatten()])[1:]
+                               .view(t.shape) for t in ins]
+                    outs = kernel(st, getattr(plan, f"descs{k}"),
+                                  getattr(plan, f"consts{k}"), ins)
+                    ref = [torch.empty_like(o) for o in outs]
+                    plain(st, getattr(plan, f"consts{k}"), ins + ref)
+                    torch.cuda.synchronize()
+                    for o, u, v in zip(st.outputs, outs, ref):
+                        assert torch.equal(u, v), (bits, n, k, o, one_off)
+                    env.update(zip(st.outputs, outs))
+                assert kernel.mma_convs == 16 == sum(
+                    st.mma_convs for st in plan.stages)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", arena.BITS)
+def test_strided_1x1_matches_plain_on_the_card(bits):
+    """The tensor-core body on a 1x1 at stride 2 through an absorbed PAD
+    (reads outside the image take the fill; ragged m16 and n8 tiles)
+    equals the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = _golden_tool().strided_1x1_graph()
+    plan = arena.ArenaPlan(g, bits=bits).cuda()
+    st = plan.stages[0]
+    assert st.mma_convs == 1
+    x = torch.from_numpy(np.random.default_rng(5).integers(
+        -128, 128, (37, 7, 7, 6)).astype(np.int8)).cuda()
+    (got,) = arena.arena_stage(st, plan.descs0, plan.consts0, [x])
+    want = torch.empty_like(got)
+    arena.arena_stage_plain(st, plan.consts0, [x, want])
+    assert torch.equal(got, want)

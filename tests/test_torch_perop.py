@@ -30,7 +30,7 @@ from yoloface_tpu.quantize.calibrate import calibrate_from_weights
 from yoloface_tpu.runtime import pallas_plan
 from yoloface_tpu.runtime.engine import Int8Engine as JaxEngine
 from yoloface_tpu_torch.convert import graph_from_jax
-from yoloface_tpu_torch.kernels import arena, perop
+from yoloface_tpu_torch.kernels import arena, move, perop
 from yoloface_tpu_torch.pipeline import head as thead
 from yoloface_tpu_torch.pipeline.e2e import load_pipeline
 from yoloface_tpu_torch.runtime.engine import PEROP_BITS, Int8Engine
@@ -476,17 +476,19 @@ def test_serving_on_golden_frames(mode, key):
 
 @pytest.mark.parametrize("bits", perop.BITS)
 def test_card_kernel_routes_by_the_program(corpus, surface, bits):
-    """``card_kernel`` decides from the program: the 17-input concat, the
-    16,400-channel concat and the 16,400-channel resize (past the concat
-    and resize kernels' 16 inputs and 16,384 channels) go to the
-    fused-stage kernel; every program of the corpus and the op surface
-    keeps its own kernel."""
+    """``card_kernel`` decides from the program: the 16,400-channel concat
+    and the 16,400-channel resize (past the concat and resize kernels'
+    16,384 channels) go to the fused-stage kernel; the concats of 17
+    inputs (3 and 17 distinct tensors) stay on the concat kernel, which
+    ``perop_op`` launches once a group of 16 inputs; every program of the
+    corpus and the op surface keeps its own kernel."""
     wide = TOOL.wide_move_graphs()
     got = {name: [perop.card_kernel(st)
                   for st in perop.PerOpPlan(g, bits).stages
-                  if st.kernel != "eltwise_int8"]
+                  if st.kernel not in ("eltwise_int8", "leaky_int8")]
            for name, (g, _) in wide.items()}
-    assert got == {"17-input concat": ["fused_stage"],
+    assert got == {"17-input concat": ["concat_channels"],
+                   "17 distinct inputs": ["concat_channels"],
                    "16400 channels": ["fused_stage", "fused_stage"]}
     for g in (graph_from_jax(corpus[0]), surface[1]):
         for st in perop.PerOpPlan(g, bits).stages:
@@ -510,6 +512,28 @@ def test_wide_move_programs_equal_jax(name, jax_mode, bits):
     got = Int8Engine(g, MODE[bits], device="cpu").run_with_intermediates(x)
     assert set(got) <= set(want) and g.outputs[0] in got
     _assert_equal(got, {k: want[k] for k in got})
+
+
+@pytest.mark.parametrize("bits,jax_mode", [("fast", "pallas"),
+                                           ("exact", "exact"),
+                                           ("exact", "pallas_exact")])
+def test_concat_of_17_distinct_tensors_equals_jax(bits, jax_mode):
+    """The concat of x and 16 LEAKY_RELUs of it (17 distinct tensors, past
+    the fused-stage kernel's 16 device tensors) equals JAX on every
+    tensor: ``perop`` JAX ``pallas`` (the leaky and concat kernels in
+    interpret mode), ``perop_exact`` JAX ``exact`` and ``pallas_exact``;
+    on the card it runs on the concat kernel in two groups."""
+    g, shape = TOOL.wide_move_graphs()["17 distinct inputs"]
+    x = _int8(np.random.default_rng(29), (2, *shape))
+    want = JaxEngine(TOOL.jax_graph(g), jax_mode).run_with_intermediates(x)
+    got = Int8Engine(g, MODE[bits], device="cpu").run_with_intermediates(x)
+    assert len(set(g.ops[-1].inputs)) == 17 and g.outputs[0] in got
+    assert set(got) <= set(want)
+    _assert_equal(got, {k: want[k] for k in got})
+    (cat,) = [st for st in perop.PerOpPlan(g, bits).stages
+              if st.kernel == "concat_channels"]
+    assert perop.card_kernel(cat) == "concat_channels"
+    assert len(cat.args) == 17 > move.MAX_INPUTS
 
 
 def test_default_device_is_the_card(corpus):

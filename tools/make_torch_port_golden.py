@@ -235,9 +235,11 @@ def wide_move_graphs():
     """The per-op programs past the byte-move kernels' limits, in the port's
     IR (numpy only), each with its int8 input shape: "17-input concat", a
     CONCATENATION of 17 inputs (x, its RELU and its RELU6 in turn: three
-    distinct tensors) of [N,4,4,3] -> [N,4,4,51]; "16400 channels", x
-    [N,1,2,8200] concatenated with its RELU to 16,400 channels, then a x2
-    RESIZE of those to [N,2,4,16400]."""
+    distinct tensors) of [N,4,4,3] -> [N,4,4,51]; "17 distinct inputs", a
+    CONCATENATION of x [N,4,4,3] and 16 standalone LEAKY_RELUs of it, each
+    with its own output scale and zero-point (17 distinct tensors) ->
+    [N,4,4,51]; "16400 channels", x [N,1,2,8200] concatenated with its RELU
+    to 16,400 channels, then a x2 RESIZE of those to [N,2,4,16400]."""
     b = GraphMaker(SEED_SURFACE)
     x = b.act(4, 3, 0.05, -3)
     ts = [x, b.op("RELU", [x], b.act(4, 3, 0.05, -3)),
@@ -245,6 +247,14 @@ def wide_move_graphs():
     cat = b.op("CONCATENATION", [ts[k % 3] for k in range(17)],
                b.act(4, 51, 0.05, -3), axis=3, activation="NONE")
     many = b.graph([x], [cat], "concat17")
+    b = GraphMaker(SEED_SURFACE)
+    x = b.act(4, 3, 0.05, -3)
+    ts = [x] + [b.op("LEAKY_RELU", [x], b.act(4, 3, 0.04 + 0.005 * k,
+                                                 7 * k - 50), alpha=0.1)
+                for k in range(16)]
+    cat = b.op("CONCATENATION", ts, b.act(4, 51, 0.05, -3), axis=3,
+               activation="NONE")
+    distinct = b.graph([x], [cat], "concat17_distinct")
     b = GraphMaker(SEED_SURFACE)
     x = b.tensor((1, 1, 2, 8200), scale=0.05, zp=-3)
     r = b.op("RELU", [x], b.tensor((1, 1, 2, 8200), scale=0.05, zp=-3))
@@ -257,7 +267,21 @@ def wide_move_graphs():
               align_corners=False, half_pixel_centers=False)
     wide = b.graph([x], [up], "channels16400")
     return {"17-input concat": (many, (4, 4, 3)),
+            "17 distinct inputs": (distinct, (4, 4, 3)),
             "16400 channels": (wide, (1, 2, 8200))}
+
+
+def strided_1x1_graph():
+    """A 1x1 conv with stride 2 through an absorbed PAD of 1 row on top
+    and 1 column on the right, in the port's IR (numpy only): int8
+    [N,7,7,6] -> [N,4,4,11].  Its window reads outside the image (the
+    fill), and its 16 pixels and 11 channels leave the tensor-core
+    body's m16 and n8 tiles ragged."""
+    b = GraphMaker(5)
+    x = b.act(7, 6, 0.05, -3)
+    p = b.pad(x, [[0, 0], [1, 0], [0, 1], [0, 0]], b.act(8, 6, 0.05, -3))
+    c = b.conv(p, 11, (1, 1), 2, "VALID", b.act(4, 11, 0.07, 5))
+    return b.graph([x], [c], "strided_1x1")
 
 
 def surface_frames(n: int = 3) -> np.ndarray:

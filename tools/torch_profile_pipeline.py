@@ -165,7 +165,9 @@ def _descriptor_rows(st, prefix_ms):
     return rows, prev
 
 
-def _print_rows(tag: str, rows, top: int = 12) -> None:
+def _print_rows(tag: str, rows, top: int = 12) -> dict:
+    """Print the rows' ms summed by op kind, then the ``top`` rows; ->
+    {kind: ms}."""
     by = {}
     for r in rows:
         by[r[2]] = by.get(r[2], 0.0) + r[0]
@@ -174,9 +176,12 @@ def _print_rows(tag: str, rows, top: int = 12) -> None:
     for dt, i, name, s, ci, co, oh in sorted(rows, reverse=True)[:top]:
         print(f"  {dt:8.3f} ms  op{i:2d} {name:10s} s{s} ci{ci} co{co} "
               f"out{oh}x{oh}")
+    return by
 
 
-def arena_breakdown(pipe, n: int, card: str, reps: int = 7) -> None:
+def arena_breakdown(pipe, n: int, card: str, reps: int = 7) -> dict:
+    """The arena stage's time by op kind (descriptor prefix times); ->
+    {kind: ms}."""
     import torch
     from yoloface_tpu_torch.kernels import _build, arena
     from yoloface_tpu_torch.kernels.preprocess import preprocess_rgb565
@@ -198,11 +203,12 @@ def arena_breakdown(pipe, n: int, card: str, reps: int = 7) -> None:
 
     rows, total = _descriptor_rows(st, prefix_ms)
     print(f"[arena] N={n}: whole stage {total:.3f} ms ({card})")
-    _print_rows("arena", rows)
+    return _print_rows("arena", rows)
 
 
-def fused_breakdown(pipe, n: int, card: str, reps: int = 7) -> None:
-    """Each fused stage kernel's time and its descriptors' (prefix times)."""
+def fused_breakdown(pipe, n: int, card: str, reps: int = 7) -> dict:
+    """Each fused stage kernel's time and its descriptors' (prefix
+    times); -> {kind: ms} over the stages."""
     import torch
     from yoloface_tpu_torch.kernels import _build, arena
     from yoloface_tpu_torch.kernels.preprocess import preprocess_rgb565
@@ -230,7 +236,7 @@ def fused_breakdown(pipe, n: int, card: str, reps: int = 7) -> None:
         print(f"[fused] N={n}: stage {k} {total:.3f} ms, {st.smem_bytes} B "
               f"shared memory, {len(st.inputs)} in / {len(st.outputs)} out: "
               f"{kinds} ({card})")
-    _print_rows("fused", every)
+    return _print_rows("fused", every)
 
 
 def perop_breakdown(pipe, n: int, card: str) -> None:

@@ -4,13 +4,22 @@ records for ``csrc/probe_copy.cu`` (threads a block x 16-byte loads a
 thread has in flight), ``csrc/pad_int8.cu`` (a border chunk merged from
 two shared-memory windows or gathered element by element; a launch bound
 of six blocks an SM), the tiled planner's ``MMA_MIN_K`` (which convs run
-on the tensor cores, ``csrc/conv_mma.cuh``) and the tensor-core section
+on the tensor cores, ``csrc/conv_mma.cuh``), the tensor-core section
 instantiation (n8 tiles a warp item, the order of its B loads, the blocks
-an SM its launch bound asks for).
+an SM its launch bound asks for) and the whole-frame kernels' conv bodies
+(``csrc/stage_ops.cuh``: ``arena_mma``, the 1x1 tensor-core body's k
+depth and tiles a warp item, the kernels' launch bound and the epilogues
+compiled into the arena kernel's bodies; ``dw4``, the channels a thread
+of the depthwise body owns; ``fused_mma``, the epilogues compiled into
+the fused kernel's bodies).  The header holds only the shapes chosen
+(m16n8k16, one m16 by one n8 tile a warp item, 4 channels a depthwise
+thread); the others are built from the general bodies kept here
+(``WIDE_MMA_BODY``, ``WIDE_DW_BODY``), put in place of the header's.
 
 Usage (on the card, from the repository root)::
 
     python3 tools/torch_variant_sweep.py [copy] [pad] [mma] [mma_body]
+        [arena_mma] [dw4] [fused_mma]
 
 Each variant is a copy of the kernel's source with one constant or
 condition rewritten, built with the library's ``nvcc`` flags into
@@ -22,8 +31,12 @@ beside ``Tensor.clone``), each corpus PAD at batch 16384 in device time
 behind a spin (beside ``F.pad``).  The ``mma`` sweep plans yolov3-tiny at
 416 (batch 256) and the 448 net (batch 1024) in ``tiled2`` at each
 threshold and with no conv marked, holds each against the unmarked plan
-bit for bit on 2 frames, and times the batch in device time.  Imports no
-jax.
+bit for bit on 2 frames, and times the batch in device time.  The
+``arena_mma`` and ``dw4`` (``fused_mma``) sweeps print each arena (fused)
+kernel variant's registers and spills, hold it against the plain version
+on 37 frames in each bit semantics, and time the corpus net's stages at
+16384 in each and the ``arena2`` (``fused``) pipeline at 65536 with every
+launch of the kernel through the variant.  Imports no jax.
 """
 
 from __future__ import annotations
@@ -306,6 +319,457 @@ def sweep_mma(dev) -> None:
         del x
 
 
+# the whole-frame stage kernels' conv bodies (csrc/stage_ops.cuh), swept
+# on the arena kernel: the k depth of an mma step, n8 and m16 tiles a warp
+# item, the blocks an SM the launch bound asks for; then the channel words
+# a thread of the depthwise body owns.  (B fragments staged in shared
+# memory beyond the arena were not tried: they come through the read-only
+# cache.)
+STAGE = "stage_ops.cuh"
+
+
+# stage_ops.cuh's constants as built: (type, value)
+STAGE_BUILT = {"kStageBlocks": ("int", "4"),
+               "kArenaMmaEpis": ("unsigned", "kFastEpis"),
+               "kArenaDwEpis": ("unsigned", "1u << EPI_LEAKY_V2"),
+               "kFusedMmaEpis": ("unsigned", "kV1Epis"),
+               "kFusedDwEpis": ("unsigned", "kV1Epis")}
+EXACT_EPIS = "(1u << EPI_REQUANT_EXACT) | (1u << EPI_LEAKY_EXACT)"
+
+
+def _stage(**knobs):
+    """Substitutions of stage_ops.cuh's constants (``kStageBlocks=5``,
+    ``kArenaDwEpis="0"`` ...), each from its value as built."""
+    subs = []
+    for name, v in knobs.items():
+        kind, built = STAGE_BUILT[name]
+        subs.append((STAGE, f"constexpr {kind} {name} = {built};",
+                     f"constexpr {kind} {name} = {v};"))
+    return subs
+
+
+# The 1x1 tensor-core body for any k depth of an mma step (16: m16n8k16,
+# one packed fragment; 32: m16n8k32, two, the second 0 past the packed
+# ones) and kStageNt n8 by kStageMt m16 tiles a warp item; @K@, @NT@ and
+# @MT@ name them.  At 16, 1 and 1 it computes what stage_ops.cuh's
+# conv1x1_mma_body does.
+WIDE_MMA_BODY = r"""// A marked 1x1 CONV + epilogue kEpi (the op's) over the whole frame on the
+// tensor cores; `in` and `out` point at the views' first bytes.  All
+// threads of the block take part: warp w takes the warp items w, w +
+// warps, ..., m16 tiles fastest.  A lane stores its two channels of a row
+// as one 16-bit word where the output view allows.
+template <int kEpi>
+static __device__ void conv1x1_mma_body(const Op& op, const int8_t* in,
+                                        int8_t* out, const uint8_t* consts) {
+  constexpr int kStageK = @K@, kStageNt = @NT@, kStageMt = @MT@;
+  constexpr int kSub = kStageK / 16;       // packed k16 fragments a step
+  constexpr int kRows = 2 * kStageMt;      // a lane's rows of an item
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int ow = op.out.w, co_n = op.out.c, ci = op.in0.c, cs = op.in0.cs;
+  const int m_n = op.out.h * ow;                           // output pixels
+  const int mt = (m_n + 16 * kStageMt - 1) / (16 * kStageMt);
+  const int nt = (co_n + 7) >> 3;                          // n8 tiles
+  const int ks = (ci + 15) >> 4;           // packed k16 fragments
+  const int kr = (ci + kStageK - 1) / kStageK * kSub;      // steps run
+  const bool words = ((addr(in) | static_cast<uintptr_t>(cs)) & 3) == 0;
+  const unsigned fill =
+      static_cast<unsigned>(static_cast<uint8_t>(op.fill)) * 0x01010101u;
+  const unsigned* frag =
+      reinterpret_cast<const unsigned*>(consts + op.frag_off) + lane;
+  // a 1x1 at stride 1 without a pad reads pixel p of the input at p * cs
+  const bool direct = op.sh == 1 && op.sw == 1 && op.pt == 0 &&
+                      op.pl == 0 && op.in0.w == ow && op.in0.h >= op.out.h;
+  const bool pairs =            // channels 2t, 2t + 1 as one 16-bit store
+      ((addr(out) | static_cast<uintptr_t>(op.out.cs)) & 1) == 0;
+  const int groups = (nt + kStageNt - 1) / kStageNt, warps = blockDim.x >> 5;
+  // the warp's item: m16 tile group mi of n8 tile group ng, m fastest
+  int mi = threadIdx.x >> 5, ng = 0;
+  while (mi >= mt) mi -= mt, ++ng;
+  for (; ng < groups; mi += warps) {
+    while (mi >= mt) mi -= mt, ++ng;
+    if (ng >= groups) break;
+    const int m0 = mi * 16 * kStageMt, n0 = ng * kStageNt;
+    int acc[kStageMt][kStageNt][4];
+#pragma unroll
+    for (int j = 0; j < kStageNt; ++j) {
+      const int co = (n0 + j) * 8 + 2 * t;
+      const int* bias = reinterpret_cast<const int*>(consts + op.b_off);
+      const int b0 = co < co_n ? __ldg(bias + co) : 0;
+      const int b1 = co + 1 < co_n ? __ldg(bias + co + 1) : 0;
+#pragma unroll
+      for (int m = 0; m < kStageMt; ++m) {
+        acc[m][j][0] = acc[m][j][2] = b0;
+        acc[m][j][1] = acc[m][j][3] = b1;
+      }
+    }
+    // the lane's rows r: pixel m0 + 16 (r / 2) + g + 8 (r % 2), read at
+    // in + off[r]; -1: outside the image (the fill), -2: past the last
+    // pixel (0)
+    int off[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int p = m0 + 16 * (r >> 1) + g + 8 * (r & 1);
+      if (p >= m_n) {
+        off[r] = -2;
+      } else if (direct) {
+        off[r] = p * cs;
+      } else {
+        const int oy = p / ow, ox = p - oy * ow;
+        const int iy = oy * op.sh - op.pt, ix = ox * op.sw - op.pl;
+        off[r] = (iy < 0 || iy >= op.in0.h || ix < 0 || ix >= op.in0.w)
+                     ? -1
+                     : (iy * op.in0.w + ix) * cs;
+      }
+    }
+#pragma unroll 1
+    for (int s = 0; s < kr; s += kSub) {
+      unsigned a[kRows][kSub];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+#pragma unroll
+        for (int h = 0; h < kSub; ++h)
+          a[r][h] = off[r] >= 0
+                        ? a_word4(in + off[r], 16 * (s + h) + 4 * t, ci, words)
+                        : off[r] == -1 ? fill : 0u;
+      }
+#pragma unroll
+      for (int j = 0; j < kStageNt; ++j) {
+        if (n0 + j < nt) {
+          unsigned b[kSub];
+#pragma unroll
+          for (int h = 0; h < kSub; ++h)
+            b[h] = s + h < ks ? __ldg(frag + ((n0 + j) * ks + s + h) * 32)
+                              : 0u;
+#pragma unroll
+          for (int m = 0; m < kStageMt; ++m) {
+            if (kSub == 1)
+              mma_k16(acc[m][j], a[2 * m][0], a[2 * m + 1][0], b[0]);
+            else
+              mma_s8(acc[m][j], a[2 * m][0], a[2 * m + 1][0],
+                     a[2 * m][kSub - 1], a[2 * m + 1][kSub - 1], b[0],
+                     b[kSub - 1]);
+          }
+        }
+      }
+    }
+    // c0, c1: row g, channels 2t, 2t + 1; c2, c3: row g + 8
+    const float* scale = reinterpret_cast<const float*>(consts + op.s_off);
+    const int* qms = reinterpret_cast<const int*>(consts + op.q_off);
+#pragma unroll
+    for (int m = 0; m < kStageMt; ++m) {
+#pragma unroll
+      for (int j = 0; j < kStageNt; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int p = m0 + 16 * m + g + 8 * h;
+          const int co = (n0 + j) * 8 + 2 * t;
+          if (p >= m_n || co >= co_n) continue;
+          int8_t* o = out + p * op.out.cs + co;
+          const int8_t lo =
+              epilogue<kEpi>(op, acc[m][j][2 * h], co, scale, qms);
+          if (co + 1 < co_n) {
+            const int8_t hi = epilogue<kEpi>(
+                op, acc[m][j][2 * h + 1], co + 1, scale, qms);
+            if (pairs) {
+              *reinterpret_cast<uint16_t*>(o) = static_cast<uint16_t>(
+                  static_cast<uint8_t>(lo) | (static_cast<uint8_t>(hi) << 8));
+            } else {
+              o[0] = lo;
+              o[1] = hi;
+            }
+          } else {
+            o[0] = lo;
+          }
+        }
+      }
+    }
+  }
+}
+
+"""
+# The depthwise word body for kW 4-byte channel words a thread, kDwWords
+# (@W@) where the channel count allows, else one; at 1 it is
+# stage_ops.cuh's dw3x3_words_op.
+WIDE_DW_BODY = r"""// 3x3 depthwise conv + epilogue kEpi (the op's) over the whole frame, a
+// thread owning the kW channel words [4 kW q, 4 kW (q + 1)) for every pixel
+// it takes.  The caller guarantees that the input view's first byte,
+// channel stride and channel count are multiples of 4, that 4 kW divides
+// the channel count and that the block has a thread for each group.
+constexpr int kDwWords = @W@;
+template <int kW, int kEpi>
+static __device__ void dw3x3_words_op(const Op& op, const int8_t* in,
+                                      int8_t* out, const uint8_t* consts) {
+  constexpr int kC = 4 * kW;
+  const int c_n = op.out.c, nq = c_n / kC;
+  const int lanes = blockDim.x / nq;          // pixels walked at once
+  const int q = threadIdx.x % nq, lane = threadIdx.x / nq;
+  if (lane >= lanes) return;                  // the block's last threads
+  const int c0 = q * kC;
+  const unsigned* w = reinterpret_cast<const unsigned*>(
+      consts + op.w_off + c0);                // [1,3,3,C]: tap k at k * C
+  const int* bias = reinterpret_cast<const int*>(consts + op.b_off) + c0;
+  const float* scale = reinterpret_cast<const float*>(consts + op.s_off);
+  const int* qms = reinterpret_cast<const int*>(consts + op.q_off);
+  unsigned wk[9][kW];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+#pragma unroll
+    for (int u = 0; u < kW; ++u) wk[k][u] = __ldg(w + k * (c_n / 4) + u);
+  }
+  int b[kC];
+#pragma unroll
+  for (int j = 0; j < kC; ++j) b[j] = __ldg(bias + j);
+  const int ow = op.out.w, m_n = op.out.h * ow;
+  const int in_h = op.in0.h, in_w = op.in0.w, cs = op.in0.cs;
+  const unsigned fill =
+      static_cast<unsigned>(static_cast<uint8_t>(op.fill)) * 0x01010101u;
+  const bool out_words =
+      ((addr(out) | static_cast<uintptr_t>(op.out.cs)) & 3) == 0;
+  // pixel p = oy * ow + ox, stepped by lanes = dy * ow + dx
+  const int dy = lanes / ow, dx = lanes - dy * ow;
+  int oy = lane / ow, ox = lane - oy * ow;
+  for (int p = lane; p < m_n; p += lanes, oy += dy, ox += dx) {
+    if (ox >= ow) ox -= ow, ++oy;
+    const int y0 = oy * op.sh - op.pt, x0 = ox * op.sw - op.pl;
+    int acc[kC];
+#pragma unroll
+    for (int j = 0; j < kC; ++j) acc[j] = b[j];
+    const int base = (y0 * in_w + x0) * cs + c0;   // tap (0, 0)'s word
+    if (y0 >= 0 && y0 + 3 <= in_h && x0 >= 0 && x0 + 3 <= in_w) {
+#pragma unroll
+      for (int k = 0; k < 9; ++k) {
+        const unsigned* v = reinterpret_cast<const unsigned*>(
+            in + base + ((k / 3) * in_w + k % 3) * cs);
+#pragma unroll
+        for (int u = 0; u < kW; ++u) mac4(acc + 4 * u, v[u], wk[k][u]);
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < 9; ++k) {
+        const int iy = y0 + k / 3, ix = x0 + k % 3;
+        const bool inb = iy >= 0 && iy < in_h && ix >= 0 && ix < in_w;
+        const unsigned* v = reinterpret_cast<const unsigned*>(
+            in + base + ((k / 3) * in_w + k % 3) * cs);
+#pragma unroll
+        for (int u = 0; u < kW; ++u)
+          mac4(acc + 4 * u, inb ? v[u] : fill, wk[k][u]);
+      }
+    }
+    int8_t* o = out + p * op.out.cs + c0;
+#pragma unroll
+    for (int u = 0; u < kW; ++u) {
+      unsigned r = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        r |= static_cast<unsigned>(static_cast<uint8_t>(
+                 epilogue<kEpi>(op, acc[4 * u + j], c0 + 4 * u + j, scale,
+                                qms)))
+             << (8 * j);
+      if (out_words) {
+        reinterpret_cast<unsigned*>(o)[u] = r;
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          o[4 * u + j] = static_cast<int8_t>(r >> (8 * j));
+      }
+    }
+  }
+}
+
+// dw3x3_words_op with the op's epilogue, kDwWords words a thread where the
+// channel count allows, else one.
+struct Dw3x3Words {
+  const Op& op;
+  const int8_t* in;
+  int8_t* out;
+  const uint8_t* consts;
+  template <int kEpi>
+  __device__ void run() const {
+    if (kDwWords > 1 && op.out.c % (4 * kDwWords) == 0)
+      dw3x3_words_op<kDwWords, kEpi>(op, in, out, consts);
+    else
+      dw3x3_words_op<1, kEpi>(op, in, out, consts);
+  }
+};
+
+"""
+
+
+def _replace_body(first: str, end: str, body: str):
+    """The substitution of stage_ops.cuh's text from the line ``first`` up
+    to the line ``end`` (not included) by ``body``."""
+    text = (_build.CSRC / STAGE).read_text()
+    a = text.index(first)
+    return (STAGE, text[a:text.index(end, a)], body)
+
+
+def _wide_mma(k: int = 16, nt: int = 1, mt: int = 1):
+    """Substitutions building the 1x1 body at k depth ``k`` with ``nt`` n8
+    by ``mt`` m16 tiles a warp item (``mma_s8``, the m16n8k32 step, comes
+    from conv_mma.cuh)."""
+    body = (WIDE_MMA_BODY.replace("@K@", str(k)).replace("@NT@", str(nt))
+            .replace("@MT@", str(mt)))
+    return [(STAGE, '#include "arena_ops.cuh"\n',
+             '#include "arena_ops.cuh"\n#include "conv_mma.cuh"\n'),
+            _replace_body("// A marked 1x1 CONV + epilogue kEpi",
+                          "// conv1x1_mma_body with the op's epilogue",
+                          body)]
+
+
+def _wide_dw(words: int):
+    """Substitutions building the depthwise body at ``words`` channel
+    words a thread where the channel count allows."""
+    return [_replace_body("// 3x3 depthwise conv + epilogue kEpi",
+                          "// DW + epilogue over the whole frame",
+                          WIDE_DW_BODY.replace("@W@", str(words)))]
+
+
+# the arena kernel's conv bodies on pointers the compiler sees are in
+# shared memory (the arena's views: LDS/STS) instead of generic ones
+MMA_CALL = "yf::conv1x1_mma_op<yf::kArenaMmaEpis>"
+DW_CALL = "yf::dw_op<yf::kArenaDwEpis>"
+SHARED_VIEWS = [
+    (f"""        if (op.frag_off != 0)
+          {MMA_CALL}(op, in0, out, consts);""",
+     f"""        if (op.frag_off != 0 && op.in0.space == 0 && op.out.space == 0)
+          {MMA_CALL}(op, arena + op.in0.offset, arena + op.out.offset,
+                     consts);
+        else if (op.frag_off != 0)
+          {MMA_CALL}(op, in0, out, consts);"""),
+    (f"""        {DW_CALL}(op, in0, out, consts);""",
+     f"""        if (op.in0.space == 0 && op.out.space == 0)
+          {DW_CALL}(op, arena + op.in0.offset, arena + op.out.offset,
+                    consts);
+        else
+          {DW_CALL}(op, in0, out, consts);""")]
+ARENA_MMA_VARIANTS = [
+    ("as built (k16, 1 n8 tile, 1 m16 tile, 4 blocks an SM; the fast "
+     "epilogues compiled in the 1x1 body, v2 in the depthwise body)", {}),
+    ("every epilogue compiled in both bodies", dict(
+        kArenaMmaEpis=f"kFastEpis | {EXACT_EPIS}",
+        kArenaDwEpis=f"kFastEpis | {EXACT_EPIS}")),
+    ("every epilogue compiled in the 1x1 body",
+     dict(kArenaMmaEpis=f"kFastEpis | {EXACT_EPIS}")),
+    ("the fast epilogues compiled in both bodies",
+     dict(kArenaDwEpis="kFastEpis")),
+    ("no epilogue compiled in the depthwise body", dict(kArenaDwEpis="0")),
+    ("no epilogue compiled in", dict(kArenaMmaEpis="0", kArenaDwEpis="0")),
+    ("shared-memory views", SHARED_VIEWS),
+    ("the general 1x1 body at k16, 1 n8 tile, 1 m16 tile", _wide_mma()),
+    ("5 n8 tiles, no block bound", dict(kStageBlocks=1), _wide_mma(nt=5)),
+    ("5 n8 tiles", _wide_mma(nt=5)),
+    ("2 n8 tiles", _wide_mma(nt=2)),
+    ("2 m16 tiles", _wide_mma(mt=2)),
+    ("k32", _wide_mma(k=32)),
+    ("5 blocks an SM", dict(kStageBlocks=5)),
+]
+DW4_VARIANTS = [
+    ("4 channels a thread", {}),
+    ("the general depthwise body at 4 channels a thread", _wide_dw(1)),
+    ("8 channels a thread (C = 8, 24, 40; 4 for 36)", _wide_dw(2)),
+]
+# the fused kernel's epilogue sets (its bits are fast, v1, and exact):
+# the 1x1 body's set is kFusedMmaEpis, the depthwise body's kFusedDwEpis
+V1_EPIS = "kV1Epis"
+FUSED_MMA_VARIANTS = [
+    ("as built (the fast epilogues compiled in both bodies)", {}),
+    ("the fast epilogues compiled in the 1x1 body", dict(kFusedDwEpis="0")),
+    ("every epilogue compiled in the 1x1 body",
+     dict(kFusedDwEpis="0", kFusedMmaEpis=f"{V1_EPIS} | {EXACT_EPIS}")),
+    ("every epilogue in the 1x1 body, the fast ones in the depthwise body",
+     dict(kFusedMmaEpis=f"{V1_EPIS} | {EXACT_EPIS}",
+          kFusedDwEpis=V1_EPIS)),
+    ("every epilogue compiled in both bodies",
+     dict(kFusedMmaEpis=f"{V1_EPIS} | {EXACT_EPIS}",
+          kFusedDwEpis="kFusedMmaEpis")),
+    ("no epilogue compiled in", dict(kFusedMmaEpis="0", kFusedDwEpis="0")),
+]
+
+
+def _stage_report(log: str, kernel: str) -> str:
+    """The compiler's registers and spills of a whole-frame kernel."""
+    lines = log.splitlines()
+    for k, line in enumerate(lines):
+        if "Compiling entry" in line and kernel in line:
+            got = [s.split(":")[-1].strip() for s in lines[k + 1:k + 5]
+                   if "Used" in s or "spill" in s]
+            return "; ".join(got)
+    return "?"
+
+
+def _sweep_stage(dev, variants, tag: str, kernel: str = "arena") -> None:
+    """Each variant of the arena (or fused) kernel: its registers and
+    spills, the corpus net's stages at 16384 in each bit semantics, held
+    against the plain version on 37 frames first, and the ``arena2`` (or
+    ``fused``) pipeline at 65536, every launch through the variant."""
+    from yoloface_tpu_torch.kernels import arena, fused
+    from yoloface_tpu_torch.pipeline.e2e import load_pipeline
+    g = load_tflite(CORPUS)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    if kernel == "arena":
+        plans = {b: arena.ArenaPlan(g, bits=b).to(dev) for b in arena.BITS}
+        run, plain, mode = arena.arena_stage, arena.arena_stage_plain, "arena2"
+    else:
+        plans = {b: fused.FusedPlan(g, bits=b).to(dev) for b in fused.BITS}
+        run, plain, mode = fused.fused_stage, fused.fused_stage_plain, "fused"
+    x = torch.randint(-128, 128, (16384, 56, 56, 3), generator=gen,
+                      device=dev, dtype=torch.int8)
+    small = x[:37].contiguous()
+    pipe = load_pipeline(CORPUS, mode=mode, device=dev)
+    frames = torch.randint(-1 << 15, 1 << 15, (65536, 112, 112),
+                           generator=gen, device=dev,
+                           dtype=torch.int16).view(torch.uint16)
+    lib = _build.library()
+    entry_name = f"yf_{kernel}_stage"
+    built = getattr(lib, entry_name)
+    offset = {"arena_mma": 200, "dw4": 300, "fused_mma": 400}[tag]
+    for k, (label, *spec) in enumerate(variants):
+        knobs = next((v for v in spec if isinstance(v, dict)), {})
+        subs = next((v for v in spec if isinstance(v, list)), [])
+        vlib, entry, log = variant_library(
+            offset + k, f"{kernel}_stage.cu", entry_name,
+            _stage(**knobs) + subs)
+        fn = getattr(vlib, entry)
+        fn.argtypes = _build.SIGNATURES[entry_name]
+        fn.restype = ctypes.c_int
+        setattr(lib, entry_name, fn)     # every launch through it
+        try:
+            line = []
+            for bits, p in plans.items():
+                env = {p.input_idx: small}
+                for j, st in enumerate(p.stages):
+                    ins = [env[i] for i in st.inputs]
+                    got = run(st, getattr(p, f"descs{j}"),
+                              getattr(p, f"consts{j}"), ins)
+                    want = [torch.empty_like(t) for t in got]
+                    plain(st, getattr(p, f"consts{j}"), ins + want)
+                    for u, v in zip(got, want):
+                        same(u, v, f"{tag} {label} {bits} stage {j}")
+                    env.update(zip(st.outputs, got))
+                ms = time_ms(lambda p=p: p.run_stages(x), dev, 10)
+                line.append(f"{bits} {ms:.4f}")
+            ms = time_ms(lambda: pipe.detect_rgb565_device(frames), dev, 5)
+        finally:
+            setattr(lib, entry_name, built)
+        print(f"[sweep] {tag} {label}: {kernel} stages at 16384, ms: "
+              f"{', '.join(line)}; {mode} pipeline at 65536 {ms:.3f} ms "
+              f"({65536 / ms * 1e3:.0f} frames/s) (ptxas: "
+              f"{_stage_report(log, f'{kernel}_stage_kernel')})",
+              flush=True)
+
+
+def sweep_arena_mma(dev) -> None:
+    _sweep_stage(dev, ARENA_MMA_VARIANTS, "arena_mma")
+
+
+def sweep_dw4(dev) -> None:
+    _sweep_stage(dev, DW4_VARIANTS, "dw4")
+
+
+def sweep_fused_mma(dev) -> None:
+    _sweep_stage(dev, FUSED_MMA_VARIANTS, "fused_mma", "fused")
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("torch_variant_sweep: no CUDA device", file=sys.stderr)
@@ -318,7 +782,8 @@ def main(argv) -> int:
     print(f"[sweep] {card}; torch {torch.__version__}", flush=True)
     _build.library()
     sweeps = {"copy": sweep_copy, "pad": sweep_pad, "mma": sweep_mma,
-              "mma_body": sweep_mma_body}
+              "mma_body": sweep_mma_body, "arena_mma": sweep_arena_mma,
+              "dw4": sweep_dw4, "fused_mma": sweep_fused_mma}
     for name in argv or list(sweeps):
         sweeps[name](dev)
     return 0

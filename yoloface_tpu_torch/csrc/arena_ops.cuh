@@ -76,7 +76,8 @@ struct Op {            // 48 int32, the host planner's FIELDS in order
   int q_off;             // exact: int32 qm[C] then shift[C]
   int m0, e0, m1, e1, m2, e2;   // exact (qm, shift) pairs
   int lsh;               // exact ADD's left shift
-  int reserved[4];
+  int frag_off;          // a marked 1x1 CONV's B fragments in consts, else 0
+  int reserved[3];       // (the whole-frame kernels only: stage_ops.cuh)
 };
 static_assert(sizeof(Op) == 48 * 4, "Op must match kernels/arena.py FIELDS");
 
@@ -102,14 +103,16 @@ __device__ __forceinline__ int8_t* base(const View& v, int8_t* arena,
 }
 
 // The int8 output of a conv's int32 accumulator `acc` (bias included) at
-// output channel `co`, by the op's epilogue: fast requant, the fused
-// leaky's v2 (fast2) or v1 (fast) form, exact requant or the exact fused
-// leaky.  `scale` and `qms` are the op's constants (f32 scale[C]; exact:
-// int32 qm[C] then shift[C]).  Every conv body stores through it.
-__device__ __forceinline__ int8_t conv_epilogue(const Op& op, int acc, int co,
-                                                const float* scale,
-                                                const int* qms) {
-  switch (op.epi) {    // uniform across the block: no divergence
+// output channel `co`, by the epilogue kEpi (the op's epi): fast requant,
+// the fused leaky's v2 (fast2) or v1 (fast) form, exact requant or the
+// exact fused leaky.  `scale` and `qms` are the op's constants (f32
+// scale[C]; exact: int32 qm[C] then shift[C]).  A body that knows its
+// op's epilogue at compile time (stage_ops.cuh) calls this form.
+template <int kEpi>
+__device__ __forceinline__ int8_t conv_epilogue_as(const Op& op, int acc,
+                                                   int co, const float* scale,
+                                                   const int* qms) {
+  switch (kEpi) {
     case EPI_LEAKY_V2:
       return requant_leaky_v2(acc, __ldg(scale + co), op.conv_zp, op.f0,
                               op.f1, op.zp_out);
@@ -125,6 +128,25 @@ __device__ __forceinline__ int8_t conv_epilogue(const Op& op, int acc, int co,
                                  op.m0, op.e0, op.m1, op.e1, op.zp_out);
     default:
       return requant_fast(acc, __ldg(scale + co), op.zp_out);
+  }
+}
+
+// conv_epilogue_as by the op's epi at run time.  Every conv body stores
+// through one of the two forms.
+__device__ __forceinline__ int8_t conv_epilogue(const Op& op, int acc, int co,
+                                                const float* scale,
+                                                const int* qms) {
+  switch (op.epi) {    // uniform across the block: no divergence
+    case EPI_LEAKY_V2:
+      return conv_epilogue_as<EPI_LEAKY_V2>(op, acc, co, scale, qms);
+    case EPI_LEAKY_V1:
+      return conv_epilogue_as<EPI_LEAKY_V1>(op, acc, co, scale, qms);
+    case EPI_REQUANT_EXACT:
+      return conv_epilogue_as<EPI_REQUANT_EXACT>(op, acc, co, scale, qms);
+    case EPI_LEAKY_EXACT:
+      return conv_epilogue_as<EPI_LEAKY_EXACT>(op, acc, co, scale, qms);
+    default:
+      return conv_epilogue_as<EPI_REQUANT>(op, acc, co, scale, qms);
   }
 }
 

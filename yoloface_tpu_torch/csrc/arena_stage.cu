@@ -19,28 +19,31 @@
 // (1.03 M MACs a 56x56 frame) and shared-memory reads of the windows.
 // Device memory moves only the 9,408 input bytes and 882 output bytes of a
 // frame, because every intermediate tensor lives in the arena.
-// What the design does about it, in this first version: one block per
-// frame keeps the whole net in shared memory (23.5 KB for the corpus
-// graph, so several blocks share an SM); each op body computes every row
-// of its output (arena_ops.cuh).  A stage's inputs come in and its outputs
-// go out through copy_op, 16 bytes a thread step with four loads in flight,
-// since a one-op stage at a real size (26x26x128, 173 KB of arena: one
-// block an SM) is bound by those moves.  Tensor cores (int8 mma/wgmma for
-// the 1x1 convs) are later work.
+// What the design does about it: one block per frame keeps the whole net
+// in shared memory (23.5 KB for the corpus graph, so several blocks share
+// an SM); each op body computes every row of its output (arena_ops.cuh).
+// The 1x1 convs the planner marks run on the int8 tensor cores and the
+// 3x3 depthwise convs four channels a thread (stage_ops.cuh, shared with
+// the fused stage kernel); the stem and any other conv keep conv_op.  A
+// stage's inputs come in and its outputs go out through copy_op, 16 bytes
+// a thread step with four loads in flight, since a one-op stage at a real
+// size (26x26x128, 173 KB of arena: one block an SM) is bound by those
+// moves.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "arena_ops.cuh"
+#include "stage_ops.cuh"
 
 namespace {
 
 using yf::Globals;
 using yf::Op;
 
-__global__ void arena_stage_kernel(const Op* __restrict__ ops, int n_ops,
-                                   const uint8_t* __restrict__ consts,
-                                   Globals g) {
+__global__ void __launch_bounds__(yf::kStageThreads, yf::kStageBlocks)
+    arena_stage_kernel(const Op* __restrict__ ops, int n_ops,
+                       const uint8_t* __restrict__ consts, Globals g) {
   extern __shared__ __align__(16) int8_t arena[];
   const long long frame = blockIdx.x;
   for (int i = 0; i < n_ops; ++i) {
@@ -48,11 +51,14 @@ __global__ void arena_stage_kernel(const Op* __restrict__ ops, int n_ops,
     const int8_t* in0 = yf::base(op.in0, arena, g, frame);
     int8_t* out = yf::base(op.out, arena, g, frame);
     switch (op.code) {   // the whole frame: rows [0, out.h), held from 0
-      case yf::CONV:
-        yf::conv_op<false>(op, in0, 0, out, 0, op.out.h, consts);
+      case yf::CONV:     // a marked 1x1 on the tensor cores
+        if (op.frag_off != 0)
+          yf::conv1x1_mma_op<yf::kArenaMmaEpis>(op, in0, out, consts);
+        else
+          yf::conv_op<false>(op, in0, 0, out, 0, op.out.h, consts);
         break;
       case yf::DW:
-        yf::conv_op<true>(op, in0, 0, out, 0, op.out.h, consts);
+        yf::dw_op<yf::kArenaDwEpis>(op, in0, out, consts);
         break;
       case yf::MAXPOOL:
         yf::maxpool_op(op, in0, 0, out, 0, op.out.h);
@@ -106,4 +112,13 @@ extern "C" int yf_arena_stage(const void* descs, int n_ops, const void* consts,
       static_cast<const Op*>(descs), n_ops,
       static_cast<const uint8_t*>(consts), g);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The kernel as the build compiled it: registers a thread, local bytes a
+// thread (its stack frame, spills included), static shared bytes, and the
+// blocks of `threads` threads with `smem_bytes` of dynamic shared memory an
+// SM holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into
+// out[0..3].
+extern "C" int yf_arena_stage_attrs(int threads, int smem_bytes, int* out) {
+  return yf::kernel_attrs(arena_stage_kernel, threads, smem_bytes, out);
 }

@@ -30,6 +30,11 @@
 //    Ci is a multiple of 16;
 //  * a base that is not 16-byte aligned, the partial chunks at its ends
 //    and a ragged last tile take the element path of the same kernel.
+// One launch may also write a channel slice of a wider output: the output
+// pixel p's slice starts at y + p * out_stride + out_off.  kernels/perop.py
+// cuts a concat of more than kMaxInputs inputs into groups that way, one
+// launch a group; such a slice is written element by element (elements of
+// the largest power of two that also divides out_off and out_stride).
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -48,6 +53,7 @@ struct Inputs {
   int c[kMaxInputs];               // bytes a pixel of each input
   int off[kMaxInputs + 1];         // its offset in an output pixel; the sum
   int n;                           // inputs
+  int out_off, out_stride;         // the slice's first byte, a pixel's bytes
   int tile_px;                     // P pixels a tile
   long long pixels;                // N * H * W
   long long tiles;
@@ -84,9 +90,20 @@ __global__ void __launch_bounds__(kMoveThreads)
     __syncthreads();                             // the last tile is read
     yf::stage(tile_src, tile_len, tile_at, n, tile);
     __syncthreads();
+    const int total = np * ct;                   // the tile's output
+    if (in.out_stride != in.off[n]) {            // a slice: element by element
+      T* d = reinterpret_cast<T*>(y + p0 * in.out_stride + in.out_off);
+      const int se = in.out_stride / kE;
+      for (int e = threadIdx.x; e < total; e += kMoveThreads) {
+        const int p = e / ct, ch = e - p * ct;
+        int i = 0;
+        while (ch >= oe[i + 1]) ++i;
+        d[p * se + ch] = src[tp * oe[i] + p * ce[i] + (ch - oe[i])];
+      }
+      continue;
+    }
     T* d = reinterpret_cast<T*>(y + p0 * in.off[n]);
     const int lead = static_cast<int>(yf::addr(d) & 15) / kE;
-    const int total = np * ct;                   // the tile's output
     const int nk = (lead + total + kV - 1) / kV;
     for (int k = threadIdx.x; k < nk; k += kMoveThreads) {
       const int lo = max(k * kV - lead, 0);
@@ -140,17 +157,21 @@ int launch(Inputs in, int8_t* y, cudaStream_t stream) {
 
 }  // namespace
 
-// y (int8 [pixels, sum c], dense) = the n inputs xs[i] (int8 [pixels,
-// c[i]], dense; host arrays of n pointers and n counts) side by side.
-// Returns cudaErrorInvalidValue for n outside 1..16 or a pixel of more
-// bytes than the tile (16384).
+// y (int8 [pixels, out_stride]) channels [out_off, out_off + sum c) = the
+// n inputs xs[i] (int8 [pixels, c[i]], dense; host arrays of n pointers
+// and n counts) side by side; out_stride = sum c and out_off = 0 is a
+// dense output.  Returns cudaErrorInvalidValue for n outside 1..16, a
+// pixel of more input bytes than the tile (16384) or a slice past
+// out_stride.
 extern "C" int yf_concat_channels(const void* const* xs, const int* cs,
                                   int n, void* y, long long pixels,
-                                  void* stream) {
-  if (n < 1 || n > kMaxInputs || pixels < 1)
+                                  int out_off, int out_stride, void* stream) {
+  if (n < 1 || n > kMaxInputs || pixels < 1 || out_off < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   Inputs in{};
-  uintptr_t bits = reinterpret_cast<uintptr_t>(y);
+  uintptr_t bits = reinterpret_cast<uintptr_t>(y) |
+                   static_cast<uintptr_t>(out_off) |
+                   static_cast<uintptr_t>(out_stride);
   for (int i = 0; i < n; ++i) {
     if (cs[i] < 1) return static_cast<int>(cudaErrorInvalidValue);
     in.x[i] = static_cast<const int8_t*>(xs[i]);
@@ -160,7 +181,9 @@ extern "C" int yf_concat_channels(const void* const* xs, const int* cs,
   }
   in.n = n;
   in.pixels = pixels;
-  if (in.off[n] > kMoveTileBytes)
+  in.out_off = out_off;
+  in.out_stride = out_stride;
+  if (in.off[n] > kMoveTileBytes || out_off + in.off[n] > out_stride)
     return static_cast<int>(cudaErrorInvalidValue);
   int8_t* ys = static_cast<int8_t*>(y);
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -30,22 +30,25 @@
 // (placed by liveness) stay in dynamic shared memory, external inputs come
 // in and outputs go out with 16-byte moves, and the max-pool runs as a row
 // pass and a column pass through a scratch after the values (kw + kh
-// compares an output instead of kh * kw).  Tensor cores for the 1x1 convs
-// are later work.
+// compares an output instead of kh * kw).  The 1x1 convs the planner
+// marks run on the int8 tensor cores and the 3x3 depthwise convs four
+// channels a thread (stage_ops.cuh, shared with the arena stage kernel).
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "arena_ops.cuh"
+#include "stage_ops.cuh"
 
 namespace {
 
 using yf::Globals;
 using yf::Op;
 
-__global__ void fused_stage_kernel(const Op* __restrict__ ops, int n_ops,
-                                   const uint8_t* __restrict__ consts,
-                                   Globals g, int scratch_off) {
+__global__ void __launch_bounds__(yf::kStageThreads, yf::kStageBlocks)
+    fused_stage_kernel(const Op* __restrict__ ops, int n_ops,
+                       const uint8_t* __restrict__ consts, Globals g,
+                       int scratch_off) {
   extern __shared__ __align__(16) int8_t smem[];
   const long long frame = blockIdx.x;
   for (int i = 0; i < n_ops; ++i) {
@@ -53,11 +56,14 @@ __global__ void fused_stage_kernel(const Op* __restrict__ ops, int n_ops,
     const int8_t* in0 = yf::base(op.in0, smem, g, frame);
     int8_t* out = yf::base(op.out, smem, g, frame);
     switch (op.code) {   // the whole frame: rows [0, out.h), held from 0
-      case yf::CONV:
-        yf::conv_op<false>(op, in0, 0, out, 0, op.out.h, consts);
+      case yf::CONV:     // a marked 1x1 on the tensor cores
+        if (op.frag_off != 0)
+          yf::conv1x1_mma_op<yf::kFusedMmaEpis>(op, in0, out, consts);
+        else
+          yf::conv_op<false>(op, in0, 0, out, 0, op.out.h, consts);
         break;
       case yf::DW:
-        yf::conv_op<true>(op, in0, 0, out, 0, op.out.h, consts);
+        yf::dw_op<yf::kFusedDwEpis>(op, in0, out, consts);
         break;
       case yf::MAXPOOL:
         yf::maxpool_sep_op(op, in0, 0, out, 0, op.out.h, smem + scratch_off);
@@ -105,4 +111,9 @@ extern "C" int yf_fused_stage(const void* descs, int n_ops, const void* consts,
       static_cast<const Op*>(descs), n_ops,
       static_cast<const uint8_t*>(consts), g, scratch_off);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The kernel as the build compiled it (yf_arena_stage_attrs' fields).
+extern "C" int yf_fused_stage_attrs(int threads, int smem_bytes, int* out) {
+  return yf::kernel_attrs(fused_stage_kernel, threads, smem_bytes, out);
 }

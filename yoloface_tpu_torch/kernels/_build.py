@@ -43,12 +43,17 @@ SIGNATURES = {
     # (descs, n_ops, consts, host ptr table, n_globals, n_frames,
     #  smem_bytes, scratch_off, threads, stream)
     "yf_fused_stage": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
+    # (threads, dynamic shared bytes, int out[4]: registers, local bytes,
+    #  static shared bytes, blocks an SM)
+    "yf_arena_stage_attrs": [_I, _I, _P],
+    "yf_fused_stage_attrs": [_I, _I, _P],
     # (descriptor, x, y, bytes, stream)
     "yf_eltwise_lut": [_P, _P, _P, _L, _P],
     # (x, y, input rows N*H, W, C, kh, kw, stream)
     "yf_resize_nearest": [_P, _P, _L, _I, _I, _I, _I, _P],
-    # (host input pointers[n], host channels[n], n, y, pixels N*H*W, stream)
-    "yf_concat_channels": [_P, _P, _I, _P, _L, _P],
+    # (host input pointers[n], host channels[n], n, y, pixels N*H*W,
+    #  channel offset of the slice in y, channels of y, stream)
+    "yf_concat_channels": [_P, _P, _I, _P, _L, _I, _I, _P],
     # (x, y, N, H, W, C, pt, pb, pl, pr, fill, stream)
     "yf_pad_int8": [_P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # (y, boxes, scores, valid, n, g, a, k, scale, zp, thr, iou_thr,

@@ -31,6 +31,11 @@ op descriptors per stage:
     shared-memory budget.  Tensors that cross stages go through device
     memory as int8 NHWC ``[N,H,W,C]``.
 
+Each stage's 1x1 CONVs run on the int8 tensor cores (``mark_mma``): their
+weights are appended to the constants a second time in ``mma.sync``
+B-fragment order (``pack_frags``), and the descriptor's ``FRAG_FIELD``
+names where; every other descriptor is as it was.
+
 The CUDA kernel (``csrc/arena_stage.cu``) runs one stage: one block per
 frame, the arena in dynamic shared memory.  ``arena_stage_plain`` executes
 the SAME descriptor program with torch ops over an ``[N, arena_bytes]``
@@ -89,7 +94,11 @@ FIELDS = ("code", "epi",
           # exact bits: per-channel int32 qm[C] then shift[C] at q_off;
           # (m, e) multiplier/shift pairs: leaky id, al; ADD a, b, out;
           # QUANTIZE's in m0/e0; the ADD's left shift
-          "q_off", "m0", "e0", "m1", "e1", "m2", "e2", "lsh")
+          "q_off", "m0", "e0", "m1", "e1", "m2", "e2", "lsh",
+          # a marked 1x1 CONV of a whole-frame program: the byte offset of
+          # its B fragments in the constants (``mark_mma``), else 0
+          "frag_off")
+FRAG_FIELD = "frag_off"
 OP_INTS = 48                       # FIELDS padded to 192 bytes
 # a strip program (kernels/tiled.py) appends the ``Band`` of in0, in1 and
 # out to each descriptor, then ``MMA_FIELD``: the byte offset in the
@@ -112,6 +121,9 @@ ARENA_BUDGET = SMEM_PER_BLOCK - TABLE_BYTES
 MAX_GLOBALS = 16                   # device tensors one stage may touch
 THREADS = 256
 _ALIGN = 16
+# the k depth of one packed B fragment (m16n8k16); a 1x1 CONV's K (its ci)
+# is zero-padded to a multiple of it
+FRAG_K = 16
 
 
 @dataclasses.dataclass(frozen=True)
@@ -468,6 +480,12 @@ class Stage:
     def globals_(self) -> List[int]:
         return self.inputs + self.outputs
 
+    @property
+    def mma_convs(self) -> int:
+        """The marked 1x1 convs (``mark_mma``), which run on the tensor
+        cores."""
+        return int(np.count_nonzero(self.descs[:, F[FRAG_FIELD]]))
+
 
 def stage_outputs(graph: GraphDef, lops: Sequence[LOp], start: int,
                   end: int) -> List[int]:
@@ -632,6 +650,44 @@ def plan_stage(graph: GraphDef, lops: Sequence[LOp], start: int, end: int,
                  arena_bytes, inputs, outputs, shapes, strips, bands)
 
 
+def pack_frags(w: np.ndarray) -> np.ndarray:
+    """int8 1x1 conv weights [co, 1, 1, ci] (OHWI) -> the m16n8k16 B
+    fragments of ``csrc/stage_ops.cuh``, int8 [nt, ks, 32, 4]: ci
+    zero-padded to a multiple of ``FRAG_K`` (ks k16 steps), co to nt * 8.  Lane ``4 * g + t`` of n8 tile ``n`` at k16 step ``s`` holds
+    W[8n + g][16s + 4t .. + 4]."""
+    co, ci = w.shape[0], w.shape[3]
+    cp = -(-ci // FRAG_K) * FRAG_K
+    nt, ks = -(-co // 8), cp // FRAG_K
+    wp = np.zeros((nt * 8, cp), np.int8)
+    wp[:co, :ci] = w.reshape(co, ci)
+    # [n, g, s, t, byte] -> [n, s, g, t, byte]
+    return np.ascontiguousarray(
+        wp.reshape(nt, 8, ks, 4, 4).transpose(0, 2, 1, 3, 4)
+    ).reshape(nt, ks, 32, 4)
+
+
+def mark_mma(st: Stage) -> Stage:
+    """``st`` (a whole-frame program) with each 1x1 CONV marked for the
+    int8 tensor cores: ``pack_frags`` of its weights appended to the
+    constants and their offset in ``FRAG_FIELD``.  Other descriptors and
+    the constants before the appended fragments are unchanged; the plain
+    version ignores the mark."""
+    descs = st.descs.copy()
+    consts = bytearray(st.consts.tobytes())
+    for d in descs:
+        if d[F["code"]] != CONV or d[F["kh"]] != 1 or d[F["kw"]] != 1:
+            continue
+        shape = (int(d[F["out_c"]]), 1, 1, int(d[F["in0_c"]]))
+        w0 = int(d[F["w_off"]])
+        w = st.consts[w0:w0 + int(np.prod(shape))].view(np.int8)
+        d[F[FRAG_FIELD]] = put_const(consts, pack_frags(w.reshape(shape)))
+    if not np.array_equal(descs, st.descs):
+        st = dataclasses.replace(
+            st, descs=descs,
+            consts=np.frombuffer(bytes(consts), np.uint8).copy())
+    return st
+
+
 def build_arena_plan(graph: GraphDef, budget: int = ARENA_BUDGET,
                      bits: str = "fast2") -> List[Stage]:
     """Greedy stage split: grow each stage op by op while its planned arena
@@ -651,7 +707,7 @@ def build_arena_plan(graph: GraphDef, budget: int = ARENA_BUDGET,
             if cand.arena_bytes > budget:
                 break
             st, end = cand, end + 1
-        stages.append(st)
+        stages.append(mark_mma(st))
         start = end
     return stages
 
@@ -877,7 +933,9 @@ def arena_stage(stage: Stage, descs: torch.Tensor, consts: torch.Tensor,
                 xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """Run one stage on its input tensors (int8 [N,H,W,C], in
     ``stage.inputs`` order) -> its output tensors.  CPU tensors take
-    ``arena_stage_plain``; CUDA tensors launch ``yf_arena_stage``."""
+    ``arena_stage_plain``; CUDA tensors launch ``yf_arena_stage``
+    (``arena_stage.mma_convs`` counts the marked convs the launches
+    ran)."""
     if stage.bands is not None:
         raise ValueError("a strip program runs on tiled.tiled_section")
     outs, dev = prepare(stage, xs)
@@ -899,10 +957,12 @@ def arena_stage(stage: Stage, descs: torch.Tensor, consts: torch.Tensor,
         torch.cuda.current_stream(dev).cuda_stream)
     check(err, "arena_stage")
     arena_stage.launches += 1
+    arena_stage.mma_convs += stage.mma_convs
     return outs
 
 
 arena_stage.launches = 0
+arena_stage.mma_convs = 0      # marked 1x1 convs the launches ran
 
 
 class ArenaPlan(nn.Module):

@@ -32,9 +32,11 @@ conv with a stride or through a PAD, a non-square conv kernel, a
 CONCATENATION off the channel axis, a non-square stride, a depthwise conv
 that is not 3x3, dilation.
 
-The CUDA kernel (``csrc/fused_stage.cu``) runs one stage: one block per
-frame, the values in dynamic shared memory.  ``fused_stage_plain`` runs the
-SAME descriptor program with torch ops (the arena's plain executor).  The
+Each stage's 1x1 CONVs are marked for the int8 tensor cores
+(``arena.mark_mma``).  The CUDA kernel (``csrc/fused_stage.cu``) runs one
+stage: one block per frame, the values in dynamic shared memory.
+``fused_stage_plain`` runs the SAME descriptor program with torch ops (the
+arena's plain executor).  The
 per-op family (``kernels/perop.py``) runs its one-op programs, every view
 in device memory, on the same kernel through ``run_stage``.
 """
@@ -223,7 +225,7 @@ def build_fused_plan(graph: GraphDef, budget: int = FUSED_BUDGET,
             if cand.smem_bytes > SMEM_BYTES:
                 break
             st, end = cand, end + 1
-        stages.append(st)
+        stages.append(arena.mark_mma(st))
         start = end
     return stages
 
@@ -273,13 +275,17 @@ def run_stage(stage: FusedStage, descs: torch.Tensor, consts: torch.Tensor,
 
 def fused_stage(stage: FusedStage, descs: torch.Tensor, consts: torch.Tensor,
                 xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    """Run one stage (``run_stage``) -> its output tensors."""
+    """Run one stage (``run_stage``) -> its output tensors
+    (``fused_stage.mma_convs`` counts the marked convs the launches
+    ran)."""
     outs, launched = run_stage(stage, descs, consts, xs, "fused-stage")
     fused_stage.launches += launched
+    fused_stage.mma_convs += launched * stage.mma_convs
     return outs
 
 
 fused_stage.launches = 0
+fused_stage.mma_convs = 0      # marked 1x1 convs the launches ran
 
 
 class FusedPlan(arena.ArenaPlan):

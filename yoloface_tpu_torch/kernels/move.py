@@ -144,18 +144,20 @@ def concat_channels(xs: Sequence[torch.Tensor],
     return out
 
 
-def launch_concat_channels(xs: Sequence[torch.Tensor],
-                           out: torch.Tensor) -> None:
-    """Launch ``yf_concat_channels``: ``xs`` and ``out`` dense int8 CUDA
-    tensors of the shapes ``concat_channels`` checks (``perop.perop_op``
-    calls it on tensors ``arena.prepare`` checked)."""
+def launch_concat_channels(xs: Sequence[torch.Tensor], out: torch.Tensor,
+                           c0: int = 0) -> None:
+    """Launch ``yf_concat_channels``: ``xs`` (1 to ``MAX_INPUTS`` dense int8
+    CUDA tensors of at most ``TILE_BYTES`` channels together) into the
+    channels ``c0`` on of ``out``, a dense int8 CUDA tensor of their N, H,
+    W (``concat_channels`` checks the shapes; ``perop.perop_op`` calls it
+    on tensors ``arena.prepare`` checked, a group of inputs a launch)."""
     from yoloface_tpu_torch.kernels._build import check, library
     k = len(xs)
-    n, h, w, _ = out.shape
+    n, h, w, c = out.shape
     err = library().yf_concat_channels(
         (ctypes.c_void_p * k)(*[x.data_ptr() for x in xs]),
         (ctypes.c_int * k)(*[x.shape[3] for x in xs]), k, out.data_ptr(),
-        n * h * w, torch.cuda.current_stream(out.device).cuda_stream)
+        n * h * w, c0, c, torch.cuda.current_stream(out.device).cuda_stream)
     check(err, "concat_channels")
     concat_channels.launches += 1
 

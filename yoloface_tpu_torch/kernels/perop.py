@@ -22,12 +22,13 @@ tensor for tensor (``fused.lower_fused_ops(..., perop=True)``):
     RELU, RELU6, LOGISTIC, RESIZE_NEAREST_NEIGHBOR and CONCATENATION are
     one op each; a concat of any number of inputs writes each input into a
     channel slice of its output (JAX's pairwise partial results are in no
-    env).  On the card a concat of up to ``move.MAX_INPUTS`` inputs and
-    ``move.TILE_BYTES`` output channels runs on the concat kernel, any
-    other on the fused-stage kernel, whose program touches at most
-    ``arena.MAX_GLOBALS`` distinct device tensors (a concat of more than
-    15 distinct inputs runs on the CPU only: the card refuses it before
-    launching).
+    env).  On the card a concat of up to ``move.TILE_BYTES`` output
+    channels runs on the concat kernel, one launch for each group of up to
+    ``move.MAX_INPUTS`` inputs, each group into its channel slice of the
+    output; a wider one on the fused-stage kernel, whose program touches
+    at most ``arena.MAX_GLOBALS`` distinct device tensors (a concat past
+    16,384 channels of more than 15 distinct inputs runs on the CPU only:
+    the card refuses it before launching).
 
 What JAX's per-op lowering would compute wrongly is refused, not copied: a
 conv, depthwise conv or max-pool with a non-square stride, a conv at a
@@ -46,12 +47,13 @@ the flat byte-move kernels of ``kernels/move.py``
 (``csrc/resize_nearest.cu``, ``csrc/concat_channels.cu``,
 ``csrc/pad_int8.cu``), with their factors, input order and pads taken
 from the program once, at plan time (``card_kernel`` decides from the
-program: a RESIZE of more than ``move.TILE_BYTES`` channels, or a concat
-past the concat kernel's limits, runs on the fused-stage kernel); the
-convs, depthwise convs, max-pools, ADDs, QUANTIZEs and standalone LEAKYs
-run on the fused-stage kernel (``csrc/fused_stage.cu``, one block a
-frame, through ``fused.run_stage``) with no values in shared memory: only
-a max-pool's row-pass scratch is there.  ``perop_plain``
+program: a RESIZE or concat of more than ``move.TILE_BYTES`` channels
+runs on the fused-stage kernel); the convs, depthwise convs, max-pools,
+ADDs, QUANTIZEs and standalone LEAKYs run on the fused-stage kernel
+(``csrc/fused_stage.cu``, one block a frame, through ``fused.run_stage``)
+with no values in shared memory: only a max-pool's row-pass scratch is
+there.  A 1x1 CONV's program is marked (``arena.mark_mma``) and runs on
+the int8 tensor cores there.  ``perop_plain``
 runs the same program with the arena's plain executor, so the CPU runs
 the card's very program.
 """
@@ -134,11 +136,10 @@ def plan_perop(graph: GraphDef, lp: LOp) -> PerOpStage:
         rows = [arena.op_row(lp.code, out, view(lp.ins[0]), in1, lp)]
     descs = np.asarray(rows, np.int32)
     kernel = kernel_name(lp)
-    return PerOpStage(descs,
-                      np.frombuffer(bytes(consts) or b"\0", np.uint8).copy(),
-                      0, inputs, [lp.out], shapes,
-                      scratch=pool_scratch(graph, [lp]), kernel=kernel,
-                      args=launch_args(kernel, descs))
+    return arena.mark_mma(PerOpStage(
+        descs, np.frombuffer(bytes(consts) or b"\0", np.uint8).copy(), 0,
+        inputs, [lp.out], shapes, scratch=pool_scratch(graph, [lp]),
+        kernel=kernel, args=launch_args(kernel, descs)))
 
 
 def launch_args(kernel: str, descs: np.ndarray) -> Tuple[int, ...]:
@@ -178,13 +179,24 @@ perop_plain = arena.arena_stage_plain
 
 def fits_own_kernel(stage: PerOpStage) -> bool:
     """Whether an ``OWN_KERNELS`` program is within its kernel's limits: a
-    concat of at most ``move.MAX_INPUTS`` inputs and ``move.TILE_BYTES``
-    output channels, a resize of at most ``move.TILE_BYTES`` channels (a
-    pad has no limit)."""
+    concat or a resize of at most ``move.TILE_BYTES`` output channels (a
+    concat of any number of inputs: ``perop_op`` launches them in groups
+    of ``move.MAX_INPUTS``; a pad has no limit)."""
     c = stage.shapes[stage.outputs[0]][2]
-    if stage.kernel == "concat_channels":
-        return len(stage.args) <= move.MAX_INPUTS and c <= move.TILE_BYTES
-    return stage.kernel != "resize_nearest" or c <= move.TILE_BYTES
+    return stage.kernel == "pad_int8" or c <= move.TILE_BYTES
+
+
+def concat_groups(stage: PerOpStage, xs: Sequence[torch.Tensor]
+                  ) -> List[Tuple[List[torch.Tensor], int]]:
+    """A concat program's inputs (``stage.inputs`` order) as the concat
+    kernel's launches: (up to ``move.MAX_INPUTS`` tensors in channel
+    order, the output channel their slice starts at) each."""
+    ins, groups, c0 = [xs[j] for j in stage.args], [], 0
+    for g0 in range(0, len(ins), move.MAX_INPUTS):
+        group = ins[g0:g0 + move.MAX_INPUTS]
+        groups.append((group, c0))
+        c0 += sum(int(x.shape[3]) for x in group)
+    return groups
 
 
 def card_kernel(stage: PerOpStage) -> str:
@@ -205,10 +217,12 @@ def perop_op(stage: PerOpStage, descs: torch.Tensor, consts: torch.Tensor,
     ``stage.inputs`` order) -> [its output].  CPU tensors take
     ``perop_plain``; CUDA tensors launch ``yf_eltwise_lut``,
     ``yf_resize_nearest``, ``yf_concat_channels``, ``yf_pad_int8`` or
-    ``yf_fused_stage`` (``card_kernel``).  The byte-move launches check
-    the input shapes and nothing of the program: their arguments are
-    ``stage.args``, and ``card_kernel`` sends them only programs within
-    their limits."""
+    ``yf_fused_stage`` (``card_kernel``); a concat launches once for each
+    group of up to ``move.MAX_INPUTS`` inputs, each into its channel
+    slice.  The byte-move launches check the input shapes and nothing of
+    the program: their arguments are ``stage.args``, and ``card_kernel``
+    sends them only programs within their limits.  ``perop_op.mma_convs``
+    counts the marked 1x1 convs the fused-stage launches ran."""
     card = card_kernel(stage)
     if card != "fused_stage" and xs[0].device.type == "cuda":
         outs, dev = arena.prepare(stage, xs)
@@ -226,10 +240,11 @@ def perop_op(stage: PerOpStage, descs: torch.Tensor, consts: torch.Tensor,
             elif card == "pad_int8":
                 move.launch_pad_int8(xs[0], outs[0], *stage.args)
             else:
-                move.launch_concat_channels([xs[j] for j in stage.args],
-                                            outs[0])
+                for group, c0 in concat_groups(stage, xs):
+                    move.launch_concat_channels(group, outs[0], c0)
     else:
         outs, launched = run_stage(stage, descs, consts, xs, "per-op")
+        perop_op.mma_convs += launched * stage.mma_convs
     if launched:
         perop_op.launches += 1
         perop_op.by_kernel[stage.kernel] += 1
@@ -238,11 +253,13 @@ def perop_op(stage: PerOpStage, descs: torch.Tensor, consts: torch.Tensor,
 
 perop_op.launches = 0
 perop_op.by_kernel = collections.Counter()    # launches by B8 kernel
+perop_op.mma_convs = 0     # marked 1x1 convs the launches ran
 
 
 def reset_launches() -> None:
     perop_op.launches = 0
     perop_op.by_kernel.clear()
+    perop_op.mma_convs = 0
 
 
 class PerOpPlan(arena.ArenaPlan):
