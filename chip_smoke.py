@@ -9,7 +9,10 @@ Phases (each prints its lines; any failure ends the run with an error):
      and the registers and local memory of both instantiations of the
      section kernel as built (the second runs the tensor-core convs of
      csrc/conv_mma.cuh; more than 64 registers or a spill, local memory
-     past the 128 B stack frame, fails);
+     past the 128 B stack frame, fails), and the registers, local memory
+     and blocks an SM of the two whole-frame kernels (arena_stage.cu,
+     fused_stage.cu, with the bodies of csrc/stage_ops.cuh: more than 64
+     registers, fewer than 4 blocks or a spill fails);
   2. each kernel against its plain torch version on the card, bit for bit,
      at the serving path's shapes: the preprocess; the arena stage in each
      bit semantics (fast2, fast, exact) in 1 and 4 stages; the fused head
@@ -53,11 +56,18 @@ Phases (each prints its lines; any failure ends the run with an error):
      (yolov3_tiny_graph(), 7 sections) on 2 frames in tiled2 and
      tiled_exact bits, and on yolov3-tiny narrowed (64x64 at full width,
      96x96 at half) in all three bits with an input one byte in, its
-     marked convs on the tensor cores;
+     marked convs on the tensor cores; the whole-frame kernels' bodies
+     (csrc/stage_ops.cuh: every conv on the tensor cores, the stem's K =
+     27 included, the depthwise word body, the max-pool word passes) on
+     the corpus net in the arena, fused and per-op programs at N = 1, 3
+     and 37 (per-op also one byte in), on the pool graph
+     (tools/make_torch_port_golden.pool_graph: 8x8, 4x4 and 9x9 windows,
+     SAME and VALID, on an odd 29x29x18) and on the
+     .tflite graphs, in every bit semantics;
   3. serving, one path after another, each with every launch count set to
      0 just before it and read just after (each of its kernels > 0; the
      arena, fused and per-op paths also with their net kernel's
-     marked-conv counter equal to the plan's 16 marks a batch):
+     marked-conv counter equal to the plan's 17 marks a batch):
      load_pipeline(..., device="cuda").detect_rgb565_device in mode arena2
      (fused head), arena_exact (fused head), arena_exact with
      HeadConfig(use_fused_head=False) (the top-K kernel and the staged
@@ -157,6 +167,16 @@ GOLD_KEYS = {"arena2": ("head", ""), "arena_exact": ("head_exact", "exact_"),
 # the per-op kernels only the op-surface graph runs, at 128-512 B a frame;
 # they are timed again on SCALE_GRAPH (_upsample_graph) at BATCH_SCALE
 SURFACE_ONLY = ("eltwise_int8", "resize_nearest", "leaky_int8")
+# the op bodies of csrc/stage_ops.cuh the whole-frame kernels run, by op
+STAGE_BODIES = {"CONV 1x1": "conv1x1_mma_body (marked_conv_op)",
+                "CONV kh x kw": "conv_mma_body (marked_conv_op)",
+                "DW 3x3": "dw3x3_words_op (dw_op)",
+                "MAXPOOL": "maxpool_words_op"}
+# the per-op kernels (B8) whose programs run one of those bodies
+PEROP_BODIES = {"conv1x1": STAGE_BODIES["CONV 1x1"],
+                "conv3x3": STAGE_BODIES["CONV kh x kw"],
+                "dwconv3x3": STAGE_BODIES["DW 3x3"],
+                "maxpool_int8": STAGE_BODIES["MAXPOOL"]}
 SCALE_GRAPH = "yolov3-tiny 416 upsample 13x13x128 -> 26x26x128"
 BATCH_SCALE = 1024
 # the arena and tiled kernels' op surface (B2b, B6b): the .tflite test
@@ -504,12 +524,14 @@ def main() -> int:
                  "a thread > its 128 B frame")
     _require(section_attrs["tiled_section_kernel<false>"]["registers"] <= 64,
              "the section kernel's first instantiation within 64 registers")
-    # the whole-frame kernels (one instantiation each), with their 1x1
-    # convs on the tensor cores and the depthwise word body
-    # (csrc/stage_ops.cuh): blocks an SM at the corpus plans' shared memory
+    # the whole-frame kernels (one instantiation each), with their convs on
+    # the tensor cores, the depthwise word body and the max-pool word
+    # passes (csrc/stage_ops.cuh): blocks an SM at the corpus plans' shared
+    # memory (the arena with its max-pools' scratch)
     stage_attrs = {}
     corpus_smem = {"arena_stage_kernel": max(
-        st.arena_bytes for st in arena.build_arena_plan(load_tflite(CORPUS))),
+        arena.stage_smem(st)[0]
+        for st in arena.build_arena_plan(load_tflite(CORPUS))),
         "fused_stage_kernel": max(st.smem_bytes for st in
                                   fused.build_fused_plan(load_tflite(CORPUS)))}
     for name, fn in (("arena_stage_kernel",
@@ -731,14 +753,19 @@ def main() -> int:
               f"kernels {sorted({st.kernel for st in ps.stages})}); its "
               "outputs equal the golden keys")
 
-    # the whole-frame kernels' 1x1 convs on the tensor cores and their
-    # depthwise word body (csrc/stage_ops.cuh) against the plain versions:
-    # every stage (or per-op program) of the corpus net, whose marked
-    # convs take ci = 4, 6, 8, 18, 24, 32, 36, 40 and 48 (A words by byte at
-    # 6 and 18) and co = 4 to 40, at N = 1, 3 and 37, in every bit
-    # semantics; the per-op programs also with every input one byte into
-    # its storage (the A words and depthwise taps gathered by byte), and
-    # each marked conv counted where it launched
+    # the whole-frame kernels' convs on the tensor cores (the 1x1s and the
+    # full windows), their depthwise word body and their max-pool word
+    # passes (csrc/stage_ops.cuh) against the plain versions: every stage (or
+    # per-op program) of the corpus net, whose marked convs take ci = 3
+    # (the stem, K 27), 4, 6, 8, 18, 24, 32, 36, 40 and 48 (A words by byte
+    # at 3, 6 and 18) and co = 4 to 40 and whose pools are 8x8 and 4x4 at
+    # stride 2 SAME on 28x28x18 and 14x14x24, at N = 1, 3 and 37, in every
+    # bit semantics; the per-op programs also with every input one byte
+    # into its storage (the A words, depthwise taps and pool words gathered
+    # or funnel-shifted at any alignment), and each marked conv counted
+    # where it launched; then the pool graph (8x8 and 4x4 SAME and VALID on
+    # an odd 29x29x18, and a 9x9 window) and the .tflite graphs' 3x3 convs
+    # (ci 3 to 48) and 2x2 pools, the same way
     mma_ci = set()
     for bits in arena.BITS:
         p = arena.ArenaPlan(corpus, bits=bits).to(dev)
@@ -749,8 +776,8 @@ def main() -> int:
         for plan in filter(None, (p, p_f, p_p)):
             marks = [int(d[arena.F["in0_c"]]) for st in plan.stages
                      for d in st.descs if d[arena.F[arena.FRAG_FIELD]]]
-            _require(len(marks) == 16, f"{bits}: the corpus's 16 1x1 convs "
-                     f"marked ({len(marks)})")
+            _require(len(marks) == 17, f"{bits}: the corpus's 16 1x1 convs "
+                     f"and its stem marked ({len(marks)})")
             mma_ci |= set(marks)
         for n in (1, 3, 37):
             x = int8_frames(n, 56)
@@ -763,16 +790,58 @@ def main() -> int:
                 check_perop(p_p, x, f"perop {bits} N={n} tensor cores")
                 check_perop(p_p, x, f"perop {bits} N={n} one byte in",
                             one_byte_in=True)
-                _require(fused.fused_stage.mma_convs == 16
-                         and perop.perop_op.mma_convs == 32,
+                _require(fused.fused_stage.mma_convs == 17
+                         and perop.perop_op.mma_convs == 34,
                          f"{bits}: every marked conv launched, fused and "
                          "per-op")
-        print(f"[check] tensor-core 1x1 convs and depthwise word body, "
-              f"{bits} bits, N=1/3/37: the arena stage"
+        print(f"[check] tensor-core convs (16 1x1s and the stem), "
+              f"depthwise word body and max-pool word passes, {bits} "
+              f"bits, N=1/3/37: the arena stage"
               + (", the fused stages and the per-op programs (also one "
                  "byte in)" if p_f is not None else "")
-              + " bit-exact; 16 marked convs a plan, each launched")
-    _require({4, 6, 18, 48} <= mma_ci, f"marked ci {sorted(mma_ci)}")
+              + " bit-exact; 17 marked convs a plan, each launched")
+    _require({3, 4, 6, 18, 48} <= mma_ci, f"marked ci {sorted(mma_ci)}")
+    window_graphs = {"pools": tool.pool_graph(),
+                     **{name: load_tflite(tool.tflite_path(name))
+                        for name in tool.TFLITE_GRAPHS}}
+    for name, g in window_graphs.items():
+        shape = tuple(g.tensor(g.inputs[0]).shape[1:])
+        for bits in arena.BITS:
+            progs = [arena.ArenaPlan(g, bits=bits).to(dev)]
+            if bits in fused.BITS:
+                progs += [fused.FusedPlan(g, bits=bits).to(dev),
+                          perop.PerOpPlan(g, bits).to(dev)]
+            zero_counts()
+            for n in (1, 37):
+                xw = rng.integers(-128, 128, (n, *shape), dtype=np.int64)
+                xw = torch.from_numpy(xw.astype(np.int8)).to(dev)
+                check_stages(progs[0], xw, f"{name} {bits} N={n}")
+                if len(progs) > 1:
+                    check_fused(progs[1], xw, f"{name} {bits} N={n}")
+                    check_perop(progs[2], xw, f"perop {name} {bits} N={n}")
+                    check_perop(progs[2], xw, f"perop {name} {bits} N={n} "
+                                "one byte in", one_byte_in=True)
+            launched = (arena.arena_stage, fused.fused_stage, perop.perop_op)
+            _require(all(k.mma_convs == runs * sum(st.mma_convs
+                                                   for st in q.stages)
+                         for k, q, runs in zip(launched, progs, (2, 2, 4))),
+                     f"{name} {bits}: every marked conv launched")
+        print(f"[check] {name}: full-window tensor-core convs and max-pools "
+              f"in fast2, fast and exact bits, N=1/37 (per-op also one byte "
+              f"in): bit-exact")
+    # an arena stage with no room for its max-pools' scratch past the
+    # arena: yolov3-tiny at 96x96 runs them on the full-window body
+    g96 = tool.yolov3_tiny_graph(96)
+    for bits in arena.BITS:
+        p96 = arena.ArenaPlan(g96, bits=bits).to(dev)
+        _require([arena.stage_smem(st)[1] for st in p96.stages] == [0],
+                 f"yolov3-tiny 96 {bits}: one stage, no room for the scratch")
+        x96 = rng.integers(-128, 128, (3, 96, 96, 3), dtype=np.int64)
+        check_stages(p96, torch.from_numpy(x96.astype(np.int8)).to(dev),
+                     f"yolov3-tiny 96 {bits} N=3")
+    print(f"[check] yolov3-tiny 96x96 arena stage ({p96.stages[0].arena_bytes}"
+          f" B, no room for its pools' scratch: the full-window max-pool) in "
+          f"fast2, fast and exact bits, N=3: bit-exact")
     # a 1x1 at stride 2 through an absorbed PAD: the window reads outside
     # the image (the fill), ragged m16 and n8 tiles
     g1 = tool.strided_1x1_graph()
@@ -1105,7 +1174,7 @@ def main() -> int:
                         (counted[0], counted[6], counted[9], counted[10],
                          counted[2])),
     }
-    launches, by_kernel = {}, {}
+    launches, by_kernel, mma_by_kernel = {}, {}, {}
 
     def read_counts(path):
         launches[path] = {fn.__name__: fn.launches for fn in counted}
@@ -1113,6 +1182,7 @@ def main() -> int:
                    perop.perop_op):
             launches[path][f"{fn.__name__}_mma_convs"] = fn.mma_convs
         by_kernel[path] = dict(perop.perop_op.by_kernel)
+        mma_by_kernel[path] = dict(perop.perop_op.mma_by_kernel)
 
     def close(got, want, tag):
         for k in ("valid", "count"):
@@ -1137,13 +1207,23 @@ def main() -> int:
               + (f", per-op {by_kernel[path]}" if by_kernel[path] else ""))
         _require(all(fn.launches > 0 for fn in kernels),
                  f"{path}: every kernel of the path launched")
-        # every marked 1x1 conv of the plan on the tensor cores, each batch
+        # every marked conv of the plan on the tensor cores, each batch
         net_kernel = kernels[1]
         marks = sum(st.mma_convs for st in p.engine.arena.stages)
-        _require(marks == 16 and net_kernel.mma_convs == marks * len(batches),
+        _require(marks == 17 and net_kernel.mma_convs == marks * len(batches),
                  f"{path}: {net_kernel.mma_convs} marked convs launched, "
                  f"{marks} a batch planned")
         if by_kernel[path]:          # the corpus net's per-op programs
+            planned = {}
+            for st in p.engine.arena.stages:
+                if st.mma_convs:
+                    planned[st.kernel] = (planned.get(st.kernel, 0)
+                                          + st.mma_convs * len(batches))
+            _require(mma_by_kernel[path] == planned
+                     == {"conv1x1": 16 * len(batches),
+                         "conv3x3": len(batches)},
+                     f"{path}: marked convs by per-op kernel "
+                     f"{mma_by_kernel[path]}, planned {planned}")
             _require(move.concat_channels.launches
                      == by_kernel[path]["concat_channels"]
                      and move.resize_nearest.launches == 0,
@@ -1816,6 +1896,7 @@ def main() -> int:
         if k in ("arena_stage", "fused_stage"):   # the whole-frame kernels
             kern = f"{k}_kernel"
             row.update(instantiations={kern: stage_attrs[kern]},
+                       bodies=STAGE_BODIES,
                        mma_convs=launches[path][f"{k}_mma_convs"],
                        by_kind={m: by_kind[m] for m in by_kind
                                 if (m == "fused") == (k == "fused_stage")},
@@ -1835,6 +1916,8 @@ def main() -> int:
                        instantiations=section_attrs,
                        mma_convs=launches[path]["tiled_section_mma_convs"])
         kernels.append(row)
+    # the per-op kernels whose programs hold a marked conv
+    marked_ops = {st.kernel for st in pplans["fast"].stages if st.mma_convs}
     for k, (line, _) in perop.KERNELS.items():   # B8.1-B8.11 by op
         b = bound(*work[k])
         graph = op_graph[k]
@@ -1857,6 +1940,10 @@ def main() -> int:
                "ms_exact": op_ms[(k, "exact")]["device"],
                "plain_ms_exact": op_ms[(k, "exact")]["plain"], "graph": graph,
                "launches_path": path}
+        if k in PEROP_BODIES:           # a body of csrc/stage_ops.cuh
+            row["body"] = PEROP_BODIES[k]
+        if k in marked_ops:             # perop_op's count of marked convs
+            row["mma_convs"] = mma_by_kernel[path].get(k, 0)
         if k in perop.OWN_KERNELS:      # op by op, with its exact time
             row["ops"] = [dict(r, ms_exact=e["ms"]) for r, e in zip(
                 each_op[(k, "fast")], each_op[(k, "exact")])]

@@ -149,6 +149,8 @@ def test_perop_serving_on_the_card_equals_cpu(mode, golden):
     got = card.detect_rgb565(gold["frames"])
     torch.cuda.synchronize()
     assert perop.perop_op.launches == len(card.engine.arena.stages) == 37
+    # the marked convs by per-op kernel: the 16 1x1s and the stem
+    assert perop.perop_op.mma_by_kernel == {"conv1x1": 16, "conv3x3": 1}
     want = cpu.detect_rgb565(gold["frames"])
     for k in ("valid", "count"):
         np.testing.assert_array_equal(np.asarray(got[k]), np.asarray(want[k]))
@@ -675,48 +677,92 @@ def test_mma_sections_match_plain_on_the_card(size, div, budget, bits):
             env.update(zip(st.outputs, outs))
 
 
+def _stage_graphs(tool):
+    """{name: graph} of the whole-frame kernels' body checks: the corpus,
+    the op surface, the pool graph and the .tflite test graphs."""
+    gs = {"corpus": load_tflite(CORPUS), "surface": tool.surface_graph(),
+          "pools": tool.pool_graph()}
+    for name in [f"fuzz{k}" for k in range(8)] + ["v3tiny_fpn"]:
+        gs[name] = load_tflite(tool.tflite_path(name))
+    return gs
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("bits", arena.BITS)
 def test_stage_bodies_match_plain_on_the_card(bits):
-    """The whole-frame kernels' 1x1 convs on the int8 tensor cores and
-    their depthwise word body (csrc/stage_ops.cuh) equal the plain
-    version on every stage (or per-op program) of the corpus net, at N =
-    1, 3 and 37, the per-op programs also with every input one byte into
-    its storage; each plan's 16 marked convs count where they launch."""
+    """The whole-frame kernels' convs on the int8 tensor cores (1x1 and
+    full windows: the stem, ci 3, and the .tflite graphs' 3x3 convs of ci 3
+    to 48), their depthwise word body and their max-pool word passes
+    (csrc/stage_ops.cuh) equal the plain version on every stage (or per-op
+    program) of the corpus net, the op surface, the pool graph (8x8, 4x4
+    and 9x9 windows, SAME and VALID, on an odd 29x29x18) and the .tflite
+    test graphs, at N
+    = 1, 3 and 37, also with every input one byte into its storage; each
+    plan's marked convs (the corpus's 17) count where they launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    g = load_tflite(CORPUS)
-    plans = [(arena.ArenaPlan(g, bits=bits).cuda(), arena.arena_stage,
-              arena.arena_stage_plain)]
-    if bits in fused.BITS:
-        plans += [(fused.FusedPlan(g, bits=bits).cuda(), fused.fused_stage,
-                   fused.fused_stage_plain),
-                  (perop.PerOpPlan(g, bits).cuda(), perop.perop_op,
-                   perop.perop_plain)]
     rng = np.random.default_rng(31)
-    for n in (1, 3, 37):
-        x = torch.from_numpy(rng.integers(-128, 128, (n, 56, 56, 3)).astype(
-            np.int8)).cuda()
-        for plan, kernel, plain in plans:
-            for one_off in (False, True) if kernel is perop.perop_op else \
-                    (False,):
-                kernel.mma_convs = 0
-                env = {plan.input_idx: x}
-                for k, st in enumerate(plan.stages):
-                    ins = [env[i] for i in st.inputs]
-                    if one_off:
-                        ins = [torch.cat([t.new_zeros(1), t.flatten()])[1:]
-                               .view(t.shape) for t in ins]
-                    outs = kernel(st, getattr(plan, f"descs{k}"),
-                                  getattr(plan, f"consts{k}"), ins)
-                    ref = [torch.empty_like(o) for o in outs]
-                    plain(st, getattr(plan, f"consts{k}"), ins + ref)
-                    torch.cuda.synchronize()
-                    for o, u, v in zip(st.outputs, outs, ref):
-                        assert torch.equal(u, v), (bits, n, k, o, one_off)
-                    env.update(zip(st.outputs, outs))
-                assert kernel.mma_convs == 16 == sum(
-                    st.mma_convs for st in plan.stages)
+    for name, g in _stage_graphs(_golden_tool()).items():
+        plans = [(arena.ArenaPlan(g, bits=bits).cuda(), arena.arena_stage,
+                  arena.arena_stage_plain)]
+        if bits in fused.BITS:
+            for planner, kernel, plain in (
+                    (fused.FusedPlan, fused.fused_stage,
+                     fused.fused_stage_plain),
+                    (perop.PerOpPlan, perop.perop_op, perop.perop_plain)):
+                try:
+                    plans.append((planner(g, bits=bits).cuda(), kernel,
+                                  plain))
+                except NotImplementedError:    # a graph JAX's lowering
+                    pass                       # refuses
+        shape = tuple(g.tensors[g.inputs[0]].shape[1:])
+        for n in (1, 3, 37):
+            x = torch.from_numpy(rng.integers(-128, 128, (n, *shape)).astype(
+                np.int8)).cuda()
+            for plan, kernel, plain in plans:
+                for one_off in (False, True):
+                    kernel.mma_convs = 0
+                    env = {plan.input_idx: x}
+                    for k, st in enumerate(plan.stages):
+                        ins = [env[i] for i in st.inputs]
+                        if one_off:
+                            ins = [torch.cat([t.new_zeros(1), t.flatten()])
+                                   [1:].view(t.shape) for t in ins]
+                        outs = kernel(st, getattr(plan, f"descs{k}"),
+                                      getattr(plan, f"consts{k}"), ins)
+                        ref = [torch.empty_like(o) for o in outs]
+                        plain(st, getattr(plan, f"consts{k}"), ins + ref)
+                        torch.cuda.synchronize()
+                        for o, u, v in zip(st.outputs, outs, ref):
+                            assert torch.equal(u, v), (name, bits, n, k, o,
+                                                       one_off)
+                        env.update(zip(st.outputs, outs))
+                    marks = sum(st.mma_convs for st in plan.stages)
+                    assert kernel.mma_convs == marks
+                    assert marks == 17 or name != "corpus"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", arena.BITS)
+def test_arena_pools_without_room_for_the_scratch_on_the_card(bits):
+    """An arena stage whose block has no room for its max-pools' scratch
+    past the arena runs them on the full-window body: yolov3-tiny at
+    96x96 (one stage of 211,968 B, its pools' scratch 73,728 B; 2x2
+    pools at stride 2 and 1) equals the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    plan = arena.ArenaPlan(_golden_tool().yolov3_tiny_graph(96),
+                           bits=bits).cuda()
+    (st,) = plan.stages
+    assert arena.stage_smem(st) == (st.arena_bytes, 0)
+    x = torch.from_numpy(np.random.default_rng(9).integers(
+        -128, 128, (3, 96, 96, 3)).astype(np.int8)).cuda()
+    want = [torch.empty((3,) + st.shapes[o], dtype=torch.int8,
+                        device="cuda") for o in st.outputs]
+    arena.arena_stage_plain(st, plan.consts0, [x] + want)
+    got = arena.arena_stage(st, plan.descs0, plan.consts0, [x])
+    for u, v in zip(got, want):
+        assert torch.equal(u, v), bits
 
 
 @pytest.mark.gpu

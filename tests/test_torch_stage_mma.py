@@ -1,13 +1,15 @@
-"""The whole-frame kernels' tensor-core 1x1 convs and depthwise word body
-(``csrc/stage_ops.cuh``) on the CPU: the planners' marks, the packed B
-fragments, and numpy emulations of the two bodies, lane by lane and word
-by word, against the plain version's int32 accumulators.  The kernels
-themselves run only on the card (``tests/test_torch_gpu.py``,
+"""The whole-frame kernels' tensor-core convs (1x1 and full windows), their
+depthwise word body and their max-pool word passes (``csrc/stage_ops.cuh``)
+on the CPU: the planners' marks, the packed B fragments, the max-pools'
+scratch, and numpy emulations of the four bodies, lane by lane and word by
+word, against the plain version's int32 accumulators and max-pools.  The
+kernels themselves run only on the card (``tests/test_torch_gpu.py``,
 ``chip_smoke.py``); the JAX-equality tests of every mode
 (``test_torch_arena.py``, ``test_torch_fused.py``, ``test_torch_perop.py``)
 run the marked programs through the plain version, which ignores the
 mark."""
 
+import dataclasses
 import hashlib
 import importlib.util
 import os
@@ -95,26 +97,30 @@ def _view(d, name):
 
 @pytest.mark.parametrize("graph", list(GRAPHS))
 @pytest.mark.parametrize("planner,bits", CASES)
-def test_exactly_the_1x1_convs_are_marked(graph, planner, bits):
-    """Every 1x1 CONV descriptor, and nothing else, carries a fragment
-    offset past the constants it had; each stage's ``mma_convs`` counts
-    them; the corpus net has 16 (ci 4 to 48)."""
+def test_exactly_the_1x1_and_full_convs_are_marked(graph, planner, bits):
+    """Every CONV descriptor (1x1 or a full window), and nothing else,
+    carries a fragment offset past the constants it had; each stage's
+    ``mma_convs`` counts them; the corpus net has 17 (its 16 1x1s, ci 4 to
+    48, and the 3x3 stem, ci 3), the op-surface graph 2 (a 1x1 and a 3x3
+    stride-2 conv)."""
     stages = _plan(graph, planner, bits)
     for s in stages:
         for d in s.descs:
-            want = (d[F["code"]] == arena.CONV and d[F["kh"]] == 1
-                    and d[F["kw"]] == 1)
+            want = d[F["code"]] == arena.CONV
             assert bool(d[FRAG]) == want
             if want:
                 assert d[FRAG] % 16 == 0 and d[FRAG] > d[F["w_off"]]
         assert s.mma_convs == int(np.count_nonzero(s.descs[:, FRAG]))
     marked = _marked(stages)
+    full = [d for _, d in marked if d[F["kh"]] * d[F["kw"]] > 1]
+    assert [(d[F["kh"]], d[F["kw"]], d[F["in0_c"]]) for d in full] == [
+        (3, 3, 3)]
     if graph == "corpus":
-        assert len(marked) == 16
+        assert len(marked) == 17
         assert {d[F["in0_c"]] for _, d in marked} == {
-            4, 6, 8, 18, 24, 32, 36, 40, 48}
+            3, 4, 6, 8, 18, 24, 32, 36, 40, 48}
     else:
-        assert len(marked) == 1
+        assert len(marked) == 2
 
 
 def _digest(stages):
@@ -156,8 +162,8 @@ def _unpack(frags, co, ci):
 
 
 def _frags(s, d):
-    co, ci = d[F["out_c"]], d[F["in0_c"]]
-    nt, ks = -(-co // 8), -(-ci // arena.FRAG_K)
+    co, k = d[F["out_c"]], d[F["kh"]] * d[F["kw"]] * d[F["in0_c"]]
+    nt, ks = -(-co // 8), -(-k // arena.FRAG_K)
     raw = s.consts[d[FRAG]:d[FRAG] + nt * ks * 32 * 4]
     return raw.view(np.int8).reshape(nt, ks, 32, 4)
 
@@ -165,13 +171,15 @@ def _frags(s, d):
 @pytest.mark.parametrize("planner,bits", CASES)
 def test_packed_fragments_unpack_to_the_weights(planner, bits):
     """Each marked conv's packed copy, read back lane by lane, is its OHWI
-    weights with co zero-padded to a multiple of 8 and ci to one of 16."""
+    weights flattened per output channel in (dy, dx, c) order, with co
+    zero-padded to a multiple of 8 and K (kh * kw * ci: 27 for the stem)
+    to one of 16."""
     for s, d in _marked(_plan("corpus", planner, bits)):
-        co, ci = d[F["out_c"]], d[F["in0_c"]]
-        got = _unpack(_frags(s, d), co, ci)
-        w = s.consts[d[F["w_off"]]:d[F["w_off"]] + co * ci].view(np.int8)
-        want = np.zeros((-(-co // 8) * 8, -(-ci // 16) * 16), np.int8)
-        want[:co, :ci] = w.reshape(co, ci)
+        co, k = d[F["out_c"]], d[F["kh"]] * d[F["kw"]] * d[F["in0_c"]]
+        got = _unpack(_frags(s, d), co, k)
+        w = s.consts[d[F["w_off"]]:d[F["w_off"]] + co * k].view(np.int8)
+        want = np.zeros((-(-co // 8) * 8, -(-k // 16) * 16), np.int8)
+        want[:co, :k] = w.reshape(co, k)
         np.testing.assert_array_equal(got, want)
 
 
@@ -188,7 +196,7 @@ def _a_word(store, at, k, ci, words):
 
 
 def emulate_conv1x1(d, frags, bias, store, base, cs, words):
-    """``conv1x1_mma_op``'s int32 accumulators [out.h, out.w, co], lane by
+    """``conv1x1_mma_body``'s int32 accumulators [out.h, out.w, co], lane by
     lane: warp items of one m16 tile by one n8 tile, the A words of
     ``_a_word`` (the fill outside the image, 0 past the last pixel), B
     words from the packed fragments, the m16n8k16 products, accumulators
@@ -276,7 +284,7 @@ def _storage(rng, d, cs, base):
 def test_fragment_gemm_equals_plain_accumulators(planner, bits):
     """The lane-level emulation of the tensor-core body over the packed
     constants equals the plain version's int32 accumulators on every
-    marked conv of the corpus (ci 4, 6 and 18 among them), with nonzero
+    marked 1x1 conv of the corpus (ci 4, 6 and 18 among them), with nonzero
     bytes planted past ci in every pixel's stride and after the view: as
     the views come (4-byte A words where the view's first byte and
     stride allow, else bytes), with the stride rounded up to a multiple of
@@ -285,6 +293,8 @@ def test_fragment_gemm_equals_plain_accumulators(planner, bits):
     rng = np.random.default_rng(83)
     seen = set()
     for s, d in _marked(_plan("corpus", planner, bits)):
+        if d[F["kh"]] * d[F["kw"]] > 1:
+            continue
         in0 = _view(d, "in0")
         ci = in0.c
         seen.add(ci)
@@ -388,6 +398,284 @@ def test_depthwise_word_body_equals_plain_accumulators(planner, bits):
         np.testing.assert_array_equal(emulate_dw_words(s, d, x), want)
 
 
+# the graphs whose full convs and max-pools the emulations take: the
+# corpus, the op surface, the .tflite test graphs (full convs of ci 3 to
+# 48 at strides 1 and 2, 2x2 pools at strides 1 and 2) and the pool graph
+# (8x8, 4x4 and 9x9 windows on 29x29x18)
+TFLITE = [f"fuzz{k}" for k in range(8)] + ["v3tiny_fpn"]
+WINDOW_GRAPHS = {**GRAPHS, "pools": TOOL.pool_graph,
+                 **{name: (lambda name=name: load_tflite(TOOL.tflite_path(
+                     name))) for name in TFLITE}}
+
+
+def _div_by(k, d):
+    """``div_by``: k // d as the high word of k * ceil(2**32 / d)."""
+    return k if d == 1 else (k * (0xffffffff // d + 1)) >> 32
+
+
+def emulate_conv_mma(d, frags, bias, store, base, cs, words):
+    """``conv_mma_body``'s int32 accumulators [out.h, out.w, co], lane by
+    lane: warp items of one m16 tile by one n8 tile; at each k16 step a
+    lane finds the taps (dy, dx, c) of its K positions 16 s + 4 t + b by
+    ``_div_by``, and for each of its two rows reads a tap's 4-channel word
+    (``words``) or its bytes one by one: with no test where the window is
+    inside the image, else the fill at taps outside it; nothing past K or
+    past the last pixel.  Every read lies inside the tensor's bytes.  The
+    input view's pixel (y, x) starts at ``store[base + (y * w + x) *
+    cs]``."""
+    in0, out = _view(d, "in0"), _view(d, "out")
+    ci, co, m_n = in0.c, out.c, out.h * out.w
+    kh, kw, sh, sw, pt, pl, fill = (d[F[k]] for k in (
+        "kh", "kw", "sh", "sw", "pt", "pl", "fill"))
+    k_n = kh * kw * ci
+    mt, nt, ks = -(-m_n // 16), -(-co // 8), -(-k_n // 16)
+    end = base + (in0.h * in0.w - 1) * cs + ci      # past the last byte
+    b = np.zeros((16 * ks, nt * 8), np.int64)
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        for j in range(nt):
+            for s in range(ks):
+                b[16 * s + 4 * t:16 * s + 4 * t + 4, 8 * j + g] = \
+                    frags[j, s, lane]
+    acc = np.zeros((mt * 16, nt * 8), np.int64)
+    for mi in range(mt):
+        a = np.zeros((16, 16 * ks), np.int64)
+        for lane in range(32):
+            g, t = divmod(lane, 4)
+            rows = []
+            for r in (g, g + 8):
+                p = 16 * mi + r
+                oy, ox = divmod(p, out.w)
+                y0, x0 = oy * sh - pt, ox * sw - pl
+                rows.append((r, p < m_n, y0, x0, p < m_n and 0 <= y0
+                             and y0 + kh <= in0.h and 0 <= x0
+                             and x0 + kw <= in0.w))
+            for s in range(ks):
+                for bb in range(4):
+                    k = 16 * s + 4 * t + bb
+                    if k >= k_n or (words and bb > 0):
+                        break
+                    q = _div_by(k, ci)
+                    c = k - q * ci
+                    dy = _div_by(q, kw)
+                    dx = q - dy * kw
+                    assert (q, c, dy, dx) == (k // ci, k % ci, q // kw,
+                                              q % kw)
+                    n = 4 if words else 1
+                    for r, live, y0, x0, inside in rows:
+                        if not live:
+                            continue
+                        iy, ix = y0 + dy, x0 + dx
+                        if inside or (0 <= iy < in0.h and 0 <= ix < in0.w):
+                            at = base + (iy * in0.w + ix) * cs + c
+                            assert base <= at and at + n <= end
+                            a[r, k:k + n] = store[at:at + n]
+                        else:
+                            a[r, k:k + n] = fill
+        acc[16 * mi:16 * mi + 16] = a @ b + np.pad(
+            bias, (0, nt * 8 - co))[None, :]
+    return acc[:m_n, :co].reshape(out.h, out.w, co)
+
+
+def _window_descs(graph, planner, code):
+    """(stage, descriptor as ints) of each ``code`` op of a plan."""
+    stages = PLANNERS[planner](WINDOW_GRAPHS[graph](), "fast")
+    return [(s, [int(v) for v in d]) for s in stages for d in s.descs
+            if d[F["code"]] == code]
+
+
+@pytest.mark.parametrize("planner", list(PLANNERS))
+def test_full_conv_emulation_equals_plain_accumulators(planner):
+    """The lane-level emulation of the full-window tensor-core body over
+    the packed constants equals the plain version's int32 accumulators on
+    every marked 3x3 conv of the corpus (the stem, ci 3, K 27 -> 32), the
+    op surface and the .tflite test graphs (ci 3 to 48, strides 1 and 2;
+    windows past the top and left edge where the arena absorbs a PAD),
+    with nonzero bytes planted past ci in every pixel's stride: as the
+    views come (4-byte tap words where ci, the stride and the first byte
+    allow, else bytes), with the stride rounded up to a multiple of 4, and
+    by bytes one byte into the storage."""
+    rng = np.random.default_rng(91)
+    seen = set()
+    for graph in ["corpus", "surface"] + TFLITE:
+        for s, d in _window_descs(graph, planner, arena.CONV):
+            if d[F["kh"]] * d[F["kw"]] == 1:
+                continue
+            in0 = _view(d, "in0")
+            ci = in0.c
+            seen.add((ci, d[F["sh"]], d[F["pt"]] > 0))
+            bias = s.consts[d[F["b_off"]]:d[F["b_off"]] + 4 * d[F["out_c"]]
+                            ].view(np.int32).astype(np.int64)
+            cs4 = -(-ci // 4) * 4
+            for cs, base in ((in0.cstride, 0), (cs4, 16), (in0.cstride, 1)):
+                store, x = _storage(rng, d, cs, base)
+                words = (base | cs | ci) % 4 == 0
+                got = emulate_conv_mma(d, _frags(s, d), bias, store, base,
+                                       cs, words)
+                np.testing.assert_array_equal(
+                    got, _plain_acc(s, d, x),
+                    err_msg=f"{graph} ci {ci} cs {cs} base {base}")
+    assert {(3, 2, planner != "perop"), (8, 2, planner != "perop"),
+            (48, 1, True)} <= seen
+
+
+@pytest.mark.parametrize("planner", list(PLANNERS))
+def test_full_conv_emulation_reads_the_fill_past_every_edge(planner):
+    """The stem's descriptor moved so that its windows cross the right and
+    bottom edges (no top pad: output row 27 reads input row 56 of 56, and
+    column 56), and crossing all four edges (a pad of 1 and a 30x30
+    output): the emulation reads the fill there and equals the plain
+    accumulators."""
+    rng = np.random.default_rng(5)
+    ((s, d0),) = [(s, d) for s, d in _window_descs("corpus", planner,
+                                                    arena.CONV)
+                  if d[F["kh"]] == 3]
+    for pt, oh in ((0, 28), (1, 30)):
+        d = list(d0)
+        d[F["pt"]] = d[F["pl"]] = pt
+        d[F["in0_h"]] = d[F["in0_w"]] = 56
+        d[F["out_h"]] = d[F["out_w"]] = oh
+        d[F["fill"]] = -7
+        bias = s.consts[d[F["b_off"]]:d[F["b_off"]] + 32].view(
+            np.int32).astype(np.int64)
+        store, x = _storage(rng, d, 3, 0)
+        got = emulate_conv_mma(d, _frags(s, d), bias, store, 0, 3, False)
+        np.testing.assert_array_equal(got, _plain_acc(s, d, x))
+
+
+def _load_word(store, at, n):
+    """``load_word``: the 4 bytes at ``store[at]`` (the storage 16-byte
+    aligned), of which the first ``n`` are wanted, from the aligned words
+    that hold a wanted byte (each read asserted to hold one)."""
+    lead = at % 4
+    w = at - lead
+    reads = [w] + ([w + 4] if lead and lead + n > 4 else [])
+    got = np.zeros(8, np.int8)
+    for k, r in enumerate(reads):
+        assert set(range(r, r + 4)) & set(range(at, at + n))
+        got[4 * k:4 * k + 4] = store[r:r + 4]
+    return got[lead:lead + 4]
+
+
+def emulate_maxpool_words(d, store, base, cs):
+    """``maxpool_words_op``'s output [out.h, out.w, c], word by word: the
+    row pass's horizontal maxima of the (oh - 1) * sh + kh window rows at
+    each (output column, channel word) into a scratch of
+    ``arena.pool_scratch`` bytes (the fill for a row outside the image and
+    a tap outside it, words by ``_load_word``), then the column pass's max
+    over kh of them.  Each output byte is written once."""
+    in0, out = _view(d, "in0"), _view(d, "out")
+    kh, kw, sh, sw, pt, pl, fill = (d[F[k]] for k in (
+        "kh", "kw", "sh", "sw", "pt", "pl", "fill"))
+    c_n, ow, oh = out.c, out.w, out.h
+    nq = -(-c_n // 4)
+    n_rows = (oh - 1) * sh + kh
+    assert 4 * n_rows * ow * nq <= arena.pool_scratch([d])
+    fill4 = np.full(4, fill, np.int8)
+    scratch = np.zeros((n_rows, ow, nq, 4), np.int8)
+    for row in range(n_rows):
+        iy = row - pt
+        for ox in range(ow):
+            for q in range(nq):
+                c, n = 4 * q, min(4, c_n - 4 * q)
+                m = fill4
+                if 0 <= iy < in0.h:
+                    m = np.full(4, -128, np.int8)
+                    for dx in range(kw):
+                        ix = ox * sw - pl + dx
+                        m = np.maximum(m, _load_word(
+                            store, base + (iy * in0.w + ix) * cs + c, n)
+                            if 0 <= ix < in0.w else fill4)
+                scratch[row, ox, q] = m
+    res = np.zeros((oh, ow, c_n), np.int8)
+    written = np.zeros((oh, ow, c_n), np.int64)
+    for oy in range(oh):
+        for ox in range(ow):
+            for q in range(nq):
+                c, n = 4 * q, min(4, c_n - 4 * q)
+                m = scratch[oy * sh, ox, q]
+                for dy in range(1, kh):
+                    m = np.maximum(m, scratch[oy * sh + dy, ox, q])
+                res[oy, ox, c:c + n] = m[:n]
+                written[oy, ox, c:c + n] += 1
+    assert (written == 1).all()
+    return res
+
+
+def _plain_pool(d, x):
+    in0, out = _view(d, "in0"), _view(d, "out")
+    xp = arena._padded_window(torch.from_numpy(x), 0, d, in0, out, 0, out.h)
+    return arena._window_max(xp, (d[F["kh"]], d[F["kw"]]),
+                             (d[F["sh"]], d[F["sw"]]))[0].numpy()
+
+
+@pytest.mark.parametrize("planner", list(PLANNERS))
+def test_maxpool_words_emulation_equals_plain(planner):
+    """The word passes' emulation equals the plain max-pool on every
+    max-pool of the corpus (8x8 and 4x4 at stride 2 SAME on 28x28x18 and
+    14x14x24), the op surface (3x3 VALID through a PAD, 3x3 SAME), the
+    .tflite test graphs (2x2 at strides 1 and 2, 3 to 32 channels) and the
+    pool graph (8x8, 4x4 and 9x9, SAME and VALID, stride 1 and 2, on an
+    odd 29x29x18): as the views come and one and two bytes into the
+    storage (words funnel-shifted at every byte alignment; the last word
+    of an 18-channel pixel holds 2 channels)."""
+    rng = np.random.default_rng(13)
+    windows = set()
+    for graph in ("corpus", "surface", "pools", *TFLITE):
+        for s, d in _window_descs(graph, planner, arena.MAXPOOL):
+            in0 = _view(d, "in0")
+            windows.add((d[F["kh"]], d[F["sh"]], d[F["pt"]] > 0))
+            for base in (0, 1, 2):
+                store, x = _storage(rng, d, in0.cstride, base)
+                np.testing.assert_array_equal(
+                    emulate_maxpool_words(d, store, base, in0.cstride),
+                    _plain_pool(d, x), err_msg=f"{graph} base {base}")
+    assert {(8, 2, True), (4, 2, True), (8, 2, False), (4, 1, False),
+            (9, 2, True), (2, 1, False), (3, 2, False)} <= windows
+
+
+def test_arena_pool_scratch_past_the_arena():
+    """An arena stage's launch takes its max-pools' word scratch past the
+    arena (the corpus: 34 rows x 14 columns x 5 words of its 8x8 pool,
+    9,520 B) where the block's shared memory has room for both, else the
+    arena alone with no scratch (the full-window body: yolov3-tiny at
+    96x96, an arena of 211,968 B and a scratch of 73,728 B); the fused
+    programs hold the same scratch after their values, the per-op
+    programs after a copy of the pool's input (28 x 28 x 18 B and up to
+    15 before them, rounded up to 16), which the arena kernel never
+    takes."""
+    (st,) = arena.build_arena_plan(load_tflite(CORPUS))
+    assert arena.pool_scratch(st.descs) == 34 * 14 * 5 * 4
+    assert arena.stage_smem(st) == (st.arena_bytes + 9520, st.arena_bytes)
+    big = dataclasses.replace(st, arena_bytes=arena.ARENA_BUDGET - 9504)
+    assert arena.stage_smem(big) == (big.arena_bytes, 0)
+    (v3,) = arena.build_arena_plan(TOOL.yolov3_tiny_graph(96))
+    assert arena.pool_scratch(v3.descs, staged=False) == 96 * 48 * 4 * 4
+    assert arena.stage_smem(v3) == (v3.arena_bytes, 0) == (211968, 0)
+    pool = next(s for s in _plan("corpus", "perop", "fast")
+                if s.kernel == "maxpool_int8")
+    assert arena.pool_scratch(pool.descs) == 14128 + arena.pool_scratch(
+        pool.descs, staged=False) == 14128 + 9520
+    for planner, most in (("fused", 9520), ("perop", 14128 + 9520)):
+        stages = _plan("corpus", planner, "fast")
+        assert max(s.scratch for s in stages) == most
+        assert all(s.scratch == arena.pool_scratch(s.descs) for s in stages)
+
+
+def test_pool_graph_equals_jax_on_the_cpu():
+    """The pool graph through the arena, fused and per-op plans on the CPU
+    (the plain versions) equals JAX ``exact``."""
+    g = TOOL.pool_graph()
+    x = np.random.default_rng(23).integers(-128, 128, (2, 29, 29, 18)
+                                           ).astype(np.int8)
+    want = JaxEngine(TOOL.jax_graph(g), "exact")(x)
+    for mode in ("arena2", "fused", "perop"):
+        got = Int8Engine(g, mode, device="cpu")(torch.from_numpy(x))
+        for u, v in zip(got, want):
+            np.testing.assert_array_equal(u.numpy(), np.asarray(v),
+                                          err_msg=mode)
+
+
 @pytest.mark.parametrize("bits", perop.BITS)
 def test_concat_groups_rebuild_the_concat(bits):
     """``perop.concat_groups`` cuts the 17-input concats into the concat
@@ -426,7 +714,7 @@ def test_corpus_marked_plan_equals_jax_on_the_cpu():
     jg = jax_load_tflite(CORPUS)
     for mode, jax_mode in (("arena2", "fast2"), ("arena_exact", "exact")):
         eng = Int8Engine(load_tflite(CORPUS), mode, device="cpu")
-        assert sum(st.mma_convs for st in eng.arena.stages) == 16
+        assert sum(st.mma_convs for st in eng.arena.stages) == 17
         np.testing.assert_array_equal(
             eng(torch.from_numpy(x)).numpy(),
             np.asarray(JaxEngine(jg, jax_mode)(x)))

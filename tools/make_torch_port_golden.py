@@ -284,6 +284,24 @@ def strided_1x1_graph():
     return b.graph([x], [c], "strided_1x1")
 
 
+def pool_graph():
+    """Max-pools of one odd-sized 18-channel input, in the port's IR (numpy
+    only): int8 [N,29,29,18] -> 8x8 and 4x4 at stride 2 SAME ([N,15,15,18];
+    pads 3/4 and 1/2), 8x8 at stride 2 and 4x4 at stride 1 VALID
+    ([N,11,11,18], [N,26,26,18]) and 9x9 at stride 2 SAME ([N,15,15,18];
+    pads 4/4)."""
+    b = GraphMaker(SEED_SURFACE)
+    x = b.act(29, 18, 0.05, -3)
+    outs = [b.op("MAX_POOL_2D", [x], b.act(size, 18, 0.05, -3),
+                 padding=padding, stride_h=s, stride_w=s, filter_h=k,
+                 filter_w=k, activation="NONE")
+            for k, s, padding, size in ((8, 2, "SAME", 15), (4, 2, "SAME", 15),
+                                        (8, 2, "VALID", 11),
+                                        (4, 1, "VALID", 26),
+                                        (9, 2, "SAME", 15))]
+    return b.graph([x], outs, "pools_29x29x18")
+
+
 def surface_frames(n: int = 3) -> np.ndarray:
     """int8 [n,15,15,3] inputs of the op-surface graph (numpy only)."""
     rng = np.random.default_rng(SEED_SURFACE + 1)

@@ -199,7 +199,8 @@ def arena_breakdown(pipe, n: int, card: str, reps: int = 7) -> dict:
     def prefix_ms(k: int) -> float:
         return _event_ms(lambda: _build.check(lib.yf_arena_stage(
             descs.data_ptr(), k, consts.data_ptr(), ptrs, 2, n,
-            st.arena_bytes, arena.THREADS, stream), "arena prefix"), reps)
+            *arena.stage_smem(st), arena.THREADS, stream), "arena prefix"),
+            reps)
 
     rows, total = _descriptor_rows(st, prefix_ms)
     print(f"[arena] N={n}: whole stage {total:.3f} ms ({card})")

@@ -11,15 +11,26 @@ an SM its launch bound asks for) and the whole-frame kernels' conv bodies
 depth and tiles a warp item, the kernels' launch bound and the epilogues
 compiled into the arena kernel's bodies; ``dw4``, the channels a thread
 of the depthwise body owns; ``fused_mma``, the epilogues compiled into
-the fused kernel's bodies).  The header holds only the shapes chosen
-(m16n8k16, one m16 by one n8 tile a warp item, 4 channels a depthwise
-thread); the others are built from the general bodies kept here
-(``WIDE_MMA_BODY``, ``WIDE_DW_BODY``), put in place of the header's.
+the fused kernel's bodies; ``stem_mma``, the full-window conv body's K
+padding (27 -> 32 against 16 a window row), its byte or funnel-shifted A
+gathers, the epilogues compiled into it in both kernels, and the per-op
+stem reading device memory directly or staged in shared memory;
+``pool``, the max-pool's register walk against a separable word pass
+through a scratch, and the per-op pools direct or staged; ``bodies``, the
+full-window conv body on every marked conv against the 1x1 body beside
+it, and the kernels with the full-window body and the word passes
+compiled out, each with its stage time by op kind).  The header
+holds only the shapes chosen (m16n8k16, one m16 by one n8 tile a warp
+item, 4 channels a depthwise thread, K padded as a whole, byte gathers,
+the register walk, direct reads); the others are built from the general
+bodies kept here (``WIDE_MMA_BODY``, ``WIDE_DW_BODY``, ``FUNNEL``,
+``ROW_K``, ``SEP_WORDS_BODY``, ``STAGE_FRAME``), put in place of the
+header's.
 
 Usage (on the card, from the repository root)::
 
     python3 tools/torch_variant_sweep.py [copy] [pad] [mma] [mma_body]
-        [arena_mma] [dw4] [fused_mma]
+        [arena_mma] [dw4] [fused_mma] [stem_mma] [pool] [bodies]
 
 Each variant is a copy of the kernel's source with one constant or
 condition rewritten, built with the library's ``nvcc`` flags into
@@ -36,7 +47,9 @@ bit for bit on 2 frames, and times the batch in device time.  The
 kernel variant's registers and spills, hold it against the plain version
 on 37 frames in each bit semantics, and time the corpus net's stages at
 16384 in each and the ``arena2`` (``fused``) pipeline at 65536 with every
-launch of the kernel through the variant.  Imports no jax.
+launch of the kernel through the variant; the per-op variants hold each
+B8.3 (B8.5) program against its plain version on its timed inputs and
+time it at 16384 in fast and exact bits.  Imports no jax.
 """
 
 from __future__ import annotations
@@ -53,10 +66,14 @@ import torch  # noqa: E402
 
 from yoloface_tpu_torch.io.tflite_import import load_tflite  # noqa: E402
 from yoloface_tpu_torch.graph.retarget import retarget_spatial  # noqa
-from yoloface_tpu_torch.kernels import _build, move, perop, tiled  # noqa
+from yoloface_tpu_torch.kernels import (  # noqa: E402
+    _build, arena, move, perop, tiled)
 from yoloface_tpu_torch.probes import (  # noqa: E402
     same, time_chain, time_ms)
 from yoloface_tpu_torch.runtime.engine import Int8Engine  # noqa: E402
+
+sys.path.insert(0, os.path.join(ROOT, "tools"))
+import torch_profile_pipeline as prof  # noqa: E402
 
 CORPUS = os.path.join(ROOT, "checkpoints", "yoloface_corpus_int8.tflite")
 THREADS = "constexpr int kCopyThreads = 512;"
@@ -105,7 +122,9 @@ def variant_library(k: int, source: str, entry: str, subs):
     res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas",
                           "-v", "-I", str(out), "-I", str(_build.CSRC),
                           "-shared", "-o", str(so), str(out / source)],
-                         check=True, capture_output=True, text=True)
+                         capture_output=True, text=True)
+    if res.returncode:
+        raise RuntimeError(f"{name}: nvcc failed\n{res.stderr[-4000:]}")
     return ctypes.CDLL(str(so)), name, res.stderr
 
 
@@ -331,6 +350,8 @@ STAGE = "stage_ops.cuh"
 # stage_ops.cuh's constants as built: (type, value)
 STAGE_BUILT = {"kStageBlocks": ("int", "4"),
                "kArenaMmaEpis": ("unsigned", "kFastEpis"),
+               "kArenaConvEpis": ("unsigned", "1u << EPI_LEAKY_V2"),
+               "kFusedConvEpis": ("unsigned", "1u << EPI_LEAKY_V1"),
                "kArenaDwEpis": ("unsigned", "1u << EPI_LEAKY_V2"),
                "kFusedMmaEpis": ("unsigned", "kV1Epis"),
                "kFusedDwEpis": ("unsigned", "kV1Epis")}
@@ -626,11 +647,12 @@ def _wide_dw(words: int):
 
 # the arena kernel's conv bodies on pointers the compiler sees are in
 # shared memory (the arena's views: LDS/STS) instead of generic ones
-MMA_CALL = "yf::conv1x1_mma_op<yf::kArenaMmaEpis>"
+MMA_CALL = "yf::marked_conv_op<yf::kArenaMmaEpis, yf::kArenaConvEpis>"
 DW_CALL = "yf::dw_op<yf::kArenaDwEpis>"
 SHARED_VIEWS = [
     (f"""        if (op.frag_off != 0)
-          {MMA_CALL}(op, in0, out, consts);""",
+          {MMA_CALL}(op, in0,
+                                                                  out, consts);""",
      f"""        if (op.frag_off != 0 && op.in0.space == 0 && op.out.space == 0)
           {MMA_CALL}(op, arena + op.in0.offset, arena + op.out.offset,
                      consts);
@@ -697,38 +719,109 @@ def _stage_report(log: str, kernel: str) -> str:
     return "?"
 
 
-def _sweep_stage(dev, variants, tag: str, kernel: str = "arena") -> None:
+class Marks:
+    """A variant's planner: ``mark`` in place of ``arena.mark_mma`` while
+    the plans are built."""
+
+    def __init__(self, mark):
+        self.mark = mark
+
+    def __enter__(self):
+        from yoloface_tpu_torch.kernels import arena
+        self.built, arena.mark_mma = arena.mark_mma, self.mark
+
+    def __exit__(self, *exc):
+        from yoloface_tpu_torch.kernels import arena
+        arena.mark_mma = self.built
+
+
+class Smem:
+    """A variant's launches: every stage of a plan with ``extra`` bytes of
+    dynamic shared memory past its own (the arena's ``arena_bytes``, a
+    fused or per-op program's scratch), which the variant's bodies take
+    from the end."""
+
+    def __init__(self, extra: int):
+        self.extra = extra
+
+    def __call__(self, plan) -> None:
+        import dataclasses
+        from yoloface_tpu_torch.kernels import fused
+        for k, st in enumerate(plan.stages):
+            plan.stages[k] = dataclasses.replace(
+                st, **({"scratch": st.scratch + self.extra}
+                       if isinstance(st, fused.FusedStage)
+                       else {"arena_bytes": st.arena_bytes + self.extra}))
+
+
+def _spec(spec):
+    """(knobs, substitutions, planner, launch fix) of a variant's spec."""
+    knobs = next((v for v in spec if isinstance(v, dict)), {})
+    subs = next((v for v in spec if isinstance(v, list)), [])
+    marks = next((v for v in spec if isinstance(v, Marks)), Marks(None))
+    fix = next((v for v in spec if isinstance(v, Smem)), None)
+    return knobs, subs, marks, fix
+
+
+def _planned(marks: Marks, build):
+    """``build()`` with the variant's planner."""
+    if marks.mark is None:
+        return build()
+    with marks:
+        return build()
+
+
+_VARIANTS = iter(range(200, 10 ** 6))      # a build directory each
+
+
+def _build_all(variants, source: str, entry: str):
+    """``variant_library`` of each variant (its knobs and substitutions),
+    the builds run at once; -> [(library, entry, report)] in order."""
+    from concurrent.futures import ThreadPoolExecutor
+    jobs = []
+    for _, *spec in variants:
+        knobs, subs, _, _ = _spec(spec)
+        jobs.append((next(_VARIANTS), source, entry, _stage(**knobs) + subs))
+    with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+        return list(pool.map(lambda job: variant_library(*job), jobs))
+
+
+def _sweep_stage(dev, variants, tag: str, kernel: str = "arena",
+                 kinds: bool = False) -> None:
     """Each variant of the arena (or fused) kernel: its registers and
     spills, the corpus net's stages at 16384 in each bit semantics, held
     against the plain version on 37 frames first, and the ``arena2`` (or
-    ``fused``) pipeline at 65536, every launch through the variant."""
+    ``fused``) pipeline at 65536, every launch through the variant; with
+    ``kinds``, also that pipeline's stage time by op kind at 16384
+    (``tools/torch_profile_pipeline.py``'s descriptor prefix times)."""
     from yoloface_tpu_torch.kernels import arena, fused
     from yoloface_tpu_torch.pipeline.e2e import load_pipeline
     g = load_tflite(CORPUS)
     gen = torch.Generator(device=dev).manual_seed(0)
     if kernel == "arena":
-        plans = {b: arena.ArenaPlan(g, bits=b).to(dev) for b in arena.BITS}
+        planner, bits_all = arena.ArenaPlan, arena.BITS
         run, plain, mode = arena.arena_stage, arena.arena_stage_plain, "arena2"
     else:
-        plans = {b: fused.FusedPlan(g, bits=b).to(dev) for b in fused.BITS}
+        planner, bits_all = fused.FusedPlan, fused.BITS
         run, plain, mode = fused.fused_stage, fused.fused_stage_plain, "fused"
     x = torch.randint(-128, 128, (16384, 56, 56, 3), generator=gen,
                       device=dev, dtype=torch.int8)
     small = x[:37].contiguous()
-    pipe = load_pipeline(CORPUS, mode=mode, device=dev)
     frames = torch.randint(-1 << 15, 1 << 15, (65536, 112, 112),
                            generator=gen, device=dev,
                            dtype=torch.int16).view(torch.uint16)
     lib = _build.library()
     entry_name = f"yf_{kernel}_stage"
     built = getattr(lib, entry_name)
-    offset = {"arena_mma": 200, "dw4": 300, "fused_mma": 400}[tag]
-    for k, (label, *spec) in enumerate(variants):
-        knobs = next((v for v in spec if isinstance(v, dict)), {})
-        subs = next((v for v in spec if isinstance(v, list)), [])
-        vlib, entry, log = variant_library(
-            offset + k, f"{kernel}_stage.cu", entry_name,
-            _stage(**knobs) + subs)
+    libs = _build_all(variants, f"{kernel}_stage.cu", entry_name)
+    for (label, *spec), (vlib, entry, log) in zip(variants, libs):
+        knobs, subs, marks, fix = _spec(spec)
+        plans = _planned(marks, lambda: {
+            b: planner(g, bits=b).to(dev) for b in bits_all})
+        pipe = _planned(marks, lambda: load_pipeline(CORPUS, mode=mode,
+                                                     device=dev))
+        for p in [*plans.values(), pipe.engine.arena] if fix else ():
+            fix(p)
         fn = getattr(vlib, entry)
         fn.argtypes = _build.SIGNATURES[entry_name]
         fn.restype = ctypes.c_int
@@ -749,13 +842,426 @@ def _sweep_stage(dev, variants, tag: str, kernel: str = "arena") -> None:
                 ms = time_ms(lambda p=p: p.run_stages(x), dev, 10)
                 line.append(f"{bits} {ms:.4f}")
             ms = time_ms(lambda: pipe.detect_rgb565_device(frames), dev, 5)
+            by = kinds and (prof.arena_breakdown if kernel == "arena" else
+                            prof.fused_breakdown)(pipe, 16384, tag)
         finally:
             setattr(lib, entry_name, built)
         print(f"[sweep] {tag} {label}: {kernel} stages at 16384, ms: "
               f"{', '.join(line)}; {mode} pipeline at 65536 {ms:.3f} ms "
               f"({65536 / ms * 1e3:.0f} frames/s) (ptxas: "
-              f"{_stage_report(log, f'{kernel}_stage_kernel')})",
-              flush=True)
+              f"{_stage_report(log, f'{kernel}_stage_kernel')})"
+              + (f"; {mode} stage by kind, ms: " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in sorted(by.items()))
+                 if by else ""), flush=True)
+
+
+def _sweep_perop(dev, variants, tag: str, kernels) -> None:
+    """Each variant of the fused-stage kernel on the corpus net's per-op
+    programs of ``kernels`` (B8.3 ``conv3x3``, B8.5 ``maxpool_int8``) at
+    16384, in fast and exact bits, each op held against its plain version
+    on its timed inputs first, then timed in device time behind a spin and
+    summed by kernel."""
+    from yoloface_tpu_torch.kernels import perop
+    g = load_tflite(CORPUS)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randint(-128, 128, (16384, 56, 56, 3), generator=gen,
+                      device=dev, dtype=torch.int8)
+    lib = _build.library()
+    built = lib.yf_fused_stage
+    libs = _build_all(variants, "fused_stage.cu", "yf_fused_stage")
+    for (label, *spec), (vlib, entry, log) in zip(variants, libs):
+        knobs, subs, marks, fix = _spec(spec)
+        fn = getattr(vlib, entry)
+        fn.argtypes = _build.SIGNATURES["yf_fused_stage"]
+        fn.restype = ctypes.c_int
+        line = []
+        for bits in perop.BITS:
+            p = _planned(marks, lambda: perop.PerOpPlan(g, bits).to(dev))
+            env = p.run_stages(x)
+            if fix:
+                fix(p)
+            lib.yf_fused_stage = fn
+            try:
+                for name in kernels:
+                    total = 0.0
+                    for k, st in enumerate(p.stages):
+                        if st.kernel != name:
+                            continue
+                        ins = [env[i] for i in st.inputs]
+
+                        def op(k=k, st=st, ins=ins):
+                            return perop.perop_op(
+                                st, getattr(p, f"descs{k}"),
+                                getattr(p, f"consts{k}"), ins)
+                        want = torch.empty_like(env[st.outputs[0]])
+                        perop.perop_plain(st, getattr(p, f"consts{k}"),
+                                          ins + [want])
+                        same(op()[0], want, f"{tag} {label} {bits} op {k}")
+                        total += time_ms(op, dev, 10)
+                    line.append(f"{name} {bits} {total:.4f}")
+            finally:
+                lib.yf_fused_stage = built
+        print(f"[sweep] {tag} per-op {label}: ms at 16384: "
+              f"{', '.join(line)} (ptxas: "
+              f"{_stage_report(log, 'fused_stage_kernel')})", flush=True)
+
+
+# The full-window conv body (stem_mma): the lane's 4 K positions, where
+# they are one run of bytes of a window row inside the image, as one
+# funnel-shifted word (load_word) instead of 4 byte loads
+FUNNEL = [
+    (STAGE, """      unsigned a[2] = {0u, 0u};
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        int dy, dx, c;""", """      unsigned a[2] = {0u, 0u};
+      int ry, rx, rc, ey, ex, ec;
+      const bool run =
+          !words && cs == ci &&
+          k_tap(k0, k_n, ci, kw, m_ci, m_kw, ry, rx, rc) &&
+          k_tap(k0 + 3, k_n, ci, kw, m_ci, m_kw, ey, ex, ec) && ey == ry;
+      bool done[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        done[h] = run && inside[h];
+        if (done[h])
+          a[h] = load_word(
+              in + ((y0[h] + ry) * in_w + x0[h] + rx) * cs + rc, 4);
+      }
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        int dy, dx, c;"""),
+    (STAGE, """          if (!live[h]) continue;
+          const int iy = y0[h] + dy, ix = x0[h] + dx;""",
+     """          if (!live[h] || done[h]) continue;
+          const int iy = y0[h] + dy, ix = x0[h] + dx;""")]
+# K padded to 16 a window row (the stem: 3 k16 steps, one a row, against
+# 27 -> 32 in 2): the body's K positions and the planner's packing
+ROW_K = [
+    (STAGE, """  const int q = div_by(k, ci, m_ci);
+  c = k - q * ci;
+  dy = div_by(q, kw, m_kw);
+  dx = q - dy * kw;
+  return k < k_n;""", """  const int r16 = (kw * ci + 15) >> 4;        // k16 steps a window row
+  dy = r16 == 1 ? k >> 4 : (k >> 4) / r16;
+  const int r = k - ((dy * r16) << 4);
+  dx = div_by(r, ci, m_ci);
+  c = r - dx * ci;
+  return r < kw * ci && k < k_n;"""),
+    (STAGE, "  const int k_n = kh * kw * ci;                            // K",
+     "  const int k_n = kh * (((kw * ci + 15) >> 4) << 4);      // K")]
+
+
+def _row_k_mark(st):
+    """``arena.mark_mma`` with each full window's K padded to 16 a window
+    row (``ROW_K``'s packing)."""
+    import dataclasses
+    import numpy as np
+    from yoloface_tpu_torch.kernels import arena
+    F = arena.F
+    descs = st.descs.copy()
+    consts = bytearray(st.consts.tobytes())
+    for d in descs:
+        if d[F["code"]] != arena.CONV:
+            continue
+        co, kh, kw, ci = (int(d[F[k]]) for k in ("out_c", "kh", "kw",
+                                                 "in0_c"))
+        w0 = int(d[F["w_off"]])
+        w = st.consts[w0:w0 + co * kh * kw * ci].view(np.int8).reshape(
+            co, kh, kw * ci)
+        row = -(-kw * ci // 16) * 16 if kh * kw > 1 else kw * ci
+        wr = np.zeros((co, kh, row), np.int8)
+        wr[:, :, :kw * ci] = w
+        d[F[arena.FRAG_FIELD]] = arena.put_const(
+            consts, arena.pack_frags(wr.reshape(co, 1, 1, kh * row)))
+    return dataclasses.replace(st, descs=descs, consts=np.frombuffer(
+        bytes(consts), np.uint8).copy())
+
+
+# a per-op program's input view in device memory staged in shared memory
+# (the 16-byte aligned range holding the frame's view, 16-byte loads, at
+# the end of the dynamic shared memory) before a full conv reads it,
+# against reading device memory directly
+STAGE_FRAME = """namespace {
+
+// the frame's input view staged at the end of the dynamic shared memory;
+// -> the view there, at the same offset within 16 bytes
+__device__ const int8_t* stage_frame(const yf::Op& op, const int8_t* in,
+                                     int8_t* smem) {
+  unsigned dyn;
+  asm("mov.u32 %0, %%dynamic_smem_size;" : "=r"(dyn));
+  const uintptr_t a = reinterpret_cast<uintptr_t>(in);
+  const uintptr_t a0 = a & ~static_cast<uintptr_t>(15);
+  const int n16 = static_cast<int>(
+      (a + op.in0.h * op.in0.w * op.in0.cs - a0 + 15) >> 4);
+  uint4* dst = reinterpret_cast<uint4*>(smem + ((dyn - 16u * n16) & ~15u));
+  const uint4* src = reinterpret_cast<const uint4*>(a0);
+  for (int i = threadIdx.x; i < n16; i += blockDim.x) dst[i] = src[i];
+  __syncthreads();
+  return reinterpret_cast<const int8_t*>(dst) + (a - a0);
+}
+"""
+STAGED = [
+    ("fused_stage.cu", "namespace {\n", STAGE_FRAME),
+    ("fused_stage.cu", """    const int8_t* in0 = yf::base(op.in0, smem, g, frame);
+""", """    const int8_t* in0 = yf::base(op.in0, smem, g, frame);
+    if (op.in0.space != 0 && op.code == yf::CONV && op.frag_off != 0 &&
+        op.kh * op.kw > 1)
+      in0 = stage_frame(op, in0, smem);
+""")]
+# the per-op input the staged variant holds: the stem's 57x57x3
+STAGED_BYTES = 57 * 57 * 3 + 32
+# a per-op max-pool reading its input from device memory, against staged
+# in shared memory first (stage_view)
+POOL_DIRECT = [("fused_stage.cu", "        if (op.in0.space != 0) {",
+                "        if (false) {")]
+# the max-pool walking down the output rows (pool), against the row and
+# column passes through a scratch: a thread owns an (output column,
+# channel word) and keeps the horizontal maxima of the kh window rows in
+# registers, shifting in sh new rows an output row; no scratch
+WALK_BODY = r"""// the window rows the max-pool's register walk holds (the repo's graphs
+// take 8x8 and 4x4 windows); a taller window takes the caller's other body
+constexpr int kPoolRows = 8;
+
+// MAX_POOL over the whole frame, four channels a thread (the caller
+// guarantees op.kh <= kPoolRows).  A thread owns one (output column, word
+// of 4 channels; the last word of a pixel holds c % 4 of them where 4 does
+// not divide c) and walks down a band of output rows, the frame's rows cut
+// into as many bands as the block has threads for.  It keeps the
+// horizontal maxima of the kh input rows its window spans in registers
+// (hm[kPoolRows - kh ..], newest last) and, from one output row to the
+// next, shifts in the sh rows the window moves down by: each new row is kw
+// word loads and __vmaxs4s, each output word kh __vmaxs4s, against
+// maxpool_op's kh * kw byte loads an output byte.  Words at any byte
+// alignment (cs = 18, a view one byte in) are funnel-shifted from aligned
+// loads (load_word).  Same compares, same fill: the bits are maxpool_op's.
+static __device__ void maxpool_walk_op(const Op& op, const int8_t* in,
+                                        int8_t* out) {
+  const int c_n = op.out.c, nq = (c_n + 3) >> 2, ow = op.out.w;
+  const int oh = op.out.h, kh = op.kh, cols = ow * nq;
+  const int bands = max(1, min(oh, static_cast<int>(blockDim.x) / cols));
+  const unsigned fill =
+      static_cast<unsigned>(static_cast<uint8_t>(op.fill)) * 0x01010101u;
+  for (int e = threadIdx.x; e < cols * bands; e += blockDim.x) {
+    const int q = e % nq, r = e / nq, ox = r % ow, band = r / ow;
+    const int c = 4 * q, n = min(4, c_n - c);
+    const int x0 = ox * op.sw - op.pl;
+    const int oy0 = band * oh / bands, oy1 = (band + 1) * oh / bands;
+    int iy = oy0 * op.sh - op.pt;            // the next input row to take
+    unsigned hm[kPoolRows] = {};
+#pragma unroll
+    for (int j = 0; j < kPoolRows; ++j)
+      if (j >= kPoolRows - kh)
+        hm[j] = pool_row(op, in, iy++, x0, c, n, fill);
+    for (int oy = oy0; oy < oy1; ++oy) {
+      if (oy > oy0) {
+        for (int k = 0; k < op.sh; ++k) {
+#pragma unroll
+          for (int j = 0; j + 1 < kPoolRows; ++j) hm[j] = hm[j + 1];
+          hm[kPoolRows - 1] = pool_row(op, in, iy++, x0, c, n, fill);
+        }
+      }
+      unsigned m = hm[kPoolRows - 1];
+#pragma unroll
+      for (int j = 0; j + 1 < kPoolRows; ++j)
+        if (j >= kPoolRows - kh) m = __vmaxs4(m, hm[j]);
+      int8_t* o = out + (oy * ow + ox) * op.out.cs + c;
+      if (n == 4 && (addr(o) & 3) == 0) {
+        *reinterpret_cast<unsigned*>(o) = m;
+      } else {
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+          if (b < n) o[b] = static_cast<int8_t>(m >> (8 * b));
+      }
+    }
+  }
+}
+
+"""
+WALK = [
+    (STAGE, "// A whole-frame kernel as the build compiled it",
+     WALK_BODY + "// A whole-frame kernel as the build compiled it"),
+    ("arena_stage.cu", """          yf::maxpool_words_op(
+              op, in0, out, reinterpret_cast<unsigned*>(arena + scratch_off));""",
+     "          yf::maxpool_walk_op(op, in0, out);"),
+    ("fused_stage.cu", """        yf::maxpool_words_op(op, in0, out,
+                             reinterpret_cast<unsigned*>(scratch));""",
+     "        yf::maxpool_walk_op(op, in0, out);")]
+# a body compiled as a function of its own (its registers allocated apart
+# from the kernel's other bodies), against inlined
+NOINLINE_CONV = [(STAGE, "static __device__ void conv_mma_body(",
+                  "static __device__ __noinline__ void conv_mma_body(")]
+NOINLINE_POOL = [(STAGE, "static __device__ void maxpool_words_op(",
+                  "static __device__ __noinline__ void maxpool_words_op(")]
+# the full-window body's 4 K positions of a step taken one at a time (the
+# loop over them not unrolled: fewer taps live at once)
+B_LOOP = [(STAGE, """#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        int dy, dx, c;""", """#pragma unroll 1
+      for (int b = 0; b < 4; ++b) {
+        int dy, dx, c;""")]
+# the word passes with a thread's (output column, channel word) fixed and
+# its rows strided (one division a thread, not two an item)
+POOL_COLS_BODY = r"""static __device__ void maxpool_words_op(const Op& op, const int8_t* in,
+                                        int8_t* out, unsigned* scratch) {
+  const int c_n = op.out.c, nq = (c_n + 3) >> 2, ow = op.out.w;
+  const int oh = op.out.h, n_rows = (oh - 1) * op.sh + op.kh;
+  const int cols = ow * nq;               // (output column, word) pairs
+  const int step = max(1, static_cast<int>(blockDim.x) / cols);
+  const unsigned fill =
+      static_cast<unsigned>(static_cast<uint8_t>(op.fill)) * 0x01010101u;
+  for (int e = threadIdx.x; e < cols * step; e += blockDim.x) {
+    const int col = e % cols, r0 = e / cols, q = col % nq, ox = col / nq;
+    const int n = min(4, c_n - 4 * q), x0 = ox * op.sw - op.pl;
+    for (int row = r0; row < n_rows; row += step)
+      scratch[row * cols + col] =
+          pool_row(op, in, row - op.pt, x0, 4 * q, n, fill);
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < cols * step; e += blockDim.x) {
+    const int col = e % cols, r0 = e / cols, q = col % nq, ox = col / nq;
+    const int n = min(4, c_n - 4 * q);
+    for (int oy = r0; oy < oh; oy += step) {
+      const unsigned* v = scratch + oy * op.sh * cols + col;
+      unsigned m = v[0];
+      for (int dy = 1; dy < op.kh; ++dy) m = __vmaxs4(m, v[dy * cols]);
+      int8_t* o = out + (oy * ow + ox) * op.out.cs + 4 * q;
+      if (n == 4 && (addr(o) & 3) == 0) {
+        *reinterpret_cast<unsigned*>(o) = m;
+      } else {
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+          if (b < n) o[b] = static_cast<int8_t>(m >> (8 * b));
+      }
+    }
+  }
+}
+
+"""
+POOL_COLS = [_replace_body("static __device__ void maxpool_words_op(",
+                           "// The shared memory stage_view takes",
+                           POOL_COLS_BODY)]
+STEM_ARENA_VARIANTS = [
+    ("as built (K 27 -> 32, byte gathers; v2 compiled in the full-window "
+     "body)", {}),
+    ("funnel-shifted words", FUNNEL),
+    ("K padded to 16 a window row", ROW_K, Marks(_row_k_mark)),
+    ("a step's K positions one at a time", B_LOOP),
+    ("no epilogue compiled in the full-window body",
+     dict(kArenaConvEpis="0")),
+    ("the fast epilogues compiled in the full-window body",
+     dict(kArenaConvEpis="kFastEpis")),
+    ("every epilogue compiled in the full-window body",
+     dict(kArenaConvEpis=f"kFastEpis | {EXACT_EPIS}")),
+    ("the full-window body not inlined", NOINLINE_CONV),
+]
+STEM_FUSED_VARIANTS = [
+    ("as built (v1 compiled in the full-window body)", {}),
+    ("K padded to 16 a window row", ROW_K, Marks(_row_k_mark)),
+    ("a step's K positions one at a time", B_LOOP),
+    ("no epilogue compiled in the full-window body",
+     dict(kFusedConvEpis="0")),
+    ("the fast epilogues compiled in the full-window body",
+     dict(kFusedConvEpis=V1_EPIS)),
+    ("every epilogue compiled in the full-window body",
+     dict(kFusedConvEpis=f"{V1_EPIS} | {EXACT_EPIS}")),
+]
+STEM_PEROP_VARIANTS = [
+    ("as built (device memory read directly, byte gathers)", {}),
+    ("funnel-shifted words", FUNNEL),
+    ("K padded to 16 a window row", ROW_K, Marks(_row_k_mark)),
+    ("staged in shared memory", STAGED, Smem(STAGED_BYTES)),
+]
+POOL_VARIANTS = [
+    ("as built (row and column passes on words through a scratch)", {}),
+    ("walking down the rows, the window rows in registers", WALK),
+    ("passes by column", POOL_COLS),
+    ("the word passes not inlined", NOINLINE_POOL),
+]
+POOL_PEROP_VARIANTS = [
+    ("as built (the input staged in shared memory, row and column "
+     "passes)", {}),
+    ("device memory read directly", POOL_DIRECT),
+    ("walking down the rows, the window rows in registers", WALK),
+    ("passes by column", POOL_COLS),
+]
+
+# The full-window body on every marked conv (bodies): conv_mma_body for
+# the 1x1s too, with the 1x1 body's epilogue set or the full-window
+# body's, against conv1x1_mma_body beside it; and the kernels with the
+# full-window body and the max-pool word passes compiled out (the stem
+# unmarked on conv_op, the max-pools on maxpool_op), which the op kinds'
+# times (kinds) hold against the kernel as built
+MARKED_CONV = """  if (op.kh == 1 && op.kw == 1)
+    by_epilogue<kEpis1x1>(op.epi, Conv1x1Mma{op, in, out, consts});
+  else
+    by_epilogue<kEpisFull>(op.epi, ConvMma{op, in, out, consts});"""
+FULL_1X1_SET = [(STAGE, MARKED_CONV, """  by_epilogue<kEpis1x1>(op.epi,
+                        ConvMma{op, in, out, consts});""")]
+FULL_FULL_SET = [(STAGE, MARKED_CONV, """  by_epilogue<kEpisFull>(op.epi,
+                         ConvMma{op, in, out, consts});""")]
+NO_FULL = [(STAGE, MARKED_CONV, """  by_epilogue<kEpis1x1>(op.epi,
+                        Conv1x1Mma{op, in, out, consts});""")]
+MARK_MMA = arena.mark_mma
+
+
+def _mark_1x1(st):
+    """``arena.mark_mma`` with only the 1x1 CONVs marked (the full
+    windows' fragments appended but not named)."""
+    st = MARK_MMA(st)
+    F = arena.F
+    for d in st.descs:
+        if d[F["kh"]] * d[F["kw"]] > 1:
+            d[F[arena.FRAG_FIELD]] = 0
+    return st
+
+
+ARENA_NEW_OUT = NO_FULL + [("arena_stage.cu", """        if (scratch_off != 0)
+          yf::maxpool_words_op(""", """        if (false)
+          yf::maxpool_words_op(""")]
+FUSED_NEW_OUT = NO_FULL + [("fused_stage.cu", """        yf::maxpool_words_op(op, in0, out,
+                             reinterpret_cast<unsigned*>(scratch));""",
+                            "        yf::maxpool_op(op, in0, 0, out, 0, "
+                            "op.out.h);")]
+BODIES_ARENA_VARIANTS = [
+    ("as built (1x1s on conv1x1_mma_body)", {}),
+    ("the full-window body on every marked conv, the 1x1 body's epilogues",
+     FULL_1X1_SET),
+    ("the full-window body on every marked conv, its own epilogues",
+     FULL_FULL_SET),
+    ("the full-window body and the word passes compiled out",
+     ARENA_NEW_OUT, Marks(_mark_1x1)),
+    ("as built, again", {}),
+]
+BODIES_FUSED_VARIANTS = [
+    ("as built (1x1s on conv1x1_mma_body)", {}),
+    ("the full-window body on every marked conv, the 1x1 body's epilogues",
+     FULL_1X1_SET),
+    ("the full-window body on every marked conv, its own epilogues",
+     FULL_FULL_SET),
+    ("the full-window body and the word passes compiled out",
+     FUSED_NEW_OUT, Marks(_mark_1x1)),
+    ("as built, again", {}),
+]
+BODIES_PEROP_VARIANTS = BODIES_FUSED_VARIANTS[:4]
+
+
+def sweep_bodies(dev) -> None:
+    _sweep_stage(dev, BODIES_ARENA_VARIANTS, "bodies", kinds=True)
+    _sweep_stage(dev, BODIES_FUSED_VARIANTS, "bodies", "fused", kinds=True)
+    _sweep_perop(dev, BODIES_PEROP_VARIANTS, "bodies",
+                 ("conv1x1", "conv3x3", "dwconv3x3", "maxpool_int8"))
+
+
+def sweep_stem_mma(dev) -> None:
+    _sweep_stage(dev, STEM_ARENA_VARIANTS, "stem_mma")
+    _sweep_stage(dev, STEM_FUSED_VARIANTS, "stem_mma", "fused")
+    _sweep_perop(dev, STEM_PEROP_VARIANTS, "stem_mma", ("conv3x3",))
+
+
+def sweep_pool(dev) -> None:
+    _sweep_stage(dev, POOL_VARIANTS, "pool")
+    _sweep_stage(dev, POOL_VARIANTS, "pool", "fused")
+    _sweep_perop(dev, POOL_PEROP_VARIANTS, "pool", ("maxpool_int8",))
 
 
 def sweep_arena_mma(dev) -> None:
@@ -783,7 +1289,9 @@ def main(argv) -> int:
     _build.library()
     sweeps = {"copy": sweep_copy, "pad": sweep_pad, "mma": sweep_mma,
               "mma_body": sweep_mma_body, "arena_mma": sweep_arena_mma,
-              "dw4": sweep_dw4, "fused_mma": sweep_fused_mma}
+              "dw4": sweep_dw4, "fused_mma": sweep_fused_mma,
+              "stem_mma": sweep_stem_mma, "pool": sweep_pool,
+              "bodies": sweep_bodies}
     for name in argv or list(sweeps):
         sweeps[name](dev)
     return 0

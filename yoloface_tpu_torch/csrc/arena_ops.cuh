@@ -21,12 +21,13 @@
 //
 // The bodies after eltwise_op came with the fused stages (fused_stage.cu):
 // copy_op, pad_op, table_op (standalone LEAKY_RELU, RELU / RELU6 clips,
-// LOGISTIC), resize_op and the separable maxpool_sep_op, which needs a
-// scratch of ((rows - 1) * sh + kh) * out.w * out.c bytes.  They take the
-// same row origin and count as the bodies above, so the arena and tiled
-// kernels run pad_op, table_op and resize_op too; avgpool_op runs in the
-// arena and tiled kernels only.  Each kernel's switch traps on an op code
-// it has no case for, so a code it lacks can never run as another op.
+// LOGISTIC) and resize_op.  They take the same row origin and count as the
+// bodies above, so the arena and tiled kernels run them too; avgpool_op
+// runs in the arena and tiled kernels only.  The whole-frame kernels run
+// their marked convs, their depthwise convs on word views and their
+// max-pools on the bodies of stage_ops.cuh.  Each kernel's switch traps on
+// an op code it has no case for, so a code it lacks can never run as
+// another op.
 //
 // The byte-bound bodies (copy_op, table_op, resize_op, avgpool_op) move 16
 // bytes a thread where the views allow it: a dense view (cs == c) is one
@@ -489,45 +490,6 @@ static __device__ void resize_op(const Op& op, const int8_t* in, int in_y0,
     const int p = e / c_n;
     const int iy = (oy0 + p / op.out.w) / op.kh, ix = (p % op.out.w) / op.kw;
     out[p * op.out.cs + c] = in[((iy - in_y0) * op.in0.w + ix) * op.in0.cs + c];
-  }
-}
-
-// separable max-pool over output rows [oy0, oy0 + rows): a row pass takes
-// the max over the kw taps of each of the (rows - 1) * sh + kh padded input
-// rows the windows read, at the output's columns, into `scratch`; a column
-// pass takes the max over kh of those rows.  Taps outside the image read
-// the fill, so the bits are the full window's max at kw + kh compares an
-// output instead of kh * kw.  All threads of the block take part.
-static __device__ void maxpool_sep_op(const Op& op, const int8_t* in,
-                                      int in_y0, int8_t* out, int oy0,
-                                      int rows, int8_t* scratch) {
-  const int c_n = op.out.c, ow = op.out.w;
-  const int r0 = oy0 * op.sh - op.pt;
-  const int n_rows = (rows - 1) * op.sh + op.kh;
-  const int fill = max(op.fill, -128);
-  for (int e = threadIdx.x; e < n_rows * ow * c_n; e += blockDim.x) {
-    const int c = e % c_n;
-    const int p = e / c_n;
-    const int iy = r0 + p / ow, ox = p % ow;
-    int m = fill;
-    if (iy >= 0 && iy < op.in0.h) {
-      const int8_t* row = in + (iy - in_y0) * op.in0.w * op.in0.cs + c;
-      m = -128;
-      for (int dx = 0; dx < op.kw; ++dx) {
-        const int ix = ox * op.sw - op.pl + dx;
-        m = max(m, ix >= 0 && ix < op.in0.w ? row[ix * op.in0.cs] : op.fill);
-      }
-    }
-    scratch[e] = static_cast<int8_t>(m);
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < rows * ow * c_n; e += blockDim.x) {
-    const int c = e % c_n;
-    const int p = e / c_n;
-    const int8_t* col = scratch + ((p / ow) * op.sh * ow + p % ow) * c_n + c;
-    int m = -128;
-    for (int dy = 0; dy < op.kh; ++dy) m = max(m, col[dy * ow * c_n]);
-    out[p * op.out.cs + c] = static_cast<int8_t>(m);
   }
 }
 

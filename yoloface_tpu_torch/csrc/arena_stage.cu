@@ -22,9 +22,10 @@
 // What the design does about it: one block per frame keeps the whole net
 // in shared memory (23.5 KB for the corpus graph, so several blocks share
 // an SM); each op body computes every row of its output (arena_ops.cuh).
-// The 1x1 convs the planner marks run on the int8 tensor cores and the
-// 3x3 depthwise convs four channels a thread (stage_ops.cuh, shared with
-// the fused stage kernel); the stem and any other conv keep conv_op.  A
+// The convs the planner marks (every CONV: the 1x1s and the stem) run on
+// the int8 tensor cores, the 3x3 depthwise convs four channels a thread
+// and the max-pools on 4-channel words through a scratch past the arena
+// (stage_ops.cuh, shared with the fused stage kernel).  A
 // stage's inputs come in and its outputs go out through copy_op, 16 bytes
 // a thread step with four loads in flight, since a one-op stage at a real
 // size (26x26x128, 173 KB of arena: one block an SM) is bound by those
@@ -43,7 +44,8 @@ using yf::Op;
 
 __global__ void __launch_bounds__(yf::kStageThreads, yf::kStageBlocks)
     arena_stage_kernel(const Op* __restrict__ ops, int n_ops,
-                       const uint8_t* __restrict__ consts, Globals g) {
+                       const uint8_t* __restrict__ consts, Globals g,
+                       int scratch_off) {
   extern __shared__ __align__(16) int8_t arena[];
   const long long frame = blockIdx.x;
   for (int i = 0; i < n_ops; ++i) {
@@ -51,17 +53,22 @@ __global__ void __launch_bounds__(yf::kStageThreads, yf::kStageBlocks)
     const int8_t* in0 = yf::base(op.in0, arena, g, frame);
     int8_t* out = yf::base(op.out, arena, g, frame);
     switch (op.code) {   // the whole frame: rows [0, out.h), held from 0
-      case yf::CONV:     // a marked 1x1 on the tensor cores
+      case yf::CONV:     // a marked conv on the tensor cores
         if (op.frag_off != 0)
-          yf::conv1x1_mma_op<yf::kArenaMmaEpis>(op, in0, out, consts);
+          yf::marked_conv_op<yf::kArenaMmaEpis, yf::kArenaConvEpis>(op, in0,
+                                                                  out, consts);
         else
           yf::conv_op<false>(op, in0, 0, out, 0, op.out.h, consts);
         break;
       case yf::DW:
         yf::dw_op<yf::kArenaDwEpis>(op, in0, out, consts);
         break;
-      case yf::MAXPOOL:
-        yf::maxpool_op(op, in0, 0, out, 0, op.out.h);
+      case yf::MAXPOOL:  // no room for the scratch: the full-window body
+        if (scratch_off != 0)
+          yf::maxpool_words_op(
+              op, in0, out, reinterpret_cast<unsigned*>(arena + scratch_off));
+        else
+          yf::maxpool_op(op, in0, 0, out, 0, op.out.h);
         break;
       case yf::AVGPOOL:
         yf::avgpool_op(op, in0, 0, out, 0, op.out.h);
@@ -93,10 +100,13 @@ __global__ void __launch_bounds__(yf::kStageThreads, yf::kStageBlocks)
 
 }  // namespace
 
+// `smem_bytes` of dynamic shared memory a block: the arena, then from
+// `scratch_off` the max-pools' scratch (kernels/arena.py stage_smem; 0: no
+// scratch, the max-pools take the full-window body).
 extern "C" int yf_arena_stage(const void* descs, int n_ops, const void* consts,
                               const void* host_ptrs, int n_globals,
-                              int n_frames, int arena_bytes, int threads,
-                              void* stream) {
+                              int n_frames, int smem_bytes, int scratch_off,
+                              int threads, void* stream) {
   if (n_globals > yf::kMaxGlobals)
     return static_cast<int>(cudaErrorInvalidValue);
   Globals g = {};
@@ -106,11 +116,11 @@ extern "C" int yf_arena_stage(const void* descs, int n_ops, const void* consts,
     g.p[i] = reinterpret_cast<int8_t*>(p[i]);
   cudaFuncSetAttribute(arena_stage_kernel,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       arena_bytes);
-  arena_stage_kernel<<<n_frames, threads, arena_bytes,
+                       smem_bytes);
+  arena_stage_kernel<<<n_frames, threads, smem_bytes,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const Op*>(descs), n_ops,
-      static_cast<const uint8_t*>(consts), g);
+      static_cast<const uint8_t*>(consts), g, scratch_off);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -28,11 +28,12 @@
 // bytes: device memory moves only each stage's inputs and outputs.  What
 // the design does about it, in this first version: the values of a stage
 // (placed by liveness) stay in dynamic shared memory, external inputs come
-// in and outputs go out with 16-byte moves, and the max-pool runs as a row
-// pass and a column pass through a scratch after the values (kw + kh
-// compares an output instead of kh * kw).  The 1x1 convs the planner
-// marks run on the int8 tensor cores and the 3x3 depthwise convs four
-// channels a thread (stage_ops.cuh, shared with the arena stage kernel).
+// in and outputs go out with 16-byte moves.  The convs the planner marks
+// (every CONV) run on the int8 tensor cores, the 3x3 depthwise convs four
+// channels a thread, and the max-pools on 4-channel words as a row pass
+// and a column pass through a scratch after the values (kw + kh compares
+// a word instead of kh * kw a byte) (stage_ops.cuh, shared with the arena
+// stage kernel).
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -56,18 +57,26 @@ __global__ void __launch_bounds__(yf::kStageThreads, yf::kStageBlocks)
     const int8_t* in0 = yf::base(op.in0, smem, g, frame);
     int8_t* out = yf::base(op.out, smem, g, frame);
     switch (op.code) {   // the whole frame: rows [0, out.h), held from 0
-      case yf::CONV:     // a marked 1x1 on the tensor cores
+      case yf::CONV:     // a marked conv on the tensor cores
         if (op.frag_off != 0)
-          yf::conv1x1_mma_op<yf::kFusedMmaEpis>(op, in0, out, consts);
+          yf::marked_conv_op<yf::kFusedMmaEpis, yf::kFusedConvEpis>(op, in0,
+                                                                  out, consts);
         else
           yf::conv_op<false>(op, in0, 0, out, 0, op.out.h, consts);
         break;
       case yf::DW:
         yf::dw_op<yf::kFusedDwEpis>(op, in0, out, consts);
         break;
-      case yf::MAXPOOL:
-        yf::maxpool_sep_op(op, in0, 0, out, 0, op.out.h, smem + scratch_off);
+      case yf::MAXPOOL: {  // a per-op input staged first, then the scratch
+        int8_t* scratch = smem + scratch_off;
+        if (op.in0.space != 0) {
+          in0 = yf::stage_view(op, in0, scratch);
+          scratch += yf::staged_bytes(op.in0.h * op.in0.w * op.in0.cs);
+        }
+        yf::maxpool_words_op(op, in0, out,
+                             reinterpret_cast<unsigned*>(scratch));
         break;
+      }
       case yf::COPY:
         yf::copy_op(op, in0, out, op.out.h);
         break;

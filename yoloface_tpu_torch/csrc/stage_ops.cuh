@@ -1,29 +1,36 @@
-// The conv bodies of the whole-frame stage kernels (arena_stage.cu and
-// fused_stage.cu, which also runs the per-op programs); the tiled section
-// kernel does not include this header and keeps arena_ops.cuh's conv_op.
+// The conv and max-pool bodies of the whole-frame stage kernels
+// (arena_stage.cu and fused_stage.cu, which also runs the per-op programs);
+// the tiled section kernel does not include this header and keeps
+// arena_ops.cuh's conv_op and maxpool_op.
 //
-// conv1x1_mma_op: a 1x1 CONV that the planners mark (kernels/arena.py
-// mark_mma) on the int8 tensor cores, replacing conv_op<false> for it.
-// The JAX stage kernel runs these convs on the MXU in its own body
-// (yoloface_tpu/kernels/pallas_arena.py:358, :384).  An implicit GEMM:
+// marked_conv_op: a CONV that the planners mark (kernels/arena.py
+// mark_mma: every CONV of a whole-frame program, 1x1 or a full window) on
+// the int8 tensor cores, replacing conv_op<false> for it.  The JAX stage
+// kernel runs these convs on the MXU in its own body
+// (yoloface_tpu/kernels/pallas_arena.py:358, :384; the stem as im2col with
+// one int8 dot an output position, :398-440).  An implicit GEMM:
 //  * M: the output pixels of the frame (784, 196 or 49 in the corpus net),
 //    in m16 tiles; the last is ragged, its rows past the end read 0 and
 //    are not stored;
 //  * N: the output channels (4 to 40), in n8 tiles; the last is masked on
 //    store;
-//  * K: the input channels ci (4 to 48), in k16 steps of
+//  * K: kh * kw * ci in (dy, dx, c) order (ci = 4 to 48 for the 1x1s, 27
+//    for the stem), in k16 steps of
 //    mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32.
 // A warp item is one m16 tile by one n8 tile.
-// A fragments: lane (g, t) holds channels 4t..4t+3 of pixel g (and g + 8)
-// of its k16 step; a 4-byte load where the input view's first byte and
-// channel stride are multiples of 4, else the bytes below ci gathered one
-// by one (ci = cs = 18 and 6 in the corpus, and any per-op input one byte
-// into its storage); channels at and past ci read 0 and are never loaded,
-// so no read passes the tensor's storage (the dynamic shared memory in
-// the arena, the allocation in device memory).  A pixel whose window lies
-// outside the image (a 1x1 with a stride or an absorbed PAD) reads the
+// A fragments: lane (g, t) holds K positions 4t..4t+3 of pixel g (and g +
+// 8) of its k16 step.  The 1x1 body (conv1x1_mma_body) reads them as a
+// 4-byte load where the input view's first byte and channel stride are
+// multiples of 4, else the bytes below ci one by one (ci = cs = 18 and 6
+// in the corpus, and any per-op input one byte into its storage); the full
+// window body (conv_mma_body) finds each K position's tap and reads a tap's
+// 4-channel word, or the bytes one by one (the stem, ci = 3).  K positions
+// past K read 0 and are never loaded, so no read passes the tensor's
+// storage (the dynamic shared memory in the arena, the allocation in
+// device memory).  A tap outside the image (a 1x1 with a stride or an
+// absorbed PAD; the stem's right and bottom edge in the arena) reads the
 // fill.  B fragments: packed at plan time after the constants (pack_frags:
-// per n8 tile and k16 step, 32 lanes x 4 bytes, ci zero-padded to a
+// per n8 tile and k16 step, 32 lanes x 4 bytes, K zero-padded to a
 // multiple of 16), one coalesced 4-byte load a lane through the read-only
 // cache; the descriptor's frag_off names them.  The accumulators start at
 // the bias, and every store goes through conv_epilogue, or through
@@ -42,15 +49,23 @@
 // tap is one 4-byte read and four products.  Same products, same
 // int32 sum, same epilogue functions: the bits are conv_op's.
 //
+// maxpool_words_op: a max-pool on 4-channel words, a row pass and a
+// column pass through a scratch after the values (the fused kernel's
+// scratch_off; the arena kernel's past the arena where the block's shared
+// memory has room, else it keeps maxpool_op), __vmaxs4 on words at any
+// byte alignment.
+//
 // What bounds them on the card: conv_op paid a shared-memory byte and a
 // weight byte through __ldg a MAC, with a bounds test per tap and two
 // divisions an output element, and ran load-bound at 0.7-1.4 TMAC/s
-// (PERF.md section 5); here a 1x1 conv's MACs go to the tensor cores and
+// (PERF.md section 5); here a conv's MACs go to the tensor cores and
 // its epilogue (one an output element, float or 64-bit integer work) sets
 // the time, and a depthwise tap costs a word read for four MACs.  The
 // kernels keep their 64 registers (4 blocks an SM): wider warp items, a
 // k32 step, 8 channels a depthwise thread and every epilogue compiled in
-// lost or spilled (tools/torch_variant_sweep.py arena_mma, dw4; PERF.md
+// lost or spilled, and a max-pool walking down the rows with the window
+// rows in registers lost to the row and column passes
+// (tools/torch_variant_sweep.py arena_mma, dw4, stem_mma, pool; PERF.md
 // section 6).
 #pragma once
 
@@ -67,17 +82,20 @@ namespace yf {
 // elements' epilogues interleave); the others take conv_epilogue at run
 // time.  Interleaving takes registers, so each kernel has its own sets,
 // the largest that keep it at 64 registers without a spill, chosen by
-// tools/torch_variant_sweep.py arena_mma and fused_mma (PERF.md section
-// 6): the arena kernel (fast2, fast and exact bits) compiles the fast
-// epilogues into its 1x1 body and the fast2 fused leaky (v2) into its
-// depthwise body; the fused kernel (fast and exact bits) the fast ones
-// (requant, v1 fused leaky) into both.  With the exact ones too, both
-// spill.
+// tools/torch_variant_sweep.py arena_mma, fused_mma and stem_mma (PERF.md
+// section 6): the arena kernel (fast2, fast and exact bits) compiles the
+// fast epilogues into its 1x1 body and the fast2 fused leaky (v2) into its
+// depthwise and full-window bodies; the fused kernel (fast and exact bits)
+// the fast ones (requant, v1 fused leaky) into its 1x1 and depthwise
+// bodies and the v1 fused leaky into its full-window body (the stem's
+// epilogue in its fast bits).  With more, both spill.
 constexpr unsigned kV1Epis = (1u << EPI_REQUANT) | (1u << EPI_LEAKY_V1);
 constexpr unsigned kFastEpis = kV1Epis | (1u << EPI_LEAKY_V2);
 constexpr unsigned kArenaMmaEpis = kFastEpis;          // arena_stage.cu
+constexpr unsigned kArenaConvEpis = 1u << EPI_LEAKY_V2;
 constexpr unsigned kArenaDwEpis = 1u << EPI_LEAKY_V2;
 constexpr unsigned kFusedMmaEpis = kV1Epis;            // fused_stage.cu
+constexpr unsigned kFusedConvEpis = 1u << EPI_LEAKY_V1;
 constexpr unsigned kFusedDwEpis = kV1Epis;
 // the whole-frame kernels' launch bounds: kernels/arena.py THREADS a
 // block, and the fewest blocks an SM their registers must allow (4: 64
@@ -156,6 +174,39 @@ __device__ __forceinline__ unsigned a_word4(const int8_t* p, int k, int ci,
   return w;
 }
 
+// A warp item's outputs through the epilogue kEpi: acc[0], acc[1] are
+// pixel p (the lane's row g), channels co, co + 1; acc[2], acc[3] pixel p
+// + 8.  Pixels past m_n and channels past the output's are not stored; the
+// two channels go as one 16-bit word where `pairs` (the output view
+// allows).
+template <int kEpi>
+__device__ __forceinline__ void store_item(const Op& op, int8_t* out,
+                                           const int (&acc)[4], int p, int co,
+                                           int m_n, bool pairs,
+                                           const uint8_t* consts) {
+  const int co_n = op.out.c;
+  const float* scale = reinterpret_cast<const float*>(consts + op.s_off);
+  const int* qms = reinterpret_cast<const int*>(consts + op.q_off);
+#pragma unroll
+  for (int h = 0; h < 2; ++h, p += 8) {
+    if (p >= m_n || co >= co_n) continue;
+    int8_t* o = out + p * op.out.cs + co;
+    const int8_t lo = epilogue<kEpi>(op, acc[2 * h], co, scale, qms);
+    if (co + 1 < co_n) {
+      const int8_t hi = epilogue<kEpi>(op, acc[2 * h + 1], co + 1, scale, qms);
+      if (pairs) {
+        *reinterpret_cast<uint16_t*>(o) = static_cast<uint16_t>(
+            static_cast<uint8_t>(lo) | (static_cast<uint8_t>(hi) << 8));
+      } else {
+        o[0] = lo;
+        o[1] = hi;
+      }
+    } else {
+      o[0] = lo;
+    }
+  }
+}
+
 // A marked 1x1 CONV + epilogue kEpi (the op's) over the whole frame on the
 // tensor cores; `in` and `out` point at the views' first bytes.  All
 // threads of the block take part: warp w takes the warp items w, w +
@@ -220,29 +271,7 @@ static __device__ void conv1x1_mma_body(const Op& op, const int8_t* in,
                               : 0u;
       mma_k16(acc, a[0], a[1], __ldg(frag + (ni * ks + s) * 32));
     }
-    // acc[0], acc[1]: row g, channels co, co + 1; acc[2], acc[3]: row g + 8
-    const float* scale = reinterpret_cast<const float*>(consts + op.s_off);
-    const int* qms = reinterpret_cast<const int*>(consts + op.q_off);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int p = m0 + g + 8 * h;
-      if (p >= m_n || co >= co_n) continue;
-      int8_t* o = out + p * op.out.cs + co;
-      const int8_t lo = epilogue<kEpi>(op, acc[2 * h], co, scale, qms);
-      if (co + 1 < co_n) {
-        const int8_t hi =
-            epilogue<kEpi>(op, acc[2 * h + 1], co + 1, scale, qms);
-        if (pairs) {
-          *reinterpret_cast<uint16_t*>(o) = static_cast<uint16_t>(
-              static_cast<uint8_t>(lo) | (static_cast<uint8_t>(hi) << 8));
-        } else {
-          o[0] = lo;
-          o[1] = hi;
-        }
-      } else {
-        o[0] = lo;
-      }
-    }
+    store_item<kEpi>(op, out, acc, m0 + g, co, m_n, pairs, consts);
   }
 }
 
@@ -259,10 +288,157 @@ struct Conv1x1Mma {
   }
 };
 
-template <unsigned kEpis>
-static __device__ void conv1x1_mma_op(const Op& op, const int8_t* in,
+// ceil(2**32 / d) for d >= 2, 0 for d = 1: div_by(k, d, div_magic(d)) is
+// k / d for 0 <= k with k * d < 2**32 (one __umulhi instead of a division)
+__device__ __forceinline__ unsigned div_magic(int d) {
+  return d > 1 ? 0xffffffffu / static_cast<unsigned>(d) + 1u : 0u;
+}
+
+__device__ __forceinline__ int div_by(int k, int d, unsigned magic) {
+  return d > 1 ? static_cast<int>(__umulhi(static_cast<unsigned>(k), magic))
+               : k;
+}
+
+// The 4 bytes at p as a word, of which the first n (1 to 4) are wanted:
+// the aligned words holding those bytes, funnel-shifted.  Only words that
+// hold a wanted byte are read, so no read passes the tensor's storage; the
+// bytes past n are whatever follows.
+__device__ __forceinline__ unsigned load_word(const int8_t* p, int n) {
+  const unsigned lead = static_cast<unsigned>(addr(p)) & 3u;
+  const unsigned* w = reinterpret_cast<const unsigned*>(p - lead);
+  if (lead == 0) return w[0];
+  return __funnelshift_r(w[0], lead + n > 4 ? w[1] : 0u, 8 * lead);
+}
+
+// The tap (dy, dx, c) of K position k of a kh x kw x ci window, k = (dy *
+// kw + dx) * ci + c (m_ci, m_kw: div_magic of ci and kw); false at and
+// past K = k_n, where the packed weights are 0.
+__device__ __forceinline__ bool k_tap(int k, int k_n, int ci, int kw,
+                                      unsigned m_ci, unsigned m_kw, int& dy,
+                                      int& dx, int& c) {
+  const int q = div_by(k, ci, m_ci);
+  c = k - q * ci;
+  dy = div_by(q, kw, m_kw);
+  dx = q - dy * kw;
+  return k < k_n;
+}
+
+// A marked CONV with a kh x kw window (kh * kw > 1) + epilogue kEpi (the
+// op's) over the whole frame on the tensor cores, an implicit GEMM: the 1x1
+// body's warp items, A rows and B fragments, with K = kh * kw * ci in (dy,
+// dx, c) order, zero-padded to k16 steps.  A lane's K positions k = 16 s +
+// 4 t + b are the same for every pixel: at each step it finds their taps
+// (dy, dx, c) once, by multiplications, for both of its rows.  A row's
+// window inside the image reads its bytes with no test; a window across
+// the image's edge reads the fill at taps outside it (the corpus stem's
+// top row and left column, the PAD 56 -> 57 the arena absorbs); K
+// positions past K and rows past the last pixel read nothing.  Where ci,
+// the channel stride and the view's first byte are multiples of 4, a K
+// word is one tap's 4 channels and one 4-byte load; else (the stem: ci =
+// 3, a word spans taps) it is gathered byte by byte.
+template <int kEpi>
+static __device__ void conv_mma_body(const Op& op, const int8_t* in,
+                                     int8_t* out, const uint8_t* consts) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int ow = op.out.w, co_n = op.out.c, ci = op.in0.c, cs = op.in0.cs;
+  const int in_h = op.in0.h, in_w = op.in0.w, kh = op.kh, kw = op.kw;
+  const int k_n = kh * kw * ci;                            // K
+  const int m_n = op.out.h * ow;                           // output pixels
+  const int mt = (m_n + 15) >> 4;                          // m16 tiles
+  const int nt = (co_n + 7) >> 3;                          // n8 tiles
+  const int ks = (k_n + 15) >> 4;                          // k16 steps
+  const bool words = ((addr(in) | static_cast<uintptr_t>(cs) |
+                       static_cast<uintptr_t>(ci)) & 3) == 0;
+  const unsigned m_ci = div_magic(ci), m_kw = div_magic(kw);
+  const unsigned fill8 = static_cast<uint8_t>(op.fill);
+  const unsigned* frag =
+      reinterpret_cast<const unsigned*>(consts + op.frag_off) + lane;
+  const bool pairs =            // channels 2t, 2t + 1 as one 16-bit store
+      ((addr(out) | static_cast<uintptr_t>(op.out.cs)) & 1) == 0;
+  const int warps = blockDim.x >> 5;
+  // the warp's item: m16 tile mi of n8 tile ni, m fastest
+  int mi = threadIdx.x >> 5, ni = 0;
+  while (mi >= mt) mi -= mt, ++ni;
+  for (; ni < nt; mi += warps) {
+    while (mi >= mt) mi -= mt, ++ni;
+    if (ni >= nt) break;
+    const int m0 = mi * 16, co = ni * 8 + 2 * t;   // the lane's channels
+    const int* bias = reinterpret_cast<const int*>(consts + op.b_off);
+    const int b0 = co < co_n ? __ldg(bias + co) : 0;
+    const int b1 = co + 1 < co_n ? __ldg(bias + co + 1) : 0;
+    int acc[4] = {b0, b1, b0, b1};
+    // the lane's rows h: pixel m0 + g + 8 h, its window's first tap (y0,
+    // x0); live: not past the last pixel; inside: the window in the image
+    int y0[2], x0[2];
+    bool live[2], inside[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = m0 + g + 8 * h;
+      const int oy = p / ow, ox = p - oy * ow;
+      y0[h] = oy * op.sh - op.pt;
+      x0[h] = ox * op.sw - op.pl;
+      live[h] = p < m_n;
+      inside[h] = live[h] && y0[h] >= 0 && y0[h] + kh <= in_h &&
+                  x0[h] >= 0 && x0[h] + kw <= in_w;
+    }
+#pragma unroll 1
+    for (int s = 0; s < ks; ++s) {
+      const int k0 = 16 * s + 4 * t;
+      unsigned a[2] = {0u, 0u};
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        int dy, dx, c;
+        if ((words && b > 0) || !k_tap(k0 + b, k_n, ci, kw, m_ci, m_kw, dy,
+                                       dx, c))
+          continue;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (!live[h]) continue;
+          const int iy = y0[h] + dy, ix = x0[h] + dx;
+          const bool inb = inside[h] || (iy >= 0 && iy < in_h && ix >= 0 &&
+                                         ix < in_w);
+          const int8_t* x = in + (iy * in_w + ix) * cs + c;
+          if (words)
+            a[h] = inb ? *reinterpret_cast<const unsigned*>(x)
+                       : fill8 * 0x01010101u;
+          else
+            a[h] |= (inb ? static_cast<unsigned>(static_cast<uint8_t>(*x))
+                         : fill8) << (8 * b);
+        }
+      }
+      mma_k16(acc, a[0], a[1], __ldg(frag + (ni * ks + s) * 32));
+    }
+    store_item<kEpi>(op, out, acc, m0 + g, co, m_n, pairs, consts);
+  }
+}
+
+// conv_mma_body with the op's epilogue chosen once for the op where kEpis
+// holds it.
+struct ConvMma {
+  const Op& op;
+  const int8_t* in;
+  int8_t* out;
+  const uint8_t* consts;
+  template <int kEpi>
+  __device__ void run() const {
+    conv_mma_body<kEpi>(op, in, out, consts);
+  }
+};
+
+// A marked CONV over the whole frame on the tensor cores: a 1x1 window
+// takes conv1x1_mma_body (epilogues kEpis1x1 compiled in), a full window
+// conv_mma_body (kEpisFull).  conv_mma_body computes a 1x1 too, but with
+// it on the corpus 1x1s every stage was 7-27% slower, in every kernel and
+// bit semantics, than with conv1x1_mma_body, which reads pixel p at p * cs
+// with no tap to find (tools/torch_variant_sweep.py bodies; PERF.md
+// section 6).
+template <unsigned kEpis1x1, unsigned kEpisFull>
+static __device__ void marked_conv_op(const Op& op, const int8_t* in,
                                       int8_t* out, const uint8_t* consts) {
-  by_epilogue<kEpis>(op.epi, Conv1x1Mma{op, in, out, consts});
+  if (op.kh == 1 && op.kw == 1)
+    by_epilogue<kEpis1x1>(op.epi, Conv1x1Mma{op, in, out, consts});
+  else
+    by_epilogue<kEpisFull>(op.epi, ConvMma{op, in, out, consts});
 }
 
 // acc[b] += signed byte b of x times signed byte b of w, b = 0..3
@@ -373,6 +549,90 @@ static __device__ void dw_op(const Op& op, const int8_t* in, int8_t* out,
     return;
   }
   by_epilogue<kEpis>(op.epi, Dw3x3Words{op, in, out, consts});
+}
+
+// The max of input row iy over the kw taps from column x0 of the channel
+// word at channel offset `c` of a pixel (n wanted channels), lane by lane:
+// the fill at taps and rows outside the image, as maxpool_op reads them.
+__device__ __forceinline__ unsigned pool_row(const Op& op, const int8_t* in,
+                                             int iy, int x0, int c, int n,
+                                             unsigned fill) {
+  if (iy < 0 || iy >= op.in0.h) return fill;
+  const int8_t* row = in + iy * op.in0.w * op.in0.cs + c;
+  unsigned m = 0x80808080u;                  // -128 in every lane
+  for (int dx = 0; dx < op.kw; ++dx) {
+    const int ix = x0 + dx;
+    m = __vmaxs4(m, ix >= 0 && ix < op.in0.w
+                        ? load_word(row + ix * op.in0.cs, n)
+                        : fill);
+  }
+  return m;
+}
+
+// MAX_POOL over the whole frame on words of 4 channels (the last word of a
+// pixel holds c % 4 of them where 4 does not divide c), separably: a row
+// pass takes the horizontal max over the kw taps of each of the (oh - 1) *
+// sh + kh input rows the windows span, at each output column, into
+// `scratch` (kernels/arena.py pool_scratch: that many rows of ow words a
+// channel word); a column pass takes the max over kh of those rows for
+// each output pixel.  Every thread of the block takes (row or pixel,
+// channel word) items.  __vmaxs4 compares 4 channels at once, kw + kh
+// compares a word against maxpool_op's kh * kw byte loads an output byte;
+// words at any byte alignment (cs = 18, a view one byte in) are
+// funnel-shifted from aligned loads (load_word).  A row outside the image
+// is the fill, as every tap of it is in maxpool_op: the same compares,
+// the bits of maxpool_op.
+static __device__ void maxpool_words_op(const Op& op, const int8_t* in,
+                                        int8_t* out, unsigned* scratch) {
+  const int c_n = op.out.c, nq = (c_n + 3) >> 2, ow = op.out.w;
+  const int oh = op.out.h, n_rows = (oh - 1) * op.sh + op.kh;
+  const unsigned fill =
+      static_cast<unsigned>(static_cast<uint8_t>(op.fill)) * 0x01010101u;
+  for (int e = threadIdx.x; e < n_rows * ow * nq; e += blockDim.x) {
+    const int q = e % nq, r = e / nq, ox = r % ow, row = r / ow;
+    scratch[e] = pool_row(op, in, row - op.pt, ox * op.sw - op.pl, 4 * q,
+                          min(4, c_n - 4 * q), fill);
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < oh * ow * nq; e += blockDim.x) {
+    const int q = e % nq, p = e / nq, ox = p % ow, oy = p / ow;
+    const unsigned* col = scratch + (oy * op.sh * ow + ox) * nq + q;
+    unsigned m = col[0];
+    for (int dy = 1; dy < op.kh; ++dy) m = __vmaxs4(m, col[dy * ow * nq]);
+    int8_t* o = out + p * op.out.cs + 4 * q;
+    const int n = min(4, c_n - 4 * q);
+    if (n == 4 && (addr(o) & 3) == 0) {
+      *reinterpret_cast<unsigned*>(o) = m;
+    } else {
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        if (b < n) o[b] = static_cast<int8_t>(m >> (8 * b));
+    }
+  }
+}
+
+// The shared memory stage_view takes for an input of n bytes: the view at
+// its offset within 16 bytes, rounded up to 16 (kernels/arena.py
+// pool_scratch, the planners' copy).
+__device__ __forceinline__ int staged_bytes(int n) { return (n + 31) & ~15; }
+
+// A frame's input view in device memory (in0: h * w * cs bytes from `in`)
+// copied into shared memory at `dst` + its offset within 16 bytes, so that
+// both sides share their alignment: the bytes up to the first 16-byte
+// boundary one by one, the rest by map_flat (16-byte chunks, four loads in
+// flight); -> the copy, visible to the block.  No read passes the view.
+__device__ __forceinline__ const int8_t* stage_view(const Op& op,
+                                                    const int8_t* in,
+                                                    int8_t* dst) {
+  const int n = op.in0.h * op.in0.w * op.in0.cs;
+  const int lead = static_cast<int>(addr(in) & 15);
+  const int head = min(n, (16 - lead) & 15);
+  int8_t* d = dst + lead;
+  if (static_cast<int>(threadIdx.x) < head) d[threadIdx.x] = in[threadIdx.x];
+  map_flat<int>(in + head, d + head, n - head, CopyFn{}, threadIdx.x,
+                blockDim.x);
+  __syncthreads();
+  return d;
 }
 
 // A whole-frame kernel as the build compiled it: out[0..3] = registers a

@@ -32,8 +32,8 @@ SIGNATURES = {
     # (frames u16, out i8, n, stream)
     "yf_preprocess_rgb565": [_P, _P, _I, _P],
     # (descs, n_ops, consts, host ptr table, n_globals, n_frames,
-    #  arena_bytes, threads, stream)
-    "yf_arena_stage": [_P, _I, _P, _P, _I, _I, _I, _I, _P],
+    #  smem_bytes, scratch_off, threads, stream)
+    "yf_arena_stage": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
     # (descs, n_ops, consts, host ptr table, n_globals, n_frames, strips,
     #  arena_bytes, threads, mma instantiation, stream)
     "yf_tiled_section": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P],

@@ -31,10 +31,11 @@ op descriptors per stage:
     shared-memory budget.  Tensors that cross stages go through device
     memory as int8 NHWC ``[N,H,W,C]``.
 
-Each stage's 1x1 CONVs run on the int8 tensor cores (``mark_mma``): their
-weights are appended to the constants a second time in ``mma.sync``
-B-fragment order (``pack_frags``), and the descriptor's ``FRAG_FIELD``
-names where; every other descriptor is as it was.
+Each stage's CONVs (1x1 and full windows, never a depthwise one) run on
+the int8 tensor cores (``mark_mma``): their weights are appended to the
+constants a second time in ``mma.sync`` B-fragment order (``pack_frags``),
+and the descriptor's ``FRAG_FIELD`` names where; every other descriptor is
+as it was.
 
 The CUDA kernel (``csrc/arena_stage.cu``) runs one stage: one block per
 frame, the arena in dynamic shared memory.  ``arena_stage_plain`` executes
@@ -95,8 +96,8 @@ FIELDS = ("code", "epi",
           # (m, e) multiplier/shift pairs: leaky id, al; ADD a, b, out;
           # QUANTIZE's in m0/e0; the ADD's left shift
           "q_off", "m0", "e0", "m1", "e1", "m2", "e2", "lsh",
-          # a marked 1x1 CONV of a whole-frame program: the byte offset of
-          # its B fragments in the constants (``mark_mma``), else 0
+          # a marked CONV of a whole-frame program: the byte offset of its
+          # B fragments in the constants (``mark_mma``), else 0
           "frag_off")
 FRAG_FIELD = "frag_off"
 OP_INTS = 48                       # FIELDS padded to 192 bytes
@@ -121,8 +122,8 @@ ARENA_BUDGET = SMEM_PER_BLOCK - TABLE_BYTES
 MAX_GLOBALS = 16                   # device tensors one stage may touch
 THREADS = 256
 _ALIGN = 16
-# the k depth of one packed B fragment (m16n8k16); a 1x1 CONV's K (its ci)
-# is zero-padded to a multiple of it
+# the k depth of one packed B fragment (m16n8k16); a CONV's K (kh * kw *
+# ci, in (dy, dx, c) order) is zero-padded to a multiple of it
 FRAG_K = 16
 
 
@@ -482,7 +483,7 @@ class Stage:
 
     @property
     def mma_convs(self) -> int:
-        """The marked 1x1 convs (``mark_mma``), which run on the tensor
+        """The marked convs (``mark_mma``), which run on the tensor
         cores."""
         return int(np.count_nonzero(self.descs[:, F[FRAG_FIELD]]))
 
@@ -651,10 +652,12 @@ def plan_stage(graph: GraphDef, lops: Sequence[LOp], start: int, end: int,
 
 
 def pack_frags(w: np.ndarray) -> np.ndarray:
-    """int8 1x1 conv weights [co, 1, 1, ci] (OHWI) -> the m16n8k16 B
-    fragments of ``csrc/stage_ops.cuh``, int8 [nt, ks, 32, 4]: ci
-    zero-padded to a multiple of ``FRAG_K`` (ks k16 steps), co to nt * 8.  Lane ``4 * g + t`` of n8 tile ``n`` at k16 step ``s`` holds
-    W[8n + g][16s + 4t .. + 4]."""
+    """int8 1x1 conv weights [co, 1, 1, ci] (OHWI; a full conv's as [co,
+    1, 1, kh * kw * ci]) -> the m16n8k16 B fragments of
+    ``csrc/stage_ops.cuh``, int8 [nt, ks, 32, 4]: ci zero-padded to a
+    multiple of ``FRAG_K`` (ks k16 steps), co to nt * 8.  Lane ``4 * g +
+    t`` of n8 tile ``n`` at k16 step ``s`` holds W[8n + g][16s + 4t .. +
+    4]."""
     co, ci = w.shape[0], w.shape[3]
     cp = -(-ci // FRAG_K) * FRAG_K
     nt, ks = -(-co // 8), cp // FRAG_K
@@ -667,17 +670,20 @@ def pack_frags(w: np.ndarray) -> np.ndarray:
 
 
 def mark_mma(st: Stage) -> Stage:
-    """``st`` (a whole-frame program) with each 1x1 CONV marked for the
-    int8 tensor cores: ``pack_frags`` of its weights appended to the
-    constants and their offset in ``FRAG_FIELD``.  Other descriptors and
-    the constants before the appended fragments are unchanged; the plain
-    version ignores the mark."""
+    """``st`` (a whole-frame program) with each CONV (1x1 or a full
+    window; a DW is not a CONV) marked for the int8 tensor cores:
+    ``pack_frags`` of its OHWI weights, flattened per output channel in
+    (dy, dx, c) order, appended to the constants and their offset in
+    ``FRAG_FIELD``.  Other descriptors and the constants before the
+    appended fragments are unchanged; the plain version ignores the
+    mark."""
     descs = st.descs.copy()
     consts = bytearray(st.consts.tobytes())
     for d in descs:
-        if d[F["code"]] != CONV or d[F["kh"]] != 1 or d[F["kw"]] != 1:
+        if d[F["code"]] != CONV:
             continue
-        shape = (int(d[F["out_c"]]), 1, 1, int(d[F["in0_c"]]))
+        shape = (int(d[F["out_c"]]), 1, 1,
+                 int(d[F["kh"]] * d[F["kw"]] * d[F["in0_c"]]))
         w0 = int(d[F["w_off"]])
         w = st.consts[w0:w0 + int(np.prod(shape))].view(np.int8)
         d[F[FRAG_FIELD]] = put_const(consts, pack_frags(w.reshape(shape)))
@@ -686,6 +692,41 @@ def mark_mma(st: Stage) -> Stage:
             st, descs=descs,
             consts=np.frombuffer(bytes(consts), np.uint8).copy())
     return st
+
+
+def pool_scratch(descs: np.ndarray, staged: bool = True) -> int:
+    """The shared memory the max-pools of a whole-frame program take
+    (``csrc/stage_ops.cuh`` maxpool_words_op): the row pass's (oh - 1) *
+    sh + kh rows of ow 4-channel words a channel word; with ``staged``
+    (the fused-stage kernel, which runs the fused and per-op programs),
+    after a copy of the input (``stage_view``: its bytes and up to 15
+    before them, rounded up to 16) where it lies in device memory; the
+    largest, rounded up to 16."""
+    need = 0
+    for d in descs:
+        if d[F["code"]] == MAXPOOL:
+            d = [int(v) for v in d]
+            rows = (d[F["out_h"]] - 1) * d[F["sh"]] + d[F["kh"]]
+            copy = ((d[F["in0_h"]] * d[F["in0_w"]] * d[F["in0_cs"]] + 31)
+                    & ~15 if staged and d[F["in0_space"]] else 0)
+            need = max(need, copy
+                       + rows * d[F["out_w"]] * -(-d[F["out_c"]] // 4) * 4)
+    return -(-need // _ALIGN) * _ALIGN
+
+
+def stage_smem(stage: Stage) -> Tuple[int, int]:
+    """(the dynamic shared memory of an arena stage's launch, the offset
+    of its max-pools' scratch): the arena, then the scratch where the
+    block's shared memory has room for both; else the arena alone and 0,
+    and the kernel runs the max-pools' full-window body (yolov3-tiny at
+    96x96: an arena of 211,968 B, a scratch of 73,728 B).  The arena
+    kernel reads a pool's input where it lies and stages nothing.  The
+    scratch can cost blocks an SM where the arena is large (PERF.md
+    section 7)."""
+    scratch = pool_scratch(stage.descs, staged=False)
+    if scratch and stage.arena_bytes + scratch <= ARENA_BUDGET:
+        return stage.arena_bytes + scratch, stage.arena_bytes
+    return stage.arena_bytes, 0
 
 
 def build_arena_plan(graph: GraphDef, budget: int = ARENA_BUDGET,
@@ -953,7 +994,7 @@ def arena_stage(stage: Stage, descs: torch.Tensor, consts: torch.Tensor,
         *[t.data_ptr() for t in list(xs) + outs])
     err = library().yf_arena_stage(
         descs.data_ptr(), stage.descs.shape[0], consts.data_ptr(), ptrs,
-        len(stage.globals_), n, stage.arena_bytes, THREADS,
+        len(stage.globals_), n, *stage_smem(stage), THREADS,
         torch.cuda.current_stream(dev).cuda_stream)
     check(err, "arena_stage")
     arena_stage.launches += 1
@@ -962,7 +1003,7 @@ def arena_stage(stage: Stage, descs: torch.Tensor, consts: torch.Tensor,
 
 
 arena_stage.launches = 0
-arena_stage.mma_convs = 0      # marked 1x1 convs the launches ran
+arena_stage.mma_convs = 0      # marked convs the launches ran
 
 
 class ArenaPlan(nn.Module):

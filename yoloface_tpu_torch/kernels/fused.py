@@ -32,9 +32,9 @@ conv with a stride or through a PAD, a non-square conv kernel, a
 CONCATENATION off the channel axis, a non-square stride, a depthwise conv
 that is not 3x3, dilation.
 
-Each stage's 1x1 CONVs are marked for the int8 tensor cores
-(``arena.mark_mma``).  The CUDA kernel (``csrc/fused_stage.cu``) runs one
-stage: one block per frame, the values in dynamic shared memory.
+Each stage's CONVs (1x1 and full windows) are marked for the int8 tensor
+cores (``arena.mark_mma``).  The CUDA kernel (``csrc/fused_stage.cu``)
+runs one stage: one block per frame, the values in dynamic shared memory.
 ``fused_stage_plain`` runs the SAME descriptor program with torch ops (the
 arena's plain executor).  The
 per-op family (``kernels/perop.py``) runs its one-op programs, every view
@@ -185,19 +185,7 @@ def plan_fused_stage(graph: GraphDef, lops: Sequence[LOp], start: int,
     st = arena.plan_stage(graph, lops, start, end, {})
     return FusedStage(**{f.name: getattr(st, f.name)
                          for f in dataclasses.fields(Stage)},
-                      scratch=pool_scratch(graph, lops[start:end]))
-
-
-def pool_scratch(graph: GraphDef, lops: Sequence[LOp]) -> int:
-    """The bytes of shared memory the separable max-pools of ``lops``
-    take (the row pass's (oh - 1) * sh + kh rows), rounded up to 16."""
-    scratch = 0
-    for lp in lops:
-        if lp.code == arena.MAXPOOL:
-            kh, _, sh = lp.window[:3]
-            oh, ow, c = arena._hwc(graph, lp.out)
-            scratch = max(scratch, ((oh - 1) * sh + kh) * ow * c)
-    return -(-scratch // arena._ALIGN) * arena._ALIGN
+                      scratch=arena.pool_scratch(st.descs))
 
 
 def build_fused_plan(graph: GraphDef, budget: int = FUSED_BUDGET,
@@ -285,7 +273,7 @@ def fused_stage(stage: FusedStage, descs: torch.Tensor, consts: torch.Tensor,
 
 
 fused_stage.launches = 0
-fused_stage.mma_convs = 0      # marked 1x1 convs the launches ran
+fused_stage.mma_convs = 0      # marked convs the launches ran
 
 
 class FusedPlan(arena.ArenaPlan):

@@ -52,8 +52,9 @@ runs on the fused-stage kernel); the convs, depthwise convs, max-pools,
 ADDs, QUANTIZEs and standalone LEAKYs run on the fused-stage kernel
 (``csrc/fused_stage.cu``, one block a frame, through ``fused.run_stage``)
 with no values in shared memory: only a max-pool's row-pass scratch is
-there.  A 1x1 CONV's program is marked (``arena.mark_mma``) and runs on
-the int8 tensor cores there.  ``perop_plain``
+there.  A CONV's program
+(1x1 or 3x3) is marked (``arena.mark_mma``) and runs on the int8 tensor
+cores there.  ``perop_plain``
 runs the same program with the arena's plain executor, so the CPU runs
 the card's very program.
 """
@@ -72,7 +73,7 @@ from yoloface_tpu_torch.graph.ir import GraphDef
 from yoloface_tpu_torch.kernels import arena, eltwise, move
 from yoloface_tpu_torch.kernels.arena import LOp, Stage, View
 from yoloface_tpu_torch.kernels.fused import (FusedStage, lower_fused_ops,
-                                              pool_scratch, run_stage)
+                                              run_stage)
 
 BITS = ("fast", "exact")
 # the B8 kernels of yoloface_tpu/kernels/pallas_int8.py by name: their line
@@ -138,7 +139,7 @@ def plan_perop(graph: GraphDef, lp: LOp) -> PerOpStage:
     kernel = kernel_name(lp)
     return arena.mark_mma(PerOpStage(
         descs, np.frombuffer(bytes(consts) or b"\0", np.uint8).copy(), 0,
-        inputs, [lp.out], shapes, scratch=pool_scratch(graph, [lp]),
+        inputs, [lp.out], shapes, scratch=arena.pool_scratch(descs),
         kernel=kernel, args=launch_args(kernel, descs)))
 
 
@@ -222,7 +223,8 @@ def perop_op(stage: PerOpStage, descs: torch.Tensor, consts: torch.Tensor,
     slice.  The byte-move launches check the input shapes and nothing of
     the program: their arguments are ``stage.args``, and ``card_kernel``
     sends them only programs within their limits.  ``perop_op.mma_convs``
-    counts the marked 1x1 convs the fused-stage launches ran."""
+    counts the marked convs the fused-stage launches ran, and
+    ``perop_op.mma_by_kernel`` the same by B8 kernel."""
     card = card_kernel(stage)
     if card != "fused_stage" and xs[0].device.type == "cuda":
         outs, dev = arena.prepare(stage, xs)
@@ -244,7 +246,9 @@ def perop_op(stage: PerOpStage, descs: torch.Tensor, consts: torch.Tensor,
                     move.launch_concat_channels(group, outs[0], c0)
     else:
         outs, launched = run_stage(stage, descs, consts, xs, "per-op")
-        perop_op.mma_convs += launched * stage.mma_convs
+        if launched and stage.mma_convs:
+            perop_op.mma_convs += stage.mma_convs
+            perop_op.mma_by_kernel[stage.kernel] += stage.mma_convs
     if launched:
         perop_op.launches += 1
         perop_op.by_kernel[stage.kernel] += 1
@@ -253,13 +257,15 @@ def perop_op(stage: PerOpStage, descs: torch.Tensor, consts: torch.Tensor,
 
 perop_op.launches = 0
 perop_op.by_kernel = collections.Counter()    # launches by B8 kernel
-perop_op.mma_convs = 0     # marked 1x1 convs the launches ran
+perop_op.mma_convs = 0     # marked convs the launches ran
+perop_op.mma_by_kernel = collections.Counter()   # the same by B8 kernel
 
 
 def reset_launches() -> None:
     perop_op.launches = 0
     perop_op.by_kernel.clear()
     perop_op.mma_convs = 0
+    perop_op.mma_by_kernel.clear()
 
 
 class PerOpPlan(arena.ArenaPlan):
