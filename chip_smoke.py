@@ -12,7 +12,8 @@ Phases (each prints its lines; any failure ends the run with an error):
      past the 128 B stack frame, fails), and the registers, local memory
      and blocks an SM of the two whole-frame kernels (arena_stage.cu,
      fused_stage.cu, with the bodies of csrc/stage_ops.cuh: more than 64
-     registers, fewer than 4 blocks or a spill fails);
+     registers, fewer than 4 blocks or a spill fails), each beside PR 13's
+     figures;
   2. each kernel against its plain torch version on the card, bit for bit,
      at the serving path's shapes: the preprocess; the arena stage in each
      bit semantics (fast2, fast, exact) in 1 and 4 stages; the fused head
@@ -35,6 +36,12 @@ Phases (each prints its lines; any failure ends the run with an error):
      multiple of 16, a view one byte into its storage and a flat size past
      twice one round of its largest grid, for each activation of the
      op-surface graph and the yolov3-tiny upsample in fast and exact bits;
+     the per-op QUANTIZE programs on the same table kernel and the per-op
+     ADD programs on csrc/add_int8.cu against their plain versions, every
+     such program of the corpus net and of the op-surface graph at N = 1,
+     3, 37 and 16384 with each input also one byte into its storage, each
+     ADD also on one tensor twice, and x + x (one input, both views)
+     through the per-op program, in fast and exact bits;
      the per-op byte-move kernels (csrc/resize_nearest.cu,
      csrc/concat_channels.cu, csrc/pad_int8.cu) against their plain
      versions on ragged frame counts, channel counts 1-24 and 128, 1 to 16
@@ -73,9 +80,9 @@ Phases (each prints its lines; any failure ends the run with an error):
      HeadConfig(use_fused_head=False) (the top-K kernel and the staged
      head), arena (fused head), fused and fused_exact (the preprocess, the
      fused stages, the fused head), perop and perop_exact (the preprocess,
-     the per-op programs (the table kernel and, for both CONCATENATIONs
-     and the three PADs, the concat and pad kernels among them), the fused
-     head);
+     the per-op programs (the table kernel for the three QUANTIZEs, the
+     ADD kernel for the three ADDs and, for both CONCATENATIONs and the
+     three PADs, the concat and pad kernels among them), the fused head);
      detections are held against the CPU path of the same mode (the plain
      versions) and the int8 head against the golden file
      tests/data/torch_port_frames.npz (head, head_exact,
@@ -186,6 +193,14 @@ TFLITE_MODES = ("arena2", "arena", "arena_exact", "tiled2", "tiled",
                 "tiled_exact", "fused", "fused_exact", "perop", "perop_exact")
 STRIP_BUDGETS = (256, 384, 512, 768, 1024, 1536, 2048, 4096, 16384, 65536)
 V3_FRAMES, BATCH_V3 = 2, 256   # yolov3-tiny 416: checked on 2, timed on 256
+# the stage kernels' registers a thread and blocks an SM as PR 13's runs
+# printed them (no spill), printed beside this build's
+PR13_ATTRS = {"tiled_section_kernel<false>": (64, None),
+              "tiled_section_kernel<true>": (124, None),
+              "arena_stage_kernel": (64, 4), "fused_stage_kernel": (64, 4)}
+# the per-op kernels (B8) whose programs run on a flat kernel of their own,
+# timed and reported op by op
+FLAT_B8 = ("add_int8", "requantize_int8")
 
 
 def _golden_tool():
@@ -516,7 +531,8 @@ def main() -> int:
                                "static_smem": static_smem}
         print(f"[build] {name}: {regs} registers a thread, {local} B local "
               f"memory a thread (its stack frame, spills included), "
-              f"{static_smem} B static shared memory")
+              f"{static_smem} B static shared memory (PR 13: "
+              f"{PR13_ATTRS[name][0]} registers, no spill)")
         # the launch bounds cap the registers (64 at four blocks an SM,
         # 128 at two); what they can cost is spilling, which grows the
         # local memory past the 128 B frame
@@ -550,7 +566,9 @@ def main() -> int:
               f"memory a thread (its stack frame, spills included), "
               f"{static_smem} B static shared memory; {blocks} blocks of "
               f"{arena.THREADS} threads an SM at the corpus plan's "
-              f"{corpus_smem[name]} B of shared memory")
+              f"{corpus_smem[name]} B of shared memory (PR 13: "
+              f"{PR13_ATTRS[name][0]} registers, {PR13_ATTRS[name][1]} "
+              "blocks an SM, no spill)")
         _require(local <= 128, f"{name} spills: {local} B of local memory "
                  "a thread > its 128 B frame")
         _require(regs <= 64 and blocks >= 4,
@@ -582,7 +600,7 @@ def main() -> int:
     counted = (kpre.preprocess_rgb565, arena.arena_stage, khead.detect_head,
                khead.topk_conf, tiled.tiled_section, fused.fused_stage,
                perop.perop_op, eltwise.eltwise_lut, move.resize_nearest,
-               move.concat_channels, move.pad_int8)
+               move.concat_channels, move.pad_int8, eltwise.add_flat)
 
     def zero_counts():
         for fn in counted:
@@ -879,7 +897,8 @@ def main() -> int:
         for bits in perop.BITS:
             p = perop.PerOpPlan(g, bits).to(dev)
             k_act = [k for k, st in enumerate(p.stages)
-                     if perop.card_kernel(st) == "eltwise_lut"]
+                     if perop.card_kernel(st) == "eltwise_lut"
+                     and st.kernel == "eltwise_int8"]
             _require(len(k_act) == 3, f"{name}: three activation programs")
             for k in k_act:
                 d = getattr(p, f"descs{k}")
@@ -898,6 +917,77 @@ def main() -> int:
               f"byte in and {big.numel()} B flat (twice the {span} B one "
               "round of the largest grid covers): bit-exact")
     del big
+
+    # B8.7 and B8.6 on their flat kernels (the QUANTIZE tables of
+    # csrc/eltwise_lut.cu, the term tables of csrc/add_int8.cu): every
+    # QUANTIZE and ADD program of the corpus net and of the op-surface
+    # graph against its plain version at N = 1, 3, 37 and TIMING_BATCH
+    # (the grid-stride walks with loads in flight), each input also one
+    # byte into its storage (the byte loops), each ADD also on one tensor
+    # twice; then x + x (one input, both views) through the per-op
+    # program; in both bits
+    flat_gen = torch.Generator(dev).manual_seed(SEED + 1)
+
+    def dev_int8(shape, one_off=False):
+        t = torch.randint(-128, 128, (int(one_off) + int(np.prod(shape)),),
+                          dtype=torch.int8, device=dev, generator=flat_gen)
+        return t[int(one_off):].view(shape)
+
+    def flat_pair(st, d, xs):
+        """(the kernel's output, the plain version's) of a routed program."""
+        if perop.card_kernel(st) == "eltwise_lut":
+            return (eltwise.eltwise_lut(d, xs[0]),
+                    eltwise.eltwise_lut_plain(d, xs[0]))
+        a, b = perop.add_inputs(st, xs)
+        return eltwise.add_flat(d, a, b), eltwise.add_flat_plain(d, a, b)
+
+    sg = tool.GraphMaker(SEED)
+    sx = sg.act(6, 7, 0.05, -3)
+    sg.op("ADD", [sx, sx], sg.act(6, 7, 0.09, 4))
+    self_add = sg.graph([sx], [1], "x_plus_x")
+    for name, g in (("corpus", corpus), ("op surface", surface),
+                    ("x + x", self_add)):
+        for bits in perop.BITS:
+            p = perop.PerOpPlan(g, bits).to(dev)
+            ks = [k for k, st in enumerate(p.stages) if st.kernel in FLAT_B8]
+            _require(ks and all(perop.card_kernel(p.stages[k]) == (
+                "eltwise_lut" if p.stages[k].kernel == "requantize_int8"
+                else perop.ADD_KERNEL) for k in ks),
+                f"{name} {bits}: QUANTIZE and ADD programs on their kernels")
+            for k in ks:
+                st, d = p.stages[k], getattr(p, f"descs{k}")
+                for n in (1, 3, 37, TIMING_BATCH):
+                    for one_off in (False, True):
+                        xs = [dev_int8((n,) + st.shapes[i], one_off)
+                              for i in st.inputs]
+                        got, want = flat_pair(st, d, xs)
+                        torch.cuda.synchronize()
+                        _require(torch.equal(got, want),
+                                 f"{st.kernel} {name} {bits} op {k} N={n}"
+                                 + (" one byte in" if one_off else ""))
+                        err[st.kernel] = max(err[st.kernel],
+                                             _max_err([(got, want)]))
+                if st.kernel == "add_int8":
+                    x = dev_int8((37,) + st.shapes[st.inputs[0]])
+                    got = eltwise.add_flat(d, x, x)
+                    want = eltwise.add_flat_plain(d, x, x)
+                    torch.cuda.synchronize()
+                    _require(torch.equal(got, want),
+                             f"add_int8 {name} {bits} op {k}: a tensor twice")
+            zero_counts()
+            check_perop(p, dev_int8((37,) + tuple(
+                g.tensor(g.inputs[0]).shape[1:])), f"{name} {bits} N=37")
+            _require(eltwise.add_flat.launches + eltwise.eltwise_lut.launches
+                     == sum(p.stages[k].kernel in FLAT_B8 or
+                            p.stages[k].kernel == "eltwise_int8"
+                            for k in range(len(p.stages))),
+                     f"{name} {bits}: one flat launch a routed program")
+        print(f"[check] {name}: {len(ks)} QUANTIZE / ADD programs on "
+              "eltwise_lut / add_int8 in fast and exact bits, N=1/3/37/"
+              f"{TIMING_BATCH} (each input also one byte in; each ADD also "
+              "on one tensor twice) and the per-op program at N=37: "
+              "bit-exact")
+    del flat_gen
 
     # the per-op byte-move kernels on their own (B8.10
     # csrc/resize_nearest.cu, B8.8 csrc/concat_channels.cu): ragged frame
@@ -1169,10 +1259,10 @@ def main() -> int:
                         (counted[0], counted[5], counted[2])),
         "perop": (pipes["perop"], None, (8, 256),
                   (counted[0], counted[6], counted[9], counted[10],
-                   counted[2])),
+                   counted[2], counted[7], counted[11])),
         "perop_exact": (pipes["perop_exact"], None, (8, 256),
                         (counted[0], counted[6], counted[9], counted[10],
-                         counted[2])),
+                         counted[2], counted[7], counted[11])),
     }
     launches, by_kernel, mma_by_kernel = {}, {}, {}
 
@@ -1232,6 +1322,12 @@ def main() -> int:
             _require(move.pad_int8.launches == by_kernel[path]["pad_int8"]
                      == 3 * len(batches),
                      f"{path}: the 3 PAD programs a batch through pad_int8")
+            _require(eltwise.eltwise_lut.launches
+                     == by_kernel[path]["requantize_int8"] == 3 * len(batches)
+                     and eltwise.add_flat.launches
+                     == by_kernel[path]["add_int8"] == 3 * len(batches),
+                     f"{path}: the 3 QUANTIZE programs a batch through "
+                     "eltwise_lut, the 3 ADD programs through add_int8")
         eng = p.engine
         cpu_pipe = load_pipeline(CORPUS, mode=eng.mode, device="cpu",
                                  head_config=cfg)
@@ -1309,8 +1405,13 @@ def main() -> int:
                  and set(by_kernel[path]) == set(perop.KERNELS),
                  f"{path}: every op through the kernel, all eleven kernels")
         _require(eltwise.eltwise_lut.launches
-                 == by_kernel[path]["eltwise_int8"] > 0,
-                 f"{path}: the activation programs through eltwise_lut")
+                 == by_kernel[path]["eltwise_int8"]
+                 + by_kernel[path]["requantize_int8"]
+                 and by_kernel[path]["eltwise_int8"] > 0,
+                 f"{path}: the activation and QUANTIZE programs through "
+                 "eltwise_lut")
+        _require(eltwise.add_flat.launches == by_kernel[path]["add_int8"] > 0,
+                 f"{path}: the ADD program through add_int8")
         for fn in (move.resize_nearest, move.concat_channels, move.pad_int8):
             _require(fn.launches == by_kernel[path][fn.__name__] > 0,
                      f"{path}: the {fn.__name__} programs through "
@@ -1541,6 +1642,10 @@ def main() -> int:
             if runs_on == "eltwise_lut":                 # its own plain
                 def plain():
                     return eltwise.eltwise_lut_plain(descs, ins[0])
+            elif runs_on == perop.ADD_KERNEL:
+                def plain():
+                    return eltwise.add_flat_plain(
+                        descs, *perop.add_inputs(st, ins))
             elif runs_on == "resize_nearest":
                 def plain():
                     return move.resize_nearest_plain(ins[0], *st.args)
@@ -1620,7 +1725,7 @@ def main() -> int:
         print(f"[time] perop {name} {bits} N={n} ({op_graph[name]}), summed "
               f"over its ops: kernel {show(t)}; plain {t['plain']:.4f} ms "
               f"({card})")
-    for name in perop.OWN_KERNELS:      # the byte-move kernels op by op
+    for name in perop.OWN_KERNELS + FLAT_B8:   # the flat kernels op by op
         for r in each_op.get((name, "fast"), ()):
             print(f"[time] perop {name} op {r['op']} {r['input']} fast: "
                   f"kernel {r['ms']:.4f} ms device, plain "
@@ -1923,12 +2028,15 @@ def main() -> int:
         graph = op_graph[k]
         path = "op surface perop" if graph == "op surface" else "perop"
         runs_on = ("eltwise_lut" if k in perop.TABLE_KERNELS else
-                   k if k in perop.OWN_KERNELS else "fused_stage")
+                   k if k in perop.OWN_KERNELS or k == perop.ADD_KERNEL
+                   else "fused_stage")
         row = {"name": k, "route": "cuda", "source": src + runs_on + ".cu",
                "replaces": f"yoloface_tpu/kernels/pallas_int8.py:{line}",
                # an own kernel's wrapper count, else the per-op count
                "launches": (launches[path][runs_on]
                             if k in perop.OWN_KERNELS
+                            else launches[path]["add_flat"]
+                            if k == perop.ADD_KERNEL
                             else by_kernel[path].get(k, 0)),
                "max_abs_err": err[k],
                "ms": op_ms[(k, "fast")]["device"],
@@ -1944,7 +2052,7 @@ def main() -> int:
             row["body"] = PEROP_BODIES[k]
         if k in marked_ops:             # perop_op's count of marked convs
             row["mma_convs"] = mma_by_kernel[path].get(k, 0)
-        if k in perop.OWN_KERNELS:      # op by op, with its exact time
+        if k in perop.OWN_KERNELS + FLAT_B8:   # op by op, with exact time
             row["ops"] = [dict(r, ms_exact=e["ms"]) for r, e in zip(
                 each_op[(k, "fast")], each_op[(k, "exact")])]
         if lib_ops.get(k):      # the library call's ops, the kernel on them

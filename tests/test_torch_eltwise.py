@@ -43,12 +43,13 @@ ACTS = ("RELU", "RELU6", "LOGISTIC")
 
 
 def _table_ops(g, bits="fast"):
-    """[(graph op, per-op stage, its descriptor row)] of the programs the
-    card runs on the table kernel, in graph order."""
+    """[(graph op, per-op stage, its descriptor row)] of the activation
+    programs the card runs on the table kernel, in graph order."""
     plan = perop.PerOpPlan(g, bits)
     routed = [(st, getattr(plan, f"descs{k}"))
               for k, st in enumerate(plan.stages)
-              if perop.card_kernel(st) == "eltwise_lut"]
+              if perop.card_kernel(st) == "eltwise_lut"
+              and st.kernel == "eltwise_int8"]
     ops = [op for op in g.ops if op.opname in ACTS]
     assert len(ops) == len(routed) == 3
     return [(op, st, d) for op, (st, d) in zip(ops, routed)]
@@ -73,15 +74,18 @@ def test_plain_table_equals_jax_activation(graph, k):
 @pytest.mark.parametrize("bits", perop.BITS)
 def test_perop_plan_routes_exactly_its_act_programs(bits):
     """On the op-surface graph the table kernel takes the ACT programs
-    (the B8 kernel ``eltwise_int8``) and nothing else; the fused-stage
-    kernel takes the rest, the standalone LEAKY (``leaky_int8``) too."""
+    (the B8 kernel ``eltwise_int8``) and the QUANTIZE program
+    (``requantize_int8``) and nothing else; the standalone LEAKY
+    (``leaky_int8``) stays on the fused-stage kernel."""
     plan = perop.PerOpPlan(TOOL.surface_graph(), bits)
     routed = [k for k, st in enumerate(plan.stages)
               if perop.card_kernel(st) == "eltwise_lut"]
     acts = [k for k, st in enumerate(plan.stages)
-            if st.descs[0, F["code"]] == arena.ACT]
-    assert routed == acts and len(acts) == 3
-    assert {plan.stages[k].kernel for k in routed} == {"eltwise_int8"}
+            if st.descs[0, F["code"]] in (arena.ACT, arena.QUANTIZE)]
+    assert routed == acts and len(acts) == 4
+    assert [plan.stages[k].kernel for k in routed].count("eltwise_int8") == 3
+    assert {plan.stages[k].kernel for k in routed} == {"eltwise_int8",
+                                                       "requantize_int8"}
     assert {perop.card_kernel(st) for st in plan.stages
             if st.kernel == "leaky_int8"} == {"fused_stage"}
 
@@ -120,6 +124,7 @@ def test_wrapper_refuses(case):
 
 
 def test_wrapper_refuses_a_program_that_is_not_an_activation():
+    """A LEAKY program (still on the fused-stage kernel) is refused."""
     plan = perop.PerOpPlan(TOOL.surface_graph())
     k = next(k for k, st in enumerate(plan.stages)
              if st.kernel == "leaky_int8")

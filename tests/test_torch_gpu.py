@@ -239,8 +239,10 @@ def test_eltwise_lut_matches_plain_on_the_card(bits):
                                .astype(np.int8)).cuda()[1:].view(1, 16, 16, 16)
     for g in (tool.surface_graph(), _chip_smoke()._upsample_graph(tool)):
         plan = perop.PerOpPlan(g, bits).cuda()
-        routed = [k for k, st in enumerate(plan.stages)
-                  if perop.card_kernel(st) == "eltwise_lut"]
+        on_table = [k for k, st in enumerate(plan.stages)
+                    if perop.card_kernel(st) == "eltwise_lut"]
+        routed = [k for k in on_table
+                  if plan.stages[k].kernel == "eltwise_int8"]
         assert len(routed) == 3
         for k in routed:
             d = getattr(plan, f"descs{k}")
@@ -253,12 +255,80 @@ def test_eltwise_lut_matches_plain_on_the_card(bits):
             .astype(np.int8)).cuda()
         eltwise.eltwise_lut.launches = 0
         env = plan.run_stages(xs)
-        assert eltwise.eltwise_lut.launches == 3
+        assert eltwise.eltwise_lut.launches == len(on_table)
         for k, st in enumerate(plan.stages):
             ref = [torch.empty_like(env[o]) for o in st.outputs]
             perop.perop_plain(st, getattr(plan, f"consts{k}"),
                               [env[i] for i in st.inputs] + ref)
             assert torch.equal(env[st.outputs[0]], ref[0]), (g.name, k)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", perop.BITS)
+def test_flat_quantize_and_add_match_plain_on_the_card(bits):
+    """The corpus's QUANTIZE programs on csrc/eltwise_lut.cu and its ADD
+    programs on csrc/add_int8.cu equal their plain versions at N = 1, 3,
+    37 and 16384, with the inputs one byte into their storage too (the
+    byte loop), and an ADD of a tensor with itself (x + x); the per-op
+    program launches each kernel once a routed program."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    tool = _golden_tool()
+    rng = np.random.default_rng(8)
+    torch.manual_seed(8)
+    plan = perop.PerOpPlan(load_tflite(CORPUS), bits).cuda()
+    routed = {k: perop.card_kernel(st) for k, st in enumerate(plan.stages)
+              if st.kernel in ("requantize_int8", "add_int8")}
+    assert sorted(routed.values()) == ["add_int8"] * 3 + ["eltwise_lut"] * 3
+
+    def wrapper(st, d, xs):
+        if perop.card_kernel(st) == "eltwise_lut":
+            return (eltwise.eltwise_lut(d, xs[0]),
+                    eltwise.eltwise_lut_plain(d, xs[0]))
+        a, b = perop.add_inputs(st, xs)
+        return eltwise.add_flat(d, a, b), eltwise.add_flat_plain(d, a, b)
+
+    for k in routed:
+        st, d = plan.stages[k], getattr(plan, f"descs{k}")
+        for n in (1, 3, 37, 16384):
+            for off in (0, 1):
+                xs = []
+                for i in st.inputs:
+                    shape = (n,) + st.shapes[i]
+                    buf = torch.randint(-128, 128,
+                                        (off + int(np.prod(shape)),),
+                                        dtype=torch.int8, device="cuda")
+                    xs.append(buf[off:].view(shape))
+                got, want = wrapper(st, d, xs)
+                assert torch.equal(got, want), (k, st.kernel, n, off)
+        if st.kernel == "add_int8":               # x + x at this ADD
+            x = torch.randint(-128, 128, (37,) + st.shapes[st.inputs[0]],
+                              dtype=torch.int8, device="cuda")
+            assert torch.equal(eltwise.add_flat(d, x, x),
+                               eltwise.add_flat_plain(d, x, x))
+    g = tool.GraphMaker(3)
+    x = g.tensor((1, 5, 6, 7), scale=0.05, zp=-3)
+    g.op("ADD", [x, x], g.tensor((1, 5, 6, 7), scale=0.09, zp=4))
+    self_add = perop.PerOpPlan(g.graph([x], [1]), bits).cuda()
+    xs = torch.from_numpy(rng.integers(-128, 128, (37, 5, 6, 7))
+                          .astype(np.int8)).cuda()
+    eltwise.add_flat.launches = 0
+    y = self_add.run_stages(xs)[1]
+    assert eltwise.add_flat.launches == 1
+    assert torch.equal(y.cpu(), perop.PerOpPlan(g.graph([x], [1]), bits)
+                       .run_stages(xs.cpu())[1])
+    x0 = torch.from_numpy(rng.integers(-128, 128, (3, 56, 56, 3))
+                          .astype(np.int8)).cuda()
+    eltwise.eltwise_lut.launches = eltwise.add_flat.launches = 0
+    env = plan.run_stages(x0)
+    assert eltwise.eltwise_lut.launches == eltwise.add_flat.launches == 3
+    for k in routed:
+        st = plan.stages[k]
+        ref = [torch.empty_like(env[st.outputs[0]])]
+        perop.perop_plain(st, getattr(plan, f"consts{k}"),
+                          [env[i] for i in st.inputs] + ref)
+        assert torch.equal(env[st.outputs[0]], ref[0]), k
     torch.cuda.synchronize()
 
 

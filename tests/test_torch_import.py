@@ -48,6 +48,9 @@ ENTRIES = {
     "elementwise table kernel":
         "from yoloface_tpu_torch.kernels.eltwise import (eltwise_lut,\n"
         "                                               eltwise_lut_plain)",
+    "flat ADD kernel":
+        "from yoloface_tpu_torch.kernels.eltwise import (add_flat,\n"
+        "                                               add_flat_plain)",
     "byte-move kernels":
         "from yoloface_tpu_torch.kernels.move import (concat_channels,\n"
         "                                            resize_nearest)",

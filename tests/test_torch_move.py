@@ -200,9 +200,10 @@ def test_concat_of_a_repeated_input():
 def test_card_kernel_routes_exactly_concat_and_resize(graph, bits):
     """On the card the RESIZE programs go to ``resize_nearest``, the
     CONCATENATION programs (COPY rows into channel slices) to
-    ``concat_channels`` and the PAD programs to ``pad_int8``; the ACT
-    programs stay on the table kernel and every other program on the
-    fused-stage kernel, as before."""
+    ``concat_channels`` and the PAD programs to ``pad_int8``; the ACT and
+    QUANTIZE programs to the table kernel, the ADD programs to the flat
+    ADD kernel (``add_int8``, which takes no launch arguments) and every
+    other program to the fused-stage kernel."""
     for st in perop.PerOpPlan(GRAPHS[graph](), bits).stages:
         codes = set(st.descs[:, F["code"]].tolist())
         if codes == {arena.RESIZE}:
@@ -211,12 +212,15 @@ def test_card_kernel_routes_exactly_concat_and_resize(graph, bits):
             want = "pad_int8"
         elif codes == {arena.COPY}:
             want = "concat_channels"
-        elif codes == {arena.ACT}:
+        elif codes in ({arena.ACT}, {arena.QUANTIZE}):
             want = "eltwise_lut"
+        elif codes == {arena.ADD}:
+            want = "add_int8"
         else:
             want = "fused_stage"
         assert perop.card_kernel(st) == want, st.kernel
-        assert (st.kernel == want) == (want in perop.OWN_KERNELS)
+        assert (st.kernel == want) == (want in perop.OWN_KERNELS
+                                       or want == perop.ADD_KERNEL)
         assert bool(st.args) == (st.kernel in perop.OWN_KERNELS)
 
 
@@ -339,7 +343,7 @@ def test_cpu_engine_outputs_unchanged(mode):
     gold = np.load(GOLDEN)
     bits = PEROP_BITS[mode]
     counters = (move.resize_nearest, move.concat_channels, move.pad_int8,
-                eltwise.eltwise_lut, fused.fused_stage)
+                eltwise.eltwise_lut, eltwise.add_flat, fused.fused_stage)
     for fn in counters:
         fn.launches = 0
     perop.reset_launches()

@@ -481,7 +481,8 @@ def test_card_kernel_routes_by_the_program(corpus, surface, bits):
     16,384 channels) go to the fused-stage kernel; the concats of 17
     inputs (3 and 17 distinct tensors) stay on the concat kernel, which
     ``perop_op`` launches once a group of 16 inputs; every program of the
-    corpus and the op surface keeps its own kernel."""
+    corpus and the op surface keeps its own kernel: the table kernel for
+    the activations and QUANTIZEs, the flat ADD kernel for the ADDs."""
     wide = TOOL.wide_move_graphs()
     got = {name: [perop.card_kernel(st)
                   for st in perop.PerOpPlan(g, bits).stages
@@ -494,7 +495,7 @@ def test_card_kernel_routes_by_the_program(corpus, surface, bits):
         for st in perop.PerOpPlan(g, bits).stages:
             want = ("eltwise_lut" if st.kernel in perop.TABLE_KERNELS else
                     st.kernel if st.kernel in perop.OWN_KERNELS
-                    else "fused_stage")
+                    or st.kernel == perop.ADD_KERNEL else "fused_stage")
             assert perop.card_kernel(st) == want, st.kernel
 
 

@@ -19,7 +19,11 @@ stem reading device memory directly or staged in shared memory;
 through a scratch, and the per-op pools direct or staged; ``bodies``, the
 full-window conv body on every marked conv against the 1x1 body beside
 it, and the kernels with the full-window body and the word passes
-compiled out, each with its stage time by op kind).  The header
+compiled out, each with its stage time by op kind; ``add`` and
+``quantize``, the per-op ADD kernel (``csrc/add_int8.cu``) and the
+QUANTIZE tables of ``csrc/eltwise_lut.cu``: tables against the
+arithmetic in registers, 2, 4 or 8 16-byte loads a thread in flight, 256
+or 512 threads a block).  The header
 holds only the shapes chosen (m16n8k16, one m16 by one n8 tile a warp
 item, 4 channels a depthwise thread, K padded as a whole, byte gathers,
 the register walk, direct reads); the others are built from the general
@@ -31,6 +35,7 @@ Usage (on the card, from the repository root)::
 
     python3 tools/torch_variant_sweep.py [copy] [pad] [mma] [mma_body]
         [arena_mma] [dw4] [fused_mma] [stem_mma] [pool] [bodies]
+        [add] [quantize]
 
 Each variant is a copy of the kernel's source with one constant or
 condition rewritten, built with the library's ``nvcc`` flags into
@@ -49,7 +54,11 @@ on 37 frames in each bit semantics, and time the corpus net's stages at
 16384 in each and the ``arena2`` (``fused``) pipeline at 65536 with every
 launch of the kernel through the variant; the per-op variants hold each
 B8.3 (B8.5) program against its plain version on its timed inputs and
-time it at 16384 in fast and exact bits.  Imports no jax.
+time it at 16384 in fast and exact bits.  The ``add`` and ``quantize``
+variants hold each corpus ADD (QUANTIZE) program against its plain
+version on the inputs it is timed on, then time it at 16384 in device
+time behind a spin, in fast and exact bits, summed over the three ops.
+Imports no jax.
 """
 
 from __future__ import annotations
@@ -1276,6 +1285,149 @@ def sweep_fused_mma(dev) -> None:
     _sweep_stage(dev, FUSED_MMA_VARIANTS, "fused_mma", "fused")
 
 
+# The per-op ADD (B8.6, add_int8.cu) and QUANTIZE (B8.7, the QUANTIZE tables
+# of eltwise_lut.cu): each input's terms (or the op's byte table) in
+# shared memory against the arithmetic in registers, a byte (pair) at a
+# time; the 16-byte loads a thread has in flight; the threads a block
+THREADS_256 = "constexpr int kThreads = 256;"
+ADD_IN_FLIGHT = "constexpr int kAddInFlight = 2;"
+ADD_TABLES = """    const uint32_t sa = ta[ua], sb = ta[yf::kTableBytes + ub];
+    if (kExact)
+      return yf::requant_exact(static_cast<int>(sa) + static_cast<int>(sb),
+                               m2, e2, zp_out);
+    return yf::round_zp_clip(__fadd_rn(__uint_as_float(sa),
+                                       __uint_as_float(sb)), zp_out);"""
+ADD_REGISTERS = """    const int va = static_cast<int8_t>(ua) - zp_a;
+    const int vb = static_cast<int8_t>(ub) - zp_b;
+    if (kExact)
+      return yf::add_exact(va, vb, lsh, m0, e0, m1, e1, m2, e2, zp_out);
+    return yf::add_fast(va, vb, f0, f1, zp_out);"""
+# the op's fields the arithmetic reads, copied into the functor
+ADD_FIELDS = [
+    ("  int m2, e2, zp_out;\n", "  int m2, e2, zp_out;\n"
+     "  int zp_a, zp_b, lsh, m0, e0, m1, e1;\n  float f0, f1;\n"),
+    *((f"AddFn<{x}>{{terms, {m}, op.zp_out}}",
+       f"AddFn<{x}>{{terms, {m}, op.zp_out, op.zp_a, op.zp_b, op.lsh, "
+       "op.m0, op.e0, op.m1, op.e1, op.f0, op.f1}")
+      for x, m in (("true", "op.m2, op.e2"), ("false", "0, 0")))]
+ADD_VARIANTS = [
+    ("as built (tables, 2 in flight, 256 threads)", []),
+    ("arithmetic in registers", [(ADD_TABLES, ADD_REGISTERS),
+                                 *ADD_FIELDS]),
+    *((f"{k} in flight", [(ADD_IN_FLIGHT, f"constexpr int kAddInFlight = "
+                                          f"{k};")]) for k in (1, 4, 8)),
+    ("512 threads", [(THREADS_256, "constexpr int kThreads = 512;")]),
+    ("as built, again", []),
+]
+KERNEL_LINE = """__global__ void __launch_bounds__(kThreads)
+    eltwise_lut_kernel("""
+# QUANTIZE by the epilogue functions a byte at a time (the timed programs
+# are all QUANTIZEs)
+QUANT_FN = """struct QuantFn {
+  int zp_a, m0, e0, zp_out;
+  float f0;
+  bool exact;
+  __device__ int8_t operator()(int8_t x) const {
+    return exact ? yf::requant_exact(x - zp_a, m0, e0, zp_out)
+                 : yf::quantize_fast(x - zp_a, f0, zp_out);
+  }
+  __device__ unsigned operator()(unsigned w) const {
+    unsigned r = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      r |= static_cast<unsigned>(static_cast<uint8_t>((*this)(
+               static_cast<int8_t>((w >> (8 * k)) & 255)))) << (8 * k);
+    return r;
+  }
+  __device__ uint4 operator()(uint4 v) const {
+    return make_uint4((*this)(v.x), (*this)(v.y), (*this)(v.z), (*this)(v.w));
+  }
+};
+
+"""
+QUANT_VARIANTS = [
+    ("as built (table, 4 in flight, 256 threads)", []),
+    ("arithmetic in registers",
+     [(KERNEL_LINE, QUANT_FN + KERNEL_LINE),
+      ("yf::TableFn{lut}", "QuantFn{desc->zp_a, desc->m0, desc->e0, "
+       "desc->zp_out, desc->f0, desc->epi == yf::EPI_REQUANT_EXACT}")]),
+    *((f"{k} in flight", [("arena_ops.cuh", "constexpr int kInFlight = 4;",
+                           f"constexpr int kInFlight = {k};")])
+      for k in (2, 8)),
+    ("512 threads", [(THREADS_256, "constexpr int kThreads = 512;")]),
+    ("as built, again", []),
+]
+
+
+def _sweep_flat(dev, variants, source: str, entry: str, kernel: str,
+                tag: str) -> None:
+    """Each variant of a flat per-op kernel on the corpus net's programs
+    of ``kernel`` (``add_int8``, ``requantize_int8``) at 16384, in fast and
+    exact bits: each op held against its plain version on its timed
+    inputs, then timed in device time behind a spin; ms summed over the
+    ops, each op's beside."""
+    from yoloface_tpu_torch.kernels import eltwise
+    g = load_tflite(CORPUS)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randint(-128, 128, (16384, 56, 56, 3), generator=gen,
+                      device=dev, dtype=torch.int8)
+    progs = {}
+    for bits in perop.BITS:
+        p = perop.PerOpPlan(g, bits).to(dev)
+        env = p.run_stages(x)
+        progs[bits] = []
+        for k, st in enumerate(p.stages):
+            if st.kernel != kernel:
+                continue
+            d = getattr(p, f"descs{k}")
+            ins = ([env[st.inputs[0]]] if kernel != "add_int8" else
+                   list(perop.add_inputs(st, [env[i] for i in st.inputs])))
+            want = (eltwise.add_flat_plain(d, *ins) if kernel == "add_int8"
+                    else eltwise.eltwise_lut_plain(d, ins[0]))
+            progs[bits].append((d, ins, want))
+        del env
+    libs = _build_all(variants, source, entry)
+    for (label, *_), (vlib, name, log) in zip(variants, libs):
+        fn = getattr(vlib, name)
+        fn.argtypes = _build.SIGNATURES[entry]
+        fn.restype = ctypes.c_int
+        line = []
+        for bits, ops in progs.items():
+            times = []
+            for j, (d, ins, want) in enumerate(ops):
+                out = torch.empty_like(want)
+
+                def call(d=d, ins=ins, out=out):
+                    _build.check(fn(d.data_ptr(),
+                                    *[t.data_ptr() for t in ins],
+                                    out.data_ptr(), out.numel(),
+                                    _stream(dev)), f"{tag} {label}")
+                call()
+                same(out, want, f"{tag} {label} {bits} op {j}")
+                times.append(time_ms(call, dev, 10))
+            line.append(f"{bits} {sum(times):.4f} ("
+                        + ", ".join(f"{t:.4f}" for t in times) + ")")
+        print(f"[sweep] {tag} {label}: ms at 16384 over the corpus's "
+              f"{len(ops)} ops: {'; '.join(line)} (ptxas: "
+              f"{_stage_report(log, kernel_name(entry))})", flush=True)
+
+
+def kernel_name(entry: str) -> str:
+    """The kernel a flat entry launches, as ptxas names it."""
+    return {"yf_add_int8": "add_int8_kernel",
+            "yf_eltwise_lut": "eltwise_lut_kernel"}[entry]
+
+
+def sweep_add(dev) -> None:
+    _sweep_flat(dev, ADD_VARIANTS, "add_int8.cu", "yf_add_int8", "add_int8",
+                "add")
+
+
+def sweep_quantize(dev) -> None:
+    _sweep_flat(dev, QUANT_VARIANTS, "eltwise_lut.cu", "yf_eltwise_lut",
+                "requantize_int8", "quantize")
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("torch_variant_sweep: no CUDA device", file=sys.stderr)
@@ -1291,7 +1443,8 @@ def main(argv) -> int:
               "mma_body": sweep_mma_body, "arena_mma": sweep_arena_mma,
               "dw4": sweep_dw4, "fused_mma": sweep_fused_mma,
               "stem_mma": sweep_stem_mma, "pool": sweep_pool,
-              "bodies": sweep_bodies}
+              "bodies": sweep_bodies, "add": sweep_add,
+              "quantize": sweep_quantize}
     for name in argv or list(sweeps):
         sweeps[name](dev)
     return 0

@@ -49,6 +49,8 @@ SIGNATURES = {
     "yf_fused_stage_attrs": [_I, _I, _P],
     # (descriptor, x, y, bytes, stream)
     "yf_eltwise_lut": [_P, _P, _P, _L, _P],
+    # (descriptor, a, b, y, bytes of each, stream)
+    "yf_add_int8": [_P, _P, _P, _P, _L, _P],
     # (x, y, input rows N*H, W, C, kh, kw, stream)
     "yf_resize_nearest": [_P, _P, _L, _I, _I, _I, _I, _P],
     # (host input pointers[n], host channels[n], n, y, pixels N*H*W,

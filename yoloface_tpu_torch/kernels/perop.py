@@ -38,18 +38,21 @@ dimension, dilation.
 
 Each op is one program of ``arena.OP_INTS`` descriptors (one, or one a
 concat input) whose views all lie in device memory (space 1.. the op's
-inputs, then its output).  On the card the RELU, RELU6 and LOGISTIC
-programs (kernel ``eltwise_int8``) run on the flat table kernel
-(``kernels/eltwise.py``, ``csrc/eltwise_lut.cu``), one map over the op's
-dense bytes; the RESIZE, CONCATENATION and PAD programs
+inputs, then its output).  On the card the RELU, RELU6, LOGISTIC and
+QUANTIZE programs (kernels ``eltwise_int8`` and ``requantize_int8``) run
+on the flat table kernel (``kernels/eltwise.py``, ``csrc/eltwise_lut.cu``),
+one map over the op's dense bytes; the ADD programs (``add_int8``) on the
+flat two-input kernel (``eltwise.add_flat``, ``csrc/add_int8.cu``), one
+map over the byte pairs of its two dense inputs of one shape (both the
+same tensor for ``x + x``); the RESIZE, CONCATENATION and PAD programs
 (``resize_nearest``, ``concat_channels``, ``pad_int8``) that fit them on
 the flat byte-move kernels of ``kernels/move.py``
 (``csrc/resize_nearest.cu``, ``csrc/concat_channels.cu``,
 ``csrc/pad_int8.cu``), with their factors, input order and pads taken
 from the program once, at plan time (``card_kernel`` decides from the
 program: a RESIZE or concat of more than ``move.TILE_BYTES`` channels
-runs on the fused-stage kernel); the convs, depthwise convs, max-pools,
-ADDs, QUANTIZEs and standalone LEAKYs run on the fused-stage kernel
+runs on the fused-stage kernel); the convs, depthwise convs, max-pools
+and standalone LEAKYs run on the fused-stage kernel
 (``csrc/fused_stage.cu``, one block a frame, through ``fused.run_stage``)
 with no values in shared memory: only a max-pool's row-pass scratch is
 there.  A CONV's program
@@ -90,7 +93,9 @@ KERNELS = {"conv1x1": (436, arena.CONV), "dwconv3x3": (483, arena.DW),
 _BY_CODE = {code: name for name, (_, code) in KERNELS.items()
             if code != arena.CONV}
 # the B8 kernels whose programs run on the table kernel on the card
-TABLE_KERNELS = ("eltwise_int8",)
+TABLE_KERNELS = ("eltwise_int8", "requantize_int8")
+# the B8 kernel whose programs run on the flat two-input kernel on the card
+ADD_KERNEL = "add_int8"
 # the B8 kernels whose programs run on a kernel of their own on the card,
 # a wrapper of kernels/move.py of the same name
 OWN_KERNELS = ("resize_nearest", "concat_channels", "pad_int8")
@@ -200,13 +205,25 @@ def concat_groups(stage: PerOpStage, xs: Sequence[torch.Tensor]
     return groups
 
 
+def add_inputs(stage: PerOpStage, xs: Sequence[torch.Tensor]
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """An ADD program's two inputs (a, b) from its input tensors
+    (``stage.inputs`` order), by the spaces its descriptor names: ``x + x``
+    has one input, which both views name."""
+    d = stage.descs[0]
+    return xs[d[F["in0_space"]] - 1], xs[d[F["in1_space"]] - 1]
+
+
 def card_kernel(stage: PerOpStage) -> str:
     """The CUDA kernel that runs ``stage`` on the card, decided from the
-    program: ``eltwise_lut`` for the ``TABLE_KERNELS`` programs, their own
-    for the ``OWN_KERNELS`` programs within its limits
-    (``fits_own_kernel``), else ``fused_stage``."""
+    program: ``eltwise_lut`` for the ``TABLE_KERNELS`` programs,
+    ``add_int8`` for the ``ADD_KERNEL`` programs, their own for the
+    ``OWN_KERNELS`` programs within its limits (``fits_own_kernel``), else
+    ``fused_stage``."""
     if stage.kernel in TABLE_KERNELS:
         return "eltwise_lut"
+    if stage.kernel == ADD_KERNEL:
+        return ADD_KERNEL
     if stage.kernel in OWN_KERNELS and fits_own_kernel(stage):
         return stage.kernel
     return "fused_stage"
@@ -217,8 +234,10 @@ def perop_op(stage: PerOpStage, descs: torch.Tensor, consts: torch.Tensor,
     """Run one op on its input tensors (int8 [N,H,W,C], in
     ``stage.inputs`` order) -> [its output].  CPU tensors take
     ``perop_plain``; CUDA tensors launch ``yf_eltwise_lut``,
-    ``yf_resize_nearest``, ``yf_concat_channels``, ``yf_pad_int8`` or
-    ``yf_fused_stage`` (``card_kernel``); a concat launches once for each
+    ``yf_add_int8``, ``yf_resize_nearest``, ``yf_concat_channels``,
+    ``yf_pad_int8`` or ``yf_fused_stage`` (``card_kernel``); an ADD takes
+    its two inputs by the descriptor's spaces (one input twice for
+    ``x + x``, whose program has one input); a concat launches once for each
     group of up to ``move.MAX_INPUTS`` inputs, each into its channel
     slice.  The byte-move launches check the input shapes and nothing of
     the program: their arguments are ``stage.args``, and ``card_kernel``
@@ -232,6 +251,9 @@ def perop_op(stage: PerOpStage, descs: torch.Tensor, consts: torch.Tensor,
         if card == "eltwise_lut":
             arena.check_program(stage, descs, consts, dev)
             eltwise.eltwise_lut(descs, xs[0], out=outs[0])
+        elif card == ADD_KERNEL:
+            arena.check_program(stage, descs, consts, dev)
+            eltwise.add_flat(descs, *add_inputs(stage, xs), out=outs[0])
         elif not xs[0].shape[0]:
             launched = False
         else:
