@@ -10,16 +10,17 @@ Phases (each prints its lines; any failure ends the run with an error):
      section kernel as built (the second runs the tensor-core convs of
      csrc/conv_mma.cuh; more than 64 registers or a spill, local memory
      past the 128 B stack frame, fails), and the registers, local memory
-     and blocks an SM of the two whole-frame kernels (arena_stage.cu,
-     fused_stage.cu, with the bodies of csrc/stage_ops.cuh: more than 64
-     registers, fewer than 4 blocks or a spill fails), each beside PR 13's
-     figures;
+     and blocks an SM of both instantiations (fast and exact bits) of the
+     two whole-frame kernels (arena_stage.cu, fused_stage.cu, with the
+     bodies of csrc/stage_ops.cuh: more than 64 registers, fewer than 4
+     blocks or a spill fails), each beside PR 14's figures;
   2. each kernel against its plain torch version on the card, bit for bit,
      at the serving path's shapes: the preprocess; the arena stage in each
      bit semantics (fast2, fast, exact) in 1 and 4 stages; the fused head
-     and the top-K kernel on crafted tensors with saturation ties and on the
-     net's outputs; the tiled section kernel on every section output of
-     the 448 net (retarget_spatial(corpus, 8), N = 1 and 3) and of the
+     and the top-K kernel on crafted tensors with saturation ties, on a
+     tie-heavy set (whole frames saturating or below the threshold, the
+     rest on a few levels) and on the net's outputs; the tiled section
+     kernel on every section output of the 448 net (retarget_spatial(corpus, 8), N = 1 and 3) and of the
      112 net under a small budget (7 sections of up to 28 strips), in each
      bit semantics; the fused-stage kernel on every stage output of the
      corpus net cut at kernels.fused.FUSED_BUDGET (3 stages), 10**9 (1)
@@ -74,7 +75,9 @@ Phases (each prints its lines; any failure ends the run with an error):
   3. serving, one path after another, each with every launch count set to
      0 just before it and read just after (each of its kernels > 0; the
      arena, fused and per-op paths also with their net kernel's
-     marked-conv counter equal to the plan's 17 marks a batch):
+     marked-conv counter equal to the plan's 17 marks a batch, and its
+     exact instantiation launched for every program with convs in the
+     exact modes and never in the others):
      load_pipeline(..., device="cuda").detect_rgb565_device in mode arena2
      (fused head), arena_exact (fused head), arena_exact with
      HeadConfig(use_fused_head=False) (the top-K kernel and the staged
@@ -193,11 +196,15 @@ TFLITE_MODES = ("arena2", "arena", "arena_exact", "tiled2", "tiled",
                 "tiled_exact", "fused", "fused_exact", "perop", "perop_exact")
 STRIP_BUDGETS = (256, 384, 512, 768, 1024, 1536, 2048, 4096, 16384, 65536)
 V3_FRAMES, BATCH_V3 = 2, 256   # yolov3-tiny 416: checked on 2, timed on 256
-# the stage kernels' registers a thread and blocks an SM as PR 13's runs
-# printed them (no spill), printed beside this build's
-PR13_ATTRS = {"tiled_section_kernel<false>": (64, None),
+# the stage kernels' registers a thread and blocks an SM as PR 14's runs
+# printed them (no spill; the whole-frame kernels had one instantiation),
+# printed beside this build's
+PR14_ATTRS = {"tiled_section_kernel<false>": (64, None),
               "tiled_section_kernel<true>": (124, None),
-              "arena_stage_kernel": (64, 4), "fused_stage_kernel": (64, 4)}
+              "arena_stage_kernel<fast>": (64, 4),
+              "arena_stage_kernel<exact>": (64, 4),
+              "fused_stage_kernel<fast>": (64, 4),
+              "fused_stage_kernel<exact>": (64, 4)}
 # the per-op kernels (B8) whose programs run on a flat kernel of their own,
 # timed and reported op by op
 FLAT_B8 = ("add_int8", "requantize_int8")
@@ -531,8 +538,8 @@ def main() -> int:
                                "static_smem": static_smem}
         print(f"[build] {name}: {regs} registers a thread, {local} B local "
               f"memory a thread (its stack frame, spills included), "
-              f"{static_smem} B static shared memory (PR 13: "
-              f"{PR13_ATTRS[name][0]} registers, no spill)")
+              f"{static_smem} B static shared memory (PR 14: "
+              f"{PR14_ATTRS[name][0]} registers, no spill)")
         # the launch bounds cap the registers (64 at four blocks an SM,
         # 128 at two); what they can cost is spilling, which grows the
         # local memory past the 128 B frame
@@ -540,35 +547,38 @@ def main() -> int:
                  "a thread > its 128 B frame")
     _require(section_attrs["tiled_section_kernel<false>"]["registers"] <= 64,
              "the section kernel's first instantiation within 64 registers")
-    # the whole-frame kernels (one instantiation each), with their convs on
-    # the tensor cores, the depthwise word body and the max-pool word
-    # passes (csrc/stage_ops.cuh): blocks an SM at the corpus plans' shared
-    # memory (the arena with its max-pools' scratch)
+    # the whole-frame kernels (a fast and an exact instantiation each),
+    # with their convs on the tensor cores, the depthwise word body and the
+    # max-pool word passes (csrc/stage_ops.cuh): blocks an SM at the corpus
+    # plans' shared memory (the arena with its max-pools' scratch)
     stage_attrs = {}
     corpus_smem = {"arena_stage_kernel": max(
         arena.stage_smem(st)[0]
         for st in arena.build_arena_plan(load_tflite(CORPUS))),
         "fused_stage_kernel": max(st.smem_bytes for st in
                                   fused.build_fused_plan(load_tflite(CORPUS)))}
-    for name, fn in (("arena_stage_kernel",
-                      _build.library().yf_arena_stage_attrs),
-                     ("fused_stage_kernel",
-                      _build.library().yf_fused_stage_attrs)):
+    for kernel, fn, exact in (
+            ("arena_stage_kernel", _build.library().yf_arena_stage_attrs, 0),
+            ("arena_stage_kernel", _build.library().yf_arena_stage_attrs, 1),
+            ("fused_stage_kernel", _build.library().yf_fused_stage_attrs, 0),
+            ("fused_stage_kernel", _build.library().yf_fused_stage_attrs, 1)):
+        name = f"{kernel}<{'exact' if exact else 'fast'}>"
         attrs = (ctypes.c_int * 4)()
-        _build.check(fn(arena.THREADS, corpus_smem[name], attrs),
+        _build.check(fn(exact, arena.THREADS, corpus_smem[kernel], attrs),
                      f"{name} attributes")
         regs, local, static_smem, blocks = list(attrs)
         stage_attrs[name] = {"registers": regs, "local_bytes": local,
                              "static_smem": static_smem,
                              "blocks_per_sm": blocks,
-                             "dynamic_smem": corpus_smem[name]}
+                             "dynamic_smem": corpus_smem[kernel]}
         print(f"[build] {name}: {regs} registers a thread, {local} B local "
               f"memory a thread (its stack frame, spills included), "
               f"{static_smem} B static shared memory; {blocks} blocks of "
               f"{arena.THREADS} threads an SM at the corpus plan's "
-              f"{corpus_smem[name]} B of shared memory (PR 13: "
-              f"{PR13_ATTRS[name][0]} registers, {PR13_ATTRS[name][1]} "
-              "blocks an SM, no spill)")
+              f"{corpus_smem[kernel]} B of shared memory (PR 14: "
+              f"{PR14_ATTRS[name][0]} registers, {PR14_ATTRS[name][1]} "
+              "blocks an SM, no spill"
+              + (", one instantiation" if exact else "") + ")")
         _require(local <= 128, f"{name} spills: {local} B of local memory "
                  "a thread > its 128 B frame")
         _require(regs <= 64 and blocks >= 4,
@@ -608,6 +618,8 @@ def main() -> int:
         perop.reset_launches()
         for fn in (tiled.tiled_section, arena.arena_stage, fused.fused_stage):
             fn.mma_convs = 0
+        for fn in (arena.arena_stage, fused.fused_stage):
+            fn.exact_launches = 0
 
     err = {"preprocess_rgb565": 0.0, "arena_stage": 0.0,
            "requant_epilogue": 0.0, "detect_head": 0.0, "topk_conf": 0.0,
@@ -1220,7 +1232,16 @@ def main() -> int:
     yc[6, :, :, 4::6] = 127
     crafted = torch.from_numpy(yc).to(dev)
     crafted_kw = dict(scale=0.14218327403068542, zero_point=-15)
+    # ranking keys that tie a lot (whole frames saturating or below the
+    # threshold, the rest on six levels): the rank table's shared ranks and
+    # the lowest-index tie rule of one redux.sync a round
+    ties = torch.from_numpy(tool.tie_heavy_heads(4096)).to(dev)
+    # a negative scale: keys that fall as the confidence grows, which the
+    # rank table ranks by counting (csrc/topk.cuh)
+    falling_kw = dict(scale=-crafted_kw["scale"], zero_point=-15)
     for name, y, kw in (("crafted", crafted, crafted_kw),
+                        ("tie-heavy", ties, head_kw),
+                        ("tie-heavy, falling keys", ties, falling_kw),
                         ("net", net_out["fast2"], head_kw)):
         for nms in (True, False):
             cfg = thead.HeadConfig(apply_nms=nms)
@@ -1234,6 +1255,8 @@ def main() -> int:
         print(f"[check] detect_head {name} N={y.shape[0]} (nms on/off): "
               f"bit-exact, {int(got[2].sum())} detections without NMS")
     for name, y, kw in (("crafted", crafted, crafted_kw),
+                        ("tie-heavy", ties, head_kw),
+                        ("tie-heavy, falling keys", ties, falling_kw),
                         *((f"net {b}", net_out[b], head_kw) for b in plans)):
         for k in (16, 1, 32):
             got = khead.topk_conf(y, k, **kw)
@@ -1271,6 +1294,8 @@ def main() -> int:
         for fn in (tiled.tiled_section, arena.arena_stage, fused.fused_stage,
                    perop.perop_op):
             launches[path][f"{fn.__name__}_mma_convs"] = fn.mma_convs
+        for fn in (arena.arena_stage, fused.fused_stage, perop.perop_op):
+            launches[path][f"{fn.__name__}_exact"] = fn.exact_launches
         by_kernel[path] = dict(perop.perop_op.by_kernel)
         mma_by_kernel[path] = dict(perop.perop_op.mma_by_kernel)
 
@@ -1303,6 +1328,12 @@ def main() -> int:
         _require(marks == 17 and net_kernel.mma_convs == marks * len(batches),
                  f"{path}: {net_kernel.mma_convs} marked convs launched, "
                  f"{marks} a batch planned")
+        # the exact instantiation: every program with convs in exact bits
+        exact = sum(st.exact_convs for st in p.engine.arena.stages)
+        _require(net_kernel.exact_launches == exact * len(batches)
+                 and (exact > 0) == ("_exact" in path),
+                 f"{path}: {net_kernel.exact_launches} launches of the "
+                 f"exact instantiation, {exact} a batch planned")
         if by_kernel[path]:          # the corpus net's per-op programs
             planned = {}
             for st in p.engine.arena.stages:
@@ -1544,6 +1575,11 @@ def main() -> int:
         ms[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
         print(f"[time] {label.get(name, name)} N={n}: kernel "
               f"{ms[name][0]:.4f} ms, plain {ms[name][1]:.4f} ms ({card})")
+    # B3's own time: the exact arena stage less the fast2 one (the same
+    # program but its epilogues)
+    print(f"[time] requant_epilogue own (arena stage exact less fast2) "
+          f"N={n}: {ms['requant_epilogue'][0] - ms['arena_stage'][0]:.4f} ms "
+          f"({card})")
     # one PyTorch call computing a kernel's function: torch.topk on the
     # ranking key (ties in any order; the kernel takes the lowest index)
     key = khead.rank_key(y, **head_kw)[1]
@@ -1953,7 +1989,7 @@ def main() -> int:
         "arena_stage": (src + "arena_stage.cu",
                         "yoloface_tpu/kernels/pallas_arena.py:870",
                         "arena2", "arena_stage"),
-        "requant_epilogue": (src + "epilogue.cuh",
+        "requant_epilogue": (src + "stage_ops.cuh",
                              "yoloface_tpu/kernels/pallas_int8.py:315",
                              "arena_exact", "arena_stage"),
         "detect_head": (src + "detect_head.cu",
@@ -1999,8 +2035,9 @@ def main() -> int:
         if k in bits:
             row["bits"] = bits[k]
         if k in ("arena_stage", "fused_stage"):   # the whole-frame kernels
-            kern = f"{k}_kernel"
-            row.update(instantiations={kern: stage_attrs[kern]},
+            row.update(instantiations={
+                       kern: a for kern, a in stage_attrs.items()
+                       if kern.startswith(k)},
                        bodies=STAGE_BODIES,
                        mma_convs=launches[path][f"{k}_mma_convs"],
                        by_kind={m: by_kind[m] for m in by_kind
@@ -2012,6 +2049,10 @@ def main() -> int:
                        plain_ms_fast=ms["arena_stage fast"][1],
                        ms_exact=ms["requant_epilogue"][0],
                        plain_ms_exact=ms["requant_epilogue"][1])
+        if k == "requant_epilogue":   # the exact instantiation's epilogue
+            row.update(own_ms=ms[k][0] - ms["arena_stage"][0],
+                       functions=src + "epilogue.cuh",
+                       instantiation="arena_stage_kernel<exact>")
         if k == "fused_stage":
             row.update(ms_exact=ms["fused_stage exact"][0],
                        plain_ms_exact=ms["fused_stage exact"][1])

@@ -853,3 +853,88 @@ def test_strided_1x1_matches_plain_on_the_card(bits):
     want = torch.empty_like(got)
     arena.arena_stage_plain(st, plan.consts0, [x, want])
     assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["arena", "fused"])
+@pytest.mark.parametrize("exact", [0, 1])
+def test_stage_instantiations_within_their_launch_bound_on_the_card(
+        kernel, exact):
+    """Both instantiations of each whole-frame kernel (fast bits, and the
+    exact one with the exact epilogues in every body): at most 64
+    registers, no spill (local memory within the 128 B stack frame of the
+    ``Globals`` table), 4 blocks an SM at the corpus plan's shared
+    memory."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import ctypes
+    from yoloface_tpu_torch.kernels import _build
+    g = load_tflite(CORPUS)
+    smem = (max(arena.stage_smem(st)[0] for st in arena.build_arena_plan(g))
+            if kernel == "arena" else
+            max(st.smem_bytes for st in fused.build_fused_plan(g)))
+    out = (ctypes.c_int * 4)()
+    _build.check(getattr(_build.library(), f"yf_{kernel}_stage_attrs")(
+        exact, arena.THREADS, smem, out), "attributes")
+    regs, local, _, blocks = list(out)
+    assert regs <= 64 and local <= 128 and blocks >= 4, list(out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["arena", "fused", "perop"])
+def test_exact_programs_take_the_exact_instantiation_on_the_card(family):
+    """The corpus net's exact programs launch the kernel's exact
+    instantiation (every program with convs, ``Stage.exact_convs``) and
+    equal the plain version bit for bit at N = 1, 3 and 37; the fast
+    programs never launch it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = load_tflite(CORPUS)
+    planner, kernel, plain = {
+        "arena": (arena.ArenaPlan, arena.arena_stage,
+                  arena.arena_stage_plain),
+        "fused": (fused.FusedPlan, fused.fused_stage,
+                  fused.fused_stage_plain),
+        "perop": (perop.PerOpPlan, perop.perop_op, perop.perop_plain)}[family]
+    rng = np.random.default_rng(41)
+    for bits in ("fast", "exact"):
+        plan = planner(g, bits=bits).cuda()
+        want = sum(st.exact_convs for st in plan.stages)
+        assert (want > 0) == (bits == "exact")
+        for n in (1, 3, 37):
+            kernel.exact_launches = 0
+            env = {plan.input_idx: torch.from_numpy(rng.integers(
+                -128, 128, (n, 56, 56, 3)).astype(np.int8)).cuda()}
+            for k, st in enumerate(plan.stages):
+                ins = [env[i] for i in st.inputs]
+                outs = kernel(st, getattr(plan, f"descs{k}"),
+                              getattr(plan, f"consts{k}"), ins)
+                ref = [torch.empty_like(o) for o in outs]
+                plain(st, getattr(plan, f"consts{k}"), ins + ref)
+                for u, v in zip(outs, ref):
+                    assert torch.equal(u, v), (family, bits, n, k)
+                env.update(zip(st.outputs, outs))
+            assert kernel.exact_launches == want, (family, bits, n)
+
+
+@pytest.mark.gpu
+def test_head_kernels_on_tie_heavy_frames_on_the_card():
+    """The fused head (NMS on and off) and the top-K kernel (K = 1, 16,
+    32) equal their plain versions bit for bit on frames whose ranking
+    keys tie a lot (``tools/make_torch_port_golden.tie_heavy_heads``):
+    shared ranks and the lowest-index tie rule; with a negative scale too
+    (keys that fall as the confidence grows: the rank table's counting
+    form)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    y = torch.from_numpy(_golden_tool().tie_heavy_heads(4096)).cuda()
+    for scale in (0.14218327403068542, -0.14218327403068542):
+        kw = dict(scale=scale, zero_point=-15)
+        for nms in (True, False):
+            cfg = head.HeadConfig(apply_nms=nms)
+            for a, b in zip(head.detect_head(y, cfg=cfg, **kw),
+                            head.detect_head_plain(y, cfg=cfg, **kw)):
+                assert torch.equal(a, b), (scale, nms)
+        for k in (1, 16, 32):
+            assert torch.equal(head.topk_conf(y, k, **kw),
+                               head.topk_conf_plain(y, k, **kw)), (scale, k)

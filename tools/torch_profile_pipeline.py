@@ -199,7 +199,8 @@ def arena_breakdown(pipe, n: int, card: str, reps: int = 7) -> dict:
     def prefix_ms(k: int) -> float:
         return _event_ms(lambda: _build.check(lib.yf_arena_stage(
             descs.data_ptr(), k, consts.data_ptr(), ptrs, 2, n,
-            *arena.stage_smem(st), arena.THREADS, stream), "arena prefix"),
+            *arena.stage_smem(st), arena.THREADS, int(st.exact_convs),
+            stream), "arena prefix"),
             reps)
 
     rows, total = _descriptor_rows(st, prefix_ms)
@@ -229,7 +230,8 @@ def fused_breakdown(pipe, n: int, card: str, reps: int = 7) -> dict:
             return _event_ms(lambda: _build.check(lib.yf_fused_stage(
                 descs.data_ptr(), j, consts.data_ptr(), ptrs,
                 len(st.globals_), n, st.smem_bytes, st.arena_bytes,
-                arena.THREADS, stream), "fused prefix"), reps)
+                arena.THREADS, int(st.exact_convs), stream),
+                "fused prefix"), reps)
 
         rows, total = _descriptor_rows(st, prefix_ms)
         every += rows

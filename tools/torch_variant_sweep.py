@@ -23,7 +23,14 @@ compiled out, each with its stage time by op kind; ``add`` and
 ``quantize``, the per-op ADD kernel (``csrc/add_int8.cu``) and the
 QUANTIZE tables of ``csrc/eltwise_lut.cu``: tables against the
 arithmetic in registers, 2, 4 or 8 16-byte loads a thread in flight, 256
-or 512 threads a block).  The header
+or 512 threads a block; ``exact_epi``, the whole-frame kernels' exact
+epilogues: the fused leaky from the op's table against a second MBQM,
+``mbqm32`` against the 64-bit MBQM, a second instantiation against one
+kernel, the fast v1 leaky's table against its second rounding in floats;
+``head``, the head kernels' rank table and one ``redux.sync`` a round
+against float keys and shuffle rounds, 4, 8 or 16 frames a block, a
+key's anchor by a multiply or a division, the NMS's ballots apart from
+its keep chain).  The header
 holds only the shapes chosen (m16n8k16, one m16 by one n8 tile a warp
 item, 4 channels a depthwise thread, K padded as a whole, byte gathers,
 the register walk, direct reads); the others are built from the general
@@ -35,7 +42,7 @@ Usage (on the card, from the repository root)::
 
     python3 tools/torch_variant_sweep.py [copy] [pad] [mma] [mma_body]
         [arena_mma] [dw4] [fused_mma] [stem_mma] [pool] [bodies]
-        [add] [quantize]
+        [add] [quantize] [exact_epi] [head]
 
 Each variant is a copy of the kernel's source with one constant or
 condition rewritten, built with the library's ``nvcc`` flags into
@@ -58,7 +65,12 @@ time it at 16384 in fast and exact bits.  The ``add`` and ``quantize``
 variants hold each corpus ADD (QUANTIZE) program against its plain
 version on the inputs it is timed on, then time it at 16384 in device
 time behind a spin, in fast and exact bits, summed over the three ops.
-Imports no jax.
+The ``exact_epi`` variants run as ``arena_mma`` and ``fused_mma`` do, with
+the ``arena_exact`` and ``fused_exact`` pipelines, and on the per-op conv
+programs; the ``head`` variants hold each head kernel against its plain
+version on the corpus net's output and on a tie-heavy set
+(``tools/make_torch_port_golden.tie_heavy_heads``) at 16384 and time it
+there in device time behind a spin.  Imports no jax.
 """
 
 from __future__ import annotations
@@ -363,7 +375,10 @@ STAGE_BUILT = {"kStageBlocks": ("int", "4"),
                "kFusedConvEpis": ("unsigned", "1u << EPI_LEAKY_V1"),
                "kArenaDwEpis": ("unsigned", "1u << EPI_LEAKY_V2"),
                "kFusedMmaEpis": ("unsigned", "kV1Epis"),
-               "kFusedDwEpis": ("unsigned", "kV1Epis")}
+               "kFusedDwEpis": ("unsigned", "kV1Epis"),
+               "kTableEpis": ("unsigned", "(1u << EPI_LEAKY_EXACT) | "
+                                          "(1u << EPI_LEAKY_V1)"),
+               "kMbqm32": ("bool", "true")}
 EXACT_EPIS = "(1u << EPI_REQUANT_EXACT) | (1u << EPI_LEAKY_EXACT)"
 
 
@@ -656,17 +671,15 @@ def _wide_dw(words: int):
 
 # the arena kernel's conv bodies on pointers the compiler sees are in
 # shared memory (the arena's views: LDS/STS) instead of generic ones
-MMA_CALL = "yf::marked_conv_op<yf::kArenaMmaEpis, yf::kArenaConvEpis>"
-DW_CALL = "yf::dw_op<yf::kArenaDwEpis>"
+MMA_CALL = "yf::marked_conv_op<kMma, kConv, kExact>"
+DW_CALL = "yf::dw_op<kDw, kExact>"
 SHARED_VIEWS = [
-    (f"""        if (op.frag_off != 0)
-          {MMA_CALL}(op, in0,
-                                                                  out, consts);""",
-     f"""        if (op.frag_off != 0 && op.in0.space == 0 && op.out.space == 0)
-          {MMA_CALL}(op, arena + op.in0.offset, arena + op.out.offset,
-                     consts);
-        else if (op.frag_off != 0)
-          {MMA_CALL}(op, in0, out, consts);"""),
+    (f"""          {MMA_CALL}(op, in0, out, consts);""",
+     f"""          if (op.in0.space == 0 && op.out.space == 0)
+            {MMA_CALL}(op, arena + op.in0.offset,
+                       arena + op.out.offset, consts);
+          else
+            {MMA_CALL}(op, in0, out, consts);"""),
     (f"""        {DW_CALL}(op, in0, out, consts);""",
      f"""        if (op.in0.space == 0 && op.out.space == 0)
           {DW_CALL}(op, arena + op.in0.offset, arena + op.out.offset,
@@ -718,14 +731,18 @@ FUSED_MMA_VARIANTS = [
 
 
 def _stage_report(log: str, kernel: str) -> str:
-    """The compiler's registers and spills of a whole-frame kernel."""
+    """The compiler's registers and spills of a whole-frame kernel, each
+    instantiation's (the fast and exact ones of the stage kernels)."""
     lines = log.splitlines()
+    found = []
     for k, line in enumerate(lines):
         if "Compiling entry" in line and kernel in line:
             got = [s.split(":")[-1].strip() for s in lines[k + 1:k + 5]
                    if "Used" in s or "spill" in s]
-            return "; ".join(got)
-    return "?"
+            tag = ("exact: " if "ILb1E" in line else
+                   "fast: " if "ILb0E" in line else "")
+            found.append(tag + "; ".join(got))
+    return " | ".join(found) or "?"
 
 
 class Marks:
@@ -796,23 +813,25 @@ def _build_all(variants, source: str, entry: str):
 
 
 def _sweep_stage(dev, variants, tag: str, kernel: str = "arena",
-                 kinds: bool = False) -> None:
+                 kinds: bool = False, mode: str = None) -> None:
     """Each variant of the arena (or fused) kernel: its registers and
     spills, the corpus net's stages at 16384 in each bit semantics, held
     against the plain version on 37 frames first, and the ``arena2`` (or
-    ``fused``) pipeline at 65536, every launch through the variant; with
-    ``kinds``, also that pipeline's stage time by op kind at 16384
-    (``tools/torch_profile_pipeline.py``'s descriptor prefix times)."""
+    ``fused``; or ``mode``) pipeline at 65536, every launch through the
+    variant; with ``kinds``, also that pipeline's stage time by op kind at
+    16384 (``tools/torch_profile_pipeline.py``'s descriptor prefix
+    times)."""
     from yoloface_tpu_torch.kernels import arena, fused
     from yoloface_tpu_torch.pipeline.e2e import load_pipeline
     g = load_tflite(CORPUS)
     gen = torch.Generator(device=dev).manual_seed(0)
     if kernel == "arena":
         planner, bits_all = arena.ArenaPlan, arena.BITS
-        run, plain, mode = arena.arena_stage, arena.arena_stage_plain, "arena2"
+        run, plain = arena.arena_stage, arena.arena_stage_plain
     else:
         planner, bits_all = fused.FusedPlan, fused.BITS
-        run, plain, mode = fused.fused_stage, fused.fused_stage_plain, "fused"
+        run, plain = fused.fused_stage, fused.fused_stage_plain
+    mode = mode or {"arena": "arena2", "fused": "fused"}[kernel]
     x = torch.randint(-128, 128, (16384, 56, 56, 3), generator=gen,
                       device=dev, dtype=torch.int8)
     small = x[:37].contiguous()
@@ -1201,15 +1220,15 @@ POOL_PEROP_VARIANTS = [
 # unmarked on conv_op, the max-pools on maxpool_op), which the op kinds'
 # times (kinds) hold against the kernel as built
 MARKED_CONV = """  if (op.kh == 1 && op.kw == 1)
-    by_epilogue<kEpis1x1>(op.epi, Conv1x1Mma{op, in, out, consts});
+    by_epilogue<kEpis1x1, kOnly>(op.epi, Conv1x1Mma{op, in, out, consts});
   else
-    by_epilogue<kEpisFull>(op.epi, ConvMma{op, in, out, consts});"""
-FULL_1X1_SET = [(STAGE, MARKED_CONV, """  by_epilogue<kEpis1x1>(op.epi,
-                        ConvMma{op, in, out, consts});""")]
-FULL_FULL_SET = [(STAGE, MARKED_CONV, """  by_epilogue<kEpisFull>(op.epi,
-                         ConvMma{op, in, out, consts});""")]
-NO_FULL = [(STAGE, MARKED_CONV, """  by_epilogue<kEpis1x1>(op.epi,
-                        Conv1x1Mma{op, in, out, consts});""")]
+    by_epilogue<kEpisFull, kOnly>(op.epi, ConvMma{op, in, out, consts});"""
+FULL_1X1_SET = [(STAGE, MARKED_CONV, """  by_epilogue<kEpis1x1, kOnly>(op.epi,
+                               ConvMma{op, in, out, consts});""")]
+FULL_FULL_SET = [(STAGE, MARKED_CONV, """  by_epilogue<kEpisFull, kOnly>(op.epi,
+                                ConvMma{op, in, out, consts});""")]
+NO_FULL = [(STAGE, MARKED_CONV, """  by_epilogue<kEpis1x1, kOnly>(op.epi,
+                               Conv1x1Mma{op, in, out, consts});""")]
 MARK_MMA = arena.mark_mma
 
 
@@ -1428,6 +1447,251 @@ def sweep_quantize(dev) -> None:
                 "requantize_int8", "quantize")
 
 
+# The exact epilogues of the whole-frame kernels (B3 in B2, B7 and the
+# per-op programs): the exact instantiation as built (kExactEpis in every
+# body, the fused leaky's half from the op's table, mbqm32) against the
+# leaky by a second MBQM, the 64-bit MBQM, both (the arithmetic PR 14 had,
+# in the exact instantiation), the exact epilogues compiled into the fast
+# instantiation (one kernel, no second), PR 14's form (one kernel, the
+# exact epilogues at run time), and the fast v1 leaky by its second
+# rounding in floats instead of the table.
+ONE_KERNEL = {"arena": [("arena_stage.cu", "  auto kernel = exact ? "
+                         "arena_stage_kernel<true> : arena_stage_kernel<false>;",
+                         "  auto kernel = arena_stage_kernel<false>;")],
+              "fused": [("fused_stage.cu", "  auto kernel = exact ? "
+                         "fused_stage_kernel<true> : fused_stage_kernel<false>;",
+                         "  auto kernel = fused_stage_kernel<false>;")]}
+V1_TABLE = "1u << EPI_LEAKY_V1"          # the exact leaky by arithmetic
+EXACT_TABLE = "1u << EPI_LEAKY_EXACT"    # the v1 leaky by arithmetic
+
+
+def _exact_epi_variants(kernel: str):
+    k = "Arena" if kernel == "arena" else "Fused"
+    sets = {f"k{k}{b}Epis": f"{STAGE_BUILT[f'k{k}{b}Epis'][1]} | kExactEpis"
+            for b in ("Mma", "Conv", "Dw")}
+    return [
+        ("as built (the exact instantiation, the leaky from the op's table, "
+         "mbqm32; the v1 leaky from a table)", {}),
+        ("the leaky by a second MBQM", dict(kTableEpis=V1_TABLE)),
+        ("the 64-bit MBQM", dict(kMbqm32="false")),
+        ("the leaky by a second MBQM, the 64-bit MBQM",
+         dict(kTableEpis=V1_TABLE, kMbqm32="false")),
+        ("one kernel: the exact epilogues compiled into the fast "
+         "instantiation", sets, ONE_KERNEL[kernel]),
+        ("one kernel, the exact epilogues at run time (PR 14's form)",
+         ONE_KERNEL[kernel]),
+        ("the v1 leaky by its second rounding in floats",
+         dict(kTableEpis=EXACT_TABLE)),
+        ("as built, again", {}),
+    ]
+
+
+def sweep_exact_epi(dev) -> None:
+    _sweep_stage(dev, _exact_epi_variants("arena"), "exact_epi",
+                 mode="arena_exact")
+    _sweep_stage(dev, _exact_epi_variants("fused"), "exact_epi", "fused",
+                 mode="fused_exact")
+    _sweep_perop(dev, _exact_epi_variants("fused"), "exact_epi",
+                 ("conv1x1", "conv3x3", "dwconv3x3"))
+
+
+# The head (B4 detect_head.cu, B5 topk_conf.cu, on topk.cuh): the rank
+# table and one redux.sync a round as built (16 frames a block, a key's
+# anchor by a multiply), at 4 and 8 frames a block, the anchor by a
+# division, against the float keys from the table with PR 14's shuffle
+# rounds, PR 14's form (each lane's keys by sigm, the shuffle rounds),
+# and, for the fused head, the NMS's overlap ballots taken apart from its
+# keep chain (each round's ballot independent of the kept boxes, then the
+# greedy chain on bit masks through shared memory).
+FLOAT_TOPK = r"""// Lane `lane`'s float keys from the block's table: key[j] is flat cell
+// lane + 32*j; padding slots sit below every real key.
+__device__ __forceinline__ void load_keys(const int8_t* y, int lane,
+                                          int cells, int c6, int n_keys,
+                                          const float* tkey,
+                                          float (&key)[kKeysPerLane]) {
+#pragma unroll
+  for (int j = 0; j < kKeysPerLane; ++j) {
+    const int f = lane + 32 * j;
+    key[j] = -2.0f;
+    if (f < n_keys) {
+      const int an = f / cells, rc = f % cells;
+      key[j] = tkey[y[rc * c6 + an * 6 + 4] + 128];
+    }
+  }
+}
+"""
+SIGM_KEYS = r"""// Lane `lane`'s keys of frame `y`, each by sigm (PR 14's form).
+__device__ __forceinline__ void load_keys(const int8_t* y, int lane,
+                                          int cells, int c6, int n_keys,
+                                          float zp, float scale, float thr,
+                                          float (&key)[kKeysPerLane]) {
+#pragma unroll
+  for (int j = 0; j < kKeysPerLane; ++j) {
+    const int f = lane + 32 * j;
+    key[j] = -2.0f;
+    if (f < n_keys) {
+      const int an = f / cells, rc = f % cells;
+      const float q = static_cast<float>(y[rc * c6 + an * 6 + 4]);
+      const float cf = sigm(__fmul_rn(__fsub_rn(q, zp), scale));
+      key[j] = cf >= thr ? cf : 0.0f;
+    }
+  }
+}
+"""
+FLOAT_ROUNDS = r"""// K masked-argmax rounds over the warp's float keys, 5 shuffle pairs a
+// round (PR 14's form).
+__device__ __forceinline__ int warp_topk(float (&key)[kKeysPerLane], int lane,
+                                         int k) {
+  int mine = 0;
+  for (int kk = 0; kk < k; ++kk) {
+    float best = -3.0f;
+    int bi = 1 << 30;
+#pragma unroll
+    for (int j = 0; j < kKeysPerLane; ++j) {
+      if (key[j] > best) {
+        best = key[j];
+        bi = lane + 32 * j;
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float ob = __shfl_xor_sync(kFull, best, off);
+      const int oi = __shfl_xor_sync(kFull, bi, off);
+      if (ob > best || (ob == best && oi < bi)) {
+        best = ob;
+        bi = oi;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kKeysPerLane; ++j)
+      if (lane + 32 * j == bi) key[j] = -1.0f;
+    if (lane == kk) mine = bi;
+  }
+  return mine;
+}
+
+}  // namespace yf
+"""
+TOPK_TAIL = "// Lane `lane`'s candidates of frame `y`"
+
+
+def _topk_tail(text: str):
+    """The substitution of topk.cuh's load_keys and warp_topk by ``text``."""
+    src = (_build.CSRC / "topk.cuh").read_text()
+    return ("topk.cuh", src[src.index(TOPK_TAIL):], text)
+
+
+def _float_keys(source: str, sigm: bool):
+    subs = [_topk_tail((SIGM_KEYS if sigm else FLOAT_TOPK) + "\n"
+                       + FLOAT_ROUNDS),
+            (source, "  unsigned key[yf::kKeysPerLane];",
+             "  float key[yf::kKeysPerLane];")]
+    call = ("(yq, lane, cells, c6, n_keys, table.hi, key)"
+            if source == "detect_head.cu" else
+            "(y + frame * cells * c6, lane, cells, c6, cells * a, table.hi,\n"
+            "                key)")
+    new = call.replace("table.hi", "zp, scale, thr" if sigm else "table.key")
+    subs.append((source, f"yf::load_keys{call}", f"yf::load_keys{new}"))
+    if sigm:
+        subs.append((source, "  __shared__ yf::RankTable table;\n"
+                     "  yf::build_rank_table(table, zp, scale, thr);\n", ""))
+    return subs
+
+
+NMS_BUILT = """      const unsigned any = __ballot_sync(kFull, over);
+      if (lane == i) keep = keep && any == 0u;
+    }
+  }"""
+NMS_APART = """      const unsigned any = __ballot_sync(kFull, over);
+      if (lane == 0) over_of[threadIdx.x >> 5][i] = any;
+    }
+    __syncwarp();
+    const unsigned valid = __ballot_sync(kFull, keep);
+    unsigned kept = valid & 1u;
+    for (int i = 1; i < k; ++i)
+      if (((valid >> i) & 1u) && (over_of[threadIdx.x >> 5][i] & kept) == 0u)
+        kept |= 1u << i;
+    keep = ((kept >> lane) & 1u) != 0u;
+  }"""
+NMS_SUBS = [("detect_head.cu", NMS_BUILT, NMS_APART),
+            ("detect_head.cu", "        over = iou > iou_thr && keep;",
+             "        over = iou > iou_thr;"),
+            ("detect_head.cu", """  if (apply_nms) {
+    const float area""", """  __shared__ unsigned over_of[kWarpsPerBlock][32];
+  if (apply_nms) {
+    const float area""")]
+
+
+def _warps(source: str, w: int):
+    return [(source, "constexpr int kWarpsPerBlock = 16;",
+             f"constexpr int kWarpsPerBlock = {w};")]
+
+
+DIVIDE = [("topk.cuh", """      const int an = cells > 1 ? static_cast<int>(__umulhi(
+                                     static_cast<unsigned>(f), magic))
+                               : f;
+      const int rc = f - an * cells;""", """      const int an = f / cells, rc = f % cells;""")]
+
+
+def _head_variants(source: str):
+    v = [("as built (the rank table, one redux.sync a round, 16 frames a "
+          "block, the anchor by a multiply)", []),
+         ("4 frames a block", _warps(source, 4)),
+         ("8 frames a block", _warps(source, 8)),
+         ("the anchor by a division", DIVIDE),
+         ("the float keys from the table, shuffle rounds",
+          _float_keys(source, False)),
+         ("PR 14's form (each lane's keys by sigm, shuffle rounds)",
+          _float_keys(source, True))]
+    if source == "detect_head.cu":
+        v += [("the NMS ballots apart from its keep chain", NMS_SUBS)]
+    return v + [("as built, again", [])]
+
+
+def sweep_head(dev) -> None:
+    from yoloface_tpu_torch.kernels import head as khead
+    from yoloface_tpu_torch.kernels.preprocess import preprocess_rgb565
+    from yoloface_tpu_torch.pipeline.e2e import load_pipeline
+    n = 16384
+    pipe = load_pipeline(CORPUS, mode="arena2", device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    frames = torch.randint(-1 << 15, 1 << 15, (n, 112, 112), generator=gen,
+                           device=dev, dtype=torch.int16).view(torch.uint16)
+    kw = dict(scale=pipe._out_scale, zero_point=pipe._out_zp)
+    import make_torch_port_golden as golden
+    heads = {"net": pipe.engine(preprocess_rgb565(frames)),
+             "tie-heavy": torch.from_numpy(golden.tie_heavy_heads(n)).to(dev)}
+    lib = _build.library()
+    for source, entry, call, plain in (
+            ("detect_head.cu", "yf_detect_head",
+             lambda y: khead.detect_head(y, **kw),
+             lambda y: khead.detect_head_plain(y, **kw)),
+            ("topk_conf.cu", "yf_topk_conf",
+             lambda y: (khead.topk_conf(y, 16, **kw),),
+             lambda y: (khead.topk_conf_plain(y, 16, **kw),))):
+        variants = _head_variants(source)
+        built = getattr(lib, entry)
+        libs = _build_all(variants, source, entry)
+        kernel = entry[3:] + "_kernel"
+        for (label, *_), (vlib, name, log) in zip(variants, libs):
+            fn = getattr(vlib, name)
+            fn.argtypes = _build.SIGNATURES[entry]
+            fn.restype = ctypes.c_int
+            setattr(lib, entry, fn)
+            try:
+                line = []
+                for what, y in heads.items():
+                    for u, v in zip(call(y), plain(y)):
+                        same(u, v, f"head {label} {entry} {what}")
+                    ms = time_ms(lambda y=y: call(y), dev, 10)
+                    line.append(f"{what} {ms:.4f}")
+            finally:
+                setattr(lib, entry, built)
+            print(f"[sweep] head {entry[3:]} {label}: ms at {n}: "
+                  f"{', '.join(line)} (ptxas: {_stage_report(log, kernel)})",
+                  flush=True)
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("torch_variant_sweep: no CUDA device", file=sys.stderr)
@@ -1444,7 +1708,8 @@ def main(argv) -> int:
               "dw4": sweep_dw4, "fused_mma": sweep_fused_mma,
               "stem_mma": sweep_stem_mma, "pool": sweep_pool,
               "bodies": sweep_bodies, "add": sweep_add,
-              "quantize": sweep_quantize}
+              "quantize": sweep_quantize, "exact_epi": sweep_exact_epi,
+              "head": sweep_head}
     for name in argv or list(sweeps):
         sweeps[name](dev)
     return 0

@@ -3,9 +3,11 @@
 //
 // Replaces yoloface_tpu/kernels/pallas_arena.py::_build_stage (the stage
 // kernel planned by build_arena_plan over lower_arena_ops), with the
-// epilogues of pallas_int8.py::apply_requant_leaky inside it (epilogue.cuh):
-// one kernel for the fast2, fast (v1) and exact bit semantics, chosen per
-// op by the descriptor's epilogue code.  The host planner and the plain
+// epilogues of pallas_int8.py::apply_requant_leaky inside it (epilogue.cuh,
+// stage_ops.cuh): one kernel for the fast2, fast (v1) and exact bit
+// semantics, chosen per op by the descriptor's epilogue code, built twice
+// (a fast instantiation and an exact one, whose bodies know the exact
+// epilogues; the host picks by the program).  The host planner and the plain
 // version of this kernel are in kernels/arena.py; the op bodies and the Op
 // layout (its FIELDS tuple) are in arena_ops.cuh, shared with the tiled
 // section kernel.  Besides the conv, depthwise, max-pool, ADD, QUANTIZE
@@ -42,10 +44,16 @@ namespace {
 using yf::Globals;
 using yf::Op;
 
+// kExact: the exact instantiation (every body compiled with the exact
+// epilogues, stage_ops.cuh kExactEpis), else the fast one (the fast sets).
+template <bool kExact>
 __global__ void __launch_bounds__(yf::kStageThreads, yf::kStageBlocks)
     arena_stage_kernel(const Op* __restrict__ ops, int n_ops,
                        const uint8_t* __restrict__ consts, Globals g,
                        int scratch_off) {
+  constexpr unsigned kMma = kExact ? yf::kExactEpis : yf::kArenaMmaEpis;
+  constexpr unsigned kConv = kExact ? yf::kExactEpis : yf::kArenaConvEpis;
+  constexpr unsigned kDw = kExact ? yf::kExactEpis : yf::kArenaDwEpis;
   extern __shared__ __align__(16) int8_t arena[];
   const long long frame = blockIdx.x;
   for (int i = 0; i < n_ops; ++i) {
@@ -54,14 +62,16 @@ __global__ void __launch_bounds__(yf::kStageThreads, yf::kStageBlocks)
     int8_t* out = yf::base(op.out, arena, g, frame);
     switch (op.code) {   // the whole frame: rows [0, out.h), held from 0
       case yf::CONV:     // a marked conv on the tensor cores
-        if (op.frag_off != 0)
-          yf::marked_conv_op<yf::kArenaMmaEpis, yf::kArenaConvEpis>(op, in0,
-                                                                  out, consts);
-        else
+        if (op.frag_off != 0) {
+          yf::conv_table<(kMma | kConv) & yf::kTableEpis>(op);
+          yf::marked_conv_op<kMma, kConv, kExact>(op, in0, out, consts);
+        } else {
           yf::conv_op<false>(op, in0, 0, out, 0, op.out.h, consts);
+        }
         break;
       case yf::DW:
-        yf::dw_op<yf::kArenaDwEpis>(op, in0, out, consts);
+        yf::conv_table<kDw & yf::kTableEpis>(op);
+        yf::dw_op<kDw, kExact>(op, in0, out, consts);
         break;
       case yf::MAXPOOL:  // no room for the scratch: the full-window body
         if (scratch_off != 0)
@@ -78,7 +88,7 @@ __global__ void __launch_bounds__(yf::kStageThreads, yf::kStageBlocks)
         break;
       case yf::LEAKY:
       case yf::ACT:
-        yf::table_op(op, in0, out, op.out.h);
+        yf::stage_table_op(op, in0, out, op.out.h);
         break;
       case yf::RESIZE:
         yf::resize_op(op, in0, 0, out, 0, op.out.h);
@@ -102,11 +112,12 @@ __global__ void __launch_bounds__(yf::kStageThreads, yf::kStageBlocks)
 
 // `smem_bytes` of dynamic shared memory a block: the arena, then from
 // `scratch_off` the max-pools' scratch (kernels/arena.py stage_smem; 0: no
-// scratch, the max-pools take the full-window body).
+// scratch, the max-pools take the full-window body).  `exact`: launch the
+// exact instantiation (kernels/arena.py Stage.exact_convs).
 extern "C" int yf_arena_stage(const void* descs, int n_ops, const void* consts,
                               const void* host_ptrs, int n_globals,
                               int n_frames, int smem_bytes, int scratch_off,
-                              int threads, void* stream) {
+                              int threads, int exact, void* stream) {
   if (n_globals > yf::kMaxGlobals)
     return static_cast<int>(cudaErrorInvalidValue);
   Globals g = {};
@@ -114,21 +125,23 @@ extern "C" int yf_arena_stage(const void* descs, int n_ops, const void* consts,
       static_cast<const unsigned long long*>(host_ptrs);
   for (int i = 0; i < n_globals; ++i)
     g.p[i] = reinterpret_cast<int8_t*>(p[i]);
-  cudaFuncSetAttribute(arena_stage_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+  auto kernel = exact ? arena_stage_kernel<true> : arena_stage_kernel<false>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        smem_bytes);
-  arena_stage_kernel<<<n_frames, threads, smem_bytes,
-                       static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<n_frames, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const Op*>(descs), n_ops,
       static_cast<const uint8_t*>(consts), g, scratch_off);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The kernel as the build compiled it: registers a thread, local bytes a
-// thread (its stack frame, spills included), static shared bytes, and the
-// blocks of `threads` threads with `smem_bytes` of dynamic shared memory an
-// SM holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into
-// out[0..3].
-extern "C" int yf_arena_stage_attrs(int threads, int smem_bytes, int* out) {
-  return yf::kernel_attrs(arena_stage_kernel, threads, smem_bytes, out);
+// The instantiation `exact` as the build compiled it: registers a thread,
+// local bytes a thread (its stack frame, spills included), static shared
+// bytes, and the blocks of `threads` threads with `smem_bytes` of dynamic
+// shared memory an SM holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into out[0..3].
+extern "C" int yf_arena_stage_attrs(int exact, int threads, int smem_bytes,
+                                    int* out) {
+  return yf::kernel_attrs(
+      exact ? arena_stage_kernel<true> : arena_stage_kernel<false>, threads,
+      smem_bytes, out);
 }

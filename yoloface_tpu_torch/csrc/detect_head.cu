@@ -1,19 +1,23 @@
 // The whole YOLO head in one kernel: top-K, decode and greedy NMS.
 //
 // Replaces yoloface_tpu/kernels/pallas_head.py::detect_head_fused.  One
-// warp a frame.  The top-K selection (ranking key and tie rule) is the
-// shared one of topk.cuh.  Lane k then decodes survivor k, and NMS walks
-// the K candidates in rank order with one ballot each.  Plain version:
-// kernels/head.py::
+// warp a frame, kWarpsPerBlock frames a block.  The top-K selection
+// (ranking key and tie rule) is the shared one of topk.cuh: the block
+// builds the confidences' rank table once, each lane reads its 8
+// candidates from it, and each of the K rounds is one redux.sync.  Lane k
+// then decodes survivor k, and NMS walks the K candidates in rank order
+// with one ballot each.  Plain version: kernels/head.py::
 // detect_head_plain, which the card compares bit for bit: expf and the
 // float divisions are the IEEE library ones (no fast math), each product
 // and sum rounded apart as torch computes them.
 //
 // What bounds it on the card: latency of the K = 16 dependent warp
-// reductions (5 shuffles each) and of 16 expf a frame; it reads 882 bytes
-// and writes 336 a frame.  What the design does about it: a frame never
-// leaves its warp's registers, and four frames share a block, so enough
-// warps are resident to hide the shuffle latency.
+// reductions, of the decode's expf and divisions and of the NMS's 15
+// ballots; it reads 882 bytes and writes 336 a frame.  What the design
+// does about it: a frame never leaves its warp's registers, no lane
+// computes a ranking key (the table), a round of the top-K is one
+// instruction across the warp, and several frames share a block (and its
+// table), so enough warps are resident to hide the latency.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -24,7 +28,9 @@ namespace {
 
 using yf::kFull;
 using yf::sigm;
-constexpr int kWarpsPerBlock = 4;
+// frames a block (a block builds the rank table once; 4 and 8 ran
+// 1-3% slower: tools/torch_variant_sweep.py head)
+constexpr int kWarpsPerBlock = 16;
 
 struct Anchors {
   float w[4], h[4];
@@ -41,6 +47,8 @@ __global__ void detect_head_kernel(const int8_t* __restrict__ y,
                                    int a, int k, float scale, float zp,
                                    float thr, float iou_thr, float stride,
                                    float lim, int apply_nms, Anchors anc) {
+  __shared__ yf::RankTable table;
+  yf::build_rank_table(table, zp, scale, thr);
   const long long frame =
       (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
@@ -48,8 +56,8 @@ __global__ void detect_head_kernel(const int8_t* __restrict__ y,
   const int cells = g * g, c6 = a * 6, n_keys = cells * a;
   const int8_t* yq = y + frame * cells * c6;  // this frame
 
-  float key[yf::kKeysPerLane];
-  yf::load_keys(yq, lane, cells, c6, n_keys, zp, scale, thr, key);
+  unsigned key[yf::kKeysPerLane];
+  yf::load_keys(yq, lane, cells, c6, n_keys, table.hi, key);
   const int mine = yf::warp_topk(key, lane, k);  // lane kk: survivor kk
 
   float x1 = 0.f, y1 = 0.f, x2 = 0.f, y2 = 0.f, cf = 0.f;

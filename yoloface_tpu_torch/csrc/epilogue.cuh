@@ -10,7 +10,10 @@
 //
 // What bounds these on the card: nothing of their own -- a few ALU ops per
 // output element inside the stage kernel (the exact MBQM: one 64-bit
-// multiply, two adds and two shifts).  What the design does about bits:
+// multiply, two adds and two shifts; the whole-frame kernels' exact
+// instantiation takes mbqm32, its 32-bit halves, and reads the exact fused
+// leaky from a 256-entry table of leaky_exact: stage_ops.cuh).  What the
+// design does about bits:
 //  * fast: every product and sum is a separately rounded __fmul_rn /
 //    __fadd_rn (and the library builds with -fmad=false), so no FMA
 //    contraction changes a rounding; __float2int_rn rounds half to even
@@ -104,6 +107,31 @@ __device__ __forceinline__ int mbqm(int x, int qm, int shift) {
   long long mag = (p + (1LL << 30) - (neg ? 1 : 0)) >> 31;
   mag = (mag + ((1LL << right) >> 1)) >> right;
   return static_cast<int>(neg ? -mag : mag);
+}
+
+// mbqm in 32-bit halves, for the planner's domain only: x << left fits
+// int32 (specs.check_exact_domain), so |x << left| <= 2**31 is one
+// unsigned word, and its product with qm < 2**31 is the two words
+// (__umulhi, the low product).  The SRDHM's rounding add carries into the
+// high word, its >> 31 is one funnel shift, and the RDivPOT of a value
+// below 2**31 + 2**30 stays in 32 bits.  The bits of mbqm there
+// (tests/test_torch_exact_epilogue.py holds a numpy mirror of these steps
+// against core/fixedpoint.mbqm_numpy on every accumulator of the repo's
+// graphs).
+__device__ __forceinline__ int mbqm32(int x, int qm, int shift) {
+  const int left = shift > 0 ? shift : 0;
+  const int right = shift > 0 ? 0 : -shift;
+  const int xs = static_cast<int>(static_cast<unsigned>(x) << left);
+  const bool neg = xs < 0;
+  const unsigned m = neg ? 0u - static_cast<unsigned>(xs)
+                         : static_cast<unsigned>(xs);
+  const unsigned q = static_cast<unsigned>(qm);
+  const unsigned lo = m * q, hi = __umulhi(m, q);
+  const unsigned lo2 = lo + ((1u << 30) - (neg ? 1u : 0u));
+  const unsigned hi2 = hi + (lo2 < lo ? 1u : 0u);
+  unsigned mag = __funnelshift_r(lo2, hi2, 31);      // (p + add) >> 31
+  mag = (mag + ((1u << right) >> 1)) >> right;
+  return neg ? -static_cast<int>(mag) : static_cast<int>(mag);
 }
 
 __device__ __forceinline__ int clip_i8(int v) { return min(max(v, -128), 127); }

@@ -33,7 +33,8 @@
 // channels a thread, and the max-pools on 4-channel words as a row pass
 // and a column pass through a scratch after the values (kw + kh compares
 // a word instead of kh * kw a byte) (stage_ops.cuh, shared with the arena
-// stage kernel).
+// stage kernel).  Like the arena kernel it is built twice, a fast and an
+// exact instantiation (stage_ops.cuh kExactEpis).
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -46,10 +47,16 @@ namespace {
 using yf::Globals;
 using yf::Op;
 
+// kExact: the exact instantiation (every body compiled with the exact
+// epilogues, stage_ops.cuh kExactEpis), else the fast one (the fast sets).
+template <bool kExact>
 __global__ void __launch_bounds__(yf::kStageThreads, yf::kStageBlocks)
     fused_stage_kernel(const Op* __restrict__ ops, int n_ops,
                        const uint8_t* __restrict__ consts, Globals g,
                        int scratch_off) {
+  constexpr unsigned kMma = kExact ? yf::kExactEpis : yf::kFusedMmaEpis;
+  constexpr unsigned kConv = kExact ? yf::kExactEpis : yf::kFusedConvEpis;
+  constexpr unsigned kDw = kExact ? yf::kExactEpis : yf::kFusedDwEpis;
   extern __shared__ __align__(16) int8_t smem[];
   const long long frame = blockIdx.x;
   for (int i = 0; i < n_ops; ++i) {
@@ -58,14 +65,16 @@ __global__ void __launch_bounds__(yf::kStageThreads, yf::kStageBlocks)
     int8_t* out = yf::base(op.out, smem, g, frame);
     switch (op.code) {   // the whole frame: rows [0, out.h), held from 0
       case yf::CONV:     // a marked conv on the tensor cores
-        if (op.frag_off != 0)
-          yf::marked_conv_op<yf::kFusedMmaEpis, yf::kFusedConvEpis>(op, in0,
-                                                                  out, consts);
-        else
+        if (op.frag_off != 0) {
+          yf::conv_table<(kMma | kConv) & yf::kTableEpis>(op);
+          yf::marked_conv_op<kMma, kConv, kExact>(op, in0, out, consts);
+        } else {
           yf::conv_op<false>(op, in0, 0, out, 0, op.out.h, consts);
+        }
         break;
       case yf::DW:
-        yf::dw_op<yf::kFusedDwEpis>(op, in0, out, consts);
+        yf::conv_table<kDw & yf::kTableEpis>(op);
+        yf::dw_op<kDw, kExact>(op, in0, out, consts);
         break;
       case yf::MAXPOOL: {  // a per-op input staged first, then the scratch
         int8_t* scratch = smem + scratch_off;
@@ -85,7 +94,7 @@ __global__ void __launch_bounds__(yf::kStageThreads, yf::kStageBlocks)
         break;
       case yf::LEAKY:
       case yf::ACT:
-        yf::table_op(op, in0, out, op.out.h);
+        yf::stage_table_op(op, in0, out, op.out.h);
         break;
       case yf::RESIZE:
         yf::resize_op(op, in0, 0, out, 0, op.out.h);
@@ -100,10 +109,12 @@ __global__ void __launch_bounds__(yf::kStageThreads, yf::kStageBlocks)
 
 }  // namespace
 
+// `exact`: launch the exact instantiation (kernels/arena.py
+// Stage.exact_convs).
 extern "C" int yf_fused_stage(const void* descs, int n_ops, const void* consts,
                               const void* host_ptrs, int n_globals,
                               int n_frames, int smem_bytes, int scratch_off,
-                              int threads, void* stream) {
+                              int threads, int exact, void* stream) {
   if (n_globals > yf::kMaxGlobals)
     return static_cast<int>(cudaErrorInvalidValue);
   Globals g = {};
@@ -111,18 +122,21 @@ extern "C" int yf_fused_stage(const void* descs, int n_ops, const void* consts,
       static_cast<const unsigned long long*>(host_ptrs);
   for (int i = 0; i < n_globals; ++i)
     g.p[i] = reinterpret_cast<int8_t*>(p[i]);
+  auto kernel = exact ? fused_stage_kernel<true> : fused_stage_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      fused_stage_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  fused_stage_kernel<<<n_frames, threads, smem_bytes,
-                       static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<n_frames, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const Op*>(descs), n_ops,
       static_cast<const uint8_t*>(consts), g, scratch_off);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The kernel as the build compiled it (yf_arena_stage_attrs' fields).
-extern "C" int yf_fused_stage_attrs(int threads, int smem_bytes, int* out) {
-  return yf::kernel_attrs(fused_stage_kernel, threads, smem_bytes, out);
+// The instantiation `exact` as the build compiled it (yf_arena_stage_attrs'
+// fields).
+extern "C" int yf_fused_stage_attrs(int exact, int threads, int smem_bytes,
+                                    int* out) {
+  return yf::kernel_attrs(
+      exact ? fused_stage_kernel<true> : fused_stage_kernel<false>, threads,
+      smem_bytes, out);
 }

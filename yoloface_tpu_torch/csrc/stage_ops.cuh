@@ -67,6 +67,25 @@
 // rows in registers lost to the row and column passes
 // (tools/torch_variant_sweep.py arena_mma, dw4, stem_mma, pool; PERF.md
 // section 6).
+//
+// The exact epilogues (the counterpart of the exact branch of
+// yoloface_tpu/kernels/pallas_int8.py::apply_requant_leaky, :342-396):
+// each whole-frame kernel is built twice, a template on its bit family:
+// the fast instantiation with the fast sets below, and the exact one with
+// kExactEpis in every body and no other epilogue (one outside it traps).
+// The host launches the exact one for a program whose convs all carry
+// exact epilogues (kernels/arena.py Stage.exact_convs), so no conv element
+// of an exact program takes a run-time switch.  An exact fused conv+leaky
+// costs one MBQM (the conv's requant),
+// a clip and a byte of the op's 256-entry table: the leaky's input is the
+// conv's int8 output, so the leaky is a function of 256 values, which
+// conv_table fills with epilogue.cuh's leaky_exact before the body runs
+// (the bits equal by construction).  The fast v1 fused leaky (the conv's
+// rounding, then the leaky's) takes the same table, filled by leaky_v1,
+// in the fast instantiation's bodies that know it.  The byte-view
+// depthwise conv (the corpus's 18-channel stride-2 one) takes dw_bytes_op
+// with its epilogue known in the exact instantiation, conv_op<true> in the
+// fast one.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -78,25 +97,39 @@
 namespace yf {
 
 // The epilogues (bit kEpi set) for which each body is compiled with its
-// epilogue known (conv_epilogue_as<kEpi>: no per-element switch, and the
+// epilogue known (epilogue<kEpi>: no per-element switch, and the
 // elements' epilogues interleave); the others take conv_epilogue at run
-// time.  Interleaving takes registers, so each kernel has its own sets,
-// the largest that keep it at 64 registers without a spill, chosen by
-// tools/torch_variant_sweep.py arena_mma, fused_mma and stem_mma (PERF.md
-// section 6): the arena kernel (fast2, fast and exact bits) compiles the
-// fast epilogues into its 1x1 body and the fast2 fused leaky (v2) into its
-// depthwise and full-window bodies; the fused kernel (fast and exact bits)
-// the fast ones (requant, v1 fused leaky) into its 1x1 and depthwise
-// bodies and the v1 fused leaky into its full-window body (the stem's
-// epilogue in its fast bits).  With more, both spill.
+// time.  Interleaving takes registers, so each kernel's fast
+// instantiation has its own sets, the largest that keep it at 64
+// registers without a spill, chosen by tools/torch_variant_sweep.py
+// arena_mma, fused_mma and stem_mma (PERF.md section 6): the arena kernel
+// (fast2 and fast bits) compiles the fast epilogues into its 1x1 body and
+// the fast2 fused leaky (v2) into its depthwise and full-window bodies;
+// the fused kernel (fast bits) the fast ones (requant, v1 fused leaky)
+// into its 1x1 and depthwise bodies and the v1 fused leaky into its
+// full-window body (the stem's epilogue in its fast bits).  With more,
+// both spill.  The exact instantiations compile kExactEpis into every
+// body and nothing else (tools/torch_variant_sweep.py exact_epi).
 constexpr unsigned kV1Epis = (1u << EPI_REQUANT) | (1u << EPI_LEAKY_V1);
 constexpr unsigned kFastEpis = kV1Epis | (1u << EPI_LEAKY_V2);
+// the exact instantiation's set, in every body of both kernels
+constexpr unsigned kExactEpis =
+    (1u << EPI_REQUANT_EXACT) | (1u << EPI_LEAKY_EXACT);
 constexpr unsigned kArenaMmaEpis = kFastEpis;          // arena_stage.cu
 constexpr unsigned kArenaConvEpis = 1u << EPI_LEAKY_V2;
 constexpr unsigned kArenaDwEpis = 1u << EPI_LEAKY_V2;
 constexpr unsigned kFusedMmaEpis = kV1Epis;            // fused_stage.cu
 constexpr unsigned kFusedConvEpis = 1u << EPI_LEAKY_V1;
 constexpr unsigned kFusedDwEpis = kV1Epis;
+// the fused conv+leaky epilogues whose leaky half a body with its epilogue
+// known reads from the op's table: the exact one (the second MBQM took
+// 25-28% more stage time) and the fast v1 one (2-5% less than its second
+// rounding in floats; tools/torch_variant_sweep.py exact_epi, PERF.md
+// section 6)
+constexpr unsigned kTableEpis = (1u << EPI_LEAKY_EXACT) | (1u << EPI_LEAKY_V1);
+// the exact epilogues' MBQM: mbqm32 (32-bit halves) or mbqm (64-bit, 0-9%
+// more time on the exact stages and per-op convs: the sweep above)
+constexpr bool kMbqm32 = true;
 // the whole-frame kernels' launch bounds: kernels/arena.py THREADS a
 // block, and the fewest blocks an SM their registers must allow (4: 64
 // registers, as the kernels had before these bodies; the corpus arena's
@@ -108,21 +141,81 @@ constexpr int kStageBlocks = 4;
 // kEpi for an epilogue chosen element by element at run time
 constexpr int kAnyEpi = -1;
 
-// The epilogue kEpi, or conv_epilogue's run-time choice at kAnyEpi.
+// The whole-frame kernels' 256-entry table of the op running: a standalone
+// LEAKY / RELU / RELU6 / LOGISTIC (stage_table_op), or the leaky half of a
+// fused conv+leaky whose epilogue is in kTableEpis (conv_table).  One
+// static array serves both, so the kernels' static shared memory stays
+// kTableBytes (kernels/arena.py TABLE_BYTES).
+static __shared__ int8_t stage_lut[kTableBytes];
+
+__device__ __forceinline__ int stage_mbqm(int x, int qm, int shift) {
+  if constexpr (kMbqm32)
+    return mbqm32(x, qm, shift);
+  else
+    return mbqm(x, qm, shift);
+}
+
+// The epilogue kEpi, or conv_epilogue's run-time choice at kAnyEpi.  The
+// exact requant is one MBQM (stage_mbqm), the exact fused leaky one MBQM
+// and a byte of stage_lut (as is the v1 one where kTableEpis holds it);
+// the others are conv_epilogue_as's.
 template <int kEpi>
 __device__ __forceinline__ int8_t epilogue(const Op& op, int acc, int co,
                                            const float* scale,
                                            const int* qms) {
-  if constexpr (kEpi == kAnyEpi)
+  if constexpr (kEpi == kAnyEpi) {
     return conv_epilogue(op, acc, co, scale, qms);
-  else
+  } else if constexpr (kEpi == EPI_REQUANT_EXACT) {
+    return static_cast<int8_t>(clip_i8(
+        stage_mbqm(acc, __ldg(qms + co), __ldg(qms + op.out.c + co)) +
+        op.zp_out));
+  } else if constexpr (((kTableEpis >> kEpi) & 1u) != 0) {
+    const int r =                // the conv's int8 output, then the table
+        kEpi == EPI_LEAKY_EXACT
+            ? clip_i8(stage_mbqm(acc, __ldg(qms + co),
+                                 __ldg(qms + op.out.c + co)) + op.conv_zp)
+            : requant_fast(acc, __ldg(scale + co), op.conv_zp);
+    return stage_lut[static_cast<uint8_t>(r)];
+  } else {
     return conv_epilogue_as<kEpi>(op, acc, co, scale, qms);
+  }
+}
+
+// Entry u of a fused conv+leaky's table: the leaky of the conv's int8
+// output (int8_t)u, v = u - conv_zp, by epilogue.cuh's own functions.
+__device__ __forceinline__ int8_t conv_table_value(const Op& op, int u) {
+  const int v = u - op.conv_zp;
+  return op.epi == EPI_LEAKY_EXACT
+             ? leaky_exact(v, op.m0, op.e0, op.m1, op.e1, op.zp_out)
+             : leaky_v1(v, op.f0, op.f1, op.zp_out);
+}
+
+// Fill stage_lut for a conv whose epilogue kTabled holds (a body that
+// knows the epilogue reads it), visible to the block; nothing for others.
+// The op's epi is uniform across the block, so the barrier is too.
+template <unsigned kTabled>
+__device__ __forceinline__ void conv_table(const Op& op) {
+  if constexpr (kTabled != 0) {
+    if (((kTabled >> op.epi) & 1u) == 0) return;
+    for (int u = threadIdx.x; u < kTableBytes; u += blockDim.x)
+      stage_lut[u] = conv_table_value(op, static_cast<int8_t>(u));
+    __syncthreads();
+  }
+}
+
+// LEAKY_RELU, RELU, RELU6 or LOGISTIC of `rows` rows through the op's
+// table in stage_lut: arena_ops.cuh's table_op on the kernels' one table.
+static __device__ void stage_table_op(const Op& op, const int8_t* a,
+                                      int8_t* out, int rows) {
+  build_table(op, stage_lut);
+  map_op(op, a, out, rows, TableFn{stage_lut});
 }
 
 // f.template run<kEpi>() with the op's epilogue as kEpi where kSet holds
-// it, else with kAnyEpi: a body's loops hold no per-element switch for the
-// epilogues of kSet.
-template <unsigned kSet, class Fn>
+// it, else with kAnyEpi (kOnly: else trap, and no kAnyEpi body is
+// compiled): a body's loops hold no per-element switch for the epilogues
+// of kSet.
+template <unsigned kSet, bool kOnly = false, class Fn>
 __device__ __forceinline__ void by_epilogue(int epi, const Fn& f) {
   switch (epi) {
     case EPI_REQUANT:
@@ -146,7 +239,10 @@ __device__ __forceinline__ void by_epilogue(int epi, const Fn& f) {
         return f.template run<EPI_LEAKY_EXACT>();
       break;
   }
-  f.template run<kAnyEpi>();
+  if constexpr (kOnly)
+    __trap();            // an epilogue the instantiation was not built for
+  else
+    f.template run<kAnyEpi>();
 }
 
 __device__ __forceinline__ void mma_k16(int (&d)[4], unsigned a0, unsigned a1,
@@ -427,18 +523,18 @@ struct ConvMma {
 
 // A marked CONV over the whole frame on the tensor cores: a 1x1 window
 // takes conv1x1_mma_body (epilogues kEpis1x1 compiled in), a full window
-// conv_mma_body (kEpisFull).  conv_mma_body computes a 1x1 too, but with
-// it on the corpus 1x1s every stage was 7-27% slower, in every kernel and
-// bit semantics, than with conv1x1_mma_body, which reads pixel p at p * cs
-// with no tap to find (tools/torch_variant_sweep.py bodies; PERF.md
-// section 6).
-template <unsigned kEpis1x1, unsigned kEpisFull>
+// conv_mma_body (kEpisFull); kOnly: those epilogues only (by_epilogue).
+// conv_mma_body computes a 1x1 too, but with it on the corpus 1x1s every
+// stage was 7-27% slower, in every kernel and bit semantics, than with
+// conv1x1_mma_body, which reads pixel p at p * cs with no tap to find
+// (tools/torch_variant_sweep.py bodies; PERF.md section 6).
+template <unsigned kEpis1x1, unsigned kEpisFull, bool kOnly = false>
 static __device__ void marked_conv_op(const Op& op, const int8_t* in,
                                       int8_t* out, const uint8_t* consts) {
   if (op.kh == 1 && op.kw == 1)
-    by_epilogue<kEpis1x1>(op.epi, Conv1x1Mma{op, in, out, consts});
+    by_epilogue<kEpis1x1, kOnly>(op.epi, Conv1x1Mma{op, in, out, consts});
   else
-    by_epilogue<kEpisFull>(op.epi, ConvMma{op, in, out, consts});
+    by_epilogue<kEpisFull, kOnly>(op.epi, ConvMma{op, in, out, consts});
 }
 
 // acc[b] += signed byte b of x times signed byte b of w, b = 0..3
@@ -533,22 +629,70 @@ struct Dw3x3Words {
   }
 };
 
+// A depthwise conv + epilogue kEpi over the whole frame, an output byte a
+// thread step: conv_op<true>'s loop (the same taps, fill and int32 sum)
+// storing through epilogue<kEpi>.
+template <int kEpi>
+static __device__ void dw_bytes_op(const Op& op, const int8_t* in,
+                                   int8_t* out, const uint8_t* consts) {
+  const int8_t* w = reinterpret_cast<const int8_t*>(consts + op.w_off);
+  const int* bias = reinterpret_cast<const int*>(consts + op.b_off);
+  const float* scale = reinterpret_cast<const float*>(consts + op.s_off);
+  const int* qms = reinterpret_cast<const int*>(consts + op.q_off);
+  const int co_n = op.out.c;
+  const int total = op.out.h * op.out.w * co_n;
+  for (int e = threadIdx.x; e < total; e += blockDim.x) {
+    const int co = e % co_n;
+    const int p = e / co_n;
+    const int ox = p % op.out.w, oy = p / op.out.w;
+    int acc = __ldg(bias + co);
+    for (int dy = 0; dy < op.kh; ++dy) {
+      const int iy = oy * op.sh - op.pt + dy;
+      const bool row_in = iy >= 0 && iy < op.in0.h;
+      for (int dx = 0; dx < op.kw; ++dx) {
+        const int ix = ox * op.sw - op.pl + dx;
+        const bool inb = row_in && ix >= 0 && ix < op.in0.w;
+        const int xv = inb ? in[(iy * op.in0.w + ix) * op.in0.cs + co]
+                           : op.fill;
+        acc += xv * __ldg(w + (dy * op.kw + dx) * co_n + co);
+      }
+    }
+    out[p * op.out.cs + co] = epilogue<kEpi>(op, acc, co, scale, qms);
+  }
+}
+
+// dw_bytes_op with the op's epilogue.
+struct DwBytes {
+  const Op& op;
+  const int8_t* in;
+  int8_t* out;
+  const uint8_t* consts;
+  template <int kEpi>
+  __device__ void run() const {
+    dw_bytes_op<kEpi>(op, in, out, consts);
+  }
+};
+
 // DW + epilogue over the whole frame: a 3x3 window on a view of 4-byte
 // channel words (its first byte, channel stride and channel count
 // multiples of 4, at most 4 channels a thread of the block) takes
 // dw3x3_words_op (Dw3x3Words; the op's epilogue chosen once where kEpis
-// holds it); any other takes conv_op<true>.
-template <unsigned kEpis>
+// holds it); any other takes conv_op<true>, or with kOnly (the exact
+// instantiation: kEpis only, by_epilogue) dw_bytes_op the same way.
+template <unsigned kEpis, bool kOnly = false>
 static __device__ void dw_op(const Op& op, const int8_t* in, int8_t* out,
                              const uint8_t* consts) {
   const int c_n = op.out.c;
   if (op.kh != 3 || op.kw != 3 || c_n > 4 * static_cast<int>(blockDim.x) ||
       ((addr(in) | static_cast<uintptr_t>(op.in0.cs) |
         static_cast<uintptr_t>(c_n)) & 3) != 0) {
-    conv_op<true>(op, in, 0, out, 0, op.out.h, consts);
+    if constexpr (kOnly)
+      by_epilogue<kEpis, true>(op.epi, DwBytes{op, in, out, consts});
+    else
+      conv_op<true>(op, in, 0, out, 0, op.out.h, consts);
     return;
   }
-  by_epilogue<kEpis>(op.epi, Dw3x3Words{op, in, out, consts});
+  by_epilogue<kEpis, kOnly>(op.epi, Dw3x3Words{op, in, out, consts});
 }
 
 // The max of input row iy over the kw taps from column x0 of the channel

@@ -2,16 +2,17 @@
 // [N,K] flat (anchor,row,col) candidate indices, best first.
 //
 // Replaces yoloface_tpu/kernels/pallas_head.py::topk_conf_int8, which the
-// staged head runs when the fused head is off.  One warp a frame, the
-// selection of topk.cuh (the fused head's own, so the key and the tie rule
-// are the same code).  Plain version: kernels/head.py::topk_conf_plain,
-// which the card compares bit for bit.
+// staged head runs when the fused head is off.  One warp a frame,
+// kWarpsPerBlock frames a block, the selection of topk.cuh (the fused
+// head's own, so the key and the tie rule are the same code).  Plain
+// version: kernels/head.py::topk_conf_plain, which the card compares bit
+// for bit.
 //
 // What bounds it on the card: latency of the K = 16 dependent warp
-// reductions (5 shuffles each) after 147 expf a frame; it reads 882 bytes
-// and writes 64 a frame.  What the design does about it: the keys never
-// leave the warp's registers, and four frames share a block, so enough
-// warps are resident to hide the shuffle latency.
+// reductions; it reads 882 bytes and writes 64 a frame.  What the design
+// does about it: the block ranks the 256 confidences once (topk.cuh's
+// table), a lane's candidates are 32-bit integers read from it, each round
+// is one redux.sync, and the keys never leave the warp's registers.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -20,19 +21,23 @@
 
 namespace {
 
-constexpr int kWarpsPerBlock = 4;
+// frames a block (a block builds the rank table once; 4 and 8 ran
+// 1-3% slower: tools/torch_variant_sweep.py head)
+constexpr int kWarpsPerBlock = 16;
 
 __global__ void topk_conf_kernel(const int8_t* __restrict__ y,
                                  int* __restrict__ idx, int n, int g, int a,
                                  int k, float scale, float zp, float thr) {
+  __shared__ yf::RankTable table;
+  yf::build_rank_table(table, zp, scale, thr);
   const long long frame =
       (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (frame >= n) return;                // whole warps leave together
   const int cells = g * g, c6 = a * 6;
-  float key[yf::kKeysPerLane];
-  yf::load_keys(y + frame * cells * c6, lane, cells, c6, cells * a, zp, scale,
-                thr, key);
+  unsigned key[yf::kKeysPerLane];
+  yf::load_keys(y + frame * cells * c6, lane, cells, c6, cells * a, table.hi,
+                key);
   const int mine = yf::warp_topk(key, lane, k);
   if (lane < k) idx[frame * k + lane] = mine;
 }

@@ -487,6 +487,18 @@ class Stage:
         cores."""
         return int(np.count_nonzero(self.descs[:, F[FRAG_FIELD]]))
 
+    @functools.cached_property
+    def exact_convs(self) -> bool:
+        """Whether the program has CONVs or DWs and every one of them an
+        exact epilogue: the whole-frame kernels then launch their exact
+        instantiation (``csrc/stage_ops.cuh`` kExactEpis, built for those
+        epilogues only), else their fast one.  Read at every launch, so
+        worked out once (tens of microseconds of host time a call)."""
+        d = self.descs
+        convs = np.isin(d[:, F["code"]], (CONV, DW))
+        return bool(convs.any()
+                    and np.isin(d[convs, F["epi"]], EXACT_EPIS).all())
+
 
 def stage_outputs(graph: GraphDef, lops: Sequence[LOp], start: int,
                   end: int) -> List[int]:
@@ -974,9 +986,11 @@ def arena_stage(stage: Stage, descs: torch.Tensor, consts: torch.Tensor,
                 xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """Run one stage on its input tensors (int8 [N,H,W,C], in
     ``stage.inputs`` order) -> its output tensors.  CPU tensors take
-    ``arena_stage_plain``; CUDA tensors launch ``yf_arena_stage``
-    (``arena_stage.mma_convs`` counts the marked convs the launches
-    ran)."""
+    ``arena_stage_plain``; CUDA tensors launch ``yf_arena_stage``, its
+    exact instantiation where ``stage.exact_convs``
+    (``arena_stage.mma_convs`` counts the marked convs the launches ran,
+    ``arena_stage.exact_launches`` the launches of the exact
+    instantiation)."""
     if stage.bands is not None:
         raise ValueError("a strip program runs on tiled.tiled_section")
     outs, dev = prepare(stage, xs)
@@ -995,15 +1009,17 @@ def arena_stage(stage: Stage, descs: torch.Tensor, consts: torch.Tensor,
     err = library().yf_arena_stage(
         descs.data_ptr(), stage.descs.shape[0], consts.data_ptr(), ptrs,
         len(stage.globals_), n, *stage_smem(stage), THREADS,
-        torch.cuda.current_stream(dev).cuda_stream)
+        int(stage.exact_convs), torch.cuda.current_stream(dev).cuda_stream)
     check(err, "arena_stage")
     arena_stage.launches += 1
     arena_stage.mma_convs += stage.mma_convs
+    arena_stage.exact_launches += stage.exact_convs
     return outs
 
 
 arena_stage.launches = 0
 arena_stage.mma_convs = 0      # marked convs the launches ran
+arena_stage.exact_launches = 0   # launches of the exact instantiation
 
 
 class ArenaPlan(nn.Module):

@@ -233,8 +233,9 @@ def run_stage(stage: FusedStage, descs: torch.Tensor, consts: torch.Tensor,
     """Run one program on its input tensors (int8 [N,H,W,C], in
     ``stage.inputs`` order) -> (its output tensors, whether the kernel
     launched).  CPU tensors take ``fused_stage_plain``; CUDA tensors launch
-    ``yf_fused_stage``; ``what`` names the caller's kernel in errors.  The
-    callers count their own launches."""
+    ``yf_fused_stage``, its exact instantiation where
+    ``stage.exact_convs``; ``what`` names the caller's kernel in errors.
+    The callers count their own launches."""
     outs, dev = arena.prepare(stage, xs)
     if dev.type == "cpu":
         fused_stage_plain(stage, consts, list(xs) + outs)
@@ -256,7 +257,8 @@ def run_stage(stage: FusedStage, descs: torch.Tensor, consts: torch.Tensor,
     err = library().yf_fused_stage(
         descs.data_ptr(), stage.descs.shape[0], consts.data_ptr(), ptrs,
         len(stage.globals_), n, stage.smem_bytes, stage.arena_bytes,
-        arena.THREADS, torch.cuda.current_stream(dev).cuda_stream)
+        arena.THREADS, int(stage.exact_convs),
+        torch.cuda.current_stream(dev).cuda_stream)
     check(err, what)
     return outs, True
 
@@ -264,16 +266,19 @@ def run_stage(stage: FusedStage, descs: torch.Tensor, consts: torch.Tensor,
 def fused_stage(stage: FusedStage, descs: torch.Tensor, consts: torch.Tensor,
                 xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """Run one stage (``run_stage``) -> its output tensors
-    (``fused_stage.mma_convs`` counts the marked convs the launches
-    ran)."""
+    (``fused_stage.mma_convs`` counts the marked convs the launches ran,
+    ``fused_stage.exact_launches`` the launches of the kernel's exact
+    instantiation)."""
     outs, launched = run_stage(stage, descs, consts, xs, "fused-stage")
     fused_stage.launches += launched
     fused_stage.mma_convs += launched * stage.mma_convs
+    fused_stage.exact_launches += launched and stage.exact_convs
     return outs
 
 
 fused_stage.launches = 0
 fused_stage.mma_convs = 0      # marked convs the launches ran
+fused_stage.exact_launches = 0   # launches of the exact instantiation
 
 
 class FusedPlan(arena.ArenaPlan):

@@ -242,8 +242,10 @@ def perop_op(stage: PerOpStage, descs: torch.Tensor, consts: torch.Tensor,
     slice.  The byte-move launches check the input shapes and nothing of
     the program: their arguments are ``stage.args``, and ``card_kernel``
     sends them only programs within their limits.  ``perop_op.mma_convs``
-    counts the marked convs the fused-stage launches ran, and
-    ``perop_op.mma_by_kernel`` the same by B8 kernel."""
+    counts the marked convs the fused-stage launches ran,
+    ``perop_op.mma_by_kernel`` the same by B8 kernel, and
+    ``perop_op.exact_launches`` the launches of its exact instantiation
+    (``Stage.exact_convs``)."""
     card = card_kernel(stage)
     if card != "fused_stage" and xs[0].device.type == "cuda":
         outs, dev = arena.prepare(stage, xs)
@@ -271,6 +273,7 @@ def perop_op(stage: PerOpStage, descs: torch.Tensor, consts: torch.Tensor,
         if launched and stage.mma_convs:
             perop_op.mma_convs += stage.mma_convs
             perop_op.mma_by_kernel[stage.kernel] += stage.mma_convs
+        perop_op.exact_launches += launched and stage.exact_convs
     if launched:
         perop_op.launches += 1
         perop_op.by_kernel[stage.kernel] += 1
@@ -281,6 +284,7 @@ perop_op.launches = 0
 perop_op.by_kernel = collections.Counter()    # launches by B8 kernel
 perop_op.mma_convs = 0     # marked convs the launches ran
 perop_op.mma_by_kernel = collections.Counter()   # the same by B8 kernel
+perop_op.exact_launches = 0   # of the fused-stage kernel's exact instantiation
 
 
 def reset_launches() -> None:
@@ -288,6 +292,7 @@ def reset_launches() -> None:
     perop_op.by_kernel.clear()
     perop_op.mma_convs = 0
     perop_op.mma_by_kernel.clear()
+    perop_op.exact_launches = 0
 
 
 class PerOpPlan(arena.ArenaPlan):
