@@ -37,6 +37,11 @@ Phases (each prints its lines; any failure ends the run with an error):
      multiple of 16, a view one byte into its storage and a flat size past
      twice one round of its largest grid, for each activation of the
      op-surface graph and the yolov3-tiny upsample in fast and exact bits;
+     the per-op standalone LEAKY programs on the same table kernel (every
+     one the repo's graphs keep: the op surface's, the upsample's and the
+     16 of the 17-input concat of wide_move_graphs) against their plain
+     tables on the same inputs in both bits, and no such program in the
+     corpus net's and the .tflite graphs' plans;
      the per-op QUANTIZE programs on the same table kernel and the per-op
      ADD programs on csrc/add_int8.cu against their plain versions, every
      such program of the corpus net and of the op-surface graph at N = 1,
@@ -102,7 +107,12 @@ Phases (each prints its lines; any failure ends the run with an error):
      count for the B2b row); then yolov3-tiny at 416 in tiled2 and
      tiled_exact on 2 frames, every section through the kernel and every
      marked conv on the tensor cores (the tiled2 launches count for the
-     B6b row), both heads against the plain path;
+     B6b row), both heads against the plain path; then the ai_network_*
+     facade (runtime/api.py) on the corpus in arena2 and arena_exact at
+     16384 frames, numpy out equal to Int8Engine's; then detect_multihead
+     (pipeline/head.py) on the v3-tiny FPN's two heads through arena2,
+     arena_exact and perop, the detections on the card against the CPU
+     path and the golden multihead_v3tiny_fpn_* keys;
   4. timing with CUDA events (warm-up, median of 10): each kernel against
      its plain version at batch 16384 (the arena in all three bit
      semantics, the fused stages and the per-op program in both), each op
@@ -130,8 +140,14 @@ Phases (each prints its lines; any failure ends the run with an error):
      strip section, against its plain version and beside torch.clamp,
      F.interpolate or F.avg_pool2d; yolov3-tiny at 416 in tiled2 and
      tiled_exact at batch 256 (ms, frames/s, TMAC/s) and at 2 frames
-     against the plain path; then a program whose op code the arena or
-     section kernel has no case for must fail its launch (a child process,
+     against the plain path; runtime/profiler.py's profile_engine on
+     arena2 and perop at 16384 (its top rows; their MACCs add up to the
+     net's); the FPN served to boxes (engine, then detect_multihead) at
+     16384 in arena2, arena_exact and perop, frames/s; last, the
+     profiler's trace around one arena2 forward (the Chrome trace in
+     build/trace/ must hold arena_stage kernel events); then a program
+     whose op code the arena or section kernel has no case for must fail
+     its launch (a child process,
      ``chip_smoke.py --forged-op arena|tiled``, whose CUDA context the
      trap ends);
   4b. the tools/ probes (B9.1-B9.12, yoloface_tpu_torch/probes/), each at
@@ -505,6 +521,8 @@ def main() -> int:
     from yoloface_tpu_torch.pipeline import head as thead
     from yoloface_tpu_torch.pipeline.e2e import FacePipeline, load_pipeline
     from yoloface_tpu_torch.probes import CYCLES_PER_S, bound, time_ms
+    from yoloface_tpu_torch.runtime import api as ai
+    from yoloface_tpu_torch.runtime import profiler
     from yoloface_tpu_torch.runtime.engine import (ARENA_BITS, FUSED_BITS,
                                                    KERNEL_MODES, PEROP_BITS,
                                                    TILED_BITS, Int8Engine)
@@ -928,6 +946,46 @@ def main() -> int:
               "and exact bits, on all 256 inputs, [7,15,15,3], a view one "
               f"byte in and {big.numel()} B flat (twice the {span} B one "
               "round of the largest grid covers): bit-exact")
+
+    # B8.11 on the same table kernel: every standalone LEAKY program the
+    # repo's graphs keep (the op surface's, the upsample's and the 16 of
+    # the 17-input concat, each at its own scales) against its plain table
+    # on the same inputs, in both bits; the corpus net and the .tflite
+    # graphs keep none (every LEAKY of theirs fuses into a conv)
+    leaky_graphs = {"op surface": surface, "upsample": _upsample_graph(tool),
+                    "17 distinct inputs": tool.wide_move_graphs()[
+                        "17 distinct inputs"][0]}
+    for name, g in leaky_graphs.items():
+        for bits in perop.BITS:
+            p = perop.PerOpPlan(g, bits).to(dev)
+            ks = [k for k, st in enumerate(p.stages)
+                  if st.kernel == "leaky_int8"]
+            _require(len(ks) == (16 if name.startswith("17") else 1)
+                     and all(perop.card_kernel(p.stages[k]) == "eltwise_lut"
+                             for k in ks),
+                     f"{name} {bits}: the LEAKY programs on eltwise_lut")
+            for k in ks:
+                d = getattr(p, f"descs{k}")
+                for tag, x in (("all 256 inputs", every.view(1, 1, 16, 16)),
+                               ("15x15x3", odd), ("one byte in", one_off),
+                               (f"{big.numel()} B flat", big)):
+                    got = eltwise.eltwise_lut(d, x)
+                    want = eltwise.eltwise_lut_plain(d, x)
+                    torch.cuda.synchronize()
+                    _require(torch.equal(got, want),
+                             f"eltwise_lut LEAKY {name} {bits} op {k} {tag}")
+                    err["leaky_int8"] = max(err["leaky_int8"],
+                                            _max_err([(got, want)]))
+        print(f"[check] eltwise_lut {name}: its {len(ks)} standalone LEAKY "
+              "program(s) in fast and exact bits, on all 256 inputs, "
+              "[7,15,15,3], a view one byte in and "
+              f"{big.numel()} B flat: bit-exact")
+    for g in [corpus] + [load_tflite(tool.tflite_path(name))
+                         for name in tool.TFLITE_GRAPHS]:
+        for bits in perop.BITS:
+            _require(not [st for st in perop.build_perop_plan(g, bits)
+                          if st.kernel == "leaky_int8"],
+                     f"{g.name} {bits}: no standalone LEAKY program")
     del big
 
     # B8.7 and B8.6 on their flat kernels (the QUANTIZE tables of
@@ -990,9 +1048,9 @@ def main() -> int:
             check_perop(p, dev_int8((37,) + tuple(
                 g.tensor(g.inputs[0]).shape[1:])), f"{name} {bits} N=37")
             _require(eltwise.add_flat.launches + eltwise.eltwise_lut.launches
-                     == sum(p.stages[k].kernel in FLAT_B8 or
-                            p.stages[k].kernel == "eltwise_int8"
-                            for k in range(len(p.stages))),
+                     == sum(perop.card_kernel(st) in ("eltwise_lut",
+                                                      perop.ADD_KERNEL)
+                            for st in p.stages),
                      f"{name} {bits}: one flat launch a routed program")
         print(f"[check] {name}: {len(ks)} QUANTIZE / ADD programs on "
               "eltwise_lut / add_int8 in fast and exact bits, N=1/3/37/"
@@ -1436,11 +1494,11 @@ def main() -> int:
                  and set(by_kernel[path]) == set(perop.KERNELS),
                  f"{path}: every op through the kernel, all eleven kernels")
         _require(eltwise.eltwise_lut.launches
-                 == by_kernel[path]["eltwise_int8"]
-                 + by_kernel[path]["requantize_int8"]
-                 and by_kernel[path]["eltwise_int8"] > 0,
-                 f"{path}: the activation and QUANTIZE programs through "
-                 "eltwise_lut")
+                 == sum(by_kernel[path][k] for k in perop.TABLE_KERNELS)
+                 and all(by_kernel[path][k] > 0
+                         for k in perop.TABLE_KERNELS),
+                 f"{path}: the activation, LEAKY and QUANTIZE programs "
+                 "through eltwise_lut")
         _require(eltwise.add_flat.launches == by_kernel[path]["add_int8"] > 0,
                  f"{path}: the ADD program through add_int8")
         for fn in (move.resize_nearest, move.concat_channels, move.pad_int8):
@@ -1517,6 +1575,92 @@ def main() -> int:
         print(f"[serve] {path}: both heads {[tuple(y.shape) for y in ys]} "
               "bit-exact vs the plain path; head std "
               f"{[round(y.double().std().item(), 2) for y in ys]}")
+
+    # the ai_network_* facade (runtime/api.py) on the corpus in arena2 and
+    # arena_exact at TIMING_BATCH frames: numpy in, numpy out, equal to
+    # Int8Engine's output, every stage through the arena kernel
+    x_api = rng.integers(-128, 128, (TIMING_BATCH, 56, 56, 3),
+                         dtype=np.int64).astype(np.int8)
+    for mode in ("arena2", "arena_exact"):
+        net = ai.ai_network_create()
+        _require(ai.ai_network_init(net, CORPUS, mode=mode),
+                 f"facade {mode}: init, error {ai.ai_network_get_error(net)}")
+        stages = net.engine.arena.stages
+        out = np.empty((TIMING_BATCH, 7, 7, 18), np.int8)
+        path = f"facade {mode}"
+        zero_counts()
+        ran = ai.ai_network_run(net, x_api, out)
+        torch.cuda.synchronize()
+        read_counts(path)
+        _require(ran == TIMING_BATCH
+                 and ai.ai_network_get_error(net) == ai.AI_ERROR_NONE,
+                 f"{path}: ran {ran} frames, error "
+                 f"{ai.ai_network_get_error(net)}")
+        _require(arena.arena_stage.launches == len(stages)
+                 and arena.arena_stage.mma_convs == 17
+                 and arena.arena_stage.exact_launches == sum(
+                     st.exact_convs for st in stages),
+                 f"{path}: every stage through arena_stage, launches "
+                 f"{launches[path]}")
+        want = pipes[mode].engine(torch.from_numpy(x_api).to(dev))
+        _require(np.array_equal(out, want.cpu().numpy()),
+                 f"{path}: the output vs Int8Engine's")
+        report = ai.ai_network_get_report(net)
+        _require(report["macc_per_frame_conv"] == 1_029_000
+                 and report["n_batches_processed"] == TIMING_BATCH
+                 and report["mode"] == mode, f"{path}: report {report}")
+        ai.ai_network_destroy(net)
+        print(f"[serve] {path}: ai_network_run on {TIMING_BATCH} frames: "
+              f"launches {launches[path]}; the numpy output equals "
+              f"Int8Engine's; report {report}")
+    del x_api
+
+    # detect_multihead (pipeline/head.py) on the two heads of the v3-tiny
+    # FPN through arena2, arena_exact and perop: heads and detections stay
+    # on the card; detections against the CPU path of the same mode and the
+    # golden file (validity and counts exactly, boxes and scores within
+    # the head's tolerance)
+    fpn = tflite["v3tiny_fpn"]
+    fpn_kw = dict(scales=[fpn.tensor(o).qparams.scale for o in fpn.outputs],
+                  zero_points=[fpn.tensor(o).qparams.zero_point
+                               for o in fpn.outputs], **tool.FPN_DETECT)
+    fpn_cfgs = [thead.HeadConfig(grid=grid, stride=stride, anchors=anchors)
+                for grid, stride, anchors in tool.FPN_HEADS]
+
+    def dets(boxes, scores, valid):
+        """(boxes, scores, valid) as ``close`` takes detections."""
+        return {"boxes": boxes, "scores": scores, "valid": valid,
+                "count": valid.sum(1)}
+
+    fpn_engines = {}
+    for mode, kernel in (("arena2", arena.arena_stage),
+                         ("arena_exact", arena.arena_stage),
+                         ("perop", perop.perop_op)):
+        eng = Int8Engine(fpn, mode, device=dev)
+        fpn_engines[mode] = eng
+        path = f"multihead {mode}"
+        zero_counts()
+        got = thead.detect_multihead(eng(tflite_x["v3tiny_fpn"]), fpn_cfgs,
+                                     **fpn_kw)
+        torch.cuda.synchronize()
+        read_counts(path)
+        _require(kernel.launches == len(eng.arena.stages),
+                 f"{path}: every stage through {kernel.__name__}")
+        _require(all(t.device.type == "cuda" for t in got),
+                 f"{path}: detections on the card")
+        cpu = thead.detect_multihead(
+            Int8Engine(fpn, mode, device="cpu")(tflite_x["v3tiny_fpn"].cpu()),
+            fpn_cfgs, **fpn_kw)
+        close(dets(*got), dets(*cpu), f"{path} vs the CPU path")
+        bits = KERNEL_MODES[mode]
+        close(dets(*got), dets(*(gold[tool.multihead_key(bits, part)]
+                                 for part in tool.MULTIHEAD_PARTS)),
+              f"{path} vs the golden {bits} detections")
+        print(f"[serve] {path}: detect_multihead on the FPN's heads of "
+              f"{len(tflite_x['v3tiny_fpn'])} frames: launches "
+              f"{launches[path]}; counts {got[2].sum(1).tolist()} equal the "
+              f"CPU path and the golden {bits} keys within boxes "
+              f"{thead.BOX_ATOL} / scores {thead.SCORE_ATOL}")
 
     # ----------------------------------------------------------- 4. timing
     n = TIMING_BATCH
@@ -1958,6 +2102,60 @@ def main() -> int:
               f"{t_small:.3f} ms, plain {t_plain:.3f} ms ({card})")
         del env, outs
     del xb
+    # profile_engine (runtime/profiler.py) on the corpus at TIMING_BATCH in
+    # arena2 and perop: each stage or one-op program on its own on the
+    # inputs one forward recorded, CUDA events; the rows' MACCs add up to
+    # the net's 1,029,000 a frame.  These and the trace come after every
+    # other timing, so that neither weighs on a window of theirs
+    x = kpre.preprocess_rgb565(frames(TIMING_BATCH))
+    for mode in ("arena2", "perop"):
+        eng = pipes[mode].engine
+        path = f"profile {mode}"
+        zero_counts()
+        rows = profiler.profile_engine(eng, x)
+        torch.cuda.synchronize()
+        read_counts(path)
+        kernel = arena.arena_stage if mode == "arena2" else perop.perop_op
+        # a launch a unit in the forward, then 1 + warmup + iters of each
+        _require(len(rows) == len(eng.arena.stages)
+                 and kernel.launches == (1 + 1 + 1 + 5) * len(rows)
+                 and sum(r["macc_per_frame"] for r in rows) == 1_029_000,
+                 f"{path}: {len(rows)} rows, launches {launches[path]}")
+        table = profiler.format_profile(rows).splitlines()
+        print(f"[time] {path} N={len(x)}: profile_engine, {len(rows)} units, "
+              f"launches {launches[path]}; the top rows and the total "
+              f"({card}):")
+        print("\n".join(table[:-1][:9] + table[-1:]))
+
+    # the v3-tiny FPN served to boxes at TIMING_BATCH: the engine, then
+    # detect_multihead, in each of the modes served above
+    x_fpn = int8_frames(TIMING_BATCH, 32)
+    for mode, eng in fpn_engines.items():
+        t_all = _time_ms(lambda: thead.detect_multihead(eng(x_fpn), fpn_cfgs,
+                                                        **fpn_kw))
+        t_net = _time_ms(lambda: eng(x_fpn))
+        print(f"[time] multihead {mode} N={TIMING_BATCH} (v3-tiny FPN "
+              f"32x32, 2 heads): engine + detect_multihead {t_all:.4f} ms, "
+              f"{TIMING_BATCH / t_all * 1e3:.0f} frames/s; engine alone "
+              f"{t_net:.4f} ms ({card})")
+    del x_fpn
+
+    # trace (runtime/profiler.py), nothing timed after it: one arena2
+    # forward under torch.profiler; the Chrome trace in the git-ignored
+    # build/trace/ must hold the arena kernel's launches as CUDA kernel
+    # events
+    with profiler.trace(os.path.join(ROOT, "build", "trace")) as trace_path:
+        pipes["arena2"].engine(x)
+    with open(trace_path) as fh:
+        events = json.load(fh)["traceEvents"]
+    kernel_events = [e for e in events if e.get("cat") == "kernel"]
+    _require(any("arena_stage" in e.get("name", "") for e in kernel_events),
+             f"trace: no arena_stage kernel event among "
+             f"{len(kernel_events)} kernel events of {len(events)}")
+    print(f"[time] trace: {trace_path} holds {len(events)} events, "
+          f"{len(kernel_events)} of them CUDA kernels, arena_stage among "
+          f"them ({os.path.getsize(trace_path)} B)")
+
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"[time] peak device memory {peak:.2f} GiB")
 

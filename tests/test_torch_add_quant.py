@@ -216,7 +216,7 @@ REFUSED = {
         d["leaky_int8"], _x(1, 4, 4, 8), _x(1, 4, 4, 8)),
         "the ADD kernel takes ADD ops"),
     "table kernel on an ADD": (lambda d: eltwise.eltwise_lut(
-        d["add_int8"], _x(1, 4, 4, 8)), "ACT ops and QUANTIZE ops"),
+        d["add_int8"], _x(1, 4, 4, 8)), "ACT, LEAKY and QUANTIZE ops"),
     "unequal shapes": (lambda d: eltwise.add_flat(
         d["add_int8"], _x(1, 4, 4, 8), _x(1, 4, 8, 4)), "one shape"),
     "strided input": (lambda d: eltwise.add_flat(

@@ -74,20 +74,20 @@ def test_plain_table_equals_jax_activation(graph, k):
 @pytest.mark.parametrize("bits", perop.BITS)
 def test_perop_plan_routes_exactly_its_act_programs(bits):
     """On the op-surface graph the table kernel takes the ACT programs
-    (the B8 kernel ``eltwise_int8``) and the QUANTIZE program
-    (``requantize_int8``) and nothing else; the standalone LEAKY
-    (``leaky_int8``) stays on the fused-stage kernel."""
+    (the B8 kernel ``eltwise_int8``), the standalone LEAKY program
+    (``leaky_int8``) and the QUANTIZE program (``requantize_int8``) and
+    nothing else."""
     plan = perop.PerOpPlan(TOOL.surface_graph(), bits)
     routed = [k for k, st in enumerate(plan.stages)
               if perop.card_kernel(st) == "eltwise_lut"]
     acts = [k for k, st in enumerate(plan.stages)
-            if st.descs[0, F["code"]] in (arena.ACT, arena.QUANTIZE)]
-    assert routed == acts and len(acts) == 4
+            if st.descs[0, F["code"]] in eltwise.TABLE_CODES]
+    assert routed == acts and len(acts) == 5
     assert [plan.stages[k].kernel for k in routed].count("eltwise_int8") == 3
-    assert {plan.stages[k].kernel for k in routed} == {"eltwise_int8",
-                                                       "requantize_int8"}
+    assert {plan.stages[k].kernel for k in routed} == {
+        "eltwise_int8", "leaky_int8", "requantize_int8"}
     assert {perop.card_kernel(st) for st in plan.stages
-            if st.kernel == "leaky_int8"} == {"fused_stage"}
+            if st.kernel == "leaky_int8"} == {"eltwise_lut"}
 
 
 @pytest.mark.parametrize("graph", GRAPHS)
@@ -124,11 +124,12 @@ def test_wrapper_refuses(case):
 
 
 def test_wrapper_refuses_a_program_that_is_not_an_activation():
-    """A LEAKY program (still on the fused-stage kernel) is refused."""
+    """A program outside the table kernel's op codes (the max-pool, on the
+    fused-stage kernel) is refused."""
     plan = perop.PerOpPlan(TOOL.surface_graph())
     k = next(k for k, st in enumerate(plan.stages)
-             if st.kernel == "leaky_int8")
-    with pytest.raises(ValueError, match="ACT ops"):
+             if st.kernel == "maxpool_int8")
+    with pytest.raises(ValueError, match="ACT, LEAKY and QUANTIZE ops"):
         eltwise.eltwise_lut(getattr(plan, f"descs{k}"),
                             torch.zeros((1, 8, 8, 8), dtype=torch.int8))
 

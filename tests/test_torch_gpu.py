@@ -938,3 +938,145 @@ def test_head_kernels_on_tie_heavy_frames_on_the_card():
         for k in (1, 16, 32):
             assert torch.equal(head.topk_conf(y, k, **kw),
                                head.topk_conf_plain(y, k, **kw)), (scale, k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", perop.BITS)
+def test_leaky_table_matches_plain_on_the_card(bits):
+    """csrc/eltwise_lut.cu on every standalone LEAKY program of the
+    op-surface graph, the yolov3-tiny upsample and the 17-input concat of
+    distinct LEAKYs equals its plain table on all 256 int8 inputs, on
+    [5,15,15,3] (the tail loop), on a view one byte into its storage and on
+    a flat size past twice one round of the largest grid; the per-op
+    programs launch it once a LEAKY and equal their plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    tool = _golden_tool()
+    rng = np.random.default_rng(6)
+    props = torch.cuda.get_device_properties(0)
+    span = 4 * 16 * 256 * props.multi_processor_count * (getattr(
+        props, "max_threads_per_multi_processor", 2048) // 256)
+    big = torch.randint(-128, 128, (2 * span + 13,), dtype=torch.int8,
+                        device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(6))
+    every = torch.arange(-128, 128, dtype=torch.int8).cuda().view(1, 4, 4, 16)
+    odd = torch.from_numpy(rng.integers(-128, 128, (5, 15, 15, 3))
+                           .astype(np.int8)).cuda()
+    one_off = torch.from_numpy(rng.integers(-128, 128, 1 + 4096)
+                               .astype(np.int8)).cuda()[1:].view(1, 16, 16, 16)
+    graphs = (tool.surface_graph(), _chip_smoke()._upsample_graph(tool),
+              tool.wide_move_graphs()["17 distinct inputs"][0])
+    for g, n_leaky in zip(graphs, (1, 1, 16)):
+        plan = perop.PerOpPlan(g, bits).cuda()
+        leaky = [k for k, st in enumerate(plan.stages)
+                 if st.kernel == "leaky_int8"]
+        assert len(leaky) == n_leaky
+        for k in leaky:
+            assert perop.card_kernel(plan.stages[k]) == "eltwise_lut"
+            d = getattr(plan, f"descs{k}")
+            for x in (every, odd, one_off, big):
+                assert torch.equal(eltwise.eltwise_lut(d, x),
+                                   eltwise.eltwise_lut_plain(d, x)), (g.name,
+                                                                      k)
+        xs = torch.from_numpy(rng.integers(
+            -128, 128, (3, *g.tensor(g.inputs[0]).shape[1:]))
+            .astype(np.int8)).cuda()
+        perop.reset_launches()
+        env = plan.run_stages(xs)
+        assert perop.perop_op.by_kernel["leaky_int8"] == n_leaky
+        for k, st in enumerate(plan.stages):
+            ref = [torch.empty_like(env[o]) for o in st.outputs]
+            perop.perop_plain(st, getattr(plan, f"consts{k}"),
+                              [env[i] for i in st.inputs] + ref)
+            assert torch.equal(env[st.outputs[0]], ref[0]), (g.name, k)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["arena2", "arena_exact"])
+def test_facade_runs_on_the_card(mode):
+    """``ai_network_init`` builds its engine on the card by default; a run
+    through the arena kernel equals the CPU path's output."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from yoloface_tpu_torch.runtime import api
+    net = api.ai_network_create()
+    assert api.ai_network_init(net, CORPUS, mode=mode)
+    x = np.random.default_rng(7).integers(
+        -128, 128, (37, 56, 56, 3)).astype(np.int8)
+    out = np.empty((37, 7, 7, 18), np.int8)
+    arena.arena_stage.launches = 0
+    assert api.ai_network_run(net, x, out) == 37
+    assert arena.arena_stage.launches == len(net.engine.arena.stages)
+    want = Int8Engine(load_tflite(CORPUS), mode, device="cpu")(x)
+    np.testing.assert_array_equal(out, want.numpy())
+    assert api.ai_network_get_error(net) == api.AI_ERROR_NONE
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["arena2", "perop"])
+def test_profile_engine_on_the_card(mode):
+    """``profile_engine`` times each stage or one-op program on the card;
+    its rows' MACCs add up to the corpus net's 1,029,000."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from yoloface_tpu_torch.runtime import profiler
+    eng = Int8Engine(load_tflite(CORPUS), mode, device="cuda")
+    x = np.random.default_rng(2).integers(
+        -128, 128, (256, 56, 56, 3)).astype(np.int8)
+    rows = profiler.profile_engine(eng, x, iters=2)
+    assert len(rows) == len(eng.arena.stages)
+    assert sum(r["macc_per_frame"] for r in rows) == 1_029_000
+    assert all(r["ms"] > 0 for r in rows)
+
+
+@pytest.mark.gpu
+def test_trace_holds_the_kernels_on_the_card(tmp_path):
+    """``trace`` records the arena kernel's launches as CUDA kernel
+    events."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import json
+
+    from yoloface_tpu_torch.runtime import profiler
+    eng = Int8Engine(load_tflite(CORPUS), "arena2", device="cuda")
+    x = torch.zeros((16, 56, 56, 3), dtype=torch.int8, device="cuda")
+    with profiler.trace(str(tmp_path)) as path:
+        eng(x)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("cat") == "kernel" and "arena_stage" in e.get("name", "")
+               for e in events)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["arena2", "arena_exact", "perop"])
+def test_multihead_on_the_card_equals_golden(mode):
+    """The v3-tiny FPN through a kernel mode on the card, then
+    ``detect_multihead`` on the card: the golden file's JAX detections of
+    the mode's bits (validity exactly, boxes and scores within the head's
+    tolerance)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from yoloface_tpu_torch.pipeline import head as thead
+    from yoloface_tpu_torch.runtime.engine import KERNEL_MODES
+    tool = _golden_tool()
+    gold = np.load(GOLDEN)
+    g = load_tflite(tool.tflite_path("v3tiny_fpn"))
+    kw = dict(scales=[g.tensor(o).qparams.scale for o in g.outputs],
+              zero_points=[g.tensor(o).qparams.zero_point
+                           for o in g.outputs], **tool.FPN_DETECT)
+    cfgs = [thead.HeadConfig(grid=grid, stride=stride, anchors=anchors)
+            for grid, stride, anchors in tool.FPN_HEADS]
+    heads = Int8Engine(g, mode, device="cuda")(
+        torch.from_numpy(tool.tflite_frames("v3tiny_fpn")).cuda())
+    got = thead.detect_multihead(heads, cfgs, **kw)
+    assert all(t.device.type == "cuda" for t in got)
+    bits = KERNEL_MODES[mode]
+    boxes, scores, valid = (gold[tool.multihead_key(bits, part)]
+                            for part in tool.MULTIHEAD_PARTS)
+    np.testing.assert_array_equal(got[2].cpu().numpy(), valid)
+    np.testing.assert_allclose(got[0].cpu().numpy(), boxes, rtol=0,
+                               atol=thead.BOX_ATOL)
+    np.testing.assert_allclose(got[1].cpu().numpy(), scores, rtol=0,
+                               atol=thead.SCORE_ATOL)

@@ -200,10 +200,10 @@ def test_concat_of_a_repeated_input():
 def test_card_kernel_routes_exactly_concat_and_resize(graph, bits):
     """On the card the RESIZE programs go to ``resize_nearest``, the
     CONCATENATION programs (COPY rows into channel slices) to
-    ``concat_channels`` and the PAD programs to ``pad_int8``; the ACT and
-    QUANTIZE programs to the table kernel, the ADD programs to the flat
-    ADD kernel (``add_int8``, which takes no launch arguments) and every
-    other program to the fused-stage kernel."""
+    ``concat_channels`` and the PAD programs to ``pad_int8``; the ACT,
+    standalone LEAKY and QUANTIZE programs to the table kernel, the ADD
+    programs to the flat ADD kernel (``add_int8``, which takes no launch
+    arguments) and every other program to the fused-stage kernel."""
     for st in perop.PerOpPlan(GRAPHS[graph](), bits).stages:
         codes = set(st.descs[:, F["code"]].tolist())
         if codes == {arena.RESIZE}:
@@ -212,7 +212,7 @@ def test_card_kernel_routes_exactly_concat_and_resize(graph, bits):
             want = "pad_int8"
         elif codes == {arena.COPY}:
             want = "concat_channels"
-        elif codes in ({arena.ACT}, {arena.QUANTIZE}):
+        elif codes in ({arena.ACT}, {arena.LEAKY}, {arena.QUANTIZE}):
             want = "eltwise_lut"
         elif codes == {arena.ADD}:
             want = "add_int8"

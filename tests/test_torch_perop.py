@@ -480,16 +480,19 @@ def test_card_kernel_routes_by_the_program(corpus, surface, bits):
     and the 16,400-channel resize (past the concat and resize kernels'
     16,384 channels) go to the fused-stage kernel; the concats of 17
     inputs (3 and 17 distinct tensors) stay on the concat kernel, which
-    ``perop_op`` launches once a group of 16 inputs; every program of the
+    ``perop_op`` launches once a group of 16 inputs, and the 16 standalone
+    LEAKYs before the second go to the table kernel; every program of the
     corpus and the op surface keeps its own kernel: the table kernel for
-    the activations and QUANTIZEs, the flat ADD kernel for the ADDs."""
+    the activations, standalone LEAKYs and QUANTIZEs, the flat ADD kernel
+    for the ADDs."""
     wide = TOOL.wide_move_graphs()
     got = {name: [perop.card_kernel(st)
                   for st in perop.PerOpPlan(g, bits).stages
-                  if st.kernel not in ("eltwise_int8", "leaky_int8")]
+                  if st.kernel != "eltwise_int8"]
            for name, (g, _) in wide.items()}
     assert got == {"17-input concat": ["concat_channels"],
-                   "17 distinct inputs": ["concat_channels"],
+                   "17 distinct inputs": ["eltwise_lut"] * 16
+                   + ["concat_channels"],
                    "16400 channels": ["fused_stage", "fused_stage"]}
     for g in (graph_from_jax(corpus[0]), surface[1]):
         for st in perop.PerOpPlan(g, bits).stages:

@@ -28,7 +28,12 @@ pipelines give for them:
     the JAX package's exporter; the JAX ``fast2``, ``fast`` and ``exact``
     outputs of each as the JAX importer reads it back, on
     ``tflite_frames(name)`` (``tflite_<name>_<bits><k>``), and the frames'
-    sha256 (``tflite_<name>_frames_sha256``).
+    sha256 (``tflite_<name>_frames_sha256``);
+  * the v3-tiny FPN's detections: JAX ``detect_multihead`` on the heads of
+    its JAX ``fast2``, ``fast`` and ``exact`` engines for
+    ``tflite_frames("v3tiny_fpn")``, with the head configurations and
+    arguments of tests/test_darknet_ptq.py (``FPN_HEADS``,
+    ``FPN_DETECT``): ``multihead_v3tiny_fpn_<bits>_<boxes|scores|valid>``.
 chip_smoke.py holds the card's output against it without jax;
 tests/test_torch_pipeline.py, tests/test_torch_tiled.py,
 tests/test_torch_fused.py, tests/test_torch_perop.py and
@@ -39,6 +44,9 @@ one-op graphs of tests/test_torch_perop.py and the published yolov3-tiny
 
 Run from the repository root, on the CPU:
     JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py
+or, to add the detections of the FPN to the file as it is (every other
+array kept as it was):
+    JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py --add multihead
 """
 
 from __future__ import annotations
@@ -67,6 +75,12 @@ TFLITE_GRAPHS = tuple(f"fuzz{s}" for s in range(8)) + ("v3tiny_fpn",)
 TFLITE_INPUTS = {**{f"fuzz{s}": (3, 14) for s in range(8)},
                  "v3tiny_fpn": (2, 32)}
 KEYS_SURFACE_FAST2 = ("surface_fast20", "surface_fast21")
+# the v3-tiny FPN's two heads as tests/test_darknet_ptq.py decodes them,
+# (grid, stride, anchors) each, and the rest of its detect_multihead call
+FPN_HEADS = ((4, 8, ((9, 14), (12, 17), (22, 21))),
+             (8, 4, ((4, 7), (6, 8), (11, 10))))
+FPN_DETECT = {"input_size": 32.0, "conf_threshold": 0.5}
+MULTIHEAD_PARTS = ("boxes", "scores", "valid")
 
 
 def tflite_key(name: str, bits: str, k: int) -> str:
@@ -74,6 +88,14 @@ def tflite_key(name: str, bits: str, k: int) -> str:
     return f"tflite_{name}_{bits}{k}"
 
 
+def multihead_key(bits: str, part: str) -> str:
+    """The golden key of one part of the FPN's detections in ``bits``."""
+    return f"multihead_v3tiny_fpn_{bits}_{part}"
+
+
+KEYS_MULTIHEAD = tuple(multihead_key(bits, part)
+                       for bits in ("fast2", "fast", "exact")
+                       for part in MULTIHEAD_PARTS)
 KEYS_TFLITE = tuple(
     key for name in TFLITE_GRAPHS
     for key in (f"tflite_{name}_frames_sha256",
@@ -461,6 +483,27 @@ def jax_outputs_tflite() -> dict:
     return out
 
 
+def jax_outputs_multihead() -> dict:
+    """JAX ``detect_multihead`` on the FPN's heads from its JAX ``fast2``,
+    ``fast`` and ``exact`` engines on ``tflite_frames("v3tiny_fpn")``."""
+    from yoloface_tpu.io.tflite_import import load_tflite
+    from yoloface_tpu.pipeline.head import HeadConfig, detect_multihead
+    from yoloface_tpu.runtime.engine import Int8Engine
+    g = load_tflite(tflite_path("v3tiny_fpn"))
+    qs = [g.tensor(o).qparams for o in g.outputs]
+    cfgs = [HeadConfig(grid=grid, stride=stride, anchors=anchors)
+            for grid, stride, anchors in FPN_HEADS]
+    out = {}
+    for bits in ("fast2", "fast", "exact"):
+        heads = Int8Engine(g, bits)(tflite_frames("v3tiny_fpn"))
+        got = detect_multihead(heads, cfgs, scales=[q.scale for q in qs],
+                               zero_points=[q.zero_point for q in qs],
+                               **FPN_DETECT)
+        out.update({multihead_key(bits, part): np.asarray(v)
+                    for part, v in zip(MULTIHEAD_PARTS, got)})
+    return out
+
+
 def jax_graph(g):
     """The port's GraphDef -> the JAX package's, field by field."""
     from yoloface_tpu.graph import ir
@@ -497,18 +540,35 @@ def jax_outputs_surface_fast2() -> dict:
     return {f"surface_fast2{k}": np.asarray(y) for k, y in enumerate(ys)}
 
 
-def main() -> int:
+def add_keys(new: dict) -> None:
+    """Add ``new`` to the golden file, every array already there kept as
+    it is (a key already there must hold the same array)."""
+    old = dict(np.load(OUT))
+    for k in set(old) & set(new):
+        if not np.array_equal(old[k], new[k]):
+            raise SystemExit(f"{k} differs from the golden file's")
+    np.savez_compressed(OUT, **{**old, **new})
+
+
+def main(argv) -> int:
     if REPO not in sys.path:
         sys.path.insert(0, REPO)
+    if argv == ["--add", "multihead"]:
+        add_keys(jax_outputs_multihead())
+        print(f"added {len(KEYS_MULTIHEAD)} keys to {OUT}")
+        return 0
+    if argv:
+        raise SystemExit("usage: make_torch_port_golden.py [--add multihead]")
     frames = golden_frames()
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
     write_tflite_graphs()
     np.savez_compressed(OUT, frames=frames, **jax_outputs(frames),
                         **jax_outputs_448(), **jax_outputs_surface(),
-                        **jax_outputs_surface_fast2(), **jax_outputs_tflite())
+                        **jax_outputs_surface_fast2(), **jax_outputs_tflite(),
+                        **jax_outputs_multihead())
     print(f"wrote {OUT}")
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

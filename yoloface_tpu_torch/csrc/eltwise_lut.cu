@@ -1,13 +1,15 @@
-// The per-op elementwise int8 kernel: RELU, RELU6, LOGISTIC or an int8 ->
-// int8 QUANTIZE of a dense int8 tensor in device memory, as one map over
-// its bytes.
+// The per-op elementwise int8 kernel: RELU, RELU6, LOGISTIC, a standalone
+// LEAKY_RELU or an int8 -> int8 QUANTIZE of a dense int8 tensor in device
+// memory, as one map over its bytes.
 //
 // Replaces yoloface_tpu/kernels/pallas_int8.py::eltwise_int8 (the map of
-// activation_int32 over int8 values) and ::requantize_int8 (fast and exact
-// bits) for the per-op programs of kernels/perop.py whose kernel is one of
-// those.  The wrapper and the plain version (the op's table built in torch
-// from the per-value functions of ops/int8_ref.py and ops/int8_fast.py
-// over the 256 int8 values, then indexed) are in kernels/eltwise.py.
+// activation_int32 over int8 values), ::leaky_int8 (the standalone
+// LEAKY_RELU of a conv output with more than one consumer, fast and exact
+// bits) and ::requantize_int8 (fast and exact bits) for the per-op
+// programs of kernels/perop.py whose kernel is one of those.  The wrapper
+// and the plain version (the op's table built in torch from the per-value
+// functions of ops/int8_ref.py and ops/int8_fast.py over the 256 int8
+// values, then indexed) are in kernels/eltwise.py.
 //
 // What bounds it on the card: bytes.  Each input byte is read once and
 // each output byte written once, two bytes an element at 3.35 TB/s; the
@@ -20,8 +22,9 @@
 //    microsecond of device-memory latency);
 //  * the op's output depends on the input byte alone, so it is a 256-entry
 //    int8 table in shared memory, built in each block's prologue, one entry
-//    a thread, by flat_table_value: yf::table_value for an activation and
-//    the QUANTIZE epilogues of epilogue.cuh, the value functions the arena,
+//    a thread, by flat_table_value: yf::table_value for an activation or a
+//    LEAKY (leaky_v1 or leaky_exact of epilogue.cuh) and the QUANTIZE
+//    epilogues of epilogue.cuh, the value functions the arena,
 //    tiled and fused kernels run, so the bits are theirs by construction.
 //    A byte costs one shared-memory read and no index arithmetic, in exact
 //    bits too (the table's 256 MBQMs are made once a block).  QUANTIZE's
@@ -41,8 +44,9 @@ namespace {
 
 constexpr int kThreads = 256;
 
-// The op of `op` at int8 input x: an activation (yf::table_value) or an
-// int8 -> int8 QUANTIZE of v = x - zp_a in fast or exact bits.
+// The op of `op` at int8 input x: an activation or a LEAKY
+// (yf::table_value) or an int8 -> int8 QUANTIZE of v = x - zp_a in fast or
+// exact bits.
 __device__ __forceinline__ int8_t flat_table_value(const yf::Op& op, int x) {
   if (op.code != yf::QUANTIZE) return yf::table_value(op, x);
   return op.epi == yf::EPI_REQUANT_EXACT
@@ -54,7 +58,9 @@ __global__ void __launch_bounds__(kThreads)
     eltwise_lut_kernel(const yf::Op* __restrict__ desc,
                        const int8_t* __restrict__ x, int8_t* __restrict__ y,
                        long long n) {
-  if (desc->code != yf::ACT && desc->code != yf::QUANTIZE) __trap();
+  if (desc->code != yf::ACT && desc->code != yf::LEAKY &&
+      desc->code != yf::QUANTIZE)
+    __trap();
   __shared__ int8_t lut[yf::kTableBytes];
   for (int u = threadIdx.x; u < yf::kTableBytes; u += kThreads)
     lut[u] = flat_table_value(*desc, static_cast<int8_t>(u));
@@ -68,7 +74,7 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace
 
 // y = the op of descriptor `desc` (one kernels/arena.py FIELDS row on the
-// card: ACT or QUANTIZE; another op code traps) over the n bytes of x.
+// card: ACT, LEAKY or QUANTIZE; another op code traps) over the n bytes of x.
 extern "C" int yf_eltwise_lut(const void* desc, const void* x, void* y,
                               long long n, void* stream) {
   static int blocks = 0;           // the card's SMs x the blocks an SM holds

@@ -12,13 +12,14 @@
 //
 // It also runs the per-op programs of kernels/perop.py, one op a launch
 // with every view in device memory and only the max-pool scratch in shared
-// memory, and so replaces seven of the eleven per-op kernels of
+// memory, and so replaces four of the eleven per-op kernels of
 // yoloface_tpu/kernels/pallas_int8.py as well: conv1x1, dwconv3x3 and
 // conv3x3 (stride 1 and 2; the window reads strided taps where JAX reads
-// the polyphase inputs of phase_split), maxpool_int8, add_int8,
-// requantize_int8 and leaky_int8 (eltwise_int8 runs on eltwise_lut.cu, a
-// flat map over a tensor's bytes; resize_nearest, concat_channels and
-// pad_int8 on the byte-move kernels of the same names).
+// the polyphase inputs of phase_split) and maxpool_int8 (eltwise_int8,
+// leaky_int8 and requantize_int8 run on eltwise_lut.cu, a flat map over a
+// tensor's bytes; add_int8 on add_int8.cu; resize_nearest, concat_channels
+// and pad_int8 on the byte-move kernels of the same names, a resize or
+// concat past their 16,384 channels here).
 // There each op's input and output make a round trip through
 // device memory (about 196 KB a 56x56 frame over the corpus net's 38
 // tensors).

@@ -1,8 +1,9 @@
-"""The per-op elementwise kernels: RELU, RELU6, LOGISTIC and QUANTIZE as a
-table map, ADD as a flat two-input map.
+"""The per-op elementwise kernels: RELU, RELU6, LOGISTIC, a standalone
+LEAKY_RELU and QUANTIZE as a table map, ADD as a flat two-input map.
 
 Replaces ``yoloface_tpu.kernels.pallas_int8.eltwise_int8`` (with the
-``activation_int32`` values it maps), ``requantize_int8`` and ``add_int8``
+``activation_int32`` values it maps), ``leaky_int8``, ``requantize_int8``
+and ``add_int8``
 for the per-op programs of ``kernels/perop.py`` whose kernel is one of
 those: ``perop_op`` sends those programs here on CUDA tensors, in
 ``perop`` and ``perop_exact`` alike (each wrapper reads the bits from the
@@ -30,15 +31,16 @@ import torch
 
 from yoloface_tpu_torch.kernels import arena
 from yoloface_tpu_torch.ops.int8_fast import (add_int8_fast,
+                                              leaky_relu_int8_fast,
                                               requantize_int8_fast)
-from yoloface_tpu_torch.ops.int8_ref import (add_int8, logistic_int8,
-                                             requantize_int8)
+from yoloface_tpu_torch.ops.int8_ref import (add_int8, leaky_relu_int8,
+                                             logistic_int8, requantize_int8)
 
 F = arena.F
 # the op codes each kernel takes, and its name in a refusal
-TABLE_CODES = (arena.ACT, arena.QUANTIZE)
+TABLE_CODES = (arena.ACT, arena.LEAKY, arena.QUANTIZE)
 ADD_CODES = (arena.ADD,)
-_TAKES = {TABLE_CODES: "the table kernel takes ACT ops and QUANTIZE ops",
+_TAKES = {TABLE_CODES: "the table kernel takes ACT, LEAKY and QUANTIZE ops",
           ADD_CODES: "the ADD kernel takes ADD ops"}
 
 
@@ -57,10 +59,20 @@ def _row(desc: torch.Tensor, codes=TABLE_CODES):
 def table_plain(desc: torch.Tensor, device=None) -> torch.Tensor:
     """int8 [256]: the op of ``desc`` at input values -128..127, by the
     plain per-value functions (``torch.clamp`` for RELU / RELU6,
-    ``logistic_int8`` for LOGISTIC, ``requantize_int8`` or
-    ``requantize_int8_fast`` for QUANTIZE in exact or fast bits)."""
+    ``logistic_int8`` for LOGISTIC, ``leaky_relu_int8`` or
+    ``leaky_relu_int8_fast`` for LEAKY_RELU and ``requantize_int8`` or
+    ``requantize_int8_fast`` for QUANTIZE in exact or fast bits), on the
+    fields ``yf::table_value`` and ``flat_table_value`` read."""
     d = _row(desc)
     v = torch.arange(-128, 128, dtype=torch.int8, device=device)
+    if d[F["code"]] == arena.LEAKY:
+        kw = dict(input_zp=d[F["zp_a"]], output_zp=d[F["zp_out"]])
+        if d[F["epi"]] == arena.EPI_REQUANT_EXACT:
+            m0, e0, m1, e1 = d[F["m0"]:F["m0"] + 4]
+            return leaky_relu_int8(v, qm_identity=m0, shift_identity=e0,
+                                   qm_alpha=m1, shift_alpha=e1, **kw)
+        return leaky_relu_int8_fast(v, scale_identity=arena._f32(d[F["f0"]]),
+                                    scale_alpha=arena._f32(d[F["f1"]]), **kw)
     if d[F["code"]] == arena.QUANTIZE:
         kw = dict(input_zp=d[F["zp_a"]], output_zp=d[F["zp_out"]])
         if d[F["epi"]] == arena.EPI_REQUANT_EXACT:
@@ -129,8 +141,8 @@ def _stream(x: torch.Tensor) -> int:
 
 def eltwise_lut(desc: torch.Tensor, x: torch.Tensor,
                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The op of ``desc`` (one int32 ACT or QUANTIZE descriptor row, as a
-    per-op program holds it) on int8 ``x`` -> ``out`` (a new tensor of x's
+    """The op of ``desc`` (one int32 ACT, LEAKY or QUANTIZE descriptor row,
+    as a per-op program holds it) on int8 ``x`` -> ``out`` (a new tensor of x's
     shape by default).  CPU tensors take ``eltwise_lut_plain``; CUDA
     tensors launch ``yf_eltwise_lut``."""
     _check(desc, x)

@@ -38,10 +38,11 @@ dimension, dilation.
 
 Each op is one program of ``arena.OP_INTS`` descriptors (one, or one a
 concat input) whose views all lie in device memory (space 1.. the op's
-inputs, then its output).  On the card the RELU, RELU6, LOGISTIC and
-QUANTIZE programs (kernels ``eltwise_int8`` and ``requantize_int8``) run
-on the flat table kernel (``kernels/eltwise.py``, ``csrc/eltwise_lut.cu``),
-one map over the op's dense bytes; the ADD programs (``add_int8``) on the
+inputs, then its output).  On the card the RELU, RELU6, LOGISTIC,
+standalone LEAKY_RELU and QUANTIZE programs (kernels ``eltwise_int8``,
+``leaky_int8`` and ``requantize_int8``) run on the flat table kernel
+(``kernels/eltwise.py``, ``csrc/eltwise_lut.cu``), one map over the op's
+dense bytes; the ADD programs (``add_int8``) on the
 flat two-input kernel (``eltwise.add_flat``, ``csrc/add_int8.cu``), one
 map over the byte pairs of its two dense inputs of one shape (both the
 same tensor for ``x + x``); the RESIZE, CONCATENATION and PAD programs
@@ -51,8 +52,8 @@ the flat byte-move kernels of ``kernels/move.py``
 ``csrc/pad_int8.cu``), with their factors, input order and pads taken
 from the program once, at plan time (``card_kernel`` decides from the
 program: a RESIZE or concat of more than ``move.TILE_BYTES`` channels
-runs on the fused-stage kernel); the convs, depthwise convs, max-pools
-and standalone LEAKYs run on the fused-stage kernel
+runs on the fused-stage kernel); the convs, depthwise convs and
+max-pools run on the fused-stage kernel
 (``csrc/fused_stage.cu``, one block a frame, through ``fused.run_stage``)
 with no values in shared memory: only a max-pool's row-pass scratch is
 there.  A CONV's program
@@ -93,7 +94,7 @@ KERNELS = {"conv1x1": (436, arena.CONV), "dwconv3x3": (483, arena.DW),
 _BY_CODE = {code: name for name, (_, code) in KERNELS.items()
             if code != arena.CONV}
 # the B8 kernels whose programs run on the table kernel on the card
-TABLE_KERNELS = ("eltwise_int8", "requantize_int8")
+TABLE_KERNELS = ("eltwise_int8", "requantize_int8", "leaky_int8")
 # the B8 kernel whose programs run on the flat two-input kernel on the card
 ADD_KERNEL = "add_int8"
 # the B8 kernels whose programs run on a kernel of their own on the card,

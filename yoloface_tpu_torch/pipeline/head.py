@@ -5,10 +5,15 @@ ordering follow the firmware ``post_process`` (grid 7, stride 8, anchors
 [9,14] [12,17] [22,21]; cx = (sigmoid+col)*8, w = exp*anchor); NMS is the
 fixed-shape greedy K^2 pass with the +1-pixel area convention.
 
-``detect_int8_head`` runs either the staged path below (top-K by the
-``topk_conf`` kernel or, with ``use_pallas_topk=False``, by a stable sort;
-then gather, decode, NMS) or, with ``HeadConfig.use_fused_head``, the
-one-kernel head of ``kernels/head.py``.  All rank by the
+``detect_multihead`` decodes the heads of a multi-head graph (the v3-tiny
+FPN) each at its own grid and anchors, pools their candidates and runs one
+top-K and greedy NMS across them (``select_detections``), all in torch on
+the heads' device: JAX selects with ``lax.top_k`` and an XLA NMS, with no
+Pallas kernel.  ``detect_int8_head`` runs either the staged path below
+(top-K by the ``topk_conf`` kernel or, with ``use_pallas_topk=False``, by a
+stable sort; then gather, decode, NMS) or, with
+``HeadConfig.use_fused_head``, the one-kernel head of ``kernels/head.py``.
+All rank by the
 zeroed-below-threshold float32 sigmoid key with ties to the lowest flat
 (anchor,row,col) index, like ``lax.top_k`` and the Pallas kernels in the
 JAX package.  ``HeadConfig`` and the ranking, selection, decode and NMS
@@ -99,3 +104,29 @@ def detect_int8_head(y_int8: torch.Tensor, *, scale: float, zero_point: int,
     else:
         _, top_idx = _top_k(key, k)
     return decode_topk(qf, top_idx, cfg)
+
+
+def detect_multihead(head_outputs, head_cfgs, *, scales, zero_points,
+                     input_size: float, iou_threshold: float = 0.5,
+                     conf_threshold: float = 0.7, max_detections: int = 16):
+    """Multi-scale YOLO detection: decode each head at its own grid and
+    anchors, pool all candidates, one confidence top-K + greedy NMS across
+    heads (the counterpart of ``yoloface_tpu.pipeline.head
+    .detect_multihead``, for int8 multi-head graphs such as the two-headed
+    v3-tiny FPN).
+
+    head_outputs: int8 tensors [N, g_i, g_i, A_i*6] (numpy is taken too),
+    all on one device, where the whole head runs;
+    head_cfgs:    a HeadConfig (grid, stride, anchors) per head.
+    Returns (boxes [N,K,4] f32, scores [N,K] f32, valid [N,K] bool)."""
+    all_boxes, all_conf = [], []
+    for y, cfg, s, zp in zip(head_outputs, head_cfgs, scales, zero_points):
+        b, c, _ = decode(torch.as_tensor(y), scale=float(s),
+                         zero_point=int(zp), cfg=cfg)
+        all_boxes.append(clamp_boxes(b, limit=input_size - 1.0))
+        all_conf.append(c)
+    sel_cfg = HeadConfig(conf_threshold=conf_threshold,
+                         iou_threshold=iou_threshold,
+                         max_detections=max_detections)
+    return select_detections(torch.cat(all_boxes, 1), torch.cat(all_conf, 1),
+                             sel_cfg)

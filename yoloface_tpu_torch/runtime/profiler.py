@@ -1,0 +1,172 @@
+"""Tracing and per-unit profiling of the port's engine.
+
+The counterpart of ``yoloface_tpu.runtime.profiler``.  The reference ships
+(unused) per-node inspection hooks and a static per-node MACC report;
+here:
+
+  * :func:`trace` -- a Chrome trace (chrome://tracing, ui.perfetto.dev) of
+    the host ops and, on a CUDA machine, the card's kernels, captured by
+    ``torch.profiler`` around any section;
+  * :func:`profile_engine` -- the time and MACCs of each unit an
+    ``Int8Engine`` launches (one lowered op in ``exact``, ``fast`` and
+    ``fast2``; one stage, section or one-op program in a kernel mode), each
+    run on its own on the inputs a full forward recorded;
+  * :func:`macc_per_op` -- static MACC counts from the graph (1,029,000 a
+    frame for the corpus net's convs).
+
+``tools/torch_profile_pipeline.py`` keeps a finer breakdown, by descriptor
+of a stage's program.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import time
+from typing import Callable, Dict, List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from yoloface_tpu_torch.runtime.engine import KERNEL_MODES
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Capture a trace: ``with trace('/tmp/trace') as path: run()`` writes
+    the Chrome trace of the host ops and, where CUDA is available, the
+    card's kernels to ``path``, a new file in ``log_dir``, on exit."""
+    from torch.profiler import ProfilerActivity, profile
+    cuda = torch.cuda.is_available()
+    os.makedirs(log_dir, exist_ok=True)
+    path = os.path.join(log_dir,
+                        f"trace_{os.getpid()}_{time.time_ns()}.json")
+    prof = profile(activities=[ProfilerActivity.CPU]
+                   + ([ProfilerActivity.CUDA] if cuda else []))
+    prof.start()
+    try:
+        yield path
+    finally:
+        if cuda:
+            torch.cuda.synchronize()
+        prof.stop()
+        prof.export_chrome_trace(path)
+
+
+def macc_per_op(graph) -> Dict[int, int]:
+    """Static multiply-accumulate counts per op index (batch 1)."""
+    out: Dict[int, int] = {}
+    for op in graph.ops:
+        if op.opname in ("CONV_2D", "DEPTHWISE_CONV_2D"):
+            w = graph.tensor(op.inputs[1]).data
+            o = graph.tensor(op.outputs[0]).shape
+            out[op.index] = int(np.prod(w.shape) * o[1] * o[2])
+        else:
+            out[op.index] = 0
+    return out
+
+
+def _units(engine, env) -> List[Tuple[str, List[int], Callable]]:
+    """(name, output tensors, call) of each unit the engine's mode launches,
+    in plan order; each call runs the unit on its inputs in ``env``."""
+    if engine.mode not in KERNEL_MODES:
+        return [(f"op {k}", [out], lambda fn=fn: fn(env))
+                for k, (out, fn) in enumerate(engine._plan)]
+    plan, units = engine.arena, []
+    for k, st in enumerate(plan.stages):
+        launch = plan._launch(st)
+        descs, consts = (getattr(plan, f"descs{k}"),
+                         getattr(plan, f"consts{k}"))
+        ins = [env[i] for i in st.inputs]
+        units.append((f"{launch.__name__} {k}", list(st.outputs),
+                      lambda launch=launch, st=st, descs=descs,
+                      consts=consts, ins=ins: launch(st, descs, consts, ins)))
+    return units
+
+
+def _unit_ops(producer, outputs: Sequence[int], held) -> List[int]:
+    """The indices of the ops a unit computes: walking back from its
+    outputs (``producer`` maps a tensor to the op writing it) to the
+    tensors the forward held (``held``, which its inputs are among) or the
+    graph's constants."""
+    ops, todo = set(), list(outputs)
+    while todo:
+        op = producer.get(todo.pop())
+        if op is None or op.index in ops:
+            continue
+        ops.add(op.index)
+        todo.extend(i for i in op.inputs if i >= 0 and i not in held)
+    return sorted(ops)
+
+
+def _ms(fn: Callable, iters: int, warmup: int, device: torch.device) -> float:
+    """Milliseconds of one ``fn()`` over ``iters`` runs after ``1 + warmup``
+    untimed ones: CUDA events ending in a synchronize on the card, the
+    host clock on the CPU."""
+    for _ in range(1 + warmup):
+        fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / iters
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+@torch.no_grad()
+def profile_engine(engine, x, iters: int = 5,
+                   warmup: int = 1) -> List[dict]:
+    """Per-unit timing table for one batch ``x`` (int8 [N,H,W,C], a tensor
+    or numpy).  One full forward records every tensor the mode holds; then
+    each unit the mode launches runs on its own on its recorded inputs:
+    one lowered op in ``exact``, ``fast`` and ``fast2`` (a fused conv +
+    leaky is one), one stage, section or one-op program in a kernel mode.
+    Times include the launch's host work, so compare relatively.  A row
+    has the JAX package's keys (``op_index``: the unit's first op, ``op``:
+    its op's name, or up to three joined by ``+``, or the unit's launch
+    and its op count; ``out_tensor``: its first output; ``ms``;
+    ``macc_per_frame``: the sum over its ops) and ``ops``, its ops as
+    ``NAME:index``; the rows' MACCs add up to ``macc_per_op``'s total.
+    Rows are sorted by time."""
+    g = engine.graph
+    xin = engine._input(x)
+    env = engine._env(xin)
+    held = set(env) | {engine.input_idx}
+    producer = {o: op for op in g.ops for o in op.outputs}
+    maccs = macc_per_op(g)
+    rows = []
+    for name, outs, fn in _units(engine, env):
+        ops = [g.ops[i] for i in _unit_ops(producer, outs, held)]
+        label = (ops[0].opname if len(ops) == 1 else
+                 "+".join(op.opname for op in ops) if len(ops) <= 3 else
+                 f"{name} ({len(ops)} ops)")
+        rows.append({"op_index": ops[0].index if ops else -1, "op": label,
+                     "out_tensor": outs[0],
+                     "ms": _ms(fn, iters, warmup, xin.device),
+                     "macc_per_frame": sum(maccs[op.index] for op in ops),
+                     "ops": [f"{op.opname}:{op.index}" for op in ops]})
+    rows.sort(key=lambda r: -r["ms"])
+    return rows
+
+
+def format_profile(rows: List[dict]) -> str:
+    total_ms = sum(r["ms"] for r in rows)
+    total_macc = sum(r["macc_per_frame"] for r in rows)
+    lines = [f"{'op':<22s} {'idx':>4s} {'ms':>9s} {'%time':>6s} "
+             f"{'MACC':>9s} {'%MACC':>6s}"]
+    for r in rows:
+        lines.append(
+            f"{r['op']:<22s} {r['op_index']:>4d} {r['ms']:>9.3f} "
+            f"{100 * r['ms'] / max(total_ms, 1e-9):>5.1f}% "
+            f"{r['macc_per_frame']:>9d} "
+            f"{100 * r['macc_per_frame'] / max(total_macc, 1):>5.1f}%")
+    lines.append(f"total: {total_ms:.3f} ms, {total_macc} MACC/frame")
+    return "\n".join(lines)
