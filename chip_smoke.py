@@ -57,7 +57,8 @@ Phases (each prints its lines; any failure ends the run with an error):
      3-input CONCATENATION and two PAD programs in both bits; the per-op
      programs past the concat and resize kernels' limits
      (tools/make_torch_port_golden.wide_move_graphs: a 17-input concat, a
-     concat and a resize of 16,400 channels) on the fused-stage kernel;
+     concat and a resize of 16,400 channels) on the fused-stage kernel,
+     and a 17,000-channel concat of 17 distinct tensors there in two parts;
      the arena and section kernels'
      new op cases (B2b, B6b: standalone LEAKY, RELU, RELU6, LOGISTIC,
      RESIZE, AVERAGE_POOL_2D, a PAD kept as an op) on every stage or
@@ -113,6 +114,24 @@ Phases (each prints its lines; any failure ends the run with an error):
      (pipeline/head.py) on the v3-tiny FPN's two heads through arena2,
      arena_exact and perop, the detections on the card against the CPU
      path and the golden multihead_v3tiny_fpn_* keys;
+  3b. the host side (_host_feed): the native frame pipeline built from
+     native/framepipe.cpp into build/ (a failure fails the run);
+     utils/verify_setup's card checks; the detect CLI's run and report
+     (detect.load's default arena_exact, detect_arrays, summarize: no cv2)
+     on the golden frames against JAX exact's golden detections; the
+     camera streamer (host/streamer.CameraStreamer, arena2, the native
+     ring, pinned slots, a copy stream) on two batches of the golden
+     frames with its launch counts set to 0 before it and read after (the
+     preprocess, arena-stage and head kernels once a batch) and its
+     protocol text against the golden JAX text (protocol_fast2, a line at
+     a rounding edge within the head's tolerance allowed and counted);
+     MultiCameraStreamer (the native scheduler) on 4 cameras of golden
+     frames; then, at 16384 and 65536, the device-resident rate of the
+     same call beside the host-fed streamer's steady rate from pre-built
+     batches (native ring; the Python queue beside it) and with
+     synthetic_frames as it is; the pinned and pageable host-to-device
+     rates and the ring's host copies at 65536 (the profiler window of
+     the host feed comes last, after phase 4's trace);
   4. timing with CUDA events (warm-up, median of 10): each kernel against
      its plain version at batch 16384 (the arena in all three bit
      semantics, the fused stages and the per-op program in both), each op
@@ -145,7 +164,10 @@ Phases (each prints its lines; any failure ends the run with an error):
      net's); the FPN served to boxes (engine, then detect_multihead) at
      16384 in arena2, arena_exact and perop, frames/s; last, the
      profiler's trace around one arena2 forward (the Chrome trace in
-     build/trace/ must hold arena_stage kernel events); then a program
+     build/trace/ must hold arena_stage kernel events); then the host
+     feed's torch.profiler window over a primed CameraStreamer run at
+     16384, in which a host-to-device copy must run under an arena-stage kernel
+     (the card's kernel busy share there); then a program
      whose op code the arena or section kernel has no case for must fail
      its launch (a child process,
      ``chip_smoke.py --forged-op arena|tiled``, whose CUDA context the
@@ -158,10 +180,10 @@ Phases (each prints its lines; any failure ends the run with an error):
      13x13, batch 256, beside B6 on that conv as a one-op strip section),
      the debug448 stream-order checks printing BIT-EXACT a variant; one
      kernels row a probe, its launches counted over its own run;
-  5. the kernels JSON line (each kernel's time beside its bound: the larger
-     of the bytes its function must move over 3.35 TB/s and its
-     operations over the card's peak rate for them), the card line, and
-     the result line last.
+  5. the host feed's JSON line, the kernels JSON line (each kernel's time
+     beside its bound: the larger of the bytes its function must move
+     over 3.35 TB/s and its operations over the card's peak rate for
+     them), the card line, and the result line last.
 
 Without a CUDA device it exits non-zero and prints no result.
 """
@@ -502,6 +524,301 @@ def _probe_rows(dev, card, g416):
               f"({card}; {time.perf_counter() - t1:.1f} s)")
     print(f"[probe] the probes phase: {time.perf_counter() - t0:.1f} s")
     return rows
+
+
+HOST_BATCHES = (16384, 65536)   # the host-fed streamer's timed batches
+HOST_RUN = 10                    # batches of each timed streamer run
+HOST_SKIP = 4     # batches a source gives before its pace is the steady one
+
+
+class _Stamped:
+    """An endless source cycling ``batches`` that stamps the host clock
+    each time the streamer's producer asks for a batch.  In the steady
+    state the bounded ring, queue and slots pace those asks, so their
+    rate is the streamer's throughput, set-up and priming left out."""
+
+    def __init__(self, batches):
+        self.batches = batches
+        self.stamps = []
+
+    def __iter__(self):
+        k = 0
+        while True:
+            self.stamps.append(time.perf_counter())
+            yield self.batches[k % len(self.batches)]
+            k += 1
+
+    def steady_fps(self, n: int, until: float) -> float:
+        """Frames/s of batches of ``n`` from the asks after the first
+        ``HOST_SKIP`` up to the host time ``until`` (the run's end)."""
+        t = [x for x in self.stamps if x <= until][HOST_SKIP:]
+        if len(t) < 3:
+            raise RuntimeError(f"{len(t)} steady asks: too few to time")
+        return n * (len(t) - 1) / (t[-1] - t[0])
+
+
+def _host_feed(dev, card, gold, pipe, counted, zero_counts):
+    """Phase 3b, the host side (A4) on the card: the native library built
+    here; ``verify_setup``'s card checks; the CLI's run and report on the
+    golden frames (``arena_exact``, no cv2) against JAX ``exact``'s
+    detections; ``CameraStreamer`` and ``MultiCameraStreamer`` on
+    ``arena2`` through the native ring and scheduler, their protocol text
+    against the golden JAX text, with the preprocess, arena-stage and head
+    launches of the streamer's run counted; then the host-fed rates at
+    ``HOST_BATCHES`` beside the device-resident rate, the pinned and
+    pageable host-to-device rates and the host copies (the profiler
+    window is ``_copy_overlap``, the run's last).  -> the phase's
+    numbers."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from yoloface_tpu_torch import detect
+    from yoloface_tpu_torch.host import native, streamer
+    from yoloface_tpu_torch.kernels import preprocess as kpre
+    from yoloface_tpu_torch.pipeline import head as thead
+    from yoloface_tpu_torch.utils import verify_setup
+
+    out = {"card": card}
+    _require(native.available(),
+             f"the native frame pipeline builds: {native.build_error}")
+    print(f"[host] native library {os.path.relpath(native.build(), ROOT)} "
+          "built from native/framepipe.cpp")
+    checks = (verify_setup.check_accelerator, verify_setup.check_builds,
+              verify_setup.check_framework_imports,
+              verify_setup.check_artifacts, verify_setup.check_engine)
+    ok = {c.__name__: c() for c in checks}
+    _require(all(ok.values()), f"verify_setup on the card: {ok}")
+    print(f"[serve] verify_setup: {len(ok)} card check groups passed")
+
+    # the CLI's run and report: the golden frames' int8 inputs (the plain
+    # preprocess on the host) through detect.load's default arena_exact
+    frames = gold["frames"]
+    x = kpre.preprocess_rgb565_plain(torch.from_numpy(frames)).numpy()
+    names = [f"frame_{i}" for i in range(len(x))]
+    results = detect.detect_arrays(detect.load(detect.DEFAULT_TFLITE,
+                                               device=dev), x, names)
+    text = io.StringIO()
+    summary = detect.summarize(results, out=text)
+    want = {k: gold["exact_" + k] for k in ("boxes", "scores", "valid")}
+    for i, name in enumerate(names):
+        ref = detect.detections_to_records(want, i)
+        _require(len(results[name]) == len(ref)
+                 == int(gold["exact_count"][i]), f"CLI {name}: face count")
+        for a, b in zip(results[name], ref):
+            _require(max(abs(u - v) for u, v in zip(a["box_net"],
+                                                    b["box_net"]))
+                     <= thead.BOX_ATOL and abs(a["confidence"]
+                                               - b["confidence"])
+                     <= thead.SCORE_ATOL, f"CLI {name}: {a} vs {b}")
+    print(f"[serve] detect CLI (arena_exact) on the golden frames: "
+          f"{summary['faces']} faces in {summary['inputs']} inputs equal "
+          f"JAX exact's within boxes {thead.BOX_ATOL} / scores "
+          f"{thead.SCORE_ATOL}; report '{text.getvalue().splitlines()[-1]}'")
+
+    # the golden JAX text of frame i, numbered as frame ``number``
+    rests = [t.split(" ===", 1)[1] for t in
+             str(gold["protocol_fast2"]).split("=== Frame ")[1:]]
+    _require(len(rests) == len(frames), "the golden protocol text")
+
+    def jax_text(i, number):
+        return f"=== Frame {number} ===" + rests[i]
+
+    def cycle(batch):
+        while True:
+            yield batch
+
+    # CameraStreamer: the serving path, its launches counted
+    zero_counts()
+    texts = []
+    stats = streamer.CameraStreamer(pipe, cycle(frames)).run(
+        2, on_frame=texts.append)
+    torch.cuda.synchronize()
+    feed_launches = {fn.__name__: fn.launches for fn in counted[:3]}
+    _require(stats["native_ring"], "CameraStreamer: the native ring")
+    _require(all(v == 2 for v in feed_launches.values()),
+             f"CameraStreamer: the preprocess, arena-stage and head kernels "
+             f"each once a batch: {feed_launches}")
+    _require(stats["frames"] == 16 and stats["faces"]
+             == 2 * int(gold["count"].sum()), f"CameraStreamer: {stats}")
+    edge = sum(streamer.protocol_diff(
+        t, jax_text(k % 8, k + 1), gold["boxes"][k % 8],
+        gold["scores"][k % 8], gold["valid"][k % 8])
+        for k, t in enumerate(texts))
+    out["streamer_launches"] = feed_launches
+    out["protocol_edge_lines"] = edge
+    print(f"[serve] CameraStreamer arena2, native ring, 2 batches of the 8 "
+          f"golden frames: launches {feed_launches}; protocol text equals "
+          f"the golden JAX text ({edge} line(s) at a rounding edge within "
+          "the head's tolerance)")
+
+    # MultiCameraStreamer: 4 cameras of golden frames, batches of 8
+    def camera(s):
+        for k in range(8):
+            yield frames[(s + k) % 8]
+
+    lines = []
+    mstats = streamer.MultiCameraStreamer(
+        pipe, [camera(s) for s in range(4)], batch=8).run(
+        4, on_frame=lambda sid, seq, t: lines.append((sid, seq, t)))
+    _require(mstats["native"], "MultiCameraStreamer: the native scheduler")
+    _require(mstats["frames_per_stream"] == [8] * 4 and sum(
+        mstats["faces_per_stream"]) == 4 * int(gold["count"].sum()),
+        f"MultiCameraStreamer: {mstats}")
+    for s in range(4):
+        _require([q for sid, q, _ in lines if sid == s] == list(range(8)),
+                 f"MultiCameraStreamer: stream {s} in order")
+    medge = sum(streamer.protocol_diff(
+        t, jax_text((sid + seq) % 8, seq + 1), gold["boxes"][(sid + seq) % 8],
+        gold["scores"][(sid + seq) % 8], gold["valid"][(sid + seq) % 8])
+        for sid, seq, t in lines)
+    print(f"[serve] MultiCameraStreamer arena2, native scheduler, 4 cameras, "
+          f"4 batches of 8: per stream {mstats['frames_per_stream']} frames, "
+          f"{mstats['faces_per_stream']} faces; protocol text equals the "
+          f"golden JAX text ({medge} line(s) at a rounding edge)")
+
+    # timing: the host-fed streamer against the device-resident call
+    out["batches"] = {}
+    for n in HOST_BATCHES:
+        reps = -(-n // len(frames))
+        b0 = np.ascontiguousarray(np.tile(frames, (reps, 1, 1))[:n])
+        b1 = np.ascontiguousarray(b0[::-1])
+        devf = torch.from_numpy(b0).to(dev)
+        ms_dev = _time_ms(lambda: pipe.detect_rgb565_device(devf), reps=5)
+        del devf
+        row = {"device_resident_ms": ms_dev,
+               "device_resident_fps": n / ms_dev * 1e3}
+
+        for tag, use_native in (("native_ring", True), ("python_queue",
+                                                        False)):
+            src = _Stamped((b0, b1))
+            st = streamer.CameraStreamer(pipe, iter(src),
+                                         use_native=use_native)
+            stats = st.run(HOST_RUN, emit_protocol=False)
+            end = time.perf_counter()
+            _require(stats["frames"] == HOST_RUN * n
+                     and stats["native_ring"] is use_native,
+                     f"host-fed {tag} N={n}: {stats}")
+            row[tag] = {"steady_fps": src.steady_fps(n, end),
+                        "run_fps": stats["fps"], "batches": HOST_RUN,
+                        "seconds": stats["seconds"]}
+            row["pinned_host_bytes"] = st.feed.host_bytes()
+            del st
+        syn = streamer.CameraStreamer(pipe, streamer.synthetic_frames(n)).run(
+            3, emit_protocol=False)
+        row["synthetic_frames"] = {"run_fps": syn["fps"], "batches": 3,
+                                   "seconds": syn["seconds"]}
+        out["batches"][n] = row
+        print(f"[time] host feed N={n} ({card}): device-resident "
+              f"{ms_dev:.4f} ms ({row['device_resident_fps']:.0f} frames/s); "
+              f"CameraStreamer from pre-built batches, native ring "
+              f"{row['native_ring']['steady_fps']:.0f} frames/s steady "
+              f"({row['native_ring']['run_fps']:.0f} over its "
+              f"{HOST_RUN}-batch run, set-up included), Python queue "
+              f"{row['python_queue']['steady_fps']:.0f} steady; "
+              f"synthetic_frames {syn['fps']:.0f} frames/s over 3 batches; "
+              f"pinned host memory {row['pinned_host_bytes']} B")
+
+    # the link and the host copies at the largest batch
+    n = HOST_BATCHES[-1]
+    nbytes = b0.nbytes
+    pinned = torch.empty(b0.shape, dtype=torch.uint16, pin_memory=True)
+    np.copyto(pinned.numpy(), b0)
+    d = torch.empty(b0.shape, dtype=torch.uint16, device=dev)
+    ms_pin = _time_ms(lambda: d.copy_(pinned, non_blocking=True), reps=5)
+    pageable = torch.from_numpy(b0)
+    ms_page = _time_ms(lambda: d.copy_(pageable), reps=3)
+    _require(torch.equal(d.cpu(), pinned), "the host-to-device copy")
+
+    ring = native.NativeRing(1, nbytes)
+    push_ms, pop_ms = [], []
+    for _ in range(3):
+        t = time.perf_counter()
+        ring.push(b0)
+        push_ms.append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        ring.pop(out=pinned)
+        pop_ms.append((time.perf_counter() - t) * 1e3)
+    ring.close()
+    _require(np.array_equal(pinned.numpy(), b0), "the ring's pop")
+    push_ms, pop_ms = sorted(push_ms)[1], sorted(pop_ms)[1]
+    t = time.perf_counter()
+    np.copyto(pinned.numpy(), b1)
+    copy_ms = (time.perf_counter() - t) * 1e3
+    out["copies"] = {
+        "bytes": nbytes, "h2d_pinned_ms": ms_pin,
+        "h2d_pinned_gbs": nbytes / ms_pin / 1e6, "h2d_pageable_ms": ms_page,
+        "h2d_pageable_gbs": nbytes / ms_page / 1e6,
+        "ring_push_ms": push_ms, "ring_pop_into_pinned_ms": pop_ms,
+        "copyto_pinned_ms": copy_ms}
+    c = out["copies"]
+    print(f"[time] host-to-device copy of {nbytes} B ({card}): pinned "
+          f"{ms_pin:.3f} ms ({c['h2d_pinned_gbs']:.2f} GB/s), pageable "
+          f"{ms_page:.3f} ms ({c['h2d_pageable_gbs']:.2f} GB/s); host "
+          f"copies: ring push {c['ring_push_ms']:.2f} ms, ring pop into a "
+          f"pinned slot {pop_ms:.2f} ms, np.copyto into it {copy_ms:.2f} ms")
+    del pinned, pageable, d, b0, b1
+
+    return out
+
+
+def _copy_overlap(card, frames, pipe):
+    """The last profiler session of the run (on the H100 a
+    ``torch.profiler`` session after one that recorded the streamer's copy
+    stream caught no kernel events): a window over a primed
+    ``CameraStreamer`` run of
+    ``arena2`` at ``HOST_BATCHES[0]`` in which a host-to-device copy must
+    run under an arena-stage kernel, and the card's kernel busy share
+    there (the kernels' union over the window).  -> its numbers."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from yoloface_tpu_torch.host import streamer
+    from yoloface_tpu_torch.runtime import profiler
+
+    def cycle(batch):
+        while True:
+            yield batch
+
+    n, k = HOST_BATCHES[0], 6
+    b = np.ascontiguousarray(np.tile(frames, (n // len(frames), 1, 1)))
+    streamer.CameraStreamer(pipe, cycle(b)).run(2, emit_protocol=False)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        st = streamer.CameraStreamer(pipe, cycle(b)).run(
+            k, emit_protocol=False)
+    acts = profiler.device_activities(prof)
+    h2d = [a for a in acts if "Memcpy HtoD" in a[0]]
+    stage = [a for a in acts if "arena_stage" in a[0]]
+    ov = profiler.overlaps(acts, "Memcpy HtoD", "arena_stage")
+    _require(st["frames"] == k * n and len(stage) == k,
+             f"profiled streamer: {st}, {len(stage)} arena stages")
+    _require(bool(ov), "the host-to-device copy of batch k+1 overlaps the "
+             f"arena stage of batch k: copies {h2d}, stages {stage}")
+    kernel_iv = sorted((s0, e0) for name, s0, e0 in acts
+                       if not name.startswith(("Memcpy", "Memset")))
+    busy, end = 0.0, None
+    for s0, e0 in kernel_iv:      # the union of the kernels' intervals
+        if end is None or s0 > end:
+            busy, end = busy + e0 - s0, e0
+        elif e0 > end:
+            busy, end = busy + e0 - end, e0
+    window = max(e0 for _, _, e0 in acts) - min(s0 for _, s0, _ in acts)
+    out = {"batch": n, "batches": k, "h2d_copies": len(h2d),
+           "h2d_us": [e0 - s0 for _, s0, e0 in h2d],
+           "arena_stage_us": [e0 - s0 for _, s0, e0 in stage],
+           "overlapping_pairs": len(ov), "overlap_us": [o for _, _, o in ov],
+           "window_us": window, "kernel_busy_share": busy / window}
+    print(f"[time] overlap N={n}, {k} batches ({card}): {len(h2d)} "
+          f"host-to-device copies of {[round(e0 - s0) for _, s0, e0 in h2d]}"
+          f" us, arena stages of {[round(e0 - s0) for _, s0, e0 in stage]} "
+          f"us; {len(ov)} copy/stage pair(s) ran at once, for "
+          f"{[round(o) for _, _, o in ov]} us; kernels busy {busy:.0f} us "
+          f"of the {window:.0f} us window ({busy / window:.4f})")
+    return out
 
 
 def main() -> int:
@@ -1172,9 +1489,11 @@ def main() -> int:
     # of 17 inputs (3 and 17 distinct tensors) on the concat kernel in two
     # groups, each into its channel slice of the output; a concat and a
     # resize of 16,400 channels on the fused-stage kernel, as card_kernel
-    # decides from the program
+    # decides from the program; the 17,000-channel concat of 17 distinct
+    # tensors there too, in two parts of 15 and 2 inputs (perop.concat_parts)
+    wide_parts = "17 distinct inputs past 16,384 channels"
     for name, (g, shape) in tool.wide_move_graphs().items():
-        to_fused = name == "16400 channels"
+        to_fused = name in ("16400 channels", wide_parts)
         for bits in perop.BITS:
             p = perop.PerOpPlan(g, bits).to(dev)
             wide = [st for st in p.stages if st.kernel in perop.OWN_KERNELS]
@@ -1189,8 +1508,12 @@ def main() -> int:
                      f"{name} {bits}: every op launched")
             _require(to_fused or move.concat_channels.launches == 2,
                      f"{name} {bits}: the concat in two launches")
+            _require(name != wide_parts or [
+                len(part.inputs) for part, _ in perop.concat_parts(wide[0])]
+                == [15, 2], f"{name} {bits}: the concat in two parts")
         print(f"[check] perop {name} ({[st.kernel for st in wide]} on "
               f"{'fused_stage' if to_fused else 'concat_channels, two groups'}"
+              f"{', two parts' if name == wide_parts else ''}"
               "), fast and exact bits, N=5: every op output bit-exact")
 
     # B2b, B6b: the rest of the arena and tiled kernels' op surface
@@ -1661,6 +1984,10 @@ def main() -> int:
               f"{launches[path]}; counts {got[2].sum(1).tolist()} equal the "
               f"CPU path and the golden {bits} keys within boxes "
               f"{thead.BOX_ATOL} / scores {thead.SCORE_ATOL}")
+
+    # ------------------------------------------------------ 3b. host feed
+    host_feed = _host_feed(dev, card, gold, pipe, counted, zero_counts)
+    torch.cuda.empty_cache()
 
     # ----------------------------------------------------------- 4. timing
     n = TIMING_BATCH
@@ -2140,10 +2467,10 @@ def main() -> int:
               f"{t_net:.4f} ms ({card})")
     del x_fpn
 
-    # trace (runtime/profiler.py), nothing timed after it: one arena2
-    # forward under torch.profiler; the Chrome trace in the git-ignored
-    # build/trace/ must hold the arena kernel's launches as CUDA kernel
-    # events
+    # trace (runtime/profiler.py), nothing timed after it but the copy
+    # overlap window: one arena2 forward under torch.profiler; the Chrome
+    # trace in the git-ignored build/trace/ must hold the arena kernel's
+    # launches as CUDA kernel events
     with profiler.trace(os.path.join(ROOT, "build", "trace")) as trace_path:
         pipes["arena2"].engine(x)
     with open(trace_path) as fh:
@@ -2156,6 +2483,7 @@ def main() -> int:
           f"{len(kernel_events)} of them CUDA kernels, arena_stage among "
           f"them ({os.path.getsize(trace_path)} B)")
 
+    host_feed["overlap"] = _copy_overlap(card, gold["frames"], pipe)
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"[time] peak device memory {peak:.2f} GiB")
 
@@ -2362,6 +2690,7 @@ def main() -> int:
                    for mode, r in v3.items()}}
         kernels.append(row)
     kernels.extend(probe_rows)
+    print(json.dumps({"host_feed": host_feed}))
     print(_smi("name,power.limit"))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -669,7 +669,8 @@ def test_wide_move_programs_match_plain_on_the_card(bits):
     plain version: the concats of 17 inputs (3 and 17 distinct tensors)
     on the concat kernel in two launches, each into its channel slice; a
     concat and a resize of 16,400 channels on the fused-stage kernel,
-    chosen at plan time."""
+    chosen at plan time; the 17,000-channel concat of 17 distinct tensors
+    on the fused-stage kernel in two parts (``perop.concat_parts``)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     rng = np.random.default_rng(7)
@@ -683,12 +684,16 @@ def test_wide_move_programs_match_plain_on_the_card(bits):
         env = plan.run_stages(x.cuda())
         torch.cuda.synchronize()
         wide = [st for st in plan.stages if st.kernel in perop.OWN_KERNELS]
-        want = "fused_stage" if name == "16400 channels" else \
-            "concat_channels"
+        on_fused = name in ("16400 channels",
+                            "17 distinct inputs past 16,384 channels")
+        want = "fused_stage" if on_fused else "concat_channels"
         assert wide and all(perop.card_kernel(st) == want for st in wide)
         assert perop.perop_op.launches == len(plan.stages)
-        assert move.concat_channels.launches == (
-            0 if want == "fused_stage" else 2)
+        assert move.concat_channels.launches == (0 if on_fused else 2)
+        if name == "17 distinct inputs past 16,384 channels":
+            assert perop.perop_op.by_kernel["concat_channels"] == 1
+            assert [len(p.inputs) for p, _ in perop.concat_parts(
+                wide[0])] == [15, 2]
         for k, st in enumerate(plan.stages):
             ref = [torch.empty_like(env[o]) for o in st.outputs]
             perop.perop_plain(st, getattr(plan, f"consts{k}"),
@@ -1080,3 +1085,130 @@ def test_multihead_on_the_card_equals_golden(mode):
                                atol=thead.BOX_ATOL)
     np.testing.assert_allclose(got[1].cpu().numpy(), scores, rtol=0,
                                atol=thead.SCORE_ATOL)
+
+
+# --------------------------------------------------------------------------
+# the host side: the streamers, the CLI and the verifier on the card
+# --------------------------------------------------------------------------
+def _cycle(batch):
+    while True:
+        yield batch
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("use_native", [True, False])
+def test_streamer_detections_equal_the_cpu_path(use_native):
+    """Two batches of the golden frames through ``CameraStreamer`` on the
+    card (``arena2``: the preprocess, arena-stage and head kernels,
+    pinned slots, the copy stream, the detections' copies back): the same
+    counts as the CPU path's streamer and the same protocol text, but a
+    line whose CPU value lies at a rounding edge within the head's
+    tolerance (``streamer.protocol_diff``); the native ring where asked."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from yoloface_tpu_torch.host import native, streamer
+    if use_native:
+        assert native.available(), native.build_error
+    frames = np.load(GOLDEN)["frames"]
+    card = load_pipeline(CORPUS, mode="arena2", device="cuda")
+    cpu = load_pipeline(CORPUS, mode="arena2", device="cpu")
+    preprocess.preprocess_rgb565.launches = 0
+    arena.arena_stage.launches = head.detect_head.launches = 0
+    got, want = [], []
+    a = streamer.CameraStreamer(card, _cycle(frames),
+                                use_native=use_native).run(
+        2, on_frame=got.append)
+    assert (preprocess.preprocess_rgb565.launches, arena.arena_stage.launches,
+            head.detect_head.launches) == (2, 2, 2)
+    b = streamer.CameraStreamer(cpu, _cycle(frames),
+                                use_native=use_native).run(
+        2, on_frame=want.append)
+    assert a["native_ring"] is use_native
+    assert (a["frames"], a["faces"]) == (b["frames"], b["faces"]) == (
+        16, 2 * int(np.load(GOLDEN)["count"].sum()))
+    det = cpu.detect_rgb565(np.concatenate([frames, frames]))
+    for i, (g, w) in enumerate(zip(got, want)):
+        streamer.protocol_diff(g, w, det["boxes"][i], det["scores"][i],
+                               det["valid"][i])
+
+
+@pytest.mark.gpu
+def test_streamer_copy_overlaps_the_arena_stage():
+    """In a ``torch.profiler`` window over a primed streamer run at 16384
+    frames, a host-to-device copy of a batch runs while the arena-stage
+    kernel of the batch before it runs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from torch.profiler import ProfilerActivity, profile
+
+    from yoloface_tpu_torch.host import streamer
+    from yoloface_tpu_torch.runtime import profiler
+    pipe = load_pipeline(CORPUS, mode="arena2", device="cuda")
+    rng = np.random.default_rng(0)
+    batch = rng.integers(0, 1 << 16, (16384, 112, 112),
+                         dtype=np.int64).astype(np.uint16)
+    streamer.CameraStreamer(pipe, _cycle(batch)).run(2)      # warm up
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        stats = streamer.CameraStreamer(pipe, _cycle(batch)).run(3)
+    assert stats["frames"] == 3 * 16384
+    acts = profiler.device_activities(prof)
+    assert profiler.overlaps(acts, "Memcpy HtoD", "arena_stage"), [
+        a for a in acts if "Memcpy" in a[0] or "arena_stage" in a[0]]
+
+
+@pytest.mark.gpu
+def test_multicamera_streamer_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from yoloface_tpu_torch.host import native, streamer
+    gold = np.load(GOLDEN)
+    frames = gold["frames"]
+
+    def camera(s):
+        for k in range(8):
+            yield frames[(s + k) % 8]
+
+    pipe = load_pipeline(CORPUS, mode="arena2", device="cuda")
+    lines = []
+    stats = streamer.MultiCameraStreamer(
+        pipe, [camera(s) for s in range(4)], batch=8).run(
+        4, on_frame=lambda sid, seq, t: lines.append((sid, seq, t)))
+    assert stats["native"] is native.available() is True
+    assert stats["frames_per_stream"] == [8, 8, 8, 8]
+    assert sum(stats["faces_per_stream"]) == 4 * int(gold["count"].sum())
+    for s in range(4):
+        assert [q for sid, q, _ in lines if sid == s] == list(range(8))
+
+
+@pytest.mark.gpu
+def test_cli_run_and_report_on_the_card_equal_golden():
+    """``detect.load`` (``arena_exact``, the card) and ``detect_arrays``
+    on the golden frames' int8 inputs: JAX ``exact``'s detections (the
+    golden ``exact_*``) within the head's tolerance."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from yoloface_tpu_torch import detect
+    from yoloface_tpu_torch.pipeline import head as thead
+    gold = dict(np.load(GOLDEN))
+    x = preprocess.preprocess_rgb565_plain(torch.from_numpy(gold["frames"]))
+    names = [f"frame_{i}" for i in range(len(x))]
+    got = detect.detect_arrays(detect.load(detect.DEFAULT_TFLITE), x.numpy(),
+                               names)
+    want = {k: gold["exact_" + k] for k in ("boxes", "scores", "valid")}
+    for i, name in enumerate(names):
+        ref = detect.detections_to_records(want, i)
+        assert len(got[name]) == len(ref) == int(gold["exact_count"][i])
+        for a, b in zip(got[name], ref):
+            np.testing.assert_allclose(a["box_net"], b["box_net"], rtol=0,
+                                       atol=thead.BOX_ATOL)
+            assert abs(a["confidence"] - b["confidence"]) <= \
+                thead.SCORE_ATOL
+
+
+@pytest.mark.gpu
+def test_verify_setup_passes_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from yoloface_tpu_torch.utils import verify_setup
+    assert verify_setup.main() == 0

@@ -54,6 +54,13 @@ ENTRIES = {
     "byte-move kernels":
         "from yoloface_tpu_torch.kernels.move import (concat_channels,\n"
         "                                            resize_nearest)",
+    "host side":
+        "from yoloface_tpu_torch.host import (gui, monitor, native, protocol,\n"
+        "                                     streamer)",
+    "detect CLI":
+        "from yoloface_tpu_torch import detect",
+    "verify setup":
+        "from yoloface_tpu_torch.utils import verify_setup",
     "probes entry points":
         "from yoloface_tpu_torch.kernels import probes\n"
         "from yoloface_tpu_torch.probes import (debug448, microbench,\n"
@@ -69,7 +76,7 @@ def test_port_imports_without_jax(entry):
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
     if entry == "all modules":
-        assert int(res.stdout.split()[0]) >= 28      # every module imported
+        assert int(res.stdout.split()[0]) >= 47      # every module imported
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py",

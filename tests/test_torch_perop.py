@@ -478,7 +478,8 @@ def test_serving_on_golden_frames(mode, key):
 def test_card_kernel_routes_by_the_program(corpus, surface, bits):
     """``card_kernel`` decides from the program: the 16,400-channel concat
     and the 16,400-channel resize (past the concat and resize kernels'
-    16,384 channels) go to the fused-stage kernel; the concats of 17
+    16,384 channels) and the 17,000-channel concat of 17 distinct inputs
+    go to the fused-stage kernel; the concats of 17
     inputs (3 and 17 distinct tensors) stay on the concat kernel, which
     ``perop_op`` launches once a group of 16 inputs, and the 16 standalone
     LEAKYs before the second go to the table kernel; every program of the
@@ -493,7 +494,9 @@ def test_card_kernel_routes_by_the_program(corpus, surface, bits):
     assert got == {"17-input concat": ["concat_channels"],
                    "17 distinct inputs": ["eltwise_lut"] * 16
                    + ["concat_channels"],
-                   "16400 channels": ["fused_stage", "fused_stage"]}
+                   "16400 channels": ["fused_stage", "fused_stage"],
+                   "17 distinct inputs past 16,384 channels":
+                   ["eltwise_lut"] * 16 + ["fused_stage"]}
     for g in (graph_from_jax(corpus[0]), surface[1]):
         for st in perop.PerOpPlan(g, bits).stages:
             want = ("eltwise_lut" if st.kernel in perop.TABLE_KERNELS else
@@ -538,6 +541,78 @@ def test_concat_of_17_distinct_tensors_equals_jax(bits, jax_mode):
               if st.kernel == "concat_channels"]
     assert perop.card_kernel(cat) == "concat_channels"
     assert len(cat.args) == 17 > move.MAX_INPUTS
+
+
+@pytest.mark.parametrize("bits,jax_mode", [("fast", "pallas"),
+                                           ("exact", "pallas_exact")])
+def test_wide_concat_of_17_distinct_tensors_equals_jax(bits, jax_mode):
+    """The concat of x and 16 LEAKY_RELUs of it past 16,384 channels (17
+    distinct tensors of 1,000 channels, past both the concat kernel's
+    16,384 channels and the fused-stage kernel's 16 device tensors)
+    equals JAX ``pallas`` / ``pallas_exact`` (interpret mode) on every
+    tensor; on the card it runs on the fused-stage kernel in two parts."""
+    g, shape = TOOL.wide_move_graphs()[
+        "17 distinct inputs past 16,384 channels"]
+    x = _int8(np.random.default_rng(31), (2, *shape))
+    want = JaxEngine(TOOL.jax_graph(g), jax_mode).run_with_intermediates(x)
+    got = Int8Engine(g, MODE[bits], device="cpu").run_with_intermediates(x)
+    assert len(set(g.ops[-1].inputs)) == 17 and g.outputs[0] in got
+    assert set(got) <= set(want)
+    _assert_equal(got, {k: want[k] for k in got})
+
+
+@pytest.mark.parametrize("bits", perop.BITS)
+def test_concat_parts_rebuild_the_wide_concat(bits):
+    """``perop.concat_parts`` cuts the 17,000-channel concat of 17 distinct
+    tensors into fused-stage programs of 15 and 2 inputs (16 and 3 device
+    tensors), each row writing the channel slice it wrote in the whole
+    program; run one after the other into one output by the plain
+    version, they give the whole program's output.  A program that fits
+    one launch is its own one part."""
+    g, shape = TOOL.wide_move_graphs()[
+        "17 distinct inputs past 16,384 channels"]
+    plan = perop.PerOpPlan(g, bits)
+    x = torch.from_numpy(_int8(np.random.default_rng(5), (3, *shape)))
+    env = plan.run_stages(x)
+    (k,) = [k for k, st in enumerate(plan.stages)
+            if st.kernel == "concat_channels"]
+    st = plan.stages[k]
+    parts = perop.concat_parts(st)
+    assert [(len(p.inputs), idx) for p, idx in parts] == [
+        (15, list(range(15))), (2, [15, 16])]
+    for p, idx in parts:
+        assert len(p.globals_) <= arena.MAX_GLOBALS
+        assert p.outputs == st.outputs and p.descs.shape[1] == arena.OP_INTS
+        assert set(p.descs[:, arena.F["out_space"]]) == {len(idx) + 1}
+    assert np.array_equal(np.concatenate([p.descs for p, _ in parts])[
+        :, arena.F["out_off"]], np.sort(st.descs[:, arena.F["out_off"]]))
+    ins = [env[i] for i in st.inputs]
+    out = torch.zeros_like(env[st.outputs[0]])
+    for p, idx in parts:
+        perop.perop_plain(p, getattr(plan, f"consts{k}"),
+                          [ins[j] for j in idx] + [out])
+    assert torch.equal(out, env[st.outputs[0]])
+    small = [s for s in perop.PerOpPlan(
+        TOOL.wide_move_graphs()["16400 channels"][0], bits).stages
+        if s.kernel == "concat_channels"][0]
+    assert perop.concat_parts(small) == [(small, [0, 1])]
+
+
+def test_prepare_takes_checked_outputs():
+    """``arena.prepare(stage, xs, outs)`` hands back the caller's output
+    tensors (the concat parts share one) after checking them."""
+    g, shape = TOOL.wide_move_graphs()[
+        "17 distinct inputs past 16,384 channels"]
+    st = [s for s in perop.PerOpPlan(g, "fast").stages
+          if s.kernel == "concat_channels"][0]
+    xs = [torch.zeros((2, *st.shapes[i]), dtype=torch.int8)
+          for i in st.inputs]
+    out = torch.zeros((2, *st.shapes[st.outputs[0]]), dtype=torch.int8)
+    got, dev = arena.prepare(st, xs, [out])
+    assert got[0] is out and dev.type == "cpu"
+    for bad in (out[:1], out.to(torch.uint8), out[..., ::2]):
+        with pytest.raises(ValueError, match="output"):
+            arena.prepare(st, xs, [bad])
 
 
 def test_default_device_is_the_card(corpus):

@@ -34,6 +34,9 @@ pipelines give for them:
     ``tflite_frames("v3tiny_fpn")``, with the head configurations and
     arguments of tests/test_darknet_ptq.py (``FPN_HEADS``,
     ``FPN_DETECT``): ``multihead_v3tiny_fpn_<bits>_<boxes|scores|valid>``.
+  * the JAX package's firmware-protocol text of the 8 golden frames from
+    its ``CameraStreamer`` around the ``fast2`` and ``exact`` pipelines
+    above (``protocol_fast2``, ``protocol_exact``).
 chip_smoke.py holds the card's output against it without jax;
 tests/test_torch_pipeline.py, tests/test_torch_tiled.py,
 tests/test_torch_fused.py, tests/test_torch_perop.py and
@@ -44,9 +47,10 @@ one-op graphs of tests/test_torch_perop.py and the published yolov3-tiny
 
 Run from the repository root, on the CPU:
     JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py
-or, to add the detections of the FPN to the file as it is (every other
-array kept as it was):
+or, to add the detections of the FPN or the protocol text to the file as
+it is (every other array kept as it was):
     JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py --add multihead
+    JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py --add protocol
 """
 
 from __future__ import annotations
@@ -261,7 +265,10 @@ def wide_move_graphs():
     CONCATENATION of x [N,4,4,3] and 16 standalone LEAKY_RELUs of it, each
     with its own output scale and zero-point (17 distinct tensors) ->
     [N,4,4,51]; "16400 channels", x [N,1,2,8200] concatenated with its RELU
-    to 16,400 channels, then a x2 RESIZE of those to [N,2,4,16400]."""
+    to 16,400 channels, then a x2 RESIZE of those to [N,2,4,16400]; "17
+    distinct inputs past 16,384 channels", a CONCATENATION of x [N,1,2,1000]
+    and 16 standalone LEAKY_RELUs of it, each with its own output scale and
+    zero-point (17 distinct tensors) -> [N,1,2,17000]."""
     b = GraphMaker(SEED_SURFACE)
     x = b.act(4, 3, 0.05, -3)
     ts = [x, b.op("RELU", [x], b.act(4, 3, 0.05, -3)),
@@ -288,9 +295,21 @@ def wide_move_graphs():
               b.tensor((1, 2, 4, 16400), scale=0.05, zp=-3),
               align_corners=False, half_pixel_centers=False)
     wide = b.graph([x], [up], "channels16400")
+    b = GraphMaker(SEED_SURFACE)
+    x = b.tensor((1, 1, 2, 1000), scale=0.05, zp=-3)
+    ts = [x] + [b.op("LEAKY_RELU", [x],
+                     b.tensor((1, 1, 2, 1000), scale=0.04 + 0.005 * k,
+                              zp=7 * k - 50), alpha=0.1)
+                for k in range(16)]
+    cat = b.op("CONCATENATION", ts, b.tensor((1, 1, 2, 17000), scale=0.05,
+                                             zp=-3),
+               axis=3, activation="NONE")
+    wide_distinct = b.graph([x], [cat], "concat17_distinct_wide")
     return {"17-input concat": (many, (4, 4, 3)),
             "17 distinct inputs": (distinct, (4, 4, 3)),
-            "16400 channels": (wide, (1, 2, 8200))}
+            "16400 channels": (wide, (1, 2, 8200)),
+            "17 distinct inputs past 16,384 channels": (wide_distinct,
+                                                        (1, 2, 1000))}
 
 
 def strided_1x1_graph():
@@ -540,6 +559,35 @@ def jax_outputs_surface_fast2() -> dict:
     return {f"surface_fast2{k}": np.asarray(y) for k, y in enumerate(ys)}
 
 
+KEYS_PROTOCOL = ("protocol_fast2", "protocol_exact")
+
+
+def jax_outputs_protocol() -> dict:
+    """The JAX package's firmware-protocol text of the golden frames: its
+    ``CameraStreamer`` (the Python queue, so nothing is built) on one batch
+    of the 8 frames around the ``fast2`` and ``exact`` pipelines of
+    ``jax_outputs`` (``protocol_fast2``, ``protocol_exact``: the 8 frames'
+    text, frames numbered from 1)."""
+    from yoloface_tpu.host.streamer import CameraStreamer
+    from yoloface_tpu.io.tflite_import import load_tflite
+    from yoloface_tpu.pipeline.e2e import FacePipeline
+    from yoloface_tpu.pipeline.head import HeadConfig
+    from yoloface_tpu.runtime.engine import Int8Engine
+    graph = load_tflite(CORPUS)
+    frames = golden_frames()
+    out = {}
+    for mode, topk in (("fast2", False), ("exact", True)):
+        pipe = FacePipeline(Int8Engine(graph, mode),
+                            HeadConfig(use_fused_head=False,
+                                       use_pallas_topk=topk))
+        texts = []
+        stats = CameraStreamer(pipe, iter([frames]), use_native=False).run(
+            1, on_frame=texts.append)
+        assert stats["frames"] == len(texts) == len(frames), stats
+        out[f"protocol_{mode}"] = np.asarray("".join(texts))
+    return out
+
+
 def add_keys(new: dict) -> None:
     """Add ``new`` to the golden file, every array already there kept as
     it is (a key already there must hold the same array)."""
@@ -557,15 +605,20 @@ def main(argv) -> int:
         add_keys(jax_outputs_multihead())
         print(f"added {len(KEYS_MULTIHEAD)} keys to {OUT}")
         return 0
+    if argv == ["--add", "protocol"]:
+        add_keys(jax_outputs_protocol())
+        print(f"added {len(KEYS_PROTOCOL)} keys to {OUT}")
+        return 0
     if argv:
-        raise SystemExit("usage: make_torch_port_golden.py [--add multihead]")
+        raise SystemExit("usage: make_torch_port_golden.py "
+                         "[--add multihead|protocol]")
     frames = golden_frames()
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
     write_tflite_graphs()
     np.savez_compressed(OUT, frames=frames, **jax_outputs(frames),
                         **jax_outputs_448(), **jax_outputs_surface(),
                         **jax_outputs_surface_fast2(), **jax_outputs_tflite(),
-                        **jax_outputs_multihead())
+                        **jax_outputs_multihead(), **jax_outputs_protocol())
     print(f"wrote {OUT}")
     return 0
 

@@ -952,9 +952,11 @@ def _plain_op(d: List[int], j: int, consts: torch.Tensor,
 # --------------------------------------------------------------------------
 # the kernel wrapper
 # --------------------------------------------------------------------------
-def prepare(stage: Stage, xs: Sequence[torch.Tensor]
+def prepare(stage: Stage, xs: Sequence[torch.Tensor],
+            outs: Optional[List[torch.Tensor]] = None
             ) -> Tuple[List[torch.Tensor], torch.device]:
-    """Check a stage's inputs; allocate its outputs on their device."""
+    """Check a stage's inputs; allocate its outputs on their device, or
+    take ``outs``, tensors the caller allocated for them."""
     if len(xs) != len(stage.inputs):
         raise ValueError(f"stage takes {len(stage.inputs)} inputs")
     n = xs[0].shape[0]
@@ -966,8 +968,15 @@ def prepare(stage: Stage, xs: Sequence[torch.Tensor]
                              f"{tuple(x.shape)}")
         if x.device != dev or not x.is_contiguous():
             raise ValueError(f"input {i} must be contiguous on {dev}")
-    return [torch.empty((n,) + stage.shapes[o], dtype=torch.int8, device=dev)
-            for o in stage.outputs], dev
+    if outs is None:
+        return [torch.empty((n,) + stage.shapes[o], dtype=torch.int8,
+                            device=dev) for o in stage.outputs], dev
+    for o, t in zip(stage.outputs, outs):
+        if (tuple(t.shape) != (n,) + stage.shapes[o] or t.dtype != torch.int8
+                or t.device != dev or not t.is_contiguous()):
+            raise ValueError(f"output {o}: expected contiguous int8 "
+                             f"{(n,) + stage.shapes[o]} on {dev}")
+    return list(outs), dev
 
 
 def check_program(stage: Stage, descs: torch.Tensor, consts: torch.Tensor,

@@ -45,7 +45,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -228,15 +228,17 @@ fused_stage_plain = arena.arena_stage_plain
 
 
 def run_stage(stage: FusedStage, descs: torch.Tensor, consts: torch.Tensor,
-              xs: Sequence[torch.Tensor], what: str
+              xs: Sequence[torch.Tensor], what: str,
+              outs: Optional[List[torch.Tensor]] = None
               ) -> Tuple[List[torch.Tensor], bool]:
     """Run one program on its input tensors (int8 [N,H,W,C], in
     ``stage.inputs`` order) -> (its output tensors, whether the kernel
     launched).  CPU tensors take ``fused_stage_plain``; CUDA tensors launch
     ``yf_fused_stage``, its exact instantiation where
-    ``stage.exact_convs``; ``what`` names the caller's kernel in errors.
-    The callers count their own launches."""
-    outs, dev = arena.prepare(stage, xs)
+    ``stage.exact_convs``; ``what`` names the caller's kernel in errors;
+    ``outs``, where given, are the output tensors to write (the program
+    may write a part of them).  The callers count their own launches."""
+    outs, dev = arena.prepare(stage, xs, outs)
     if dev.type == "cpu":
         fused_stage_plain(stage, consts, list(xs) + outs)
         return outs, False

@@ -26,9 +26,10 @@ tensor for tensor (``fused.lower_fused_ops(..., perop=True)``):
     channels runs on the concat kernel, one launch for each group of up to
     ``move.MAX_INPUTS`` inputs, each group into its channel slice of the
     output; a wider one on the fused-stage kernel, whose program touches
-    at most ``arena.MAX_GLOBALS`` distinct device tensors (a concat past
-    16,384 channels of more than 15 distinct inputs runs on the CPU only:
-    the card refuses it before launching).
+    at most ``arena.MAX_GLOBALS`` distinct device tensors: a wider concat
+    of more inputs runs there in parts (``concat_parts``), one launch for
+    each group of up to ``arena.MAX_GLOBALS`` - 1 distinct inputs, each
+    part's COPY rows writing their channel slices of the one output.
 
 What JAX's per-op lowering would compute wrongly is refused, not copied: a
 conv, depthwise conv or max-pool with a non-square stride, a conv at a
@@ -206,6 +207,41 @@ def concat_groups(stage: PerOpStage, xs: Sequence[torch.Tensor]
     return groups
 
 
+def concat_parts(stage: PerOpStage) -> List[Tuple[PerOpStage, List[int]]]:
+    """A concat program's COPY rows, in channel order, as fused-stage
+    programs of up to ``arena.MAX_GLOBALS`` - 1 distinct inputs and the
+    one output: (the part, the indices of its inputs in ``stage.inputs``)
+    each.  A part's rows are the program's rows with their input and
+    output spaces renumbered, so each writes the same channel slice of
+    the output; ``[(stage, all inputs)]`` where the program fits one
+    launch."""
+    if len(stage.globals_) <= arena.MAX_GLOBALS:
+        return [(stage, list(range(len(stage.inputs))))]
+    rows = sorted(stage.descs, key=lambda r: int(r[F["out_off"]]))
+    groups: List[Tuple[List[int], List[np.ndarray]]] = []
+    for r in rows:
+        j = int(r[F["in0_space"]]) - 1
+        if not groups or (j not in groups[-1][0]
+                          and len(groups[-1][0]) == arena.MAX_GLOBALS - 1):
+            groups.append(([], []))
+        idx, part = groups[-1]
+        if j not in idx:
+            idx.append(j)
+        part.append(r)
+    parts = []
+    for idx, part in groups:
+        descs = np.stack(part)
+        descs[:, F["in0_space"]] = [1 + idx.index(int(r[F["in0_space"]]) - 1)
+                                    for r in part]
+        descs[:, F["out_space"]] = 1 + len(idx)
+        ins = [stage.inputs[j] for j in idx]
+        parts.append((dataclasses.replace(
+            stage, descs=descs, inputs=ins,
+            shapes={i: stage.shapes[i] for i in ins + stage.outputs}),
+            idx))
+    return parts
+
+
 def add_inputs(stage: PerOpStage, xs: Sequence[torch.Tensor]
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """An ADD program's two inputs (a, b) from its input tensors
@@ -240,9 +276,11 @@ def perop_op(stage: PerOpStage, descs: torch.Tensor, consts: torch.Tensor,
     its two inputs by the descriptor's spaces (one input twice for
     ``x + x``, whose program has one input); a concat launches once for each
     group of up to ``move.MAX_INPUTS`` inputs, each into its channel
-    slice.  The byte-move launches check the input shapes and nothing of
-    the program: their arguments are ``stage.args``, and ``card_kernel``
-    sends them only programs within their limits.  ``perop_op.mma_convs``
+    slice; a concat on the fused-stage kernel launches once for each of
+    its ``concat_parts``.  The byte-move launches check the input shapes
+    and nothing of the program: their arguments are ``stage.args``, and
+    ``card_kernel`` sends them only programs within their limits.
+    ``perop_op.mma_convs``
     counts the marked convs the fused-stage launches ran,
     ``perop_op.mma_by_kernel`` the same by B8 kernel, and
     ``perop_op.exact_launches`` the launches of its exact instantiation
@@ -269,6 +307,14 @@ def perop_op(stage: PerOpStage, descs: torch.Tensor, consts: torch.Tensor,
             else:
                 for group, c0 in concat_groups(stage, xs):
                     move.launch_concat_channels(group, outs[0], c0)
+    elif stage.kernel == "concat_channels" and xs[0].device.type == "cuda":
+        outs, dev = arena.prepare(stage, xs)
+        launched = False
+        for part, idx in concat_parts(stage):
+            part_descs = (descs if part is stage else
+                          torch.from_numpy(part.descs).to(dev))
+            launched |= run_stage(part, part_descs, consts,
+                                  [xs[j] for j in idx], "per-op", outs)[1]
     else:
         outs, launched = run_stage(stage, descs, consts, xs, "per-op")
         if launched and stage.mma_convs:

@@ -12,7 +12,11 @@ here:
     ``fast2``; one stage, section or one-op program in a kernel mode), each
     run on its own on the inputs a full forward recorded;
   * :func:`macc_per_op` -- static MACC counts from the graph (1,029,000 a
-    frame for the corpus net's convs).
+    frame for the corpus net's convs);
+  * :func:`device_activities` and :func:`overlaps` -- the card's kernels
+    and copies a ``torch.profiler`` window recorded, as intervals, and how
+    long activities of two kinds ran at once (the camera streamer's copy
+    of batch k+1 under batch k's kernels).
 
 ``tools/torch_profile_pipeline.py`` keeps a finer breakdown, by descriptor
 of a stage's program.
@@ -51,6 +55,27 @@ def trace(log_dir: str):
             torch.cuda.synchronize()
         prof.stop()
         prof.export_chrome_trace(path)
+
+
+def device_activities(prof) -> List[Tuple[str, float, float]]:
+    """(name, start us, end us) of each activity on the card (kernels,
+    copies) that the ``torch.profiler.profile`` ``prof`` recorded, in
+    start order."""
+    return sorted((e.name, e.time_range.start, e.time_range.end)
+                  for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def overlaps(acts: Sequence[Tuple[str, float, float]], first: str,
+             second: str) -> List[Tuple[str, str, float]]:
+    """Each pair of activities, one whose name holds ``first`` and one
+    whose name holds ``second``, that ran at once: (the first's name, the
+    second's, the us they overlapped)."""
+    a = [x for x in acts if first in x[0]]
+    b = [x for x in acts if second in x[0]]
+    return [(na, nb, min(ea, eb) - max(sa, sb))
+            for na, sa, ea in a for nb, sb, eb in b
+            if min(ea, eb) > max(sa, sb)]
 
 
 def macc_per_op(graph) -> Dict[int, int]:
