@@ -180,10 +180,33 @@ Phases (each prints its lines; any failure ends the run with an error):
      13x13, batch 256, beside B6 on that conv as a one-op strip section),
      the debug448 stream-order checks printing BIT-EXACT a variant; one
      kernels row a probe, its launches counted over its own run;
-  5. the host feed's JSON line, the kernels JSON line (each kernel's time
+  4c. [train] (_train_phase), the port making a model, with PyTorch's
+     TF32 defaults outside its calls: one train step of
+     examples/train_synthetic.py's configuration (batch 32 of make_batch,
+     the corpus template's dequantized weights) on the card against the
+     CPU (loss, grad norm, gradient, parameters where the gradient's sign
+     is settled, BN statistics, within STEP_TOL); train_synthetic.train's
+     300 steps at batch 32 on the card, the loss every 50 steps; the train
+     step timed at batch 32 and 256; PTQ calibration on 16 images on the
+     card and on the CPU (ranges within RANGE_RTOL, the two int8 graphs
+     compared field by field); export to a temporary directory and
+     re-import (the same graph); the re-imported graph served through
+     FacePipeline(Int8Engine(g, "arena_exact")) on the 24 evaluation images
+     (LEARNING_BAR, tests/test_learning_e2e.py's bar) and in arena2, every
+     stage, the fused head and the top-K kernel against their plain
+     versions at 24 and 16384 frames, the card's int8 output against the
+     CPU's; 112x112 RGB565 frames (each pixel 2x2) through
+     detect_rgb565_device with the fused and the staged head, counted
+     (the preprocess, arena-stage (exact instantiation), fused-head and
+     top-K kernels each launched), against the CPU path; arena2's frames/s
+     on the calibrated graph at 16384;
+  5. the host feed's JSON line, the [train] phase's JSON line, the kernels
+     JSON line (each kernel's time
      beside its bound: the larger of the bytes its function must move
      over 3.35 TB/s and its operations over the card's peak rate for
-     them), the card line, and the result line last.
+     them; the kernels the [train] phase's served path launched also carry
+     ``launches_train``, their count there), the card line, and the result
+     line last.
 
 Without a CUDA device it exits non-zero and prints no result.
 """
@@ -818,6 +841,401 @@ def _copy_overlap(card, frames, pipe):
           f"us; {len(ov)} copy/stage pair(s) ran at once, for "
           f"{[round(o) for _, _, o in ov]} us; kernels busy {busy:.0f} us "
           f"of the {window:.0f} us window ({busy / window:.4f})")
+    return out
+
+
+# ------------------------------------------------------------- [train]
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEED = 300, 32, 0   # train_synthetic's run
+TRAIN_TIMED = (32, 256)          # batches of the timed train step
+TRAIN_SERVE = (24, 16384)        # frames held against the plain versions
+# JAX's slow learning bar (tests/test_learning_e2e.py:15-18)
+LEARNING_BAR = {"detected": 20, "hit_rate": 0.7, "mean_iou": 0.45}
+# card against CPU, one train step from the corpus template's weights:
+# float32 sums in other orders (measured against JAX on the CPU: the loss
+# to 1e-7, the gradient to 1.5e-5 of its norm); a parameter whose
+# gradient is within 10x the largest gradient difference of 0 may take
+# Adam's first step (lr * sign) the other way, so it is held to 2 lr
+STEP_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "grad": 1e-3, "param": 1e-5,
+            "bn": 1e-5}
+RANGE_RTOL = 1e-4    # calibration ranges, card against CPU
+
+
+def _graph_diff(a, b, f32_scales: bool = False):
+    """The fields in which two port GraphDefs differ (scales as a .tflite
+    holds them with ``f32_scales``): a list of strings, empty if equal."""
+    import dataclasses
+
+    import numpy as np
+
+    def q(p):
+        if p is None or not f32_scales:
+            return p
+        return (tuple(np.float32(p.scales)), p.zero_points,
+                p.quantized_dimension)
+    out = []
+    if (len(a.tensors), len(a.ops), a.inputs, a.outputs) != \
+            (len(b.tensors), len(b.ops), b.inputs, b.outputs):
+        return ["structure"]
+    for t1, t2 in zip(a.tensors, b.tensors):
+        if (t1.name, tuple(t1.shape), t1.dtype) != \
+                (t2.name, tuple(t2.shape), t2.dtype):
+            out.append(f"{t1.name}: name, shape or dtype")
+        if q(t1.qparams) != q(t2.qparams):
+            out.append(f"{t1.name}: qparams")
+        if (t1.data is None) != (t2.data is None) or (
+                t1.data is not None and not np.array_equal(t1.data,
+                                                           t2.data)):
+            n = (-1 if t1.data is None or t2.data is None else
+                 int((t1.data != t2.data).sum()))
+            out.append(f"{t1.name}: data ({n} elements)")
+    out += [f"op {o1.index}" for o1, o2 in zip(a.ops, b.ops)
+            if dataclasses.asdict(o1) != dataclasses.asdict(o2)]
+    return out
+
+
+def _corpus_model():
+    """YoloFace on the CPU with the corpus template's dequantized weights
+    (identity BN, the conv biases in the BN shifts)."""
+    from yoloface_tpu_torch.io.tflite_import import load_tflite
+    from yoloface_tpu_torch.models.convert import state_dict_from_flax
+    from yoloface_tpu_torch.models.import_weights import (
+        variables_from_template)
+    from yoloface_tpu_torch.models.yoloface import YoloFace
+    model = YoloFace()
+    model.load_state_dict(state_dict_from_flax(variables_from_template(
+        load_tflite(CORPUS))))
+    return model
+
+
+def _train_step_pair(dev, batch: int = TRAIN_BATCH, seed: int = TRAIN_SEED):
+    """One train step of train_synthetic's configuration on ``dev`` and on
+    the CPU from the same weights (the corpus template's, dequantized) and
+    the same batch of ``make_batch``: -> the comparison's figures, each
+    beside its tolerance in ``STEP_TOL``."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from yoloface_tpu_torch.examples import train_synthetic as ts
+    from yoloface_tpu_torch.train import steps
+
+    imgs, tgts, _ = ts.make_batch(np.random.default_rng(seed), batch)
+    cfg = steps.TrainConfig(learning_rate=3e-3, epochs=1,
+                            steps_per_epoch=TRAIN_STEPS, batch_size=batch)
+    res = {}
+    for d in ("cpu", dev):
+        model = _corpus_model().to(d)
+        _, g, _ = steps.loss_and_grad(copy.deepcopy(model), imgs, tgts)
+        state = steps.init_state(None, cfg, model=model, device=d)
+        state, metrics = steps.make_train_step(cfg)(state, imgs, tgts)
+        res[str(d)] = (g.cpu(), {k: float(v) for k, v in metrics.items()},
+                       {k: v.cpu() for k, v in model.state_dict().items()},
+                       [n for n, _ in model.named_parameters()])
+    (g0, m0, s0, names), (g1, m1, s1, _) = res["cpu"], res[str(dev)]
+    dg = float((g1 - g0).abs().max())
+    settled = g0.abs() >= 10 * dg
+    off, d_set, d_rest, n_rest = 0, 0.0, 0.0, 0
+    for n in names:
+        k = s0[n].numel()
+        mask = settled[off:off + k].view_as(s0[n])
+        off += k
+        d = (s1[n] - s0[n]).abs()
+        d_set = max(d_set, float(d[mask].max()) if mask.any() else 0.0)
+        d_rest = max(d_rest, float(d[~mask].max()) if (~mask).any() else 0.)
+        n_rest += int((~mask).sum())
+    bn = max(float((s1[n] - s0[n]).abs().max()
+                   / max(1.0, float(s0[n].abs().max())))
+             for n in s0 if "running" in n)
+    return {"loss": (m1["loss"], m0["loss"]),
+            "grad_norm": (m1["grad_norm"], m0["grad_norm"]),
+            "lr": (m1["lr"], m0["lr"]),
+            "grad_max_diff": dg, "grad_norm_cpu": float(g0.norm()),
+            "param_settled_max_diff": d_set, "param_rest_max_diff": d_rest,
+            "params_unsettled": n_rest, "params": int(settled.numel()),
+            "bn_max_rel_diff": bn, "lr_value": cfg.learning_rate}
+
+
+def _check_step_pair(r) -> None:
+    tol = STEP_TOL
+    for k in ("loss", "grad_norm"):
+        card_v, cpu_v = r[k]
+        _require(abs(card_v - cpu_v) <= tol[k] * abs(cpu_v),
+                 f"train step, card against CPU: {k} {card_v} vs {cpu_v}")
+    _require(r["lr"][0] == r["lr"][1], f"train step: lr {r['lr']}")
+    _require(r["grad_max_diff"] <= tol["grad"] * r["grad_norm_cpu"],
+             f"train step: gradient off by {r['grad_max_diff']}")
+    _require(r["param_settled_max_diff"] <= tol["param"],
+             f"train step: a parameter off by {r['param_settled_max_diff']}")
+    _require(r["param_rest_max_diff"] <= 2 * r["lr_value"],
+             f"train step: an unsettled parameter off by "
+             f"{r['param_rest_max_diff']}")
+    _require(r["bn_max_rel_diff"] <= tol["bn"],
+             f"train step: BN statistics off by {r['bn_max_rel_diff']}")
+
+
+def _rgb565_frames(imgs):
+    """float images [N,56,56,3] in [0,1] -> uint16 RGB565 [N,112,112], each
+    pixel repeated 2x2 (the preprocess's 2x2 mean gives it back)."""
+    import numpy as np
+
+    from yoloface_tpu_torch.pipeline.preprocess import encode_rgb565
+    u8 = np.clip(np.round(imgs * 255), 0, 255).astype(np.uint8)
+    return encode_rgb565(u8.repeat(2, axis=1).repeat(2, axis=2))
+
+
+def _train_phase(dev, card, counted, zero_counts):
+    """[train]: the port makes a model on the card and serves it.  ->
+    {"launches": {kernel: count on the served path}, ...figures}."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from yoloface_tpu_torch.core.precision import full_f32
+    from yoloface_tpu_torch.examples import train_synthetic as ts
+    from yoloface_tpu_torch.io.tflite_export import save_tflite
+    from yoloface_tpu_torch.io.tflite_import import load_tflite
+    from yoloface_tpu_torch.kernels import arena
+    from yoloface_tpu_torch.kernels import head as khead
+    from yoloface_tpu_torch.kernels import preprocess as kpre
+    from yoloface_tpu_torch.models.convert import flax_from_state_dict
+    from yoloface_tpu_torch.pipeline.e2e import FacePipeline
+    from yoloface_tpu_torch.pipeline import head as thead
+    from yoloface_tpu_torch.pipeline.head import HeadConfig
+    from yoloface_tpu_torch.quantize import calibrate as cal
+    from yoloface_tpu_torch.runtime.engine import Int8Engine
+    from yoloface_tpu_torch.train import steps
+    from yoloface_tpu_torch.train.loss import yolo_loss
+
+    out = {"card": card}
+    t_phase = time.perf_counter()
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    # PyTorch's defaults for the phase (TF32 convolutions on): the port's
+    # float calls turn it off for themselves and put the flags back
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        # 1. one step on the card against one on the CPU
+        pair = _train_step_pair(dev)
+        _check_step_pair(pair)
+        _require((torch.backends.cudnn.allow_tf32,
+                  torch.backends.cuda.matmul.allow_tf32) == (True, False),
+                 "the port's float calls put the TF32 flags back")
+        out["step_pair"] = pair
+        print(f"[train] one step, card against CPU (batch {TRAIN_BATCH}, "
+              "the corpus template's weights): loss "
+              f"{pair['loss'][0]:.6f} / {pair['loss'][1]:.6f}, grad norm "
+              f"{pair['grad_norm'][0]:.4f} / {pair['grad_norm'][1]:.4f}, "
+              f"gradient max diff {pair['grad_max_diff']:.3g} (tol "
+              f"{STEP_TOL['grad']} x norm), parameters max diff "
+              f"{pair['param_settled_max_diff']:.3g} (tol "
+              f"{STEP_TOL['param']}) where the gradient's sign is settled, "
+              f"{pair['param_rest_max_diff']:.3g} on the "
+              f"{pair['params_unsettled']} of {pair['params']} others (tol "
+              f"2 lr), BN statistics {pair['bn_max_rel_diff']:.3g} (tol "
+              f"{STEP_TOL['bn']}); TF32 on outside the port's calls")
+
+        # the same forward with TF32 left on (no full_f32): what the check
+        # would see without the port's precision guard
+        model = _corpus_model().to(dev).eval()
+        imgs, tgts, _ = ts.make_batch(np.random.default_rng(1), TRAIN_BATCH)
+        x = torch.from_numpy(imgs).to(dev)
+        t = torch.from_numpy(tgts).to(dev)
+        with torch.no_grad():
+            loose = float(yolo_loss(model(x), t))
+            with full_f32():
+                strict = float(yolo_loss(model(x), t))
+        cpu_model = model.to("cpu")
+        with torch.no_grad():
+            ref = float(yolo_loss(cpu_model(x.cpu()), t.cpu()))
+        out["tf32_loss_rel_diff"] = abs(loose - ref) / ref
+        out["f32_loss_rel_diff"] = abs(strict - ref) / ref
+        print(f"[train] eval loss against the CPU: with TF32 on "
+              f"{out['tf32_loss_rel_diff']:.3g}, without (the port) "
+              f"{out['f32_loss_rel_diff']:.3g} relative")
+
+        # 2. train_synthetic's run on the card
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = ts.train(steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                         seed=TRAIN_SEED, device=dev, log_every=50)
+        torch.cuda.synchronize()
+        out["train_s"] = time.perf_counter() - t0
+        out["train_ms_per_step_with_batches"] = (
+            1e3 * out["train_s"] / TRAIN_STEPS)
+        print(f"[train] {TRAIN_STEPS} steps at batch {TRAIN_BATCH}: "
+              f"{out['train_s']:.2f} s, {out['train_ms_per_step_with_batches']:.3f}"
+              f" ms a step with make_batch on the host ({card})")
+        model = state["model"]
+
+        # the step alone, from batches already on the card (host clock to
+        # a synchronize, median of 10 after 3 warm-ups, on a copy)
+        out["step_ms"] = {}
+        for b in TRAIN_TIMED:
+            imgs, tgts, _ = ts.make_batch(np.random.default_rng(2), b)
+            xb = torch.from_numpy(imgs).to(dev)
+            tb = torch.from_numpy(tgts).to(dev)
+            cfg = steps.TrainConfig(learning_rate=3e-3, batch_size=b)
+            st = steps.init_state(None, cfg, model=_corpus_model(),
+                                  device=dev)
+            step = steps.make_train_step(cfg)
+            times = []
+            for i in range(13):
+                torch.cuda.synchronize()
+                a = time.perf_counter()
+                st, met = step(st, xb, tb)
+                float(met["loss"])
+                if i >= 3:
+                    times.append(1e3 * (time.perf_counter() - a))
+            times.sort()
+            out["step_ms"][b] = times[len(times) // 2]
+            print(f"[time] train step at batch {b}: "
+                  f"{out['step_ms'][b]:.3f} ms (host clock to a "
+                  f"synchronize, median of 10), "
+                  f"{1e3 * b / out['step_ms'][b]:.0f} images/s ({card})")
+
+        # 3. calibration on the card and on the CPU, the same weights
+        template = load_tflite(CORPUS)
+        rep, imgs, labels = ts.calibration_sets(123, TRAIN_SERVE[0])
+        weights = cal.fold_batchnorm(flax_from_state_dict(model))
+        ranges = {d: cal.observe_ranges(template, weights, rep, device=d)
+                  for d in (dev, "cpu")}
+        rdiff = max(max(abs(a - b) for a, b in zip(ranges[dev][k],
+                                                   ranges["cpu"][k]))
+                    / max(1.0, abs(ranges["cpu"][k][0]),
+                          abs(ranges["cpu"][k][1]))
+                    for k in ranges["cpu"])
+        _require(rdiff <= RANGE_RTOL, f"calibration ranges, card against "
+                 f"CPU: {rdiff} > {RANGE_RTOL}")
+        graphs = {d: cal.build_int8_graph(template, weights, ranges[d])
+                  for d in ranges}
+        diff = _graph_diff(graphs[dev], graphs["cpu"])
+        out["range_max_rel_diff"] = rdiff
+        out["graph_fields_differing"] = diff
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graph = cal.calibrate(model, rep, template, device=dev)
+        out["calibrate_s"] = time.perf_counter() - t0
+        _require(not _graph_diff(graph, graphs[dev]),
+                 "calibrate equals its parts")
+        print(f"[train] calibration on 16 images: card {out['calibrate_s']:.3f}"
+              f" s ({card}); ranges card against CPU max {rdiff:.3g} of "
+              f"their scale (tol {RANGE_RTOL}); the two int8 graphs differ "
+              f"in {len(diff)} fields" + (f": {diff}" if diff else ""))
+
+        # 4. export into a temporary directory, read it back
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trained_int8.tflite")
+            t0 = time.perf_counter()
+            save_tflite(graph, path)
+            out["export_s"] = time.perf_counter() - t0
+            out["tflite_bytes"] = os.path.getsize(path)
+            served = load_tflite(path)
+        back = _graph_diff(served, graph, f32_scales=True)
+        _require(not back, f"export -> import: {back}")
+        print(f"[train] export {out['tflite_bytes']} B in "
+              f"{out['export_s']:.4f} s ({card}); read back, the same graph")
+
+        # 5. serving the calibrated graph through the kernels
+        x24 = ts.int8_inputs(imgs)
+        out["quality"] = {}
+        big = ts.int8_inputs(ts.make_batch(np.random.default_rng(7),
+                                           TRAIN_SERVE[1])[0])
+        for mode in ("arena_exact", "arena2"):
+            eng = Int8Engine(served, mode, dev)
+            pipe = FacePipeline(eng, HeadConfig(conf_threshold=0.5))
+            q = ts.evaluate_deployed(state, TRAIN_SERVE[0], mode=mode,
+                                     graph=served)
+            out["quality"][mode] = q
+            print(f"[train] {mode} on the {TRAIN_SERVE[0]} evaluation images:"
+                  f" {q}")
+            if mode == "arena_exact":
+                for k, v in LEARNING_BAR.items():
+                    _require(q[k] >= v, f"learning bar: {k} {q[k]} < {v}")
+            cpu = Int8Engine(served, mode, "cpu")
+            _require(torch.equal(eng(x24).cpu(), cpu(x24)),
+                     f"{mode}: the card's int8 output equals the CPU's")
+            plan = eng.arena
+            for n, xs in ((TRAIN_SERVE[0], x24), (TRAIN_SERVE[1], big)):
+                env = plan.run_stages(torch.from_numpy(xs).to(dev))
+                for k, st in enumerate(plan.stages):
+                    ins = [env[i] for i in st.inputs]
+                    outs = [torch.empty_like(env[o]) for o in st.outputs]
+                    arena.arena_stage_plain(st, getattr(plan, f"consts{k}"),
+                                            ins + outs)
+                    for o, t_ in zip(st.outputs, outs):
+                        _require(torch.equal(env[o], t_),
+                                 f"{mode} stage {k} at {n}: kernel = plain")
+                y = env[plan.output_idxs[0]]
+                kw = dict(scale=pipe._out_scale, zero_point=pipe._out_zp)
+                for a, b in zip(khead.detect_head(y, **kw),
+                                khead.detect_head_plain(y, **kw)):
+                    _require(torch.equal(a, b), f"{mode} head at {n}")
+                _require(torch.equal(khead.topk_conf(y, 16, **kw),
+                                     khead.topk_conf_plain(y, 16, **kw)),
+                         f"{mode} top-K at {n}")
+            print(f"[train] {mode}: every stage, the fused head and the top-K "
+                  f"kernel equal their plain versions at {TRAIN_SERVE[0]} and "
+                  f"{TRAIN_SERVE[1]} frames; the int8 output equals the CPU's")
+
+        # the served path from RGB565 frames, counted: arena_exact with the
+        # fused head, then with the staged one (the top-K kernel)
+        f24 = torch.from_numpy(_rgb565_frames(imgs)).to(dev)
+        _require(torch.equal(kpre.preprocess_rgb565(f24),
+                             kpre.preprocess_rgb565_plain(f24)),
+                 "preprocess on the RGB565 frames")
+        fbig = torch.from_numpy(_rgb565_frames(ts.make_batch(
+            np.random.default_rng(8), TRAIN_SERVE[1])[0])).to(dev)
+        _require(torch.equal(kpre.preprocess_rgb565(fbig),
+                             kpre.preprocess_rgb565_plain(fbig)),
+                 "preprocess at 16384")
+        eng = Int8Engine(served, "arena_exact", dev)
+        fused = FacePipeline(eng, HeadConfig(conf_threshold=0.5))
+        staged = FacePipeline(eng, HeadConfig(conf_threshold=0.5,
+                                              use_fused_head=False))
+        zero_counts()
+        dets = fused.detect_rgb565_device(f24)
+        dets_staged = staged.detect_rgb565_device(f24)
+        torch.cuda.synchronize()
+        out["launches"] = {fn.__name__: fn.launches for fn in counted}
+        out["launches"]["requant_epilogue"] = arena.arena_stage.exact_launches
+        for name in ("preprocess_rgb565", "arena_stage", "requant_epilogue",
+                     "detect_head", "topk_conf"):
+            _require(out["launches"][name] > 0,
+                     f"[train] serving path: {name} launched")
+        cpu_pipe = FacePipeline(Int8Engine(served, "arena_exact", "cpu"),
+                                HeadConfig(conf_threshold=0.5))
+        want = cpu_pipe.detect_rgb565(f24.cpu())
+        for got in (dets, dets_staged):
+            for k in ("valid", "count"):
+                _require(np.array_equal(got[k].cpu().numpy(), want[k]),
+                         f"RGB565 path: {k} equals the CPU's")
+            for k, tol in (("boxes", thead.BOX_ATOL),
+                           ("scores", thead.SCORE_ATOL)):
+                d = np.abs(got[k].cpu().numpy().astype(np.float64)
+                           - want[k].astype(np.float64)).max()
+                _require(d <= tol, f"RGB565 path: {k} off by {d} > {tol}")
+        out["quality"]["arena_exact rgb565"] = ts.score(
+            {k: v.cpu().numpy() for k, v in dets.items()}, labels)
+        print(f"[train] RGB565 frames (each pixel 2x2) through "
+              f"detect_rgb565_device, arena_exact: "
+              f"{out['quality']['arena_exact rgb565']}; fused and staged "
+              f"head equal the CPU path; launches {out['launches']}")
+
+        # 6. the calibrated graph served in arena2 at 16384
+        pipe2 = FacePipeline(Int8Engine(served, "arena2", dev))
+        ms = _time_ms(lambda: pipe2.detect_rgb565_device(fbig))
+        out["arena2_ms"] = ms
+        out["arena2_fps"] = TRAIN_SERVE[1] / ms * 1e3
+        print(f"[time] the calibrated graph in arena2 at {TRAIN_SERVE[1]}: "
+              f"{ms:.4f} ms, {out['arena2_fps']:.0f} frames/s ({card})")
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[train] the phase: {out['phase_s']:.1f} s")
     return out
 
 
@@ -2506,6 +2924,10 @@ def main() -> int:
     # after its own run
     probe_rows = _probe_rows(dev, card, g416)
 
+    # ------------------------------------------- 4c. [train] make a model
+    # train, calibrate, export and serve YoloFace through the kernels
+    train = _train_phase(dev, card, counted, zero_counts)
+
     # ------------------------------------------------------------ 5. lines
     src = "yoloface_tpu_torch/csrc/"
     meta = {   # name: (source, TPU kernel, path whose launches count)
@@ -2690,7 +3112,11 @@ def main() -> int:
                    for mode, r in v3.items()}}
         kernels.append(row)
     kernels.extend(probe_rows)
+    for row in kernels:     # the [train] phase's served path, counted
+        if train["launches"].get(row["name"]):
+            row["launches_train"] = train["launches"][row["name"]]
     print(json.dumps({"host_feed": host_feed}))
+    print(json.dumps({"train": train}))
     print(_smi("name,power.limit"))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1212,3 +1212,61 @@ def test_verify_setup_passes_on_the_card():
         pytest.skip("needs a CUDA device")
     from yoloface_tpu_torch.utils import verify_setup
     assert verify_setup.main() == 0
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.gpu
+def test_train_step_on_the_card_equals_cpu():
+    """One train step of train_synthetic's configuration on the card and
+    on the CPU from the corpus template's weights and one batch of 32:
+    loss, grad norm, gradient, parameters and BN statistics within
+    ``chip_smoke.STEP_TOL`` (chip_smoke.py's [train] check), with TF32 on
+    outside the port's calls and the flags as they were after."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cs = _chip_smoke()
+    flags = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        pair = cs._train_step_pair(torch.device("cuda"))
+        cs._check_step_pair(pair)
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = flags
+
+
+@pytest.mark.gpu
+def test_float_forward_on_the_card_equals_cpu():
+    """float_forward of the corpus topology on its dequantized weights, 16
+    synthetic images, on the card against the CPU on every tensor: within
+    1e-5 of each tensor's scale (float32 sums in other orders), with TF32
+    left on outside the port's call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from yoloface_tpu_torch.examples.train_synthetic import make_batch
+    from yoloface_tpu_torch.models.import_weights import (
+        dequantize_template_weights)
+    from yoloface_tpu_torch.quantize.calibrate import float_forward
+    g = load_tflite(CORPUS)
+    w = dequantize_template_weights(g)
+    x = make_batch(np.random.default_rng(123), 16)[0]
+    flags = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        card = float_forward(g, w, x, device="cuda")
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = flags
+    cpu = float_forward(g, w, x, device="cpu")
+    assert sorted(card) == sorted(cpu)
+    for k in cpu:
+        a, b = card[k].cpu(), cpu[k]
+        assert float((a - b).abs().max()) <= 1e-5 * max(
+            1.0, float(b.abs().max())), k

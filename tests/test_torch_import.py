@@ -1,5 +1,7 @@
 """The port imports neither jax nor yoloface_tpu: the card's machine has no
-jax, and any yoloface_tpu module imports jax (yoloface_tpu/__init__.py)."""
+jax, and any yoloface_tpu module imports jax (yoloface_tpu/__init__.py).
+Nor flax, optax, orbax or flatbuffers, which the JAX package's training,
+checkpointing and export use and the card's machine lacks."""
 
 import os
 import subprocess
@@ -19,7 +21,7 @@ names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]
 for n in names:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules
-             if m.split('.')[0] in ('jax', 'jaxlib', 'yoloface_tpu'))
+             if m.split('.')[0] in {BANNED})
 print(len(names), bad)
 assert not bad, bad
 """
@@ -28,10 +30,11 @@ assert not bad, bad
 _ENTRY = """
 import sys
 {imports}
-bad = [m for m in sys.modules if m.split('.')[0] in
-       ('jax', 'jaxlib', 'yoloface_tpu')]
+bad = [m for m in sys.modules if m.split('.')[0] in {BANNED}]
 assert not bad, bad
 """
+BANNED = ("jax", "jaxlib", "yoloface_tpu", "flax", "optax", "orbax",
+          "flatbuffers")
 ENTRIES = {
     "serving entry point":
         "from yoloface_tpu_torch.pipeline.e2e import load_pipeline",
@@ -61,6 +64,21 @@ ENTRIES = {
         "from yoloface_tpu_torch import detect",
     "verify setup":
         "from yoloface_tpu_torch.utils import verify_setup",
+    "float model and training":
+        "from yoloface_tpu_torch.models.yoloface import YoloFace\n"
+        "from yoloface_tpu_torch.models.convert import state_dict_from_flax\n"
+        "from yoloface_tpu_torch.train.steps import make_train_step\n"
+        "from yoloface_tpu_torch.train.trainer import Trainer\n"
+        "from yoloface_tpu_torch.train import __main__, data, evaluate",
+    "calibration, float engine and export":
+        "from yoloface_tpu_torch.quantize.calibrate import calibrate\n"
+        "from yoloface_tpu_torch.models.import_weights import (\n"
+        "    variables_from_template)\n"
+        "from yoloface_tpu_torch.runtime.float_engine import FloatEngine\n"
+        "from yoloface_tpu_torch.io.tflite_export import export_tflite\n"
+        "from yoloface_tpu_torch.io.darknet import load_darknet_weights",
+    "synthetic training example":
+        "from yoloface_tpu_torch.examples import train_synthetic",
     "probes entry points":
         "from yoloface_tpu_torch.kernels import probes\n"
         "from yoloface_tpu_torch.probes import (debug448, microbench,\n"
@@ -70,8 +88,9 @@ ENTRIES = {
 
 @pytest.mark.parametrize("entry", ["all modules", *ENTRIES])
 def test_port_imports_without_jax(entry):
-    code = (_CODE if entry == "all modules" else
-            _ENTRY.format(imports=ENTRIES[entry]))
+    code = (_CODE.replace("{BANNED}", repr(BANNED))
+            if entry == "all modules" else
+            _ENTRY.format(imports=ENTRIES[entry], BANNED=repr(BANNED)))
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
@@ -93,5 +112,4 @@ def test_card_scripts_import_no_jax(script):
     names += [n.module for n in ast.walk(tree)
               if isinstance(n, ast.ImportFrom) and n.module]
     assert any(m.startswith("yoloface_tpu_torch") for m in names)
-    assert not [m for m in names
-                if m.split(".")[0] in ("jax", "jaxlib", "yoloface_tpu")]
+    assert not [m for m in names if m.split(".")[0] in BANNED]

@@ -3,10 +3,9 @@
 The counterpart of ``yoloface_tpu.utils.verify_setup`` for the port: the
 same check groups, colored PASS/FAIL lines and summary exit code, each
 group checked for this environment (torch and CUDA, the card, the kernel
-and native builds, the port's imports, the checkpoint, an engine forward
-on the card, the checkpoint directory).  The JAX package's float-model
-check (``YoloFace`` init) waits for the port of the float model and is
-not made here.
+and native builds, the port's imports, the checkpoint, the float model
+built and run on the card, an engine forward on the card, the checkpoint
+directory).
 """
 
 from __future__ import annotations
@@ -28,7 +27,10 @@ MODULES = ("yoloface_tpu_torch.runtime.engine",
            "yoloface_tpu_torch.host.streamer",
            "yoloface_tpu_torch.host.monitor",
            "yoloface_tpu_torch.runtime.api",
-           "yoloface_tpu_torch.kernels.arena")
+           "yoloface_tpu_torch.kernels.arena",
+           "yoloface_tpu_torch.train.trainer",
+           "yoloface_tpu_torch.quantize.calibrate",
+           "yoloface_tpu_torch.io.tflite_export")
 
 
 def _report(name: str, ok: bool, detail: str = "") -> bool:
@@ -114,6 +116,24 @@ def check_artifacts() -> bool:
                    os.path.relpath(CHECKPOINT, REPO))
 
 
+def check_model_init() -> bool:
+    print("Model initialization:")
+    try:
+        import torch
+        from yoloface_tpu_torch.core.precision import device_or_raise
+        from yoloface_tpu_torch.models.yoloface import YoloFace, count_params
+        model = YoloFace().to(device_or_raise("cuda", "YoloFace"))
+        n = count_params(model)
+        with torch.no_grad():
+            y = model.eval()(torch.zeros(1, 56, 56, 3, device="cuda"))
+        return _report("YoloFace init", n == 10214
+                       and tuple(y.shape) == (1, 7, 7, 18),
+                       f"{n} trainable params (expect 10214), output "
+                       f"{tuple(y.shape)} on {y.device}")
+    except Exception as e:   # any failure is this group's verdict
+        return _report("YoloFace init", False, str(e)[:80])
+
+
 def check_engine() -> bool:
     print("Inference engine:")
     try:
@@ -142,8 +162,8 @@ def check_checkpoint_dirs(path: str = os.path.join(REPO, "checkpoints")
 
 
 CHECKS = (check_requirements, check_accelerator, check_builds,
-          check_framework_imports, check_artifacts, check_engine,
-          check_checkpoint_dirs)
+          check_framework_imports, check_artifacts, check_model_init,
+          check_engine, check_checkpoint_dirs)
 
 
 def main() -> int:
