@@ -200,13 +200,33 @@ Phases (each prints its lines; any failure ends the run with an error):
      (the preprocess, arena-stage (exact instantiation), fused-head and
      top-K kernels each launched), against the CPU path; arena2's frames/s
      on the calibrated graph at 16384;
-  5. the host feed's JSON line, the [train] phase's JSON line, the kernels
-     JSON line (each kernel's time
+  4d. [qat] (_qat_phase), quantization-aware training and the darknet-cfg
+     family from [train]'s model: one STE QAT step (quantize/qat.py) on
+     the card against the CPU (loss, gradient within QAT_TOL), then
+     QAT_STEPS steps at batch 32; PTQ and QAT deployed through
+     build_int8_graph, their deployed loss and hit rate side by side
+     (examples/train_qat.py's report); the QAT graph from 112x112 RGB565
+     frames in arena2 and arena_exact (fused and staged head), every
+     stage, the head kernels and the preprocess against their plain
+     versions, counted, detections against the CPU path; bit-exact QAT
+     (quantize/qat_exact.py) on the corpus graph: one step card against
+     CPU (equal codes), BITEXACT_STEPS steps, deploy, a sim gap of 0.0
+     through arena_exact and the plain exact engine; train_darknet's
+     run, calibrated and served in arena_exact (DARKNET_BAR, JAX's slow
+     bar); yoloface50k.cfg at 56x56 from [train]'s weights (the head BN
+     folded) against YoloFace's head (CFG_HEAD_TOL), its template in
+     arena2 and arena_exact; weight-space QAT on the v3-tiny FPN
+     (tests/test_darknet_ptq.py's cfg, read from the file), served in
+     arena2 (the RESIZE inside) and detect_multihead against the CPU
+     path; make_v3_train_step at 416x416, batch 8, loss and ms a step;
+  5. the host feed's JSON line, the [train] and [qat] phases' JSON lines,
+     the kernels JSON line (each kernel's time
      beside its bound: the larger of the bytes its function must move
      over 3.35 TB/s and its operations over the card's peak rate for
      them; the kernels the [train] phase's served path launched also carry
-     ``launches_train``, their count there), the card line, and the result
-     line last.
+     ``launches_train``, their count there, and those the [qat] phase's
+     served paths launched ``launches_qat``), the card line, and the
+     result line last.
 
 Without a CUDA device it exits non-zero and prints no result.
 """
@@ -984,9 +1004,60 @@ def _rgb565_frames(imgs):
     return encode_rgb565(u8.repeat(2, axis=1).repeat(2, axis=2))
 
 
+def _stages_equal_plain(eng, x, tag: str):
+    """Every arena stage ``eng`` (arena2 / arena_exact) runs on ``x`` (int8
+    on the card) against its plain version, bit for bit -> the env."""
+    import torch
+
+    from yoloface_tpu_torch.kernels import arena
+    plan = eng.arena
+    env = plan.run_stages(x)
+    for k, st in enumerate(plan.stages):
+        ins = [env[i] for i in st.inputs]
+        outs = [torch.empty_like(env[o]) for o in st.outputs]
+        arena.arena_stage_plain(st, getattr(plan, f"consts{k}"), ins + outs)
+        for o, t_ in zip(st.outputs, outs):
+            _require(torch.equal(env[o], t_), f"{tag} stage {k}: "
+                     "kernel = plain")
+    return env
+
+
+def _heads_equal_plain(y, pipe, tag: str) -> None:
+    """The fused head and the top-K kernel on ``y`` against their plain
+    versions."""
+    import torch
+
+    from yoloface_tpu_torch.kernels import head as khead
+    kw = dict(scale=pipe._out_scale, zero_point=pipe._out_zp)
+    for a, b in zip(khead.detect_head(y, **kw),
+                    khead.detect_head_plain(y, **kw)):
+        _require(torch.equal(a, b), f"{tag}: fused head = plain")
+    _require(torch.equal(khead.topk_conf(y, 16, **kw),
+                         khead.topk_conf_plain(y, 16, **kw)),
+             f"{tag}: top-K = plain")
+
+
+def _dets_equal(got, want, tag: str) -> None:
+    """Detections on the card (tensors) against the CPU path's (numpy):
+    validity and counts equal, boxes and scores within the head's
+    tolerance."""
+    import numpy as np
+
+    from yoloface_tpu_torch.pipeline import head as thead
+    for k in ("valid", "count"):
+        if k in want:
+            _require(np.array_equal(got[k].cpu().numpy(), want[k]),
+                     f"{tag}: {k} equals the CPU's")
+    for k, tol in (("boxes", thead.BOX_ATOL), ("scores", thead.SCORE_ATOL)):
+        d = np.abs(got[k].cpu().numpy().astype(np.float64)
+                   - want[k].astype(np.float64)).max()
+        _require(d <= tol, f"{tag}: {k} off by {d} > {tol}")
+
+
 def _train_phase(dev, card, counted, zero_counts):
     """[train]: the port makes a model on the card and serves it.  ->
-    {"launches": {kernel: count on the served path}, ...figures}."""
+    ({"launches": {kernel: count on the served path}, ...figures}, the
+    trained state)."""
     import tempfile
 
     import numpy as np
@@ -997,11 +1068,9 @@ def _train_phase(dev, card, counted, zero_counts):
     from yoloface_tpu_torch.io.tflite_export import save_tflite
     from yoloface_tpu_torch.io.tflite_import import load_tflite
     from yoloface_tpu_torch.kernels import arena
-    from yoloface_tpu_torch.kernels import head as khead
     from yoloface_tpu_torch.kernels import preprocess as kpre
     from yoloface_tpu_torch.models.convert import flax_from_state_dict
     from yoloface_tpu_torch.pipeline.e2e import FacePipeline
-    from yoloface_tpu_torch.pipeline import head as thead
     from yoloface_tpu_torch.pipeline.head import HeadConfig
     from yoloface_tpu_torch.quantize import calibrate as cal
     from yoloface_tpu_torch.runtime.engine import Int8Engine
@@ -1157,25 +1226,11 @@ def _train_phase(dev, card, counted, zero_counts):
             cpu = Int8Engine(served, mode, "cpu")
             _require(torch.equal(eng(x24).cpu(), cpu(x24)),
                      f"{mode}: the card's int8 output equals the CPU's")
-            plan = eng.arena
             for n, xs in ((TRAIN_SERVE[0], x24), (TRAIN_SERVE[1], big)):
-                env = plan.run_stages(torch.from_numpy(xs).to(dev))
-                for k, st in enumerate(plan.stages):
-                    ins = [env[i] for i in st.inputs]
-                    outs = [torch.empty_like(env[o]) for o in st.outputs]
-                    arena.arena_stage_plain(st, getattr(plan, f"consts{k}"),
-                                            ins + outs)
-                    for o, t_ in zip(st.outputs, outs):
-                        _require(torch.equal(env[o], t_),
-                                 f"{mode} stage {k} at {n}: kernel = plain")
-                y = env[plan.output_idxs[0]]
-                kw = dict(scale=pipe._out_scale, zero_point=pipe._out_zp)
-                for a, b in zip(khead.detect_head(y, **kw),
-                                khead.detect_head_plain(y, **kw)):
-                    _require(torch.equal(a, b), f"{mode} head at {n}")
-                _require(torch.equal(khead.topk_conf(y, 16, **kw),
-                                     khead.topk_conf_plain(y, 16, **kw)),
-                         f"{mode} top-K at {n}")
+                env = _stages_equal_plain(eng, torch.from_numpy(xs).to(dev),
+                                          f"{mode} at {n}")
+                _heads_equal_plain(env[eng.arena.output_idxs[0]], pipe,
+                                   f"{mode} at {n}")
             print(f"[train] {mode}: every stage, the fused head and the top-K "
                   f"kernel equal their plain versions at {TRAIN_SERVE[0]} and "
                   f"{TRAIN_SERVE[1]} frames; the int8 output equals the CPU's")
@@ -1209,14 +1264,7 @@ def _train_phase(dev, card, counted, zero_counts):
                                 HeadConfig(conf_threshold=0.5))
         want = cpu_pipe.detect_rgb565(f24.cpu())
         for got in (dets, dets_staged):
-            for k in ("valid", "count"):
-                _require(np.array_equal(got[k].cpu().numpy(), want[k]),
-                         f"RGB565 path: {k} equals the CPU's")
-            for k, tol in (("boxes", thead.BOX_ATOL),
-                           ("scores", thead.SCORE_ATOL)):
-                d = np.abs(got[k].cpu().numpy().astype(np.float64)
-                           - want[k].astype(np.float64)).max()
-                _require(d <= tol, f"RGB565 path: {k} off by {d} > {tol}")
+            _dets_equal(got, want, "RGB565 path")
         out["quality"]["arena_exact rgb565"] = ts.score(
             {k: v.cpu().numpy() for k, v in dets.items()}, labels)
         print(f"[train] RGB565 frames (each pixel 2x2) through "
@@ -1236,6 +1284,463 @@ def _train_phase(dev, card, counted, zero_counts):
          torch.backends.cuda.matmul.allow_tf32) = flags
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"[train] the phase: {out['phase_s']:.1f} s")
+    return out, state
+
+
+# --------------------------------------------------------------- [qat]
+QAT_STEPS, QAT_BATCH, QAT_LR = 100, 32, 3e-4   # train_qat's fine-tune
+BITEXACT_STEPS, BITEXACT_LR = 20, 2e-4
+DARKNET_STEPS = 300                            # train_darknet's run
+# JAX's slow learning bar for the cfg net (tests/test_learning_e2e.py:21-35)
+DARKNET_BAR = {"detected": 18, "hit_rate": 0.6, "mean_iou": 0.45}
+FPN_QAT_STEPS = 10
+V3_SIZE, V3_BATCH, V3_STEPS = 416, 8, 3
+# card against CPU, one step from the same weights.  STE QAT: the card
+# sums the convolutions in another order, so an activation next to a
+# rounding boundary of its grid lands one step from the CPU's and the
+# step cascades downstream (three card runs moved the loss 1e-8 to
+# 1.5e-4 of itself; the count of head values a step apart is printed).
+# Bit-exact QAT: the codes are equal (the value path is integer), the
+# loss by its sum order, the gradient by the float twin's sums
+QAT_TOL = {"loss": 1e-3, "grad": 2e-2, "exact_loss": 1e-6,
+           "exact_grad": 1e-4}
+CFG_HEAD_TOL = 1e-4    # yoloface50k.cfg's head against YoloFace's
+
+
+def _fpn_cfg() -> str:
+    """tests/test_darknet_ptq.py's V3_TINY_CFG, read from the file's syntax
+    tree (the test module imports jax, which the card's machine lacks)."""
+    import ast
+    with open(os.path.join(ROOT, "tests", "test_darknet_ptq.py")) as f:
+        tree = ast.parse(f.read())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and [
+                getattr(t, "id", None) for t in node.targets] == [
+                "V3_TINY_CFG"]:
+            return ast.literal_eval(node.value)
+    raise SystemExit("chip_smoke: FAILED: no V3_TINY_CFG in "
+                     "tests/test_darknet_ptq.py")
+
+
+def _cfg_params(net, seed: int = 0):
+    """tests/test_darknet_ptq.py's _random_params: numpy params of a
+    DarknetNet from ``default_rng(seed)``."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    params = {}
+    for i, layer in enumerate(net.layers):
+        if layer.kind != "conv":
+            continue
+        k, co = layer.size, layer.filters
+        ci = 1 if layer.depthwise else layer.cin
+        p = {"kernel": rng.normal(0, 0.4 / np.sqrt(k * k * ci),
+                                  (k, k, ci, co)).astype(np.float32)}
+        if layer.bn:
+            p["bn_scale"] = rng.uniform(0.5, 1.5, co).astype(np.float32)
+            p["bn_bias"] = rng.normal(0, 0.2, co).astype(np.float32)
+            p["bn_mean"] = rng.normal(0, 0.2, co).astype(np.float32)
+            p["bn_var"] = rng.uniform(0.5, 1.5, co).astype(np.float32)
+        else:
+            p["bias"] = rng.normal(0, 0.2, co).astype(np.float32)
+        params[f"layer{i}"] = p
+    return params
+
+
+def _head_folded(model):
+    """A copy of ``model`` with its head's BN folded into the head conv:
+    darknet's head is a conv with a bias and no BN, so the .weights file
+    holds a trained head only this way (the importer's identity BN, var
+    1 - eps, then computes the same function)."""
+    import copy
+
+    import torch
+    m = copy.deepcopy(model)
+    h = m.conv17
+    with torch.no_grad():
+        mult = h.bn.weight / torch.sqrt(h.bn.running_var + h.bn.eps)
+        h.conv.weight.mul_(mult[:, None, None, None])
+        h.bn.bias.sub_(h.bn.running_mean * mult)
+        h.bn.weight.fill_(1.0)
+        h.bn.running_mean.zero_()
+        h.bn.running_var.fill_(1.0 - h.bn.eps)
+    return m
+
+
+def _qat_phase(dev, card, state, counted, zero_counts):
+    """[qat]: quantization-aware training (STE and engine-bit-exact), the
+    darknet-cfg family and the v3 step on the card, each deployed graph
+    served through the arena kernels.  -> {"launches": {kernel: count on
+    the served paths}, ...figures}."""
+    import copy
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from yoloface_tpu_torch.core.precision import full_f32
+    from yoloface_tpu_torch.examples import train_darknet as td
+    from yoloface_tpu_torch.examples import train_qat as tq
+    from yoloface_tpu_torch.examples import train_synthetic as ts
+    from yoloface_tpu_torch.io import darknet
+    from yoloface_tpu_torch.io.darknet_cfg import (YOLOFACE_CFG, DarknetNet,
+                                                   template_from_darknet)
+    from yoloface_tpu_torch.io.tflite_import import load_tflite
+    from yoloface_tpu_torch.kernels import arena
+    from yoloface_tpu_torch.kernels import preprocess as kpre
+    from yoloface_tpu_torch.pipeline import head as thead
+    from yoloface_tpu_torch.pipeline.e2e import FacePipeline
+    from yoloface_tpu_torch.pipeline.head import HeadConfig
+    from yoloface_tpu_torch.quantize import calibrate as cal
+    from yoloface_tpu_torch.quantize import qat
+    from yoloface_tpu_torch.quantize import qat_exact as qe
+    from yoloface_tpu_torch.runtime.engine import Int8Engine
+    from yoloface_tpu_torch.train import yolov3
+    from yoloface_tpu_torch.train.loss import yolo_loss
+
+    out = {"card": card, "launches": {}}
+    t_phase = time.perf_counter()
+
+    def counted_run(path: str, fn):
+        """``fn()`` with every launch count at 0 before it; its counts are
+        added to out["launches"] and kept under ``path``."""
+        zero_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        got = {f.__name__: f.launches for f in counted}
+        got["requant_epilogue"] = arena.arena_stage.exact_launches
+        got = {k: v for k, v in got.items() if v}
+        out.setdefault("launches_by_path", {})[path] = got
+        for k, v in got.items():
+            out["launches"][k] = out["launches"].get(k, 0) + v
+        return res
+
+    def flat(ts_):
+        return torch.cat([t.reshape(-1) for t in ts_]).cpu()
+
+    model = state["model"]
+    template = load_tflite(CORPUS)
+    rng = np.random.default_rng(123)
+    rep, _, _ = ts.make_batch(rng, 16)
+    val_imgs, val_tgts, _ = ts.make_batch(rng, 64)
+    _, eval_imgs, labels = ts.calibration_sets(123, TRAIN_SERVE[0])
+
+    # 1. STE QAT on [train]'s model: one step card against CPU
+    ranges = cal.observe_ranges(
+        template, cal.fold_batchnorm(cal._flax_variables(model)), rep,
+        device=dev)
+    act = qat.qat_act_qparams(template, ranges)
+    imgs, tgts, _ = ts.make_batch(np.random.default_rng(11), QAT_BATCH)
+    res = {}
+    for d in ("cpu", dev):
+        m = copy.deepcopy(model).to(d)
+        with full_f32():
+            y = qat.qat_forward(template, m, imgs, act)
+            loss = yolo_loss(y, torch.from_numpy(tgts).to(d))
+            g = torch.autograd.grad(loss, list(m.parameters()))
+        res[str(d)] = (float(loss.detach()), flat(g), y.detach().cpu())
+    (l0, g0, y0), (l1, g1, y1) = res["cpu"], res[str(dev)]
+    gd, gn = float((g1 - g0).abs().max()), float(g0.norm())
+    flips = int(((y1 - y0).abs() / act[template.outputs[0]][0] > 0.5)
+                .sum())
+    _require(abs(l1 - l0) <= QAT_TOL["loss"] * l0,
+             f"[qat] STE step: loss {l1} vs {l0}")
+    _require(gd <= QAT_TOL["grad"] * gn, f"[qat] STE step: gradient off by "
+             f"{gd} of a norm of {gn}")
+    out["ste_step_pair"] = {"loss": (l1, l0), "grad_max_diff": gd,
+                            "grad_norm_cpu": gn, "head_steps_apart": flips,
+                            "head_values": y0.numel()}
+    print(f"[qat] one STE QAT step, card against CPU (batch {QAT_BATCH}, "
+          f"[train]'s model, ranges of 16 images): loss {l1:.6f} / "
+          f"{l0:.6f} (tol {QAT_TOL['loss']} of it), gradient max diff "
+          f"{gd:.3g} of a norm of {gn:.4g} (tol {QAT_TOL['grad']} x norm); "
+          f"{flips} of {y0.numel()} head values a grid step apart")
+
+    def batches():
+        brng = np.random.default_rng(7)
+        for _ in range(QAT_STEPS):
+            yield ts.make_batch(brng, QAT_BATCH)[:2]
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m_qat, losses = qat.qat_finetune(template, model, ranges, batches(),
+                                     lr=QAT_LR)
+    torch.cuda.synchronize()
+    out["ste_s"] = time.perf_counter() - t0
+    out["ste_losses"] = losses[::10] + losses[-1:]
+    _require(np.isfinite(losses).all()
+             and np.mean(losses[-10:]) < np.mean(losses[:10]),
+             f"[qat] STE QAT: the fake-quant loss {losses[:3]} -> "
+             f"{losses[-3:]}")
+    print(f"[qat] {QAT_STEPS} STE QAT steps at batch {QAT_BATCH}: "
+          f"{out['ste_s']:.2f} s ({1e3 * out['ste_s'] / QAT_STEPS:.2f} ms a "
+          f"step with make_batch on the host, {card}); fake-quant loss "
+          f"{losses[0]:.3f} -> {losses[-1]:.3f}")
+    ptq_loss, _ = tq.deployed_loss(model, template, ranges, val_imgs,
+                                   val_tgts)
+    qat_loss, g_qat = tq.deployed_loss(m_qat, template, ranges, val_imgs,
+                                       val_tgts)
+    ptq_m = ts.evaluate_deployed(state)
+    qat_m = ts.evaluate_deployed(dict(state, model=m_qat))
+    out["deployed"] = {"ptq": dict(loss=ptq_loss, **ptq_m),
+                       "qat": dict(loss=qat_loss, **qat_m)}
+    for k, v in (("PTQ", out["deployed"]["ptq"]),
+                 ("QAT", out["deployed"]["qat"])):
+        print(f"[qat] {k}: deployed loss {v['loss']:.3f} (64 images, "
+              f"arena_exact on the frozen ranges), hit rate "
+              f"{v['hit_rate']:.4f}, mean IoU {v['mean_iou']:.4f}, "
+              f"{v['detected']} of {v['n_eval']} detected")
+    print(f"[qat] deployed-loss improvement: {ptq_loss - qat_loss:+.3f} ("
+          f"{'QAT wins' if qat_loss <= ptq_loss else 'PTQ wins'})")
+
+    # the QAT graph served from RGB565 frames, each kernel against its
+    # plain version, then counted
+    f24 = torch.from_numpy(_rgb565_frames(eval_imgs)).to(dev)
+    x24 = kpre.preprocess_rgb565(f24)
+    _require(torch.equal(x24, kpre.preprocess_rgb565_plain(f24)),
+             "[qat] preprocess = plain")
+    pipes = {}
+    for mode in ("arena2", "arena_exact"):
+        eng = Int8Engine(g_qat, mode, dev)
+        pipes[mode] = FacePipeline(eng, HeadConfig(conf_threshold=0.5))
+        env = _stages_equal_plain(eng, x24, f"[qat] QAT graph {mode}")
+        _heads_equal_plain(env[eng.arena.output_idxs[0]], pipes[mode],
+                           f"[qat] QAT graph {mode}")
+        _require(torch.equal(eng(x24).cpu(),
+                             Int8Engine(g_qat, mode, "cpu")(x24.cpu())),
+                 f"[qat] QAT graph {mode}: the card's int8 = the CPU's")
+    staged = FacePipeline(pipes["arena_exact"].engine,
+                          HeadConfig(conf_threshold=0.5,
+                                     use_fused_head=False))
+    dets = counted_run("QAT graph rgb565", lambda: [
+        p.detect_rgb565_device(f24)
+        for p in (pipes["arena2"], pipes["arena_exact"], staged)])
+    for name in ("preprocess_rgb565", "arena_stage", "requant_epilogue",
+                 "detect_head", "topk_conf"):
+        _require(out["launches_by_path"]["QAT graph rgb565"].get(name, 0)
+                 > 0, f"[qat] QAT serving path: {name} launched")
+    for got, (mode, fused) in zip(dets, (("arena2", True),
+                                         ("arena_exact", True),
+                                         ("arena_exact", False))):
+        cpu = FacePipeline(Int8Engine(g_qat, mode, "cpu"), HeadConfig(
+            conf_threshold=0.5, use_fused_head=fused))
+        _dets_equal(got, cpu.detect_rgb565(f24.cpu()),
+                    f"[qat] QAT graph {mode} rgb565")
+    out["served_quality"] = {
+        mode: ts.score({k: v.cpu().numpy() for k, v in d.items()}, labels)
+        for mode, d in (("arena2", dets[0]), ("arena_exact", dets[1]))}
+    print(f"[qat] the QAT graph from RGB565 frames: every stage, the fused "
+          f"head, the top-K and the preprocess equal their plain versions; "
+          f"detections equal the CPU path; {out['served_quality']}; "
+          f"launches {out['launches_by_path']['QAT graph rgb565']}")
+
+    # 2. bit-exact QAT on the corpus graph
+    g8 = load_tflite(CORPUS)
+    w0 = qe.init_float_weights(g8)
+    inq, outq = g8.tensor(g8.inputs[0]).qparams, g8.tensor(
+        g8.outputs[0]).qparams
+    bimgs, btgts, _ = ts.make_batch(np.random.default_rng(12), QAT_BATCH)
+    x8 = np.clip(np.round(bimgs / inq.scale + inq.zero_point), -128,
+                 127).astype(np.int8)
+    res = {}
+    for d in ("cpu", dev):
+        _, _, fwd = qe.make_bitexact_step(g8, yolo_loss, device=d)
+        leaves = qat.as_leaves(w0, d)
+        keys = sorted(leaves)
+        with full_f32():
+            codes = fwd(leaves, torch.from_numpy(x8).to(d))
+            y = (codes - outq.zero_point) * float(np.float32(outq.scale))
+            loss = yolo_loss(y, torch.from_numpy(btgts).to(d))
+            g = torch.autograd.grad(loss, [t for k in keys
+                                           for t in leaves[k]])
+        res[str(d)] = (float(loss.detach()), flat(g), codes.detach().cpu())
+    (l0, g0, c0), (l1, g1, c1) = res["cpu"], res[str(dev)]
+    gd, gn = float((g1 - g0).abs().max()), float(g0.norm())
+    _require(torch.equal(c0, c1), "[qat] bit-exact forward: the card's "
+             "codes = the CPU's")
+    _require(abs(l1 - l0) <= QAT_TOL["exact_loss"] * l0,
+             f"[qat] bit-exact step: loss {l1} vs {l0}")
+    _require(gd <= QAT_TOL["exact_grad"] * gn, f"[qat] bit-exact step: "
+             f"gradient off by {gd} of a norm of {gn}")
+    step, init, fwd = qe.make_bitexact_step(g8, yolo_loss, lr=BITEXACT_LR,
+                                            device=dev)
+    xs = torch.from_numpy(x8).to(dev)
+    w, opt, blosses = w0, init(w0), []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(BITEXACT_STEPS):
+        w, opt, lv = step(w, opt, xs, btgts)
+        blosses.append(float(lv))
+    torch.cuda.synchronize()
+    bt = time.perf_counter() - t0
+    _require(blosses[-1] < blosses[0], f"[qat] bit-exact QAT: loss "
+             f"{blosses[0]} -> {blosses[-1]}")
+    g2 = qe.deploy(g8, w)
+    with torch.no_grad():
+        codes = fwd(w, xs).to(torch.int8)
+    eng = Int8Engine(g2, "arena_exact", dev)
+    _stages_equal_plain(eng, xs, "[qat] bit-exact deployed arena_exact")
+    served = counted_run("bit-exact arena_exact", lambda: eng(xs))
+    gap = float((served.to(torch.int32) - codes.to(torch.int32)).abs()
+                .max())
+    _require(gap == 0.0, f"[qat] bit-exact: sim gap {gap} through "
+             "arena_exact")
+    _require(torch.equal(Int8Engine(g2, "exact", dev)(xs), codes),
+             "[qat] bit-exact: the plain exact engine = the forward")
+    changed = sum(int((a.data != b.data).sum()) for a, b in zip(
+        g2.tensors, g8.tensors) if a.data is not None)
+    out["bitexact"] = {"step_pair": {"loss": (l1, l0), "grad_max_diff": gd,
+                                     "grad_norm_cpu": gn},
+                       "steps": BITEXACT_STEPS, "s": bt,
+                       "losses": (blosses[0], blosses[-1]),
+                       "sim_gap": gap, "constants_changed": changed}
+    print(f"[qat] bit-exact QAT on the corpus graph: one step card against "
+          f"CPU, codes equal, loss {l1:.6f} / {l0:.6f}, gradient max diff "
+          f"{gd:.3g} of a norm of {gn:.4g}; {BITEXACT_STEPS} steps "
+          f"{bt:.2f} s ({card}), loss {blosses[0]:.4f} -> {blosses[-1]:.4f};"
+          f" deployed ({changed} integer constants moved): sim gap {gap} "
+          f"through the arena_exact kernels, equal to the plain exact "
+          f"engine")
+
+    # 3. the darknet family: train_darknet's run on the card
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net, params, dlosses = td.train(DARKNET_STEPS, 32, 3e-3, seed=0,
+                                    device=dev, log=False)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    dgraph, drng = td.deploy(net, params, device=dev)
+    dimgs = td.make_batch(drng, 24)[0]
+    dx = torch.from_numpy(np.clip(np.round(dimgs * 255) - 128, -128,
+                                  127).astype(np.int8)).to(dev)
+    deng = Int8Engine(dgraph, "arena_exact", dev)
+    _stages_equal_plain(deng, dx, "[qat] train_darknet arena_exact")
+    dq = counted_run("train_darknet arena_exact", lambda: td.evaluate_deployed(
+        net, params, device=dev, graph=dgraph))
+    ratio = float(np.mean(dlosses[-20:]) / np.mean(dlosses[:10]))
+    _require(ratio < 0.5, f"[qat] train_darknet: loss ratio {ratio}")
+    for k, v in DARKNET_BAR.items():
+        _require(dq[k] >= v, f"[qat] train_darknet bar: {k} {dq[k]} < {v}")
+    out["darknet"] = dict(dq, train_s=dt, loss_ratio=ratio,
+                          losses=(dlosses[0], dlosses[-1]))
+    print(f"[qat] train_darknet: {DARKNET_STEPS} steps at batch 32 in "
+          f"{dt:.2f} s ({card}), loss {dlosses[0]:.3f} -> {dlosses[-1]:.3f}"
+          f"; calibrated and served in arena_exact (every stage = plain): "
+          f"hit rate {dq['hit_rate']:.4f}, mean IoU {dq['mean_iou']:.4f}, "
+          f"{dq['detected']} of {dq['n_eval']} detected")
+
+    # yoloface50k.cfg at full width from [train]'s weights
+    folded = _head_folded(model)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "yoloface.weights")
+        darknet.save_darknet_weights(folded, path)
+        with open(YOLOFACE_CFG) as f:
+            ynet = DarknetNet(f.read())
+        yparams = ynet.load_weights(path)
+    xv = torch.from_numpy(val_imgs[:32]).to(dev)
+    with torch.no_grad():
+        (yh,) = ynet.apply(yparams, xv)
+        with full_f32():
+            want = model.eval()(xv)
+    dh = float((yh - want).abs().max())
+    bound = CFG_HEAD_TOL * max(1.0, float(want.abs().max()))
+    _require(dh <= bound, f"[qat] yoloface50k.cfg head off YoloFace's by "
+             f"{dh} > {bound}")
+    ytemp, yw = template_from_darknet(ynet, yparams)
+    yg = cal.calibrate_from_weights(yw, rep, ytemp, device=dev)
+    for mode in ("arena2", "arena_exact"):
+        eng = Int8Engine(yg, mode, dev)
+        pipe = FacePipeline(eng, HeadConfig(conf_threshold=0.5))
+        env = _stages_equal_plain(eng, x24, f"[qat] yoloface50k.cfg {mode}")
+        _heads_equal_plain(env[eng.arena.output_idxs[0]], pipe,
+                           f"[qat] yoloface50k.cfg {mode}")
+        counted_run(f"yoloface50k.cfg {mode}",
+                    lambda: pipe.detect_int8_device(x24))
+    out["yoloface50k_cfg"] = {"head_max_diff": dh, "bound": bound,
+                              "ops": len(ytemp.ops)}
+    print(f"[qat] yoloface50k.cfg at 56x56 from [train]'s weights (head BN "
+          f"folded, save_darknet_weights -> load_weights): head off "
+          f"YoloFace's by {dh:.3g} (tol {bound:.3g}); its template "
+          f"({len(ytemp.ops)} ops: top-left PADs, QUANTIZE -> CONCAT routes)"
+          f" calibrated on the card runs in arena2 and arena_exact, every "
+          f"stage and the heads equal to their plain versions")
+
+    # weight-space QAT on the two-head v3-tiny FPN, served
+    fnet = DarknetNet(_fpn_cfg())
+    ftemp, fw = template_from_darknet(fnet, _cfg_params(fnet, 0))
+    frng = np.random.default_rng(21)
+    fimgs = frng.uniform(0, 1, (16, 32, 32, 3)).astype(np.float32)
+    franges = cal.observe_ranges(ftemp, fw, fimgs, device=dev)
+    ftgt = tuple(torch.from_numpy(frng.normal(0, 0.5, s).astype(
+        np.float32)) for s in ((16, 4, 4, 18), (16, 8, 8, 18)))
+
+    def mse(outs, tgt):
+        return sum(((o - t) ** 2).mean() for o, t in zip(outs, tgt))
+
+    fstep, finit = qat.make_qat_step_weights(ftemp, franges, mse, lr=3e-3,
+                                             device=dev)
+    w, opt, flosses = fw, finit(fw), []
+    for _ in range(FPN_QAT_STEPS):
+        w, opt, lv = fstep(w, opt, fimgs, ftgt)
+        flosses.append(float(lv))
+    _require(flosses[-1] < flosses[0], f"[qat] FPN weight-space QAT: loss "
+             f"{flosses[0]} -> {flosses[-1]}")
+    fg = cal.build_int8_graph(ftemp, qat.weights_numpy(w), franges)
+    fx = torch.from_numpy(frng.integers(-128, 128, (8, 32, 32, 3)).astype(
+        np.int8)).to(dev)
+    tool = _golden_tool()
+    fcfgs = [thead.HeadConfig(grid=gr, stride=s, anchors=a)
+             for gr, s, a in tool.FPN_HEADS]
+    fkw = dict(scales=[fg.tensor(o).qparams.scale for o in fg.outputs],
+               zero_points=[fg.tensor(o).qparams.zero_point
+                            for o in fg.outputs], **tool.FPN_DETECT)
+    feng = Int8Engine(fg, "arena2", dev)
+    _stages_equal_plain(feng, fx, "[qat] FPN arena2")
+    fdets = counted_run("FPN arena2 + detect_multihead",
+                        lambda: thead.detect_multihead(feng(fx), fcfgs,
+                                                       **fkw))
+    cheads = Int8Engine(fg, "arena2", "cpu")(fx.cpu())
+    for a, b in zip(feng(fx), cheads):
+        _require(torch.equal(a.cpu(), b), "[qat] FPN heads = the CPU's")
+    want = thead.detect_multihead(cheads, fcfgs, **fkw)
+    _dets_equal(dict(zip(("boxes", "scores", "valid"), fdets)),
+                {k: v.numpy() for k, v in zip(("boxes", "scores", "valid"),
+                                              want)}, "[qat] FPN")
+    out["fpn"] = {"losses": (flosses[0], flosses[-1]),
+                  "valid": int(fdets[2].sum())}
+    print(f"[qat] v3-tiny FPN weight-space QAT: {FPN_QAT_STEPS} steps, loss "
+          f"{flosses[0]:.4f} -> {flosses[-1]:.4f}; built, served in arena2 "
+          f"(every stage = plain, the RESIZE inside) and detect_multihead: "
+          f"{out['fpn']['valid']} valid boxes, equal to the CPU path")
+
+    # 4. the v3 step at 416
+    vcfg = yolov3.YoloV3Config(img_size=V3_SIZE, batch_size=V3_BATCH,
+                               epochs=10, steps_per_epoch=1)
+    vinit, vstep = yolov3.make_v3_train_step(vcfg, device=dev)
+    vstate = vinit(0)
+    vrng = np.random.default_rng(33)
+    vimgs = vrng.uniform(0, 1, (V3_BATCH, V3_SIZE, V3_SIZE, 3)).astype(
+        np.float32)
+    vtgts = np.stack([yolov3.build_v3_target(np.concatenate([
+        np.zeros((3, 1)), vrng.uniform(0.1, 0.9, (3, 2)),
+        vrng.uniform(0.05, 0.4, (3, 2))], 1), vcfg)
+        for _ in range(V3_BATCH)])
+    vt, vl = [], []
+    for _ in range(V3_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vstate, met = vstep(vstate, vimgs, vtgts)
+        vl.append(float(met["loss"]))
+        vt.append(1e3 * (time.perf_counter() - t0))
+    _require(np.isfinite(vl).all(), f"[qat] v3 step: loss {vl}")
+    out["v3"] = {"losses": vl, "ms": vt, "batch": V3_BATCH,
+                 "size": V3_SIZE}
+    print(f"[qat] make_v3_train_step at {V3_SIZE}x{V3_SIZE}, batch "
+          f"{V3_BATCH}: losses {[round(v, 4) for v in vl]}, "
+          f"{[round(v, 2) for v in vt]} ms a step (host clock to a "
+          f"synchronize; the first builds cuDNN's plans; {card})")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[qat] the phase: {out['phase_s']:.1f} s; launches on its served "
+          f"paths {out['launches']}")
     return out
 
 
@@ -2926,7 +3431,12 @@ def main() -> int:
 
     # ------------------------------------------- 4c. [train] make a model
     # train, calibrate, export and serve YoloFace through the kernels
-    train = _train_phase(dev, card, counted, zero_counts)
+    train, trained = _train_phase(dev, card, counted, zero_counts)
+
+    # ------------------------------------- 4d. [qat] QAT, darknet-cfg, v3
+    # STE and bit-exact QAT, the darknet family and the v3 step; every
+    # deployed graph served through the arena kernels, counted
+    qat_out = _qat_phase(dev, card, trained, counted, zero_counts)
 
     # ------------------------------------------------------------ 5. lines
     src = "yoloface_tpu_torch/csrc/"
@@ -3115,8 +3625,14 @@ def main() -> int:
     for row in kernels:     # the [train] phase's served path, counted
         if train["launches"].get(row["name"]):
             row["launches_train"] = train["launches"][row["name"]]
+    qat_launches = dict(qat_out["launches"], arena_stage_b2b=qat_out[
+        "launches_by_path"]["FPN arena2 + detect_multihead"]["arena_stage"])
+    for row in kernels:     # the [qat] phase's served paths, counted
+        if qat_launches.get(row["name"]):
+            row["launches_qat"] = qat_launches[row["name"]]
     print(json.dumps({"host_feed": host_feed}))
     print(json.dumps({"train": train}))
+    print(json.dumps({"qat": qat_out}))
     print(_smi("name,power.limit"))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

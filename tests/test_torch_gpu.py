@@ -1270,3 +1270,87 @@ def test_float_forward_on_the_card_equals_cpu():
         a, b = card[k].cpu(), cpu[k]
         assert float((a - b).abs().max()) <= 1e-5 * max(
             1.0, float(b.abs().max())), k
+
+
+@pytest.mark.gpu
+def test_bitexact_qat_sim_gap_on_the_card():
+    """Bit-exact QAT on the card: the forward's codes equal the CPU's; three
+    steps, ``deploy``, and the arena_exact kernels serve the forward's
+    codes bit for bit (a sim gap of 0.0)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from yoloface_tpu_torch.quantize import qat
+    from yoloface_tpu_torch.quantize import qat_exact as qe
+    g = load_tflite(CORPUS)
+    w0 = qe.init_float_weights(g)
+    x8 = torch.from_numpy(np.random.default_rng(0).integers(
+        -128, 128, (4, 56, 56, 3)).astype(np.int8)).cuda()
+    step, init, fwd = qe.make_bitexact_step(
+        g, lambda y, t: torch.mean((y - t) ** 2), lr=1e-3, device="cuda")
+    with torch.no_grad():
+        cpu = qe.build_bitexact_forward(g)(qat.as_leaves(w0, "cpu"),
+                                           x8.cpu())
+        assert torch.equal(fwd(qat.as_leaves(w0, "cuda"), x8).cpu(), cpu)
+    w, opt = w0, init(w0)
+    for _ in range(3):
+        w, opt, _ = step(w, opt, x8, np.zeros((4, 7, 7, 18), np.float32))
+    g2 = qe.deploy(g, w)
+    with torch.no_grad():
+        codes = fwd(w, x8).to(torch.int8)
+    assert torch.equal(Int8Engine(g2, "arena_exact", "cuda")(x8), codes)
+    assert torch.equal(Int8Engine(g2, "exact", "cuda")(x8), codes)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg", ["yoloface50k", "train_darknet"])
+def test_darknet_apply_on_the_card(cfg):
+    """DarknetNet.apply on the card against the CPU (float32, TF32 off:
+    1e-4 of the largest value), and its gradient (1e-3 of the norm;
+    measured 1.0e-4 on yoloface50k.cfg: cuDNN's and the CPU's sums)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from yoloface_tpu_torch.examples import train_darknet
+    from yoloface_tpu_torch.io.darknet_cfg import YOLOFACE_CFG, DarknetNet
+    text = (open(YOLOFACE_CFG).read() if cfg == "yoloface50k"
+            else train_darknet.CFG)
+    net = DarknetNet(text)
+    params = train_darknet.init_params(net, np.random.default_rng(1))
+    s = int(net.net_options["width"])
+    x = np.random.default_rng(2).random((4, s, s, 3)).astype(np.float32)
+    res = {}
+    for d in ("cpu", "cuda"):
+        leaves = {k: {n: torch.from_numpy(v).to(d).requires_grad_(True)
+                      for n, v in p.items()} for k, p in params.items()}
+        (y,) = net.apply(leaves, torch.from_numpy(x).to(d))
+        flat = [leaves[k][n] for k in sorted(leaves)
+                for n in sorted(leaves[k])]
+        gr = torch.autograd.grad(torch.mean(y ** 2), flat)
+        res[d] = (y.detach().cpu(), torch.cat([t.reshape(-1).cpu()
+                                               for t in gr]))
+    (y0, g0), (y1, g1) = res["cpu"], res["cuda"]
+    assert float((y1 - y0).abs().max()) <= 1e-4 * float(y0.abs().max())
+    assert float((g1 - g0).abs().max()) <= 1e-3 * float(g0.norm())
+
+
+@pytest.mark.gpu
+def test_maxpool_tie_gradient_on_the_card():
+    """The bit-exact forward's max-pool on integer codes (ties the rule):
+    the card sends each window's gradient to the same element as the CPU
+    (the first maximum, as JAX's reduce_window VJP)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from yoloface_tpu_torch.quantize import qat_exact as qe
+    rng = np.random.default_rng(4)
+    x = rng.integers(-3, 3, (2, 28, 28, 8)).astype(np.float32)
+    for window, stride in ((2, 1), (2, 2), (8, 2), (4, 2)):
+        st = dict(filter_hw=(window, window), stride=(stride, stride),
+                  padding="SAME")
+        grads = []
+        for d in ("cpu", "cuda"):
+            xt = torch.from_numpy(x).to(d).requires_grad_(True)
+            y = qe._maxpool(xt, st)
+            r = torch.from_numpy(np.random.default_rng(5).normal(
+                0, 1, tuple(y.shape)).astype(np.float32)).to(d)
+            (gr,) = torch.autograd.grad((y * r).sum(), xt)
+            grads.append(gr.cpu())
+        assert torch.equal(grads[0], grads[1]), (window, stride)

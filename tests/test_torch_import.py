@@ -79,6 +79,16 @@ ENTRIES = {
         "from yoloface_tpu_torch.io.darknet import load_darknet_weights",
     "synthetic training example":
         "from yoloface_tpu_torch.examples import train_synthetic",
+    "quantization-aware training":
+        "from yoloface_tpu_torch.quantize import qat, qat_exact",
+    "darknet-cfg family":
+        "from yoloface_tpu_torch.io.darknet_cfg import (DarknetNet,\n"
+        "                                               template_from_darknet)",
+    "yolov3 trainer":
+        "from yoloface_tpu_torch.train.yolov3 import (YoloV3Trainer,\n"
+        "                                             make_v3_train_step)",
+    "QAT and darknet examples":
+        "from yoloface_tpu_torch.examples import train_darknet, train_qat",
     "probes entry points":
         "from yoloface_tpu_torch.kernels import probes\n"
         "from yoloface_tpu_torch.probes import (debug448, microbench,\n"

@@ -19,8 +19,12 @@ differ):
 
 The optimizer works on one flat float32 vector of every parameter (the
 module's parameter order), so a step launches a handful of kernels after
-the backward.  ``TrainState`` is a dict, as in JAX: ``model`` (a
-``YoloFace``, its parameters and BN statistics updated in place),
+the backward.  ``adam_update`` is optax's bare ``adam`` / ``adamw`` on
+such a vector, no clipping; ``Optimizer`` calls it after its clip, and
+the QAT, darknet-cfg and v3 steps call it alone, as JAX's call
+``optax.adam(lr)`` and ``optax.adamw(schedule, wd)``.  ``TrainState`` is
+a dict, as in JAX: ``model`` (a ``YoloFace``, its parameters and BN
+statistics updated in place),
 ``opt_state`` (flat tensors and counters) and ``step``.  The float
 forward and backward run without TF32 (``core.precision.full_f32``).
 Metrics keep JAX's keys: ``loss``, ``grad_norm`` (of the gradient before
@@ -129,12 +133,41 @@ def make_schedule(cfg: TrainConfig) -> Callable[[int], F32]:
 
 
 # --------------------------------------------------------------- optimizer
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
+
+
+def adam_init(params_flat: torch.Tensor) -> Dict:
+    """optax's Adam state on one flat float32 vector."""
+    z = torch.zeros_like(params_flat)
+    return {"count": 0, "mu": z, "nu": z.clone()}
+
+
+def adam_update(g: torch.Tensor, state: Dict, lr, params_flat=None,
+                weight_decay: float = 0.0):
+    """optax's bare ``adam(lr)`` (``adamw(lr, weight_decay)`` when
+    ``weight_decay`` is set) on one flat gradient, no clipping: b1 0.9,
+    b2 0.999, eps 1e-8, bias-corrected moments, the decoupled decay
+    ``weight_decay * param`` added before the rate.  ``lr`` is the rate
+    at ``state["count"]`` (a constant, or a schedule's float32 value).
+    -> (update to add to the parameters, new state)."""
+    count = state["count"]
+    b1, b2 = ADAM_B1, ADAM_B2
+    mu = (1 - b1) * g + b1 * state["mu"]
+    nu = (1 - b2) * (g * g) + b2 * state["nu"]
+    bc1 = F32(1) - np.power(F32(b1), F32(count + 1))
+    bc2 = F32(1) - np.power(F32(b2), F32(count + 1))
+    u = (mu / float(bc1)) / (torch.sqrt(nu / float(bc2)) + ADAM_EPS)
+    if weight_decay:
+        u = u + weight_decay * params_flat
+    new = dict(state, count=count + 1, mu=mu, nu=nu)
+    return u * float(-lr), new
+
+
 class Optimizer:
     """optax's chain of JAX's ``make_optimizer`` on a flat gradient:
     ``init(params_flat)`` -> state, ``update(g, state, params_flat, value)``
     -> (update to add to the parameters, new state)."""
 
-    B1, B2, EPS = 0.9, 0.999, 1e-8
     RTOL, ATOL = 1e-4, 0.0
 
     def __init__(self, cfg: TrainConfig):
@@ -147,11 +180,8 @@ class Optimizer:
 
     def init(self, params_flat: torch.Tensor) -> Dict:
         z = torch.zeros_like(params_flat)
-        state: Dict = {"count": 0}
-        if self.cfg.optimizer == "sgd":
-            state["trace"] = z
-        else:
-            state["mu"], state["nu"] = z, z.clone()
+        state: Dict = ({"count": 0, "trace": z} if self.cfg.optimizer
+                       == "sgd" else adam_init(params_flat))
         if self.plateau:
             s = lambda v, dt=torch.float32: torch.tensor(
                 v, dtype=dt, device=z.device)
@@ -184,19 +214,15 @@ class Optimizer:
         g = torch.where(g_norm < cfg.grad_clip_norm, g,
                         (g / g_norm) * cfg.grad_clip_norm)
         count = state["count"]
-        new: Dict = {"count": count + 1}
+        lr = self.schedule(count)
         if cfg.optimizer == "sgd":
-            new["trace"] = u = g + 0.9 * state["trace"]
+            new: Dict = {"count": count + 1,
+                         "trace": g + 0.9 * state["trace"]}
+            u = new["trace"] * float(-lr)
         else:
-            b1, b2 = self.B1, self.B2
-            new["mu"] = mu = (1 - b1) * g + b1 * state["mu"]
-            new["nu"] = nu = (1 - b2) * (g * g) + b2 * state["nu"]
-            bc1 = F32(1) - np.power(F32(b1), F32(count + 1))
-            bc2 = F32(1) - np.power(F32(b2), F32(count + 1))
-            u = (mu / float(bc1)) / (torch.sqrt(nu / float(bc2)) + self.EPS)
-            if cfg.optimizer == "adamw":
-                u = u + (cfg.weight_decay or 1e-4) * params_flat
-        u = u * float(-self.schedule(count))
+            wd = (cfg.weight_decay or 1e-4) if cfg.optimizer == "adamw" \
+                else 0.0
+            u, new = adam_update(g, state, lr, params_flat, wd)
         if self.plateau:
             new["plateau"] = self._plateau(state["plateau"], value)
             u = new["plateau"]["scale"] * u
@@ -212,6 +238,13 @@ def make_optimizer(cfg: TrainConfig) -> Tuple[Optimizer, Callable]:
 # -------------------------------------------------------------- the steps
 def _flat(tensors) -> torch.Tensor:
     return torch.cat([t.reshape(-1) for t in tensors])
+
+
+def add_flat_(params, u: torch.Tensor) -> None:
+    """Add the flat update ``u`` to the tensors ``params`` in place (in
+    ``_flat``'s order)."""
+    torch._foreach_add_(params, [s.view_as(p) for s, p in zip(
+        u.split([p.numel() for p in params]), params)])
 
 
 def _batch(a, device) -> torch.Tensor:
@@ -264,8 +297,7 @@ def make_train_step(cfg: TrainConfig):
             p_flat = _flat(params) if cfg.optimizer == "adamw" else None
             u, new_opt = opt.update(g, state["opt_state"], p_flat,
                                     value=loss)
-            torch._foreach_add_(params, [s.view_as(p) for s, p in zip(
-                u.split([p.numel() for p in params]), params)])
+            add_flat_(params, u)
             lr = torch.tensor(schedule(state["step"]), dtype=torch.float32,
                               device=g.device)
             if "plateau" in new_opt:
