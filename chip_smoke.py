@@ -219,14 +219,42 @@ Phases (each prints its lines; any failure ends the run with an error):
      (tests/test_darknet_ptq.py's cfg, read from the file), served in
      arena2 (the RESIZE inside) and detect_multihead against the CPU
      path; make_v3_train_step at 416x416, batch 8, loss and ms a step;
-  5. the host feed's JSON line, the [train] and [qat] phases' JSON lines,
-     the kernels JSON line (each kernel's time
-     beside its bound: the larger of the bytes its function must move
-     over 3.35 TB/s and its operations over the card's peak rate for
+  4e. [interchange] (_interchange_phase), the interchange formats:
+     [train]'s model through fold_batchnorm, export_onnx, parse_model and
+     io/onnx_eval.OnnxEvaluator on the card against float_forward on the
+     card (ONNX_TOL, JAX's 1e-4, and the same decoded detections); the
+     shipped checkpoints/yoloface_corpus.onnx on the card against JAX's
+     evaluator output in the golden file; the graph TensorFlow's
+     converter made (tests/data/yoloface_converted_int8.tflite, written by
+     the port's quantize/tf_convert.py) in arena2, arena, arena_exact,
+     fused, fused_exact, perop and perop_exact: every stage against its
+     plain version at 64 frames, the output against its base engine on
+     the card at 16384 and against JAX's golden bits, timed; its 448
+     retarget in tiled2 and tiled_exact likewise on 2 frames; then served
+     through FacePipeline (the golden RGB565 frames; the 448 frames),
+     counted, the detections against the CPU path;
+  4f. [multi] (_multi_phase), multi-device on torch.distributed: a world
+     of one on NCCL in this process (parallel/mesh.init_distributed with a
+     file store): FacePipeline.make_sharded in arena2 at 16384 against
+     detect_rgb565_device bit for bit, counted, and the sharded train step
+     (BN sums and the gradient all-reduced) against the plain step within
+     STEP_TOL; then two ranks over gloo sharing the card
+     (parallel/dryrun.spawn of _multi_rank, after the kernels are built):
+     make_sharded at 2 x 8192 against the one-process 16384 run bit for
+     bit, the sharded step at global batch 32 against the one-process
+     step, spatial partitioning at sp = 2 in fast2 and exact on the corpus
+     and its 448 retarget bit-identical to the unsharded engine, a kernel
+     mode refused; the sharded serving rate beside one process's, the
+     sharded step's ms and the halo bytes a frame;
+  5. the host feed's JSON line, the [train], [qat], [interchange] and
+     [multi] phases' JSON lines, the kernels JSON line (each kernel's
+     time beside its bound: the larger of the bytes its function must
+     move over 3.35 TB/s and its operations over the card's peak rate for
      them; the kernels the [train] phase's served path launched also carry
-     ``launches_train``, their count there, and those the [qat] phase's
-     served paths launched ``launches_qat``), the card line, and the
-     result line last.
+     ``launches_train``, their count there, those the [qat] phase's
+     served paths launched ``launches_qat``, the [interchange] phase's
+     ``launches_interchange`` and the [multi] phase's world of one
+     ``launches_multi``), the card line, and the result line last.
 
 Without a CUDA device it exits non-zero and prints no result.
 """
@@ -1037,10 +1065,10 @@ def _heads_equal_plain(y, pipe, tag: str) -> None:
              f"{tag}: top-K = plain")
 
 
-def _dets_equal(got, want, tag: str) -> None:
+def _dets_equal(got, want, tag: str, box_atol=None) -> None:
     """Detections on the card (tensors) against the CPU path's (numpy):
     validity and counts equal, boxes and scores within the head's
-    tolerance."""
+    tolerance (``box_atol`` for boxes on a frame larger than 56)."""
     import numpy as np
 
     from yoloface_tpu_torch.pipeline import head as thead
@@ -1048,7 +1076,8 @@ def _dets_equal(got, want, tag: str) -> None:
         if k in want:
             _require(np.array_equal(got[k].cpu().numpy(), want[k]),
                      f"{tag}: {k} equals the CPU's")
-    for k, tol in (("boxes", thead.BOX_ATOL), ("scores", thead.SCORE_ATOL)):
+    for k, tol in (("boxes", box_atol or thead.BOX_ATOL),
+                   ("scores", thead.SCORE_ATOL)):
         d = np.abs(got[k].cpu().numpy().astype(np.float64)
                    - want[k].astype(np.float64)).max()
         _require(d <= tol, f"{tag}: {k} off by {d} > {tol}")
@@ -1741,6 +1770,478 @@ def _qat_phase(dev, card, state, counted, zero_counts):
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"[qat] the phase: {out['phase_s']:.1f} s; launches on its served "
           f"paths {out['launches']}")
+    return out
+
+
+# -------------------------------------------------------- [interchange]
+ONNX_TOL = 1e-4      # JAX's bound, rtol = atol (tests/test_onnx_export.py)
+ONNX_FRAMES = 64     # images of [train]'s model through the ONNX evaluator
+INTERCHANGE_BATCH = 16384
+STAGE_CHECK_FRAMES = 64        # every stage against its plain version
+# the head's box tolerance (pipeline/head.BOX_ATOL) is about 8 float32
+# ulps of the largest coordinate of a 56-px frame; on the 448 frame, 8
+# ulps of 448 px (2**-15 each)
+BOX_ATOL448 = 8 * 2.0 ** -15
+INTERCHANGE_MODES = ("arena2", "arena", "arena_exact", "fused",
+                     "fused_exact", "perop", "perop_exact")
+BASE_BITS = {"arena2": "fast2", "arena": "fast", "arena_exact": "exact",
+             "fused": "fast", "fused_exact": "exact", "perop": "fast",
+             "perop_exact": "exact", "tiled2": "fast2",
+             "tiled_exact": "exact"}
+
+
+def _row_launches(counted):
+    """The launch counts since the last ``zero_counts`` by the kernels
+    line's row names (the per-op rows as section 5 counts them)."""
+    from yoloface_tpu_torch.kernels import arena, fused, perop
+    out = {fn.__name__: fn.launches for fn in counted}
+    out["requant_epilogue"] = (arena.arena_stage.exact_launches
+                               + fused.fused_stage.exact_launches)
+    for k in perop.KERNELS:
+        out[k] = (out[k] if k in perop.OWN_KERNELS else out["add_flat"]
+                  if k == perop.ADD_KERNEL
+                  else perop.perop_op.by_kernel.get(k, 0))
+    return {k: v for k, v in out.items() if v}
+
+
+def _float_decode(head_nhwc, conf_threshold=0.7):
+    """tests/test_onnx_export.py's float decode (the reference's
+    tflite_prediction.py:46-57) in numpy: per frame the kept cells, their
+    boxes and confidences."""
+    import numpy as np
+    anchors = np.array([[9.0, 14.0], [12.0, 17.0], [22.0, 21.0]])
+    t = head_nhwc.reshape(-1, 7, 7, 3, 6).transpose(0, 3, 1, 2, 4)
+    sig = lambda v: 1.0 / (1.0 + np.exp(-v))  # noqa: E731
+    rows = np.arange(7.0).reshape(1, 1, 7, 1)
+    cols = np.arange(7.0).reshape(1, 1, 1, 7)
+    cx = (sig(t[..., 0]) + cols) * 8.0
+    cy = (sig(t[..., 1]) + rows) * 8.0
+    w = np.exp(t[..., 2]) * anchors[:, 0].reshape(1, 3, 1, 1)
+    h = np.exp(t[..., 3]) * anchors[:, 1].reshape(1, 3, 1, 1)
+    conf = sig(t[..., 4])
+    keep = conf >= conf_threshold
+    boxes = np.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], -1)
+    return [(np.argwhere(keep[i]), boxes[i][keep[i]], conf[i][keep[i]])
+            for i in range(head_nhwc.shape[0])]
+
+
+def _interchange_phase(dev, card, model, counted, zero_counts):
+    """[interchange]: [train]'s model through ONNX on the card, the shipped
+    .onnx against JAX's golden output, and the graph TensorFlow's converter
+    made (tests/data) through every kernel mode.  -> figures, with
+    ``launches``: the kernels' counts on its served paths."""
+    import numpy as np
+    import torch
+
+    from yoloface_tpu_torch.examples import train_synthetic as ts
+    from yoloface_tpu_torch.graph.retarget import retarget_spatial
+    from yoloface_tpu_torch.io import onnx_export
+    from yoloface_tpu_torch.io.onnx_eval import OnnxEvaluator
+    from yoloface_tpu_torch.io.tflite_import import load_tflite
+    from yoloface_tpu_torch.models.convert import flax_from_state_dict
+    from yoloface_tpu_torch.pipeline.e2e import FacePipeline
+    from yoloface_tpu_torch.pipeline.head import HeadConfig
+    from yoloface_tpu_torch.quantize import calibrate as cal
+    from yoloface_tpu_torch.runtime.engine import Int8Engine
+
+    out = {"card": card}
+    t_phase = time.perf_counter()
+    tool = _golden_tool()
+    gold = dict(np.load(GOLDEN))
+    template = load_tflite(CORPUS)
+
+    # 1. [train]'s model: fold_batchnorm, export_onnx, parse_model, the
+    # evaluator on the card against float_forward on the card
+    weights = cal.fold_batchnorm(flax_from_state_dict(model))
+    t0 = time.perf_counter()
+    buf = onnx_export.export_onnx(template, weights)
+    out["onnx_export_s"] = time.perf_counter() - t0
+    parsed = onnx_export.parse_model(buf)
+    _require(len(parsed["nodes"]) == sum(op.opname != "PAD"
+                                         for op in template.ops)
+             and (parsed["ir_version"], parsed["opset"]) == (8, 13),
+             "export_onnx -> parse_model: one node an op (PADs absorbed)")
+    ev = OnnxEvaluator(buf, device=dev)
+    imgs = ts.make_batch(np.random.default_rng(9), ONNX_FRAMES)[0]
+    x = torch.from_numpy(imgs).to(dev)
+    got = ev.evaluate(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    want = cal.float_forward(template, weights, x, device=dev)[
+        template.outputs[0]]
+    d = float((got - want).abs().max())
+    _require(bool(torch.allclose(got, want, rtol=ONNX_TOL, atol=ONNX_TOL)),
+             f"ONNX evaluator against float_forward on the card: {d}")
+    n_dets = 0
+    for (gi, gb, gc), (wi, wb, wc) in zip(_float_decode(got.cpu().numpy()),
+                                          _float_decode(want.cpu().numpy())):
+        _require(np.array_equal(gi, wi), "ONNX: the decoded cells")
+        _require(np.allclose(gb, wb, atol=0.05) and
+                 np.allclose(gc, wc, atol=1e-3), "ONNX: the decoded boxes")
+        n_dets += len(gi)
+    out["onnx"] = {"bytes": len(buf), "nodes": len(parsed["nodes"]),
+                   "max_abs_diff_float_forward": d, "detections": n_dets,
+                   "ms": _time_ms(lambda: ev.evaluate(
+                       x.permute(0, 3, 1, 2))),
+                   "float_forward_ms": _time_ms(lambda: cal.float_forward(
+                       template, weights, x, device=dev)),
+                   "frames": ONNX_FRAMES}
+    print(f"[interchange] [train]'s model -> fold_batchnorm -> export_onnx "
+          f"({len(buf)} B, {len(parsed['nodes'])} nodes, "
+          f"{out['onnx_export_s']:.4f} s) -> OnnxEvaluator on the card: "
+          f"against float_forward max {d:.3g} (tol {ONNX_TOL}), the same "
+          f"{n_dets} decoded detections on {ONNX_FRAMES} images; "
+          f"{out['onnx']['ms']:.3f} ms a batch, float_forward "
+          f"{out['onnx']['float_forward_ms']:.3f} ms ({card})")
+
+    # 2. the shipped .onnx against JAX's evaluator (the golden file)
+    with open(tool.ONNX_CORPUS, "rb") as f:
+        shipped = OnnxEvaluator(f.read(), device=dev)
+    got = shipped(tool.onnx_inputs())
+    d = float(np.abs(got - gold["onnx_corpus_eval"]).max())
+    _require(np.allclose(got, gold["onnx_corpus_eval"], rtol=ONNX_TOL,
+                         atol=ONNX_TOL), f"shipped .onnx against JAX: {d}")
+    out["shipped_onnx_max_abs_diff"] = d
+    print(f"[interchange] checkpoints/yoloface_corpus.onnx on the card "
+          f"against JAX's evaluator (golden onnx_corpus_eval): max {d:.3g} "
+          f"(tol {ONNX_TOL})")
+
+    # 3. the converted graph: every kernel mode against its plain version
+    # and its base engine on the card, and against JAX's golden bits
+    g = load_tflite(tool.CONVERTED)
+    x8 = torch.from_numpy(tool.converted_frames()).to(dev)
+    xs = torch.from_numpy(np.random.default_rng(12).integers(
+        -128, 128, (STAGE_CHECK_FRAMES, 56, 56, 3), dtype=np.int64
+    ).astype(np.int8)).to(dev)
+    xbig = torch.from_numpy(np.random.default_rng(13).integers(
+        -128, 128, (INTERCHANGE_BATCH, 56, 56, 3), dtype=np.int64
+    ).astype(np.int8)).to(dev)
+    base = {b: Int8Engine(g, b, dev) for b in ("fast2", "fast", "exact")}
+    want_big = {b: e(xbig) for b, e in base.items()}
+    out["converted_ms"] = {}
+    for mode in INTERCHANGE_MODES:
+        bits = BASE_BITS[mode]
+        eng = Int8Engine(g, mode, dev)
+        _stages_equal_plain(eng, xs, f"converted {mode}")
+        _require(torch.equal(eng(xbig), want_big[bits]),
+                 f"converted {mode} at {INTERCHANGE_BATCH} = {bits} engine")
+        _require(np.array_equal(eng(x8).cpu().numpy(),
+                                gold[f"converted_{bits}"]),
+                 f"converted {mode} = JAX {bits} (golden)")
+        out["converted_ms"][mode] = _time_ms(lambda: eng(xbig), reps=5)
+    print(f"[interchange] {tool.CONVERTED.split(os.sep)[-1]} (TensorFlow's "
+          f"converter, {len(g.ops)} ops) in {', '.join(INTERCHANGE_MODES)}: "
+          f"every stage = its plain version at {STAGE_CHECK_FRAMES}, the "
+          f"output = the base engine on the card at {INTERCHANGE_BATCH} and "
+          f"= JAX's golden bits; ms a batch of {INTERCHANGE_BATCH}: "
+          + ", ".join(f"{m} {v:.3f}" for m, v in out["converted_ms"].items())
+          + f" ({card})")
+    g448 = retarget_spatial(g, 8)
+    x448 = torch.from_numpy(tool.frames448()).to(dev)
+    for mode in ("tiled2", "tiled_exact"):
+        bits = BASE_BITS[mode]
+        eng = Int8Engine(g448, mode, dev)
+        _stages_equal_plain(eng, x448, f"converted 448 {mode}")
+        y = eng(x448)
+        _require(torch.equal(y, Int8Engine(g448, bits, dev)(x448)),
+                 f"converted 448 {mode} = its {bits} engine")
+        _require(np.array_equal(y.cpu().numpy(),
+                                gold[f"converted448_{bits}"]),
+                 f"converted 448 {mode} = JAX {bits} (golden)")
+    print(f"[interchange] its 448 retarget in tiled2 and tiled_exact on "
+          f"{x448.shape[0]} frames: every section = its plain version, the "
+          f"output = the base engine on the card and JAX's golden bits")
+
+    # 4. served to detections, counted: the golden RGB565 frames through
+    # every kernel mode, the 448 frames through the tiled modes
+    frames = torch.from_numpy(gold["frames"]).to(dev)
+    pipes = {m: FacePipeline(Int8Engine(g, m, dev)) for m in INTERCHANGE_MODES}
+    # 56 x 56 x 3 cells pass the head kernels' 256: the staged torch head
+    head448 = HeadConfig(grid=56, use_fused_head=False, use_pallas_topk=False)
+    pipes448 = {m: FacePipeline(Int8Engine(g448, m, dev), head448)
+                for m in ("tiled2", "tiled_exact")}
+    _sync(dev)
+    zero_counts()
+    dets = {m: p.detect_rgb565_device(frames) for m, p in pipes.items()}
+    dets448 = {m: p.detect_int8_device(x448) for m, p in pipes448.items()}
+    _sync(dev)
+    out["launches"] = _row_launches(counted)
+    for name in ("preprocess_rgb565", "arena_stage", "requant_epilogue",
+                 "fused_stage", "perop_op", "detect_head", "tiled_section"):
+        _require(out["launches"].get(name, 0) > 0,
+                 f"[interchange] served paths: {name} launched")
+    for m, det in dets.items():
+        cpu = FacePipeline(Int8Engine(g, BASE_BITS[m], "cpu"))
+        _dets_equal(det, cpu.detect_rgb565(gold["frames"]),
+                    f"converted {m} detections")
+    for m, det in dets448.items():
+        cpu = FacePipeline(Int8Engine(g448, BASE_BITS[m], "cpu"), head448)
+        _dets_equal(det, cpu.detect_int8(tool.frames448()),
+                    f"converted 448 {m} detections", BOX_ATOL448)
+    out["detections"] = {m: int(d["count"].sum()) for m, d in
+                         {**dets, **dets448}.items()}
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[interchange] served through FacePipeline, detections against "
+          f"the CPU path of the base engine: faces {out['detections']}; "
+          f"launches {out['launches']}; the phase {out['phase_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------- [multi]
+MULTI_BATCH = 16384        # frames of the sharded serving runs
+MULTI_STEP_BATCH = 32      # global batch of the sharded train step
+MULTI_REPS = 5
+
+
+def _step_pair(mesh, dev):
+    """The sharded step's loss and gradient against the one-process step
+    on the same global batch (train_synthetic's batch of 32, the corpus
+    template's weights) -> figures, checked against STEP_TOL."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from yoloface_tpu_torch.examples import train_synthetic as ts
+    from yoloface_tpu_torch.train import steps
+
+    imgs, tgts, _ = ts.make_batch(np.random.default_rng(TRAIN_SEED),
+                                  MULTI_STEP_BATCH)
+    model = _corpus_model().to(dev)
+    loss, g, _ = steps.loss_and_grad(copy.deepcopy(model), imgs, tgts)
+    loss_s, g_s, _ = steps.sharded_loss_and_grad(copy.deepcopy(model), imgs,
+                                                 tgts, mesh)
+    gn = float(g.norm())
+    r = {"loss": float(loss_s), "loss_one": float(loss),
+         "grad_max_diff": float((g_s - g).abs().max()), "grad_norm": gn}
+    _require(abs(r["loss"] - r["loss_one"]) <= STEP_TOL["loss"]
+             * r["loss_one"], f"sharded step loss {r}")
+    _require(r["grad_max_diff"] <= STEP_TOL["grad"] * gn,
+             f"sharded step gradient {r}")
+    cfg = steps.TrainConfig(learning_rate=3e-3, batch_size=MULTI_STEP_BATCH)
+    state = steps.init_state(None, cfg, model=model, device=dev)
+    step = steps.make_sharded_train_step(cfg, mesh)
+    xb, tb = torch.from_numpy(imgs).to(dev), torch.from_numpy(tgts).to(dev)
+    times = []
+    for i in range(13):
+        _multi_sync(mesh)
+        a = time.perf_counter()
+        state, met = step(state, xb, tb)
+        float(met["loss"])
+        _multi_sync(mesh)
+        if i >= 3:
+            times.append(1e3 * (time.perf_counter() - a))
+    r["step_ms"] = sorted(times)[len(times) // 2]
+    return r
+
+
+def _sync(dev) -> None:
+    import torch
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _multi_sync(mesh):
+    from yoloface_tpu_torch.parallel import mesh as mesh_lib
+    _sync(mesh.device)
+    mesh_lib.barrier(mesh)
+
+
+def _multi_rank(mesh, batch: int = MULTI_BATCH):
+    """One of two ranks over gloo sharing the card (spawned by
+    ``_multi_phase``): sharded serving against the one-process run, the
+    sharded step against the one-process step, spatial partitioning at
+    sp = 2 against the unsharded engine, a kernel mode refused.  ->
+    figures (checks fail the rank)."""
+    import numpy as np
+    import torch
+
+    from yoloface_tpu_torch.graph.retarget import retarget_spatial
+    from yoloface_tpu_torch.io.tflite_import import load_tflite
+    from yoloface_tpu_torch.kernels import arena
+    from yoloface_tpu_torch.kernels import head as khead
+    from yoloface_tpu_torch.kernels import preprocess as kpre
+    from yoloface_tpu_torch.parallel import mesh as mesh_lib
+    from yoloface_tpu_torch.parallel.spatial import (make_sp_mesh,
+                                                     make_spatial_infer)
+    from yoloface_tpu_torch.pipeline.e2e import load_pipeline
+    from yoloface_tpu_torch.runtime.engine import Int8Engine
+
+    dev = mesh.device
+    out = {"rank": mesh.rank, "device": str(dev)}
+    counted = (kpre.preprocess_rgb565, arena.arena_stage, khead.detect_head)
+    pipe = load_pipeline(CORPUS, mode="arena2", device=dev)
+    frames = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, 1 << 16, (batch, 112, 112), dtype=np.int64).astype(
+        np.uint16)).to(dev)
+    want = pipe.detect_rgb565_device(frames)
+    sharded = pipe.make_sharded(mesh, "rgb565")
+    sharded(frames)
+    _multi_sync(mesh)
+    for fn in counted:
+        fn.launches = 0
+    got = sharded(frames)
+    _multi_sync(mesh)
+    out["launches"] = {fn.__name__: fn.launches for fn in counted}
+    lo, hi = mesh_lib.batch_block(batch, mesh)
+    out["block"] = (lo, hi)
+    out["serve_equal"] = all(torch.equal(got[k], want[k][lo:hi])
+                             for k in want)
+    times = []
+    for _ in range(MULTI_REPS):
+        _multi_sync(mesh)
+        a = time.perf_counter()
+        sharded(frames)
+        _multi_sync(mesh)
+        times.append(1e3 * (time.perf_counter() - a))
+    out["sharded_ms"] = sorted(times)[len(times) // 2]
+    times = []
+    for _ in range(MULTI_REPS):      # rank 0 alone, the other waiting
+        _multi_sync(mesh)
+        if mesh.rank == 0:
+            a = time.perf_counter()
+            pipe.detect_rgb565_device(frames)
+            _sync(dev)
+            times.append(1e3 * (time.perf_counter() - a))
+        _multi_sync(mesh)
+    out["single_ms"] = sorted(times)[len(times) // 2] if times else None
+    out["step"] = _step_pair(mesh, dev)
+
+    # spatial partitioning at sp = 2 against the unsharded base engines
+    tool = _golden_tool()
+    sp_mesh = make_sp_mesh(2, 1, device=dev)
+    corpus = load_tflite(CORPUS)
+    cases = {"corpus": (corpus, torch.from_numpy(np.random.default_rng(
+        SEED + 1).integers(-128, 128, (4, 56, 56, 3), dtype=np.int64
+                           ).astype(np.int8)).to(dev)),
+             "corpus 448": (retarget_spatial(corpus, 8),
+                            torch.from_numpy(tool.frames448()).to(dev))}
+    out["sp"] = {}
+    for name, (g, x) in cases.items():
+        for mode in ("fast2", "exact"):
+            run = make_spatial_infer(g, sp_mesh, mode=mode)
+            y = run(x)
+            _multi_sync(mesh)
+            a = time.perf_counter()
+            run(x)
+            _multi_sync(mesh)
+            ms = 1e3 * (time.perf_counter() - a)
+            ok = torch.equal(y, Int8Engine(g, mode, dev)(x))
+            out["sp"][f"{name} {mode}"] = {
+                "equal": ok, "ms": ms, "frames": x.shape[0],
+                "halo_bytes_per_frame": run.stats["halo_bytes"]
+                / x.shape[0],
+                "gather_bytes_per_frame": run.stats["gather_bytes"]
+                / x.shape[0]}
+    try:
+        make_spatial_infer(corpus, sp_mesh, mode="arena2")
+        out["kernel_mode_refused"] = False
+    except NotImplementedError:
+        out["kernel_mode_refused"] = True
+    return out
+
+
+def _multi_phase(dev, card, counted, zero_counts):
+    """[multi]: a world of one on NCCL in this process (make_sharded and
+    the sharded step), then two ranks over gloo sharing the card.  ->
+    figures, with ``launches``: the kernels' counts on the world of one's
+    sharded serving path."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from yoloface_tpu_torch.parallel import mesh as mesh_lib
+    from yoloface_tpu_torch.parallel.dryrun import spawn
+    from yoloface_tpu_torch.pipeline.e2e import load_pipeline
+
+    out = {"card": card}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="yf_multi_") as tmp:
+        mesh = mesh_lib.init_distributed("file://" + os.path.join(
+            tmp, "store"), 1, 0, device=dev)
+        try:
+            _require(mesh.collective and mesh.backend == (
+                "nccl" if dev.type == "cuda" else "gloo"),
+                f"world of one: backend {mesh.backend}")
+            pipe = load_pipeline(CORPUS, mode="arena2", device=dev)
+            frames = torch.from_numpy(np.random.default_rng(SEED).integers(
+                0, 1 << 16, (MULTI_BATCH, 112, 112), dtype=np.int64
+            ).astype(np.uint16)).to(dev)
+            want = pipe.detect_rgb565_device(frames)
+            sharded = pipe.make_sharded(mesh, "rgb565")
+            _sync(dev)
+            zero_counts()
+            got = sharded(mesh_lib.shard_batch(frames, mesh))
+            _sync(dev)
+            out["launches"] = _row_launches(counted)
+            for name in ("preprocess_rgb565", "arena_stage", "detect_head"):
+                _require(out["launches"].get(name, 0) > 0,
+                         f"[multi] sharded serving: {name} launched")
+            _require(all(torch.equal(got[k], want[k]) for k in want),
+                     "world of one: make_sharded = detect_rgb565_device")
+            out["world1_sharded_ms"] = _time_ms(lambda: sharded(frames),
+                                                reps=5)
+            out["world1_single_ms"] = _time_ms(
+                lambda: pipe.detect_rgb565_device(frames), reps=5)
+            out["world1_step"] = _step_pair(mesh, dev)
+        finally:
+            dist.destroy_process_group()
+    s = out["world1_step"]
+    print(f"[multi] world of one on NCCL: make_sharded in arena2 at "
+          f"{MULTI_BATCH} = detect_rgb565_device bit for bit "
+          f"({out['world1_sharded_ms']:.3f} ms against "
+          f"{out['world1_single_ms']:.3f} ms); the sharded step (BN sums "
+          f"and the gradient all-reduced on NCCL) against the plain step: "
+          f"loss {s['loss']:.6f} / {s['loss_one']:.6f}, gradient max diff "
+          f"{s['grad_max_diff']:.3g} (tol {STEP_TOL['grad']} x "
+          f"{s['grad_norm']:.4f}), {s['step_ms']:.3f} ms a step ({card})")
+
+    # two ranks over gloo on the one card (the library is built: the
+    # ranks find it under the build lock)
+    t0 = time.perf_counter()
+    ranks = spawn(_multi_rank, 2, (MULTI_BATCH,), device=dev.type,
+                  timeout=600, threads=2)
+    out["two_ranks_s"] = time.perf_counter() - t0
+    for r in ranks:
+        _require(r["serve_equal"], f"rank {r['rank']}: make_sharded at "
+                 f"2 x {MULTI_BATCH // 2} = the one-process run")
+        _require(all(v > 0 for v in r["launches"].values()),
+                 f"rank {r['rank']}: kernels launched {r['launches']}")
+        for k, v in r["sp"].items():
+            _require(v["equal"], f"rank {r['rank']}: SP {k} = unsharded")
+        _require(r["kernel_mode_refused"], "SP refuses a kernel mode")
+    _require(ranks[0]["step"]["loss"] == ranks[1]["step"]["loss"],
+             "the sharded step's loss on both ranks")
+    r0 = ranks[0]
+    rate = MULTI_BATCH / max(r["sharded_ms"] for r in ranks) * 1e3
+    single = MULTI_BATCH / r0["single_ms"] * 1e3
+    out["two_ranks"] = {
+        "sharded_ms": r0["sharded_ms"], "single_ms": r0["single_ms"],
+        "sharded_fps": rate, "single_fps": single,
+        "launches": [r["launches"] for r in ranks], "step": r0["step"],
+        "sp": r0["sp"], "sp_rank1": ranks[1]["sp"],
+        "kernel_mode_refused": True}
+    print(f"[multi] two ranks over gloo on one card: make_sharded at 2 x "
+          f"{MULTI_BATCH // 2} = the one-process {MULTI_BATCH} bit for bit "
+          f"(launches {[r['launches'] for r in ranks]}); sharded "
+          f"{rate:.0f} frames/s against one process alone {single:.0f} "
+          f"({card})")
+    s = r0["step"]
+    print(f"[multi] sharded step at global batch {MULTI_STEP_BATCH} against "
+          f"the one-process step: loss {s['loss']:.6f} / "
+          f"{s['loss_one']:.6f}, gradient max diff {s['grad_max_diff']:.3g} "
+          f"(tol {STEP_TOL['grad']} x {s['grad_norm']:.4f}); "
+          f"{s['step_ms']:.3f} ms a step")
+    for k, v in r0["sp"].items():
+        print(f"[multi] SP sp=2 {k}: bit-identical to unsharded on both "
+              f"ranks, {v['ms']:.2f} ms for {v['frames']} frames, halo "
+              f"{v['halo_bytes_per_frame']:.0f} B a frame received by rank 0 "
+              f"(rank 1 {ranks[1]['sp'][k]['halo_bytes_per_frame']:.0f}), "
+              f"gather {v['gather_bytes_per_frame']:.0f} B a frame")
+    print("[multi] a kernel mode given to SP: NotImplementedError")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[multi] the phase: {out['phase_s']:.1f} s (two ranks "
+          f"{out['two_ranks_s']:.1f} s)")
     return out
 
 
@@ -3438,6 +3939,14 @@ def main() -> int:
     # deployed graph served through the arena kernels, counted
     qat_out = _qat_phase(dev, card, trained, counted, zero_counts)
 
+    # ------------------------- 4e. [interchange] ONNX, the converted graph
+    interchange = _interchange_phase(dev, card, trained["model"], counted,
+                                     zero_counts)
+
+    # ------------------------------------------ 4f. [multi] multi-device
+    torch.cuda.empty_cache()       # the two ranks share the card
+    multi = _multi_phase(dev, card, counted, zero_counts)
+
     # ------------------------------------------------------------ 5. lines
     src = "yoloface_tpu_torch/csrc/"
     meta = {   # name: (source, TPU kernel, path whose launches count)
@@ -3630,9 +4139,16 @@ def main() -> int:
     for row in kernels:     # the [qat] phase's served paths, counted
         if qat_launches.get(row["name"]):
             row["launches_qat"] = qat_launches[row["name"]]
+    for key, counts in (("launches_interchange", interchange["launches"]),
+                        ("launches_multi", multi["launches"])):
+        for row in kernels:     # the new phases' served paths, counted
+            if counts.get(row["name"]):
+                row[key] = counts[row["name"]]
     print(json.dumps({"host_feed": host_feed}))
     print(json.dumps({"train": train}))
     print(json.dumps({"qat": qat_out}))
+    print(json.dumps({"interchange": interchange}))
+    print(json.dumps({"multi": multi}))
     print(_smi("name,power.limit"))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1354,3 +1354,46 @@ def test_maxpool_tie_gradient_on_the_card():
             (gr,) = torch.autograd.grad((y * r).sum(), xt)
             grads.append(gr.cpu())
         assert torch.equal(grads[0], grads[1]), (window, stride)
+
+
+@pytest.mark.gpu
+def test_onnx_evaluator_on_the_card():
+    """The shipped .onnx on the card against JAX's evaluator output in the
+    golden file (rtol = atol = 1e-4, JAX's bound), and the converted
+    graph in arena2 on the card against JAX's golden fast2 bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from yoloface_tpu_torch.io.onnx_eval import OnnxEvaluator
+    tool = _golden_tool()
+    gold = np.load(GOLDEN)
+    with open(tool.ONNX_CORPUS, "rb") as f:
+        got = OnnxEvaluator(f.read())(tool.onnx_inputs())
+    np.testing.assert_allclose(got, gold["onnx_corpus_eval"], rtol=1e-4,
+                               atol=1e-4)
+    eng = Int8Engine(load_tflite(tool.CONVERTED), "arena2")
+    y = eng(tool.converted_frames())
+    np.testing.assert_array_equal(y.cpu().numpy(), gold["converted_fast2"])
+
+
+@pytest.mark.gpu
+def test_make_sharded_world_of_one_on_nccl(tmp_path):
+    """A world of one on NCCL: make_sharded equals detect_rgb565_device bit
+    for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch.distributed as dist
+
+    from yoloface_tpu_torch.parallel import mesh as mesh_lib
+    mesh = mesh_lib.init_distributed("file://" + str(tmp_path / "store"), 1,
+                                     0)
+    try:
+        assert mesh.backend == "nccl"
+        pipe = load_pipeline(CORPUS, mode="arena2")
+        frames = np.random.default_rng(0).integers(
+            0, 1 << 16, (64, 112, 112), dtype=np.int64).astype(np.uint16)
+        got = pipe.make_sharded(mesh)(frames)
+        want = pipe.detect_rgb565_device(frames)
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+    finally:
+        dist.destroy_process_group()

@@ -131,7 +131,8 @@ def test_golden_file_equals_recomputed_jax_side():
                                   ("frames",) + KEYS448 + KEYS_SURFACE
                                   + tool.KEYS_SURFACE_FAST2
                                   + tool.KEYS_TFLITE + tool.KEYS_MULTIHEAD
-                                  + tool.KEYS_PROTOCOL)
+                                  + tool.KEYS_PROTOCOL
+                                  + tool.KEYS_INTERCHANGE)
     for k, v in want.items():
         np.testing.assert_array_equal(v, gold[k], err_msg=k)
     assert gold["count"].sum() >= 7       # faces on seven of the frames
@@ -146,7 +147,8 @@ def test_golden_fast2_keys_unchanged():
                                          *tool.KEYS_SURFACE_FAST2,
                                          *tool.KEYS_TFLITE,
                                          *tool.KEYS_MULTIHEAD,
-                                         *tool.KEYS_PROTOCOL])
+                                         *tool.KEYS_PROTOCOL,
+                                         *tool.KEYS_INTERCHANGE])
     for k, digest in FAST2_DIGESTS.items():
         assert hashlib.sha256(gold[k].tobytes()).hexdigest() == digest, k
 

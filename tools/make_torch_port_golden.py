@@ -36,7 +36,18 @@ pipelines give for them:
     ``FPN_DETECT``): ``multihead_v3tiny_fpn_<bits>_<boxes|scores|valid>``.
   * the JAX package's firmware-protocol text of the 8 golden frames from
     its ``CameraStreamer`` around the ``fast2`` and ``exact`` pipelines
-    above (``protocol_fast2``, ``protocol_exact``).
+    above (``protocol_fast2``, ``protocol_exact``);
+  * the interchange formats: ``tests/data/yoloface_converted_int8.tflite``,
+    the corpus weights (``variables_from_template``) through the port's
+    TensorFlow chain (``quantize/tf_convert.checkpoint_to_int8_tflite``,
+    Keras h5, frozen pb, the TFLite converter) with a representative set of
+    ``CONVERTED_REP`` images from numpy seed ``SEED_CONVERTED``; the JAX
+    ``fast2``, ``fast`` and ``exact`` outputs of that graph on
+    ``converted_frames()`` (``converted_<bits>``, the frames' sha256
+    ``converted_frames_sha256``) and of its 448 retarget on ``frames448()``
+    in ``fast2`` and ``exact`` (``converted448_<bits>``); and the JAX
+    ONNX evaluator's output on the shipped ``checkpoints/yoloface_corpus
+    .onnx`` for ``onnx_inputs()`` (``onnx_corpus_eval``).
 chip_smoke.py holds the card's output against it without jax;
 tests/test_torch_pipeline.py, tests/test_torch_tiled.py,
 tests/test_torch_fused.py, tests/test_torch_perop.py and
@@ -47,10 +58,12 @@ one-op graphs of tests/test_torch_perop.py and the published yolov3-tiny
 
 Run from the repository root, on the CPU:
     JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py
-or, to add the detections of the FPN or the protocol text to the file as
-it is (every other array kept as it was):
+or, to add the detections of the FPN, the protocol text or the
+interchange keys (which also writes the converted graph; it needs
+TensorFlow) to the file as it is (every other array kept as it was):
     JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py --add multihead
     JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py --add protocol
+    JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py --add interchange
 """
 
 from __future__ import annotations
@@ -588,6 +601,74 @@ def jax_outputs_protocol() -> dict:
     return out
 
 
+SEED_CONVERTED, CONVERTED_REP = 21, 8
+CONVERTED = os.path.join(REPO, "tests", "data",
+                         "yoloface_converted_int8.tflite")
+ONNX_CORPUS = os.path.join(REPO, "checkpoints", "yoloface_corpus.onnx")
+KEYS_INTERCHANGE = ("converted_fast2", "converted_fast", "converted_exact",
+                    "converted_frames_sha256", "converted448_fast2",
+                    "converted448_exact", "onnx_corpus_eval")
+
+
+def converted_rep() -> np.ndarray:
+    """The representative images of the converted graph (numpy only):
+    ``CONVERTED_REP`` float32 [56,56,3] frames in [0, 1]."""
+    rng = np.random.default_rng(SEED_CONVERTED)
+    return rng.uniform(0, 1, (CONVERTED_REP, 56, 56, 3)).astype(np.float32)
+
+
+def converted_frames() -> np.ndarray:
+    """int8 [8,56,56,3] inputs of the converted graph (numpy only)."""
+    rng = np.random.default_rng(SEED_CONVERTED + 1)
+    return rng.integers(-128, 128, (8, 56, 56, 3), dtype=np.int64
+                        ).astype(np.int8)
+
+
+def onnx_inputs() -> np.ndarray:
+    """float32 NCHW [4,3,56,56] inputs in [0, 1] of the shipped .onnx
+    (numpy only)."""
+    rng = np.random.default_rng(SEED_CONVERTED + 2)
+    return rng.uniform(0, 1, (4, 3, 56, 56)).astype(np.float32)
+
+
+def write_converted(path: str = CONVERTED) -> str:
+    """The corpus weights through the port's TensorFlow chain into
+    ``path``."""
+    import tempfile
+
+    from yoloface_tpu_torch.io.tflite_import import load_tflite
+    from yoloface_tpu_torch.models.import_weights import (
+        variables_from_template)
+    from yoloface_tpu_torch.quantize import tf_convert
+    variables = variables_from_template(load_tflite(CORPUS))
+    with tempfile.TemporaryDirectory() as work:
+        return tf_convert.checkpoint_to_int8_tflite(
+            variables, path, work,
+            rep_dataset=tf_convert.rep_dataset_from_arrays(converted_rep()))
+
+
+def jax_outputs_interchange() -> dict:
+    """The JAX engines on the converted graph and its 448 retarget, and
+    the JAX ONNX evaluator on the shipped .onnx."""
+    from yoloface_tpu.graph.retarget import retarget_spatial
+    from yoloface_tpu.io.onnx_eval import OnnxEvaluator
+    from yoloface_tpu.io.tflite_import import load_tflite
+    from yoloface_tpu.runtime.engine import Int8Engine
+    g = load_tflite(CONVERTED)
+    x = converted_frames()
+    out = {"converted_frames_sha256": np.array(sha256(x))}
+    for bits in ("fast2", "fast", "exact"):
+        out[f"converted_{bits}"] = np.asarray(Int8Engine(g, bits)(x))
+    g448 = retarget_spatial(g, 8)
+    for bits in ("fast2", "exact"):
+        out[f"converted448_{bits}"] = np.asarray(
+            Int8Engine(g448, bits)(frames448()))
+    with open(ONNX_CORPUS, "rb") as f:
+        out["onnx_corpus_eval"] = np.asarray(
+            OnnxEvaluator(f.read())(onnx_inputs()))
+    return out
+
+
 def add_keys(new: dict) -> None:
     """Add ``new`` to the golden file, every array already there kept as
     it is (a key already there must hold the same array)."""
@@ -609,16 +690,24 @@ def main(argv) -> int:
         add_keys(jax_outputs_protocol())
         print(f"added {len(KEYS_PROTOCOL)} keys to {OUT}")
         return 0
+    if argv == ["--add", "interchange"]:
+        write_converted()
+        add_keys(jax_outputs_interchange())
+        print(f"wrote {CONVERTED}; added {len(KEYS_INTERCHANGE)} keys to "
+              f"{OUT}")
+        return 0
     if argv:
         raise SystemExit("usage: make_torch_port_golden.py "
-                         "[--add multihead|protocol]")
+                         "[--add multihead|protocol|interchange]")
     frames = golden_frames()
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
     write_tflite_graphs()
+    write_converted()
     np.savez_compressed(OUT, frames=frames, **jax_outputs(frames),
                         **jax_outputs_448(), **jax_outputs_surface(),
                         **jax_outputs_surface_fast2(), **jax_outputs_tflite(),
-                        **jax_outputs_multihead(), **jax_outputs_protocol())
+                        **jax_outputs_multihead(), **jax_outputs_protocol(),
+                        **jax_outputs_interchange())
     print(f"wrote {OUT}")
     return 0
 

@@ -4,7 +4,12 @@ Each ``csrc/*.cu`` compiles in its own ``nvcc`` process, all started
 together, and the objects link into one shared library with a plain C
 interface (no PyTorch headers, so the build takes seconds).  The library
 lands in ``build/yoloface_tpu_torch/`` at the root of the checkout, named
-by a hash of the sources, and is built at first CUDA use.  ``-fmad=false``
+by a hash of the sources, and is built at first CUDA use.  Processes that
+start at once (the ranks of a mesh) build it once: the build holds an
+exclusive ``fcntl`` lock on a file beside the library, and a process that
+waits for it finds the library built; each build also writes its objects
+and library under names of its own process and renames the library into
+place, so a reader never sees half a file.  ``-fmad=false``
 keeps every float multiply and add separately rounded, as the JAX twins
 compute them; there is no ``--use_fast_math``.
 """
@@ -12,6 +17,7 @@ compute them; there is no ``--use_fast_math``.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -99,7 +105,6 @@ def _finish(cmd, out: str, err: str, returncode: int) -> None:
 
 def build() -> Path:
     """Compile the kernels unless a library for these sources exists."""
-    global build_seconds
     cus, headers = _sources()
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in cus + headers:
@@ -109,6 +114,15 @@ def build() -> Path:
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(lib.with_suffix(".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)     # one build across processes
+        if not lib.exists():
+            _compile(cus, h, lib)
+    return lib
+
+
+def _compile(cus, h, lib: Path) -> None:
+    global build_seconds
     tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
@@ -134,7 +148,6 @@ def build() -> Path:
             o.unlink(missing_ok=True)
     os.replace(tmp, lib)
     build_seconds = time.perf_counter() - t0
-    return lib
 
 
 def library() -> ctypes.CDLL:

@@ -47,21 +47,38 @@ _TRUNC_STD = 0.87962566103423978
 
 
 class BatchNorm(nn.Module):
-    """Flax's BatchNorm over the channels of an NCHW tensor."""
+    """Flax's BatchNorm over the channels of an NCHW tensor.
+
+    ``sync`` (None, or a callable summing a tensor over the ranks of a
+    data-parallel mesh with an autograd-aware all-reduce) makes training
+    take the statistics of the global batch, as JAX's one jit over the
+    mesh does: the per-channel sums of x and x^2 and the element count are
+    summed over the ranks, then the biased ``E[x^2] - E[x]^2``."""
 
     def __init__(self, channels: int, momentum: float = 0.9,
                  eps: float = 1e-5):
         super().__init__()
         self.momentum, self.eps = momentum, eps
+        self.sync = None
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
+    def _batch_stats(self, x: torch.Tensor):
+        if self.sync is None:
+            mean = x.mean((0, 2, 3))
+            return mean, (x * x).mean((0, 2, 3))
+        c = x.shape[1]
+        n = torch.full((1,), x.numel() // c, dtype=x.dtype, device=x.device)
+        s = self.sync(torch.cat([x.sum((0, 2, 3)), (x * x).sum((0, 2, 3)),
+                                 n]))
+        return s[:c] / s[2 * c], s[c:2 * c] / s[2 * c]
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            mean = x.mean((0, 2, 3))
-            var = torch.clamp((x * x).mean((0, 2, 3)) - mean * mean, min=0.0)
+            mean, ex2 = self._batch_stats(x)
+            var = torch.clamp(ex2 - mean * mean, min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean

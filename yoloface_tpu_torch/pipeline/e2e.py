@@ -94,6 +94,29 @@ class FacePipeline(nn.Module):
         valid [N,K] bool, count [N] int32."""
         return _to_numpy(self.detect_rgb565_device(frames))
 
+    # ------------------------------------------------- multi-card serving
+    def make_sharded(self, mesh, kind: str = "rgb565"):
+        """Data-parallel inference over a mesh of ranks
+        (``parallel/mesh.py``): frames sharded along the data axis, each
+        rank running ``detect_rgb565_device`` (or ``detect_int8_device``
+        with ``kind="int8"``) on its block on its own device, through the
+        pipeline's mode.  Returns ``fn(frames) -> detections``: ``frames``
+        is the global batch (each rank takes its block; ``ValueError`` when
+        the data axis does not divide it) or a ``ShardedBatch``, and the
+        detections are this rank's block as tensors, as JAX's
+        ``out_shardings=batch`` leaves each device its shard."""
+        from yoloface_tpu_torch.parallel import mesh as mesh_lib
+
+        if kind not in ("rgb565", "int8"):
+            raise ValueError(f"unknown kind {kind!r}")
+        fn = (self.detect_rgb565_device if kind == "rgb565"
+              else self.detect_int8_device)
+
+        def sharded(frames):
+            return fn(mesh_lib.local_block(frames, mesh))
+
+        return sharded
+
 
 def _to_numpy(dets: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     return {k: v.cpu().numpy() for k, v in dets.items()}

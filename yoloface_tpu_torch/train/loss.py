@@ -9,6 +9,8 @@ model, targets ``[B,A,G,G,6]``; masked sums, as in JAX.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 LAMBDA_COORD = 5.0
@@ -21,10 +23,13 @@ def _bce_with_logits(logits, labels):
             + torch.log1p(torch.exp(-torch.abs(logits))))
 
 
-def yolo_loss(predictions: torch.Tensor, targets: torch.Tensor
-              ) -> torch.Tensor:
+def yolo_loss(predictions: torch.Tensor, targets: torch.Tensor,
+              batch: Optional[int] = None) -> torch.Tensor:
     """predictions ``[B,G,G,A*6]`` raw head output; targets
-    ``[B,A,G,G,6]`` -> the scalar loss (sum-reduced, over the batch)."""
+    ``[B,A,G,G,6]`` -> the scalar loss (sum-reduced, over the batch).
+    ``batch`` is the divisor (B by default; the global batch for one
+    rank's block of a data-parallel step, so the ranks' losses add up to
+    the global one)."""
     b, g = predictions.shape[0], predictions.shape[1]
     a = targets.shape[1]
     # anchor-major groups of 6: [B,G,G,A*6] -> [B,A,G,G,6]
@@ -45,4 +50,4 @@ def yolo_loss(predictions: torch.Tensor, targets: torch.Tensor
 
     total = (LAMBDA_COORD * loss_coord + loss_obj
              + LAMBDA_NOOBJ * loss_noobj + loss_cls)
-    return total / b
+    return total / (b if batch is None else batch)

@@ -31,12 +31,26 @@ Metrics keep JAX's keys: ``loss``, ``grad_norm`` (of the gradient before
 clipping) and ``lr`` (the schedule at the old step times the plateau
 scale), as 0-d tensors on the model's device.
 
-The data-parallel step (``make_sharded_train_step``) waits for the
-port's multi-card slice.
+The data-parallel step (``make_sharded_train_step``) computes what JAX's
+one jit over the mesh computes, the single-device step on the global
+batch, on a mesh of ranks (``parallel/mesh.py``; DistributedDataParallel
+would keep each rank's own BatchNorm statistics, so it is not used):
+
+  * each rank runs its block of the global batch; every ``BatchNorm``
+    sums its per-channel sums over the ranks with an autograd-aware
+    all-reduce (``synced_batchnorm``), so the statistics are the global
+    batch's;
+  * each rank divides its loss by the global batch, so the ranks' losses
+    and gradients add up to the global ones;
+  * the flat gradient and the loss are all-reduced (SUM) once, as one
+    vector; the clip's global norm, the optimizer, the plateau's loss and
+    the metrics all read the reduced values, so every rank's state stays
+    identical.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Callable, Dict, Optional, Tuple
@@ -271,18 +285,38 @@ def init_state(generator=None, cfg: Optional[TrainConfig] = None,
     return {"model": model, "opt_state": opt_state, "step": 0}
 
 
-def loss_and_grad(model: YoloFace, images, targets):
+def loss_and_grad(model: YoloFace, images, targets,
+                  batch: Optional[int] = None):
     """One forward and backward in training mode, TF32 off: (loss, the flat
     gradient in parameter order, the parameters).  The BN running
-    statistics move, as in a train step."""
+    statistics move, as in a train step.  ``batch`` divides the loss (the
+    images' count by default)."""
     params = list(model.parameters())
     device = params[0].device
     x, t = _batch(images, device), _batch(targets, device)
     model.train()
     with full_f32():
-        loss = yolo_loss(model(x), t)
+        loss = yolo_loss(model(x), t, batch)
         grads = torch.autograd.grad(loss, params)
     return loss.detach(), _flat(grads), params
+
+
+def _apply(cfg: TrainConfig, opt: Optimizer, schedule, state, loss, g,
+           params):
+    """The optimizer's update of ``params`` from the flat gradient ``g``
+    -> (state, metrics)."""
+    with torch.no_grad():
+        grad_norm = torch.sqrt(torch.sum(g * g))
+        p_flat = _flat(params) if cfg.optimizer == "adamw" else None
+        u, new_opt = opt.update(g, state["opt_state"], p_flat, value=loss)
+        add_flat_(params, u)
+        lr = torch.tensor(schedule(state["step"]), dtype=torch.float32,
+                          device=g.device)
+        if "plateau" in new_opt:
+            lr = lr * new_opt["plateau"]["scale"]
+    state["opt_state"] = new_opt
+    state["step"] += 1
+    return state, {"loss": loss, "grad_norm": grad_norm, "lr": lr}
 
 
 def make_train_step(cfg: TrainConfig):
@@ -292,19 +326,59 @@ def make_train_step(cfg: TrainConfig):
 
     def train_step(state, images, targets):
         loss, g, params = loss_and_grad(state["model"], images, targets)
-        with torch.no_grad():
-            grad_norm = torch.sqrt(torch.sum(g * g))
-            p_flat = _flat(params) if cfg.optimizer == "adamw" else None
-            u, new_opt = opt.update(g, state["opt_state"], p_flat,
-                                    value=loss)
-            add_flat_(params, u)
-            lr = torch.tensor(schedule(state["step"]), dtype=torch.float32,
-                              device=g.device)
-            if "plateau" in new_opt:
-                lr = lr * new_opt["plateau"]["scale"]
-        state["opt_state"] = new_opt
-        state["step"] += 1
-        return state, {"loss": loss, "grad_norm": grad_norm, "lr": lr}
+        return _apply(cfg, opt, schedule, state, loss, g, params)
+
+    return train_step
+
+
+@contextlib.contextmanager
+def synced_batchnorm(model: torch.nn.Module, mesh):
+    """Inside the block every ``BatchNorm`` of ``model`` takes the global
+    batch's statistics over ``mesh`` (``BatchNorm.sync``)."""
+    from yoloface_tpu_torch.models.yoloface import BatchNorm
+    from yoloface_tpu_torch.parallel import mesh as mesh_lib
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    for m in bns:
+        m.sync = lambda t: mesh_lib.all_reduce_autograd(t, mesh)
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.sync = None
+
+
+def sharded_loss_and_grad(model: YoloFace, images, targets, mesh):
+    """``loss_and_grad`` on the global batch, over ``mesh``: each rank runs
+    its block of ``images`` and ``targets`` (a ``ShardedBatch`` or the
+    global batch), the BN statistics and the loss's divisor are the global
+    batch's, and the flat gradient and the loss are summed over the ranks
+    in one all-reduce.  -> (loss, gradient, parameters), equal on every
+    rank."""
+    from yoloface_tpu_torch.parallel import mesh as mesh_lib
+    x = mesh_lib.local_block(images, mesh)
+    t = mesh_lib.local_block(targets, mesh)
+    with synced_batchnorm(model, mesh):
+        loss, g, params = loss_and_grad(model, x, t,
+                                        mesh_lib.global_size(images))
+    both = mesh_lib.all_reduce_(torch.cat([g, loss.reshape(1)]), mesh)
+    return both[-1], both[:-1], params
+
+
+def make_sharded_train_step(cfg: TrainConfig, mesh):
+    """The data-parallel step over ``mesh``: ``train_step(state, images,
+    targets) -> (state, metrics)`` with ``images`` and ``targets`` sharded
+    over the data axis (``ShardedBatch``es, or global batches of which each
+    rank takes its block), the state's model replicated (the same seed, or
+    ``parallel.mesh.replicate``).  Equal to ``make_train_step``'s step on
+    the global batch up to float32 summation order.  It trains the state's
+    model, as ``make_train_step`` does (JAX's ``model`` argument has no
+    use here)."""
+    opt, schedule = make_optimizer(cfg)
+
+    def train_step(state, images, targets):
+        loss, g, params = sharded_loss_and_grad(state["model"], images,
+                                                targets, mesh)
+        return _apply(cfg, opt, schedule, state, loss, g, params)
 
     return train_step
 

@@ -2,10 +2,15 @@
 
 The counterpart of ``yoloface_tpu.train.trainer`` (the reference
 trainers' outer loops, `yoloface/pytorch/train.py:281-475` and
-`yoloface/tensorflow/train_tf.py:756-960`), on one device (the card
-unless ``TrainerConfig.device`` says otherwise):
+`yoloface/tensorflow/train_tf.py:756-960`), on the card unless
+``TrainerConfig.device`` says otherwise:
 
-  * the train step of :mod:`yoloface_tpu_torch.train.steps`;
+  * the train step of :mod:`yoloface_tpu_torch.train.steps`; with
+    ``use_mesh`` (the default, as in JAX) and a process group of more than
+    one rank (``parallel.mesh.init_distributed``) the data-parallel step
+    over every rank: each rank draws the same global batch (the same
+    seeds) and trains on its block, rank 0 writes the checkpoints and
+    ``metrics.jsonl``, and a resume replicates rank 0's restored state;
   * checkpoints are ``torch.save`` files, ``ckpt_<epoch>.pt`` in the
     checkpoint directory, holding the model's state dict, the optimizer
     state (the plateau state within it), the step and the epoch; the five
@@ -17,9 +22,8 @@ unless ``TrainerConfig.device`` says otherwise):
     and lr curves with matplotlib, imported when called.
 
 Not ported: the TensorBoard writer (it needs TensorFlow, which the card's
-machine lacks; ``metrics.jsonl`` holds the same records) and the
-data-parallel mesh (one device trains, as JAX does with one device), so
-``TrainerConfig`` has no ``tensorboard`` or ``use_mesh``.
+machine lacks; ``metrics.jsonl`` holds the same records), so
+``TrainerConfig`` has no ``tensorboard``.
 """
 
 from __future__ import annotations
@@ -38,8 +42,11 @@ import torch
 from yoloface_tpu_torch.core.precision import device_or_raise
 from yoloface_tpu_torch.models.yoloface import YoloFace
 from yoloface_tpu_torch.train.data import AugmentConfig, FaceDataset
+from yoloface_tpu_torch.parallel import mesh as mesh_lib
 from yoloface_tpu_torch.train.steps import (TrainConfig, init_state,
-                                            make_eval_step, make_train_step)
+                                            make_eval_step,
+                                            make_sharded_train_step,
+                                            make_train_step)
 
 KEEP = 5    # checkpoints kept, as JAX's CheckpointManager(max_to_keep=5)
 
@@ -52,6 +59,7 @@ class TrainerConfig(TrainConfig):
     save_interval: int = 10           # epochs (train.py Config.save_interval)
     log_every: int = 10               # steps
     seed: int = 0
+    use_mesh: bool = True
     device: str = "cuda"
 
 
@@ -69,9 +77,17 @@ class Trainer:
         self.val_ds = (FaceDataset(cfg.val_dir) if cfg.val_dir else None)
         cfg.steps_per_epoch = max(len(self.train_ds) // cfg.batch_size, 1)
 
-        self.train_step = make_train_step(cfg)
+        self.mesh = None
+        if cfg.use_mesh and mesh_lib.world()[0] > 1:
+            self.mesh = mesh_lib.make_mesh(device=device)
+            self.train_step = make_sharded_train_step(cfg, self.mesh)
+        else:
+            self.train_step = make_train_step(cfg)
+        self._lead = self.mesh is None or self.mesh.rank == 0
         self.eval_step = make_eval_step()
         self.state = init_state(None, cfg, self.model, device)
+        if self.mesh is not None:
+            mesh_lib.replicate(self.model, self.mesh)
         self.start_epoch = 0
         self._maybe_resume()
         self._metrics_path = os.path.join(self.ckpt_dir, "metrics.jsonl")
@@ -87,21 +103,34 @@ class Trainer:
         return out
 
     def _maybe_resume(self):
-        """Auto-resume from the newest checkpoint (train_tf.py:944-960)."""
-        ckpts = self._checkpoints()
-        if not ckpts:
+        """Auto-resume from the newest checkpoint (train_tf.py:944-960);
+        on a mesh rank 0 reads it and every rank takes rank 0's state."""
+        ckpts = self._checkpoints() if self._lead else {}
+        latest = max(ckpts) if ckpts else None
+        if self.mesh is not None:
+            latest = mesh_lib.broadcast_object(latest, self.mesh)
+        if latest is None:
             return
-        latest = max(ckpts)
-        device = next(self.model.parameters()).device
-        saved = torch.load(ckpts[latest], map_location=device,
-                           weights_only=True)
-        self.model.load_state_dict(saved["model"])
-        self.state["opt_state"] = saved["opt_state"]
-        self.state["step"] = saved["step"]
-        self.start_epoch = saved["epoch"]
+        if self._lead:
+            device = next(self.model.parameters()).device
+            saved = torch.load(ckpts[latest], map_location=device,
+                               weights_only=True)
+            self.model.load_state_dict(saved["model"])
+            self.state["opt_state"] = saved["opt_state"]
+            self.state["step"] = saved["step"]
+            self.start_epoch = saved["epoch"]
+        if self.mesh is not None:
+            restored = mesh_lib.replicate(
+                {"model": self.model, "opt_state": self.state["opt_state"],
+                 "step": self.state["step"], "epoch": self.start_epoch},
+                self.mesh)
+            self.state["step"] = restored["step"]
+            self.start_epoch = restored["epoch"]
         print(f"resumed from checkpoint at epoch {latest}")
 
     def save(self, epoch: int):
+        if not self._lead:
+            return
         torch.save({"model": self.model.state_dict(),
                     "opt_state": self.state["opt_state"],
                     "step": self.state["step"], "epoch": epoch},
@@ -112,6 +141,8 @@ class Trainer:
 
     # ------------------------------------------------------------- logging
     def _log(self, record: dict):
+        if not self._lead:
+            return
         with open(self._metrics_path, "a") as f:
             f.write(json.dumps(record) + "\n")
 
@@ -162,7 +193,8 @@ class Trainer:
                 best_val = val_loss
                 self.save_best()
         try:
-            self.plot_history(history)
+            if self._lead:
+                self.plot_history(history)
         except Exception:
             pass  # plotting is best-effort observability
         return history
@@ -204,5 +236,7 @@ class Trainer:
     def save_best(self):
         """Best-model snapshot: the model's state dict (the analogue of
         best_model.pth, train.py:349)."""
+        if not self._lead:
+            return
         torch.save(self.model.state_dict(),
                    os.path.join(self.ckpt_dir, "best_model.pt"))
