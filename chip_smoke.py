@@ -19,7 +19,11 @@ Phases (each prints its lines; any failure ends the run with an error):
      bit semantics (fast2, fast, exact) in 1 and 4 stages; the fused head
      and the top-K kernel on crafted tensors with saturation ties, on a
      tie-heavy set (whole frames saturating or below the threshold, the
-     rest on a few levels) and on the net's outputs; the tiled section
+     rest on a few levels) and on the net's outputs, and past 256 cells
+     (the kernels' block path) on tie-heavy sets at grid 14 and 56 (588
+     and 9,408 cells; batches 1003 and 1031; rising and falling keys) and
+     on the golden 448 heads, a head one cell past the kernels' limit
+     refused with ValueError and nothing launched; the tiled section
      kernel on every section output of the 448 net (retarget_spatial(corpus, 8), N = 1 and 3) and of the
      112 net under a small budget (7 sections of up to 28 strips), in each
      bit semantics; the fused-stage kernel on every stage output of the
@@ -98,7 +102,12 @@ Phases (each prints its lines; any failure ends the run with an error):
      head_fast; the golden detections for arena2, arena_exact, fused_exact
      and perop_exact); then the 448 net, Int8Engine(g448, mode,
      device="cuda") in modes tiled2 and tiled_exact, held against the CPU
-     path and the golden 448 keys; then the op-surface graph,
+     path and the golden 448 keys, and served to boxes with the head at
+     grid 56 (9,408 cells): FacePipeline with the fused head, with the
+     staged head on the top-K kernel, and detect.load(..., retarget=8),
+     each path counted on its own (the sections and its head kernel once)
+     and held against the CPU path's head on the golden head (boxes within
+     BOX_ATOL448); then the op-surface graph,
      Int8Engine(surface, mode, device="cuda") in perop and perop_exact, held
      against the CPU path and the golden keys (the per-op launches there
      count for the eltwise, resize and standalone leaky rows; the RESIZE,
@@ -134,7 +143,11 @@ Phases (each prints its lines; any failure ends the run with an error):
      the host feed comes last, after phase 4's trace);
   4. timing with CUDA events (warm-up, median of 10): each kernel against
      its plain version at batch 16384 (the arena in all three bit
-     semantics, the fused stages and the per-op program in both), each op
+     semantics, the fused stages and the per-op program in both), the
+     fused head and the top-K kernel also at 9,408 cells on the 448 net's
+     output for 1024 frames (first held against their plain versions
+     there; beside them the device time behind a spin and torch.topk on
+     the [1024, 9408] key), each op
      of the per-op program on its own, first held against its plain
      version on the inputs it is timed on (device time: each window opens
      behind a spin on the stream, so the wrapper's host work stays out of
@@ -231,8 +244,10 @@ Phases (each prints its lines; any failure ends the run with an error):
      plain version at 64 frames, the output against its base engine on
      the card at 16384 and against JAX's golden bits, timed; its 448
      retarget in tiled2 and tiled_exact likewise on 2 frames; then served
-     through FacePipeline (the golden RGB565 frames; the 448 frames),
-     counted, the detections against the CPU path;
+     through FacePipeline (the golden RGB565 frames; the 448 frames with
+     the head at grid 56, the fused head and the staged one on the top-K
+     kernel, each 448 path counted on its own: the sections and its head
+     kernel once), the detections against the CPU path;
   4f. [multi] (_multi_phase), multi-device on torch.distributed: a world
      of one on NCCL in this process (parallel/mesh.init_distributed with a
      file store): FacePipeline.make_sharded in arena2 at 16384 against
@@ -277,6 +292,8 @@ TIMING_BATCH = 16384
 BATCH448, PLAIN_BATCH448 = 1024, 128
 TILE_SMALL = 16 * 1024     # the 112 net in 7 sections of 2-28 strips
 REPS = 10
+# the head checks' anchors, the first a of them for a head of a anchors
+HEAD_ANCHORS = ((9.0, 14.0), (12.0, 17.0), (22.0, 21.0), (30.0, 35.0))
 # mode: (golden int8 head, prefix of its golden detections or None)
 GOLD_KEYS = {"arena2": ("head", ""), "arena_exact": ("head_exact", "exact_"),
              "fused": ("head_fast", None),
@@ -1951,31 +1968,50 @@ def _interchange_phase(dev, card, model, counted, zero_counts):
           f"output = the base engine on the card and JAX's golden bits")
 
     # 4. served to detections, counted: the golden RGB565 frames through
-    # every kernel mode, the 448 frames through the tiled modes
+    # every kernel mode; the 448 frames through the tiled modes with the
+    # head at grid 56 (9,408 cells, the head kernels' block path), the
+    # fused head and the staged head on the top-K kernel, each path
+    # counted on its own
     frames = torch.from_numpy(gold["frames"]).to(dev)
     pipes = {m: FacePipeline(Int8Engine(g, m, dev)) for m in INTERCHANGE_MODES}
-    # 56 x 56 x 3 cells pass the head kernels' 256: the staged torch head
-    head448 = HeadConfig(grid=56, use_fused_head=False, use_pallas_topk=False)
-    pipes448 = {m: FacePipeline(Int8Engine(g448, m, dev), head448)
-                for m in ("tiled2", "tiled_exact")}
     _sync(dev)
     zero_counts()
     dets = {m: p.detect_rgb565_device(frames) for m, p in pipes.items()}
-    dets448 = {m: p.detect_int8_device(x448) for m, p in pipes448.items()}
     _sync(dev)
     out["launches"] = _row_launches(counted)
     for name in ("preprocess_rgb565", "arena_stage", "requant_epilogue",
-                 "fused_stage", "perop_op", "detect_head", "tiled_section"):
+                 "fused_stage", "perop_op", "detect_head"):
         _require(out["launches"].get(name, 0) > 0,
                  f"[interchange] served paths: {name} launched")
     for m, det in dets.items():
         cpu = FacePipeline(Int8Engine(g, BASE_BITS[m], "cpu"))
         _dets_equal(det, cpu.detect_rgb565(gold["frames"]),
                     f"converted {m} detections")
-    for m, det in dets448.items():
-        cpu = FacePipeline(Int8Engine(g448, BASE_BITS[m], "cpu"), head448)
-        _dets_equal(det, cpu.detect_int8(tool.frames448()),
-                    f"converted 448 {m} detections", BOX_ATOL448)
+    heads448 = {"": HeadConfig(grid=56),
+                " staged": HeadConfig(grid=56, use_fused_head=False)}
+    dets448, out["launches_448"] = {}, {}
+    for m in ("tiled2", "tiled_exact"):
+        eng = Int8Engine(g448, m, dev)
+        cpu = Int8Engine(g448, BASE_BITS[m], "cpu")
+        y_cpu = cpu(tool.frames448())
+        for h, cfg in heads448.items():
+            kern = "topk_conf" if h else "detect_head"
+            _sync(dev)
+            zero_counts()
+            dets448[m + h] = FacePipeline(eng, cfg).detect_int8_device(x448)
+            _sync(dev)
+            got = out["launches_448"][m + h] = _row_launches(counted)
+            _require(got.get(kern) == 1 and got.get("tiled_section", 0) > 0
+                     and set(got) == {kern, "tiled_section"},
+                     f"[interchange] converted 448 {m + h}: the sections "
+                     f"and {kern} launched ({got})")
+            want = FacePipeline(cpu, cfg)._head(y_cpu)
+            _dets_equal(dets448[m + h], {k: v.numpy() for k, v in
+                                         want.items()},
+                        f"converted 448 {m + h} detections", BOX_ATOL448)
+    for counts in out["launches_448"].values():     # all served paths
+        for k, v in counts.items():
+            out["launches"][k] = out["launches"].get(k, 0) + v
     out["detections"] = {m: int(d["count"].sum()) for m, d in
                          {**dets, **dets448}.items()}
     out["phase_s"] = time.perf_counter() - t_phase
@@ -2253,6 +2289,7 @@ def main() -> int:
         return 1
     import numpy as np
 
+    from yoloface_tpu_torch import detect
     from yoloface_tpu_torch.graph.retarget import retarget_spatial
     from yoloface_tpu_torch.io.tflite_import import load_tflite
     from yoloface_tpu_torch.kernels import (_build, arena, eltwise, fused,
@@ -3044,12 +3081,39 @@ def main() -> int:
     # a negative scale: keys that fall as the confidence grows, which the
     # rank table ranks by counting (csrc/topk.cuh)
     falling_kw = dict(scale=-crafted_kw["scale"], zero_point=-15)
+    # past 256 cells the kernels take their block path (one block a
+    # frame): grid 14 (588 cells) and 56 (9,408, the 448 family), on
+    # tie-heavy heads at batches that are not a multiple of 16 and on the
+    # golden 448 heads (JAX's fast2 and exact bits, the converted graph's
+    # fast2) at the 448 net's output qparams (the corpus's, head_kw)
+    ties14 = torch.from_numpy(tool.tie_heavy_heads(1003, grid=14)).to(dev)
+    ties56 = torch.from_numpy(tool.tie_heavy_heads(1031, grid=56)).to(dev)
+    heads448 = torch.from_numpy(np.concatenate(
+        [gold[k] for k in ("head448", "head448_exact",
+                           "converted448_fast2")])).to(dev)
+    falling448 = dict(head_kw, scale=-head_kw["scale"])
+    # other anchor counts past 256 cells: 17x17x1 and 9x9x4, a quarter of
+    # the frames saturated
+    odd = []
+    for g_, a_ in ((17, 1), (9, 4)):
+        y_ = np.random.default_rng(g_).integers(
+            -128, 128, (97, g_, g_, 6 * a_), dtype=np.int64)
+        y_[:24, ..., 4::6] = 127
+        odd.append(torch.from_numpy(y_.astype(np.int8)).to(dev))
+    head_cases = (("random 17x17, 1 anchor", odd[0], head_kw),
+                  ("random 9x9, 4 anchors", odd[1], head_kw),
+                  ("tie-heavy 14x14", ties14, head_kw),
+                  ("tie-heavy 14x14, falling keys", ties14, falling448),
+                  ("tie-heavy 56x56", ties56, head_kw),
+                  ("tie-heavy 56x56, falling keys", ties56, falling448),
+                  ("golden 448 heads", heads448, head_kw))
     for name, y, kw in (("crafted", crafted, crafted_kw),
                         ("tie-heavy", ties, head_kw),
                         ("tie-heavy, falling keys", ties, falling_kw),
-                        ("net", net_out["fast2"], head_kw)):
+                        ("net", net_out["fast2"], head_kw), *head_cases):
         for nms in (True, False):
-            cfg = thead.HeadConfig(apply_nms=nms)
+            cfg = thead.HeadConfig(grid=y.shape[1], apply_nms=nms,
+                                   anchors=HEAD_ANCHORS[:y.shape[3] // 6])
             got = khead.detect_head(y, cfg=cfg, **kw)
             want = khead.detect_head_plain(y, cfg=cfg, **kw)
             torch.cuda.synchronize()
@@ -3057,20 +3121,45 @@ def main() -> int:
                 _require(torch.equal(u, v), f"detect_head {name} nms={nms}")
             err["detect_head"] = max(err["detect_head"],
                                      _max_err(zip(got, want)))
-        print(f"[check] detect_head {name} N={y.shape[0]} (nms on/off): "
-              f"bit-exact, {int(got[2].sum())} detections without NMS")
+        print(f"[check] detect_head {name} N={y.shape[0]} "
+              f"({cfg.num_cells} cells, nms on/off): bit-exact, "
+              f"{int(got[2].sum())} detections without NMS")
     for name, y, kw in (("crafted", crafted, crafted_kw),
                         ("tie-heavy", ties, head_kw),
                         ("tie-heavy, falling keys", ties, falling_kw),
-                        *((f"net {b}", net_out[b], head_kw) for b in plans)):
+                        *((f"net {b}", net_out[b], head_kw) for b in plans),
+                        *head_cases):
+        cfg = thead.HeadConfig(grid=y.shape[1],
+                               anchors=HEAD_ANCHORS[:y.shape[3] // 6])
         for k in (16, 1, 32):
-            got = khead.topk_conf(y, k, **kw)
-            want = khead.topk_conf_plain(y, k, **kw)
+            got = khead.topk_conf(y, k, cfg=cfg, **kw)
+            want = khead.topk_conf_plain(y, k, cfg=cfg, **kw)
             torch.cuda.synchronize()
             _require(torch.equal(got, want), f"topk_conf {name} K={k}")
             err["topk_conf"] = max(err["topk_conf"], _max_err([(got, want)]))
-        print(f"[check] topk_conf {name} N={y.shape[0]} K=16/1/32: "
-              "bit-exact indices")
+        print(f"[check] topk_conf {name} N={y.shape[0]} ({cfg.num_cells} "
+              "cells) K=16/1/32: bit-exact indices")
+    # one cell past the kernels' stated limit (2 anchors, grid 2048):
+    # refused on the card, no plain fallback
+    past = thead.HeadConfig(grid=2048, anchors=khead.DEFAULT_ANCHORS[:2])
+    _require(past.num_cells == khead.MAX_KEYS + 1, "the past-limit head")
+    y_past = torch.zeros((1, 2048, 2048, 12), dtype=torch.int8, device=dev)
+    for kern, call in (("detect_head", lambda: khead.detect_head(
+            y_past, cfg=past, **head_kw)),
+            ("topk_conf", lambda: khead.topk_conf(y_past, 16, cfg=past,
+                                                  **head_kw))):
+        before = getattr(khead, kern).launches
+        try:
+            call()
+            refused = False
+        except ValueError:
+            refused = True
+        _require(refused and getattr(khead, kern).launches == before,
+                 f"{kern}: a head of {past.num_cells} cells refused")
+    del y_past
+    print(f"[check] detect_head, topk_conf: a head of {past.num_cells:,} "
+          f"cells (the limit {khead.MAX_KEYS:,} + 1) refused on the card "
+          "with ValueError, nothing launched")
 
     # ---------------------------------------------------------- 3. serving
     gold_frames = torch.from_numpy(gold["frames"]).to(dev)
@@ -3226,6 +3315,36 @@ def main() -> int:
                  f"{path}: golden {key}")
         print(f"[serve] {path}: [2,56,56,18] bit-exact vs the CPU path on "
               f"both pairs and vs the golden {key}")
+        # served to boxes with the head at grid 56 (9,408 cells, the head
+        # kernels' block path): the fused head, the staged head on the
+        # top-K kernel, and the CLI's detect.load(..., retarget=8); against
+        # the CPU path's head on the CPU path's bits (the golden head)
+        head56 = thead.HeadConfig(grid=56)
+        cpu_det = FacePipeline(cpu, head56)._head(torch.from_numpy(gold[key]))
+        cpu_det = {k: v.numpy() for k, v in cpu_det.items()}
+        for head_path, p, kern in (
+                ("boxes", FacePipeline(eng, head56), khead.detect_head),
+                ("boxes staged", FacePipeline(eng, thead.HeadConfig(
+                    grid=56, use_fused_head=False)), khead.topk_conf),
+                ("detect.load retarget=8",
+                 detect.load(CORPUS, mode, dev, retarget=8),
+                 khead.detect_head)):
+            bpath = f"{path} {head_path}"
+            zero_counts()
+            det = p.detect_int8_device(batches["golden"])
+            torch.cuda.synchronize()
+            read_counts(bpath)
+            _require(kern.launches == 1 and tiled.tiled_section.launches
+                     == len(p.engine.arena.stages)
+                     and (khead.detect_head.launches
+                          + khead.topk_conf.launches) == 1,
+                     f"{bpath}: the sections and {kern.__name__} launched "
+                     f"({launches[bpath]})")
+            _dets_equal(det, cpu_det, bpath, BOX_ATOL448)
+            print(f"[serve] {bpath}: {p.head_config.num_cells} cells, "
+                  f"{kern.__name__} launched once, detections "
+                  f"{det['count'].tolist()} equal the CPU path's (boxes "
+                  f"within {BOX_ATOL448}, scores {thead.SCORE_ATOL})")
 
     xs_surface = torch.from_numpy(tool.surface_frames()).to(dev)
     for mode, bits in PEROP_BITS.items():
@@ -3481,6 +3600,38 @@ def main() -> int:
     library_ms = {"topk_conf": _time_ms(lambda: torch.topk(key, 16, dim=1))}
     print(f"[time] torch.topk(key, 16) N={n}: {library_ms['topk_conf']:.4f} "
           f"ms ({card})")
+    # the head at 9,408 cells (grid 56, the block path) on the 448 net's
+    # output for BATCH448 seeded frames, each kernel held against its plain
+    # version on it first; beside each the device time behind a spin
+    head56 = thead.HeadConfig(grid=56)
+    y56 = engines448["tiled2"](int8_frames(BATCH448, 448))
+    kw56 = dict(head_kw, cfg=head56)
+    ms56 = {}
+    for name, kern, plain in (
+            ("detect_head", lambda: khead.detect_head(y56, **kw56),
+             lambda: khead.detect_head_plain(y56, **kw56)),
+            ("topk_conf", lambda: khead.topk_conf(y56, 16, **kw56),
+             lambda: khead.topk_conf_plain(y56, 16, **kw56))):
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        pairs = list(zip(got, want)) if isinstance(got, tuple) else [
+            (got, want)]
+        _require(all(torch.equal(u, v) for u, v in pairs),
+                 f"{name} at {head56.num_cells} cells N={BATCH448}: = plain")
+        err[name] = max(err[name], _max_err(pairs))
+        p1, k1, k2, p2 = (_time_ms(plain), _time_ms(kern), _time_ms(kern),
+                          _time_ms(plain))
+        ms56[name] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+                      "device_ms": time_ms(kern, dev, REPS)}
+        print(f"[time] {name} {head56.num_cells} cells N={BATCH448}: kernel "
+              f"{ms56[name]['ms']:.4f} ms, plain {ms56[name]['plain_ms']:.4f}"
+              f" ms, device {ms56[name]['device_ms']:.4f} ms ({card})")
+    key56 = khead.rank_key(y56, **kw56)[1]
+    ms56["topk_conf"]["library_ms"] = _time_ms(
+        lambda: torch.topk(key56, 16, dim=1))
+    print(f"[time] torch.topk(key, 16) {head56.num_cells} cells "
+          f"N={BATCH448}: {ms56['topk_conf']['library_ms']:.4f} ms ({card})")
+    del y56, key56
 
     # each op of the per-op program on its own (kernel, then plain), summed
     # by per-op kernel: the corpus net's ops, and the op-surface graph's for
@@ -3989,6 +4140,12 @@ def main() -> int:
                               core_ops=n * (k_det * cells + k_det ** 2)),
         "topk_conf": bound(n * (7 * 7 * 18 + k_det * 4),
                             core_ops=n * k_det * cells),
+        # at 9,408 cells and BATCH448
+        "detect_head 9408": bound(BATCH448 * (56 * 56 * 18 + k_det * 21),
+                                  core_ops=BATCH448 * (k_det * 9408
+                                                       + k_det ** 2)),
+        "topk_conf 9408": bound(BATCH448 * (56 * 56 * 18 + k_det * 4),
+                                core_ops=BATCH448 * k_det * 9408),
         "tiled_section": bound(BATCH448 * (448 * 448 * 3 + 56 * 56 * 18),
                                 *(BATCH448 * w for w in _net_work(g448))),
     }
@@ -4023,6 +4180,14 @@ def main() -> int:
         if k == "fused_stage":
             row.update(ms_exact=ms["fused_stage exact"][0],
                        plain_ms_exact=ms["fused_stage exact"][1])
+        if k in ("detect_head", "topk_conf"):   # the block path
+            b = bounds[f"{k} 9408"]
+            boxes = "boxes" if k == "detect_head" else "boxes staged"
+            row["at_9408"] = {
+                "cells": 9408, "batch": BATCH448, "bound_ms": b[0],
+                "bound_by": b[1], "library_ms": None, **ms56[k],
+                "launches": {m: launches[f"448 {m} {boxes}"][k]
+                             for m in ("tiled2", "tiled_exact")}}
         if k == "tiled_section":     # the kernel at 1024, both at 128
             row.update(batch=BATCH448, plain_batch=PLAIN_BATCH448,
                        ms_at_plain_batch=ms[k][2],

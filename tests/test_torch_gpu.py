@@ -946,6 +946,113 @@ def test_head_kernels_on_tie_heavy_frames_on_the_card():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("grid,n", [(14, 1003), (56, 1031)])
+def test_head_kernels_past_256_cells_on_the_card(grid, n):
+    """Past 256 cells (grid 14: 588, grid 56: 9,408, the 448 family) the
+    head kernels take their block path: the fused head (NMS on and off)
+    and the top-K kernel (K = 1, 16, 32) equal their plain versions bit
+    for bit on tie-heavy heads at a batch that is not a multiple of 16,
+    with rising and falling keys, and at grid 56 on the golden 448 heads
+    at the 448 net's output qparams."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    ys = [_golden_tool().tie_heavy_heads(n, grid=grid)]
+    if grid == 56:
+        gold = np.load(GOLDEN)
+        ys.append(np.concatenate([gold[k] for k in (
+            "head448", "head448_exact", "converted448_fast2")]))
+    for y in ys:
+        y = torch.from_numpy(y).cuda()
+        for scale in (0.1631404161453247, -0.1631404161453247):
+            kw = dict(scale=scale, zero_point=7)
+            for nms in (True, False):
+                cfg = head.HeadConfig(grid=grid, apply_nms=nms)
+                assert cfg.num_cells > head.WARP_KEYS
+                for a, b in zip(head.detect_head(y, cfg=cfg, **kw),
+                                head.detect_head_plain(y, cfg=cfg, **kw)):
+                    assert torch.equal(a, b), (grid, scale, nms)
+            for k in (1, 16, 32):
+                assert torch.equal(head.topk_conf(y, k, cfg=cfg, **kw),
+                                   head.topk_conf_plain(y, k, cfg=cfg, **kw)
+                                   ), (grid, scale, k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grid,anchors", [(17, 1), (10, 3), (9, 4)])
+def test_head_kernels_past_256_cells_any_anchors_on_the_card(grid, anchors):
+    """The block path at other anchor counts (a darknet single head of
+    grid 10 among them): both kernels equal their plain versions bit for
+    bit on random heads, a quarter of the frames saturated."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(grid)
+    y = rng.integers(-128, 128, (97, grid, grid, 6 * anchors),
+                     dtype=np.int64)
+    y[:24, ..., 4::6] = 127
+    y = torch.from_numpy(y.astype(np.int8)).cuda()
+    anc = ((9.0, 14.0), (12.0, 17.0), (22.0, 21.0), (30.0, 35.0))[:anchors]
+    kw = dict(scale=0.1631404161453247, zero_point=7)
+    for nms in (True, False):
+        cfg = head.HeadConfig(grid=grid, anchors=anc, apply_nms=nms)
+        assert cfg.num_cells > head.WARP_KEYS
+        for a, b in zip(head.detect_head(y, cfg=cfg, **kw),
+                        head.detect_head_plain(y, cfg=cfg, **kw)):
+            assert torch.equal(a, b), nms
+    for k in (1, 16, 32):
+        assert torch.equal(head.topk_conf(y, k, cfg=cfg, **kw),
+                           head.topk_conf_plain(y, k, cfg=cfg, **kw)), k
+
+
+@pytest.mark.gpu
+def test_head_past_the_limit_refused_on_the_card():
+    """A head one cell past ``head.MAX_KEYS`` (2 anchors, grid 2048) is
+    refused on the card with ValueError, with no launch and no fallback to
+    the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cfg = head.HeadConfig(grid=2048, anchors=head.DEFAULT_ANCHORS[:2])
+    assert cfg.num_cells == head.MAX_KEYS + 1
+    y = torch.zeros((1, 2048, 2048, 12), dtype=torch.int8, device="cuda")
+    kw = dict(scale=0.1631404161453247, zero_point=7, cfg=cfg)
+    before = (head.detect_head.launches, head.topk_conf.launches)
+    with pytest.raises(ValueError):
+        head.detect_head(y, **kw)
+    with pytest.raises(ValueError):
+        head.topk_conf(y, 16, **kw)
+    assert (head.detect_head.launches, head.topk_conf.launches) == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fused_head", [True, False])
+def test_448_pipeline_to_boxes_on_the_card_equals_cpu(fused_head):
+    """The 448 net in ``tiled2`` served to boxes on the card with the head
+    at grid 56 (the default fused head; the staged head on the top-K
+    kernel) launches the head kernel once and equals the CPU plain path:
+    validity exact, boxes within 8 ulps of 448 px, scores within
+    ``SCORE_ATOL``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from yoloface_tpu_torch.pipeline import head as thead
+    from yoloface_tpu_torch.pipeline.e2e import FacePipeline
+    g = retarget_spatial(load_tflite(CORPUS), 8)
+    cfg = thead.HeadConfig(grid=56, use_fused_head=fused_head)
+    x = _golden_tool().frames448()
+    kern = head.detect_head if fused_head else head.topk_conf
+    kern.launches = 0
+    got = FacePipeline(Int8Engine(g, "tiled2", device="cuda"),
+                       cfg).detect_int8(x)
+    assert kern.launches == 1
+    want = FacePipeline(Int8Engine(g, "tiled2", device="cpu"),
+                        cfg).detect_int8(x)
+    np.testing.assert_array_equal(got["valid"], want["valid"])
+    np.testing.assert_array_equal(got["count"], want["count"])
+    np.testing.assert_allclose(got["boxes"], want["boxes"], rtol=0,
+                               atol=8 * 2.0 ** -15)
+    np.testing.assert_allclose(got["scores"], want["scores"], rtol=0,
+                               atol=thead.SCORE_ATOL)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("bits", perop.BITS)
 def test_leaky_table_matches_plain_on_the_card(bits):
     """csrc/eltwise_lut.cu on every standalone LEAKY program of the

@@ -442,18 +442,18 @@ def yolov3_tiny_frames(n: int, size: int = 416) -> np.ndarray:
 # --------------------------------------------------------------------------
 # the .tflite test graphs: the JAX package's fuzz graphs and v3-tiny FPN
 # --------------------------------------------------------------------------
-def tie_heavy_heads(n: int, seed: int = 5) -> np.ndarray:
-    """int8 heads [n,7,7,18] whose ranking keys tie a lot, for the top-K
-    kernels: the first quarter of the frames saturate every confidence
-    (127: every key the same), the second quarter hold every confidence
-    below the threshold (-128: every key 0), the rest draw each confidence
-    from six levels, two below the threshold and three that saturate the
-    sigmoid in float32 at the corpus head's scale; the other channels
-    random, from numpy seed ``seed``."""
+def tie_heavy_heads(n: int, seed: int = 5, grid: int = 7) -> np.ndarray:
+    """int8 heads [n,grid,grid,18] whose ranking keys tie a lot, for the
+    top-K kernels: the first quarter of the frames saturate every
+    confidence (127: every key the same), the second quarter hold every
+    confidence below the threshold (-128: every key 0), the rest draw each
+    confidence from six levels, two below the threshold and three that
+    saturate the sigmoid in float32 at the corpus head's scale; the other
+    channels random, from numpy seed ``seed``."""
     rng = np.random.default_rng(seed)
-    y = rng.integers(-128, 128, (n, 7, 7, 18), dtype=np.int64)
+    y = rng.integers(-128, 128, (n, grid, grid, 18), dtype=np.int64)
     levels = np.array([-128, -20, 0, 120, 126, 127])
-    conf = levels[rng.integers(0, len(levels), (n, 7, 7, 3))]
+    conf = levels[rng.integers(0, len(levels), (n, grid, grid, 3))]
     conf[: n // 4] = 127
     conf[n // 4: n // 2] = -128
     y[..., 4::6] = conf

@@ -1539,9 +1539,9 @@ __device__ __forceinline__ void load_keys(const int8_t* y, int lane,
 }
 """
 FLOAT_ROUNDS = r"""// K masked-argmax rounds over the warp's float keys, 5 shuffle pairs a
-// round (PR 14's form).
-__device__ __forceinline__ int warp_topk(float (&key)[kKeysPerLane], int lane,
-                                         int k) {
+// round (the float form; the integer rounds stay for the block path).
+template <int kN, unsigned kIdx>
+__device__ __forceinline__ int warp_topk(float (&key)[kN], int lane, int k) {
   int mine = 0;
   for (int kk = 0; kk < k; ++kk) {
     float best = -3.0f;
@@ -1570,15 +1570,17 @@ __device__ __forceinline__ int warp_topk(float (&key)[kKeysPerLane], int lane,
   return mine;
 }
 
-}  // namespace yf
 """
 TOPK_TAIL = "// Lane `lane`'s candidates of frame `y`"
+TOPK_ROUNDS = "// K masked-argmax rounds over the warp's candidates"
 
 
 def _topk_tail(text: str):
-    """The substitution of topk.cuh's load_keys and warp_topk by ``text``."""
+    """The substitution of topk.cuh's load_keys by ``text``, in front of
+    its integer rounds."""
     src = (_build.CSRC / "topk.cuh").read_text()
-    return ("topk.cuh", src[src.index(TOPK_TAIL):], text)
+    return ("topk.cuh", src[src.index(TOPK_TAIL):src.index(TOPK_ROUNDS)],
+            text)
 
 
 def _float_keys(source: str, sigm: bool):
@@ -1590,11 +1592,13 @@ def _float_keys(source: str, sigm: bool):
             if source == "detect_head.cu" else
             "(y + frame * cells * c6, lane, cells, c6, cells * a, table.hi,\n"
             "                key)")
-    new = call.replace("table.hi", "zp, scale, thr" if sigm else "table.key")
+    args = ("h.zp, h.scale, h.thr" if source == "detect_head.cu" else
+            "zp, scale, thr")
+    new = call.replace("table.hi", args if sigm else "table.key")
     subs.append((source, f"yf::load_keys{call}", f"yf::load_keys{new}"))
-    if sigm:
+    if sigm:     # the warp path's table (the block path keeps its own)
         subs.append((source, "  __shared__ yf::RankTable table;\n"
-                     "  yf::build_rank_table(table, zp, scale, thr);\n", ""))
+                     f"  yf::build_rank_table(table, {args});\n", ""))
     return subs
 
 
@@ -1614,11 +1618,11 @@ NMS_APART = """      const unsigned any = __ballot_sync(kFull, over);
     keep = ((kept >> lane) & 1u) != 0u;
   }"""
 NMS_SUBS = [("detect_head.cu", NMS_BUILT, NMS_APART),
-            ("detect_head.cu", "        over = iou > iou_thr && keep;",
-             "        over = iou > iou_thr;"),
-            ("detect_head.cu", """  if (apply_nms) {
+            ("detect_head.cu", "        over = iou > h.iou_thr && keep;",
+             "        over = iou > h.iou_thr;"),
+            ("detect_head.cu", """  if (h.apply_nms) {
     const float area""", """  __shared__ unsigned over_of[kWarpsPerBlock][32];
-  if (apply_nms) {
+  if (h.apply_nms) {
     const float area""")]
 
 

@@ -11,6 +11,12 @@ indices the staged head decodes.  Both kernels share the selection code
 (``csrc/topk.cuh``); ``detect_head_plain`` and ``topk_conf_plain`` are the
 same computations in torch on a batch, and a CPU tensor takes them.
 
+A head of at most ``WARP_KEYS`` cells (grid * grid * anchors: the 7x7x3
+corpus head) runs one warp a frame; a larger one, up to ``MAX_KEYS``
+(the 448 family's 56x56x3 = 9,408, a darknet head past grid 9), one block
+a frame.  The wrappers refuse a head past ``MAX_KEYS`` on the card with
+``ValueError``; they never fall back to the plain version there.
+
 This module also holds ``HeadConfig`` and the ranking, decode and NMS steps
 that the plain version shares with the staged head of ``pipeline/head.py``.
 """
@@ -24,7 +30,10 @@ from typing import Tuple
 import numpy as np
 import torch
 
-MAX_KEYS = 256        # one warp: 8 keys a lane
+WARP_KEYS = 256       # one warp a frame: 8 keys a lane
+# one block a frame past WARP_KEYS: a candidate packs rank + 1 (9 bits)
+# over 23 bits of index (csrc/topk.cuh, kBlockIdx)
+MAX_KEYS = 2 ** 23 - 1
 MAX_K = 32            # one survivor a lane
 MAX_ANCHORS = 4
 
@@ -184,8 +193,9 @@ def topk_conf(y: torch.Tensor, k: int, *, scale: float, zero_point: int,
         return topk_conf_plain(y, k, scale=scale, zero_point=zero_point,
                                cfg=cfg)
     if cfg.num_cells > MAX_KEYS or not 0 < k <= min(MAX_K, cfg.num_cells):
-        raise ValueError(f"top-K kernel takes <= {MAX_KEYS} cells and "
-                         f"0 < K <= min({MAX_K}, cells)")
+        raise ValueError(f"top-K kernel takes <= {MAX_KEYS:,} cells and "
+                         f"0 < K <= min({MAX_K}, cells), got "
+                         f"{cfg.num_cells:,} cells, K = {k}")
     if not y.is_contiguous():
         raise ValueError("head tensor must be contiguous")
     n = y.shape[0]
@@ -215,15 +225,16 @@ def detect_head(y: torch.Tensor, *, scale: float, zero_point: int,
                                  cfg=cfg)
     k = min(cfg.max_detections, cfg.num_cells)
     if cfg.num_cells > MAX_KEYS or k > MAX_K or a > MAX_ANCHORS:
-        raise ValueError(f"head kernel takes <= {MAX_KEYS} cells, K <= "
-                         f"{MAX_K}, <= {MAX_ANCHORS} anchors")
+        raise ValueError(f"head kernel takes <= {MAX_KEYS:,} cells, K <= "
+                         f"{MAX_K}, <= {MAX_ANCHORS} anchors, got "
+                         f"{cfg.num_cells:,} cells, K = {k}, {a} anchors")
     if not y.is_contiguous():
         raise ValueError("head tensor must be contiguous")
     n = y.shape[0]
     boxes = torch.empty((n, k, 4), dtype=torch.float32, device=y.device)
     scores = torch.empty((n, k), dtype=torch.float32, device=y.device)
     valid = torch.empty((n, k), dtype=torch.bool, device=y.device)
-    if n == 0:
+    if n == 0 or k == 0:
         return boxes, scores, valid
     from yoloface_tpu_torch.kernels._build import check, library
     anchors = (ctypes.c_float * (2 * MAX_ANCHORS))(
