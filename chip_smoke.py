@@ -6,10 +6,12 @@ Run:  python3 chip_smoke.py   (paths resolve from this file's directory)
 Phases (each prints its lines; any failure ends the run with an error):
   1. environment: torch, CUDA, nvcc, the card's name and power limit; the
      kernel build from yoloface_tpu_torch/csrc/ into build/yoloface_tpu_torch/
-     and the registers and local memory of both instantiations of the
-     section kernel as built (the second runs the tensor-core convs of
-     csrc/conv_mma.cuh; more than 64 registers or a spill, local memory
-     past the 128 B stack frame, fails), and the registers, local memory
+     and the registers, local memory and blocks an SM of the four
+     instantiations of the section kernel as built (fast and exact bits,
+     each with a k32 twin that runs the big-K convs of csrc/conv_mma.cuh;
+     registers past the launch bound's SECTION_BLOCKS blocks an SM or a
+     spill, local memory past the 128 B stack frame, fails), and the
+     registers, local memory
      and blocks an SM of both instantiations (fast and exact bits) of the
      two whole-frame kernels (arena_stage.cu, fused_stage.cu, with the
      bodies of csrc/stage_ops.cuh: more than 64 registers, fewer than 4
@@ -26,7 +28,9 @@ Phases (each prints its lines; any failure ends the run with an error):
      refused with ValueError and nothing launched; the tiled section
      kernel on every section output of the 448 net (retarget_spatial(corpus, 8), N = 1 and 3) and of the
      112 net under a small budget (7 sections of up to 28 strips), in each
-     bit semantics; the fused-stage kernel on every stage output of the
+     bit semantics, every CONV of those plans on the tensor cores (marked)
+     and the exact programs on the exact instantiation, the others never;
+     the fused-stage kernel on every stage output of the
      corpus net cut at kernels.fused.FUSED_BUDGET (3 stages), 10**9 (1)
      and 1 (34), N = 1, 3 and 37, and of the op-surface graph
      (tools/make_torch_port_golden.surface_graph, every op the fused
@@ -71,8 +75,9 @@ Phases (each prints its lines; any failure ends the run with an error):
      and two average pools at its size, in fast2, fast and exact bits at
      N = 1 and 3, in one stage, one op a stage and in strips; the section
      kernel on every section of the published yolov3-tiny at 416
-     (yolov3_tiny_graph(), 7 sections) on 2 frames in tiled2 and
-     tiled_exact bits, and on yolov3-tiny narrowed (64x64 at full width,
+     (yolov3_tiny_graph(), 7 sections) on 2 frames in tiled2, tiled and
+     tiled_exact bits (the k32 instantiations and the exact one among
+     them), and on yolov3-tiny narrowed (64x64 at full width,
      96x96 at half) in all three bits with an input one byte in, its
      marked convs on the tensor cores; the whole-frame kernels' bodies
      (csrc/stage_ops.cuh: every conv on the tensor cores, the stem's K =
@@ -322,11 +327,18 @@ TFLITE_MODES = ("arena2", "arena", "arena_exact", "tiled2", "tiled",
                 "tiled_exact", "fused", "fused_exact", "perop", "perop_exact")
 STRIP_BUDGETS = (256, 384, 512, 768, 1024, 1536, 2048, 4096, 16384, 65536)
 V3_FRAMES, BATCH_V3 = 2, 256   # yolov3-tiny 416: checked on 2, timed on 256
+# the blocks an SM the section kernel's launch bounds ask for
+# (csrc/tiled_section.cu kSectionBlocks, kK32Blocks), by k32
+SECTION_BLOCKS = {False: 3, True: 2}
 # the stage kernels' registers a thread and blocks an SM as PR 14's runs
 # printed them (no spill; the whole-frame kernels had one instantiation),
-# printed beside this build's
-PR14_ATTRS = {"tiled_section_kernel<false>": (64, None),
-              "tiled_section_kernel<true>": (124, None),
+# printed beside this build's; the section kernel's fast and exact
+# instantiations beside its earlier first one (tiled_section_kernel<false>),
+# its k32 ones beside its earlier tensor-core one (<true>)
+PR14_ATTRS = {"tiled_section_kernel<fast>": (64, None),
+              "tiled_section_kernel<exact>": (64, None),
+              "tiled_section_kernel<fast,k32>": (124, None),
+              "tiled_section_kernel<exact,k32>": (124, None),
               "arena_stage_kernel<fast>": (64, 4),
               "arena_stage_kernel<exact>": (64, 4),
               "fused_stage_kernel<fast>": (64, 4),
@@ -404,6 +416,12 @@ def _one_op_a_stage(graph, bits):
     return OneOpAStage(graph, bits=bits)
 
 
+def section_instantiation(exact, k32) -> str:
+    """The name of the section kernel's instantiation (exact, k32)."""
+    return (f"tiled_section_kernel<{'exact' if exact else 'fast'}"
+            f"{',k32' if k32 else ''}>")
+
+
 def _strip_plan(graph, bits):
     """The tiled plan of ``graph`` at the smallest of a few budgets that
     plans it: strips as short as its widest op allows."""
@@ -433,6 +451,24 @@ def _net_work(graph):
             rows = (oh - 1) * a["stride_h"] + a["filter_h"]
             compares += (rows * a["filter_w"] + oh * a["filter_h"]) * ow * c
     return macs, compares
+
+
+def _section_work(graph):
+    """(tensor-core multiply-adds, CUDA-core operations) of one frame of an
+    int8 graph on the section kernel's bodies: every CONV's MACs on the
+    tensor cores; each depthwise MAC two operations (a multiply and an
+    add) and each max-pool compare of the separable passes
+    (``_net_work``) one, on the CUDA cores."""
+    macs = dw = 0
+    for op in graph.ops:
+        if op.opname in ("CONV_2D", "DEPTHWISE_CONV_2D"):
+            oh, ow, c = graph.tensor(op.outputs[0]).shape[1:]
+            _, kh, kw, ci = graph.tensor(op.inputs[1]).data.shape
+            if op.opname == "CONV_2D":
+                macs += oh * ow * c * kh * kw * ci
+            else:
+                dw += oh * ow * c * kh * kw
+    return macs, 2 * dw + _net_work(graph)[1]
 
 
 def _op_work(st):
@@ -2323,26 +2359,40 @@ def main() -> int:
     print(f"[build] {_build.BUILD_DIR} in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {'cached' if nvcc_s is None else f'{nvcc_s:.2f} s'})")
     import ctypes
+    # the section kernel's instantiations (fast, exact, and their k32
+    # twins), blocks an SM at the largest shared memory a section of the
+    # 448 net (yolov3-tiny at 416 for the k32 ones) launches them with
+    corpus = load_tflite(CORPUS)
+    g448 = retarget_spatial(corpus, 8)
+    section_smem = {False: max(s.smem_bytes
+                               for s in tiled.build_tiled_plan(g448)),
+                    True: max(s.smem_bytes for s in tiled.build_tiled_plan(
+                        _golden_tool().yolov3_tiny_graph())
+                        if s.k32_convs)}
     section_attrs = {}
-    for mma in (False, True):       # the instantiations of the kernel
-        attrs = (ctypes.c_int * 3)()
-        _build.check(_build.library().yf_tiled_section_attrs(int(mma), attrs),
-                     "tiled_section attributes")
-        regs, local, static_smem = list(attrs)
-        name = f"tiled_section_kernel<{str(mma).lower()}>"
+    for exact, k32 in ((0, 0), (1, 0), (0, 1), (1, 1)):
+        attrs = (ctypes.c_int * 4)()
+        _build.check(_build.library().yf_tiled_section_attrs(
+            exact, k32, arena.THREADS, section_smem[bool(k32)], attrs),
+            "tiled_section attributes")
+        regs, local, static_smem, blocks = list(attrs)
+        name = section_instantiation(exact, k32)
         section_attrs[name] = {"registers": regs, "local_bytes": local,
-                               "static_smem": static_smem}
+                               "static_smem": static_smem,
+                               "blocks_per_sm": blocks,
+                               "dynamic_smem": section_smem[bool(k32)]}
         print(f"[build] {name}: {regs} registers a thread, {local} B local "
               f"memory a thread (its stack frame, spills included), "
-              f"{static_smem} B static shared memory (PR 14: "
-              f"{PR14_ATTRS[name][0]} registers, no spill)")
-        # the launch bounds cap the registers (64 at four blocks an SM,
-        # 128 at two); what they can cost is spilling, which grows the
-        # local memory past the 128 B frame
+              f"{static_smem} B static shared memory; {blocks} blocks an SM "
+              f"at {section_smem[bool(k32)]} B of shared memory (before the "
+              f"redesign: {PR14_ATTRS[name][0]} registers, no spill)")
+        # the launch bounds cap the registers (SECTION_BLOCKS blocks an
+        # SM); what they can cost is spilling, which grows the local
+        # memory past the 128 B frame
         _require(local <= 128, f"{name} spills: {local} B of local memory "
                  "a thread > its 128 B frame")
-    _require(section_attrs["tiled_section_kernel<false>"]["registers"] <= 64,
-             "the section kernel's first instantiation within 64 registers")
+        _require(regs * arena.THREADS * SECTION_BLOCKS[bool(k32)] <= 65536,
+                 f"{name}: within its launch bound")
     # the whole-frame kernels (a fast and an exact instantiation each),
     # with their convs on the tensor cores, the depthwise word body and the
     # max-pool word passes (csrc/stage_ops.cuh): blocks an SM at the corpus
@@ -2414,7 +2464,8 @@ def main() -> int:
         perop.reset_launches()
         for fn in (tiled.tiled_section, arena.arena_stage, fused.fused_stage):
             fn.mma_convs = 0
-        for fn in (arena.arena_stage, fused.fused_stage):
+        tiled.tiled_section.k32_convs = 0
+        for fn in (arena.arena_stage, fused.fused_stage, tiled.tiled_section):
             fn.exact_launches = 0
 
     err = {"preprocess_rgb565": 0.0, "arena_stage": 0.0,
@@ -2491,22 +2542,37 @@ def main() -> int:
                                        _max_err(zip(outs, ref)))
             env.update(zip(st.outputs, outs))
 
-    corpus = load_tflite(CORPUS)
-    g448, g112 = retarget_spatial(corpus, 8), retarget_spatial(corpus, 2)
+    g112 = retarget_spatial(corpus, 2)
     for bits in arena.BITS:
         for g, budget, sizes in ((g448, arena.ARENA_BUDGET, (1, 3)),
                                  (g112, TILE_SMALL, (2, 37))):
             p = tiled.TiledPlan(g, budget, bits).to(dev)
             _require(p.tiled and len(p.stages) >= 3,
                      f"{bits}: the {g.name} plan is >= 3 sections")
+            # every CONV on the tensor cores, the exact programs on the
+            # exact instantiation
+            _require(sum(st.mma_convs for st in p.stages) == sum(
+                int(np.count_nonzero(st.descs[:, arena.F["code"]]
+                                     == arena.CONV)) for st in p.stages) > 0,
+                f"{bits}: every conv of the {g.name} plan marked")
             hw = g.tensor(g.inputs[0]).shape[1]
             for n in sizes:
+                tiled.tiled_section.exact_launches = 0
                 check_sections(p, int8_frames(n, hw), f"{bits} {hw} N={n}")
+                _require(tiled.tiled_section.exact_launches == (
+                    sum(st.exact_convs for st in p.stages)
+                    if bits == "exact" else 0),
+                    f"{bits}: the exact instantiation for the exact "
+                    "programs only")
             print(f"[check] tiled_section {bits} bits {hw}x{hw} N={sizes}: "
                   f"{len(p.stages)} sections of "
                   f"{[st.strips for st in p.stages]} strips, arenas "
-                  f"{[st.arena_bytes for st in p.stages]} B: every section "
-                  "output bit-exact")
+                  f"{[st.arena_bytes for st in p.stages]} B, pool scratch "
+                  f"{[st.smem_bytes - st.arena_bytes for st in p.stages]} B, "
+                  f"{sum(st.mma_convs for st in p.stages)} convs on the "
+                  f"tensor cores, instantiations "
+                  f"{sorted({section_instantiation(st.exact_convs, st.k32_convs) for st in p.stages})}"
+                  ": every section output bit-exact")
 
     def check_program(p, x, tag, kernel, plain, key, one_byte_in=False):
         """Each stage (or op) of ``p`` through ``kernel`` and ``plain``,
@@ -3033,16 +3099,23 @@ def main() -> int:
     g416 = tool.yolov3_tiny_graph()
     x416 = torch.from_numpy(tool.yolov3_tiny_frames(V3_FRAMES)).to(dev)
     v3_plain = {}
-    for mode in ("tiled2", "tiled_exact"):
+    for mode in ("tiled2", "tiled", "tiled_exact"):
         p = tiled.TiledPlan(g416, bits=TILED_BITS[mode]).to(dev)
+        tiled.tiled_section.exact_launches = 0
         env = check_b6b(p, x416, f"yolov3-tiny 416 {mode}")
+        _require(tiled.tiled_section.exact_launches == (
+            len(p.stages) if mode == "tiled_exact" else 0),
+            f"yolov3-tiny 416 {mode}: the exact instantiation for the exact "
+            "programs only")
         v3_plain[mode] = [env[o] for o in g416.outputs]
         print(f"[check] tiled_section yolov3-tiny 416 {mode} N={V3_FRAMES}: "
               f"{len(p.stages)} sections of {[s.strips for s in p.stages]} "
-              f"strips, arenas {[s.arena_bytes for s in p.stages]} B, "
-              f"{[s.mma_convs for s in p.stages]} convs on the tensor cores: "
+              f"strips, arenas {[s.arena_bytes for s in p.stages]} B, pool "
+              f"scratch {[s.smem_bytes - s.arena_bytes for s in p.stages]} "
+              f"B, {[s.mma_convs for s in p.stages]} convs on the tensor "
+              f"cores ({[s.k32_convs for s in p.stages]} on the k32 body): "
               "every section output bit-exact")
-    # the tensor-core convs (csrc/conv_mma.cuh) on yolov3-tiny narrowed:
+    # the k32 body's convs (csrc/conv_mma.cuh) on yolov3-tiny narrowed:
     # ci multiples of 16 and 32, the heads' 255 channels (a ragged n8
     # tile) at full width, rows of 2-6 pixels (ragged m16 tiles), strips
     # from the top to the bottom, a concat's channel slices, and an input
@@ -3051,9 +3124,9 @@ def main() -> int:
         g = tool.yolov3_tiny_graph(size, div)
         for bits in arena.BITS:
             p = tiled.TiledPlan(g, budget, bits).to(dev)
-            _require(sum(s.mma_convs for s in p.stages) >= 5 and any(
-                s.mma_convs and s.strips >= 2 for s in p.stages),
-                f"yolov3-tiny {size}/{div}: marked convs in strips")
+            _require(sum(s.k32_convs for s in p.stages) >= 5 and any(
+                s.k32_convs and s.strips >= 2 for s in p.stages),
+                f"yolov3-tiny {size}/{div}: k32 convs in strips")
             for n in (1, 3):
                 x = rand_input(g, n)
                 x = torch.cat([x.new_zeros(1), x.flatten()])[1:].view(
@@ -3063,7 +3136,8 @@ def main() -> int:
         print(f"[check] tiled_section yolov3-tiny {size}x{size} width "
               f"1/{div}, fast2, fast and exact bits, N=1/3 one byte in: "
               f"{[s.strips for s in p.stages]} strips, "
-              f"{[s.mma_convs for s in p.stages]} convs on the tensor cores: "
+              f"{[s.mma_convs for s in p.stages]} convs on the tensor cores "
+              f"({[s.k32_convs for s in p.stages]} on the k32 body): "
               "every section output bit-exact")
 
     rng_h = np.random.default_rng(23)          # tests/test_pipeline.py:262
@@ -3188,7 +3262,8 @@ def main() -> int:
         for fn in (tiled.tiled_section, arena.arena_stage, fused.fused_stage,
                    perop.perop_op):
             launches[path][f"{fn.__name__}_mma_convs"] = fn.mma_convs
-        for fn in (arena.arena_stage, fused.fused_stage, perop.perop_op):
+        for fn in (arena.arena_stage, fused.fused_stage, perop.perop_op,
+                   tiled.tiled_section):
             launches[path][f"{fn.__name__}_exact"] = fn.exact_launches
         by_kernel[path] = dict(perop.perop_op.by_kernel)
         mma_by_kernel[path] = dict(perop.perop_op.mma_by_kernel)
@@ -3302,11 +3377,15 @@ def main() -> int:
                  and tiled.tiled_section.mma_convs == 2 * sum(
                      s.mma_convs for s in eng.arena.stages),
                  f"{path}: every section through the kernel")
-        for st in eng.arena.stages:    # its instantiations: 64 registers
-            inst = str(st.mma_convs > 0).lower()
-            a = section_attrs[f"tiled_section_kernel<{inst}>"]
-            _require(a["registers"] <= 64 and a["local_bytes"] <= 128,
-                     f"{path}: an instantiation past 64 registers")
+        _require(tiled.tiled_section.exact_launches == (
+            2 * len(eng.arena.stages) if mode == "tiled_exact" else 0),
+            f"{path}: the exact instantiation in tiled_exact only")
+        for st in eng.arena.stages:    # its instantiations: no spill
+            a = section_attrs[section_instantiation(st.exact_convs,
+                                                    st.k32_convs)]
+            _require(a["local_bytes"] <= 128 and a["registers"] * arena.THREADS
+                     * SECTION_BLOCKS[bool(st.k32_convs)] <= 65536,
+                     f"{path}: an instantiation past its launch bound")
         cpu = Int8Engine(g448, mode, device="cpu")
         for b, f in batches.items():
             _require(torch.equal(served[b].cpu(), cpu(f.cpu())),
@@ -3430,6 +3509,9 @@ def main() -> int:
         _require(tiled.tiled_section.mma_convs == sum(
             s.mma_convs for s in eng.arena.stages) > 0,
             f"{path}: the marked convs on the tensor cores")
+        _require(tiled.tiled_section.k32_convs == sum(
+            s.k32_convs for s in eng.arena.stages) > 0,
+            f"{path}: the big-K convs on the k32 body")
         for k, (y, want) in enumerate(zip(ys, v3_plain[mode])):
             _require(tuple(y.shape) == (V3_FRAMES, 13 * (k + 1),
                                         13 * (k + 1), 255),
@@ -4147,7 +4229,7 @@ def main() -> int:
         "topk_conf 9408": bound(BATCH448 * (56 * 56 * 18 + k_det * 4),
                                 core_ops=BATCH448 * k_det * 9408),
         "tiled_section": bound(BATCH448 * (448 * 448 * 3 + 56 * 56 * 18),
-                                *(BATCH448 * w for w in _net_work(g448))),
+                                *(BATCH448 * w for w in _section_work(g448))),
     }
     kernels = []
     for k, (source, tpu, path, counter) in meta.items():
@@ -4191,8 +4273,11 @@ def main() -> int:
         if k == "tiled_section":     # the kernel at 1024, both at 128
             row.update(batch=BATCH448, plain_batch=PLAIN_BATCH448,
                        ms_at_plain_batch=ms[k][2],
+                       ms_exact=ms["tiled_section exact"][0],
                        instantiations=section_attrs,
-                       mma_convs=launches[path]["tiled_section_mma_convs"])
+                       mma_convs=launches[path]["tiled_section_mma_convs"],
+                       exact_launches=launches["448 tiled_exact"][
+                           "tiled_section_exact"])
         kernels.append(row)
     # the per-op kernels whose programs hold a marked conv
     marked_ops = {st.kernel for st in pplans["fast"].stages if st.mma_convs}

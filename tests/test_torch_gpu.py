@@ -723,8 +723,8 @@ def test_mma_sections_match_plain_on_the_card(size, div, budget, bits):
     F = arena.F
     secs = plan.stages
     assert all(isinstance(s, tiled.Section) for s in secs)
-    assert sum(s.mma_convs for s in secs) >= 5
-    assert any(s.mma_convs and s.strips >= 2 for s in secs)
+    assert sum(s.k32_convs for s in secs) >= 5
+    assert any(s.k32_convs and s.strips >= 2 for s in secs)
     assert any(d[F["code"]] == arena.COPY and d[F["out_cs"]] != d[F["out_c"]]
                for s in secs for d in s.descs)
     rng = np.random.default_rng(size + div)
@@ -740,16 +740,117 @@ def test_mma_sections_match_plain_on_the_card(size, div, budget, bits):
                 ins = [torch.cat([t.new_zeros(1), t.flatten()])[1:].view(
                     t.shape) for t in ins]
             tiled.tiled_section.mma_convs = 0
+            tiled.tiled_section.k32_convs = 0
             outs = tiled.tiled_section(st, getattr(plan, f"descs{k}"),
                                        getattr(plan, f"consts{k}"), ins)
             torch.cuda.synchronize()
             assert tiled.tiled_section.mma_convs == st.mma_convs
+            assert tiled.tiled_section.k32_convs == st.k32_convs
             ref = [torch.empty_like(o) for o in outs]
             tiled.tiled_section_plain(st, getattr(plan, f"consts{k}"),
                                       ins + ref)
             for o, u, v in zip(st.outputs, outs, ref):
                 assert torch.equal(u, v), (size, div, bits, k, o, n)
             env.update(zip(st.outputs, outs))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", arena.BITS)
+def test_448_sections_match_plain_on_the_card(bits):
+    """Every section of the 448 net, its 1x1s and stem on the tensor cores
+    (stage_ops.cuh's bodies in strips), its 3x3 depthwise convs on words
+    and its max-pools on the word passes where the planner gave them a
+    scratch, equals the plain version at N = 1 and 3; the exact programs
+    launch the exact instantiation, the others never."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = retarget_spatial(load_tflite(CORPUS), 8)
+    plan = tiled.TiledPlan(g, bits=bits).cuda()
+    secs = plan.stages
+    F = arena.F
+    convs = sum(int(np.count_nonzero(s.descs[:, F["code"]] == arena.CONV))
+                for s in secs)
+    assert sum(s.mma_convs for s in secs) == convs == 17
+    assert any(s.scratch_off for s in secs)
+    rng = np.random.default_rng(448)
+    for n in (1, 3):
+        tiled.tiled_section.exact_launches = 0
+        tiled.tiled_section.mma_convs = 0
+        env = {plan.input_idx: torch.from_numpy(rng.integers(
+            -128, 128, (n, 448, 448, 3)).astype(np.int8)).cuda()}
+        for k, st in enumerate(secs):
+            ins = [env[i] for i in st.inputs]
+            outs = tiled.tiled_section(st, getattr(plan, f"descs{k}"),
+                                       getattr(plan, f"consts{k}"), ins)
+            ref = [torch.empty_like(o) for o in outs]
+            tiled.tiled_section_plain(st, getattr(plan, f"consts{k}"),
+                                      ins + ref)
+            for o, u, v in zip(st.outputs, outs, ref):
+                assert torch.equal(u, v), (bits, n, k, o)
+            env.update(zip(st.outputs, outs))
+        assert tiled.tiled_section.mma_convs == convs
+        assert tiled.tiled_section.exact_launches == (
+            len(secs) if bits == "exact" else 0), (bits, n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["tiled2", "tiled", "tiled_exact"])
+def test_v3tiny_416_sections_match_plain_on_the_card(mode):
+    """Every section of yolov3-tiny at 416 (its stem on the full-window
+    tensor-core body, its big-K convs on the k32 body, its pools on the
+    word passes or the full window where no scratch fits) equals the plain
+    version on 2 frames, in each bit semantics."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from yoloface_tpu_torch.runtime.engine import TILED_BITS
+    tool = _golden_tool()
+    g = tool.yolov3_tiny_graph()
+    plan = tiled.TiledPlan(g, bits=TILED_BITS[mode]).cuda()
+    assert sum(s.k32_convs for s in plan.stages) > 0
+    env = {plan.input_idx: torch.from_numpy(
+        tool.yolov3_tiny_frames(2)).cuda()}
+    tiled.tiled_section.exact_launches = 0
+    tiled.tiled_section.k32_convs = 0
+    for k, st in enumerate(plan.stages):
+        ins = [env[i] for i in st.inputs]
+        outs = tiled.tiled_section(st, getattr(plan, f"descs{k}"),
+                                   getattr(plan, f"consts{k}"), ins)
+        ref = [torch.empty_like(o) for o in outs]
+        tiled.tiled_section_plain(st, getattr(plan, f"consts{k}"), ins + ref)
+        for o, u, v in zip(st.outputs, outs, ref):
+            assert torch.equal(u, v), (mode, k, o)
+        env.update(zip(st.outputs, outs))
+    assert tiled.tiled_section.exact_launches == (
+        len(plan.stages) if mode == "tiled_exact" else 0)
+    assert tiled.tiled_section.k32_convs == sum(
+        s.k32_convs for s in plan.stages)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("exact,k32", [(0, 0), (1, 0), (0, 1), (1, 1)])
+def test_section_instantiations_within_their_launch_bound_on_the_card(
+        exact, k32):
+    """Each instantiation of the section kernel (fast, exact, and their
+    k32 twins): within its launch bound (3 blocks of 256 threads an SM,
+    2 for the k32 ones: csrc/tiled_section.cu kSectionBlocks, kK32Blocks),
+    no spill (local memory within the 128 B stack frame of the
+    ``Globals`` table), and that many blocks an SM at the largest strip
+    arena of the 448 net's sections without a pool scratch (the planner
+    sizes them for ``budget / TARGET_SHARE``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import ctypes
+    from yoloface_tpu_torch.kernels import _build
+    g = retarget_spatial(load_tflite(CORPUS), 8)
+    smem = max(s.smem_bytes for s in tiled.build_tiled_plan(g)
+               if not s.scratch_off)
+    out = (ctypes.c_int * 4)()
+    _build.check(_build.library().yf_tiled_section_attrs(
+        exact, k32, arena.THREADS, smem, out), "attributes")
+    regs, local, _, blocks = list(out)
+    bound = 2 if k32 else 3
+    assert regs * arena.THREADS * bound <= 65536 and local <= 128, list(out)
+    assert blocks >= bound, list(out)
 
 
 def _stage_graphs(tool):

@@ -583,7 +583,8 @@ def test_tflite_files_are_the_exported_graphs(tmp_path, monkeypatch):
             assert f.read() == fresh, name
 
 
-# the tensor-core convs (csrc/conv_mma.cuh): the planner's marks and the
+# the tensor-core convs: the planner's marks (every CONV for the bodies of
+# csrc/stage_ops.cuh, the big-K ones also for csrc/conv_mma.cuh) and the
 # packed B fragments, which the CPU cannot run, held by their plain meaning
 MMA_PLANS = {   # name: (graph, budget); each plan cuts the net into sections
     "v3tiny64": (lambda: TOOL.yolov3_tiny_graph(64, 8), 4096),
@@ -593,8 +594,9 @@ MMA_PLANS = {   # name: (graph, budget); each plan cuts the net into sections
                   arena.ARENA_BUDGET),
 }
 # sha256 of each plan's programs as planned before the tensor-core convs
-# existed: every section's descriptors, then its constants zero-padded to
-# 16 bytes (_program_digest)
+# existed, strips sized for a quarter of the budget (TARGET_SHARE 4): every
+# section's descriptors, then its constants zero-padded to 16 bytes
+# (_program_digest)
 PROGRAM_DIGESTS = {
     ("v3tiny64", "fast2"):
         "8b2657a2819669e4dd818e0b82aeaf61f0d79bbdcd4574c54774a3cab429d332",
@@ -621,7 +623,36 @@ PROGRAM_DIGESTS = {
     ("corpus448", "exact"):
         "396746c23bf1279bfed7ea8f4bf7444c1109932168e3f260d7937935f12ab467",
 }
+# the same at the strip share the section kernel's 3 blocks an SM chose
+# (TARGET_SHARE 3): different strips and section cuts, the same ops
+PROGRAM_DIGESTS3 = {
+    ("v3tiny64", "fast2"):
+        "cb34baf2a0bf74ecb9e31665dadae46a1e6f8434878af3d78b170f01ae007c22",
+    ("v3tiny64", "fast"):
+        "4491a1435dffb93af23db745add36fefd6d76f6750e4475f295502d728afc1bb",
+    ("v3tiny64", "exact"):
+        "1338b954e56e544b868aae0b1a02d7285449060e27f838093cd2162b5c3d58c4",
+    ("v3tiny96", "fast2"):
+        "b4a242d3be8aa5bcf58bce51e96b1ab578fa6b256ebf243f601aa7439e8facec",
+    ("v3tiny96", "fast"):
+        "9c99f8d870236169868cf0130e6c8d8744228352c9357ad8c2edd7892915e31b",
+    ("v3tiny96", "exact"):
+        "f74e2fce78e48e14dc0b7783b951609017e7c7d1037cdae8103f23299715709e",
+    ("v3tiny416", "fast2"):
+        "930028d0e6e60e4986fea2d13bdfa0435519df0a194a10a6889d607927618fb5",
+    ("v3tiny416", "fast"):
+        "e7472b4d4159d5f338a98b55ba031c0750a22876dc5a41ffa7b787f2fc6f9c6c",
+    ("v3tiny416", "exact"):
+        "5732f319a529a5a8b6976c15162b12e68b7c81aad3679c7e5b7e4cf448ea37e7",
+    ("corpus448", "fast2"):
+        "361a5d7eda869828ce8b78d6dac8b4108cf1b6647e1a085689f8fe3183181bdc",
+    ("corpus448", "fast"):
+        "5504eee52d88769278190a613a9e2988b91f136a4014aa691f1ee233b5011b51",
+    ("corpus448", "exact"):
+        "579daa6a8c757b709f13614ac799906a959fad3804fba70ac6b08384be4940ec",
+}
 MMA = arena.F[arena.MMA_FIELD]
+FRAG = arena.F[arena.FRAG_FIELD]
 
 
 def _mma_plan(name, bits="fast2"):
@@ -631,48 +662,157 @@ def _mma_plan(name, bits="fast2"):
     return stages
 
 
-def _program_digest(stages, strip):
-    """sha256 over the sections' programs; with ``strip``, each marked
-    program with its ``MMA_FIELD`` zeroed and its constants cut where the
-    first packed copy starts (they are appended after the rest)."""
+def _program_digest(stages):
+    """sha256 over the sections' programs, each with its ``FRAG_FIELD`` and
+    ``MMA_FIELD`` marks zeroed and its constants cut where the first packed
+    copy starts (they are appended after the rest)."""
     h = hashlib.sha256()
     for s in stages:
         descs, consts = s.descs.copy(), s.consts.tobytes()
-        if strip and s.mma_convs:
-            consts = consts[:int(descs[descs[:, MMA] != 0, MMA].min())]
-            descs[:, MMA] = 0
+        marks = descs[:, [FRAG, MMA]]
+        if marks.any():
+            consts = consts[:int(marks[marks != 0].min())]
+            descs[:, [FRAG, MMA]] = 0
         h.update(descs.tobytes())
         h.update(consts + b"\0" * (-len(consts) % 16))
     return h.hexdigest()
 
 
 def _marked(d):
-    """Whether a strip descriptor is a conv the planner should mark."""
+    """Whether a strip descriptor is a conv the planner should mark for
+    the k32 body."""
     F = arena.F
     ci = int(d[F["in0_c"]])
     return (d[F["code"]] == arena.CONV and ci % 16 == 0
             and d[F["kh"]] * d[F["kw"]] * ci >= tiled.MMA_MIN_K)
 
 
+@pytest.mark.parametrize("share", [3, 4])
 @pytest.mark.parametrize("bits", list(arena.BITS))
 @pytest.mark.parametrize("name", list(MMA_PLANS))
-def test_programs_unchanged_but_for_the_mma_marks(name, bits, monkeypatch):
-    """Each section marks exactly the convs ``MMA_MIN_K`` names (and
-    launches the tensor-core instantiation exactly when it holds one);
-    with the marks and the packed copies taken away every program is
-    byte-identical to its form before the tensor-core convs, and an
-    unmarked program is so as it stands.  With no conv past the threshold
-    nothing is marked."""
+def test_programs_unchanged_but_for_the_mma_marks(name, bits, share,
+                                                 monkeypatch):
+    """Every CONV of every section carries a fragment mark
+    (``Section.mma_convs`` counts them: the 448 net's 16 1x1s and its
+    stem), and exactly the convs ``MMA_MIN_K`` names also a k32 mark
+    (``Section.k32_convs``, which picks the k32 instantiation; none in the
+    448 net); with the marks and the packed copies taken away every
+    program is byte-identical to its form before the tensor-core convs at
+    strips sized for a quarter of the budget, and to its pinned form at
+    the third the planner takes now.  With no conv past the threshold no
+    k32 mark is left, and the programs are so again."""
+    assert tiled.TARGET_SHARE == 3
+    monkeypatch.setattr(tiled, "TARGET_SHARE", share)
+    pins = PROGRAM_DIGESTS if share == 4 else PROGRAM_DIGESTS3
     stages = _mma_plan(name, bits)
+    F = arena.F
     for s in stages:
+        convs = s.descs[:, F["code"]] == arena.CONV
+        assert np.array_equal(s.descs[:, FRAG] != 0, convs)
         want = [_marked(d) for d in s.descs]
         assert [bool(v) for v in s.descs[:, MMA]] == want
-        assert s.mma_convs == sum(want)
-    assert _program_digest(stages, True) == PROGRAM_DIGESTS[(name, bits)]
-    assert any(s.mma_convs for s in stages) == (name != "corpus448")
+        assert s.mma_convs == int(convs.sum())
+        assert s.k32_convs == sum(want)
+    assert _program_digest(stages) == pins[(name, bits)]
+    assert any(s.k32_convs for s in stages) == (name != "corpus448")
+    if name == "corpus448":
+        assert sum(s.mma_convs for s in stages) == 17
     monkeypatch.setattr(tiled, "MMA_MIN_K", 1 << 30)
-    assert _program_digest(_mma_plan(name, bits), False) == \
-        PROGRAM_DIGESTS[(name, bits)]
+    stages = _mma_plan(name, bits)
+    assert not any(s.k32_convs for s in stages)
+    assert _program_digest(stages) == pins[(name, bits)]
+
+
+def _unpack_frags(frags, co, k):
+    """The plain meaning of ``arena.pack_frags``: lane ``4 * g + t`` of n8
+    tile ``n`` at k16 step ``s`` holds W[8n + g][16s + 4t + b] at byte b;
+    -> [nt * 8, ks * 16] int8."""
+    nt, ks = frags.shape[:2]
+    w = np.zeros((nt * 8, ks * 16), np.int8)
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        for b in range(4):
+            w[np.arange(nt)[:, None] * 8 + g,
+              np.arange(ks)[None, :] * 16 + 4 * t + b] = frags[:, :, lane, b]
+    return w
+
+
+FRAG_PLANS = {"v3tiny64": MMA_PLANS["v3tiny64"],
+              "v3tiny416": MMA_PLANS["v3tiny416"],
+              "corpus448": MMA_PLANS["corpus448"]}
+
+
+@pytest.mark.parametrize("bits", list(arena.BITS))
+@pytest.mark.parametrize("name", list(FRAG_PLANS))
+def test_section_fragments_unpack_to_the_weights(name, bits):
+    """Every CONV of every section (the 448 net's 1x1s and stem, ci 3; all
+    of yolov3-tiny's at 416 and 64, its stem included) carries m16n8k16
+    fragments (``arena.pack_frags``) that, read back lane by lane, are its
+    OHWI weights flattened per output channel in (dy, dx, c) order, with co
+    zero-padded to a multiple of 8 and K to one of 16."""
+    F = arena.F
+    seen = set()
+    for s in _mma_plan(name, bits):
+        for d in s.descs:
+            if d[F["code"]] != arena.CONV:
+                continue
+            d = [int(v) for v in d]
+            co, kh, kw, ci = (d[F["out_c"]], d[F["kh"]], d[F["kw"]],
+                              d[F["in0_c"]])
+            k = kh * kw * ci
+            nt, ks = -(-co // 8), -(-k // arena.FRAG_K)
+            assert d[FRAG] % 16 == 0 and d[FRAG] > d[F["w_off"]]
+            raw = s.consts[d[FRAG]:d[FRAG] + nt * ks * 32 * 4]
+            got = _unpack_frags(raw.view(np.int8).reshape(nt, ks, 32, 4),
+                                co, k)
+            w = s.consts[d[F["w_off"]]:d[F["w_off"]] + co * k].view(np.int8)
+            want = np.zeros((nt * 8, ks * 16), np.int8)
+            want[:co, :k] = w.reshape(co, k)
+            np.testing.assert_array_equal(got, want)
+            seen.add((kh, kw, ci))
+    assert (3, 3, 3) in seen            # the stem
+
+
+SMOKE = importlib.util.spec_from_file_location(
+    "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+SMOKE_MOD = importlib.util.module_from_spec(SMOKE)
+SMOKE.loader.exec_module(SMOKE_MOD)
+SCRATCH_GRAPHS = {
+    "corpus448": lambda: retarget_spatial(load_tflite(CORPUS), 8),
+    "v3tiny64": lambda: TOOL.yolov3_tiny_graph(64, 8),
+    "pools": TOOL.pool_graph,
+    "surface": TOOL.surface_graph,
+}
+
+
+@pytest.mark.parametrize("bits", list(arena.BITS))
+@pytest.mark.parametrize("name", list(SCRATCH_GRAPHS))
+def test_section_arena_and_pool_scratch_fit_the_budget(name, bits):
+    """At every budget of ``chip_smoke.STRIP_BUDGETS`` that plans the
+    graph, in each bit semantics, every section's launch takes its strip
+    arena and, where the planner gave its max-pools a scratch, that
+    scratch (``arena.pool_scratch`` over its strips' rows) past the arena,
+    all within the budget; the scratch is given exactly where it fits."""
+    graph = SCRATCH_GRAPHS[name]()
+    planned = 0
+    for budget in SMOKE_MOD.STRIP_BUDGETS + (arena.ARENA_BUDGET,):
+        try:
+            stages = tiled.build_tiled_plan(graph, budget, bits)
+        except NotImplementedError:
+            continue
+        for s in stages:
+            if not isinstance(s, tiled.Section):
+                continue
+            planned += 1
+            scratch = arena.pool_scratch(s.descs, staged=False)
+            assert s.smem_bytes <= budget
+            if scratch and s.arena_bytes + scratch <= budget:
+                assert (s.scratch_off, s.smem_bytes) == (
+                    s.arena_bytes, s.arena_bytes + scratch)
+                assert s.scratch_off % 16 == 0
+            else:
+                assert (s.scratch_off, s.smem_bytes) == (0, s.arena_bytes)
+    assert planned
 
 
 def _unpack_mma(frags, co, kh, kw, ci):

@@ -19,10 +19,12 @@ runs ``python3 chip_smoke.py`` in ``DIR/parent``, ``DIR/this``,
 ``DIR/this``, ``DIR/parent`` (each run's output to
 ``OUT/smoke_<tree><k>.txt``; each must exit 0), then
 ``tools/torch_profile_pipeline.py --modes MODE`` once a tree for each
-``MODE`` (default ``arena2 arena fused``; ``OUT/prof_<tree>_<mode>.txt``),
-and prints, for every ``[time]`` figure that both trees' runs print (the
-first ``<number> ms`` of the line), each tree's mean of its two runs and
-the change, then each profile's whole-stage and by-kind lines.  Each tree
+``MODE`` (default ``arena2 arena fused``; a tiled mode as ``MODE@GRAPH``
+adds ``--tiled-graph GRAPH``, e.g. ``tiled2@yolov3-tiny``;
+``OUT/prof_<tree>_<mode>.txt``), and prints, for every ``[time]`` figure
+that both trees' runs print (the first ``<number> ms`` of the line), each
+tree's mean of its two runs and the change, then each profile's
+whole-stage, by-kind and per-section lines.  Each tree
 builds its kernels in its own ``build/``.  Imports no jax and nothing of
 the port.
 """
@@ -42,7 +44,8 @@ ORDER = (("parent", 1), ("this", 1), ("this", 2), ("parent", 2))
 SMOKE_LIMIT_S = 1200          # chip_smoke.py's own limit on the card
 PROFILE_LIMIT_S = 600
 _TIME = re.compile(r"^\[time\] (?P<key>[^:]+): (?:.*?)(?P<ms>\d+\.\d+) ms")
-_PROFILE = re.compile(r"^\[(arena|fused)\] (by kind|N=\d+: whole stage)")
+_PROFILE = re.compile(r"^\[(arena|fused)\] (by kind|N=\d+: whole stage)"
+                      r"|^\[sections\] |^ +\d+\.\d+ ms \( *\d+\.\d+%\)  section ")
 
 
 def prepare(parent: str, out: Path) -> None:
@@ -118,14 +121,18 @@ def run(trees: Path, out: Path, modes) -> None:
         runs[(tree, k)] = parse_times(text)
     for line in compare(runs):
         print(line, flush=True)
-    for mode in modes:
+    for spec in modes:
+        mode, _, graph = spec.partition("@")
+        args = ["--modes", mode] + (["--tiled-graph", graph] if graph else [])
         for tree in ("parent", "this"):
             text = _run([sys.executable, "tools/torch_profile_pipeline.py",
-                         "--modes", mode], trees / tree,
-                        out / f"prof_{tree}_{mode}.txt", PROFILE_LIMIT_S)
+                         *args], trees / tree,
+                        out / f"prof_{tree}_{mode}{'_' + graph if graph else ''}"
+                        ".txt", PROFILE_LIMIT_S)
             for line in text.splitlines():
                 if _PROFILE.match(line):
-                    print(f"[ab] profile {mode} {tree}: {line}", flush=True)
+                    print(f"[ab] profile {spec} {tree}: {line}",
+                          flush=True)
 
 
 def main(argv) -> int:

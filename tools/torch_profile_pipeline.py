@@ -8,8 +8,11 @@ Run from the repository root on a machine with a CUDA card:
         [--modes arena2 arena arena_exact tiled2 tiled_exact fused fused_exact
                  perop perop_exact]
 
-For each engine mode (default ``arena2``) it prints, each line with the
-card's name, power limit and SM clocks:
+It first prints each instantiation of the stage kernels (the arena and
+fused kernels' fast and exact ones, the section kernel's fast and exact
+ones and their k32 twins): registers a thread and local memory a thread
+(its stack frame, spills included).  Then, for each engine mode (default
+``arena2``), each line with the card's name, power limit and SM clocks:
 
   * pipeline: ``FacePipeline.detect_rgb565_device`` with the frames on the
     card (an arena mode), or the 448 net ``Int8Engine(retarget_spatial(corpus,
@@ -289,8 +292,29 @@ def section_breakdown(eng, x, card: str) -> None:
     for ms, k, st, ops in rows:
         print(f"  {ms:8.3f} ms ({ms / total:6.1%})  section {k} ops "
               f"[{st.start},{st.end}) {st.strips} strips of {st.unit}, "
-              f"{st.arena_bytes} B arena, recompute {st.recompute:.3f}: "
-              f"{' '.join(o for o in ops if o != 'copy')}")
+              f"{st.arena_bytes} B arena + {st.smem_bytes - st.arena_bytes} "
+              f"B pool scratch, recompute {st.recompute:.3f}, "
+              f"{st.mma_convs} convs on the tensor cores ({st.k32_convs} "
+              f"k32): {' '.join(o for o in ops if o != 'copy')}")
+
+
+def kernel_attrs() -> None:
+    """Registers and local bytes a thread of each stage kernel
+    instantiation, as ``cudaFuncGetAttributes`` reads them."""
+    from yoloface_tpu_torch.kernels import _build, arena
+    lib = _build.library()
+    calls = [(f"{k}<{'exact' if e else 'fast'}>", fn, (e,))
+             for k, fn in (("arena_stage_kernel", lib.yf_arena_stage_attrs),
+                           ("fused_stage_kernel", lib.yf_fused_stage_attrs))
+             for e in (0, 1)]
+    calls += [(f"tiled_section_kernel<{'exact' if e else 'fast'}"
+               f"{',k32' if k32 else ''}>", lib.yf_tiled_section_attrs,
+               (e, k32)) for k32 in (0, 1) for e in (0, 1)]
+    for name, fn, args in calls:
+        attrs = (ctypes.c_int * 4)()
+        _build.check(fn(*args, arena.THREADS, 0, attrs), f"{name} attributes")
+        print(f"[attrs] {name}: {attrs[0]} registers, {attrs[1]} B local "
+              "a thread", flush=True)
 
 
 def share_sweep(graph, mode: str, shares, x, card: str) -> None:
@@ -344,6 +368,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,clocks.max.sm",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+    kernel_attrs()
     for mode in args.modes:
         print(f"[mode] {mode}")
         if mode in TILED_BITS:

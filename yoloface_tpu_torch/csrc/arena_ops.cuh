@@ -23,11 +23,12 @@
 // copy_op, pad_op, table_op (standalone LEAKY_RELU, RELU / RELU6 clips,
 // LOGISTIC) and resize_op.  They take the same row origin and count as the
 // bodies above, so the arena and tiled kernels run them too; avgpool_op
-// runs in the arena and tiled kernels only.  The whole-frame kernels run
-// their marked convs, their depthwise convs on word views and their
-// max-pools on the bodies of stage_ops.cuh.  Each kernel's switch traps on
-// an op code it has no case for, so a code it lacks can never run as
-// another op.
+// runs in the arena and tiled kernels only.  The stage kernels (the
+// whole-frame ones and, since its redesign, the section kernel) run their
+// marked convs, their depthwise convs on word views and their max-pools
+// with a scratch on the bodies of stage_ops.cuh, which take the same row
+// origin and count.  Each kernel's switch traps on an op code it has no
+// case for, so a code it lacks can never run as another op.
 //
 // The byte-bound bodies (copy_op, table_op, resize_op, avgpool_op) move 16
 // bytes a thread where the views allow it: a dense view (cs == c) is one

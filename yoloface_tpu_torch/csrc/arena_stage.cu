@@ -64,19 +64,21 @@ __global__ void __launch_bounds__(yf::kStageThreads, yf::kStageBlocks)
       case yf::CONV:     // a marked conv on the tensor cores
         if (op.frag_off != 0) {
           yf::conv_table<(kMma | kConv) & yf::kTableEpis>(op);
-          yf::marked_conv_op<kMma, kConv, kExact>(op, in0, out, consts);
+          yf::marked_conv_op<kMma, kConv, kExact>(op, in0, 0, out, 0,
+                                                  op.out.h, consts);
         } else {
           yf::conv_op<false>(op, in0, 0, out, 0, op.out.h, consts);
         }
         break;
       case yf::DW:
         yf::conv_table<kDw & yf::kTableEpis>(op);
-        yf::dw_op<kDw, kExact>(op, in0, out, consts);
+        yf::dw_op<kDw, kExact>(op, in0, 0, out, 0, op.out.h, consts);
         break;
       case yf::MAXPOOL:  // no room for the scratch: the full-window body
         if (scratch_off != 0)
           yf::maxpool_words_op(
-              op, in0, out, reinterpret_cast<unsigned*>(arena + scratch_off));
+              op, in0, 0, out, 0, op.out.h,
+              reinterpret_cast<unsigned*>(arena + scratch_off));
         else
           yf::maxpool_op(op, in0, 0, out, 0, op.out.h);
         break;

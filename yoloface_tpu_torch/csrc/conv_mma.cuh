@@ -2,10 +2,12 @@
 // GEMM over the strip band, with mma.sync.aligned.m16n8k32.row.col.s32.s8.s8
 // .s32 (the fragment code of probe_conv.cu's MMA8 variant, B9.1).
 //
-// Replaces, for the CONV ops the tiled planner marks (kernels/tiled.py
-// MMA_MIN_K: not depthwise, ci a multiple of 16), the conv_op body of
-// arena_ops.cuh inside yoloface_tpu/kernels/pallas_tiled.py::
-// _build_tiled_section's counterpart (tiled_section.cu).  The product:
+// Replaces, for the CONV ops the tiled planner marks for it
+// (kernels/tiled.py MMA_MIN_K: not depthwise, ci a multiple of 16),
+// stage_ops.cuh's m16n8k16 conv bodies inside
+// yoloface_tpu/kernels/pallas_tiled.py::_build_tiled_section's counterpart
+// (tiled_section.cu): on yolov3-tiny's big-K convs it took 4.3x less time
+// (tools/torch_variant_sweep.py mma; PERF.md section 6).  The product:
 //  * M: the op's output pixels of the strip (rows x out.w), in m16 tiles;
 //    the last tile is ragged and its rows past the end are masked;
 //  * N: the output channels, in n8 tiles; the last is ragged (the 255
@@ -22,9 +24,11 @@
 // and W[n0 + g][k0 + 16 + 4t ..]), so a warp loads a fragment with one
 // coalesced 8-byte load a lane through the read-only cache; its offset is
 // the StripOp's mma_off.  Accumulators start at bias[co]; the store goes
-// through conv_epilogue, the switch every conv body uses, so fast2, fast
-// and exact bits are conv_op's by construction: int8 x int8 summed in int32
-// is exact in any order.
+// through stage_ops.cuh's epilogue<kEpi>, the op's epilogue (the section
+// kernel's k32 instantiations choose it once an op with by_epilogue, each
+// from its bit family's epilogues only), so fast2, fast and exact
+// bits are conv_op's by construction: int8 x int8 summed in int32 is exact
+// in any order.
 //
 // What bounds it on the card: the int8 tensor cores' rate bounds the
 // work, but this first version is held by its loads.  A warp item is one
@@ -40,6 +44,7 @@
 #include <cstdint>
 
 #include "arena_ops.cuh"
+#include "stage_ops.cuh"
 
 namespace yf {
 
@@ -61,11 +66,12 @@ __device__ __forceinline__ unsigned a_word(const int8_t* p) {
   return *reinterpret_cast<const unsigned*>(p);
 }
 
-// CONV + epilogue over output rows [oy0, oy0 + rows) on the tensor cores;
-// `in` holds the input's image rows from in_y0 on, `out` points at output
-// row oy0 (conv_op's contract).  All threads of the block take part: warp
-// w takes the warp items w, w + warps, ..., m16 tiles fastest, so the
-// warps at work at once share the B fragments of one n8 group.
+// CONV + epilogue kEpi over output rows [oy0, oy0 + rows) on the tensor
+// cores; `in` holds the input's image rows from in_y0 on, `out` points at
+// output row oy0 (conv_op's contract).  All threads of the block take
+// part: warp w takes the warp items w, w + warps, ..., m16 tiles fastest,
+// so the warps at work at once share the B fragments of one n8 group.
+template <int kEpi>
 static __device__ void conv_mma_op(const Op& op, const int8_t* in, int in_y0,
                                    int8_t* out, int oy0, int rows,
                                    const uint8_t* consts, int mma_off) {
@@ -141,7 +147,7 @@ static __device__ void conv_mma_op(const Op& op, const int8_t* in, int in_y0,
         const int p = e < 2 ? pa : pb;
         const int co = (n0 + j) * 8 + 2 * t + (e & 1);
         if (p < m_n && co < co_n)
-          out[p * op.out.cs + co] = conv_epilogue(
+          out[p * op.out.cs + co] = epilogue<kEpi>(
               op, acc[j][e], co,
               reinterpret_cast<const float*>(consts + op.s_off),
               reinterpret_cast<const int*>(consts + op.q_off));
@@ -149,5 +155,20 @@ static __device__ void conv_mma_op(const Op& op, const int8_t* in, int in_y0,
     }
   }
 }
+
+// conv_mma_op with the op's epilogue chosen once for the op (by_epilogue).
+struct ConvK32 {
+  const Op& op;
+  const int8_t* in;
+  int in_y0;
+  int8_t* out;
+  int oy0, rows;
+  const uint8_t* consts;
+  int mma_off;
+  template <int kEpi>
+  __device__ void run() const {
+    conv_mma_op<kEpi>(op, in, in_y0, out, oy0, rows, consts, mma_off);
+  }
+};
 
 }  // namespace yf

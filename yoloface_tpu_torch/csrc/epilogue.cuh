@@ -10,9 +10,10 @@
 //
 // What bounds these on the card: nothing of their own -- a few ALU ops per
 // output element inside the stage kernel (the exact MBQM: one 64-bit
-// multiply, two adds and two shifts; the whole-frame kernels' exact
-// instantiation takes mbqm32, its 32-bit halves, and reads the exact fused
-// leaky from a 256-entry table of leaky_exact: stage_ops.cuh).  What the
+// multiply, two adds and two shifts; the stage kernels' exact
+// instantiations, whole-frame and tiled, take mbqm32, its 32-bit halves,
+// and read the exact fused leaky from a 256-entry table of leaky_exact:
+// stage_ops.cuh).  What the
 // design does about bits:
 //  * fast: every product and sum is a separately rounded __fmul_rn /
 //    __fadd_rn (and the library builds with -fmad=false), so no FMA

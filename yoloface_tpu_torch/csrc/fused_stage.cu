@@ -68,14 +68,15 @@ __global__ void __launch_bounds__(yf::kStageThreads, yf::kStageBlocks)
       case yf::CONV:     // a marked conv on the tensor cores
         if (op.frag_off != 0) {
           yf::conv_table<(kMma | kConv) & yf::kTableEpis>(op);
-          yf::marked_conv_op<kMma, kConv, kExact>(op, in0, out, consts);
+          yf::marked_conv_op<kMma, kConv, kExact>(op, in0, 0, out, 0,
+                                                  op.out.h, consts);
         } else {
           yf::conv_op<false>(op, in0, 0, out, 0, op.out.h, consts);
         }
         break;
       case yf::DW:
         yf::conv_table<kDw & yf::kTableEpis>(op);
-        yf::dw_op<kDw, kExact>(op, in0, out, consts);
+        yf::dw_op<kDw, kExact>(op, in0, 0, out, 0, op.out.h, consts);
         break;
       case yf::MAXPOOL: {  // a per-op input staged first, then the scratch
         int8_t* scratch = smem + scratch_off;
@@ -83,7 +84,7 @@ __global__ void __launch_bounds__(yf::kStageThreads, yf::kStageBlocks)
           in0 = yf::stage_view(op, in0, scratch);
           scratch += yf::staged_bytes(op.in0.h * op.in0.w * op.in0.cs);
         }
-        yf::maxpool_words_op(op, in0, out,
+        yf::maxpool_words_op(op, in0, 0, out, 0, op.out.h,
                              reinterpret_cast<unsigned*>(scratch));
         break;
       }

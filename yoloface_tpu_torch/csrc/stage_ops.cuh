@@ -1,7 +1,13 @@
-// The conv and max-pool bodies of the whole-frame stage kernels
-// (arena_stage.cu and fused_stage.cu, which also runs the per-op programs);
-// the tiled section kernel does not include this header and keeps
-// arena_ops.cuh's conv_op and maxpool_op.
+// The conv and max-pool bodies of the stage kernels: the whole-frame ones
+// (arena_stage.cu and fused_stage.cu, which also runs the per-op programs)
+// and, since the section kernel's redesign, the tiled section kernel
+// (tiled_section.cu).  Each body takes conv_op's contract
+// (arena_ops.cuh): `in` holds the input's image rows from `in_y0` on,
+// `out` points at output row `oy0`, and the body computes `rows` rows; the
+// whole-frame kernels call with (0, 0, out.h), the section kernel with a
+// strip's rows.  Each body first moves `in` back to where image row 0
+// would lie (rows before in_y0 are never read), so the image-row
+// arithmetic below serves a frame and a strip alike.
 //
 // marked_conv_op: a CONV that the planners mark (kernels/arena.py
 // mark_mma: every CONV of a whole-frame program, 1x1 or a full window) on
@@ -9,9 +15,10 @@
 // kernel runs these convs on the MXU in its own body
 // (yoloface_tpu/kernels/pallas_arena.py:358, :384; the stem as im2col with
 // one int8 dot an output position, :398-440).  An implicit GEMM:
-//  * M: the output pixels of the frame (784, 196 or 49 in the corpus net),
-//    in m16 tiles; the last is ragged, its rows past the end read 0 and
-//    are not stored;
+//  * M: the output pixels of the rows computed (784, 196 or 49 in the
+//    corpus net's frames; a strip's rows x out.w in a section), in m16
+//    tiles; the last is ragged, its rows past the end read 0 and are not
+//    stored;
 //  * N: the output channels (4 to 40), in n8 tiles; the last is masked on
 //    store;
 //  * K: kh * kw * ci in (dy, dx, c) order (ci = 4 to 48 for the 1x1s, 27
@@ -51,9 +58,9 @@
 //
 // maxpool_words_op: a max-pool on 4-channel words, a row pass and a
 // column pass through a scratch after the values (the fused kernel's
-// scratch_off; the arena kernel's past the arena where the block's shared
-// memory has room, else it keeps maxpool_op), __vmaxs4 on words at any
-// byte alignment.
+// scratch_off; the arena and section kernels' past the arena where the
+// block's shared memory has room, else they keep maxpool_op), __vmaxs4 on
+// words at any byte alignment.
 //
 // What bounds them on the card: conv_op paid a shared-memory byte and a
 // weight byte through __ldg a MAC, with a bounds test per tap and two
@@ -64,13 +71,12 @@
 // kernels keep their 64 registers (4 blocks an SM): wider warp items, a
 // k32 step, 8 channels a depthwise thread and every epilogue compiled in
 // lost or spilled, and a max-pool walking down the rows with the window
-// rows in registers lost to the row and column passes
-// (tools/torch_variant_sweep.py arena_mma, dw4, stem_mma, pool; PERF.md
-// section 6).
+// rows in registers lost to the row and column passes (the sweeps of PRs
+// 12-13, PERF.md section 6).
 //
 // The exact epilogues (the counterpart of the exact branch of
 // yoloface_tpu/kernels/pallas_int8.py::apply_requant_leaky, :342-396):
-// each whole-frame kernel is built twice, a template on its bit family:
+// each stage kernel is built twice, a template on its bit family:
 // the fast instantiation with the fast sets below, and the exact one with
 // kExactEpis in every body and no other epilogue (one outside it traps).
 // The host launches the exact one for a program whose convs all carry
@@ -99,20 +105,23 @@ namespace yf {
 // The epilogues (bit kEpi set) for which each body is compiled with its
 // epilogue known (epilogue<kEpi>: no per-element switch, and the
 // elements' epilogues interleave); the others take conv_epilogue at run
-// time.  Interleaving takes registers, so each kernel's fast
+// time.  Interleaving takes registers, so each whole-frame kernel's fast
 // instantiation has its own sets, the largest that keep it at 64
-// registers without a spill, chosen by tools/torch_variant_sweep.py
-// arena_mma, fused_mma and stem_mma (PERF.md section 6): the arena kernel
-// (fast2 and fast bits) compiles the fast epilogues into its 1x1 body and
-// the fast2 fused leaky (v2) into its depthwise and full-window bodies;
-// the fused kernel (fast bits) the fast ones (requant, v1 fused leaky)
-// into its 1x1 and depthwise bodies and the v1 fused leaky into its
-// full-window body (the stem's epilogue in its fast bits).  With more,
-// both spill.  The exact instantiations compile kExactEpis into every
-// body and nothing else (tools/torch_variant_sweep.py exact_epi).
+// registers without a spill, chosen by earlier variant sweeps (PERF.md
+// section 6; the sweep modes went with the bodies they rejected).  The
+// arena kernel (fast2 and fast bits) compiles the fast epilogues into its
+// 1x1 body and the fast2 fused leaky (v2) into its depthwise and
+// full-window bodies; the fused kernel (fast bits) the fast ones
+// (requant, v1 fused leaky) into its 1x1 and depthwise bodies and the v1
+// fused leaky into its full-window body (the stem's epilogue in its fast
+// bits).  With more, both spill.  The section kernel (tiled_section.cu)
+// compiles kFastEpis into every body of its fast instantiation and no
+// run-time choice: conv_epilogue's exact cases in its run-time path made
+// it spill at its launch bound (PERF.md section 6).  The exact
+// instantiations compile kExactEpis into every body and nothing else.
 constexpr unsigned kV1Epis = (1u << EPI_REQUANT) | (1u << EPI_LEAKY_V1);
 constexpr unsigned kFastEpis = kV1Epis | (1u << EPI_LEAKY_V2);
-// the exact instantiation's set, in every body of both kernels
+// the exact instantiation's set, in every body of every stage kernel
 constexpr unsigned kExactEpis =
     (1u << EPI_REQUANT_EXACT) | (1u << EPI_LEAKY_EXACT);
 constexpr unsigned kArenaMmaEpis = kFastEpis;          // arena_stage.cu
@@ -124,41 +133,32 @@ constexpr unsigned kFusedDwEpis = kV1Epis;
 // the fused conv+leaky epilogues whose leaky half a body with its epilogue
 // known reads from the op's table: the exact one (the second MBQM took
 // 25-28% more stage time) and the fast v1 one (2-5% less than its second
-// rounding in floats; tools/torch_variant_sweep.py exact_epi, PERF.md
-// section 6)
+// rounding in floats; PERF.md section 6)
 constexpr unsigned kTableEpis = (1u << EPI_LEAKY_EXACT) | (1u << EPI_LEAKY_V1);
-// the exact epilogues' MBQM: mbqm32 (32-bit halves) or mbqm (64-bit, 0-9%
-// more time on the exact stages and per-op convs: the sweep above)
-constexpr bool kMbqm32 = true;
-// the whole-frame kernels' launch bounds: kernels/arena.py THREADS a
-// block, and the fewest blocks an SM their registers must allow (4: 64
-// registers, as the kernels had before these bodies; the corpus arena's
-// 23,520 B would let 9 share an SM; tools/torch_variant_sweep.py
-// arena_mma)
+// the stage kernels' launch bounds: kernels/arena.py THREADS a block, and
+// the fewest blocks an SM their registers must allow (4: 64 registers, as
+// the kernels had before these bodies; the corpus arena's 23,520 B would
+// let 9 share an SM; PERF.md section 6); the section kernel has its own
+// (tiled_section.cu kSectionBlocks)
 constexpr int kStageThreads = 256;
 constexpr int kStageBlocks = 4;
 
 // kEpi for an epilogue chosen element by element at run time
 constexpr int kAnyEpi = -1;
 
-// The whole-frame kernels' 256-entry table of the op running: a standalone
+// The stage kernels' 256-entry table of the op running: a standalone
 // LEAKY / RELU / RELU6 / LOGISTIC (stage_table_op), or the leaky half of a
 // fused conv+leaky whose epilogue is in kTableEpis (conv_table).  One
 // static array serves both, so the kernels' static shared memory stays
 // kTableBytes (kernels/arena.py TABLE_BYTES).
 static __shared__ int8_t stage_lut[kTableBytes];
 
-__device__ __forceinline__ int stage_mbqm(int x, int qm, int shift) {
-  if constexpr (kMbqm32)
-    return mbqm32(x, qm, shift);
-  else
-    return mbqm(x, qm, shift);
-}
-
-// The epilogue kEpi, or conv_epilogue's run-time choice at kAnyEpi.  The
-// exact requant is one MBQM (stage_mbqm), the exact fused leaky one MBQM
-// and a byte of stage_lut (as is the v1 one where kTableEpis holds it);
-// the others are conv_epilogue_as's.
+// The epilogue kEpi, or conv_epilogue's run-time choice at kAnyEpi (only
+// the whole-frame kernels' fast instantiations compile a body for it).  The exact requant
+// is one MBQM (mbqm32: its 32-bit halves; the 64-bit mbqm took 0-9% more
+// time on the exact stages and per-op convs, PERF.md section 6), the
+// exact fused leaky one MBQM and a byte of stage_lut (as is the v1 one
+// where kTableEpis holds it); the others are conv_epilogue_as's.
 template <int kEpi>
 __device__ __forceinline__ int8_t epilogue(const Op& op, int acc, int co,
                                            const float* scale,
@@ -167,13 +167,13 @@ __device__ __forceinline__ int8_t epilogue(const Op& op, int acc, int co,
     return conv_epilogue(op, acc, co, scale, qms);
   } else if constexpr (kEpi == EPI_REQUANT_EXACT) {
     return static_cast<int8_t>(clip_i8(
-        stage_mbqm(acc, __ldg(qms + co), __ldg(qms + op.out.c + co)) +
+        mbqm32(acc, __ldg(qms + co), __ldg(qms + op.out.c + co)) +
         op.zp_out));
   } else if constexpr (((kTableEpis >> kEpi) & 1u) != 0) {
     const int r =                // the conv's int8 output, then the table
         kEpi == EPI_LEAKY_EXACT
-            ? clip_i8(stage_mbqm(acc, __ldg(qms + co),
-                                 __ldg(qms + op.out.c + co)) + op.conv_zp)
+            ? clip_i8(mbqm32(acc, __ldg(qms + co),
+                             __ldg(qms + op.out.c + co)) + op.conv_zp)
             : requant_fast(acc, __ldg(scale + co), op.conv_zp);
     return stage_lut[static_cast<uint8_t>(r)];
   } else {
@@ -303,17 +303,19 @@ __device__ __forceinline__ void store_item(const Op& op, int8_t* out,
   }
 }
 
-// A marked 1x1 CONV + epilogue kEpi (the op's) over the whole frame on the
-// tensor cores; `in` and `out` point at the views' first bytes.  All
-// threads of the block take part: warp w takes the warp items w, w +
-// warps, ..., m16 tiles fastest.  A lane stores its two channels of a row
-// as one 16-bit word where the output view allows.
+// A marked 1x1 CONV + epilogue kEpi (the op's) over output rows [oy0, oy0
+// + rows) on the tensor cores (conv_op's contract).  All threads of the
+// block take part: warp w takes the warp items w, w + warps, ..., m16
+// tiles fastest.  A lane stores its two channels of a row as one 16-bit
+// word where the output view allows.
 template <int kEpi>
 static __device__ void conv1x1_mma_body(const Op& op, const int8_t* in,
-                                        int8_t* out, const uint8_t* consts) {
+                                        int in_y0, int8_t* out, int oy0,
+                                        int rows, const uint8_t* consts) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int ow = op.out.w, co_n = op.out.c, ci = op.in0.c, cs = op.in0.cs;
-  const int m_n = op.out.h * ow;                           // output pixels
+  const int m_n = rows * ow;                               // output pixels
+  in -= in_y0 * op.in0.w * cs;                             // image row 0
   const int mt = (m_n + 15) >> 4;                          // m16 tiles
   const int nt = (co_n + 7) >> 3;                          // n8 tiles
   const int ks = (ci + 15) >> 4;                           // k16 steps
@@ -322,7 +324,8 @@ static __device__ void conv1x1_mma_body(const Op& op, const int8_t* in,
       static_cast<unsigned>(static_cast<uint8_t>(op.fill)) * 0x01010101u;
   const unsigned* frag =
       reinterpret_cast<const unsigned*>(consts + op.frag_off) + lane;
-  // a 1x1 at stride 1 without a pad reads pixel p of the input at p * cs
+  // a 1x1 at stride 1 without a pad reads pixel p of the rows at (oy0 * ow
+  // + p) * cs
   const bool direct = op.sh == 1 && op.sw == 1 && op.pt == 0 &&
                       op.pl == 0 && op.in0.w == ow && op.in0.h >= op.out.h;
   const bool pairs =            // channels 2t, 2t + 1 as one 16-bit store
@@ -348,10 +351,10 @@ static __device__ void conv1x1_mma_body(const Op& op, const int8_t* in,
       if (p >= m_n) {
         off[h] = -2;
       } else if (direct) {
-        off[h] = p * cs;
+        off[h] = (oy0 * ow + p) * cs;
       } else {
         const int oy = p / ow, ox = p - oy * ow;
-        const int iy = oy * op.sh - op.pt, ix = ox * op.sw - op.pl;
+        const int iy = (oy0 + oy) * op.sh - op.pt, ix = ox * op.sw - op.pl;
         off[h] = (iy < 0 || iy >= op.in0.h || ix < 0 || ix >= op.in0.w)
                      ? -1
                      : (iy * op.in0.w + ix) * cs;
@@ -376,11 +379,13 @@ static __device__ void conv1x1_mma_body(const Op& op, const int8_t* in,
 struct Conv1x1Mma {
   const Op& op;
   const int8_t* in;
+  int in_y0;
   int8_t* out;
+  int oy0, rows;
   const uint8_t* consts;
   template <int kEpi>
   __device__ void run() const {
-    conv1x1_mma_body<kEpi>(op, in, out, consts);
+    conv1x1_mma_body<kEpi>(op, in, in_y0, out, oy0, rows, consts);
   }
 };
 
@@ -420,7 +425,8 @@ __device__ __forceinline__ bool k_tap(int k, int k_n, int ci, int kw,
 }
 
 // A marked CONV with a kh x kw window (kh * kw > 1) + epilogue kEpi (the
-// op's) over the whole frame on the tensor cores, an implicit GEMM: the 1x1
+// op's) over output rows [oy0, oy0 + rows) on the tensor cores (conv_op's
+// contract), an implicit GEMM: the 1x1
 // body's warp items, A rows and B fragments, with K = kh * kw * ci in (dy,
 // dx, c) order, zero-padded to k16 steps.  A lane's K positions k = 16 s +
 // 4 t + b are the same for every pixel: at each step it finds their taps
@@ -434,12 +440,14 @@ __device__ __forceinline__ bool k_tap(int k, int k_n, int ci, int kw,
 // 3, a word spans taps) it is gathered byte by byte.
 template <int kEpi>
 static __device__ void conv_mma_body(const Op& op, const int8_t* in,
-                                     int8_t* out, const uint8_t* consts) {
+                                     int in_y0, int8_t* out, int oy0,
+                                     int rows, const uint8_t* consts) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int ow = op.out.w, co_n = op.out.c, ci = op.in0.c, cs = op.in0.cs;
   const int in_h = op.in0.h, in_w = op.in0.w, kh = op.kh, kw = op.kw;
   const int k_n = kh * kw * ci;                            // K
-  const int m_n = op.out.h * ow;                           // output pixels
+  const int m_n = rows * ow;                               // output pixels
+  in -= in_y0 * in_w * cs;                                 // image row 0
   const int mt = (m_n + 15) >> 4;                          // m16 tiles
   const int nt = (co_n + 7) >> 3;                          // n8 tiles
   const int ks = (k_n + 15) >> 4;                          // k16 steps
@@ -471,7 +479,7 @@ static __device__ void conv_mma_body(const Op& op, const int8_t* in,
     for (int h = 0; h < 2; ++h) {
       const int p = m0 + g + 8 * h;
       const int oy = p / ow, ox = p - oy * ow;
-      y0[h] = oy * op.sh - op.pt;
+      y0[h] = (oy0 + oy) * op.sh - op.pt;
       x0[h] = ox * op.sw - op.pl;
       live[h] = p < m_n;
       inside[h] = live[h] && y0[h] >= 0 && y0[h] + kh <= in_h &&
@@ -513,15 +521,18 @@ static __device__ void conv_mma_body(const Op& op, const int8_t* in,
 struct ConvMma {
   const Op& op;
   const int8_t* in;
+  int in_y0;
   int8_t* out;
+  int oy0, rows;
   const uint8_t* consts;
   template <int kEpi>
   __device__ void run() const {
-    conv_mma_body<kEpi>(op, in, out, consts);
+    conv_mma_body<kEpi>(op, in, in_y0, out, oy0, rows, consts);
   }
 };
 
-// A marked CONV over the whole frame on the tensor cores: a 1x1 window
+// A marked CONV over output rows [oy0, oy0 + rows) on the tensor cores
+// (conv_op's contract): a 1x1 window
 // takes conv1x1_mma_body (epilogues kEpis1x1 compiled in), a full window
 // conv_mma_body (kEpisFull); kOnly: those epilogues only (by_epilogue).
 // conv_mma_body computes a 1x1 too, but with it on the corpus 1x1s every
@@ -530,11 +541,14 @@ struct ConvMma {
 // (tools/torch_variant_sweep.py bodies; PERF.md section 6).
 template <unsigned kEpis1x1, unsigned kEpisFull, bool kOnly = false>
 static __device__ void marked_conv_op(const Op& op, const int8_t* in,
-                                      int8_t* out, const uint8_t* consts) {
+                                      int in_y0, int8_t* out, int oy0,
+                                      int rows, const uint8_t* consts) {
   if (op.kh == 1 && op.kw == 1)
-    by_epilogue<kEpis1x1, kOnly>(op.epi, Conv1x1Mma{op, in, out, consts});
+    by_epilogue<kEpis1x1, kOnly>(
+        op.epi, Conv1x1Mma{op, in, in_y0, out, oy0, rows, consts});
   else
-    by_epilogue<kEpisFull, kOnly>(op.epi, ConvMma{op, in, out, consts});
+    by_epilogue<kEpisFull, kOnly>(
+        op.epi, ConvMma{op, in, in_y0, out, oy0, rows, consts});
 }
 
 // acc[b] += signed byte b of x times signed byte b of w, b = 0..3
@@ -545,14 +559,16 @@ __device__ __forceinline__ void mac4(int* acc, unsigned x, unsigned w) {
               static_cast<int>(static_cast<int8_t>(w >> (8 * b)));
 }
 
-// 3x3 depthwise conv + epilogue kEpi (the op's) over the whole frame, a
-// thread owning the channel word [4 q, 4 q + 4) for every pixel it takes.
+// 3x3 depthwise conv + epilogue kEpi (the op's) over output rows [oy0, oy0
+// + rows) (conv_op's contract), a thread owning the channel word [4 q, 4 q
+// + 4) for every pixel it takes.
 // The caller guarantees that the input view's first byte, channel stride
 // and channel count are multiples of 4 and that the block has a thread
 // for each word.
 template <int kEpi>
 static __device__ void dw3x3_words_op(const Op& op, const int8_t* in,
-                                      int8_t* out, const uint8_t* consts) {
+                                      int in_y0, int8_t* out, int oy0,
+                                      int rows, const uint8_t* consts) {
   const int c_n = op.out.c, nq = c_n >> 2;
   const int lanes = blockDim.x / nq;          // pixels walked at once
   const int q = threadIdx.x % nq, lane = threadIdx.x / nq;
@@ -569,8 +585,9 @@ static __device__ void dw3x3_words_op(const Op& op, const int8_t* in,
   int b[4];
 #pragma unroll
   for (int j = 0; j < 4; ++j) b[j] = __ldg(bias + j);
-  const int ow = op.out.w, m_n = op.out.h * ow;
+  const int ow = op.out.w, m_n = rows * ow;
   const int in_h = op.in0.h, in_w = op.in0.w, cs = op.in0.cs;
+  in -= in_y0 * in_w * cs;                    // image row 0
   const unsigned fill =
       static_cast<unsigned>(static_cast<uint8_t>(op.fill)) * 0x01010101u;
   const bool out_words =
@@ -578,6 +595,7 @@ static __device__ void dw3x3_words_op(const Op& op, const int8_t* in,
   // pixel p = oy * ow + ox, stepped by lanes = dy * ow + dx
   const int dy = lanes / ow, dx = lanes - dy * ow;
   int oy = lane / ow, ox = lane - oy * ow;
+  oy += oy0;
   for (int p = lane; p < m_n; p += lanes, oy += dy, ox += dx) {
     if (ox >= ow) ox -= ow, ++oy;
     const int y0 = oy * op.sh - op.pt, x0 = ox * op.sw - op.pl;
@@ -621,30 +639,34 @@ static __device__ void dw3x3_words_op(const Op& op, const int8_t* in,
 struct Dw3x3Words {
   const Op& op;
   const int8_t* in;
+  int in_y0;
   int8_t* out;
+  int oy0, rows;
   const uint8_t* consts;
   template <int kEpi>
   __device__ void run() const {
-    dw3x3_words_op<kEpi>(op, in, out, consts);
+    dw3x3_words_op<kEpi>(op, in, in_y0, out, oy0, rows, consts);
   }
 };
 
-// A depthwise conv + epilogue kEpi over the whole frame, an output byte a
-// thread step: conv_op<true>'s loop (the same taps, fill and int32 sum)
-// storing through epilogue<kEpi>.
+// A depthwise conv + epilogue kEpi over output rows [oy0, oy0 + rows)
+// (conv_op's contract), an output byte a thread step: conv_op<true>'s loop
+// (the same taps, fill and int32 sum) storing through epilogue<kEpi>.
 template <int kEpi>
-static __device__ void dw_bytes_op(const Op& op, const int8_t* in,
-                                   int8_t* out, const uint8_t* consts) {
+static __device__ void dw_bytes_op(const Op& op, const int8_t* in, int in_y0,
+                                   int8_t* out, int oy0, int rows,
+                                   const uint8_t* consts) {
   const int8_t* w = reinterpret_cast<const int8_t*>(consts + op.w_off);
   const int* bias = reinterpret_cast<const int*>(consts + op.b_off);
   const float* scale = reinterpret_cast<const float*>(consts + op.s_off);
   const int* qms = reinterpret_cast<const int*>(consts + op.q_off);
   const int co_n = op.out.c;
-  const int total = op.out.h * op.out.w * co_n;
+  const int total = rows * op.out.w * co_n;
+  in -= in_y0 * op.in0.w * op.in0.cs;         // image row 0
   for (int e = threadIdx.x; e < total; e += blockDim.x) {
     const int co = e % co_n;
     const int p = e / co_n;
-    const int ox = p % op.out.w, oy = p / op.out.w;
+    const int ox = p % op.out.w, oy = oy0 + p / op.out.w;
     int acc = __ldg(bias + co);
     for (int dy = 0; dy < op.kh; ++dy) {
       const int iy = oy * op.sh - op.pt + dy;
@@ -665,34 +687,40 @@ static __device__ void dw_bytes_op(const Op& op, const int8_t* in,
 struct DwBytes {
   const Op& op;
   const int8_t* in;
+  int in_y0;
   int8_t* out;
+  int oy0, rows;
   const uint8_t* consts;
   template <int kEpi>
   __device__ void run() const {
-    dw_bytes_op<kEpi>(op, in, out, consts);
+    dw_bytes_op<kEpi>(op, in, in_y0, out, oy0, rows, consts);
   }
 };
 
-// DW + epilogue over the whole frame: a 3x3 window on a view of 4-byte
+// DW + epilogue over output rows [oy0, oy0 + rows) (conv_op's contract): a
+// 3x3 window on a view of 4-byte
 // channel words (its first byte, channel stride and channel count
 // multiples of 4, at most 4 channels a thread of the block) takes
 // dw3x3_words_op (Dw3x3Words; the op's epilogue chosen once where kEpis
-// holds it); any other takes conv_op<true>, or with kOnly (the exact
-// instantiation: kEpis only, by_epilogue) dw_bytes_op the same way.
+// holds it); any other takes conv_op<true>, or with kOnly (kEpis only,
+// by_epilogue) dw_bytes_op the same way.
 template <unsigned kEpis, bool kOnly = false>
-static __device__ void dw_op(const Op& op, const int8_t* in, int8_t* out,
+static __device__ void dw_op(const Op& op, const int8_t* in, int in_y0,
+                             int8_t* out, int oy0, int rows,
                              const uint8_t* consts) {
   const int c_n = op.out.c;
   if (op.kh != 3 || op.kw != 3 || c_n > 4 * static_cast<int>(blockDim.x) ||
       ((addr(in) | static_cast<uintptr_t>(op.in0.cs) |
         static_cast<uintptr_t>(c_n)) & 3) != 0) {
     if constexpr (kOnly)
-      by_epilogue<kEpis, true>(op.epi, DwBytes{op, in, out, consts});
+      by_epilogue<kEpis, true>(
+          op.epi, DwBytes{op, in, in_y0, out, oy0, rows, consts});
     else
-      conv_op<true>(op, in, 0, out, 0, op.out.h, consts);
+      conv_op<true>(op, in, in_y0, out, oy0, rows, consts);
     return;
   }
-  by_epilogue<kEpis, kOnly>(op.epi, Dw3x3Words{op, in, out, consts});
+  by_epilogue<kEpis, kOnly>(
+      op.epi, Dw3x3Words{op, in, in_y0, out, oy0, rows, consts});
 }
 
 // The max of input row iy over the kw taps from column x0 of the channel
@@ -713,13 +741,14 @@ __device__ __forceinline__ unsigned pool_row(const Op& op, const int8_t* in,
   return m;
 }
 
-// MAX_POOL over the whole frame on words of 4 channels (the last word of a
-// pixel holds c % 4 of them where 4 does not divide c), separably: a row
-// pass takes the horizontal max over the kw taps of each of the (oh - 1) *
-// sh + kh input rows the windows span, at each output column, into
-// `scratch` (kernels/arena.py pool_scratch: that many rows of ow words a
-// channel word); a column pass takes the max over kh of those rows for
-// each output pixel.  Every thread of the block takes (row or pixel,
+// MAX_POOL over output rows [oy0, oy0 + rows) (conv_op's contract) on words
+// of 4 channels (the last word of a pixel holds c % 4 of them where 4 does
+// not divide c), separably: a row pass takes the horizontal max over the
+// kw taps of each of the (rows - 1) * sh + kh input rows the windows span,
+// from image row oy0 * sh - pt on, at each output column, into `scratch`
+// (kernels/arena.py pool_scratch: that many rows of ow words a channel
+// word); a column pass takes the max over kh of those rows for each output
+// pixel.  Every thread of the block takes (row or pixel,
 // channel word) items.  __vmaxs4 compares 4 channels at once, kw + kh
 // compares a word against maxpool_op's kh * kw byte loads an output byte;
 // words at any byte alignment (cs = 18, a view one byte in) are
@@ -727,18 +756,21 @@ __device__ __forceinline__ unsigned pool_row(const Op& op, const int8_t* in,
 // is the fill, as every tap of it is in maxpool_op: the same compares,
 // the bits of maxpool_op.
 static __device__ void maxpool_words_op(const Op& op, const int8_t* in,
-                                        int8_t* out, unsigned* scratch) {
+                                        int in_y0, int8_t* out, int oy0,
+                                        int rows, unsigned* scratch) {
   const int c_n = op.out.c, nq = (c_n + 3) >> 2, ow = op.out.w;
-  const int oh = op.out.h, n_rows = (oh - 1) * op.sh + op.kh;
+  const int n_rows = (rows - 1) * op.sh + op.kh;
+  const int iy0 = oy0 * op.sh - op.pt;        // the first row's image row
   const unsigned fill =
       static_cast<unsigned>(static_cast<uint8_t>(op.fill)) * 0x01010101u;
+  in -= in_y0 * op.in0.w * op.in0.cs;         // image row 0
   for (int e = threadIdx.x; e < n_rows * ow * nq; e += blockDim.x) {
     const int q = e % nq, r = e / nq, ox = r % ow, row = r / ow;
-    scratch[e] = pool_row(op, in, row - op.pt, ox * op.sw - op.pl, 4 * q,
+    scratch[e] = pool_row(op, in, iy0 + row, ox * op.sw - op.pl, 4 * q,
                           min(4, c_n - 4 * q), fill);
   }
   __syncthreads();
-  for (int e = threadIdx.x; e < oh * ow * nq; e += blockDim.x) {
+  for (int e = threadIdx.x; e < rows * ow * nq; e += blockDim.x) {
     const int q = e % nq, p = e / nq, ox = p % ow, oy = p / ow;
     const unsigned* col = scratch + (oy * op.sh * ow + ox) * nq + q;
     unsigned m = col[0];

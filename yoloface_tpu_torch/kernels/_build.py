@@ -41,11 +41,13 @@ SIGNATURES = {
     #  smem_bytes, scratch_off, threads, exact instantiation, stream)
     "yf_arena_stage": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # (descs, n_ops, consts, host ptr table, n_globals, n_frames, strips,
-    #  arena_bytes, threads, mma instantiation, stream)
-    "yf_tiled_section": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # (mma instantiation, int out[3]: registers, local bytes, static
-    #  shared bytes)
-    "yf_tiled_section_attrs": [_I, _P],
+    #  smem_bytes, scratch_off, threads, exact instantiation, k32
+    #  instantiation, stream)
+    "yf_tiled_section": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _P],
+    # (exact, k32, threads, dynamic shared bytes, int out[4]: registers,
+    #  local bytes, static shared bytes, blocks an SM)
+    "yf_tiled_section_attrs": [_I, _I, _I, _I, _P],
     # (descs, n_ops, consts, host ptr table, n_globals, n_frames,
     #  smem_bytes, scratch_off, threads, exact instantiation, stream)
     "yf_fused_stage": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P],

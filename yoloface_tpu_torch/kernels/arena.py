@@ -707,9 +707,11 @@ def mark_mma(st: Stage) -> Stage:
 
 
 def pool_scratch(descs: np.ndarray, staged: bool = True) -> int:
-    """The shared memory the max-pools of a whole-frame program take
+    """The shared memory the max-pools of a program take
     (``csrc/stage_ops.cuh`` maxpool_words_op): the row pass's (oh - 1) *
-    sh + kh rows of ow 4-channel words a channel word; with ``staged``
+    sh + kh rows of ow 4-channel words a channel word, oh the output rows
+    an op computes (a whole frame's, or at most its band's in a strip
+    program); with ``staged``
     (the fused-stage kernel, which runs the fused and per-op programs),
     after a copy of the input (``stage_view``: its bytes and up to 15
     before them, rounded up to 16) where it lies in device memory; the
@@ -718,7 +720,10 @@ def pool_scratch(descs: np.ndarray, staged: bool = True) -> int:
     for d in descs:
         if d[F["code"]] == MAXPOOL:
             d = [int(v) for v in d]
-            rows = (d[F["out_h"]] - 1) * d[F["sh"]] + d[F["kh"]]
+            oh = d[F["out_h"]]
+            if len(d) > OP_INTS:            # a strip program's band
+                oh = min(oh, d[F["out_rows"]])
+            rows = (oh - 1) * d[F["sh"]] + d[F["kh"]]
             copy = ((d[F["in0_h"]] * d[F["in0_w"]] * d[F["in0_cs"]] + 31)
                     & ~15 if staged and d[F["in0_space"]] else 0)
             need = max(need, copy
@@ -726,17 +731,18 @@ def pool_scratch(descs: np.ndarray, staged: bool = True) -> int:
     return -(-need // _ALIGN) * _ALIGN
 
 
-def stage_smem(stage: Stage) -> Tuple[int, int]:
-    """(the dynamic shared memory of an arena stage's launch, the offset
-    of its max-pools' scratch): the arena, then the scratch where the
-    block's shared memory has room for both; else the arena alone and 0,
+def stage_smem(stage: Stage, budget: int = ARENA_BUDGET) -> Tuple[int, int]:
+    """(the dynamic shared memory of an arena stage's (or a strip
+    program's) launch, the offset of its max-pools' scratch): the arena,
+    then the scratch where ``budget`` has room for both; else the arena
+    alone and 0,
     and the kernel runs the max-pools' full-window body (yolov3-tiny at
     96x96: an arena of 211,968 B, a scratch of 73,728 B).  The arena
     kernel reads a pool's input where it lies and stages nothing.  The
     scratch can cost blocks an SM where the arena is large (PERF.md
     section 7)."""
     scratch = pool_scratch(stage.descs, staged=False)
-    if scratch and stage.arena_bytes + scratch <= ARENA_BUDGET:
+    if scratch and stage.arena_bytes + scratch <= budget:
         return stage.arena_bytes + scratch, stage.arena_bytes
     return stage.arena_bytes, 0
 

@@ -30,28 +30,40 @@ so every op runs tiled.  The plan:
   * strips are cut at ``u`` rows of the section's coarsest tensor (``u *
     r`` rows of a tensor ``r`` times taller); section outputs go to device
     memory as int8 NHWC, each strip writing the rows it owns;
-  * the strip height: the largest ``u`` whose strip arena fits a quarter
-    of ``budget`` (four blocks an SM, which the register count allows),
-    else the largest that fits ``budget``;
+  * the strip height: the largest ``u`` whose strip arena fits
+    ``budget / TARGET_SHARE`` (as many blocks an SM as the section
+    kernel's registers allow), else the largest that fits ``budget``;
+  * the max-pools' scratch (the row pass of ``csrc/stage_ops.cuh``
+    maxpool_words_op over a strip's rows, ``arena.pool_scratch``) goes
+    past the strip arena wherever the block's shared memory holds both,
+    at the cost of blocks an SM (``with_smem``); where it does not fit,
+    the kernel runs the pool's full window (``maxpool_op``);
   * sections grow op by op while the section still fits and its halo
     recompute (work done over work needed, ``RECOMPUTE_BOUND``) stays in
-    bound; otherwise a new section starts.  Device memory is cheap beside
-    the CUDA cores' MACs here (a section boundary costs a write and a read
-    of one tensor), so the bound is tight.
+    bound; otherwise a new section starts.  A section's time on the card
+    is its bodies' work (the tensor cores' convs, the depthwise taps and
+    pool compares, their shared-memory reads: the 448 net's sections take
+    1.2-12.5 ms at 1024 frames, PERF.md section 5), which a recomputed
+    halo row costs again, while a boundary costs a write and a read of
+    one tensor in device memory (at most 0.9 MB a 448 frame, about 0.55
+    ms at 1024 frames at 3.35 TB/s): so the bound is tight.
 
 Where every op of the graph fits ``budget`` on a whole frame the plan is
 the arena plan (``arena.build_arena_plan``), as the JAX package falls back
 to its arena for small graphs.
 
-The big-K convs run on the int8 tensor cores (``csrc/conv_mma.cuh``): each
-section marks its CONV ops (not depthwise) whose input has a multiple of
-16 channels and whose K (taps x ci) is at least ``MMA_MIN_K``
-(``mark_mma``), appends a second copy of each marked conv's weights to its
-constants in m16n8k32 B-fragment order (``pack_mma``) and names its offset
-in the descriptor's ``arena.MMA_FIELD``; a section holding a marked conv
-launches the kernel's tensor-core instantiation (``Section.mma_convs``).
-Nothing else of a program changes: the OHWI weights stay for ``conv_op``
-and the plain version, which ignores the mark.
+Every CONV runs on the int8 tensor cores (``mark_mma``): each section
+marks its CONVs as ``arena.mark_mma`` marks a whole-frame program, the
+m16n8k16 B fragments of ``arena.pack_frags`` appended to its constants and
+named by the descriptor's ``arena.FRAG_FIELD`` (``Section.mma_convs``
+counts them), for ``csrc/stage_ops.cuh``'s 1x1 and full-window bodies; a
+CONV whose input has a multiple of 16 channels and whose K (taps x ci) is
+at least ``MMA_MIN_K`` also gets its weights in m16n8k32 order
+(``pack_mma``) in ``arena.MMA_FIELD``, and a section holding one launches
+the kernel's k32 instantiation (``Section.k32_convs``, ``csrc/conv_mma.cuh``).
+A section whose convs all carry exact epilogues launches the exact
+instantiation (``Stage.exact_convs``).  Nothing else of a program changes:
+the OHWI weights stay for the plain version, which ignores the marks.
 
 ``tiled_section_plain`` runs a section's program strip by strip with torch
 ops over an ``[N, arena_bytes]`` int8 tensor; ``tiled_section`` launches
@@ -76,11 +88,17 @@ from yoloface_tpu_torch.kernels.arena import (ARENA_BUDGET, AVGPOOL, CONV,
                                               Stage)
 
 RECOMPUTE_BOUND = 1.10      # work a section does over the work it needs
-TARGET_SHARE = 4            # prefer strip arenas of budget / TARGET_SHARE
+# prefer strip arenas of budget / TARGET_SHARE: the section kernel runs 3
+# blocks an SM (csrc/tiled_section.cu kSectionBlocks); strips sized for 3
+# took less time than for 4 or 2 on the 448 net and yolov3-tiny
+# (tools/torch_profile_pipeline.py --shares; PERF.md section 6)
+TARGET_SHARE = 3
 # a CONV whose input has a multiple of 16 channels and whose K (taps x ci)
-# is at least this runs on the tensor cores: all of yolov3-tiny's but the
-# stem (K >= 144), none of the 448 net's (1x1s of K <= 48), whose sections
-# keep the 64-register instantiation (tools/torch_variant_sweep.py mma)
+# is at least this also runs on the k32 body: all of yolov3-tiny's but the
+# stem (K >= 144), none of the 448 net's (1x1s of K <= 48).  On the k32
+# body yolov3-tiny ran 4.3x faster than with every conv on the m16n8k16
+# bodies; the 448 net's two 1x1s of K 32 and 48 ran 1.3% slower there
+# (tools/torch_variant_sweep.py mma; PERF.md section 6)
 MMA_MIN_K = 64
 MMA_K = 32                  # the k depth of one m16n8k32 step
 
@@ -95,10 +113,12 @@ class Section(Stage):
     end: int = 0
     unit: int = 0
     recompute: float = 1.0
+    smem_bytes: int = 0         # the launch's dynamic shared memory
+    scratch_off: int = 0        # the max-pools' scratch in it, 0: none
 
     @property
-    def mma_convs(self) -> int:
-        """The marked convs, which run on the tensor cores."""
+    def k32_convs(self) -> int:
+        """The convs marked for the k32 body (``pack_mma``)."""
         return int(np.count_nonzero(self.descs[:, arena.F[arena.MMA_FIELD]]))
 
 
@@ -121,11 +141,14 @@ def pack_mma(w: np.ndarray) -> np.ndarray:
 
 
 def mark_mma(sec: Section) -> Section:
-    """``sec`` with its tensor-core convs marked: each CONV row whose input
+    """``sec`` with its CONVs marked for the tensor cores: every CONV as
+    ``arena.mark_mma`` marks it (``arena.pack_frags`` after the constants,
+    their offset in ``arena.FRAG_FIELD``); then each CONV row whose input
     (a dense arena view) has a multiple of 16 channels and whose K (taps x
-    ci) is at least ``MMA_MIN_K`` gets ``pack_mma`` of its weights appended
-    to the constants and their offset in ``arena.MMA_FIELD``."""
+    ci) is at least ``MMA_MIN_K`` also ``pack_mma`` of its weights, their
+    offset in ``arena.MMA_FIELD``."""
     F = arena.F
+    sec = arena.mark_mma(sec)
     descs = sec.descs.copy()
     consts = bytearray(sec.consts.tobytes())
     for d in descs:
@@ -221,11 +244,24 @@ def _recompute(graph: GraphDef, sec: Sequence[LOp],
     return done / max(need, 1)
 
 
+def with_smem(sec: Section, budget: int) -> Section:
+    """``sec`` with its launch's shared memory (``arena.stage_smem``): the
+    arena, then the max-pools' scratch (``arena.pool_scratch`` over its
+    strips' output rows) where both fit ``budget``; else the arena alone
+    and no scratch (the kernel runs ``maxpool_op``).  The scratch past an
+    arena sized for ``budget / TARGET_SHARE`` costs blocks an SM, and took
+    less time than counting it in the strip height (shorter strips) or
+    running the full window (ROADMAP O1; PERF.md section 6)."""
+    smem, off = arena.stage_smem(sec, budget)
+    return dataclasses.replace(sec, smem_bytes=smem, scratch_off=off)
+
+
 def plan_section(graph: GraphDef, lops: Sequence[LOp], start: int, end: int,
                  alias: Dict[int, Tuple[int, int]],
                  budget: int = ARENA_BUDGET) -> Optional[Section]:
     """lops[start:end] as one strip program at the strip height of the
-    module's rule, or None if no strip height fits ``budget``."""
+    module's rule, marked (``mark_mma``) and with its shared memory
+    (``with_smem``), or None if no strip height fits ``budget``."""
     sec = list(lops[start:end])
     outputs = arena.stage_outputs(graph, lops, start, end)
     ratio = _row_ratios(graph, sec)
@@ -258,7 +294,7 @@ def plan_section(graph: GraphDef, lops: Sequence[LOp], start: int, end: int,
             else:
                 hi = mid - 1
         if best is not None:
-            return mark_mma(best)
+            return with_smem(mark_mma(best), budget)
     return None
 
 
@@ -300,8 +336,12 @@ def tiled_section(sec: Stage, descs: torch.Tensor, consts: torch.Tensor,
                   xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """Run one section on its input tensors (int8 [N,H,W,C], in
     ``sec.inputs`` order) -> its output tensors.  CPU tensors take
-    ``tiled_section_plain``; CUDA tensors launch ``yf_tiled_section``, its
-    tensor-core instantiation where ``sec.mma_convs``."""
+    ``tiled_section_plain``; CUDA tensors launch ``yf_tiled_section``: its
+    exact instantiation where ``sec.exact_convs``, its k32 one where
+    ``sec.k32_convs`` (``tiled_section.mma_convs`` counts the marked convs
+    the launches ran, ``tiled_section.k32_convs`` those of them on the k32
+    body, ``tiled_section.exact_launches`` the launches of an exact
+    instantiation)."""
     if sec.bands is None:
         raise ValueError("a whole-frame stage runs on arena.arena_stage")
     outs, dev = arena.prepare(sec, xs)
@@ -321,16 +361,21 @@ def tiled_section(sec: Stage, descs: torch.Tensor, consts: torch.Tensor,
         *[t.data_ptr() for t in list(xs) + outs])
     err = library().yf_tiled_section(
         descs.data_ptr(), sec.descs.shape[0], consts.data_ptr(), ptrs,
-        len(sec.globals_), n, sec.strips, sec.arena_bytes, arena.THREADS,
-        int(sec.mma_convs > 0), torch.cuda.current_stream(dev).cuda_stream)
+        len(sec.globals_), n, sec.strips, sec.smem_bytes, sec.scratch_off,
+        arena.THREADS, int(sec.exact_convs), int(sec.k32_convs > 0),
+        torch.cuda.current_stream(dev).cuda_stream)
     check(err, "tiled_section")
     tiled_section.launches += 1
     tiled_section.mma_convs += sec.mma_convs
+    tiled_section.k32_convs += sec.k32_convs
+    tiled_section.exact_launches += sec.exact_convs
     return outs
 
 
 tiled_section.launches = 0
-tiled_section.mma_convs = 0     # marked convs the launches ran (conv_mma)
+tiled_section.mma_convs = 0     # marked convs the launches ran
+tiled_section.k32_convs = 0     # of them, those on the k32 body
+tiled_section.exact_launches = 0   # launches of an exact instantiation
 
 
 class TiledPlan(arena.ArenaPlan):
