@@ -192,12 +192,16 @@ Phases (each prints its lines; any failure ends the run with an error):
      trap ends);
   4b. the tools/ probes (B9.1-B9.12, yoloface_tpu_torch/probes/), each at
      the JAX tool's defaults: every variant of the probe kernels
-     (csrc/probe_{copy,dw,conv}.cu; B6 for the 448 stage probe) against
-     its plain version bit for bit on the input it is timed on, then
-     timed (the 1x1 probe also at yolov3-tiny's layer 13, 1024 -> 256 at
-     13x13, batch 256, beside B6 on that conv as a one-op strip section),
-     the debug448 stream-order checks printing BIT-EXACT a variant; one
-     kernels row a probe, its launches counted over its own run;
+     (csrc/probe_{copy,dw,conv}.cu, probe_dw_frames.cu, probe_fi_mma.cu;
+     B6 for the 448 stage probe) against its plain version bit for bit on
+     the input it is timed on, then timed (the 1x1 probe also at
+     yolov3-tiny's layer 13, 1024 -> 256 at 13x13, batch 256, beside B6
+     on that conv as a one-op strip section), the debug448 stream-order
+     checks printing BIT-EXACT a variant; one kernels row a probe, its
+     launches counted over its own run; the redesigned B9.2 and B9.6 (the
+     frame-innermost 1x1 on the tensor cores, the depthwise taps a block a
+     group of frames) beside the PR 7 forms they replaced, with their
+     shares of the bound and registers, a spill failing the run;
   4c. [train] (_train_phase), the port making a model, with PyTorch's
      TF32 defaults outside its calls: one train step of
      examples/train_synthetic.py's configuration (batch 32 of make_batch,
@@ -581,7 +585,7 @@ def _probe_rows(dev, card, g416):
     probes = (   # (row, id, the TPU kernel's function, source, the probe)
         ("probe_conv1x1", "B9.1", "tools/microbench.py:23", "probe_conv.cu",
          lambda: mb.conv1x1_probe(device=dev)),
-        ("probe_whcn", "B9.2", "tools/microbench.py:131", "probe_conv.cu",
+        ("probe_whcn", "B9.2", "tools/microbench.py:131", "probe_fi_mma.cu",
          lambda: mb.whcn_probe(device=dev)),
         ("probe_inkernel", "B9.3", "tools/microbench.py:264",
          "probe_conv.cu", lambda: mb.inkernel_probe(device=dev)),
@@ -589,8 +593,8 @@ def _probe_rows(dev, card, g416):
          lambda: mb.dw16_probe(device=dev)),
         ("probe_packdot", "B9.5", "tools/microbench.py:496", "probe_conv.cu",
          lambda: mb.packdot_probe(device=dev)),
-        ("probe_dw_main", "B9.6", "tools/microbench.py:633", "probe_dw.cu",
-         lambda: mb.dw_main(device=dev)),
+        ("probe_dw_main", "B9.6", "tools/microbench.py:633",
+         "probe_dw_frames.cu", lambda: mb.dw_main(device=dev)),
         ("probe_448_micro", "B9.7", "tools/probe448_micro.py:20",
          "probe_conv.cu", lambda: pm.micro("main", device=dev)),
         ("probe_448_micro2", "B9.8", "tools/probe448_micro.py:120",
@@ -641,6 +645,8 @@ def _probe_rows(dev, card, g416):
                 "variants": big["variants"], "plain_ms": big["plain_ms"],
                 "launches": kprobe.launches(), "b6_section": dict(
                     b6, launches=tiled.tiled_section.launches)}
+        if "replaced" in rec:   # a redesign beside the PR 7 form it replaced
+            row["redesign"] = _redesign(rec, name, bid, card)
         rows.append(row)
         print(f"[probe] {bid} {name}: {launches} launches, every variant "
               f"bit-exact; {row['headline']} {head['ms']:.4f} ms, plain "
@@ -648,6 +654,35 @@ def _probe_rows(dev, card, g416):
               f"({card}; {time.perf_counter() - t1:.1f} s)")
     print(f"[probe] the probes phase: {time.perf_counter() - t0:.1f} s")
     return rows
+
+
+def _redesign(rec, name, bid, card):
+    """A redesigned probe kernel (B9.2, B9.6): its headline beside the PR 7
+    form it replaced, both timed in the probe's one run, each as a share of
+    the bound; its instantiations' registers and local bytes (a spill fails
+    the run) and its own launch count over the probe's run."""
+    from yoloface_tpu_torch.kernels import probes as kprobe
+    new, old = (rec["variants"][rec[k]] for k in ("headline", "replaced"))
+    own = (kprobe.probe_conv.fi_mma_launches if name == "probe_whcn"
+           else kprobe.probe_dw.frames_launches)
+    _require(own > 0, f"{name}: the redesigned kernel launched")
+    for inst, a in rec["attrs"].items():
+        _require(a["local_bytes"] == 0, f"{name} {inst} spills: "
+                 f"{a['local_bytes']} B of local memory a thread")
+    head = rec["attrs"][rec["headline"]]
+    print(f"[probe] {bid} redesign: {rec['headline']} {new['ms']:.4f} ms "
+          f"({new['bound_ms'] / new['ms']:.1%} of its {new['bound_ms']:.4f} "
+          f"ms bound), {rec['replaced']} {old['ms']:.4f} ms "
+          f"({old['bound_ms'] / old['ms']:.1%}), {old['ms'] / new['ms']:.2f}x;"
+          f" {head['registers']} registers a thread, "
+          f"{max(a['registers'] for a in rec['attrs'].values())} at most over "
+          f"{len(rec['attrs'])} instantiation(s), no spill; {own} launches "
+          f"({card})")
+    return {"headline": rec["headline"], "ms": new["ms"],
+            "share": new["bound_ms"] / new["ms"], "replaced": rec["replaced"],
+            "replaced_ms": old["ms"], "replaced_share":
+            old["bound_ms"] / old["ms"], "launches": own,
+            "attrs": rec["attrs"]}
 
 
 HOST_BATCHES = (16384, 65536)   # the host-fed streamer's timed batches
@@ -4210,10 +4245,12 @@ def main() -> int:
             "tiled_section": ["fast2", "fast", "exact"],
             "fused_stage": ["fast", "exact"]}
     ms["tiled_section"] = ms["tiled_section fast2"]
-    # the bound of each timed call, from this run's shapes
+    # the bound of each timed call, from this run's shapes; the whole-frame
+    # kernels as the section kernel: convs on the tensor cores, depthwise
+    # MACs (two operations) and pool compares on the CUDA cores
     n, k_det, cells = TIMING_BATCH, 16, 7 * 7 * 3
     net = bound(n * (56 * 56 * 3 + 7 * 7 * 18), *(
-        n * w for w in _net_work(corpus)))
+        n * w for w in _section_work(corpus)))
     bounds = {
         "preprocess_rgb565": bound(n * (112 * 112 * 2 + 56 * 56 * 3),
                                     core_ops=n * 56 * 56 * 3 * 5),

@@ -417,7 +417,9 @@ def test_probe_dw_matches_plain_on_the_card():
     int8 and int32 input, >> 7, fast, exact and raw epilogues, offsets or
     none, stride 1 and 2, copied, zero and absent borders, R = 1 and 16,
     int32 and 16-bit arithmetic, taps past int16) and the requant chain
-    equal their plain versions bit for bit."""
+    equal their plain versions bit for bit; so does the frames kernel
+    (B9.6's Hopper form) in every case it takes, and none of its
+    instantiations spills."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from yoloface_tpu_torch.kernels import probes
@@ -451,6 +453,47 @@ def test_probe_dw_matches_plain_on_the_card():
                            probes.probe_dw_plain(x, t, **kw)), (k, kw)
     assert torch.equal(probes.probe_requant_chain(x8, 16),
                        probes.probe_requant_chain_plain(x8, 16))
+    # the frames kernel (form="frames", csrc/probe_dw_frames.cu): the
+    # probe's frames at a batch its groups divide, a batch of one and one
+    # they do not divide, smaller frames of 3 and 4 channel words (12 and
+    # 16 channels: the block's threads change words between items); both
+    # strides, offsets or none, each epilogue, the border copied or
+    # zeroed, the corner at 0 and 1; int8 taps (the dp4a body) and taps
+    # past int8 (the int32 body)
+    probes.reset_launches()
+    cases = 0
+    for n, sp, c in ((1024, 30, 8), (1, 30, 8), (7, 30, 8), (5, 16, 12),
+                     (3, 7, 16)):
+        x = _probe_ints((n, sp, sp, c), -128, 128, n + sp + c)
+        t8 = _probe_ints((9, c), -128, 128, 2, torch.int32)
+        tw = _probe_ints((9, c), -40000, 40000, 3, torch.int32)
+        sc = torch.linspace(0.001, 0.011, c, dtype=torch.float32).cuda()
+        for stride in (1, 2):
+            for offs in (True, False):
+                top = (sp - 1 - (2 if offs else 0)) // stride + 1
+                for so, origin in ((top, 0), (top - 1, 1)):
+                    for epi, ekw in (("shift", {}), ("fast", dict(scale=sc)),
+                                     ("exact", dict(qm=1518500250,
+                                                    shift=-7))):
+                        for border, t in (("copy", t8), ("zero", t8),
+                                          ("copy", tw)):
+                            kw = dict(so=so, stride=stride, offs=offs,
+                                      origin=origin, border=border, epi=epi,
+                                      **ekw)
+                            got = probes.probe_dw(x, t, form="frames", **kw)
+                            assert torch.equal(
+                                got, probes.probe_dw_plain(x, t, **kw)), \
+                                (n, sp, c, kw)
+                            cases += 1
+    assert probes.probe_dw.frames_launches == cases
+    # no instantiation spills (a stack frame would show as local bytes)
+    for stride in (1, 2):
+        for offs in (True, False):
+            for epi in ("shift", "fast", "exact"):
+                a = probes.dw_frames_attrs(30, 8, 28 // stride, stride, offs,
+                                           epi)
+                assert a["local_bytes"] == 0 and a["blocks_per_sm"] >= 1, \
+                    (stride, offs, epi, a)
     torch.cuda.synchronize()
 
 
@@ -461,7 +504,9 @@ def test_probe_conv_matches_plain_on_the_card():
     four frames a thread) in every epilogue it takes, at K of 6, 18, 36
     and 1024 and ragged row counts, R = 1 and 16, equals its plain version
     bit for bit; int8(acc) wraps on both sides, and so do weights plus r
-    near the int8 ends, with one tile a block and several."""
+    near the int8 ends, with one tile a block and several; the
+    frame-innermost 1x1 on the tensor cores (B9.2's Hopper form) at awkward
+    frame counts, K and Nout, its instantiations without a spill."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from yoloface_tpu_torch.kernels import probes
@@ -511,6 +556,33 @@ def test_probe_conv_matches_plain_on_the_card():
         kw = dict(variant=variant, epi="raw", reps=16)
         assert torch.equal(probes.probe_conv(xf, w, **kw),
                            probes.probe_conv_plain(xf, w, **kw)), kw
+    # the frame-innermost 1x1 on the tensor cores (variant="fi_mma",
+    # csrc/probe_fi_mma.cu): the probe's pixels and widths at a batch of
+    # 4096, a batch of one, frame counts that are not a multiple of 8
+    # (byte accesses) or of 16, or that leave a warp task part empty; K
+    # of one k-step and two, Nout of each n-tile count; both epilogues
+    probes.reset_launches()
+    cases = 0
+    for m, k, nout, n in ((196, 36, 24, 4096), (3, 36, 24, 1),
+                          (5, 36, 24, 12), (4, 36, 24, 20), (2, 36, 24, 24),
+                          (3, 36, 24, 100), (2, 4, 1, 64), (3, 7, 5, 33),
+                          (2, 33, 9, 72), (2, 64, 32, 128), (2, 64, 32, 13),
+                          (1, 32, 16, 8), (2, 40, 32, 16), (3, 36, 24, 48),
+                          (2, 64, 24, 160)):
+        xf = _probe_ints((m, k, n), -128, 128, m * k + n)
+        wf = _probe_ints((nout, k), -128, 128, k + nout)
+        for epi in ("shift", "wrap"):
+            kw = dict(variant="fi_mma", epi=epi)
+            assert torch.equal(probes.probe_conv(xf, wf, **kw),
+                               probes.probe_conv_plain(xf, wf, **kw)), \
+                (m, k, nout, n, epi)
+            cases += 1
+    assert probes.probe_conv.fi_mma_launches == cases
+    for nout in (8, 16, 24, 32):
+        for vec in (True, False):
+            a = probes.fi_mma_attrs(nout, vec)
+            assert a["local_bytes"] == 0 and a["blocks_per_sm"] >= 1, \
+                (nout, vec, a)
     torch.cuda.synchronize()
 
 

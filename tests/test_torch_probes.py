@@ -10,6 +10,9 @@ over ops 0-7 against JAX ``Int8Engine(g, "fast")._plan[:8]``; the head conv
 of the debug448 probe against JAX ``fast2``'s op.  Then each probe runs end
 to end on the CPU at a toy size, the wrappers route by device and refuse
 what their kernels do not take, and the entry points default to the card.
+The Hopper forms of B9.6 and B9.2: the frames kernel's plan covers every
+output word once, and the 1x1's fragment order, as numpy index maps
+multiplied through the mma.sync layouts, gives the plain output.
 """
 
 import importlib.util
@@ -470,3 +473,229 @@ def test_probe_entry_points_default_to_the_card(monkeypatch):
                lambda: debug448.main(["min", "2"])):
         with pytest.raises(RuntimeError, match="CUDA card"):
             fn()
+
+
+# ------------------------------ the Hopper forms of B9.6 and B9.2 (planning)
+@pytest.mark.parametrize("sp,c,so,stride,offs,origin", [
+    (30, 8, 28, 1, True, 0), (30, 8, 14, 2, True, 0), (30, 8, 30, 1, False, 0),
+    (7, 16, 4, 1, True, 1), (9, 4, 3, 2, True, 2), (16, 12, 13, 1, True, 1),
+    (11, 32, 5, 2, False, 3), (6, 24, 1, 1, True, 0)])
+def test_dw_frames_plan_covers_each_output_word_once(sp, c, so, stride, offs,
+                                                     origin):
+    """dw_frames_plan at odd sizes: the kernel's items (frame, row, run,
+    word; the word fastest) cover the so x so corner's words once, the
+    border rows and the corner rows' sides the rest of the frame once; the
+    group's stages fit a block's budget, two blocks an SM."""
+    plan = K.dw_frames_plan(sp, c, so, stride, offs)
+    nq, f = c // 4, plan["frames"]
+    assert f >= 1 and plan["segs"] * plan["run"] >= so > \
+        (plan["segs"] - 1) * plan["run"]
+    assert plan["smem"] == (K.DW_STAGES + 1) * f * sp * sp * c
+    assert plan["smem"] <= K.DW_BLOCK_SMEM
+    hits = np.zeros((f, sp, sp, nq), np.int64)
+    for item in range(f * so * plan["segs"] * nq):     # the kernel's order
+        q, r = item % nq, item // nq
+        seg, r = r % plan["segs"], r // plan["segs"]
+        oy, fr = r % so, r // so
+        x0, x1 = seg * plan["run"], min(seg * plan["run"] + plan["run"], so)
+        hits[fr, origin + oy, origin + x0:origin + x1, q] += 1
+        if seg == 0:
+            hits[fr, origin + oy, :origin, q] += 1
+        if seg == plan["segs"] - 1:
+            hits[fr, origin + oy, origin + so:, q] += 1
+    rw = sp * nq                                       # border_rows' words
+    top, bw = origin * rw, (origin + (sp - origin - so)) * rw
+    flat = hits.reshape(f, -1)
+    for i in range(f * bw):
+        fr, w = divmod(i, bw)
+        flat[fr, w if w < top else w + so * rw] += 1
+    assert (hits == 1).all()
+
+
+def _fi_mma_maps(k):
+    """csrc/probe_fi_mma.cu's fragment order as numpy index maps, over the 32
+    lanes of a warp task (one pixel, frames f0 .. f0 + 63):
+
+    * ``rows`` [32, 2, 2, 4]: the channel whose 8 frames lane l loads as
+      [step s][half h][i] (-1 past ``k``); its frames: ``frames`` [32, 8];
+    * ``a_frame`` [32, 4, 4]: the frame of A fragment register a0..a3 of
+      m-tile mt (the rows g and g + 8 of the product), and ``a_rows`` [32,
+      2, 4, 4]: the channels of a register's four k-major bytes in step s
+      (-1 past ``k``), the same in every m-tile;
+    * ``c_frame``, ``c_chan`` [32, 4, 4, 4] (lane, mt, nt, c0..c3): the
+      frame and output channel of each accumulator.
+
+    mma.sync.m16n8k32's layouts (PTX ISA): lane l = 4g + t holds A rows g
+    (a0, a2) and g + 8 (a1, a3) at k 4t..4t+3 (a0, a1) and 16 + 4t..
+    (a2, a3); B column g at those k; C rows g (c0, c1) and g + 8 (c2, c3),
+    columns 2t, 2t + 1."""
+    g, t = np.arange(32) // 4, np.arange(32) % 4
+    s, h, i = np.meshgrid(np.arange(2), np.arange(2), np.arange(4),
+                          indexing="ij")
+    rows = 32 * s[None] + 16 * h[None] + 4 * t[:, None, None, None] + i[None]
+    rows = np.where(rows < k, rows, -1)
+    frames = 8 * g[:, None] + np.arange(8)[None]
+    mt, reg = np.arange(4)[None, :, None], np.arange(4)[None, None, :]
+    a_frame = 8 * g[:, None, None] + 2 * mt + reg % 2
+    s, reg, i = np.meshgrid(np.arange(2), np.arange(4), np.arange(4),
+                            indexing="ij")
+    a_rows = (32 * s[None] + 16 * (reg[None] // 2)
+              + 4 * t[:, None, None, None] + i[None])
+    a_rows = np.where(a_rows < k, a_rows, -1)
+    mt, nt, e = (np.arange(4)[None, :, None, None],
+                 np.arange(4)[None, None, :, None],
+                 np.arange(4)[None, None, None, :])
+    c_frame = 8 * g[:, None, None, None] + 2 * mt + e // 2 + 0 * nt
+    c_chan = 8 * nt + 2 * t[:, None, None, None] + e % 2 + 0 * mt
+    return dict(rows=rows, frames=frames, a_frame=a_frame, a_rows=a_rows,
+                c_frame=c_frame, c_chan=c_chan)
+
+
+def _fi_mma_emulate(x, w, epi):
+    """probe_fi_mma.cu's warp tasks in numpy through _fi_mma_maps and the
+    mma.sync.m16n8k32 fragment layouts -> (output, writes an element)."""
+    p_n, k, n = x.shape
+    nout = w.shape[0]
+    maps = _fi_mma_maps(k)
+    g, t = np.arange(32) // 4, np.arange(32) % 4
+    ldo = k if epi == "shift" else nout
+    out = np.zeros((p_n, ldo, n), np.int8)
+    writes = np.zeros(out.shape, np.int64)
+    wpad = np.zeros((32, 64), np.int64)
+    wpad[:nout, :k] = w
+    for p in range(p_n):
+        for f0 in range(0, n, K.FI_FRAMES):
+            xt = np.zeros((65, 64), np.int64)          # row 64: the -1 rows
+            span = min(64, n - f0)
+            xt[:k, :span] = x[p, :, f0:f0 + span]
+            # A[s, mt, row, kk] from the lanes' registers
+            a = np.zeros((2, 4, 16, 32), np.int64)
+            for reg in range(4):
+                for i in range(4):
+                    row = g + 8 * (reg % 2)
+                    kk = 4 * t + 16 * (reg // 2) + i
+                    for s in range(2):
+                        for mt in range(4):
+                            a[s, mt, row, kk] = xt[maps["a_rows"][:, s, reg,
+                                                                    i],
+                                                   maps["a_frame"][:, mt,
+                                                                   reg]]
+            b = wpad.reshape(4, 8, 2, 32).transpose(2, 0, 3, 1)  # [s,nt,kk,n]
+            c = np.einsum("smrk,sqkn->mqrn", a, b).astype(np.int32)
+            for e in range(4):
+                row, col = g + 8 * (e // 2), 2 * t + e % 2
+                for mt in range(4):
+                    for nt in range(4):
+                        v = c[mt, nt, row, col]
+                        fr = f0 + maps["c_frame"][:, mt, nt, e]
+                        ch = maps["c_chan"][:, mt, nt, e]
+                        keep = (ch < nout) & (fr < n)
+                        v = (np.clip(v >> 7, -128, 127) if epi == "shift"
+                             else v).astype(np.int8)
+                        out[p, ch[keep], fr[keep]] = v[keep]
+                        writes[p, ch[keep], fr[keep]] += 1
+            if epi == "shift":                          # the copied rows
+                for lane in range(32):
+                    for r in maps["rows"][lane].ravel():
+                        if nout <= r < k:
+                            fr = f0 + maps["frames"][lane]
+                            fr = fr[fr < n]
+                            out[p, r, fr] = x[p, r, fr]
+                            writes[p, r, fr] += 1
+    return out, writes
+
+
+@pytest.mark.parametrize("k,nout,n,epi", [
+    (36, 24, 64, "shift"), (36, 24, 13, "shift"), (36, 24, 100, "wrap"),
+    (7, 5, 1, "shift"), (33, 9, 72, "wrap"), (64, 32, 70, "shift"),
+    (4, 1, 9, "wrap")])
+def test_fi_mma_maps_give_the_plain_1x1(k, nout, n, epi):
+    """_fi_mma_maps at odd K, Nout and frame counts: each lane's loaded rows
+    and frames, transposed into A fragments, times W^T's B fragments
+    through the PTX fragment layouts, stored by the accumulator map, give
+    probe_conv_plain's output, every element written once."""
+    rng = np.random.default_rng(k * 100 + n)
+    x = rng.integers(-128, 128, (2, k, n)).astype(np.int8)
+    w = rng.integers(-128, 128, (nout, k)).astype(np.int8)
+    got, writes = _fi_mma_emulate(x, w, epi)
+    want = K.probe_conv_plain(_t(x), _t(w), variant="fi_mma", epi=epi)
+    np.testing.assert_array_equal(got, want.numpy())
+    assert (writes == 1).all()
+    rows = _fi_mma_maps(k)["rows"]
+    assert sorted(rows[rows >= 0].tolist()) == sorted(list(range(k)) * 8)
+
+
+def test_new_forms_route_by_device_and_refuse():
+    """The Hopper forms of B9.6 (``probe_dw(..., form="frames")``) and B9.2
+    (``variant="fi_mma"``): a CPU tensor takes the plain version (no launch
+    counted); what their kernels do not take raises, on the CPU too."""
+    K.reset_launches()
+    rng = np.random.default_rng(5)
+    x = _t(rng.integers(-128, 128, (3, 10, 10, 8)).astype(np.int8))
+    taps = _t(rng.integers(-128, 128, (9, 8)).astype(np.int32))
+    for kw in (dict(so=8), dict(so=4, stride=2, origin=1, border="zero"),
+               dict(so=9, offs=False, epi="exact", qm=microbench.QM,
+                    shift=microbench.SHIFT)):
+        got = K.probe_dw(x, taps, form="frames", **kw)
+        assert torch.equal(got, K.probe_dw_plain(x, taps, **kw))
+        assert torch.equal(got, K.probe_dw(x, taps, **kw))
+    xf = _t(rng.integers(-128, 128, (5, 36, 13)).astype(np.int8))
+    w = _t(rng.integers(-64, 64, (24, 36)).astype(np.int8))
+    for epi in ("shift", "wrap"):
+        got = K.probe_conv(xf, w, variant="fi_mma", epi=epi)
+        assert torch.equal(got, K.probe_conv_plain(xf, w, variant="fi_mma",
+                                                   epi=epi))
+    assert K.launches() == 0 and K.probe_dw.frames_launches == 0
+    assert K.probe_conv.fi_mma_launches == 0
+    buf = torch.zeros(3 * 10 * 10 * 8 + 4, dtype=torch.int8)
+    t9 = lambda c: torch.zeros((9, c), dtype=torch.int32)   # noqa: E731
+    bad = [lambda: K.probe_dw(x.to(torch.int32), taps, so=8, form="frames"),
+           lambda: K.probe_dw(x, taps, so=8, epi="raw", form="frames"),
+           lambda: K.probe_dw(x, taps, so=8, border="none", form="frames"),
+           lambda: K.probe_dw(x, taps, so=8, reps=2, form="frames"),
+           lambda: K.probe_dw(x, taps, so=8, form="warp"),
+           lambda: K.probe_dw(torch.zeros((2, 8, 8, 6), dtype=torch.int8),
+                              t9(6), so=6, form="frames"),
+           lambda: K.probe_dw(torch.zeros((2, 5, 5, 4), dtype=torch.int8),
+                              t9(4), so=3, form="frames"),
+           lambda: K.probe_dw(buf[4:].view(3, 10, 10, 8), taps, so=8,
+                              form="frames"),
+           lambda: K.probe_dw(xf.view(5, 36, 13, 1)[:, :9, :9].contiguous(),
+                              t9(1), so=7, form="frames"),
+           lambda: K.probe_conv(xf, w, variant="fi_mma", epi="raw"),
+           lambda: K.probe_conv(xf, w, variant="fi_mma", epi="shift",
+                                reps=2),
+           lambda: K.probe_conv(torch.zeros((2, 65, 8), dtype=torch.int8),
+                                torch.zeros((4, 65), dtype=torch.int8),
+                                variant="fi_mma", epi="wrap"),
+           lambda: K.probe_conv(torch.zeros((2, 40, 8), dtype=torch.int8),
+                                torch.zeros((33, 40), dtype=torch.int8),
+                                variant="fi_mma", epi="wrap")]
+    for k, fn in enumerate(bad):
+        with pytest.raises(ValueError):
+            fn()
+        assert K.launches() == 0, k
+
+
+@pytest.mark.parametrize("batch,frames", [(1, 4), (3, 12)])
+def test_redesigned_probes_time_their_pr7_forms(batch, frames, capsys):
+    """dw_main and whcn_probe end to end on the CPU at toy sizes (frame
+    counts the frames kernel's groups and the 1x1's 8-frame words do not
+    divide): the
+    Hopper form is the headline, the PR 7 form it replaced a variant of
+    the same record (``replaced``), every int8 case in both forms."""
+    dw = microbench.dw_main(batch, 8, 6, device="cpu", reps=2, runs=1)
+    fi = microbench.whcn_probe(frames, 12, 8, 6, device="cpu", reps=2,
+                               runs=1)
+    assert (dw["headline"], dw["replaced"]) == (
+        "taps offs i8 shift", "taps offs i8 shift (PR 7)")
+    assert (fi["headline"], fi["replaced"]) == (
+        "fi i8 mma", "fi i8 char4 (PR 7)")
+    for rec in (dw, fi):
+        assert rec["max_abs_err"] == 0.0
+        assert {rec["headline"], rec["replaced"]} <= set(rec["variants"])
+    for name in ("taps noffs i8 shift", "taps offs i8 fastreq",
+                 "taps offs i8 exactreq", "taps offs i8 stride2"):
+        assert {name, f"{name} (PR 7)"} <= set(dw["variants"])
+    out = capsys.readouterr().out
+    assert "fi i8 mma:" in out and "taps offs i8 shift (PR 7):" in out

@@ -30,7 +30,9 @@
 //    tiles, reusing its staged weights; blockIdx.y picks 64 of Nout.
 // Frame innermost (FI1, FI4): x [P, K, N] with the frames innermost, one
 // thread an output (pixel, channel, frame), or four frames as a char4, so a
-// warp's lanes are 32 frames and every lane reads the same weight.
+// warp's lanes are 32 frames and every lane reads the same weight.  The
+// whcn probe's headline runs the same 1x1 on the int8 tensor cores
+// (probe_fi_mma.cu); FI4 is its "(PR 7)" form.
 //
 // R repetitions (the in-kernel form): the smem variants add 1 to every
 // staged weight byte between repetitions (and subtract R - 1 after), so

@@ -7,6 +7,9 @@
 // inkernel_probe (:264, taps repeated R times on chip, and the fast requant
 // chain round(acc * f32(1e-4 * (r + 1))) + 3) and dw16_probe (:412, int32
 // against int16 arithmetic, R times).  Plain versions: kernels/probes.py.
+// The int8 NHWC cases of main also run on probe_dw_frames.cu (a block a
+// group of whole frames, the probe's headline); these are their "(PR 7)"
+// forms.
 //
 // One thread an output element, walking the output in its memory order:
 // NHWC (channel fastest, the port's arena layout: a warp is 32 channels of

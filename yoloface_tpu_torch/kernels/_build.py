@@ -79,6 +79,15 @@ SIGNATURES = {
     "yf_probe_dw": [_P, _P, _P, _P, _P, _P],
     # (a, w, out, params, stream)
     "yf_probe_conv": [_P, _P, _P, _P, _P],
+    # (x, taps, scale, out, params, stream)
+    "yf_probe_dw_frames": [_P, _P, _P, _P, _P, _P],
+    # (stride, offs, epi, dynamic shared bytes, int out[4]: registers,
+    #  local bytes, static shared bytes, blocks an SM)
+    "yf_probe_dw_frames_attrs": [_I, _I, _I, _I, _P],
+    # (x, w, out, params, stream)
+    "yf_probe_fi_mma": [_P, _P, _P, _P, _P],
+    # (n-tiles, 8-byte accesses, int out[4] as above)
+    "yf_probe_fi_mma_attrs": [_I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -10,16 +10,24 @@ Pallas kernels of their own.  Their counterparts here:
 * ``probe_dw`` / ``probe_requant_chain`` (``csrc/probe_dw.cu``): depthwise
   3x3 taps (NHWC or frames innermost, offsets or none, stride 1 or 2, an
   int8 or int32 input, ``>> 7``, fast or exact requant or the raw sum, int32
-  or 16-bit arithmetic, R repetitions) and the fast requant chain;
+  or 16-bit arithmetic, R repetitions) one thread an output, and the fast
+  requant chain; ``probe_dw(..., form="frames")``
+  (``csrc/probe_dw_frames.cu``): the int8 NHWC taps a block a group of
+  whole frames staged in shared memory (``dw_frames_plan``);
 * ``probe_conv`` (``csrc/probe_conv.cu``): a 1x1 conv as the CUDA-core loop,
   ``__dp4a`` or ``mma.sync`` on int8 (or bf16) tiles in shared memory, or
   frame innermost; int32 sums, ``clip(acc >> 7)`` with the rest of the
-  channels copied, or ``int8(acc)`` wrapping.
+  channels copied, or ``int8(acc)`` wrapping; ``variant="fi_mma"``
+  (``csrc/probe_fi_mma.cu``): the frame-innermost 1x1 on the int8 tensor
+  cores, a warp a pixel and 64 frames.
 
 Each wrapper checks its tensors, runs the plain version (beside it, named
 ``*_plain``) on a CPU tensor, launches its kernel on PyTorch's current
 stream for a CUDA tensor (no synchronisation) and raises on any other
-device; each counts its launches in ``.launches``.  The plain versions
+device; each counts its launches in ``.launches`` (and the two Hopper forms
+in ``probe_dw.frames_launches`` and ``probe_conv.fi_mma_launches`` as
+well).  A form that cannot take its arguments raises; no wrapper falls
+back to another form.  The plain versions
 compute in int64 or exact float64 and repeat the kernels' arithmetic, the
 R-times forms as the JAX probes define them: the 1x1's int8 weights plus r
 wrap to int8 (JAX's int8 ``w + r``), the int32 taps plus r do not (the
@@ -40,11 +48,23 @@ from yoloface_tpu_torch.core.fixedpoint import requant_exact
 COPY_SCHEDULES = ("flat", "frame", "strip")
 DW_EPIS = ("shift", "fast", "exact", "raw")
 DW_BORDERS = ("copy", "zero", "none")
+# probe_dw's kernels: one thread an output element (PR 7's, every case),
+# a block a group of whole int8 NHWC frames (csrc/probe_dw_frames.cu)
+DW_FORMS = ("thread", "frames")
 LAYOUTS = ("nhwc", "fi")           # fi: frames innermost, [H, W, C, N]
-CONV_VARIANTS = ("loop", "imad", "dp4a", "mma", "mma_bf16", "fi", "fi4")
+CONV_VARIANTS = ("loop", "imad", "dp4a", "mma", "mma_bf16", "fi", "fi4",
+                 "fi_mma")
 CONV_EPIS = ("raw", "shift", "wrap")
-FRAME_INNER = ("fi", "fi4")
+FRAME_INNER = ("fi", "fi4", "fi_mma")
 SMEM_LIMIT = 232448                # bytes of shared memory a block may have
+# csrc/probe_dw_frames.cu: 256 threads, three groups of frames in flight
+# and an output group in shared memory, two blocks an SM (each block's
+# shared memory less the 1 KB the card reserves a block)
+DW_THREADS, DW_STAGES = 256, 3
+DW_BLOCK_SMEM = SMEM_LIMIT // 2 - 1024
+# csrc/probe_fi_mma.cu: a warp task is one pixel and 64 frames; K and Nout
+# padded to 64 and a multiple of 8 (two m16n8k32 k-steps, four n-tiles)
+FI_FRAMES, FI_MAX_K, FI_MAX_NOUT = 64, 64, 32
 TM = TN = 64                       # probe_conv.cu's tile
 _SKEW = {"imad": 4, "dp4a": 4, "mma": 16, "mma_bf16": 8}
 # the dw kernel's instances: (layout, input, output, arithmetic)
@@ -165,7 +185,7 @@ probe_phase_select.launches = 0
 # depthwise taps and the requant chain
 # --------------------------------------------------------------------------
 def _dw_args(x, taps, so, layout, stride, offs, origin, border, epi, scale,
-             arith):
+             arith, form="thread", reps=1):
     """Check probe_dw's arguments -> (n, sp, c, output spatial size,
     output dtype)."""
     _tensor(x, "probe_dw x", (torch.int8, torch.int32), 4)
@@ -199,14 +219,66 @@ def _dw_args(x, taps, so, layout, stride, offs, origin, border, epi, scale,
     if (layout, x.dtype, out_dtype, arith) not in _DW_CASES:
         raise ValueError(f"probe_dw: no kernel for {layout} {x.dtype} -> "
                          f"{out_dtype} in {arith}")
+    if form not in DW_FORMS:
+        raise ValueError(f"probe_dw: form {form!r}, one of {DW_FORMS}")
+    if form == "frames":
+        if (layout != "nhwc" or x.dtype != torch.int8 or epi == "raw"
+                or border == "none" or reps != 1):
+            raise ValueError("probe_dw frames: int8 NHWC in and out, a "
+                             "shift, fast or exact epilogue, the border "
+                             "copied or zeroed, one repetition")
+        if c % 4 or (sp * sp * c) % 16:
+            raise ValueError(f"probe_dw frames: C = {c} a multiple of 4 and "
+                             f"frames of a multiple of 16 bytes")
+        tensors = [x, taps] + ([scale] if epi == "fast" else [])
+        if not _aligned(*tensors):
+            raise ValueError("probe_dw frames: x, taps and scale must be "
+                             "16-byte aligned")
+        dw_frames_plan(sp, c, so, stride, offs)
     return n, sp, c, osp, out_dtype
+
+
+def dw_frames_plan(sp: int, c: int, so: int, stride: int = 1,
+                   offs: bool = True) -> dict:
+    """The frames kernel's plan for int8 [N, sp, sp, c] frames and an so x
+    so corner: ``frames`` a group (a block stages ``DW_STAGES`` groups and
+    an output group in ``smem`` bytes), each corner row in ``segs`` runs of
+    ``run`` outputs, a thread walking one (frame, row, run, channel word).
+    Chooses the run length that keeps the most of a block's threads busy,
+    less the columns a run loads before its first output (two at stride 1,
+    one at stride 2)."""
+    fb = sp * sp * c
+    cap = DW_BLOCK_SMEM // ((DW_STAGES + 1) * fb)
+    if cap < 1:
+        if (DW_STAGES + 1) * fb > SMEM_LIMIT:
+            raise ValueError(f"probe_dw frames: a {fb} B frame passes a "
+                             "block's shared memory")
+        cap = 1
+    words = c // 4
+    lead = 0 if not offs else 3 - stride
+    best = None
+    for segs in range(1, so + 1):
+        run = -(-so // segs)
+        if (segs - 1) * run >= so:      # a run left empty: the same as fewer
+            continue
+        per = so * segs * words
+        frames = max(1, min(cap, DW_THREADS // per))
+        items = frames * per
+        busy = items / (DW_THREADS * -(-items // DW_THREADS))
+        score = busy * stride * run / (stride * run + lead)
+        if best is None or score > best[0] + 1e-12:
+            best = (score, frames, run, segs)
+    _, frames, run, segs = best
+    return dict(frames=frames, run=run, segs=segs,
+                smem=(DW_STAGES + 1) * frames * fb)
 
 
 def probe_dw_plain(x, taps, *, so, layout="nhwc", stride=1, offs=True,
                    origin=0, border="copy", epi="shift", scale=None, qm=0,
-                   shift=0, reps=1, arith="i32"):
+                   shift=0, reps=1, arith="i32", form="thread"):
     n, sp, c, osp, out_dtype = _dw_args(x, taps, so, layout, stride, offs,
-                                        origin, border, epi, scale, arith)
+                                        origin, border, epi, scale, arith,
+                                        form, reps)
     v = x if layout == "nhwc" else x.permute(3, 0, 1, 2)     # NHWC view
     v64 = v.to(torch.int64)
     w = reps * taps.to(torch.int64) + reps * (reps - 1) // 2  # sum_r w + r
@@ -235,7 +307,7 @@ def probe_dw_plain(x, taps, *, so, layout="nhwc", stride=1, offs=True,
 
 def probe_dw(x, taps, *, so, layout="nhwc", stride=1, offs=True, origin=0,
              border="copy", epi="shift", scale=None, qm=0, shift=0, reps=1,
-             arith="i32"):
+             arith="i32", form="thread"):
     """Depthwise 3x3 taps of ``x`` (int8 or int32 [N, SP, SP, C] for
     ``nhwc``, [SP, SP, C, N] for ``fi``) with int32 ``taps`` [9, C]: the
     ``so`` x ``so`` outputs at (``origin``, ``origin``), tap k = 3*dy + dx
@@ -245,12 +317,17 @@ def probe_dw(x, taps, *, so, layout="nhwc", stride=1, offs=True, origin=0,
     ``clip(MBQM(acc, qm, shift))`` or the raw sum (int32, or int16 wrapped
     with ``arith="i16"``, which the kernel computes with 16-bit operands).
     The rest of the output is the input (``border="copy"``), zeros
-    (``"zero"``) or absent (``"none"``: the output is so x so)."""
+    (``"zero"``) or absent (``"none"``: the output is so x so).
+    ``form="thread"``: PR 7's kernel, one thread an output element, every
+    case; ``"frames"``: the int8 NHWC cases with one repetition, C a
+    multiple of 4, frames of a multiple of 16 bytes and 16-byte aligned
+    tensors, a block a group of whole frames (``dw_frames_plan``)."""
     n, sp, c, osp, out_dtype = _dw_args(x, taps, so, layout, stride, offs,
-                                        origin, border, epi, scale, arith)
+                                        origin, border, epi, scale, arith,
+                                        form, reps)
     kw = dict(so=so, layout=layout, stride=stride, offs=offs, origin=origin,
               border=border, epi=epi, scale=scale, qm=qm, shift=shift,
-              reps=reps, arith=arith)
+              reps=reps, arith=arith, form=form)
     if _device(x, "probe_dw") == "cpu":
         return probe_dw_plain(x, taps, **kw)
     if reps < 1 or taps.device != x.device or (
@@ -260,18 +337,29 @@ def probe_dw(x, taps, *, so, layout="nhwc", stride=1, offs=True, origin=0,
     out = torch.empty(shape, dtype=out_dtype, device=x.device)
     if out.numel() == 0:
         return out
-    params = (0, int(layout == "fi"), x.element_size(), out.element_size(),
-              int(arith == "i16"), n, sp, c, so, osp, origin, stride,
-              int(offs), DW_EPIS.index(epi), qm, shift,
-              DW_BORDERS.index(border), reps)
-    _launch("yf_probe_dw", "probe_dw", x.data_ptr(), taps.data_ptr(),
-            scale.data_ptr() if epi == "fast" else None, out.data_ptr(),
-            params, device=x.device)
+    if form == "frames":
+        plan = dw_frames_plan(sp, c, so, stride, offs)
+        params = (n, sp, c, so, origin, stride, int(offs),
+                  DW_EPIS.index(epi), qm, shift, DW_BORDERS.index(border),
+                  plan["frames"], plan["run"], plan["segs"])
+        _launch("yf_probe_dw_frames", "probe_dw frames", x.data_ptr(),
+                taps.data_ptr(), scale.data_ptr() if epi == "fast" else None,
+                out.data_ptr(), params, device=x.device)
+        probe_dw.frames_launches += 1
+    else:
+        params = (0, int(layout == "fi"), x.element_size(),
+                  out.element_size(), int(arith == "i16"), n, sp, c, so, osp,
+                  origin, stride, int(offs), DW_EPIS.index(epi), qm, shift,
+                  DW_BORDERS.index(border), reps)
+        _launch("yf_probe_dw", "probe_dw", x.data_ptr(), taps.data_ptr(),
+                scale.data_ptr() if epi == "fast" else None, out.data_ptr(),
+                params, device=x.device)
     probe_dw.launches += 1
     return out
 
 
 probe_dw.launches = 0
+probe_dw.frames_launches = 0
 
 
 def _chain_scales(reps: int):
@@ -327,7 +415,7 @@ def bf16_exact(k: int, reps: int) -> bool:
     return k * 128 * 128 * reps < 1 << 24
 
 
-def _conv_args(x, w, variant, epi):
+def _conv_args(x, w, variant, epi, reps=1):
     """Check probe_conv's arguments -> (m, k, nout, ldo, frames)."""
     _tensor(x, "probe_conv x", (torch.int8,))
     _tensor(w, "probe_conv w", (torch.int8,), 2)
@@ -348,6 +436,12 @@ def _conv_args(x, w, variant, epi):
         raise ValueError(f"probe_conv: bf16 sums at K = {k} pass 2**24")
     if variant == "fi4" and frames % 4:
         raise ValueError("probe_conv: fi4 takes frames in fours")
+    if variant == "fi_mma" and (epi == "raw" or reps != 1 or k > FI_MAX_K
+                                or nout > FI_MAX_NOUT):
+        raise ValueError(f"probe_conv fi_mma: int8 out (shift or wrap), one "
+                         f"repetition, K <= {FI_MAX_K}, Nout <= "
+                         f"{FI_MAX_NOUT}; got {epi}, R = {reps}, K = {k}, "
+                         f"Nout = {nout}")
     if variant not in FRAME_INNER and variant != "loop" and \
             conv_smem_bytes(variant, k) > SMEM_LIMIT:
         raise ValueError(f"probe_conv: K = {k} passes one block's shared "
@@ -367,7 +461,7 @@ def _out_shape(x, variant, ldo):
 
 def probe_conv_plain(x, w, *, variant="mma", epi="raw", reps=1,
                      tiles_per_block=None):
-    m, k, nout, ldo, _ = _conv_args(x, w, variant, epi)
+    m, k, nout, ldo, _ = _conv_args(x, w, variant, epi, reps)
     fi = variant in FRAME_INNER
     xs = x.movedim(-1, -2) if fi else x                   # [..., (N,) K]
     wsum = sum((w.to(torch.int32) + r).to(torch.int8).to(torch.float64)
@@ -394,8 +488,10 @@ def probe_conv(x, w, *, variant="mma", epi="raw", reps=1,
     int8(acc); ``shift`` int8 [..., K(, N)] with channels < Nout
     ``clip(acc >> 7)`` and the rest copied from ``x``.  The tile variants
     walk ``tiles_per_block`` 64-row tiles a block (default: about eight
-    blocks an SM)."""
-    m, k, nout, ldo, frames = _conv_args(x, w, variant, epi)
+    blocks an SM).  ``fi_mma``: the frame-innermost 1x1 on the int8 tensor
+    cores (``shift`` or ``wrap``, one repetition, K <= 64, Nout <= 32; a
+    frame count that is not a multiple of 8 takes byte accesses)."""
+    m, k, nout, ldo, frames = _conv_args(x, w, variant, epi, reps)
     if _device(x, "probe_conv") == "cpu":
         return probe_conv_plain(x, w, variant=variant, epi=epi, reps=reps)
     if reps < 1 or w.device != x.device or (
@@ -409,6 +505,14 @@ def probe_conv(x, w, *, variant="mma", epi="raw", reps=1,
         return out
     if not _aligned(x, w, out):
         raise ValueError("probe_conv: tensors must be 16-byte aligned")
+    if variant == "fi_mma":
+        _launch("yf_probe_fi_mma", "probe_conv fi_mma", x.data_ptr(),
+                w.data_ptr(), out.data_ptr(),
+                (m, k, nout, ldo, frames, CONV_EPIS.index(epi),
+                 int(frames % 8 == 0)), device=x.device)
+        probe_conv.launches += 1
+        probe_conv.fi_mma_launches += 1
+        return out
     if tiles_per_block is None:          # about eight blocks an SM
         blocks = -(-m // TM) * -(-nout // TN)
         tiles_per_block = max(1, -(-blocks // (132 * 8)))
@@ -421,6 +525,39 @@ def probe_conv(x, w, *, variant="mma", epi="raw", reps=1,
 
 
 probe_conv.launches = 0
+probe_conv.fi_mma_launches = 0
+
+
+def _kernel_attrs(fn: str, *args) -> dict:
+    from yoloface_tpu_torch.kernels._build import check, library
+    out = (ctypes.c_int * 4)()
+    check(getattr(library(), fn)(*args, out), f"{fn}")
+    regs, local, static_smem, blocks = list(out)
+    return dict(registers=regs, local_bytes=local, static_smem=static_smem,
+                blocks_per_sm=blocks)
+
+
+def dw_frames_attrs(sp: int, c: int, so: int, stride: int = 1,
+                    offs: bool = True, epi: str = "shift") -> dict:
+    """The frames kernel's instantiation (stride, offs, epi) as built:
+    registers and local bytes a thread (its stack frame, spills included),
+    static shared bytes and blocks an SM at the plan's shared memory for
+    [N, sp, sp, c] frames; the plan beside them."""
+    if epi not in DW_EPIS[:3]:
+        raise ValueError(f"probe_dw frames: epi {epi!r}")
+    plan = dw_frames_plan(sp, c, so, stride, offs)
+    return dict(_kernel_attrs("yf_probe_dw_frames_attrs", stride, int(offs),
+                              DW_EPIS.index(epi), plan["smem"]), **plan)
+
+
+def fi_mma_attrs(nout: int, vec: bool = True) -> dict:
+    """The fi_mma instantiation for ``nout`` output channels (n-tiles of
+    8) with 8-byte (frame counts a multiple of 8) or byte accesses, as
+    built (``dw_frames_attrs``' keys)."""
+    if not 1 <= nout <= FI_MAX_NOUT:
+        raise ValueError(f"probe_conv fi_mma: Nout {nout}")
+    return _kernel_attrs("yf_probe_fi_mma_attrs", -(-nout // 8), int(vec))
+
 
 WRAPPERS: Sequence = (probe_copy, probe_phase_select, probe_dw,
                       probe_requant_chain, probe_conv)
@@ -429,6 +566,8 @@ WRAPPERS: Sequence = (probe_copy, probe_phase_select, probe_dw,
 def reset_launches() -> None:
     for fn in WRAPPERS:
         fn.launches = 0
+    probe_dw.frames_launches = 0
+    probe_conv.fi_mma_launches = 0
 
 
 def launches() -> int:

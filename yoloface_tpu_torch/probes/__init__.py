@@ -170,3 +170,11 @@ def show(name: str, rec: Dict[str, object], width: int = 30,
         line += f" ({extra.lstrip(', ')})"
     print(line + f"; bound {rec['bound_ms'] / per:.4f} ms ({rec['bound_by']})",
           flush=True)
+
+
+def show_attrs(name: str, attrs: Dict[str, int]) -> None:
+    """A kernel instantiation's registers and local bytes (a spill shows
+    as local bytes), as built for the card."""
+    print(f"{'':>4s}[attrs] {name}: {attrs['registers']} registers a "
+          f"thread, {attrs['local_bytes']} B local, {attrs['blocks_per_sm']}"
+          " blocks an SM", flush=True)

@@ -16,7 +16,10 @@ frame-innermost [S, S, C, N] where it kept that.  Inputs are made on the
 device from fixed seeds.  Every variant's output on the timed input is
 first held against its plain version on the same input, bit for bit.
 ``conv1x1``, ``whcn`` and the dw-shaped ``main`` time chains of 20 calls
-(each fed the last output); ``inkernel``, ``dw16`` and ``packdot`` repeat
+(each fed the last output); ``whcn`` and ``main`` time each kernel that
+PR 7 ported and a later one redesigned beside its redesign (``... (PR 7)``,
+the redesign the headline) and print the redesign's registers and local
+bytes; ``inkernel``, ``dw16`` and ``packdot`` repeat
 the op R = 16 times inside one launch and report the time an op.
 ``section_1x1`` times the tiled section kernel B6 on a net's 1x1 conv, the
 body the ``conv1x1`` loop restates.
@@ -33,8 +36,8 @@ from yoloface_tpu_torch.graph.ir import GraphDef
 from yoloface_tpu_torch.kernels import arena, tiled
 from yoloface_tpu_torch.kernels import probes as K
 from yoloface_tpu_torch.probes import (HBM_RATE, card, device_name, randint,
-                                       record, same, show, time_chain,
-                                       time_ms, variant)
+                                       record, same, show, show_attrs,
+                                       time_chain, time_ms, variant)
 
 R = 16                     # repetitions inside a launch
 NT = 128                   # the JAX tools' frame tile: the unit of ns/dot
@@ -126,9 +129,10 @@ def section_1x1(graph: GraphDef, batch: int = 256, ci: int = 1024,
 
 def whcn_probe(batch: int = 32768, ci: int = 36, co: int = 24, s: int = 14,
                device="cuda", reps: int = 20, runs: int = 3) -> Dict:
-    """B9.2: the frame-innermost [S, S, C, N] layout: the 1x1 as one thread
-    a frame and as four frames a thread (char4), and the depthwise taps at
-    stride 1 and 2 (the borders copied)."""
+    """B9.2: the frame-innermost [S, S, C, N] layout: the 1x1 on the int8
+    tensor cores (``fi_mma``, the headline), as PR 7's one thread a frame
+    and four frames a thread (char4), and the depthwise taps at stride 1
+    and 2 (the borders copied)."""
     dev = card(device)
     w = randint((co, ci), -64, 64, dev, 1)
     taps = randint((9, ci), -128, 128, dev, 3, torch.int32)
@@ -136,8 +140,10 @@ def whcn_probe(batch: int = 32768, ci: int = 36, co: int = 24, s: int = 14,
                                                      K.probe_dw_plain)
     mm = ci * co * s * s * batch / 1e9
     cases = {   # name: ((kernel, plain), weights, kwargs, GMAC)
+        "fi i8 mma": (conv, w, dict(variant="fi_mma", epi="shift"), mm),
+        "fi i8 char4 (PR 7)": (conv, w, dict(variant="fi4", epi="shift"),
+                               mm),
         "fi i8 loop": (conv, w, dict(variant="fi", epi="shift"), mm),
-        "fi i8 char4": (conv, w, dict(variant="fi4", epi="shift"), mm),
         "dw taps fi offs": (dw, taps, dict(so=s - 2, layout="fi", origin=1),
                             ci * (s - 2) ** 2 * batch * 9 / 1e9),
         "dw taps fi stride2 i8": (
@@ -149,6 +155,10 @@ def whcn_probe(batch: int = 32768, ci: int = 36, co: int = 24, s: int = 14,
               for k, ((kern, plain), t, kw, _) in cases.items())
     print(f"whcn probe Ci={ci} Co={co} S={s} batch={batch} "
           f"({device_name(dev)})", flush=True)
+    attrs = {}
+    if dev.type == "cuda":
+        attrs["fi i8 mma"] = K.fi_mma_attrs(co, vec=batch % 8 == 0)
+        show_attrs("fi i8 mma", attrs["fi i8 mma"])
     out = {}
     for k, ((kern, _), t, kw, gmac) in cases.items():
         ms = time_chain(lambda y, t=t, kw=kw: kern(y, t, **kw), x, reps, runs)
@@ -156,8 +166,9 @@ def whcn_probe(batch: int = 32768, ci: int = 36, co: int = 24, s: int = 14,
         show(k, out[k], 26, gmac=gmac)
     plain = time_ms(lambda: K.probe_conv_plain(x, w, variant="fi4",
                                                epi="shift"), dev, runs)
-    return record("whcn", "fi i8 char4", out, plain, err, dev, batch=batch,
-                  shape=[ci, co, s])
+    return record("whcn", "fi i8 mma", out, plain, err, dev, batch=batch,
+                  shape=[ci, co, s], replaced="fi i8 char4 (PR 7)",
+                  attrs=attrs)
 
 
 def inkernel_probe(batch: int = 32768, device="cuda", runs: int = 3) -> Dict:
@@ -345,25 +356,33 @@ def dw_main(batch: int = 32768, c: int = 8, s: int = 28, device="cuda",
             reps: int = 20, runs: int = 3) -> Dict:
     """B9.6: the dw-shaped kernel on [N, S+2, S+2, C]: the int8 tile copy
     (the floor), the taps without and with offsets and >> 7, fast and exact
-    requant, an int32 arena with >> 7, stride 2 and fast requant; the
-    computed S x S (S/2 at stride 2) corner written over a copy of the
-    input."""
+    requant and stride 2 on int8 frames, each a block a group of whole
+    frames (``form="frames"``, the headline ``taps offs i8 shift``) and as
+    PR 7's one thread an output (``... (PR 7)``), and an int32 arena with
+    >> 7, stride 2 and fast requant (PR 7's kernel); the computed S x S
+    (S/2 at stride 2) corner written over a copy of the input."""
     dev = card(device)
     sp = s + 2
     taps = randint((9, c), -128, 128, dev, 3, torch.int32)
     gen = torch.Generator(device="cpu").manual_seed(4)
     scale = (torch.rand(c, generator=gen, dtype=torch.float64) * 0.01
              + 0.001).to(torch.float32).to(dev)
-    cases = {   # name: (kwargs of probe_dw, int32 arena)
-        "taps noffs i8 shift": (dict(offs=False), False),
-        "taps offs i8 shift": ({}, False),
-        "taps offs i8 fastreq": (dict(epi="fast", scale=scale), False),
-        "taps offs i8 exactreq": (dict(epi="exact", qm=QM, shift=SHIFT),
-                                  False),
+    int8_cases = {   # name: kwargs of probe_dw
+        "taps noffs i8 shift": dict(offs=False),
+        "taps offs i8 shift": {},
+        "taps offs i8 fastreq": dict(epi="fast", scale=scale),
+        "taps offs i8 exactreq": dict(epi="exact", qm=QM, shift=SHIFT),
+        "taps offs i8 stride2": dict(stride=2),
+    }
+    cases = {}      # name: (kwargs of probe_dw, int32 arena)
+    for name, args in int8_cases.items():
+        cases[name] = (dict(args, form="frames"), False)
+        cases[f"{name} (PR 7)"] = (args, False)
+    cases.update({
         "taps offs i32-arena shift": ({}, True),
         "taps offs i32-arena stride2": (dict(stride=2), True),
         "taps offs i32-arena fastreq": (dict(epi="fast", scale=scale), True),
-    }
+    })
 
     def kw(name):
         args, _ = cases[name]
@@ -378,6 +397,14 @@ def dw_main(batch: int = 32768, c: int = 8, s: int = 28, device="cuda",
                             K.probe_dw_plain(y, taps, **kw(name)), name))
     print(f"dw-shaped microbench C={c} S={s} batch={batch} "
           f"({device_name(dev)})", flush=True)
+    attrs = {}
+    if dev.type == "cuda":
+        for name in int8_cases:
+            a = kw(name)
+            attrs[name] = K.dw_frames_attrs(
+                sp, c, a["so"], a.get("stride", 1), a.get("offs", True),
+                a.get("epi", "shift"))
+            show_attrs(name, attrs[name])
     out = {}
     ms = time_chain(K.probe_copy, x8, reps, runs)
     out["int8 tile copy"] = variant(
@@ -395,12 +422,13 @@ def dw_main(batch: int = 32768, c: int = 8, s: int = 28, device="cuda",
                         y, reps, runs)
         out[name] = variant(ms, (2 * y.numel() * y.element_size(), gmac * 1e9,
                                  0))
-        show(name, out[name], 30, gmac=gmac)
+        show(name, out[name], 34, gmac=gmac)
     plain = time_ms(lambda: K.probe_dw_plain(x8, taps,
                                              **kw("taps offs i8 shift")),
                     dev, runs)
     return record("dw_main", "taps offs i8 shift", out, plain, err, dev,
-                  batch=batch, shape=[c, s])
+                  batch=batch, shape=[c, s],
+                  replaced="taps offs i8 shift (PR 7)", attrs=attrs)
 
 
 def _ints(argv: Sequence[str], defaults: Sequence[int]) -> List[int]:
