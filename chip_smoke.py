@@ -192,16 +192,20 @@ Phases (each prints its lines; any failure ends the run with an error):
      trap ends);
   4b. the tools/ probes (B9.1-B9.12, yoloface_tpu_torch/probes/), each at
      the JAX tool's defaults: every variant of the probe kernels
-     (csrc/probe_{copy,dw,conv}.cu, probe_dw_frames.cu, probe_fi_mma.cu;
-     B6 for the 448 stage probe) against its plain version bit for bit on
+     (csrc/probe_{copy,dw,conv}.cu, probe_dw_frames.cu, probe_fi_mma.cu,
+     probe_nhwc_mma.cu; B6 for the 448 stage probe) against its plain
+     version bit for bit on
      the input it is timed on, then timed (the 1x1 probe also at
      yolov3-tiny's layer 13, 1024 -> 256 at 13x13, batch 256, beside B6
      on that conv as a one-op strip section), the debug448 stream-order
      checks printing BIT-EXACT a variant; one kernels row a probe, its
-     launches counted over its own run; the redesigned B9.2 and B9.6 (the
-     frame-innermost 1x1 on the tensor cores, the depthwise taps a block a
-     group of frames) beside the PR 7 forms they replaced, with their
-     shares of the bound and registers, a spill failing the run;
+     launches counted over its own run; the redesigned B9.1, B9.2, B9.3
+     and B9.6 (the NHWC 1x1 on the tensor cores in row slabs, once and R
+     times; the frame-innermost 1x1 on the tensor cores; the depthwise
+     taps a block a group of frames) beside the PR 7 forms they replaced,
+     with their shares of the bound, registers and own launches, a spill
+     failing the run (at layer 13, K = 1024, the 1x1 probe leaves the row
+     form out by its rule on K and says so);
   4c. [train] (_train_phase), the port making a model, with PyTorch's
      TF32 defaults outside its calls: one train step of
      examples/train_synthetic.py's configuration (batch 32 of make_batch,
@@ -583,12 +587,12 @@ def _probe_rows(dev, card, g416):
     from yoloface_tpu_torch.probes import microbench as mb
     from yoloface_tpu_torch.probes import probe448_micro as pm
     probes = (   # (row, id, the TPU kernel's function, source, the probe)
-        ("probe_conv1x1", "B9.1", "tools/microbench.py:23", "probe_conv.cu",
-         lambda: mb.conv1x1_probe(device=dev)),
+        ("probe_conv1x1", "B9.1", "tools/microbench.py:23",
+         "probe_nhwc_mma.cu", lambda: mb.conv1x1_probe(device=dev)),
         ("probe_whcn", "B9.2", "tools/microbench.py:131", "probe_fi_mma.cu",
          lambda: mb.whcn_probe(device=dev)),
         ("probe_inkernel", "B9.3", "tools/microbench.py:264",
-         "probe_conv.cu", lambda: mb.inkernel_probe(device=dev)),
+         "probe_nhwc_mma.cu", lambda: mb.inkernel_probe(device=dev)),
         ("probe_dw16", "B9.4", "tools/microbench.py:412", "probe_dw.cu",
          lambda: mb.dw16_probe(device=dev)),
         ("probe_packdot", "B9.5", "tools/microbench.py:496", "probe_conv.cu",
@@ -635,18 +639,29 @@ def _probe_rows(dev, card, g416):
                "library_ms": head.get("library_ms"),
                "headline": rec.get("headline", "section ops 0-7"),
                "batch": rec.get("batch"), "variants": variants}
+        if "replaced" in rec:   # a redesign beside the PR 7 form it replaced
+            row["redesign"] = _redesign(rec, name, bid, card)
         if name == "probe_conv1x1":      # again at yolov3-tiny's layer 13
             kprobe.reset_launches()
             tiled.tiled_section.launches = 0
             big = mb.conv1x1_probe(BATCH_V3, 1024, 256, 13, device=dev)
+            _require("mma_rows" in big.get("left_out", {}) and
+                     big["kernels"]["mma"] == "mma",
+                     "layer 13 (K = 1024): the row form left out by its "
+                     "rule, the tile kernel the headline")
             b6 = mb.section_1x1(g416, BATCH_V3, 1024, 256, 13, device=dev)
             row["yolov3_tiny_layer13"] = {
                 "batch": BATCH_V3, "shape": big["shape"],
                 "variants": big["variants"], "plain_ms": big["plain_ms"],
+                "kernels": big["kernels"], "left_out": big["left_out"],
                 "launches": kprobe.launches(), "b6_section": dict(
                     b6, launches=tiled.tiled_section.launches)}
-        if "replaced" in rec:   # a redesign beside the PR 7 form it replaced
-            row["redesign"] = _redesign(rec, name, bid, card)
+            print(f"[probe] B9.1 at layer 13 (1024 -> 256 at 13x13, batch "
+                  f"{BATCH_V3}): mma (probe_conv.cu's tile kernel; the row "
+                  f"form left out:"
+                  f" {big['left_out']['mma_rows']}) "
+                  f"{big['variants']['mma']['ms']:.4f} ms, B6 "
+                  f"{b6['ms']:.4f} ms ({card})")
         rows.append(row)
         print(f"[probe] {bid} {name}: {launches} launches, every variant "
               f"bit-exact; {row['headline']} {head['ms']:.4f} ms, plain "
@@ -657,14 +672,17 @@ def _probe_rows(dev, card, g416):
 
 
 def _redesign(rec, name, bid, card):
-    """A redesigned probe kernel (B9.2, B9.6): its headline beside the PR 7
-    form it replaced, both timed in the probe's one run, each as a share of
-    the bound; its instantiations' registers and local bytes (a spill fails
-    the run) and its own launch count over the probe's run."""
+    """A redesigned probe kernel (B9.1, B9.2, B9.3, B9.6): its headline
+    beside the PR 7 form it replaced, both timed in the probe's one run,
+    each as a share of the bound; its instantiations' registers and local
+    bytes (a spill fails the run) and its own launch count over the
+    probe's run (the counter of the redesign that probe times)."""
     from yoloface_tpu_torch.kernels import probes as kprobe
     new, old = (rec["variants"][rec[k]] for k in ("headline", "replaced"))
-    own = (kprobe.probe_conv.fi_mma_launches if name == "probe_whcn"
-           else kprobe.probe_dw.frames_launches)
+    own = {"probe_conv1x1": kprobe.probe_conv.mma_rows_launches,
+           "probe_whcn": kprobe.probe_conv.fi_mma_launches,
+           "probe_inkernel": kprobe.probe_conv.mma_rows_launches,
+           "probe_dw_main": kprobe.probe_dw.frames_launches}[name]
     _require(own > 0, f"{name}: the redesigned kernel launched")
     for inst, a in rec["attrs"].items():
         _require(a["local_bytes"] == 0, f"{name} {inst} spills: "

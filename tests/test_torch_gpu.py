@@ -506,7 +506,11 @@ def test_probe_conv_matches_plain_on_the_card():
     bit for bit; int8(acc) wraps on both sides, and so do weights plus r
     near the int8 ends, with one tile a block and several; the
     frame-innermost 1x1 on the tensor cores (B9.2's Hopper form) at awkward
-    frame counts, K and Nout, its instantiations without a spill."""
+    frame counts, K and Nout, its instantiations without a spill; the NHWC
+    1x1 on the tensor cores in row slabs (B9.1's and B9.3's Hopper form) at
+    awkward row counts, K and Nout, every epilogue at R = 1 and 16, at the
+    probes' shapes, weights near the int8 ends, its instantiations without
+    a spill."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from yoloface_tpu_torch.kernels import probes
@@ -583,6 +587,49 @@ def test_probe_conv_matches_plain_on_the_card():
             a = probes.fi_mma_attrs(nout, vec)
             assert a["local_bytes"] == 0 and a["blocks_per_sm"] >= 1, \
                 (nout, vec, a)
+    # the NHWC 1x1 on the tensor cores in row slabs (variant="mma_rows",
+    # csrc/probe_nhwc_mma.cu): M of 1, M not a multiple of 16 or of the
+    # 256-row slab, K 4 / 36 / 40 / 48 / 64 (one to four k chunks), Nout 1
+    # / 24 / 36 / 40 / 64, every epilogue at R = 1 and 16, with weights
+    # near the int8 ends (127, 120, -128: w + r wraps); then the probes'
+    # own shapes at a batch of 4096
+    probes.reset_launches()
+    cases = 0
+    for m, k, nout in ((1, 36, 24), (37, 4, 1), (300, 36, 36), (256, 40, 40),
+                       (255, 48, 36), (513, 64, 64), (77, 64, 24),
+                       (5, 40, 1), (1000, 36, 24), (20, 4, 64),
+                       (4099, 40, 40), (511, 48, 64), (3, 20, 9)):
+        x = _probe_ints((m, k), -128, 128, m + k)
+        w = _probe_ints((nout, k), -128, 128, k + nout)
+        w.view(-1)[:3] = torch.tensor([127, 120, -128], dtype=torch.int8)
+        for epi in ("raw", "shift", "wrap"):
+            if epi == "shift" and nout > k:
+                continue
+            for reps in (1, 16):
+                kw = dict(variant="mma_rows", epi=epi, reps=reps)
+                assert torch.equal(probes.probe_conv(x, w, **kw),
+                                   probes.probe_conv_plain(x, w, **kw)), \
+                    (m, k, nout, kw)
+                cases += 1
+    for ci, co, s, epi, reps in ((36, 24, 14, "shift", 1),
+                                 (36, 36, 14, "raw", 16),
+                                 (40, 40, 7, "raw", 16)):
+        x = _probe_ints((4096, s, s, ci), -128, 128, ci + s)
+        for wlo in (-64, -128):
+            w = _probe_ints((co, ci), wlo, 64 if wlo == -64 else 128, co)
+            if wlo == -128:
+                w[0, :3] = torch.tensor([127, 120, -128], dtype=torch.int8)
+            kw = dict(variant="mma_rows", epi=epi, reps=reps)
+            assert torch.equal(probes.probe_conv(x, w, **kw),
+                               probes.probe_conv_plain(x, w, **kw)), \
+                (ci, co, s, kw)
+            cases += 1
+    assert probes.probe_conv.mma_rows_launches == cases
+    for nt in range(1, 9):              # every instantiation, at raw's
+        for kc in range(1, 5):          # shared memory (the most)
+            a = probes.mma_rows_attrs(16 * kc, 8 * nt, "raw")
+            assert a["local_bytes"] == 0 and a["blocks_per_sm"] >= 1, \
+                (nt, kc, a)
     torch.cuda.synchronize()
 
 

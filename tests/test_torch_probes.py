@@ -10,9 +10,9 @@ over ops 0-7 against JAX ``Int8Engine(g, "fast")._plan[:8]``; the head conv
 of the debug448 probe against JAX ``fast2``'s op.  Then each probe runs end
 to end on the CPU at a toy size, the wrappers route by device and refuse
 what their kernels do not take, and the entry points default to the card.
-The Hopper forms of B9.6 and B9.2: the frames kernel's plan covers every
-output word once, and the 1x1's fragment order, as numpy index maps
-multiplied through the mma.sync layouts, gives the plain output.
+The Hopper forms of B9.6, B9.2 and B9.1 / B9.3: the frames kernel's plan
+covers every output word once, and the 1x1s' fragment orders, as numpy
+index maps multiplied through the mma.sync layouts, give the plain output.
 """
 
 import importlib.util
@@ -58,7 +58,7 @@ def _np_finish_cwhn(x, acc, co):
     return o
 
 
-@pytest.mark.parametrize("variant", ["loop", "dp4a", "mma"])
+@pytest.mark.parametrize("variant", ["loop", "dp4a", "mma", "mma_rows"])
 def test_conv1x1_plain_equals_the_jax_body(variant):
     """B9.1: [Ci,S,S,N] einsum with clip(acc >> 7), rows >= Co copied."""
     rng = np.random.default_rng(0)
@@ -108,7 +108,7 @@ def test_whcn_dw_plain_equals_the_jax_body(stride):
 
 
 @pytest.mark.parametrize("variant", ["loop", "imad", "dp4a", "mma",
-                                     "mma_bf16", "fi"])
+                                     "mma_bf16", "fi", "mma_rows"])
 def test_inkernel_1x1_plain_equals_the_jax_body(variant):
     """B9.3: sum over r of (w + r) dotted with x, int32 (k_i8 / k_bf on
     [Ci,S,S,N]; k2d on [S,S,Ci,N] for the frame-innermost variant)."""
@@ -208,7 +208,7 @@ def test_dw16_wide_taps_wrap_as_the_jax_body():
 
 
 @pytest.mark.parametrize("variant", ["loop", "dp4a", "mma", "mma_bf16",
-                                     "fi4"])
+                                     "fi4", "mma_rows"])
 def test_weights_plus_r_wrap_as_jax_int8(variant):
     """B9.3 / B9.5 with weights near the int8 ends, R = 16: repetition r
     multiplies by JAX's int8 ``w + r``, which wraps (k_i8's ``wr[:] + r``)."""
@@ -468,6 +468,7 @@ def test_probe_entry_points_default_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA card"):
         card()
     for fn in (lambda: microbench.main(["conv1x1", "2"]),
+               lambda: microbench.main(["rows_sweep", "2"]),
                lambda: probe448_micro.main([]),
                lambda: probe448.main(["2"]),
                lambda: debug448.main(["min", "2"])):
@@ -679,23 +680,299 @@ def test_new_forms_route_by_device_and_refuse():
 
 @pytest.mark.parametrize("batch,frames", [(1, 4), (3, 12)])
 def test_redesigned_probes_time_their_pr7_forms(batch, frames, capsys):
-    """dw_main and whcn_probe end to end on the CPU at toy sizes (frame
-    counts the frames kernel's groups and the 1x1's 8-frame words do not
-    divide): the
-    Hopper form is the headline, the PR 7 form it replaced a variant of
-    the same record (``replaced``), every int8 case in both forms."""
+    """dw_main, whcn_probe, conv1x1_probe and inkernel_probe end to end on
+    the CPU at toy sizes (frame counts the frames kernel's groups and the
+    1x1's 8-frame words do not divide; row counts under one slab of the
+    NHWC 1x1's Hopper form and past it, with a ragged last slab): the
+    Hopper form is the headline, the PR 7
+    form it replaced a variant of the same record (``replaced``), every
+    int8 case in both forms; past the row form's K the 1x1 probe leaves it
+    out by its rule and the tile kernel heads the record."""
     dw = microbench.dw_main(batch, 8, 6, device="cpu", reps=2, runs=1)
     fi = microbench.whcn_probe(frames, 12, 8, 6, device="cpu", reps=2,
                                runs=1)
+    c1 = microbench.conv1x1_probe(batch, 36, 24, 3, device="cpu", reps=2,
+                                  runs=1)
+    ik = microbench.inkernel_probe(frames, device="cpu", runs=1)
     assert (dw["headline"], dw["replaced"]) == (
         "taps offs i8 shift", "taps offs i8 shift (PR 7)")
     assert (fi["headline"], fi["replaced"]) == (
         "fi i8 mma", "fi i8 char4 (PR 7)")
-    for rec in (dw, fi):
+    assert (c1["headline"], c1["replaced"]) == ("mma", "mma (PR 7)")
+    assert (c1["kernels"]["mma"], c1["kernels"]["mma (PR 7)"]) == (
+        "mma_rows", "mma")
+    assert (ik["headline"], ik["replaced"]) == (
+        "nhwc 1x1 mma s8 36x36@14", "nhwc 1x1 mma s8 36x36@14 (PR 7)")
+    assert {"nhwc 1x1 mma s8 40x40@7",
+            "nhwc 1x1 mma s8 40x40@7 (PR 7)"} <= set(ik["variants"])
+    for rec in (dw, fi, c1, ik):
         assert rec["max_abs_err"] == 0.0
         assert {rec["headline"], rec["replaced"]} <= set(rec["variants"])
     for name in ("taps noffs i8 shift", "taps offs i8 fastreq",
                  "taps offs i8 exactreq", "taps offs i8 stride2"):
         assert {name, f"{name} (PR 7)"} <= set(dw["variants"])
+    wide = microbench.conv1x1_probe(batch, 68, 16, 2, device="cpu", reps=2,
+                                    runs=1)
+    assert wide["kernels"]["mma"] == "mma" and "replaced" not in wide
+    assert "K = 68" in wide["left_out"]["mma_rows"]
     out = capsys.readouterr().out
     assert "fi i8 mma:" in out and "taps offs i8 shift (PR 7):" in out
+    assert "mma s8 (PR 7):" in out and "mma_rows left out: K = 68" in out
+
+
+# ------------------------- the Hopper form of B9.1 and B9.3 (lane maps)
+ROWS_THREADS, ROWS_MTILES = 128, 4     # csrc/probe_nhwc_mma.cu's block
+ROWS_WARPS = ROWS_THREADS // 32
+
+
+def _s8(reg, byte):
+    """Byte ``byte`` of uint32 registers as int8 values."""
+    return ((reg.astype(np.int64) >> (8 * byte)) & 0xFF).astype(
+        np.uint8).view(np.int8).astype(np.int64)
+
+
+def _vadd4(reg, by):
+    """__vadd4: a byte-wise add mod 256 of uint32 words."""
+    out = np.zeros(reg.shape, np.int64)
+    for byte in range(4):
+        s = ((reg.astype(np.int64) >> (8 * byte)) + (by >> (8 * byte))) & 0xFF
+        out |= s << (8 * byte)
+    return out.astype(np.uint32)
+
+
+def _mma_rows_maps(k, nout):
+    """csrc/probe_nhwc_mma.cu's lane maps over one warp (lane l = 4g + t),
+    as numpy index arrays (-1: a zero register, past K or Nout):
+
+    * ``a_row`` [32, MT, 2], ``a_word`` [32, KC]: A register (mt, c, h)
+      holds word ``a_word[l, c]`` = 4c + t of the warp's row ``a_row[l, mt,
+      h]`` = 16mt + g + 8h;
+    * ``b_co`` [32, NT], ``b_word`` [32, KC]: B register (nt, c) holds word
+      4c + t of weight row 8nt + g;
+    * ``c_row`` [32, MT, 4], ``c_col`` [32, NT, 4]: accumulator (mt, nt, e)
+      is the warp's row 16mt + g + 8(e // 2), output channel 8nt + 2t +
+      e % 2."""
+    g, t = np.arange(32) // 4, np.arange(32) % 4
+    nt, kc = -(-nout // 8), -(-k // 16)
+    mt, h = np.arange(ROWS_MTILES), np.arange(2)
+    a_row = 16 * mt[None, :, None] + g[:, None, None] + 8 * h[None, None]
+    word = 4 * np.arange(kc)[None] + t[:, None]
+    a_word = np.where(word < k // 4, word, -1)
+    co = 8 * np.arange(nt)[None] + g[:, None]
+    b_co = np.where(co < nout, co, -1)
+    e = np.arange(4)
+    c_row = (16 * mt[None, :, None] + g[:, None, None]
+             + 8 * (e[None, None] // 2))
+    c_col = 8 * np.arange(nt)[None, :, None] + 2 * t[:, None, None] + \
+        e[None, None] % 2
+    return dict(a_row=a_row, a_word=a_word, b_co=b_co, b_word=a_word,
+                c_row=c_row, c_col=c_col)
+
+
+def _mma_tiles(a_regs, b_regs):
+    """One mma.sync s8 step from the lanes' registers through the PTX
+    layouts (m16n8k32: a0..a3 rows g, g + 8, g, g + 8 at k 4t.. (a0, a1)
+    and 16 + 4t.. (a2, a3), b0 / b1 column g at k 4t.. / 16 + 4t..;
+    m16n8k16: a0, a1 and b0 alone): ``a_regs`` [32, MT] each, ``b_regs``
+    [32, NT] each -> C [MT, NT, 16, 8]."""
+    g, t = np.arange(32) // 4, np.arange(32) % 4
+    kk = 16 * len(b_regs)
+    a = np.zeros((a_regs[0].shape[1], 16, kk), np.int64)
+    b = np.zeros((b_regs[0].shape[1], kk, 8), np.int64)
+    for j, reg in enumerate(a_regs):
+        for byte in range(4):
+            a[:, g + 8 * (j % 2), 16 * (j // 2) + 4 * t + byte] = \
+                _s8(reg, byte).T
+    for j, reg in enumerate(b_regs):
+        for byte in range(4):
+            b[:, 16 * j + 4 * t + byte, g] = _s8(reg, byte).T
+    return np.einsum("mik,nkj->mnij", a, b)
+
+
+def _mma_rows_emulate(x, w, epi, reps):
+    """probe_nhwc_mma.cu's slabs, warps and lanes in numpy: the stage
+    filled by the bulk copy and the ragged tail's words over stale bytes,
+    each warp's A registers through the maps, R passes of the mma steps on
+    B registers that take __vadd4(b, 0x01010101) between passes, the
+    epilogue's writes by the accumulator map into the stage (shift) or the
+    output buffer, the slab's bulk store and tail bytes -> (output, loads an
+    input byte, stores an output byte, epilogue writes an element)."""
+    m, k = x.shape
+    nout = w.shape[0]
+    nt, kc = -(-nout // 8), -(-k // 16)
+    maps = _mma_rows_maps(k, nout)
+    g, t = np.arange(32) // 4, np.arange(32) % 4
+    slab = 16 * ROWS_MTILES * ROWS_WARPS
+    ldo = k if epi == "shift" else nout
+    esize = 4 if epi == "raw" else 1
+    ob = ldo * esize
+    xb = x.view(np.uint8).ravel()
+    out = np.zeros(m * ob, np.uint8)
+    loads, stores = np.zeros(m * k, np.int64), np.zeros(m * ob, np.int64)
+    writes = np.zeros((m, ldo), np.int64)
+    words = w.view(np.uint8).reshape(nout, k).copy().view("<u4")
+    b = np.where((maps["b_co"] >= 0)[:, :, None]
+                 & (maps["b_word"] >= 0)[:, None, :],
+                 words[maps["b_co"][:, :, None], maps["b_word"][:, None, :]],
+                 0).astype(np.uint32)                         # [32, NT, KC]
+    junk = np.random.default_rng(99)
+    obuf = junk.integers(0, 256, slab * ob).astype(np.uint8)   # one buffer
+    for s0 in range(0, m, slab):
+        rows = min(slab, m - s0)
+        stage = junk.integers(0, 256, slab * k).astype(np.uint8)
+        n = rows * k
+        nb = n & ~15
+        stage[:nb] = xb[s0 * k:s0 * k + nb]                   # the bulk copy
+        loads[s0 * k:s0 * k + nb] += 1
+        for i in range(nb, n, 4):                             # tail words
+            stage[i:i + 4] = xb[s0 * k + i:s0 * k + i + 4]
+            loads[s0 * k + i:s0 * k + i + 4] += 1
+        wr = np.zeros((slab, ldo), np.int64)
+        sw = stage.view("<u4").reshape(slab, k // 4)
+        for warp in range(ROWS_WARPS):
+            r = warp * 16 * ROWS_MTILES
+            a = np.where((maps["a_word"] >= 0)[:, None, :, None],
+                         sw[r + maps["a_row"][:, :, None, :],
+                            maps["a_word"][:, None, :, None]],
+                         0).astype(np.uint32)                 # [32,MT,KC,2]
+            acc = np.zeros((32, ROWS_MTILES, nt, 4), np.int64)
+            bb = b.copy()
+            for rep in range(reps):
+                if rep:
+                    bb = _vadd4(bb, 0x01010101)
+                want = (w.astype(np.int64) + rep).astype(np.int8)
+                ok = (maps["b_co"] >= 0)[:, :, None] & \
+                    (maps["b_word"] >= 0)[:, None, :]
+                for byte in range(4):           # the bytes are int8 w + rep
+                    kk = 4 * maps["b_word"][:, None, :] + byte
+                    sel = ok & (kk < k)
+                    assert (_s8(bb, byte)[sel] == want[
+                        maps["b_co"][:, :, None].repeat(kc, 2)[sel],
+                        kk.repeat(nt, 1)[sel]]).all()
+                for c in range(0, kc, 2):
+                    pair = c + 1 < kc
+                    chunks = (c, c + 1) if pair else (c,)
+                    cc = _mma_tiles([a[:, :, q, h] for q in chunks
+                                     for h in range(2)],
+                                    [bb[:, :, q] for q in chunks])
+                    for e in range(4):
+                        acc[:, :, :, e] += np.moveaxis(
+                            cc[:, :, g + 8 * (e // 2), 2 * t + e % 2], 2, 0)
+            back = _vadd4(bb, ((1 - reps) & 0xFF) * 0x01010101)
+            assert (back == b).all()
+            acc = acc.astype(np.int32)                        # wraps as s32
+            for mt in range(ROWS_MTILES):
+                for q in range(nt):
+                    for e in range(4):
+                        row = r + maps["c_row"][:, mt, e]
+                        col = maps["c_col"][:, q, e]
+                        keep = col < nout
+                        v = acc[:, mt, q, e][keep]
+                        row, col = row[keep], col[keep]
+                        wr[row, col] += 1
+                        if epi == "shift":
+                            stage[row * k + col] = np.clip(
+                                v >> 7, -128, 127).astype(np.int8).view(
+                                    np.uint8)
+                        elif epi == "wrap":
+                            obuf[row * nout + col] = v.astype(np.int8).view(
+                                np.uint8)
+                        else:
+                            ov = obuf.view("<i4")
+                            ov[row * nout + col] = v
+        writes[s0:s0 + rows] = wr[:rows]
+        src = stage if epi == "shift" else obuf
+        n = rows * ob
+        nb = n & ~15
+        out[s0 * ob:s0 * ob + nb] = src[:nb]                  # the bulk store
+        stores[s0 * ob:s0 * ob + nb] += 1
+        for i in range(nb, n):                                # tail bytes
+            out[s0 * ob + i] = src[i]
+            stores[s0 * ob + i] += 1
+    res = out.view("<i4" if epi == "raw" else np.int8).reshape(m, ldo)
+    return res, loads, stores, writes
+
+
+@pytest.mark.parametrize("m,k,nout,epi,reps", [
+    (1, 36, 24, "shift", 1), (37, 4, 1, "raw", 16), (300, 36, 36, "raw", 16),
+    (256, 40, 40, "wrap", 1), (255, 48, 36, "shift", 16),
+    (513, 64, 64, "raw", 1), (77, 64, 24, "wrap", 16), (5, 40, 1, "shift", 16),
+    (300, 36, 24, "shift", 1), (20, 4, 64, "wrap", 1)])
+def test_mma_rows_maps_give_the_plain_1x1(m, k, nout, epi, reps):
+    """_mma_rows_maps at odd M, K, Nout and R: the lanes' A words (zero
+    past K) and B words (zero past Nout and K), B wrapped byte by byte as
+    int8 w + r at each repetition and restored after, multiplied through
+    the m16n8k32 / m16n8k16 fragment layouts and written by the
+    accumulator map in place (shift) or into the output slab, give
+    probe_conv_plain's output; every input byte loaded once, every output
+    byte stored once, every computed element written once."""
+    rng = np.random.default_rng(m * 1000 + k * 10 + nout)
+    x = rng.integers(-128, 128, (m, k)).astype(np.int8)
+    w = rng.integers(-128, 128, (nout, k)).astype(np.int8)
+    w.ravel()[:3] = (127, 120, -128)
+    got, loads, stores, writes = _mma_rows_emulate(x, w, epi, reps)
+    want = K.probe_conv_plain(_t(x), _t(w), variant="mma_rows", epi=epi,
+                              reps=reps)
+    np.testing.assert_array_equal(got, want.numpy())
+    assert (loads == 1).all() and (stores == 1).all()
+    assert (writes[:, :nout] == 1).all() and (writes[:, nout:] == 0).all()
+    maps = _mma_rows_maps(k, nout)
+    words = maps["a_word"][maps["a_word"] >= 0]
+    assert sorted(words.tolist()) == sorted(list(range(k // 4)) * 8)
+
+
+def test_mma_rows_plan_keeps_three_blocks_an_sm():
+    """mma_rows_plan: 2-4 stages, the most that keep a block within a
+    third of an SM's shared memory (two at least, within one block's), at
+    every K and Nout the form takes; the probes' shapes."""
+    for k in range(4, K.ROWS_MAX_K + 1, 4):
+        for nout in range(1, K.ROWS_MAX_NOUT + 1):
+            for epi in K.CONV_EPIS:
+                plan = K.mma_rows_plan(k, nout, epi)
+                st, smem = plan["stages"], plan["smem"]
+                out = 0 if epi == "shift" else 256 * nout * (
+                    4 if epi == "raw" else 1)
+                assert smem == st * K.ROWS_SLAB * k + out
+                assert 2 <= st <= K.ROWS_MAX_STAGES and smem <= K.SMEM_LIMIT
+                assert st == 2 or smem <= K.ROWS_BLOCK_SMEM
+                assert st == K.ROWS_MAX_STAGES or (
+                    smem + K.ROWS_SLAB * k > K.ROWS_BLOCK_SMEM)
+    assert [K.mma_rows_plan(*a)["stages"] for a in (
+        (36, 24, "shift"), (36, 36, "raw"), (40, 40, "raw"))] == [4, 4, 3]
+
+
+def test_mma_rows_routes_by_device_and_refuses():
+    """The Hopper form of B9.1 / B9.3 (``variant="mma_rows"``): a CPU
+    tensor takes the plain version in every epilogue and R (no launch
+    counted); K not a multiple of 4 or past 64, Nout past 64, a misaligned
+    x or w and an unknown epilogue raise, on the CPU too."""
+    K.reset_launches()
+    rng = np.random.default_rng(6)
+    x = _t(rng.integers(-128, 128, (3, 5, 36)).astype(np.int8))
+    w = _t(rng.integers(-128, 128, (24, 36)).astype(np.int8))
+    for epi in K.CONV_EPIS:
+        for reps in (1, 16):
+            got = K.probe_conv(x, w, variant="mma_rows", epi=epi, reps=reps)
+            assert torch.equal(got, K.probe_conv_plain(
+                x, w, variant="mma", epi=epi, reps=reps))
+    assert K.launches() == 0 and K.probe_conv.mma_rows_launches == 0
+    z = lambda *s: torch.zeros(s, dtype=torch.int8)   # noqa: E731
+    xbuf, wbuf = z(3 * 5 * 36 + 16), z(24 * 36 + 16)
+    bad = [lambda: K.probe_conv(z(4, 35), z(8, 35), variant="mma_rows"),
+           lambda: K.probe_conv(z(4, 6), z(2, 6), variant="mma_rows"),
+           lambda: K.probe_conv(z(4, 68), z(8, 68), variant="mma_rows"),
+           lambda: K.probe_conv(z(4, 64), z(65, 64), variant="mma_rows"),
+           lambda: K.probe_conv(xbuf[4:4 + 540].view(3, 5, 36), w,
+                                variant="mma_rows"),
+           lambda: K.probe_conv(x, wbuf[1:1 + 864].view(24, 36),
+                                variant="mma_rows", epi="wrap"),
+           lambda: K.probe_conv(x, w, variant="mma_rows", epi="clip"),
+           lambda: K.probe_conv(z(4, 8), z(12, 8), variant="mma_rows",
+                                epi="shift"),
+           lambda: K.mma_rows_attrs(36, 65),
+           lambda: K.mma_rows_attrs(38, 24),
+           lambda: K.mma_rows_attrs(36, 24, "clip")]
+    for i, fn in enumerate(bad):
+        with pytest.raises(ValueError):
+            fn()
+        assert K.launches() == 0, i

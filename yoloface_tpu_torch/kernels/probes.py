@@ -19,20 +19,22 @@ Pallas kernels of their own.  Their counterparts here:
   frame innermost; int32 sums, ``clip(acc >> 7)`` with the rest of the
   channels copied, or ``int8(acc)`` wrapping; ``variant="fi_mma"``
   (``csrc/probe_fi_mma.cu``): the frame-innermost 1x1 on the int8 tensor
-  cores, a warp a pixel and 64 frames.
+  cores, a warp a pixel and 64 frames; ``variant="mma_rows"``
+  (``csrc/probe_nhwc_mma.cu``): the NHWC 1x1 on the int8 tensor cores,
+  slabs of rows streamed once through shared memory.
 
 Each wrapper checks its tensors, runs the plain version (beside it, named
 ``*_plain``) on a CPU tensor, launches its kernel on PyTorch's current
 stream for a CUDA tensor (no synchronisation) and raises on any other
-device; each counts its launches in ``.launches`` (and the two Hopper forms
-in ``probe_dw.frames_launches`` and ``probe_conv.fi_mma_launches`` as
-well).  A form that cannot take its arguments raises; no wrapper falls
-back to another form.  The plain versions
-compute in int64 or exact float64 and repeat the kernels' arithmetic, the
-R-times forms as the JAX probes define them: the 1x1's int8 weights plus r
-wrap to int8 (JAX's int8 ``w + r``), the int32 taps plus r do not (the
-closed sum ``sum_r (t + r) = R*t + R*(R-1)/2``); sums wrap to int16 or
-int8 where the kernel's store wraps.
+device; each counts its launches in ``.launches`` (and the Hopper forms
+in ``probe_dw.frames_launches``, ``probe_conv.fi_mma_launches`` and
+``probe_conv.mma_rows_launches`` as well).  A form that cannot take its
+arguments raises; no wrapper falls back to another form.  The plain
+versions compute in int64 or exact float64 and repeat the kernels'
+arithmetic, the R-times forms as the JAX probes define them: the 1x1's
+int8 weights plus r wrap to int8 (JAX's int8 ``w + r``), the int32 taps
+plus r do not (the closed sum ``sum_r (t + r) = R*t + R*(R-1)/2``); sums
+wrap to int16 or int8 where the kernel's store wraps.
 """
 
 from __future__ import annotations
@@ -53,7 +55,7 @@ DW_BORDERS = ("copy", "zero", "none")
 DW_FORMS = ("thread", "frames")
 LAYOUTS = ("nhwc", "fi")           # fi: frames innermost, [H, W, C, N]
 CONV_VARIANTS = ("loop", "imad", "dp4a", "mma", "mma_bf16", "fi", "fi4",
-                 "fi_mma")
+                 "fi_mma", "mma_rows")
 CONV_EPIS = ("raw", "shift", "wrap")
 FRAME_INNER = ("fi", "fi4", "fi_mma")
 SMEM_LIMIT = 232448                # bytes of shared memory a block may have
@@ -65,6 +67,12 @@ DW_BLOCK_SMEM = SMEM_LIMIT // 2 - 1024
 # csrc/probe_fi_mma.cu: a warp task is one pixel and 64 frames; K and Nout
 # padded to 64 and a multiple of 8 (two m16n8k32 k-steps, four n-tiles)
 FI_FRAMES, FI_MAX_K, FI_MAX_NOUT = 64, 64, 32
+# csrc/probe_nhwc_mma.cu: slabs of 256 rows (a warp 64), a ring of 2-4
+# slabs, the RAW and WRAP outputs through one slab buffer; K a multiple of
+# 4 up to 64 (chunks of 16), Nout up to 64 (n-tiles of 8)
+ROWS_SLAB, ROWS_MAX_STAGES, ROWS_MAX_K, ROWS_MAX_NOUT = 256, 4, 64, 64
+SM_SMEM = 233472                   # bytes of shared memory an SM has
+ROWS_BLOCK_SMEM = SM_SMEM // 3 - 1024         # three blocks an SM
 TM = TN = 64                       # probe_conv.cu's tile
 _SKEW = {"imad": 4, "dp4a": 4, "mma": 16, "mma_bf16": 8}
 # the dw kernel's instances: (layout, input, output, arithmetic)
@@ -442,7 +450,12 @@ def _conv_args(x, w, variant, epi, reps=1):
                          f"repetition, K <= {FI_MAX_K}, Nout <= "
                          f"{FI_MAX_NOUT}; got {epi}, R = {reps}, K = {k}, "
                          f"Nout = {nout}")
-    if variant not in FRAME_INNER and variant != "loop" and \
+    if variant == "mma_rows":
+        why = mma_rows_refuses(k, nout) or (
+            None if _aligned(x, w) else "x and w must be 16-byte aligned")
+        if why:
+            raise ValueError(f"probe_conv mma_rows: {why}")
+    elif variant not in FRAME_INNER and variant != "loop" and \
             conv_smem_bytes(variant, k) > SMEM_LIMIT:
         raise ValueError(f"probe_conv: K = {k} passes one block's shared "
                          "memory")
@@ -451,6 +464,32 @@ def _conv_args(x, w, variant, epi, reps=1):
     if m * ldo * frames >= 1 << 31:
         raise ValueError("probe_conv: the output passes int32 indices")
     return m, k, nout, ldo, frames
+
+
+def mma_rows_refuses(k: int, nout: int) -> Optional[str]:
+    """Why ``variant="mma_rows"`` does not take depth ``k`` and ``nout``
+    output channels, or None where it does: K a multiple of 4 up to
+    ``ROWS_MAX_K``, Nout up to ``ROWS_MAX_NOUT``."""
+    if k % 4 or not 4 <= k <= ROWS_MAX_K:
+        return f"K = {k}: a multiple of 4 up to {ROWS_MAX_K}"
+    if not 1 <= nout <= ROWS_MAX_NOUT:
+        return f"Nout = {nout}: 1 to {ROWS_MAX_NOUT}"
+    return None
+
+
+def mma_rows_plan(k: int, nout: int, epi: str, slab: int = ROWS_SLAB
+                  ) -> dict:
+    """The mma_rows block's ring: ``stages`` slabs of ``slab`` rows of
+    input (the most, up to ``ROWS_MAX_STAGES``, that keep three blocks an
+    SM, each with the 1 KB the card reserves a block; two at least) and,
+    for ``raw`` and ``wrap``, one output slab buffer, in ``smem`` bytes of
+    dynamic shared memory."""
+    out = 0 if epi == "shift" else slab * nout * (4 if epi == "raw" else 1)
+    for stages in range(ROWS_MAX_STAGES, 1, -1):
+        smem = stages * slab * k + out
+        if smem <= ROWS_BLOCK_SMEM:
+            break
+    return dict(stages=stages, smem=smem)
 
 
 def _out_shape(x, variant, ldo):
@@ -490,7 +529,10 @@ def probe_conv(x, w, *, variant="mma", epi="raw", reps=1,
     walk ``tiles_per_block`` 64-row tiles a block (default: about eight
     blocks an SM).  ``fi_mma``: the frame-innermost 1x1 on the int8 tensor
     cores (``shift`` or ``wrap``, one repetition, K <= 64, Nout <= 32; a
-    frame count that is not a multiple of 8 takes byte accesses)."""
+    frame count that is not a multiple of 8 takes byte accesses).
+    ``mma_rows``: the NHWC 1x1 on the int8 tensor cores in slabs of rows
+    (every epilogue and R; K a multiple of 4 up to 64, Nout up to 64,
+    ``x`` and ``w`` 16-byte aligned: ``mma_rows_refuses``)."""
     m, k, nout, ldo, frames = _conv_args(x, w, variant, epi, reps)
     if _device(x, "probe_conv") == "cpu":
         return probe_conv_plain(x, w, variant=variant, epi=epi, reps=reps)
@@ -513,6 +555,14 @@ def probe_conv(x, w, *, variant="mma", epi="raw", reps=1,
         probe_conv.launches += 1
         probe_conv.fi_mma_launches += 1
         return out
+    if variant == "mma_rows":
+        _launch("yf_probe_nhwc_mma", "probe_conv mma_rows", x.data_ptr(),
+                w.data_ptr(), out.data_ptr(),
+                (m, k, nout, CONV_EPIS.index(epi), reps,
+                 mma_rows_plan(k, nout, epi)["stages"]), device=x.device)
+        probe_conv.launches += 1
+        probe_conv.mma_rows_launches += 1
+        return out
     if tiles_per_block is None:          # about eight blocks an SM
         blocks = -(-m // TM) * -(-nout // TN)
         tiles_per_block = max(1, -(-blocks // (132 * 8)))
@@ -526,6 +576,7 @@ def probe_conv(x, w, *, variant="mma", epi="raw", reps=1,
 
 probe_conv.launches = 0
 probe_conv.fi_mma_launches = 0
+probe_conv.mma_rows_launches = 0
 
 
 def _kernel_attrs(fn: str, *args) -> dict:
@@ -559,6 +610,20 @@ def fi_mma_attrs(nout: int, vec: bool = True) -> dict:
     return _kernel_attrs("yf_probe_fi_mma_attrs", -(-nout // 8), int(vec))
 
 
+def mma_rows_attrs(k: int, nout: int, epi: str = "raw") -> dict:
+    """The mma_rows instantiation for depth ``k`` (chunks of 16) and
+    ``nout`` output channels (n-tiles of 8), as built, at the shared memory
+    of epilogue ``epi``'s plan (``dw_frames_attrs``' keys, the n-tiles,
+    the k chunks and ``mma_rows_plan``)."""
+    why = mma_rows_refuses(k, nout) or (
+        None if epi in CONV_EPIS else f"epi {epi!r}")
+    if why:
+        raise ValueError(f"probe_conv mma_rows: {why}")
+    nt, kc, plan = -(-nout // 8), -(-k // 16), mma_rows_plan(k, nout, epi)
+    return dict(_kernel_attrs("yf_probe_nhwc_mma_attrs", nt, kc,
+                              plan["smem"]), n_tiles=nt, k_chunks=kc, **plan)
+
+
 WRAPPERS: Sequence = (probe_copy, probe_phase_select, probe_dw,
                       probe_requant_chain, probe_conv)
 
@@ -568,6 +633,7 @@ def reset_launches() -> None:
         fn.launches = 0
     probe_dw.frames_launches = 0
     probe_conv.fi_mma_launches = 0
+    probe_conv.mma_rows_launches = 0
 
 
 def launches() -> int:

@@ -8,6 +8,7 @@ Usage (on the card)::
     python3 -m yoloface_tpu_torch.probes.microbench inkernel [batch]
     python3 -m yoloface_tpu_torch.probes.microbench dw16 [batch]
     python3 -m yoloface_tpu_torch.probes.microbench packdot [batch]
+    python3 -m yoloface_tpu_torch.probes.microbench rows_sweep [batch]
     python3 -m yoloface_tpu_torch.probes.microbench [batch] [C] [S]
 
 with the JAX tool's defaults.  The layouts are the port's: NHWC ([N, S, S,
@@ -16,17 +17,21 @@ frame-innermost [S, S, C, N] where it kept that.  Inputs are made on the
 device from fixed seeds.  Every variant's output on the timed input is
 first held against its plain version on the same input, bit for bit.
 ``conv1x1``, ``whcn`` and the dw-shaped ``main`` time chains of 20 calls
-(each fed the last output); ``whcn`` and ``main`` time each kernel that
-PR 7 ported and a later one redesigned beside its redesign (``... (PR 7)``,
-the redesign the headline) and print the redesign's registers and local
-bytes; ``inkernel``, ``dw16`` and ``packdot`` repeat
-the op R = 16 times inside one launch and report the time an op.
+(each fed the last output); ``conv1x1``, ``whcn``, ``inkernel`` and
+``main`` time each kernel that PR 7 ported and a later one redesigned
+beside its redesign (``... (PR 7)``, the redesign the headline) and print
+the redesign's registers and local bytes; ``inkernel``, ``dw16`` and
+``packdot`` repeat the op R = 16 times inside one launch and report the
+time an op.  ``rows_sweep`` builds the NHWC 1x1's Hopper form with other
+block shapes and times them at the ``conv1x1`` and ``inkernel`` shapes.
 ``section_1x1`` times the tiled section kernel B6 on a net's 1x1 conv, the
 body the ``conv1x1`` loop restates.
 """
 
 from __future__ import annotations
 
+import ctypes
+import subprocess
 import sys
 from typing import Dict, List, Sequence
 
@@ -42,9 +47,16 @@ from yoloface_tpu_torch.probes import (HBM_RATE, card, device_name, randint,
 R = 16                     # repetitions inside a launch
 NT = 128                   # the JAX tools' frame tile: the unit of ns/dot
 QM, SHIFT = 1518500250, -7          # main's exact requant
-CONV1X1 = {"loop": "conv_op loop", "dp4a": "dp4a smem", "mma": "mma s8"}
+# conv1x1's records: key -> (probe_conv variant, label); "mma" is the
+# NHWC 1x1's Hopper form (csrc/probe_nhwc_mma.cu) where it takes the shape,
+# else probe_conv.cu's tile kernel
+CONV1X1 = {"loop": ("loop", "conv_op loop"), "dp4a": ("dp4a", "dp4a smem"),
+           "mma": ("mma_rows", "mma s8"),
+           "mma (PR 7)": ("mma", "mma s8 (PR 7)")}
+# inkernel's NHWC variants: variant -> label (the tile kernel's mma with
+# " (PR 7)" after the shape)
 INKERNEL = {"loop": "loop", "imad": "imad smem", "dp4a": "dp4a smem",
-            "mma": "mma s8", "mma_bf16": "mma bf16"}
+            "mma_rows": "mma s8", "mma": "mma s8", "mma_bf16": "mma bf16"}
 
 
 def conv1x1_probe(batch: int = 32768, ci: int = 36, co: int = 24,
@@ -52,31 +64,48 @@ def conv1x1_probe(batch: int = 32768, ci: int = 36, co: int = 24,
                   runs: int = 3) -> Dict:
     """B9.1: the 1x1 conv with ``clip(acc >> 7)`` on the first ``co``
     channels and the rest copied, as the arena's CUDA-core loop, __dp4a
-    from shared memory and int8 mma with K zero-padded to 32."""
+    from shared memory and int8 mma: the headline ``mma`` the Hopper form
+    (``variant="mma_rows"``, row slabs streamed through shared memory),
+    ``mma (PR 7)`` the tile kernel it replaced, K zero-padded to 32.  Where
+    the Hopper form does not take the shape (``K.mma_rows_refuses``: K a
+    multiple of 4 up to 64, Nout up to 64), the record says so in
+    ``left_out`` and ``mma`` is the tile kernel."""
     dev = card(device)
     w = randint((co, ci), -64, 64, dev, 1)
     x = randint((batch, s, s, ci), -128, 128, dev, 0)
+    why = K.mma_rows_refuses(ci, co)
+    cases = ({"loop": CONV1X1["loop"], "dp4a": CONV1X1["dp4a"],
+              "mma": ("mma", "mma s8")} if why else CONV1X1)
 
     def plain():
         return K.probe_conv_plain(x, w, variant="mma", epi="shift")
 
     want = plain()
     err = max(same(K.probe_conv(x, w, variant=v, epi="shift"), want,
-                   f"conv1x1 {v}") for v in CONV1X1)
+                   f"conv1x1 {key}") for key, (v, _) in cases.items())
     del want
     gmac = ci * co * s * s * batch / 1e9
     work = (2 * x.numel() + w.numel(), gmac * 1e9, 0)
     print(f"1x1 probe Ci={ci} Co={co} S={s} batch={batch} ({gmac:.1f} "
           f"GMAC/op; {device_name(dev)})", flush=True)
+    extra = dict(kernels={key: v for key, (v, _) in cases.items()})
+    if why:
+        extra["left_out"] = {"mma_rows": why}
+        print(f"{'':>4s}mma_rows left out: {why}", flush=True)
+    else:
+        extra.update(replaced="mma (PR 7)", attrs={})
+        if dev.type == "cuda":
+            extra["attrs"]["mma"] = K.mma_rows_attrs(ci, co, "shift")
+            show_attrs("mma s8", extra["attrs"]["mma"])
     out = {}
-    for v, label in CONV1X1.items():
+    for key, (v, label) in cases.items():
         ms = time_chain(lambda y, v=v: K.probe_conv(y, w, variant=v,
                                                     epi="shift"),
                         x, reps, runs)
-        out[v] = variant(ms, work)
-        show(label, out[v], 22, gmac=gmac)
+        out[key] = variant(ms, work)
+        show(label, out[key], 22, gmac=gmac)
     return record("conv1x1", "mma", out, time_ms(plain, dev, runs), err,
-                  dev, batch=batch, shape=[ci, co, s])
+                  dev, batch=batch, shape=[ci, co, s], **extra)
 
 
 def section_1x1(graph: GraphDef, batch: int = 256, ci: int = 1024,
@@ -174,12 +203,14 @@ def whcn_probe(batch: int = 32768, ci: int = 36, co: int = 24, s: int = 14,
 def inkernel_probe(batch: int = 32768, device="cuda", runs: int = 3) -> Dict:
     """B9.3: each op R times inside one launch on data already on chip, the
     weights plus r: the 1x1 in NHWC (the CUDA-core loop, byte
-    multiply-adds and __dp4a from shared memory, int8 and bf16 mma) and
-    frame innermost, the depthwise taps, the fast requant chain.  Int32
-    sums out."""
+    multiply-adds and __dp4a from shared memory, int8 mma in the Hopper
+    form, ``mma_rows``, the headline, and as the tile kernel, ``...
+    (PR 7)``, and bf16 mma) and frame innermost, the depthwise taps, the
+    fast requant chain.  Int32 sums out."""
     dev = card(device)
     out, err = {}, 0.0
     plain_ms = None
+    attrs = {}
     print(f"inkernel probe R={R} batch={batch} ({device_name(dev)})",
           flush=True)
 
@@ -206,8 +237,13 @@ def inkernel_probe(batch: int = 32768, device="cuda", runs: int = 3) -> Dict:
                 return K.probe_conv_plain(x, w, variant=v, epi="raw", reps=R)
 
             want = plain()
+            if layout == "nhwc" and dev.type == "cuda":
+                name = f"nhwc 1x1 {INKERNEL['mma_rows']} {ci}x{co}@{s}"
+                attrs[name] = K.mma_rows_attrs(ci, co, "raw")
+                show_attrs(name, attrs[name])
             for v, label in names.items():
-                name = f"{layout} 1x1 {label} {ci}x{co}@{s}"
+                name = f"{layout} 1x1 {label} {ci}x{co}@{s}" + (
+                    " (PR 7)" if layout == "nhwc" and v == "mma" else "")
                 run(name, lambda x=x, w=w, v=v: K.probe_conv(
                     x, w, variant=v, epi="raw", reps=R), want, work,
                     macs / 1e9)
@@ -230,7 +266,7 @@ def inkernel_probe(batch: int = 32768, device="cuda", runs: int = 3) -> Dict:
                                             6 * x.numel() * R),
         x.numel() * R / 1e9)
     return record("inkernel", head, out, plain_ms, err, dev, batch=batch,
-                  reps=R)
+                  reps=R, replaced=f"{head} (PR 7)", attrs=attrs)
 
 
 def dw16_probe(batch: int = 32768, device="cuda", runs: int = 3) -> Dict:
@@ -431,6 +467,120 @@ def dw_main(batch: int = 32768, c: int = 8, s: int = 28, device="cuda",
                   replaced="taps offs i8 shift (PR 7)", attrs=attrs)
 
 
+# rows_sweep's block shapes of csrc/probe_nhwc_mma.cu: (threads a block,
+# 16-row m-tiles a warp); the source's own first
+ROWS_SHAPES = ((128, 4), (256, 2), (128, 2), (64, 4))
+
+
+def _rows_builds(shapes) -> Dict:
+    """csrc/probe_nhwc_mma.cu built once a block shape, each into a library
+    of its own beside the package's (one nvcc each, all at once) ->
+    {shape: (library, rows a slab)}."""
+    from yoloface_tpu_torch.kernels import _build
+    src = (_build.CSRC / "probe_nhwc_mma.cu").read_text()
+    own = ("constexpr int kThreads = 128;", "constexpr int kMTiles = 4;")
+    if not all(a in src for a in own):
+        raise RuntimeError("probe_nhwc_mma.cu: the block shape moved")
+    out = _build.BUILD_DIR / "rows_sweep"
+    out.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for threads, mt in shapes:
+        cu = out / f"probe_nhwc_mma_t{threads}_m{mt}.cu"
+        cu.write_text(src.replace(own[0], f"constexpr int kThreads = "
+                                          f"{threads};")
+                      .replace(own[1], f"constexpr int kMTiles = {mt};"))
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+               "-shared", "-o", str(cu.with_suffix(".so")), str(cu)]
+        jobs[(threads, mt)] = (cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    libs = {}
+    for shape, (cmd, proc) in jobs.items():
+        _build._finish(cmd, *proc.communicate(), proc.returncode)
+        lib = ctypes.CDLL(cmd[-2])
+        lib.yf_probe_nhwc_mma.argtypes = _build.SIGNATURES[
+            "yf_probe_nhwc_mma"]
+        lib.yf_probe_nhwc_mma_attrs.argtypes = _build.SIGNATURES[
+            "yf_probe_nhwc_mma_attrs"]
+        libs[shape] = (lib, 16 * shape[1] * shape[0] // 32)
+    return libs
+
+
+def rows_sweep(batch: int = 32768, device="cuda", runs: int = 3,
+               rounds: int = 2) -> Dict:
+    """The NHWC 1x1's Hopper form (``variant="mma_rows"``) at other block
+    shapes (``ROWS_SHAPES``: threads a block, m-tiles a warp), each built
+    from the package's source with those two constants changed: B9.1's
+    shift (a call in a chain of 20) and B9.3's raw R = 16 sums at 36x36@14
+    and 40x40@7, each held against the plain version on the timed input
+    first; the shapes in turn, ``rounds`` times.  On the card only."""
+    from yoloface_tpu_torch.kernels._build import check
+    dev = card(device)
+    if dev.type != "cuda":
+        raise RuntimeError("rows_sweep builds kernels: it runs on a CUDA "
+                           "card")
+    libs = _rows_builds(ROWS_SHAPES)
+    print(f"rows_sweep batch={batch} ({device_name(dev)})", flush=True)
+
+    def call(shape, x, w, epi, reps):
+        lib, slab = libs[shape]
+        k, nout = x.shape[-1], w.shape[0]
+        out = torch.empty((*x.shape[:-1], k if epi == "shift" else nout),
+                          dtype=torch.int32 if epi == "raw" else torch.int8,
+                          device=dev)
+        plan = K.mma_rows_plan(k, nout, epi, slab)
+        params = (ctypes.c_int * 6)(x.numel() // k, k, nout,
+                                    K.CONV_EPIS.index(epi), reps,
+                                    plan["stages"])
+        check(lib.yf_probe_nhwc_mma(x.data_ptr(), w.data_ptr(),
+                                    out.data_ptr(), params,
+                                    torch.cuda.current_stream(
+                                        dev).cuda_stream),
+              f"rows_sweep {shape}")
+        return out
+
+    cases = {}   # name: (x, w, epi, reps, chained)
+    x = randint((batch, 14, 14, 36), -128, 128, dev, 0)
+    cases["B9.1 shift 36x24@14"] = (x, randint((24, 36), -64, 64, dev, 1),
+                                    "shift", 1, True)
+    cases["B9.3 raw 36x36@14"] = (x, randint((36, 36), -64, 64, dev, 1),
+                                  "raw", R, False)
+    cases["B9.3 raw 40x40@7"] = (randint((batch, 7, 7, 40), -128, 128, dev,
+                                         0),
+                                 randint((40, 40), -64, 64, dev, 1), "raw",
+                                 R, False)
+    for name, (x, w, epi, reps, _) in cases.items():
+        want = K.probe_conv_plain(x, w, variant="mma_rows", epi=epi,
+                                  reps=reps)
+        for shape in libs:
+            same(call(shape, x, w, epi, reps), want, f"rows_sweep {shape} "
+                 f"{name}")
+        del want
+    res = {}
+    for (t, m), (lib, _) in libs.items():
+        regs = {}
+        for probe, nt in (("B9.1", 3), ("B9.3", 5)):   # K 36, 40: 3 chunks
+            a = (ctypes.c_int * 4)()
+            check(lib.yf_probe_nhwc_mma_attrs(nt, 3, 0, a), "rows_sweep")
+            regs[probe] = a[0]
+        res[f"{t} threads, {m} m-tiles"] = {"registers": regs}
+        print(f"{'':>4s}[attrs] {t} threads, {m} m-tiles: {regs['B9.1']} "
+              f"registers a thread (B9.1's instantiation), {regs['B9.3']} "
+              "(B9.3's)", flush=True)
+    for rnd in range(rounds):
+        for (t, m) in libs:
+            line = res[f"{t} threads, {m} m-tiles"]
+            for name, (x, w, epi, reps, chained) in cases.items():
+                fn = (lambda y, s=(t, m), w=w, e=epi, r=reps: call(s, y, w, e,
+                                                                   r))
+                ms = (time_chain(fn, x, 20, runs) if chained
+                      else time_ms(lambda: fn(x), dev, runs))
+                line.setdefault(name, []).append(ms)
+            print(f"round {rnd} {t:3d} threads, {m} m-tiles: " + ", ".join(
+                f"{n} {line[n][-1]:.4f}" for n in cases) + " ms", flush=True)
+    return dict(probe="rows_sweep", batch=batch, device=device_name(dev),
+                shapes=res)
+
+
 def _ints(argv: Sequence[str], defaults: Sequence[int]) -> List[int]:
     return [int(a) for a in argv] + list(defaults[len(argv):])
 
@@ -441,7 +591,8 @@ def main(argv: Sequence[str] = None) -> int:
               "whcn": (whcn_probe, (32768, 36, 24, 14)),
               "inkernel": (inkernel_probe, (32768,)),
               "dw16": (dw16_probe, (32768,)),
-              "packdot": (packdot_probe, (8192,))}
+              "packdot": (packdot_probe, (8192,)),
+              "rows_sweep": (rows_sweep, (32768,))}
     if argv and argv[0] in probes:
         fn, defaults = probes[argv[0]]
         fn(*_ints(argv[1:], defaults))
