@@ -193,16 +193,19 @@ Phases (each prints its lines; any failure ends the run with an error):
   4b. the tools/ probes (B9.1-B9.12, yoloface_tpu_torch/probes/), each at
      the JAX tool's defaults: every variant of the probe kernels
      (csrc/probe_{copy,dw,conv}.cu, probe_dw_frames.cu, probe_fi_mma.cu,
-     probe_nhwc_mma.cu; B6 for the 448 stage probe) against its plain
+     probe_nhwc_mma{,_any}.cu, probe_dw_fi_mma.cu; B6 for the 448 stage
+     probe)
+     against its plain
      version bit for bit on
      the input it is timed on, then timed (the 1x1 probe also at
      yolov3-tiny's layer 13, 1024 -> 256 at 13x13, batch 256, beside B6
      on that conv as a one-op strip section), the debug448 stream-order
      checks printing BIT-EXACT a variant; one kernels row a probe, its
-     launches counted over its own run; the redesigned B9.1, B9.2, B9.3
-     and B9.6 (the NHWC 1x1 on the tensor cores in row slabs, once and R
-     times; the frame-innermost 1x1 on the tensor cores; the depthwise
-     taps a block a group of frames) beside the PR 7 forms they replaced,
+     launches counted over its own run; the redesigned B9.1-B9.6 (the
+     NHWC 1x1 on the tensor cores in row slabs, once, R times and packed;
+     the frame-innermost 1x1 and depthwise taps R times on the tensor
+     cores; the depthwise taps a block a group of frames) beside the PR 7
+     forms they replaced,
      with their shares of the bound, registers and own launches, a spill
      failing the run (at layer 13, K = 1024, the 1x1 probe leaves the row
      form out by its rule on K and says so);
@@ -593,10 +596,10 @@ def _probe_rows(dev, card, g416):
          lambda: mb.whcn_probe(device=dev)),
         ("probe_inkernel", "B9.3", "tools/microbench.py:264",
          "probe_nhwc_mma.cu", lambda: mb.inkernel_probe(device=dev)),
-        ("probe_dw16", "B9.4", "tools/microbench.py:412", "probe_dw.cu",
-         lambda: mb.dw16_probe(device=dev)),
-        ("probe_packdot", "B9.5", "tools/microbench.py:496", "probe_conv.cu",
-         lambda: mb.packdot_probe(device=dev)),
+        ("probe_dw16", "B9.4", "tools/microbench.py:412",
+         "probe_dw_fi_mma.cu", lambda: mb.dw16_probe(device=dev)),
+        ("probe_packdot", "B9.5", "tools/microbench.py:496",
+         "probe_nhwc_mma.cu", lambda: mb.packdot_probe(device=dev)),
         ("probe_dw_main", "B9.6", "tools/microbench.py:633",
          "probe_dw_frames.cu", lambda: mb.dw_main(device=dev)),
         ("probe_448_micro", "B9.7", "tools/probe448_micro.py:20",
@@ -672,7 +675,7 @@ def _probe_rows(dev, card, g416):
 
 
 def _redesign(rec, name, bid, card):
-    """A redesigned probe kernel (B9.1, B9.2, B9.3, B9.6): its headline
+    """A redesigned probe kernel (B9.1-B9.6): its headline
     beside the PR 7 form it replaced, both timed in the probe's one run,
     each as a share of the bound; its instantiations' registers and local
     bytes (a spill fails the run) and its own launch count over the
@@ -682,6 +685,8 @@ def _redesign(rec, name, bid, card):
     own = {"probe_conv1x1": kprobe.probe_conv.mma_rows_launches,
            "probe_whcn": kprobe.probe_conv.fi_mma_launches,
            "probe_inkernel": kprobe.probe_conv.mma_rows_launches,
+           "probe_dw16": kprobe.probe_dw.fi_mma_launches,
+           "probe_packdot": kprobe.probe_conv.mma_rows_launches,
            "probe_dw_main": kprobe.probe_dw.frames_launches}[name]
     _require(own > 0, f"{name}: the redesigned kernel launched")
     for inst, a in rec["attrs"].items():

@@ -417,9 +417,11 @@ def test_probe_dw_matches_plain_on_the_card():
     int8 and int32 input, >> 7, fast, exact and raw epilogues, offsets or
     none, stride 1 and 2, copied, zero and absent borders, R = 1 and 16,
     int32 and 16-bit arithmetic, taps past int16) and the requant chain
-    equal their plain versions bit for bit; so does the frames kernel
-    (B9.6's Hopper form) in every case it takes, and none of its
-    instantiations spills."""
+    equal their plain versions bit for bit; so do the frames kernel
+    (B9.6's Hopper form) in every case it takes and the frame-innermost
+    taps on the tensor cores (B9.4's) at the probe's shapes, odd frame
+    counts and R 1 / 16 / 17, on both of its bodies; no instantiation of
+    either spills."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from yoloface_tpu_torch.kernels import probes
@@ -494,6 +496,50 @@ def test_probe_dw_matches_plain_on_the_card():
                                            epi)
                 assert a["local_bytes"] == 0 and a["blocks_per_sm"] >= 1, \
                     (stride, offs, epi, a)
+    # the frame-innermost taps on the tensor cores (form="fi_mma",
+    # csrc/probe_dw_fi_mma.cu): the dw16 probe's shapes at a batch of
+    # 4096 in both arithmetics at R 1, 16 and 17; frame counts not a
+    # multiple of 8 (byte accesses) or of the 64-frame task; taps at the
+    # int8 ends less R - 1 (the tensor-core body), taps past int16 and one
+    # channel in two past int8 (the int32 body)
+    probes.reset_launches()
+    cases = 0
+    for c, s in ((40, 14), (16, 28), (48, 7)):
+        x = _probe_ints((s + 2, s + 2, c, 4096), -128, 128, c + s)
+        t16 = _probe_ints((9, c), -8, 8, c, torch.int32)
+        for arith in ("i32", "i16"):
+            for reps in (1, 16, 17):
+                kw = dict(so=s, layout="fi", border="none", epi="raw",
+                          reps=reps, arith=arith)
+                assert torch.equal(probes.probe_dw(x, t16, form="fi_mma",
+                                                   **kw),
+                                   probes.probe_dw_plain(x, t16, **kw)), \
+                    (c, s, kw)
+                cases += 1
+    for n, s, c in ((1, 7, 40), (13, 14, 3), (100, 5, 16), (64, 28, 1),
+                    (72, 7, 5)):
+        x = _probe_ints((s + 2, s + 2, c, n), -128, 128, n + s + c)
+        for reps in (1, 16, 17):
+            top = 127 - (reps - 1)
+            ends = torch.from_numpy(np.random.default_rng(reps).choice(
+                [-128, -127, top, top - 1, 0], (9, c)).astype(np.int32)).cuda()
+            mixed = ends.clone()
+            mixed[4, ::2] = top + 1
+            wide = _probe_ints((9, c), -40000, 40000, reps, torch.int32)
+            for t in (ends, mixed, wide):
+                for arith in ("i32", "i16"):
+                    kw = dict(so=s, layout="fi", border="none", epi="raw",
+                              reps=reps, arith=arith)
+                    assert torch.equal(
+                        probes.probe_dw(x, t, form="fi_mma", **kw),
+                        probes.probe_dw_plain(x, t, **kw)), (n, s, c, kw)
+                    cases += 1
+    assert probes.probe_dw.fi_mma_launches == cases
+    for arith in ("i32", "i16"):
+        for vec in (True, False):
+            a = probes.dw_fi_mma_attrs(arith, vec)
+            assert a["local_bytes"] == 0 and a["blocks_per_sm"] >= 1, \
+                (arith, vec, a)
     torch.cuda.synchronize()
 
 
@@ -508,9 +554,9 @@ def test_probe_conv_matches_plain_on_the_card():
     frame-innermost 1x1 on the tensor cores (B9.2's Hopper form) at awkward
     frame counts, K and Nout, its instantiations without a spill; the NHWC
     1x1 on the tensor cores in row slabs (B9.1's and B9.3's Hopper form) at
-    awkward row counts, K and Nout, every epilogue at R = 1 and 16, at the
-    probes' shapes, weights near the int8 ends, its instantiations without
-    a spill."""
+    awkward row counts, K (any from 1 to 64) and Nout (up to 144), every
+    epilogue at R = 1 and 16, at the probes' shapes (B9.5's included),
+    weights near the int8 ends, its instantiations without a spill."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from yoloface_tpu_torch.kernels import probes
@@ -598,10 +644,17 @@ def test_probe_conv_matches_plain_on_the_card():
     for m, k, nout in ((1, 36, 24), (37, 4, 1), (300, 36, 36), (256, 40, 40),
                        (255, 48, 36), (513, 64, 64), (77, 64, 24),
                        (5, 40, 1), (1000, 36, 24), (20, 4, 64),
-                       (4099, 40, 40), (511, 48, 64), (3, 20, 9)):
+                       (4099, 40, 40), (511, 48, 64), (3, 20, 9),
+                       # the widened form: K not a multiple of 4, Nout past
+                       # 64 in groups of n-tiles
+                       (300, 6, 6), (77, 18, 6), (259, 6, 36), (513, 33, 24),
+                       (37, 33, 9), (300, 16, 72), (259, 12, 72),
+                       (77, 24, 144), (5, 33, 144), (3, 3, 3), (20, 64, 144),
+                       (4099, 18, 72), (1, 1, 1), (258, 63, 65)):
         x = _probe_ints((m, k), -128, 128, m + k)
         w = _probe_ints((nout, k), -128, 128, k + nout)
-        w.view(-1)[:3] = torch.tensor([127, 120, -128], dtype=torch.int8)
+        ends = torch.tensor([127, 120, -128], dtype=torch.int8)
+        w.view(-1)[:3] = ends[:w.numel()]
         for epi in ("raw", "shift", "wrap"):
             if epi == "shift" and nout > k:
                 continue
@@ -613,7 +666,11 @@ def test_probe_conv_matches_plain_on_the_card():
                 cases += 1
     for ci, co, s, epi, reps in ((36, 24, 14, "shift", 1),
                                  (36, 36, 14, "raw", 16),
-                                 (40, 40, 7, "raw", 16)):
+                                 (40, 40, 7, "raw", 16),
+                                 # packdot's: one position a row, packed
+                                 (8, 4, 28, "raw", 16), (32, 16, 7, "raw", 16),
+                                 (18, 6, 28, "raw", 16), (6, 36, 28, "raw", 16),
+                                 (16, 72, 7, "raw", 16), (12, 72, 14, "raw", 16)):
         x = _probe_ints((4096, s, s, ci), -128, 128, ci + s)
         for wlo in (-64, -128):
             w = _probe_ints((co, ci), wlo, 64 if wlo == -64 else 128, co)
@@ -626,10 +683,15 @@ def test_probe_conv_matches_plain_on_the_card():
             cases += 1
     assert probes.probe_conv.mma_rows_launches == cases
     for nt in range(1, 9):              # every instantiation, at raw's
-        for kc in range(1, 5):          # shared memory (the most)
-            a = probes.mma_rows_attrs(16 * kc, 8 * nt, "raw")
-            assert a["local_bytes"] == 0 and a["blocks_per_sm"] >= 1, \
-                (nt, kc, a)
+        for kc in range(1, 5):          # shared memory (the most); K - 1:
+            for k in (16 * kc, 16 * kc - 1):      # the kAny body's
+                a = probes.mma_rows_attrs(k, 8 * nt, "raw")
+                assert a["local_bytes"] == 0 and a["blocks_per_sm"] >= 1, \
+                    (nt, kc, k, a)
+    for k, nout in ((24, 144), (16, 72), (64, 144)):   # groups of n-tiles
+        a = probes.mma_rows_attrs(k, nout, "raw")
+        assert a["local_bytes"] == 0 and a["blocks_per_sm"] >= 1, \
+            (k, nout, a)
     torch.cuda.synchronize()
 
 

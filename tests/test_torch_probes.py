@@ -157,6 +157,25 @@ def test_inkernel_dw_and_requant_chain_equal_the_jax_bodies():
         K.probe_requant_chain(xn, R).numpy().transpose(3, 1, 2, 0), out)
 
 
+def _np_kdw(x, w, reps, arith):
+    """dw16_probe's kdw / kdw16 on [S+2,S+2,C,N] with taps w [9, C]: int32
+    sums, or int16 arithmetic that wraps (numpy int16 arrays wrap as the
+    TPU's did), R repetitions of the taps plus r."""
+    sp, _, c, _ = x.shape
+    s = sp - 2
+    dt = np.int16 if arith == "i16" else np.int32
+    acc = np.zeros((s, s, c, x.shape[3]), dt)
+    xv = x.astype(dt)
+    with np.errstate(over="ignore"):
+        for r in range(reps):
+            for k in range(9):
+                dy, dx = divmod(k, 3)
+                acc = (acc + xv[dy:dy + s, dx:dx + s]
+                       * (w[k] + r).astype(dt).reshape(1, 1, c, 1)
+                       ).astype(dt)
+    return acc
+
+
 @pytest.mark.parametrize("arith", ["i32", "i16"])
 def test_dw16_plain_equals_the_jax_body(arith):
     """B9.4: kdw / kdw16 on [S+2,S+2,C,N]: int32 sums, or int16 arithmetic
@@ -165,16 +184,7 @@ def test_dw16_plain_equals_the_jax_body(arith):
     c, s, n = 16, 6, 3
     x = rng.integers(-128, 128, (s + 2, s + 2, c, n)).astype(np.int8)
     w = rng.integers(-8, 8, (9, c)).astype(np.int32)
-    dt = np.int16 if arith == "i16" else np.int32
-    acc = np.zeros((s, s, c, n), dt)
-    xv = x.astype(dt)
-    with np.errstate(over="ignore"):
-        for r in range(R):
-            for k in range(9):
-                dy, dx = divmod(k, 3)
-                acc = (acc + xv[dy:dy + s, dx:dx + s]
-                       * (w[k] + r).astype(dt).reshape(1, 1, c, 1)
-                       ).astype(dt)
+    acc = _np_kdw(x, w, R, arith)
     got = K.probe_dw(_t(x), _t(w), so=s, layout="fi", border="none",
                      epi="raw", reps=R, arith=arith)
     assert got.dtype == (torch.int16 if arith == "i16" else torch.int32)
@@ -721,7 +731,7 @@ def test_redesigned_probes_time_their_pr7_forms(batch, frames, capsys):
 
 
 # ------------------------- the Hopper form of B9.1 and B9.3 (lane maps)
-ROWS_THREADS, ROWS_MTILES = 128, 4     # csrc/probe_nhwc_mma.cu's block
+ROWS_THREADS, ROWS_MTILES = 128, 4     # csrc/nhwc_mma.cuh's block
 ROWS_WARPS = ROWS_THREADS // 32
 
 
@@ -741,23 +751,26 @@ def _vadd4(reg, by):
 
 
 def _mma_rows_maps(k, nout):
-    """csrc/probe_nhwc_mma.cu's lane maps over one warp (lane l = 4g + t),
-    as numpy index arrays (-1: a zero register, past K or Nout):
+    """csrc/probe_nhwc_mma{,_any}.cu's lane maps over one warp (l = 4g + t),
+    as numpy index arrays (-1: a zero register, past K or Nout), for the
+    instantiation ``K.mma_rows_shape(k, nout)`` (its n-tiles in ``groups``
+    of ``tiles``, all of them below):
 
     * ``a_row`` [32, MT, 2], ``a_word`` [32, KC]: A register (mt, c, h)
-      holds word ``a_word[l, c]`` = 4c + t of the warp's row ``a_row[l, mt,
-      h]`` = 16mt + g + 8h;
+      holds word ``a_word[l, c]`` = 4c + t (bytes 4c + 4t.., the ones past
+      K zero) of the warp's row ``a_row[l, mt, h]`` = 16mt + g + 8h;
     * ``b_co`` [32, NT], ``b_word`` [32, KC]: B register (nt, c) holds word
       4c + t of weight row 8nt + g;
     * ``c_row`` [32, MT, 4], ``c_col`` [32, NT, 4]: accumulator (mt, nt, e)
       is the warp's row 16mt + g + 8(e // 2), output channel 8nt + 2t +
       e % 2."""
     g, t = np.arange(32) // 4, np.arange(32) % 4
-    nt, kc = -(-nout // 8), -(-k // 16)
+    shp = K.mma_rows_shape(k, nout)
+    nt, kc = shp["groups"] * shp["tiles"], shp["k_chunks"]
     mt, h = np.arange(ROWS_MTILES), np.arange(2)
     a_row = 16 * mt[None, :, None] + g[:, None, None] + 8 * h[None, None]
     word = 4 * np.arange(kc)[None] + t[:, None]
-    a_word = np.where(word < k // 4, word, -1)
+    a_word = np.where(4 * word < k, word, -1)
     co = 8 * np.arange(nt)[None] + g[:, None]
     b_co = np.where(co < nout, co, -1)
     e = np.arange(4)
@@ -766,7 +779,7 @@ def _mma_rows_maps(k, nout):
     c_col = 8 * np.arange(nt)[None, :, None] + 2 * t[:, None, None] + \
         e[None, None] % 2
     return dict(a_row=a_row, a_word=a_word, b_co=b_co, b_word=a_word,
-                c_row=c_row, c_col=c_col)
+                c_row=c_row, c_col=c_col, **shp)
 
 
 def _mma_tiles(a_regs, b_regs):
@@ -789,18 +802,41 @@ def _mma_tiles(a_regs, b_regs):
     return np.einsum("mik,nkj->mnij", a, b)
 
 
+def _row_words(stage, rows, words, k):
+    """row_word in numpy: word ``words`` (bytes 4wd.. of K-byte rows
+    ``rows`` at any byte offset of ``stage``) from the two aligned words
+    around it, funnel-shifted by the offset, the bytes past K zero; a word
+    past K is 0 (``words`` -1 too)."""
+    b = 4 * words
+    at = rows * k + b
+    base = at & ~3
+    lo = stage[base[..., None] + np.arange(4)].astype(np.int64)
+    hi = stage[base[..., None] + 4 + np.arange(4)].astype(np.int64)
+    pair = ((lo << (8 * np.arange(4))).sum(-1)
+            | ((hi << (8 * np.arange(4))).sum(-1) << 32))
+    v = (pair >> (8 * (at & 3))) & 0xFFFFFFFF
+    keep = np.clip(k - b, 0, 4)
+    v &= (1 << (8 * keep)) - 1
+    return np.where((words >= 0) & (b < k), v, 0).astype(np.uint32)
+
+
 def _mma_rows_emulate(x, w, epi, reps):
     """probe_nhwc_mma.cu's slabs, warps and lanes in numpy: the stage
-    filled by the bulk copy and the ragged tail's words over stale bytes,
-    each warp's A registers through the maps, R passes of the mma steps on
-    B registers that take __vadd4(b, 0x01010101) between passes, the
-    epilogue's writes by the accumulator map into the stage (shift) or the
-    output buffer, the slab's bulk store and tail bytes -> (output, loads an
-    input byte, stores an output byte, epilogue writes an element)."""
+    filled by the bulk copy and the ragged tail (words, or bytes in the
+    kAny body) over stale bytes, each warp's A registers through the maps
+    (aligned words, or the kAny body's funnel-shifted ones read over the
+    row's end into what follows the stage), for each group of n-tiles R
+    passes of the mma steps on B registers (loaded once, or the group's
+    from the block's table) that take __vadd4(b, 0x01010101) between
+    passes, the epilogue's writes by the accumulator map into the stage
+    (shift) or the output buffer, the slab's bulk store and tail bytes ->
+    (output, loads an input byte, stores an output byte, epilogue writes
+    an element)."""
     m, k = x.shape
     nout = w.shape[0]
-    nt, kc = -(-nout // 8), -(-k // 16)
     maps = _mma_rows_maps(k, nout)
+    kc, group = maps["k_chunks"], maps["tiles"]
+    nt = maps["groups"] * group
     g, t = np.arange(32) // 4, np.arange(32) % 4
     slab = 16 * ROWS_MTILES * ROWS_WARPS
     ldo = k if epi == "shift" else nout
@@ -810,56 +846,71 @@ def _mma_rows_emulate(x, w, epi, reps):
     out = np.zeros(m * ob, np.uint8)
     loads, stores = np.zeros(m * k, np.int64), np.zeros(m * ob, np.int64)
     writes = np.zeros((m, ldo), np.int64)
-    words = w.view(np.uint8).reshape(nout, k).copy().view("<u4")
-    b = np.where((maps["b_co"] >= 0)[:, :, None]
-                 & (maps["b_word"] >= 0)[:, None, :],
-                 words[maps["b_co"][:, :, None], maps["b_word"][:, None, :]],
-                 0).astype(np.uint32)                         # [32, NT, KC]
+    # B words (the fast body's registers, the kAny body's table): [32, NT,
+    # KC], bytes w[b_co][4 b_word + i], zero past Nout and K
+    wb = np.zeros((nout + 1, 16 * kc + 4), np.int64)   # row nout: -1 rows
+    wb[:nout, :k] = w.view(np.uint8)
+    kk = 4 * np.where(maps["b_word"] >= 0, maps["b_word"], 4 * kc)
+    b = np.zeros((32, nt, kc), np.int64)
+    for i in range(4):
+        b |= wb[maps["b_co"][:, :, None], kk[:, None, :] + i] << (8 * i)
+    b = b.astype(np.uint32)
     junk = np.random.default_rng(99)
     obuf = junk.integers(0, 256, slab * ob).astype(np.uint8)   # one buffer
     for s0 in range(0, m, slab):
         rows = min(slab, m - s0)
-        stage = junk.integers(0, 256, slab * k).astype(np.uint8)
+        # the stage and the bytes past it (the next stage, the output
+        # buffer or the B table), which the last row's words may read
+        stage = junk.integers(0, 256, slab * k + 8).astype(np.uint8)
         n = rows * k
         nb = n & ~15
         stage[:nb] = xb[s0 * k:s0 * k + nb]                   # the bulk copy
         loads[s0 * k:s0 * k + nb] += 1
-        for i in range(nb, n, 4):                             # tail words
-            stage[i:i + 4] = xb[s0 * k + i:s0 * k + i + 4]
-            loads[s0 * k + i:s0 * k + i + 4] += 1
+        step = 1 if maps["any"] else 4
+        for i in range(nb, n, step):                          # tail
+            stage[i:i + step] = xb[s0 * k + i:s0 * k + i + step]
+            loads[s0 * k + i:s0 * k + i + step] += 1
         wr = np.zeros((slab, ldo), np.int64)
-        sw = stage.view("<u4").reshape(slab, k // 4)
         for warp in range(ROWS_WARPS):
             r = warp * 16 * ROWS_MTILES
-            a = np.where((maps["a_word"] >= 0)[:, None, :, None],
-                         sw[r + maps["a_row"][:, :, None, :],
-                            maps["a_word"][:, None, :, None]],
-                         0).astype(np.uint32)                 # [32,MT,KC,2]
+            if maps["any"]:
+                a = _row_words(stage, r + maps["a_row"][:, :, None, :],
+                               maps["a_word"][:, None, :, None], k)
+            else:
+                sw = stage[:slab * k].view("<u4").reshape(slab, k // 4)
+                a = np.where((maps["a_word"] >= 0)[:, None, :, None],
+                             sw[r + maps["a_row"][:, :, None, :],
+                                maps["a_word"][:, None, :, None]],
+                             0).astype(np.uint32)             # [32,MT,KC,2]
             acc = np.zeros((32, ROWS_MTILES, nt, 4), np.int64)
-            bb = b.copy()
-            for rep in range(reps):
-                if rep:
-                    bb = _vadd4(bb, 0x01010101)
-                want = (w.astype(np.int64) + rep).astype(np.int8)
-                ok = (maps["b_co"] >= 0)[:, :, None] & \
-                    (maps["b_word"] >= 0)[:, None, :]
-                for byte in range(4):           # the bytes are int8 w + rep
-                    kk = 4 * maps["b_word"][:, None, :] + byte
-                    sel = ok & (kk < k)
-                    assert (_s8(bb, byte)[sel] == want[
-                        maps["b_co"][:, :, None].repeat(kc, 2)[sel],
-                        kk.repeat(nt, 1)[sel]]).all()
-                for c in range(0, kc, 2):
-                    pair = c + 1 < kc
-                    chunks = (c, c + 1) if pair else (c,)
-                    cc = _mma_tiles([a[:, :, q, h] for q in chunks
-                                     for h in range(2)],
-                                    [bb[:, :, q] for q in chunks])
-                    for e in range(4):
-                        acc[:, :, :, e] += np.moveaxis(
-                            cc[:, :, g + 8 * (e // 2), 2 * t + e % 2], 2, 0)
-            back = _vadd4(bb, ((1 - reps) & 0xFF) * 0x01010101)
-            assert (back == b).all()
+            for q0 in range(0, nt, group):
+                bb = b[:, q0:q0 + group].copy()
+                for rep in range(reps):
+                    if rep:
+                        bb = _vadd4(bb, 0x01010101)
+                    want = (w.astype(np.int64) + rep).astype(np.int8)
+                    co = maps["b_co"][:, q0:q0 + group]
+                    ok = (co >= 0)[:, :, None] & \
+                        (maps["b_word"] >= 0)[:, None, :]
+                    for byte in range(4):       # the bytes are int8 w + rep
+                        kb = 4 * maps["b_word"][:, None, :] + byte
+                        sel = ok & (kb < k)
+                        assert (_s8(bb, byte)[sel] == want[
+                            co[:, :, None].repeat(kc, 2)[sel],
+                            kb.repeat(group, 1)[sel]]).all()
+                    for c in range(0, kc, 2):
+                        pair = c + 1 < kc
+                        chunks = (c, c + 1) if pair else (c,)
+                        cc = _mma_tiles([a[:, :, q, h] for q in chunks
+                                         for h in range(2)],
+                                        [bb[:, :, q] for q in chunks])
+                        for e in range(4):
+                            acc[:, :, q0:q0 + group, e] += np.moveaxis(
+                                cc[:, :, g + 8 * (e // 2), 2 * t + e % 2],
+                                2, 0)
+                if not maps["any"]:                 # the registers restored
+                    back = _vadd4(bb, ((1 - reps) & 0xFF) * 0x01010101)
+                    assert (back == b[:, q0:q0 + group]).all()
             acc = acc.astype(np.int32)                        # wraps as s32
             for mt in range(ROWS_MTILES):
                 for q in range(nt):
@@ -897,15 +948,23 @@ def _mma_rows_emulate(x, w, epi, reps):
     (1, 36, 24, "shift", 1), (37, 4, 1, "raw", 16), (300, 36, 36, "raw", 16),
     (256, 40, 40, "wrap", 1), (255, 48, 36, "shift", 16),
     (513, 64, 64, "raw", 1), (77, 64, 24, "wrap", 16), (5, 40, 1, "shift", 16),
-    (300, 36, 24, "shift", 1), (20, 4, 64, "wrap", 1)])
+    (300, 36, 24, "shift", 1), (20, 4, 64, "wrap", 1),
+    (300, 6, 6, "shift", 16), (77, 18, 6, "raw", 16), (259, 6, 36, "wrap", 1),
+    (513, 33, 24, "shift", 16), (37, 33, 9, "raw", 1),
+    (300, 16, 72, "raw", 16), (259, 12, 72, "wrap", 16),
+    (77, 24, 144, "raw", 16), (5, 33, 144, "raw", 1), (3, 3, 3, "shift", 3),
+    (20, 64, 144, "wrap", 16), (258, 18, 72, "raw", 1)])
 def test_mma_rows_maps_give_the_plain_1x1(m, k, nout, epi, reps):
     """_mma_rows_maps at odd M, K, Nout and R: the lanes' A words (zero
-    past K) and B words (zero past Nout and K), B wrapped byte by byte as
-    int8 w + r at each repetition and restored after, multiplied through
-    the m16n8k32 / m16n8k16 fragment layouts and written by the
-    accumulator map in place (shift) or into the output slab, give
-    probe_conv_plain's output; every input byte loaded once, every output
-    byte stored once, every computed element written once."""
+    past K; at K not a multiple of 4 two aligned words funnel-shifted by
+    the row's offset, the next row's bytes masked) and B words (zero past
+    Nout and K), B wrapped byte by byte as int8 w + r at each repetition
+    (restored after, or read again from the table for the next group of
+    n-tiles past Nout 64), multiplied through the m16n8k32 / m16n8k16
+    fragment layouts and written by the accumulator map in place (shift)
+    or into the output slab, give probe_conv_plain's output; every input
+    byte loaded once, every output byte stored once, every computed
+    element written once."""
     rng = np.random.default_rng(m * 1000 + k * 10 + nout)
     x = rng.integers(-128, 128, (m, k)).astype(np.int8)
     w = rng.integers(-128, 128, (nout, k)).astype(np.int8)
@@ -918,50 +977,96 @@ def test_mma_rows_maps_give_the_plain_1x1(m, k, nout, epi, reps):
     assert (writes[:, :nout] == 1).all() and (writes[:, nout:] == 0).all()
     maps = _mma_rows_maps(k, nout)
     words = maps["a_word"][maps["a_word"] >= 0]
-    assert sorted(words.tolist()) == sorted(list(range(k // 4)) * 8)
+    assert sorted(words.tolist()) == sorted(list(range(-(-k // 4))) * 8)
 
 
 def test_mma_rows_plan_keeps_three_blocks_an_sm():
     """mma_rows_plan: 2-4 stages, the most that keep a block within a
     third of an SM's shared memory (two at least, within one block's), at
-    every K and Nout the form takes; the probes' shapes."""
-    for k in range(4, K.ROWS_MAX_K + 1, 4):
+    every K and Nout the form takes (the kAny body's B table, 128 B a
+    chunk of an n-tile, included); three blocks an SM wherever the block
+    keeps to its third, else the blocks that fit; the probes' shapes."""
+    for k in range(1, K.ROWS_MAX_K + 1):
         for nout in range(1, K.ROWS_MAX_NOUT + 1):
+            shp = K.mma_rows_shape(k, nout)
+            table = (shp["groups"] * shp["tiles"] * shp["k_chunks"] * 128
+                     if k % 4 or nout > 64 else 0)
+            assert shp["any"] == bool(table)
+            assert shp["tiles"] <= 8 and shp["groups"] * shp["tiles"] * 8 \
+                >= nout > (shp["groups"] * shp["tiles"] - 8) * 8
             for epi in K.CONV_EPIS:
                 plan = K.mma_rows_plan(k, nout, epi)
                 st, smem = plan["stages"], plan["smem"]
                 out = 0 if epi == "shift" else 256 * nout * (
                     4 if epi == "raw" else 1)
-                assert smem == st * K.ROWS_SLAB * k + out
+                assert smem == st * K.ROWS_SLAB * k + out + table
                 assert 2 <= st <= K.ROWS_MAX_STAGES and smem <= K.SMEM_LIMIT
                 assert st == 2 or smem <= K.ROWS_BLOCK_SMEM
                 assert st == K.ROWS_MAX_STAGES or (
                     smem + K.ROWS_SLAB * k > K.ROWS_BLOCK_SMEM)
+                blocks = plan["blocks"]
+                assert 1 <= blocks <= 3
+                assert blocks * (smem + 1024) <= K.SM_SMEM
+                assert blocks == 3 or (blocks + 1) * (smem + 1024) > K.SM_SMEM
+                assert blocks == 3 or smem > K.ROWS_BLOCK_SMEM
     assert [K.mma_rows_plan(*a)["stages"] for a in (
         (36, 24, "shift"), (36, 36, "raw"), (40, 40, "raw"))] == [4, 4, 3]
 
 
+def test_mma_rows_plan_of_the_wide_raw_slab():
+    """The packdot probe's shapes on the row form, and the wide RAW slab:
+    256 rows of 144 int32 (147,456 B) pass a third of the SM, so the ring
+    takes two stages and the block one SM to itself; 72 int32 (73,728 B)
+    leave two blocks an SM; the headline (K 32, Nout 16) three, four
+    stages deep."""
+    wide = K.mma_rows_plan(24, 144, "raw")
+    assert wide == dict(stages=2, smem=2 * 256 * 24 + 147456 + 3 * 6 * 2 * 128,
+                        blocks=1)
+    assert K.mma_rows_shape(24, 144) == dict(any=True, groups=3, tiles=6,
+                                             k_chunks=2)
+    assert K.mma_rows_plan(16, 72, "raw") == dict(
+        stages=2, smem=2 * 4096 + 73728 + 2 * 5 * 1 * 128, blocks=2)
+    assert K.mma_rows_shape(16, 72) == dict(any=True, groups=2, tiles=5,
+                                            k_chunks=1)
+    assert K.mma_rows_plan(32, 16, "raw") == dict(stages=4, smem=4 * 8192
+                                                  + 16384, blocks=3)
+    assert not K.mma_rows_shape(32, 16)["any"]
+    for ci, co, s in microbench.PACK_SHAPES:       # every variant it times
+        for p in [1] + microbench.pack_factors(ci, co, s):
+            assert K.mma_rows_refuses(p * ci, p * co) is None
+            plan = K.mma_rows_plan(p * ci, p * co, "raw")
+            assert plan["blocks"] >= 1 and plan["smem"] <= K.SMEM_LIMIT
+    assert K.mma_rows_shape(18, 6)["any"] and K.mma_rows_shape(6, 36)["any"]
+
+
 def test_mma_rows_routes_by_device_and_refuses():
-    """The Hopper form of B9.1 / B9.3 (``variant="mma_rows"``): a CPU
-    tensor takes the plain version in every epilogue and R (no launch
-    counted); K not a multiple of 4 or past 64, Nout past 64, a misaligned
-    x or w and an unknown epilogue raise, on the CPU too."""
+    """The Hopper form of B9.1 / B9.3 / B9.5 (``variant="mma_rows"``): a
+    CPU tensor takes the plain version in every epilogue and R (no launch
+    counted), at K 36 and at the widened K 6, 18 and 35 and Nout 72 and
+    144; K past 64, Nout past 144, a misaligned x or w and an unknown
+    epilogue raise, on the CPU too."""
     K.reset_launches()
     rng = np.random.default_rng(6)
+    for k, nout in ((36, 24), (6, 6), (18, 72), (35, 144)):
+        x = _t(rng.integers(-128, 128, (3, 5, k)).astype(np.int8))
+        w = _t(rng.integers(-128, 128, (nout, k)).astype(np.int8))
+        for epi in K.CONV_EPIS:
+            if epi == "shift" and nout > k:
+                continue
+            for reps in (1, 16):
+                got = K.probe_conv(x, w, variant="mma_rows", epi=epi,
+                                   reps=reps)
+                assert torch.equal(got, K.probe_conv_plain(
+                    x, w, variant="mma", epi=epi, reps=reps))
+    assert K.launches() == 0 and K.probe_conv.mma_rows_launches == 0
     x = _t(rng.integers(-128, 128, (3, 5, 36)).astype(np.int8))
     w = _t(rng.integers(-128, 128, (24, 36)).astype(np.int8))
-    for epi in K.CONV_EPIS:
-        for reps in (1, 16):
-            got = K.probe_conv(x, w, variant="mma_rows", epi=epi, reps=reps)
-            assert torch.equal(got, K.probe_conv_plain(
-                x, w, variant="mma", epi=epi, reps=reps))
-    assert K.launches() == 0 and K.probe_conv.mma_rows_launches == 0
     z = lambda *s: torch.zeros(s, dtype=torch.int8)   # noqa: E731
     xbuf, wbuf = z(3 * 5 * 36 + 16), z(24 * 36 + 16)
-    bad = [lambda: K.probe_conv(z(4, 35), z(8, 35), variant="mma_rows"),
-           lambda: K.probe_conv(z(4, 6), z(2, 6), variant="mma_rows"),
+    bad = [lambda: K.probe_conv(z(4, 65), z(8, 65), variant="mma_rows"),
+           lambda: K.probe_conv(z(4, 6), z(145, 6), variant="mma_rows"),
            lambda: K.probe_conv(z(4, 68), z(8, 68), variant="mma_rows"),
-           lambda: K.probe_conv(z(4, 64), z(65, 64), variant="mma_rows"),
+           lambda: K.probe_conv(z(4, 64), z(145, 64), variant="mma_rows"),
            lambda: K.probe_conv(xbuf[4:4 + 540].view(3, 5, 36), w,
                                 variant="mma_rows"),
            lambda: K.probe_conv(x, wbuf[1:1 + 864].view(24, 36),
@@ -969,10 +1074,263 @@ def test_mma_rows_routes_by_device_and_refuses():
            lambda: K.probe_conv(x, w, variant="mma_rows", epi="clip"),
            lambda: K.probe_conv(z(4, 8), z(12, 8), variant="mma_rows",
                                 epi="shift"),
-           lambda: K.mma_rows_attrs(36, 65),
-           lambda: K.mma_rows_attrs(38, 24),
+           lambda: K.mma_rows_attrs(36, 145),
+           lambda: K.mma_rows_attrs(65, 24),
            lambda: K.mma_rows_attrs(36, 24, "clip")]
     for i, fn in enumerate(bad):
         with pytest.raises(ValueError):
             fn()
         assert K.launches() == 0, i
+
+
+# -------------------------- the Hopper form of B9.4 (lane maps, numpy)
+def _prmt(a, b, sel):
+    """__byte_perm(a, b, sel) on uint32 arrays: result byte i is byte
+    (sel >> 4i) & 7 of the eight bytes of a (0-3) and b (4-7)."""
+    eight = [(a >> (8 * i)) & 0xFF for i in range(4)] + \
+        [(b >> (8 * i)) & 0xFF for i in range(4)]
+    out = np.zeros(np.broadcast(a, b).shape, np.int64)
+    for i in range(4):
+        out |= eight[(sel >> (4 * i)) & 7] << (8 * i)
+    return out.astype(np.uint32)
+
+
+def _dw_fi_mma_emulate(x, taps, reps, split):
+    """csrc/probe_dw_fi_mma.cu's warp tasks in numpy, all at once: task
+    (tile, channel, output rows oy, oy + 1) with the row pair fastest, lane
+    (g, t); the lane's frames fx = f0 + 8g.. (``split``, int32 out: f0 +
+    4g..+3 and f0 + 32 + 4g..+3).  B column g is output (oy + dr, ox + dp),
+    dr = g >> 2, dp = (g >> 1) & 1, and repetition parity g & 1: lane t
+    loads the taps of row dy = t - dr where that is 0..2, and the warp
+    votes that every tap plus R - 1 fits int8.  Then either the
+    tensor-core body, 2 x 2 outputs a product (B of n-tile q: the taps
+    shifted to bytes dp.. plus r = 2q + (g & 1) by __vadd4, zero past R
+    or the lane's row; A words of input row oy + t at columns ox..ox+3,
+    slid two columns a pair by prmt from the column loads, zero past the
+    frame; m16n8k16 through the PTX layouts; each lane's two columns
+    summed and stored as output (oy + (t >> 1), ox + (t & 1))) or the
+    int32 body (R passes of the nine taps, frames 2 lane, +1, both rows)
+    -> (int32 sums, writes an element)."""
+    sp, _, c, n = x.shape
+    so = sp - 2
+    tiles, rows2 = -(-n // 64), -(-so // 2)
+    lane = np.arange(32)
+    g, t = lane // 4, lane % 4
+    task = np.arange(tiles * c * rows2)
+    oy, ch, f0 = 2 * (task % rows2), (task // rows2) % c, \
+        task // rows2 // c * 64
+    nt = len(task)
+    out = np.zeros((so, so, c, n), np.int64)
+    writes = np.zeros(out.shape, np.int64)
+    w = taps.astype(np.int64)
+    dr, dp = g >> 2, (g >> 1) & 1
+    dy = t - dr
+    has = (dy >= 0) & (dy < 3)
+    trow = 3 * np.clip(dy, 0, 2)[None, :, None] + np.arange(3)[None, None]
+    lt = np.where(has[None, :, None], w[trow, ch[:, None, None]], 0)
+    fits = (((lt >= -128) & (lt <= 128 - reps)).all(-1) | ~has).all(1)
+    # the tensor-core body
+    wb = ((lt[..., 0] & 0xFF) | (lt[..., 1] & 0xFF) << 8
+          | (lt[..., 2] & 0xFF) << 16)
+    base = (wb << (8 * dp)).astype(np.uint32)
+    bm = np.where(has, 0x00010101 << (8 * dp), 0)
+
+    def bfrag(r0):
+        r = r0 + (g & 1)
+        return np.where(r < reps, _vadd4(base, (r * bm)[None]), 0).astype(
+            np.uint32)
+
+    bs = [bfrag(2 * q) for q in range(8 * -(-reps // 16))]
+    # B [T, nq, 16 k, 8 col]: byte k % 4 of lane (g = col, t = k // 4)
+    bmat = np.zeros((nt, len(bs), 16, 8), np.int64)
+    for q, b in enumerate(bs):
+        for tt in range(4):
+            for i in range(4):
+                bmat[:, q, 4 * tt + i, :] = _s8(b[:, 4 * np.arange(8) + tt],
+                                                i)
+    # the lane's frame j (j < 8)
+    j = np.arange(8)
+    fr = (f0[:, None, None] + (4 if split else 8) * g[None, :, None]
+          + (j % 4 + (32 if split else 4) * (j // 4))[None, None])
+    xi = x.astype(np.int64)
+
+    def column(xc):
+        y = oy[:, None, None] + t[None, :, None]
+        ok = (y < sp) & (fr < n) & (xc < sp)
+        v = np.where(ok, xi[np.minimum(y, sp - 1), min(xc, sp - 1),
+                            ch[:, None, None], np.minimum(fr, n - 1)], 0)
+        v = (v & 0xFF).astype(np.int64)
+        lo = (v[..., :4] << (8 * np.arange(4))).sum(-1)
+        hi = (v[..., 4:] << (8 * np.arange(4))).sum(-1)
+        return lo.astype(np.uint32), hi.astype(np.uint32)
+
+    a = np.zeros((nt, 32, 8), np.uint32)
+
+    def slide(u, v):
+        for h in range(2):
+            p01 = _prmt(u[h], v[h], 0x5140)
+            p23 = _prmt(u[h], v[h], 0x7362)
+            for jj, (pp, sel) in enumerate(((p01, 0x5432), (p01, 0x7632),
+                                            (p23, 0x5432), (p23, 0x7632))):
+                a[..., 4 * h + jj] = _prmt(a[..., 4 * h + jj], pp, sel)
+
+    slide(column(0), column(1))
+    for ox in range(0, so, 2):
+        slide(column(ox + 2), column(ox + 3))
+        amat = np.zeros((nt, 4, 16, 16), np.int64)         # [T, mt, row, k]
+        for mt in range(4):
+            for tt in range(4):
+                for i in range(4):
+                    lanes = 4 * np.arange(8) + tt
+                    amat[:, mt, :8, 4 * tt + i] = _s8(a[:, lanes, 2 * mt], i)
+                    amat[:, mt, 8:, 4 * tt + i] = _s8(a[:, lanes, 2 * mt + 1],
+                                                      i)
+        cmat = np.einsum("tmrk,tqkc->tmrc", amat, bmat)    # n-tiles summed
+        # lane (g, t): acc[mt][e] = C[mt][g + 8 (e // 2)][2t + e % 2]
+        e = np.arange(4)
+        acc = np.moveaxis(cmat[:, :, g[:, None] + 8 * (e[None] // 2),
+                               2 * t[:, None] + e[None] % 2],
+                          2, 1)                            # [T, 32, mt, e]
+        v = (acc[..., [0, 2]] + acc[..., [1, 3]]).reshape(nt, 32, 8)
+        py, px = oy[:, None] + (t >> 1)[None], ox + (t & 1)
+        for jj in range(8):
+            ok = fits[:, None] & (fr[..., jj] < n) & (py < so) & (px < so)
+            tt_, ll = np.nonzero(ok)
+            at = (py[tt_, ll], px[ll], ch[tt_], fr[tt_, ll, jj])
+            out[at] = v[tt_, ll, jj]
+            writes[at] += 1
+    # the int32 body: R passes of the nine taps, frames 2 lane, +1
+    fs = f0[:, None] + 2 * lane[None]
+    for ti in np.nonzero(~fits)[0]:
+        for r2 in range(2):
+            if oy[ti] + r2 >= so:
+                continue
+            for ox in range(so):
+                for h in range(2):
+                    f = fs[ti] + h
+                    f = f[f < n]
+                    acc = np.zeros(len(f), np.int64)
+                    for r in range(reps):
+                        for k in range(9):
+                            ky, kx = divmod(k, 3)
+                            acc += xi[oy[ti] + r2 + ky, ox + kx, ch[ti], f] \
+                                * (w[k, ch[ti]] + r)
+                    out[oy[ti] + r2, ox, ch[ti], f] = acc
+                    writes[oy[ti] + r2, ox, ch[ti], f] += 1
+    return out.astype(np.uint64).astype(np.uint32).view(np.int32), writes
+
+
+def _ends_taps(rng, c, reps):
+    """Taps at the ends that keep every tap plus r in int8: -128, -127,
+    127 - (R - 1), 126 - (R - 1), and values between."""
+    top = 127 - (reps - 1)
+    pick = rng.choice([-128, -127, top, top - 1, 0], (9, c))
+    mid = rng.integers(-128, top + 1, (9, c))
+    return np.where(rng.random((9, c)) < 0.6, pick, mid).astype(np.int32)
+
+
+@pytest.mark.parametrize("n,s,c,reps,arith,kind", [
+    (1, 7, 40, 16, "i16", "probe"), (13, 14, 1, 17, "i32", "ends"),
+    (100, 28, 1, 1, "i16", "ends"), (100, 5, 40, 16, "i32", "probe"),
+    (64, 7, 3, 16, "i16", "ends"), (13, 5, 2, 16, "i16", "wide"),
+    (70, 7, 5, 17, "i32", "mixed"), (128, 14, 2, 1, "i32", "probe")])
+def test_dw_fi_mma_maps_give_the_plain_taps(n, s, c, reps, arith, kind):
+    """B9.4's Hopper form (``form="fi_mma"``) in numpy at odd frame counts,
+    S 7 / 14 / 28 and a ragged 5 (odd: the last pair of rows and of pixels
+    has one past the output, its last input row and column past the
+    frame), C 1 to 40, R 1 / 16 / 17, both frame orders: each lane's loaded
+    words and the A words it slides, K as lane t's input row at four
+    columns, the B columns (output, w + r; zero past R and where the row
+    is not the output's), the m16n8k16 layouts and the store map give
+    probe_dw_plain's output, every output written once; taps at the int8
+    ends less r take the tensor cores, taps past them (``wide``;
+    ``mixed``: some channels) the int32 body of the same kernel.  The
+    plain output against the JAX kdw / kdw16 bodies."""
+    rng = np.random.default_rng(n * 100 + s * 10 + c)
+    x = rng.integers(-128, 128, (s + 2, s + 2, c, n)).astype(np.int8)
+    if kind == "probe":
+        w = rng.integers(-8, 8, (9, c)).astype(np.int32)
+    elif kind == "ends":
+        w = _ends_taps(rng, c, reps)
+    elif kind == "wide":
+        w = rng.integers(-40000, 40000, (9, c)).astype(np.int32)
+    else:
+        w = _ends_taps(rng, c, reps)
+        w[4, ::2] = 128 - reps + 1                 # one tap past: int32 body
+    got, writes = _dw_fi_mma_emulate(x, w, reps, split=arith == "i32")
+    kw = dict(so=s, layout="fi", border="none", epi="raw", reps=reps,
+              arith=arith)
+    want = K.probe_dw_plain(_t(x), _t(w), **kw).numpy()
+    if arith == "i16":
+        got = got.astype(np.int16)                 # the store truncates
+    np.testing.assert_array_equal(got, want)
+    assert (writes == 1).all()
+    np.testing.assert_array_equal(want, _np_kdw(x, w, reps, arith))
+    assert torch.equal(K.probe_dw(_t(x), _t(w), form="fi_mma", **kw),
+                       _t(want))
+
+
+def test_dw_fi_mma_routes_by_device_and_refuses():
+    """B9.4's Hopper form (``probe_dw(..., layout="fi", form="fi_mma")``):
+    a CPU tensor takes the plain version in both arithmetics and any R (no
+    launch counted); NHWC, an epilogue but the raw sum, a border, stride
+    2, no offsets, a corner off the origin and an int32 input raise, on
+    the CPU too."""
+    K.reset_launches()
+    rng = np.random.default_rng(7)
+    x = _t(rng.integers(-128, 128, (9, 9, 6, 13)).astype(np.int8))
+    taps = _t(rng.integers(-8, 8, (9, 6)).astype(np.int32))
+    for arith in ("i32", "i16"):
+        for reps in (1, 16, 17):
+            kw = dict(so=7, layout="fi", border="none", epi="raw", reps=reps,
+                      arith=arith)
+            got = K.probe_dw(x, taps, form="fi_mma", **kw)
+            assert torch.equal(got, K.probe_dw_plain(x, taps, **kw))
+            assert torch.equal(got, K.probe_dw(x, taps, **kw))
+    assert K.launches() == 0 and K.probe_dw.fi_mma_launches == 0
+    raw = dict(layout="fi", border="none", epi="raw", reps=16,
+               form="fi_mma")
+    xn = _t(rng.integers(-128, 128, (3, 9, 9, 6)).astype(np.int8))
+    bad = [lambda: K.probe_dw(xn, taps, so=7, **dict(raw, layout="nhwc")),
+           lambda: K.probe_dw(x, taps, so=7, **dict(raw, epi="shift")),
+           lambda: K.probe_dw(x, taps, so=7, **dict(raw, border="copy",
+                                                    epi="shift")),
+           lambda: K.probe_dw(x, taps, so=7, **dict(raw, border="zero")),
+           lambda: K.probe_dw(x, taps, so=3, stride=2, **raw),
+           lambda: K.probe_dw(x, taps, so=7, offs=False, **raw),
+           lambda: K.probe_dw(x, taps, so=6, origin=1, **raw),
+           lambda: K.probe_dw(x.to(torch.int32), taps, so=7, **raw),
+           lambda: K.dw_fi_mma_attrs("i8")]
+    for k, fn in enumerate(bad):
+        with pytest.raises(ValueError):
+            fn()
+        assert K.launches() == 0, k
+
+
+def test_dw16_and_packdot_time_their_pr7_forms(capsys):
+    """dw16_probe and packdot_probe end to end on the CPU at one frame and
+    three: every variant on its Hopper form (``fi_mma``; ``mma_rows``,
+    K 6 and 18 and Nout 72 among them) beside PR 7's kernel as
+    ``... (PR 7)``, the record naming each variant's kernel, the headline
+    and the form it replaced; the one-repetition check on the new form."""
+    for batch in (1, 3):
+        dw = microbench.dw16_probe(batch, device="cpu", runs=1)
+        pk = microbench.packdot_probe(batch, device="cpu", runs=1)
+        assert (dw["headline"], dw["replaced"]) == (
+            "whcn dw i16 taps C=40@14", "whcn dw i16 taps C=40@14 (PR 7)")
+        assert (pk["headline"], pk["replaced"]) == (
+            "pack P=4 8x4@28", "pack P=4 8x4@28 (PR 7)")
+        for rec, new, old in ((dw, "fi_mma", "thread"),
+                              (pk, "mma_rows", "mma")):
+            assert rec["max_abs_err"] == 0.0 and rec["attrs"] == {}
+            assert set(rec["kernels"]) == set(rec["variants"])
+            for name, kern in rec["kernels"].items():
+                assert kern == (old if name.endswith(" (PR 7)") else new)
+                assert name.endswith(" (PR 7)") or \
+                    f"{name} (PR 7)" in rec["kernels"]
+        assert len(dw["variants"]) == 12
+        assert {"perpos 18x6@28", "perpos 6x36@28", "pack P=4 4x18@28",
+                "pack P=2 6x36@28"} <= set(pk["variants"])
+    out = capsys.readouterr().out
+    assert "whcn dw i16 taps C=40@14 (PR 7):" in out
+    assert "pack P=4 8x4@28 (PR 7):" in out and "bit-equal P=4: True" in out

@@ -1,11 +1,13 @@
 // The NHWC 1x1 on the int8 tensor cores, row slabs streamed once through
-// shared memory: the Hopper form of the conv1x1 probe (B9.1) and of the
-// in-kernel probe's R-times NHWC 1x1 (B9.3).
+// shared memory: the Hopper form of the conv1x1 probe (B9.1), of the
+// in-kernel probe's R-times NHWC 1x1 (B9.3) and of the packdot probe's
+// one-position and packed 1x1s (B9.5).
 //
 // Replaces, beside probe_conv.cu's MMA8 (kept as the probes' "(PR 7)"
-// variants and as the kernel of packdot_probe and probe448_micro), the 1x1
-// of tools/microbench.py::conv1x1_probe (:23, pallas_call :48) and the
-// NHWC 1x1 of tools/microbench.py::inkernel_probe (:264, pallas_call :296):
+// variants and as the kernel of probe448_micro), the 1x1 of
+// tools/microbench.py::conv1x1_probe (:23, pallas_call :48), the NHWC 1x1
+// of tools/microbench.py::inkernel_probe (:264, pallas_call :296) and the
+// 1x1s of tools/microbench.py::packdot_probe (:496, pallas_call :549):
 // x int8 [M, K] row-major (NHWC positions by channels), w int8 [Nout, K];
 // acc[m, co] = sum_{r < R} sum_k int8(w[co, k] + r) * x[m, k] (the weights
 // plus r wrap to int8, as the JAX probes' int8 `w + r` does); RAW: int32
@@ -67,127 +69,15 @@
 //    partial 32-byte sectors.
 // Rows past M in a ragged last slab are computed on whatever the stage
 // holds and never stored.
-#include <cuda_runtime.h>
+//
+//
+// K not a multiple of 4 or Nout past 64 (B9.5's shapes) run the second
+// kernel of the same design, probe_nhwc_mma_any.cu (its account there);
+// the two sources share nhwc_mma.cuh.
+#include "nhwc_mma.cuh"
 
-#include <cstdint>
-
+namespace yf_nhwc {
 namespace {
-
-enum Epi { RAW = 0, SHIFT = 1, WRAP = 2 };   // probe_conv's codes
-
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMTiles = 4;              // 16-row m-tiles a warp
-constexpr int kRows = 16 * kMTiles * kWarps;   // rows a slab
-constexpr int kMaxStages = 4;           // slabs in the ring, at most
-
-struct Params {
-  int m, k, nout, epi, reps;
-  int stages;                           // slabs in the ring (the plan's)
-  int slabs;                            // ceil(m / kRows)
-  int stage_bytes;                      // kRows * k
-  int out_bytes;                        // the RAW / WRAP slab buffer
-};
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try(unsigned bar, unsigned parity) {
-  unsigned ok;
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n"
-      "}\n"
-      : "=r"(ok)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return ok != 0;
-}
-
-// slab `slab`'s rows into `stage`: its bytes rounded down to 16 in one bulk
-// copy that completes on `bar` (the rest, under 16 bytes of a ragged last
-// slab, the consumers load)
-__device__ __forceinline__ void fill(unsigned char* stage,
-                                     unsigned long long* bar,
-                                     const int8_t* __restrict__ x,
-                                     long long slab, const Params& p) {
-  const long long row0 = slab * kRows;
-  const int rows = static_cast<int>(
-      min(static_cast<long long>(kRows), static_cast<long long>(p.m) - row0));
-  const unsigned bytes = static_cast<unsigned>(rows * p.k) & ~15u;
-  const unsigned b = smem_u32(bar);
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(b),
-               "r"(bytes)
-               : "memory");
-  if (bytes)
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(stage)),
-        "l"(x + row0 * p.k), "r"(bytes), "r"(b)
-        : "memory");
-}
-
-__device__ __forceinline__ void mma_k32(int (&d)[4], unsigned a0, unsigned a1,
-                                        unsigned a2, unsigned a3, unsigned b0,
-                                        unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void mma_k16(int (&d)[4], unsigned a0, unsigned a1,
-                                        unsigned b0) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a0), "r"(a1), "r"(b0));
-}
-
-template <int kNT, int kKC>
-__device__ __forceinline__ void bump(unsigned (&b)[kNT][kKC], unsigned by) {
-#pragma unroll
-  for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-    for (int c = 0; c < kKC; ++c) b[nt][c] = __vadd4(b[nt][c], by);
-}
-
-// the bytes of columns co, co + 1 (lo, hi of v) where they are below nout;
-// a 2-byte store where both are and dst is 2-byte aligned
-__device__ __forceinline__ void store_pair8(unsigned char* dst, unsigned v,
-                                            int co, int nout, bool aligned) {
-  if (co + 1 < nout) {
-    if (aligned) {
-      *reinterpret_cast<uint16_t*>(dst) = static_cast<uint16_t>(v);
-    } else {
-      dst[0] = static_cast<unsigned char>(v);
-      dst[1] = static_cast<unsigned char>(v >> 8);
-    }
-  } else if (co < nout) {
-    dst[0] = static_cast<unsigned char>(v);
-  }
-}
-
-__device__ __forceinline__ unsigned pair8(int lo, int hi) {
-  return (static_cast<unsigned>(lo) & 0xFFu) |
-         (static_cast<unsigned>(hi) & 0xFFu) << 8;
-}
-
-__device__ __forceinline__ int clip_shift(int acc) {
-  return min(max(acc >> 7, -128), 127);
-}
 
 // one block an SM asked: left to choose, ptxas spilled 4-8 bytes in two
 // instantiations (4 n-tiles by 1 k chunk, 5 by 2) to reach an occupancy step
@@ -368,8 +258,6 @@ __global__ void __launch_bounds__(kThreads, 1)
     asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
-using Kernel = void (*)(const int8_t*, const int8_t*, void*, Params);
-
 template <int kNT>
 Kernel by_chunks(int kc) {
   switch (kc) {
@@ -381,8 +269,11 @@ Kernel by_chunks(int kc) {
   }
 }
 
-// nt n-tiles of 8 output channels, kc chunks of 16 of K
-Kernel instantiation(int nt, int kc) {
+// nt n-tiles of 8 output channels (a group of them for any), kc chunks of
+// 16 of K; any: K not a multiple of 4 or Nout past 64
+// (probe_nhwc_mma_any.cu)
+Kernel instantiation(int nt, int kc, int any) {
+  if (any) return any_instantiation(nt, kc);
   switch (nt) {
     case 1: return by_chunks<1>(kc);
     case 2: return by_chunks<2>(kc);
@@ -394,6 +285,21 @@ Kernel instantiation(int nt, int kc) {
     case 8: return by_chunks<8>(kc);
     default: return nullptr;
   }
+}
+
+// the instantiation's shape for K and Nout: whether it is kAny, the groups
+// and the n-tiles of a group
+struct Shape {
+  int any, groups, tiles;
+};
+
+Shape shape_of(int k, int nout) {
+  const int nt = (nout + 7) / 8;
+  Shape s;
+  s.any = (k & 3) != 0 || nout > 64;
+  s.groups = s.any ? (nt + 7) / 8 : 1;
+  s.tiles = (nt + s.groups - 1) / s.groups;
+  return s;
 }
 
 int attrs_of(Kernel k, int smem, int* out) {
@@ -415,20 +321,23 @@ int attrs_of(Kernel k, int smem, int* out) {
 }
 
 }  // namespace
+}  // namespace yf_nhwc
 
-// params: m rows, k (a multiple of 4, 4..64), nout (1..64; SHIFT: <= k),
-// epi (0 RAW, 1 SHIFT, 2 WRAP), reps (>= 1), stages (2..4: the plan,
-// kernels/probes.py mma_rows_plan).  x int8 [m, k], w int8
-// [nout, k], out int32 [m, nout] (RAW), int8 [m, k] (SHIFT) or int8 [m,
-// nout] (WRAP), each 16-byte aligned.  The wrapper (kernels/probes.py)
-// checked the shapes; this checks them again.
+using namespace yf_nhwc;
+
+// params: m rows, k (1..64), nout (1..144; SHIFT: <= k), epi (0 RAW, 1
+// SHIFT, 2 WRAP), reps (>= 1), stages (2..4: the plan, kernels/probes.py
+// mma_rows_plan).  x int8 [m, k], w int8 [nout, k], out int32 [m, nout]
+// (RAW), int8 [m, k] (SHIFT) or int8 [m, nout] (WRAP), each 16-byte
+// aligned.  The wrapper (kernels/probes.py) checked the shapes; this
+// checks them again.
 extern "C" int yf_probe_nhwc_mma(const void* x, const void* w, void* out,
                                  const int* params, void* stream) {
   Params p;
   p.m = params[0]; p.k = params[1]; p.nout = params[2]; p.epi = params[3];
   p.reps = params[4]; p.stages = params[5];
-  if (p.m < 1 || p.stages < 2 || p.stages > kMaxStages || p.k < 4 ||
-      p.k > 64 || (p.k & 3) || p.nout < 1 || p.nout > 64 || p.reps < 1 ||
+  if (p.m < 1 || p.stages < 2 || p.stages > kMaxStages || p.k < 1 ||
+      p.k > 64 || p.nout < 1 || p.nout > 144 || p.reps < 1 ||
       (p.epi != RAW && p.epi != SHIFT && p.epi != WRAP) ||
       (p.epi == SHIFT && p.nout > p.k) ||
       static_cast<long long>(p.m) * (p.k > p.nout ? p.k : p.nout) >=
@@ -436,11 +345,15 @@ extern "C" int yf_probe_nhwc_mma(const void* x, const void* w, void* out,
       ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
         reinterpret_cast<uintptr_t>(out)) & 15))
     return static_cast<int>(cudaErrorInvalidValue);
-  Kernel k = instantiation((p.nout + 7) / 8, (p.k + 15) / 16);
+  const Shape s = shape_of(p.k, p.nout);
+  const int kc = (p.k + 15) / 16;
+  Kernel k = instantiation(s.tiles, kc, s.any);
   p.slabs = (p.m + kRows - 1) / kRows;
   p.stage_bytes = kRows * p.k;
   p.out_bytes = p.epi == SHIFT ? 0 : kRows * p.nout * (p.epi == RAW ? 4 : 1);
-  const int smem = p.stages * p.stage_bytes + p.out_bytes;
+  p.groups = s.groups;
+  p.table_off = p.stages * p.stage_bytes + p.out_bytes;
+  const int smem = p.table_off + (s.any ? s.groups * s.tiles * kc * 128 : 0);
   if (smem > 232448) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
       k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -461,10 +374,12 @@ extern "C" int yf_probe_nhwc_mma(const void* x, const void* w, void* out,
 
 // out[0..3]: registers a thread, local bytes a thread, static shared bytes
 // and blocks an SM at `smem_bytes` of dynamic shared memory, of the
-// instantiation for nt n-tiles of 8 output channels and kc chunks of 16 of K.
-extern "C" int yf_probe_nhwc_mma_attrs(int nt, int kc, int smem_bytes,
-                                       int* out) {
-  Kernel k = instantiation(nt, kc);
+// instantiation for nt n-tiles of 8 output channels (a group's, for any),
+// kc chunks of 16 of K, and any K and Nout (any) or K a multiple of 4 and
+// Nout up to 64.
+extern "C" int yf_probe_nhwc_mma_attrs(int nt, int kc, int any,
+                                       int smem_bytes, int* out) {
+  Kernel k = instantiation(nt, kc, any);
   if (k == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return attrs_of(k, smem_bytes, out);
 }

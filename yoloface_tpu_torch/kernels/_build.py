@@ -90,8 +90,13 @@ SIGNATURES = {
     "yf_probe_fi_mma_attrs": [_I, _I, _P],
     # (x, w, out, params, stream)
     "yf_probe_nhwc_mma": [_P, _P, _P, _P, _P],
-    # (n-tiles, k chunks, dynamic shared bytes, int out[4] as above)
-    "yf_probe_nhwc_mma_attrs": [_I, _I, _I, _P],
+    # (n-tiles, k chunks, any K and Nout, dynamic shared bytes, int out[4]
+    #  as above)
+    "yf_probe_nhwc_mma_attrs": [_I, _I, _I, _I, _P],
+    # (x, taps, out, params, stream)
+    "yf_probe_dw_fi_mma": [_P, _P, _P, _P, _P],
+    # (int16 out, 8-byte accesses, int out[4] as above)
+    "yf_probe_dw_fi_mma_attrs": [_I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -14,6 +14,10 @@ Pallas kernels of their own.  Their counterparts here:
   requant chain; ``probe_dw(..., form="frames")``
   (``csrc/probe_dw_frames.cu``): the int8 NHWC taps a block a group of
   whole frames staged in shared memory (``dw_frames_plan``);
+  ``probe_dw(..., layout="fi", form="fi_mma")``
+  (``csrc/probe_dw_fi_mma.cu``): the frame-innermost taps R times on the
+  int8 tensor cores, 2 x 2 outputs a product, a warp a channel, a pair of
+  output rows and 64 frames;
 * ``probe_conv`` (``csrc/probe_conv.cu``): a 1x1 conv as the CUDA-core loop,
   ``__dp4a`` or ``mma.sync`` on int8 (or bf16) tiles in shared memory, or
   frame innermost; int32 sums, ``clip(acc >> 7)`` with the rest of the
@@ -21,17 +25,18 @@ Pallas kernels of their own.  Their counterparts here:
   (``csrc/probe_fi_mma.cu``): the frame-innermost 1x1 on the int8 tensor
   cores, a warp a pixel and 64 frames; ``variant="mma_rows"``
   (``csrc/probe_nhwc_mma.cu``): the NHWC 1x1 on the int8 tensor cores,
-  slabs of rows streamed once through shared memory.
+  slabs of rows streamed once through shared memory, any K up to 64 and
+  Nout up to 144 (``mma_rows_plan``).
 
 Each wrapper checks its tensors, runs the plain version (beside it, named
 ``*_plain``) on a CPU tensor, launches its kernel on PyTorch's current
 stream for a CUDA tensor (no synchronisation) and raises on any other
 device; each counts its launches in ``.launches`` (and the Hopper forms
-in ``probe_dw.frames_launches``, ``probe_conv.fi_mma_launches`` and
-``probe_conv.mma_rows_launches`` as well).  A form that cannot take its
-arguments raises; no wrapper falls back to another form.  The plain
-versions compute in int64 or exact float64 and repeat the kernels'
-arithmetic, the R-times forms as the JAX probes define them: the 1x1's
+in ``probe_dw.frames_launches``, ``probe_dw.fi_mma_launches``,
+``probe_conv.fi_mma_launches`` and ``probe_conv.mma_rows_launches`` as
+well).  A form that cannot take its arguments raises; no wrapper falls
+back to another form.  The plain versions compute in int64 or exact
+float64 and repeat the kernels' arithmetic, the R-times forms as the JAX probes define them: the 1x1's
 int8 weights plus r wrap to int8 (JAX's int8 ``w + r``), the int32 taps
 plus r do not (the closed sum ``sum_r (t + r) = R*t + R*(R-1)/2``); sums
 wrap to int16 or int8 where the kernel's store wraps.
@@ -51,8 +56,9 @@ COPY_SCHEDULES = ("flat", "frame", "strip")
 DW_EPIS = ("shift", "fast", "exact", "raw")
 DW_BORDERS = ("copy", "zero", "none")
 # probe_dw's kernels: one thread an output element (PR 7's, every case),
-# a block a group of whole int8 NHWC frames (csrc/probe_dw_frames.cu)
-DW_FORMS = ("thread", "frames")
+# a block a group of whole int8 NHWC frames (csrc/probe_dw_frames.cu), the
+# frame-innermost raw taps on the tensor cores (csrc/probe_dw_fi_mma.cu)
+DW_FORMS = ("thread", "frames", "fi_mma")
 LAYOUTS = ("nhwc", "fi")           # fi: frames innermost, [H, W, C, N]
 CONV_VARIANTS = ("loop", "imad", "dp4a", "mma", "mma_bf16", "fi", "fi4",
                  "fi_mma", "mma_rows")
@@ -68,9 +74,12 @@ DW_BLOCK_SMEM = SMEM_LIMIT // 2 - 1024
 # padded to 64 and a multiple of 8 (two m16n8k32 k-steps, four n-tiles)
 FI_FRAMES, FI_MAX_K, FI_MAX_NOUT = 64, 64, 32
 # csrc/probe_nhwc_mma.cu: slabs of 256 rows (a warp 64), a ring of 2-4
-# slabs, the RAW and WRAP outputs through one slab buffer; K a multiple of
-# 4 up to 64 (chunks of 16), Nout up to 64 (n-tiles of 8)
-ROWS_SLAB, ROWS_MAX_STAGES, ROWS_MAX_K, ROWS_MAX_NOUT = 256, 4, 64, 64
+# slabs, the RAW and WRAP outputs through one slab buffer; K up to 64
+# (chunks of 16), Nout up to 144 (n-tiles of 8; where K is not a multiple
+# of 4 or Nout passes ROWS_FAST_NOUT, csrc/probe_nhwc_mma_any.cu's kernel,
+# the n-tiles in groups of at most ROWS_GROUP)
+ROWS_SLAB, ROWS_MAX_STAGES, ROWS_MAX_K, ROWS_MAX_NOUT = 256, 4, 64, 144
+ROWS_FAST_NOUT, ROWS_GROUP = 64, 8
 SM_SMEM = 233472                   # bytes of shared memory an SM has
 ROWS_BLOCK_SMEM = SM_SMEM // 3 - 1024         # three blocks an SM
 TM = TN = 64                       # probe_conv.cu's tile
@@ -229,6 +238,11 @@ def _dw_args(x, taps, so, layout, stride, offs, origin, border, epi, scale,
                          f"{out_dtype} in {arith}")
     if form not in DW_FORMS:
         raise ValueError(f"probe_dw: form {form!r}, one of {DW_FORMS}")
+    if form == "fi_mma" and (layout != "fi" or x.dtype != torch.int8
+                             or epi != "raw" or border != "none"
+                             or stride != 1 or not offs or origin):
+        raise ValueError("probe_dw fi_mma: int8 frames innermost, the raw "
+                         "sum, no border, offsets, stride 1")
     if form == "frames":
         if (layout != "nhwc" or x.dtype != torch.int8 or epi == "raw"
                 or border == "none" or reps != 1):
@@ -329,7 +343,11 @@ def probe_dw(x, taps, *, so, layout="nhwc", stride=1, offs=True, origin=0,
     ``form="thread"``: PR 7's kernel, one thread an output element, every
     case; ``"frames"``: the int8 NHWC cases with one repetition, C a
     multiple of 4, frames of a multiple of 16 bytes and 16-byte aligned
-    tensors, a block a group of whole frames (``dw_frames_plan``)."""
+    tensors, a block a group of whole frames (``dw_frames_plan``);
+    ``"fi_mma"``: int8 ``fi`` frames, the raw sum in either arithmetic, no
+    border, offsets, stride 1, any R, on the int8 tensor cores (a channel
+    with a tap past int8 less R - 1 on an int32 body of the same
+    kernel)."""
     n, sp, c, osp, out_dtype = _dw_args(x, taps, so, layout, stride, offs,
                                         origin, border, epi, scale, arith,
                                         form, reps)
@@ -354,6 +372,13 @@ def probe_dw(x, taps, *, so, layout="nhwc", stride=1, offs=True, origin=0,
                 taps.data_ptr(), scale.data_ptr() if epi == "fast" else None,
                 out.data_ptr(), params, device=x.device)
         probe_dw.frames_launches += 1
+    elif form == "fi_mma":
+        vec = n % 8 == 0 and _aligned(x, to=8) and _aligned(out)
+        _launch("yf_probe_dw_fi_mma", "probe_dw fi_mma", x.data_ptr(),
+                taps.data_ptr(), out.data_ptr(),
+                (n, sp, c, so, reps, int(arith == "i16"), int(vec)),
+                device=x.device)
+        probe_dw.fi_mma_launches += 1
     else:
         params = (0, int(layout == "fi"), x.element_size(),
                   out.element_size(), int(arith == "i16"), n, sp, c, so, osp,
@@ -368,6 +393,7 @@ def probe_dw(x, taps, *, so, layout="nhwc", stride=1, offs=True, origin=0,
 
 probe_dw.launches = 0
 probe_dw.frames_launches = 0
+probe_dw.fi_mma_launches = 0
 
 
 def _chain_scales(reps: int):
@@ -468,28 +494,47 @@ def _conv_args(x, w, variant, epi, reps=1):
 
 def mma_rows_refuses(k: int, nout: int) -> Optional[str]:
     """Why ``variant="mma_rows"`` does not take depth ``k`` and ``nout``
-    output channels, or None where it does: K a multiple of 4 up to
-    ``ROWS_MAX_K``, Nout up to ``ROWS_MAX_NOUT``."""
-    if k % 4 or not 4 <= k <= ROWS_MAX_K:
-        return f"K = {k}: a multiple of 4 up to {ROWS_MAX_K}"
+    output channels, or None where it does: K from 1 to ``ROWS_MAX_K``,
+    Nout from 1 to ``ROWS_MAX_NOUT``."""
+    if not 1 <= k <= ROWS_MAX_K:
+        return f"K = {k}: 1 to {ROWS_MAX_K}"
     if not 1 <= nout <= ROWS_MAX_NOUT:
         return f"Nout = {nout}: 1 to {ROWS_MAX_NOUT}"
     return None
 
 
+def mma_rows_shape(k: int, nout: int) -> dict:
+    """The mma_rows instantiation that takes ``k`` and ``nout``: ``any``
+    (csrc/probe_nhwc_mma_any.cu's kernel: K not a multiple of 4 or Nout
+    past ``ROWS_FAST_NOUT``), ``groups`` of ``tiles`` n-tiles of 8 (one
+    group of every n-tile otherwise), ``k_chunks`` of 16."""
+    nt = -(-nout // 8)
+    any_ = bool(k % 4) or nout > ROWS_FAST_NOUT
+    groups = -(-nt // ROWS_GROUP) if any_ else 1
+    return dict(any=any_, groups=groups, tiles=-(-nt // groups),
+                k_chunks=-(-k // 16))
+
+
 def mma_rows_plan(k: int, nout: int, epi: str, slab: int = ROWS_SLAB
                   ) -> dict:
-    """The mma_rows block's ring: ``stages`` slabs of ``slab`` rows of
-    input (the most, up to ``ROWS_MAX_STAGES``, that keep three blocks an
-    SM, each with the 1 KB the card reserves a block; two at least) and,
-    for ``raw`` and ``wrap``, one output slab buffer, in ``smem`` bytes of
-    dynamic shared memory."""
+    """The mma_rows block's shared memory: a ring of ``stages`` slabs of
+    ``slab`` rows of input (the most, up to ``ROWS_MAX_STAGES``, that keep
+    three blocks an SM, each with the 1 KB the card reserves a block; two
+    at least), for ``raw`` and ``wrap`` one output slab buffer, and for
+    ``mma_rows_shape``'s ``any`` kernel the B table (128 B a chunk of an
+    n-tile), in ``smem`` bytes of dynamic shared memory; ``blocks`` an SM that fit (three, or fewer
+    where two stages pass a third of the SM: the wide RAW slab of Nout 144,
+    147,456 B, leaves one)."""
+    shp = mma_rows_shape(k, nout)
     out = 0 if epi == "shift" else slab * nout * (4 if epi == "raw" else 1)
+    table = (shp["groups"] * shp["tiles"] * shp["k_chunks"] * 128
+             if shp["any"] else 0)
     for stages in range(ROWS_MAX_STAGES, 1, -1):
-        smem = stages * slab * k + out
+        smem = stages * slab * k + out + table
         if smem <= ROWS_BLOCK_SMEM:
             break
-    return dict(stages=stages, smem=smem)
+    return dict(stages=stages, smem=smem,
+                blocks=min(3, SM_SMEM // (smem + 1024)))
 
 
 def _out_shape(x, variant, ldo):
@@ -531,8 +576,8 @@ def probe_conv(x, w, *, variant="mma", epi="raw", reps=1,
     cores (``shift`` or ``wrap``, one repetition, K <= 64, Nout <= 32; a
     frame count that is not a multiple of 8 takes byte accesses).
     ``mma_rows``: the NHWC 1x1 on the int8 tensor cores in slabs of rows
-    (every epilogue and R; K a multiple of 4 up to 64, Nout up to 64,
-    ``x`` and ``w`` 16-byte aligned: ``mma_rows_refuses``)."""
+    (every epilogue and R; K up to 64, Nout up to 144, ``x`` and ``w``
+    16-byte aligned: ``mma_rows_refuses``)."""
     m, k, nout, ldo, frames = _conv_args(x, w, variant, epi, reps)
     if _device(x, "probe_conv") == "cpu":
         return probe_conv_plain(x, w, variant=variant, epi=epi, reps=reps)
@@ -611,17 +656,28 @@ def fi_mma_attrs(nout: int, vec: bool = True) -> dict:
 
 
 def mma_rows_attrs(k: int, nout: int, epi: str = "raw") -> dict:
-    """The mma_rows instantiation for depth ``k`` (chunks of 16) and
-    ``nout`` output channels (n-tiles of 8), as built, at the shared memory
-    of epilogue ``epi``'s plan (``dw_frames_attrs``' keys, the n-tiles,
-    the k chunks and ``mma_rows_plan``)."""
+    """The mma_rows instantiation for depth ``k`` and ``nout`` output
+    channels (``mma_rows_shape``), as built, at the shared memory of
+    epilogue ``epi``'s plan (``dw_frames_attrs``' keys, the shape and
+    ``mma_rows_plan``)."""
     why = mma_rows_refuses(k, nout) or (
         None if epi in CONV_EPIS else f"epi {epi!r}")
     if why:
         raise ValueError(f"probe_conv mma_rows: {why}")
-    nt, kc, plan = -(-nout // 8), -(-k // 16), mma_rows_plan(k, nout, epi)
-    return dict(_kernel_attrs("yf_probe_nhwc_mma_attrs", nt, kc,
-                              plan["smem"]), n_tiles=nt, k_chunks=kc, **plan)
+    shp, plan = mma_rows_shape(k, nout), mma_rows_plan(k, nout, epi)
+    return dict(_kernel_attrs("yf_probe_nhwc_mma_attrs", shp["tiles"],
+                              shp["k_chunks"], int(shp["any"]),
+                              plan["smem"]), **shp, **plan)
+
+
+def dw_fi_mma_attrs(arith: str = "i16", vec: bool = True) -> dict:
+    """The dw fi_mma instantiation for ``arith``'s output (int16 or int32)
+    with 8-byte (frame counts a multiple of 8) or byte accesses, as built
+    (``dw_frames_attrs``' keys)."""
+    if arith not in ("i32", "i16"):
+        raise ValueError(f"probe_dw fi_mma: arith {arith!r}")
+    return _kernel_attrs("yf_probe_dw_fi_mma_attrs", int(arith == "i16"),
+                         int(vec))
 
 
 WRAPPERS: Sequence = (probe_copy, probe_phase_select, probe_dw,
@@ -632,6 +688,7 @@ def reset_launches() -> None:
     for fn in WRAPPERS:
         fn.launches = 0
     probe_dw.frames_launches = 0
+    probe_dw.fi_mma_launches = 0
     probe_conv.fi_mma_launches = 0
     probe_conv.mma_rows_launches = 0
 

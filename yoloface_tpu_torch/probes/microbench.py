@@ -17,13 +17,14 @@ frame-innermost [S, S, C, N] where it kept that.  Inputs are made on the
 device from fixed seeds.  Every variant's output on the timed input is
 first held against its plain version on the same input, bit for bit.
 ``conv1x1``, ``whcn`` and the dw-shaped ``main`` time chains of 20 calls
-(each fed the last output); ``conv1x1``, ``whcn``, ``inkernel`` and
-``main`` time each kernel that PR 7 ported and a later one redesigned
-beside its redesign (``... (PR 7)``, the redesign the headline) and print
-the redesign's registers and local bytes; ``inkernel``, ``dw16`` and
-``packdot`` repeat the op R = 16 times inside one launch and report the
-time an op.  ``rows_sweep`` builds the NHWC 1x1's Hopper form with other
-block shapes and times them at the ``conv1x1`` and ``inkernel`` shapes.
+(each fed the last output); ``conv1x1``, ``whcn``, ``inkernel``,
+``dw16``, ``packdot`` and ``main`` time each kernel that PR 7 ported and
+a later one redesigned beside its redesign (``... (PR 7)``, the redesign
+the headline) and print the redesign's registers and local bytes;
+``inkernel``, ``dw16`` and ``packdot`` repeat the op R = 16 times inside
+one launch and report the time an op.  ``rows_sweep`` builds the NHWC
+1x1's Hopper form with other block shapes and times them at the
+``conv1x1`` and ``inkernel`` shapes.
 ``section_1x1`` times the tiled section kernel B6 on a net's 1x1 conv, the
 body the ``conv1x1`` loop restates.
 """
@@ -270,35 +271,47 @@ def inkernel_probe(batch: int = 32768, device="cuda", runs: int = 3) -> Dict:
 
 
 def dw16_probe(batch: int = 32768, device="cuda", runs: int = 3) -> Dict:
-    """B9.4: the depthwise taps R times in the frame-innermost layout with
-    int32 arithmetic against 16-bit operands (__dp2a, int16 sums that
-    wrap), taps in [-8, 8)."""
+    """B9.4: the depthwise taps R times in the frame-innermost layout, int32
+    sums and the sums wrapped to int16, taps in [-8, 8): each variant on
+    the int8 tensor cores (``form="fi_mma"``, the headline ``whcn dw i16
+    taps C=40@14``) and as PR 7's one thread an output (``... (PR 7)``:
+    int32 arithmetic, or __dp2a on 16-bit operands for int16)."""
     dev = card(device)
     out, err = {}, 0.0
     plain_ms = None
     head = "whcn dw i16 taps C=40@14"
+    kernels, attrs = {}, {}
     print(f"dw16 probe R={R} batch={batch} ({device_name(dev)})", flush=True)
     for c, s in ((40, 14), (16, 28), (48, 7)):
         sp = s + 2
         taps = randint((9, c), -8, 8, dev, 1, torch.int32)
         x = randint((sp, sp, c, batch), -128, 128, dev, 0)
         macs = c * s * s * batch * 9 * R
-        for arith, label, size in (("i32", "i32", 4), ("i16", "i16", 2)):
+        for arith, size in (("i32", 4), ("i16", 2)):
             kw = dict(so=s, layout="fi", border="none", epi="raw", reps=R,
                       arith=arith)
-            name = f"whcn dw {label} taps C={c}@{s}"
-            err = max(err, same(K.probe_dw(x, taps, **kw),
-                                K.probe_dw_plain(x, taps, **kw),
-                                f"dw16 {name}"))
-            out[name] = variant(
-                time_ms(lambda: K.probe_dw(x, taps, **kw), dev, runs),
-                (x.numel() + size * s * s * c * batch, macs, 0))
-            show(name, out[name], 30, per=R, gmac=macs / 1e9)
+            name = f"whcn dw {arith} taps C={c}@{s}"
+            want = K.probe_dw_plain(x, taps, **kw)
+            for form, key in (("fi_mma", name), ("thread", f"{name} (PR 7)")):
+                err = max(err, same(K.probe_dw(x, taps, form=form, **kw),
+                                    want, f"dw16 {key}"))
+                kernels[key] = form
+            del want
+            if dev.type == "cuda":
+                attrs[name] = K.dw_fi_mma_attrs(arith, vec=batch % 8 == 0)
+                show_attrs(name, attrs[name])
+            for key in (name, f"{name} (PR 7)"):
+                out[key] = variant(
+                    time_ms(lambda key=key: K.probe_dw(
+                        x, taps, form=kernels[key], **kw), dev, runs),
+                    (x.numel() + size * s * s * c * batch, macs, 0))
+                show(key, out[key], 36, per=R, gmac=macs / 1e9)
             if name == head:
                 plain_ms = time_ms(lambda: K.probe_dw_plain(x, taps, **kw),
                                    dev, runs)
         del x
-    return record("dw16", head, out, plain_ms, err, dev, batch=batch, reps=R)
+    return record("dw16", head, out, plain_ms, err, dev, batch=batch, reps=R,
+                  kernels=kernels, replaced=f"{head} (PR 7)", attrs=attrs)
 
 
 PACK_SHAPES = ((8, 4, 28), (4, 18, 28), (18, 6, 28), (6, 36, 28),
@@ -323,26 +336,30 @@ def block_diagonal(w: torch.Tensor, p: int) -> torch.Tensor:
 
 
 def packed(x: torch.Tensor, wp: torch.Tensor, p: int, reps: int,
-           plain: bool = False) -> torch.Tensor:
+           plain: bool = False, variant: str = "mma_rows") -> torch.Tensor:
     """The 1x1 of ``x`` [N, S, S, Ci] with P consecutive positions of the
-    last spatial axis packed into one row: [N, S, S/P, P*Ci] @ wp.T."""
+    last spatial axis packed into one row: [N, S, S/P, P*Ci] @ wp.T, on
+    probe_conv's ``variant``."""
     n, s, _, ci = x.shape
     fn = K.probe_conv_plain if plain else K.probe_conv
-    y = fn(x.view(n, s, s // p, p * ci), wp, variant="mma", epi="raw",
+    y = fn(x.view(n, s, s // p, p * ci), wp, variant=variant, epi="raw",
            reps=reps)
     return y.view(n, s, s, wp.shape[0] // p)
 
 
 def packdot_probe(batch: int = 8192, device="cuda", runs: int = 3) -> Dict:
-    """B9.5: a 1x1 with one position a row (K zero-padded to 32 in the
-    int8 mma) against P positions packed block-diagonally into one k-step,
-    R times, int32 out; the two forms are equal at one repetition.  (The
-    packed weights' zero blocks become r in the R-times form, so only the
-    one-repetition form compares the two.)"""
+    """B9.5: a 1x1 with one position a row against P positions packed
+    block-diagonally into one row, R times, int32 out; each variant on the
+    NHWC 1x1's Hopper form (``variant="mma_rows"``, the headline ``pack
+    P=4 8x4@28``) and as PR 7's tile kernel (``... (PR 7)``, K zero-padded
+    to 32); the two layouts are equal at one repetition, on the Hopper
+    form.  (The packed weights' zero blocks become r in the R-times form,
+    so only the one-repetition form compares the two.)"""
     dev = card(device)
     out, err = {}, 0.0
     plain_ms = None
     head = "pack P=4 8x4@28"
+    kernels, attrs = {}, {}
     print(f"packdot probe R={R} batch={batch} ({device_name(dev)})",
           flush=True)
     for ci, co, s in PACK_SHAPES:
@@ -351,41 +368,43 @@ def packdot_probe(batch: int = 8192, device="cuda", runs: int = 3) -> Dict:
         macs = ci * co * s * s * batch * R
         work = (x.numel() + 4 * batch * s * s * co + w.numel(), macs, 0)
         dots = s * s * batch / NT
-        name = f"perpos {ci}x{co}@{s}"
-        err = max(err, same(K.probe_conv(x, w, variant="mma", epi="raw",
-                                         reps=R),
-                            K.probe_conv_plain(x, w, variant="mma",
-                                               epi="raw", reps=R),
-                            f"packdot {name}"))
-        out[name] = variant(time_ms(lambda: K.probe_conv(
-            x, w, variant="mma", epi="raw", reps=R), dev, runs), work)
-        show(name, out[name], 30, per=R, gmac=macs / 1e9,
-             extra=f", {out[name]['ms'] / R / dots * 1e6:6.1f} ns/dot")
+        cases = {f"perpos {ci}x{co}@{s}": (1, w)}   # name: (P, weights)
         for p in pack_factors(ci, co, s):
-            wp = block_diagonal(w, p)
-            name = f"pack P={p} {ci}x{co}@{s}"
-            err = max(err, same(packed(x, wp, p, R),
-                                packed(x, wp, p, R, plain=True),
-                                f"packdot {name}"))
-            out[name] = variant(time_ms(lambda: packed(x, wp, p, R), dev,
-                                        runs), work)
-            show(name, out[name], 30, per=R, gmac=macs / 1e9,
-                 extra=f", {out[name]['ms'] / R / (dots / p) * 1e6:6.1f} "
-                       "ns/dot")
+            cases[f"pack P={p} {ci}x{co}@{s}"] = (p, block_diagonal(w, p))
+        for name, (p, wp) in cases.items():
+            def call(v, plain=False, p=p, wp=wp):
+                return packed(x, wp, p, R, plain=plain, variant=v)
+
+            want = call("mma", plain=True)
+            for v, key in (("mma_rows", name), ("mma", f"{name} (PR 7)")):
+                err = max(err, same(call(v), want, f"packdot {key}"))
+                kernels[key] = v
+            del want
+            if dev.type == "cuda":
+                attrs[name] = K.mma_rows_attrs(p * ci, p * co, "raw")
+                show_attrs(name, attrs[name])
+            for key in (name, f"{name} (PR 7)"):
+                out[key] = variant(time_ms(lambda key=key: call(kernels[key]),
+                                           dev, runs), work)
+                show(key, out[key], 36, per=R, gmac=macs / 1e9,
+                     extra=f", {out[key]['ms'] / R / (dots / p) * 1e6:6.1f} "
+                           "ns/dot")
             if name == head:
-                plain_ms = time_ms(lambda: packed(x, wp, p, R, plain=True),
-                                   dev, runs)
+                plain_ms = time_ms(lambda: call("mma", plain=True), dev,
+                                   runs)
         if pack_factors(ci, co, s):     # one repetition: packed == per pos
             p = max(pack_factors(ci, co, s))
-            eq = torch.equal(K.probe_conv(x, w, variant="mma", epi="raw"),
+            eq = torch.equal(K.probe_conv(x, w, variant="mma_rows",
+                                          epi="raw"),
                              packed(x, block_diagonal(w, p), p, 1))
-            print(f"{'':>30s}  bit-equal P={p}: {eq}", flush=True)
+            print(f"{'':>36s}  bit-equal P={p}: {eq}", flush=True)
             if not eq:
                 raise AssertionError(f"packdot {ci}x{co}: P={p} packed "
                                      "differs from one position a row")
         del x
     return record("packdot", head, out, plain_ms, err, dev, batch=batch,
-                  reps=R)
+                  reps=R, kernels=kernels, replaced=f"{head} (PR 7)",
+                  attrs=attrs)
 
 
 def dw_main(batch: int = 32768, c: int = 8, s: int = 28, device="cuda",
@@ -473,30 +492,33 @@ ROWS_SHAPES = ((128, 4), (256, 2), (128, 2), (64, 4))
 
 
 def _rows_builds(shapes) -> Dict:
-    """csrc/probe_nhwc_mma.cu built once a block shape, each into a library
-    of its own beside the package's (one nvcc each, all at once) ->
-    {shape: (library, rows a slab)}."""
+    """csrc/probe_nhwc_mma.cu and probe_nhwc_mma_any.cu built once a block
+    shape (set in their header, nhwc_mma.cuh), each pair into a library of
+    its own beside the package's (one nvcc each, all at once) -> {shape:
+    (library, rows a slab)}."""
     from yoloface_tpu_torch.kernels import _build
-    src = (_build.CSRC / "probe_nhwc_mma.cu").read_text()
+    head = (_build.CSRC / "nhwc_mma.cuh").read_text()
     own = ("constexpr int kThreads = 128;", "constexpr int kMTiles = 4;")
-    if not all(a in src for a in own):
-        raise RuntimeError("probe_nhwc_mma.cu: the block shape moved")
-    out = _build.BUILD_DIR / "rows_sweep"
-    out.mkdir(parents=True, exist_ok=True)
+    if not all(a in head for a in own):
+        raise RuntimeError("nhwc_mma.cuh: the block shape moved")
+    cus = ("probe_nhwc_mma.cu", "probe_nhwc_mma_any.cu")
     jobs = {}
     for threads, mt in shapes:
-        cu = out / f"probe_nhwc_mma_t{threads}_m{mt}.cu"
-        cu.write_text(src.replace(own[0], f"constexpr int kThreads = "
-                                          f"{threads};")
-                      .replace(own[1], f"constexpr int kMTiles = {mt};"))
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
-               "-shared", "-o", str(cu.with_suffix(".so")), str(cu)]
+        out = _build.BUILD_DIR / "rows_sweep" / f"t{threads}_m{mt}"
+        out.mkdir(parents=True, exist_ok=True)
+        (out / "nhwc_mma.cuh").write_text(
+            head.replace(own[0], f"constexpr int kThreads = {threads};")
+            .replace(own[1], f"constexpr int kMTiles = {mt};"))
+        for cu in cus:          # their quoted include finds the header beside
+            (out / cu).write_text((_build.CSRC / cu).read_text())
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
+               str(out / "probe_nhwc_mma.so"), *(str(out / cu) for cu in cus)]
         jobs[(threads, mt)] = (cmd, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     libs = {}
     for shape, (cmd, proc) in jobs.items():
         _build._finish(cmd, *proc.communicate(), proc.returncode)
-        lib = ctypes.CDLL(cmd[-2])
+        lib = ctypes.CDLL(cmd[cmd.index("-o") + 1])
         lib.yf_probe_nhwc_mma.argtypes = _build.SIGNATURES[
             "yf_probe_nhwc_mma"]
         lib.yf_probe_nhwc_mma_attrs.argtypes = _build.SIGNATURES[
@@ -560,7 +582,7 @@ def rows_sweep(batch: int = 32768, device="cuda", runs: int = 3,
         regs = {}
         for probe, nt in (("B9.1", 3), ("B9.3", 5)):   # K 36, 40: 3 chunks
             a = (ctypes.c_int * 4)()
-            check(lib.yf_probe_nhwc_mma_attrs(nt, 3, 0, a), "rows_sweep")
+            check(lib.yf_probe_nhwc_mma_attrs(nt, 3, 0, 0, a), "rows_sweep")
             regs[probe] = a[0]
         res[f"{t} threads, {m} m-tiles"] = {"registers": regs}
         print(f"{'':>4s}[attrs] {t} threads, {m} m-tiles: {regs['B9.1']} "
