@@ -5,7 +5,8 @@ Run:  python3 chip_smoke.py   (paths resolve from this file's directory)
 
 Phases (each prints its lines; any failure ends the run with an error):
   1. environment: torch, CUDA, nvcc, the card's name and power limit; the
-     kernel build from yoloface_tpu_torch/csrc/ into build/yoloface_tpu_torch/
+     serving library's build from yoloface_tpu_torch/csrc/ (every .cu but
+     the probes' probe_*.cu) into build/yoloface_tpu_torch/
      and the registers, local memory and blocks an SM of the four
      instantiations of the section kernel as built (fast and exact bits,
      each with a k32 twin that runs the big-K convs of csrc/conv_mma.cuh;
@@ -190,7 +191,10 @@ Phases (each prints its lines; any failure ends the run with an error):
      its launch (a child process,
      ``chip_smoke.py --forged-op arena|tiled``, whose CUDA context the
      trap ends);
-  4b. the tools/ probes (B9.1-B9.12, yoloface_tpu_torch/probes/), each at
+  4b. the tools/ probes (B9.1-B9.12, yoloface_tpu_torch/probes/), their
+     library (the probe_*.cu sources) built here, at first probe use, and
+     its build time printed beside the serving library's (the run fails if
+     a serving phase loaded it), each at
      the JAX tool's defaults: every variant of the probe kernels
      (csrc/probe_{copy,dw,conv}.cu, probe_dw_frames.cu, probe_fi_mma.cu,
      probe_nhwc_mma{,_any}.cu, probe_dw_fi_mma.cu; B6 for the 448 stage
@@ -201,14 +205,19 @@ Phases (each prints its lines; any failure ends the run with an error):
      yolov3-tiny's layer 13, 1024 -> 256 at 13x13, batch 256, beside B6
      on that conv as a one-op strip section), the debug448 stream-order
      checks printing BIT-EXACT a variant; one kernels row a probe, its
-     launches counted over its own run; the redesigned B9.1-B9.6 (the
-     NHWC 1x1 on the tensor cores in row slabs, once, R times and packed;
-     the frame-innermost 1x1 and depthwise taps R times on the tensor
-     cores; the depthwise taps a block a group of frames) beside the PR 7
-     forms they replaced,
+     launches counted over its own run; the redesigned B9.1-B9.8 (the
+     NHWC 1x1 on the tensor cores in row slabs, once, R times and packed,
+     and the 448 micro-probes' wrapping 8x8 dots on it, walked persistent,
+     a block a frame and a block a chunk; the frame-innermost 1x1 and
+     depthwise taps R times on the tensor cores; the depthwise taps a
+     block a group of frames) beside the PR 7 forms they replaced,
      with their shares of the bound, registers and own launches, a spill
-     failing the run (at layer 13, K = 1024, the 1x1 probe leaves the row
-     form out by its rule on K and says so);
+     or no launch of the redesign failing the run (at layer 13, K = 1024,
+     the 1x1 probe leaves the row form out by its rule on K and says so);
+     B9.7 and B9.8 timed with the L2 cold (the shares) and L2-resident,
+     beside the launch floor (the row kernel on one row), and B9.7's dots
+     as torch._int_mm then .to(torch.int8), a reference of two library
+     calls;
   4c. [train] (_train_phase), the port making a model, with PyTorch's
      TF32 defaults outside its calls: one train step of
      examples/train_synthetic.py's configuration (batch 32 of make_batch,
@@ -603,9 +612,9 @@ def _probe_rows(dev, card, g416):
         ("probe_dw_main", "B9.6", "tools/microbench.py:633",
          "probe_dw_frames.cu", lambda: mb.dw_main(device=dev)),
         ("probe_448_micro", "B9.7", "tools/probe448_micro.py:20",
-         "probe_conv.cu", lambda: pm.micro("main", device=dev)),
+         "probe_nhwc_mma.cu", lambda: pm.micro("main", device=dev)),
         ("probe_448_micro2", "B9.8", "tools/probe448_micro.py:120",
-         "probe_conv.cu", lambda: pm.micro("main2", device=dev)),
+         "probe_nhwc_mma.cu", lambda: pm.micro("main2", device=dev)),
         ("probe_448_stage", "B9.9", "tools/probe448.py:38",
          "tiled_section.cu", lambda: probe448.stage(device=dev)),
         ("probe_448_fix", "B9.10", "tools/debug448_fix.py:32",
@@ -644,6 +653,8 @@ def _probe_rows(dev, card, g416):
                "batch": rec.get("batch"), "variants": variants}
         if "replaced" in rec:   # a redesign beside the PR 7 form it replaced
             row["redesign"] = _redesign(rec, name, bid, card)
+        if name == "probe_448_micro":
+            row["int_mm_reference"] = _int_mm_reference(pm, dev, card)
         if name == "probe_conv1x1":      # again at yolov3-tiny's layer 13
             kprobe.reset_launches()
             tiled.tiled_section.launches = 0
@@ -675,11 +686,13 @@ def _probe_rows(dev, card, g416):
 
 
 def _redesign(rec, name, bid, card):
-    """A redesigned probe kernel (B9.1-B9.6): its headline
+    """A redesigned probe kernel (B9.1-B9.8): its headline
     beside the PR 7 form it replaced, both timed in the probe's one run,
     each as a share of the bound; its instantiations' registers and local
     bytes (a spill fails the run) and its own launch count over the
-    probe's run (the counter of the redesign that probe times)."""
+    probe's run (the counter of the redesign that probe times; no launch
+    fails the run).  B9.7 and B9.8 time each form with the L2 cold (the
+    shares) and L2-resident, beside the launch floor."""
     from yoloface_tpu_torch.kernels import probes as kprobe
     new, old = (rec["variants"][rec[k]] for k in ("headline", "replaced"))
     own = {"probe_conv1x1": kprobe.probe_conv.mma_rows_launches,
@@ -687,7 +700,9 @@ def _redesign(rec, name, bid, card):
            "probe_inkernel": kprobe.probe_conv.mma_rows_launches,
            "probe_dw16": kprobe.probe_dw.fi_mma_launches,
            "probe_packdot": kprobe.probe_conv.mma_rows_launches,
-           "probe_dw_main": kprobe.probe_dw.frames_launches}[name]
+           "probe_dw_main": kprobe.probe_dw.frames_launches,
+           "probe_448_micro": kprobe.probe_conv.mma_rows_launches,
+           "probe_448_micro2": kprobe.probe_conv.mma_rows_launches}[name]
     _require(own > 0, f"{name}: the redesigned kernel launched")
     for inst, a in rec["attrs"].items():
         _require(a["local_bytes"] == 0, f"{name} {inst} spills: "
@@ -701,11 +716,52 @@ def _redesign(rec, name, bid, card):
           f"{max(a['registers'] for a in rec['attrs'].values())} at most over "
           f"{len(rec['attrs'])} instantiation(s), no spill; {own} launches "
           f"({card})")
-    return {"headline": rec["headline"], "ms": new["ms"],
-            "share": new["bound_ms"] / new["ms"], "replaced": rec["replaced"],
-            "replaced_ms": old["ms"], "replaced_share":
-            old["bound_ms"] / old["ms"], "launches": own,
-            "attrs": rec["attrs"]}
+    out = {"headline": rec["headline"], "ms": new["ms"],
+           "share": new["bound_ms"] / new["ms"], "replaced": rec["replaced"],
+           "replaced_ms": old["ms"], "replaced_share":
+           old["bound_ms"] / old["ms"], "launches": own,
+           "attrs": rec["attrs"]}
+    if "floor_ms" in rec:     # B9.7, B9.8: ms with the L2 cold, and warm
+        out.update(timing="ms: L2 cold; warm_ms: L2-resident",
+                   warm_ms=new["warm_ms"], replaced_warm_ms=old["warm_ms"],
+                   floor_ms=rec["floor_ms"],
+                   floor_warm_ms=rec["floor_warm_ms"])
+        print(f"[probe] {bid} redesign, L2-resident: {rec['headline']} "
+              f"{new['warm_ms']:.4f} ms, {rec['replaced']} "
+              f"{old['warm_ms']:.4f} ms, {old['warm_ms'] / new['warm_ms']:.2f}"
+              f"x; L2 cold (the shares above): {new['ms']:.4f} / "
+              f"{old['ms']:.4f} ms; the launch floor (the row kernel on one "
+              f"row) {rec['floor_ms']:.4f} ms cold, {rec['floor_warm_ms']:.4f}"
+              f" ms L2-resident ({card})")
+    return out
+
+
+def _int_mm_reference(pm, dev, card):
+    """B9.7's 8x8 dots as two library calls, ``torch._int_mm`` on the
+    [917,504, 8] x [8, 8] product then ``.to(torch.int8)``, timed like the
+    probe (L2 cold and L2-resident), held equal to the row kernel: a
+    reference beside the kernel, not its library yardstick (no one
+    PyTorch call computes the wrapped dots)."""
+    import torch
+    from yoloface_tpu_torch.kernels import probes as kprobe
+    from yoloface_tpu_torch.probes import time_ms
+    x, w8 = pm._inputs(dev)
+    x2 = x.view(-1, pm.C)
+
+    def ref():
+        return torch._int_mm(x2, w8.t()).to(torch.int8)
+
+    _require(torch.equal(ref().view(x.shape[:-1] + (8,)), kprobe.probe_conv(
+        x, w8, variant="mma_rows", epi="wrap")),
+        "torch._int_mm(...).to(torch.int8) equals the row kernel's dots")
+    cold = time_ms(ref, dev, pm.RUNS, cold=True)
+    warm = time_ms(ref, dev, pm.RUNS)
+    print(f"[probe] B9.7 reference, two library calls (torch._int_mm on "
+          f"[{x2.shape[0]}, 8] x [8, 8], then .to(torch.int8); not the "
+          f"kernel's library yardstick): {cold:.4f} ms L2 cold, {warm:.4f} "
+          f"ms L2-resident ({card})")
+    return {"calls": "torch._int_mm(x, w.t()).to(torch.int8)", "ms": cold,
+            "warm_ms": warm}
 
 
 HOST_BATCHES = (16384, 65536)   # the host-fed streamer's timed batches
@@ -2413,9 +2469,14 @@ def main() -> int:
     print(f"[env] card: {card}; device count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
     _build.library()
-    nvcc_s = _build.build_seconds
-    print(f"[build] {_build.BUILD_DIR} in {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {'cached' if nvcc_s is None else f'{nvcc_s:.2f} s'})")
+    nvcc_s = _build.build_seconds.get(_build.KERNELS)
+    print(f"[build] {_build.KERNELS}: {len(_build.sources(_build.KERNELS))} "
+          f"sources, no probe_*.cu, into {_build.BUILD_DIR} in "
+          f"{time.perf_counter() - t0:.2f} s (nvcc "
+          f"{'cached' if nvcc_s is None else f'{nvcc_s:.2f} s'})")
+    _require(not any(p.name.startswith(_build.PROBE_PREFIX)
+                     for p in _build.sources(_build.KERNELS)),
+             "the serving library builds no probe source")
     import ctypes
     # the section kernel's instantiations (fast, exact, and their k32
     # twins), blocks an SM at the largest shared memory a section of the
@@ -4215,10 +4276,21 @@ def main() -> int:
         print(f"[check] {which}: {line}")
 
     # ------------------------------------------------ 4b. the tools/ probes
-    # each probe holds every variant of its kernels against the plain
-    # version bit for bit on the input it times (raising on a mismatch),
-    # then times it at the JAX tool's defaults; its launch count is read
-    # after its own run
+    # the serving phases above neither built nor loaded the probe library;
+    # it builds here.  Each probe holds every variant of its kernels
+    # against the plain version bit for bit on the input it times (raising
+    # on a mismatch), then times it at the JAX tool's defaults; its launch
+    # count is read after its own run
+    _require(_build.loaded() == {_build.KERNELS},
+             f"the serving phases loaded the libraries {_build.loaded()}, "
+             "the serving one alone")
+    t0 = time.perf_counter()
+    _build.library(_build.PROBES)
+    nvcc_s = _build.build_seconds.get(_build.PROBES)
+    print(f"[build] {_build.PROBES}: {len(_build.sources(_build.PROBES))} "
+          f"sources (probe_*.cu) at first probe use in "
+          f"{time.perf_counter() - t0:.2f} s (nvcc "
+          f"{'cached' if nvcc_s is None else f'{nvcc_s:.2f} s'})")
     probe_rows = _probe_rows(dev, card, g416)
 
     # ------------------------------------------- 4c. [train] make a model

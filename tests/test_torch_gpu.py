@@ -556,7 +556,9 @@ def test_probe_conv_matches_plain_on_the_card():
     1x1 on the tensor cores in row slabs (B9.1's and B9.3's Hopper form) at
     awkward row counts, K (any from 1 to 64) and Nout (up to 144), every
     epilogue at R = 1 and 16, at the probes' shapes (B9.5's included),
-    weights near the int8 ends, its instantiations without a spill."""
+    weights near the int8 ends, in its persistent walk and a block a run
+    of slabs (B9.7's and B9.8's K = 8 wrap among them), its instantiations
+    without a spill."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from yoloface_tpu_torch.kernels import probes
@@ -681,17 +683,55 @@ def test_probe_conv_matches_plain_on_the_card():
                                probes.probe_conv_plain(x, w, **kw)), \
                 (ci, co, s, kw)
             cases += 1
+    # the walks (slabs_per_block): B9.7 / B9.8's K = 8, Nout = 8 wrap at M
+    # of 1, 255, 257 and three frames and 5 rows (a ragged last slab and
+    # block), persistent and a block a run of 1, 2 and a frame's 28 slabs;
+    # every epilogue at one shape of each kernel (K 36, and K 18 on the
+    # second source) in two contiguous walks; the probes' shape at 4
+    # frames in C's, D's and B2's walks
+    ends = torch.tensor([127, 120, -128], dtype=torch.int8)
+    w8 = _probe_ints((8, 8), -128, 128, 88)
+    w8.view(-1)[:3] = ends
+    for m in (1, 255, 257, 3 * 7168 + 5):
+        x = _probe_ints((m, 8), -128, 128, m + 8)
+        for spb in (None, 1, 2, 28):
+            kw = dict(variant="mma_rows", epi="wrap", slabs_per_block=spb)
+            assert torch.equal(probes.probe_conv(x, w8, **kw),
+                               probes.probe_conv_plain(x, w8, **kw)), (m, kw)
+            cases += 1
+    for k, nout in ((36, 24), (18, 6)):
+        x = _probe_ints((3 * 7168 + 5, k), -128, 128, k + 3)
+        w = _probe_ints((nout, k), -128, 128, k + nout + 3)
+        w.view(-1)[:3] = ends
+        for epi in ("raw", "shift", "wrap"):
+            for spb, reps in ((1, 16), (3, 1)):
+                kw = dict(variant="mma_rows", epi=epi, reps=reps,
+                          slabs_per_block=spb)
+                assert torch.equal(probes.probe_conv(x, w, **kw),
+                                   probes.probe_conv_plain(x, w, **kw)), \
+                    (k, nout, kw)
+                cases += 1
+    x = _probe_ints((4, 32, 224, 8), -128, 128, 4)
+    for spb in (None, 2, 28):
+        kw = dict(variant="mma_rows", epi="wrap", slabs_per_block=spb)
+        assert torch.equal(probes.probe_conv(x, w8, **kw),
+                           probes.probe_conv_plain(x, w8, **kw)), kw
+        cases += 1
     assert probes.probe_conv.mma_rows_launches == cases
-    for nt in range(1, 9):              # every instantiation, at raw's
-        for kc in range(1, 5):          # shared memory (the most); K - 1:
-            for k in (16 * kc, 16 * kc - 1):      # the kAny body's
-                a = probes.mma_rows_attrs(k, 8 * nt, "raw")
-                assert a["local_bytes"] == 0 and a["blocks_per_sm"] >= 1, \
-                    (nt, kc, k, a)
-    for k, nout in ((24, 144), (16, 72), (64, 144)):   # groups of n-tiles
-        a = probes.mma_rows_attrs(k, nout, "raw")
-        assert a["local_bytes"] == 0 and a["blocks_per_sm"] >= 1, \
-            (k, nout, a)
+    for runs in (False, True):                  # B9.7 / B9.8's
+        a = probes.mma_rows_attrs(8, 8, "wrap", runs)
+        assert a["local_bytes"] == 0 and a["blocks_per_sm"] >= 1, (runs, a)
+    for runs in (False, True):          # both walks:
+        for nt in range(1, 9):          # every instantiation, at raw's
+            for kc in range(1, 5):      # shared memory (the most); K - 1:
+                for k in (16 * kc, 16 * kc - 1):      # the kAny body's
+                    a = probes.mma_rows_attrs(k, 8 * nt, "raw", runs)
+                    assert a["local_bytes"] == 0 and \
+                        a["blocks_per_sm"] >= 1, (nt, kc, k, runs, a)
+        for k, nout in ((24, 144), (16, 72), (64, 144)):   # n-tile groups
+            a = probes.mma_rows_attrs(k, nout, "raw", runs)
+            assert a["local_bytes"] == 0 and a["blocks_per_sm"] >= 1, \
+                (k, nout, runs, a)
     torch.cuda.synchronize()
 
 

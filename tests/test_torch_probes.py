@@ -329,6 +329,18 @@ def test_probe448_micro_plain_equals_the_jax_bodies():
                            tiles_per_block=tpb)
         np.testing.assert_array_equal(got.numpy().transpose(1, 2, 3, 0),
                                       want)
+    # the row kernel (C persistent; B2, D and any walk of slabs a block)
+    for spb in (None, 1, 2, probe448_micro.CHUNK_SLABS,
+                probe448_micro.FRAME_SLABS):
+        got = K.probe_conv(xn, _t(w8), variant="mma_rows", epi="wrap",
+                           slabs_per_block=spb)
+        np.testing.assert_array_equal(got.numpy().transpose(1, 2, 3, 0),
+                                      want)
+    for name, kw in {**probe448_micro._dot_cases("main"),
+                     **probe448_micro._dot_cases("main2")}.items():
+        got = K.probe_conv(xn, _t(w8), epi="wrap", **kw)
+        np.testing.assert_array_equal(got.numpy().transpose(1, 2, 3, 0),
+                                      want, err_msg=name)
 
 
 def test_wraps_agree_with_numpy():
@@ -480,6 +492,7 @@ def test_probe_entry_points_default_to_the_card(monkeypatch):
     for fn in (lambda: microbench.main(["conv1x1", "2"]),
                lambda: microbench.main(["rows_sweep", "2"]),
                lambda: probe448_micro.main([]),
+               lambda: probe448_micro.main(["sweep"]),
                lambda: probe448.main(["2"]),
                lambda: debug448.main(["min", "2"])):
         with pytest.raises(RuntimeError, match="CUDA card"):
@@ -690,8 +703,8 @@ def test_new_forms_route_by_device_and_refuse():
 
 @pytest.mark.parametrize("batch,frames", [(1, 4), (3, 12)])
 def test_redesigned_probes_time_their_pr7_forms(batch, frames, capsys):
-    """dw_main, whcn_probe, conv1x1_probe and inkernel_probe end to end on
-    the CPU at toy sizes (frame counts the frames kernel's groups and the
+    """dw_main, whcn_probe, conv1x1_probe, inkernel_probe and the 448
+    micro-probes (at one frame) end to end on the CPU at toy sizes (frame counts the frames kernel's groups and the
     1x1's 8-frame words do not divide; row counts under one slab of the
     NHWC 1x1's Hopper form and past it, with a ragged last slab): the
     Hopper form is the headline, the PR 7
@@ -721,6 +734,20 @@ def test_redesigned_probes_time_their_pr7_forms(batch, frames, capsys):
     for name in ("taps noffs i8 shift", "taps offs i8 fastreq",
                  "taps offs i8 exactreq", "taps offs i8 stride2"):
         assert {name, f"{name} (PR 7)"} <= set(dw["variants"])
+    for which, head, forms in (
+            ("main", "C flattened mma", ("C flattened mma",)),
+            ("main2", "D mma, a grid of chunks", (
+                "B2 mma, a block a frame", "D mma, a grid of chunks"))):
+        rec = probe448_micro.micro(which, device="cpu", frames=1, runs=1)
+        assert (rec["headline"], rec["replaced"]) == (head, f"{head} (PR 7)")
+        assert rec["max_abs_err"] == 0.0 and rec["floor_ms"] > 0
+        for name in forms:
+            assert (rec["kernels"][name],
+                    rec["kernels"][f"{name} (PR 7)"]) == ("mma_rows", "mma")
+            for v in (rec["variants"][name],
+                      rec["variants"][f"{name} (PR 7)"]):
+                assert v["ms"] > 0 and v["warm_ms"] > 0
+                assert v["bound_by"] == "bytes"
     wide = microbench.conv1x1_probe(batch, 68, 16, 2, device="cpu", reps=2,
                                     runs=1)
     assert wide["kernels"]["mma"] == "mma" and "replaced" not in wide
@@ -728,6 +755,8 @@ def test_redesigned_probes_time_their_pr7_forms(batch, frames, capsys):
     out = capsys.readouterr().out
     assert "fi i8 mma:" in out and "taps offs i8 shift (PR 7):" in out
     assert "mma s8 (PR 7):" in out and "mma_rows left out: K = 68" in out
+    assert "D mma, a grid of chunks (PR 7):" in out
+    assert "L2 cold" in out and "L2-resident" in out and "launch floor" in out
 
 
 # ------------------------- the Hopper form of B9.1 and B9.3 (lane maps)
@@ -820,7 +849,37 @@ def _row_words(stage, rows, words, k):
     return np.where((words >= 0) & (b < k), v, 0).astype(np.uint32)
 
 
-def _mma_rows_emulate(x, w, epi, reps):
+def _mma_rows_walk(slabs, stages, spb=0, resident=8):
+    """The row kernels' walks (csrc/nhwc_mma_kernel.cuh,
+    nhwc_mma_any_kernel.cuh; walk_grid in nhwc_mma.cuh) and their ring in
+    numpy: the grid (``spb`` slabs a block, or 0: ``resident``
+    persistent blocks strided over the slabs) and each block's walk, its
+    first ``stages`` slabs filled before the loop and, at iteration it >
+    0, slab it + stages - 1 into the stage iteration it - 1 read, each
+    iteration asserting its stage holds its slab -> (grid, [(block, it,
+    slab)] in walk order)."""
+    grid = -(-slabs // spb) if spb else min(slabs, resident)
+    first_mul, step, per = ((spb, 1, spb) if spb
+                            else (1, grid, -(-slabs // grid)))
+
+    def block_slab(b, it):
+        return b * first_mul + it * step if it < per else slabs
+
+    order = []
+    for b in range(grid):
+        stage = [block_slab(b, s) for s in range(stages)]
+        it = 0
+        while block_slab(b, it) < slabs:
+            assert stage[it % stages] == block_slab(b, it), (b, it)
+            order.append((b, it, block_slab(b, it)))
+            nxt = block_slab(b, it + stages - 1)
+            if it > 0 and nxt < slabs:
+                stage[(it - 1) % stages] = nxt
+            it += 1
+    return grid, order
+
+
+def _mma_rows_emulate(x, w, epi, reps, spb=0):
     """probe_nhwc_mma.cu's slabs, warps and lanes in numpy: the stage
     filled by the bulk copy and the ragged tail (words, or bytes in the
     kAny body) over stale bytes, each warp's A registers through the maps
@@ -831,7 +890,8 @@ def _mma_rows_emulate(x, w, epi, reps):
     passes, the epilogue's writes by the accumulator map into the stage
     (shift) or the output buffer, the slab's bulk store and tail bytes ->
     (output, loads an input byte, stores an output byte, epilogue writes
-    an element)."""
+    an element).  The slabs come in the order of ``_mma_rows_walk`` with
+    ``spb`` slabs a block (0: persistent)."""
     m, k = x.shape
     nout = w.shape[0]
     maps = _mma_rows_maps(k, nout)
@@ -857,7 +917,9 @@ def _mma_rows_emulate(x, w, epi, reps):
     b = b.astype(np.uint32)
     junk = np.random.default_rng(99)
     obuf = junk.integers(0, 256, slab * ob).astype(np.uint8)   # one buffer
-    for s0 in range(0, m, slab):
+    stages = K.mma_rows_plan(k, nout, epi)["stages"]
+    for _, _, sl in _mma_rows_walk(-(-m // slab), stages, spb)[1]:
+        s0 = sl * slab
         rows = min(slab, m - s0)
         # the stage and the bytes past it (the next stage, the output
         # buffer or the B table), which the last row's words may read
@@ -953,7 +1015,8 @@ def _mma_rows_emulate(x, w, epi, reps):
     (513, 33, 24, "shift", 16), (37, 33, 9, "raw", 1),
     (300, 16, 72, "raw", 16), (259, 12, 72, "wrap", 16),
     (77, 24, 144, "raw", 16), (5, 33, 144, "raw", 1), (3, 3, 3, "shift", 3),
-    (20, 64, 144, "wrap", 16), (258, 18, 72, "raw", 1)])
+    (20, 64, 144, "wrap", 16), (258, 18, 72, "raw", 1),
+    (7168, 8, 8, "wrap", 1), (300, 8, 8, "wrap", 16), (1, 8, 8, "wrap", 1)])
 def test_mma_rows_maps_give_the_plain_1x1(m, k, nout, epi, reps):
     """_mma_rows_maps at odd M, K, Nout and R: the lanes' A words (zero
     past K; at K not a multiple of 4 two aligned words funnel-shifted by
@@ -978,6 +1041,36 @@ def test_mma_rows_maps_give_the_plain_1x1(m, k, nout, epi, reps):
     maps = _mma_rows_maps(k, nout)
     words = maps["a_word"][maps["a_word"] >= 0]
     assert sorted(words.tolist()) == sorted(list(range(-(-k // 4))) * 8)
+
+
+@pytest.mark.parametrize("m,spb", [
+    (1000, 1), (1300, 2), (7168 + 300, 28), (7 * 256 + 5, 3), (256, 1),
+    (7168, 28), (1300, 0), (3 * 7168 + 5, 0)])
+def test_mma_rows_walks_cover_every_row_once(m, spb):
+    """The row kernel's walks at B9.7 / B9.8's K = 8, Nout = 8 wrap: a
+    block a run of ``spb`` slabs (1, 2, a frame's 28, and 3 with a ragged
+    last block and slab) or the persistent walk (0) read every slab once,
+    each from the stage the ring filled with it, at every ring depth; block
+    b of a contiguous walk holds slabs b * spb.., of the persistent walk b,
+    b + grid, ...; through the lane maps each gives probe_conv_plain's
+    output, every input byte loaded once, every output byte stored once."""
+    slabs = -(-m // K.ROWS_SLAB)
+    for stages in range(2, K.ROWS_MAX_STAGES + 1):
+        for resident in (1, 5, 2112):
+            grid, order = _mma_rows_walk(slabs, stages, spb, resident)
+            assert sorted(sl for _, _, sl in order) == list(range(slabs))
+            assert grid == (-(-slabs // spb) if spb
+                            else min(slabs, resident))
+            for b, it, sl in order:
+                assert sl == (b * spb + it if spb else b + it * grid)
+    rng = np.random.default_rng(m + spb)
+    x = rng.integers(-128, 128, (m, 8)).astype(np.int8)
+    w = rng.integers(-128, 128, (8, 8)).astype(np.int8)
+    got, loads, stores, writes = _mma_rows_emulate(x, w, "wrap", 1, spb)
+    want = K.probe_conv_plain(_t(x), _t(w), variant="mma_rows", epi="wrap",
+                              slabs_per_block=spb or None)
+    np.testing.assert_array_equal(got, want.numpy())
+    assert (loads == 1).all() and (stores == 1).all() and (writes == 1).all()
 
 
 def test_mma_rows_plan_keeps_three_blocks_an_sm():
@@ -1043,8 +1136,9 @@ def test_mma_rows_routes_by_device_and_refuses():
     """The Hopper form of B9.1 / B9.3 / B9.5 (``variant="mma_rows"``): a
     CPU tensor takes the plain version in every epilogue and R (no launch
     counted), at K 36 and at the widened K 6, 18 and 35 and Nout 72 and
-    144; K past 64, Nout past 144, a misaligned x or w and an unknown
-    epilogue raise, on the CPU too."""
+    144, in both walks; K past 64, Nout past 144, a misaligned x or w, an
+    unknown epilogue, fewer than one slab a block and a walk asked of
+    another variant raise, on the CPU too."""
     K.reset_launches()
     rng = np.random.default_rng(6)
     for k, nout in ((36, 24), (6, 6), (18, 72), (35, 144)):
@@ -1053,9 +1147,9 @@ def test_mma_rows_routes_by_device_and_refuses():
         for epi in K.CONV_EPIS:
             if epi == "shift" and nout > k:
                 continue
-            for reps in (1, 16):
+            for reps, spb in ((1, None), (16, None), (1, 2)):
                 got = K.probe_conv(x, w, variant="mma_rows", epi=epi,
-                                   reps=reps)
+                                   reps=reps, slabs_per_block=spb)
                 assert torch.equal(got, K.probe_conv_plain(
                     x, w, variant="mma", epi=epi, reps=reps))
     assert K.launches() == 0 and K.probe_conv.mma_rows_launches == 0
@@ -1074,6 +1168,12 @@ def test_mma_rows_routes_by_device_and_refuses():
            lambda: K.probe_conv(x, w, variant="mma_rows", epi="clip"),
            lambda: K.probe_conv(z(4, 8), z(12, 8), variant="mma_rows",
                                 epi="shift"),
+           lambda: K.probe_conv(x, w, variant="mma_rows", slabs_per_block=0),
+           lambda: K.probe_conv(x, w, variant="mma_rows",
+                                slabs_per_block=-2),
+           lambda: K.probe_conv_plain(x, w, variant="mma_rows",
+                                      slabs_per_block=0),
+           lambda: K.probe_conv(x, w, variant="mma", slabs_per_block=2),
            lambda: K.mma_rows_attrs(36, 145),
            lambda: K.mma_rows_attrs(65, 24),
            lambda: K.mma_rows_attrs(36, 24, "clip")]
@@ -1334,3 +1434,71 @@ def test_dw16_and_packdot_time_their_pr7_forms(capsys):
     out = capsys.readouterr().out
     assert "whcn dw i16 taps C=40@14 (PR 7):" in out
     assert "pack P=4 8x4@28 (PR 7):" in out and "bit-equal P=4: True" in out
+
+
+# ------------------------------------ the probe sources' library of their own
+def test_probe_sources_build_into_a_library_of_their_own():
+    """kernels/_build.py's two libraries: the serving one compiles every
+    csrc/*.cu but probe_*.cu, the probe one the ten probe sources, the
+    two lists a partition of csrc/*.cu; each library binds the C entries
+    its own sources define, every yf_probe_* one from the probe library
+    only; the hash of a library's name reads its own sources and the
+    headers they include."""
+    import re
+
+    from yoloface_tpu_torch.kernels import _build
+    every = sorted(_build.CSRC.glob("*.cu"))
+    serving, probe = (_build.sources(n) for n in (_build.KERNELS,
+                                                 _build.PROBES))
+    assert sorted(serving + probe) == every and not set(serving) & set(probe)
+    assert [p.name for p in probe] == sorted(
+        p.name for p in every if p.name.startswith("probe_"))
+    assert len(probe) == 10 and len(serving) == len(every) - 10
+    entry = re.compile(r'extern "C" int (yf_\w+)\(')
+    bound = []
+    for name, cus in ((_build.KERNELS, serving), (_build.PROBES, probe)):
+        defined = {fn for cu in cus for fn in entry.findall(cu.read_text())}
+        assert set(_build.signatures(name)) == defined, name
+        assert all(fn.startswith("yf_probe_") == (name == _build.PROBES)
+                   for fn in defined), name
+        bound += list(defined)
+    assert sorted(bound) == sorted(_build.SIGNATURES)
+    headers = {h.name for h in _build._headers(probe)}
+    assert headers == {"epilogue.cuh", "nhwc_mma.cuh", "nhwc_mma_kernel.cuh",
+                       "nhwc_mma_any_kernel.cuh"}
+    assert not {h.name for h in _build._headers(serving)} & {
+        "nhwc_mma.cuh", "nhwc_mma_kernel.cuh", "nhwc_mma_any_kernel.cuh"}
+    for fn in (_build.sources, _build.signatures, _build.library):
+        with pytest.raises(ValueError):
+            fn("probe")
+
+
+def test_a_probe_loads_the_probe_library_alone(monkeypatch):
+    """A probe's kernel call binds its entry from the probe library, which
+    it loads at first use, and loads no other; a serving call loads the
+    serving library alone (the loader stubbed: no nvcc here)."""
+    from yoloface_tpu_torch.kernels import _build
+
+    class Lib:
+        def __init__(self, path):
+            self.path = path
+
+        def __getattr__(self, fn):
+            def call(*args):
+                out = args[-1]
+                if fn.endswith("_attrs"):
+                    out[0], out[1], out[2], out[3] = 40, 0, 32, 12
+                return 0
+            setattr(self, fn, call)
+            return call
+
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "build", lambda name=_build.KERNELS: name)
+    monkeypatch.setattr(_build.ctypes, "CDLL", Lib)
+    a = K.mma_rows_attrs(8, 8, "wrap")
+    assert (a["registers"], a["local_bytes"]) == (40, 0)
+    assert _build.loaded() == {_build.PROBES}
+    assert _build.library(_build.PROBES).path == _build.PROBES
+    monkeypatch.setattr(_build, "_libs", {})
+    _build.library()
+    assert _build.loaded() == {_build.KERNELS}

@@ -1,7 +1,8 @@
-// The row-slab NHWC 1x1 on the int8 tensor cores (probe_nhwc_mma.cu and
-// probe_nhwc_mma_any.cu, two sources so that nvcc builds their
-// instantiations at once): the block shape, the parameters and the device
-// helpers both kernels use.
+// The row-slab NHWC 1x1 on the int8 tensor cores (probe_nhwc_mma.cu,
+// probe_nhwc_mma_any.cu and their walks in runs, probe_nhwc_mma_runs.cu and
+// probe_nhwc_mma_any_runs.cu: four sources so that nvcc builds their
+// instantiations at once): the block shape, the parameters, the walks and
+// the device helpers both kernels use.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -26,7 +27,15 @@ struct Params {
   int out_bytes;                        // the RAW / WRAP slab buffer
   int groups;                           // any: groups of kNT n-tiles
   int table_off;                        // any: the B table's offset
+  int spb;                              // runs: slabs a block
 };
+
+// The walks (kRuns, a kernel's template parameter): the persistent one
+// strides blocks over the slabs (block b: b, b + grid, ...); the walk in
+// runs gives block b the p.spb slabs b * spb .. b * spb + spb - 1.  Each
+// kernel writes its walk out where it reads a slab: through inline helpers
+// here, ptxas allocated other registers to the persistent instantiations
+// (B9.3's 157 became 153).
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -130,8 +139,22 @@ __device__ __forceinline__ int clip_shift(int acc) {
 
 using Kernel = void (*)(const int8_t*, const int8_t*, void*, Params);
 
-// probe_nhwc_mma_any.cu: nhwc_mma_any_kernel for groups of nt n-tiles and
-// kc chunks of 16 of K (nullptr past 8 and 4)
+// the kernels for nt n-tiles of 8 (a group's, for any) and kc chunks of 16
+// of K (nullptr past 8 and 4), each walk's in a source of its own so that
+// nvcc builds them at once: nhwc_mma_kernel (nhwc_mma_kernel.cuh) in
+// probe_nhwc_mma.cu (persistent) and probe_nhwc_mma_runs.cu (runs),
+// nhwc_mma_any_kernel (nhwc_mma_any_kernel.cuh) in probe_nhwc_mma_any.cu
+// and probe_nhwc_mma_any_runs.cu
+Kernel fast_instantiation(int nt, int kc);
+Kernel fast_runs_instantiation(int nt, int kc);
 Kernel any_instantiation(int nt, int kc);
+Kernel any_runs_instantiation(int nt, int kc);
+
+// the grid of a walk: in runs, ceil(slabs / spb) blocks; persistent, the
+// blocks that fit the card (`resident`), or one a slab where fewer
+inline int walk_grid(const Params& p, int resident) {
+  return p.spb ? (p.slabs + p.spb - 1) / p.spb
+               : (p.slabs < resident ? p.slabs : resident);
+}
 
 }  // namespace yf_nhwc

@@ -1,17 +1,22 @@
 """Build the CUDA kernels with ``nvcc`` and bind them with ``ctypes``.
 
-Each ``csrc/*.cu`` compiles in its own ``nvcc`` process, all started
-together, and the objects link into one shared library with a plain C
-interface (no PyTorch headers, so the build takes seconds).  The library
-lands in ``build/yoloface_tpu_torch/`` at the root of the checkout, named
-by a hash of the sources, and is built at first CUDA use.  Processes that
-start at once (the ranks of a mesh) build it once: the build holds an
-exclusive ``fcntl`` lock on a file beside the library, and a process that
-waits for it finds the library built; each build also writes its objects
-and library under names of its own process and renames the library into
-place, so a reader never sees half a file.  ``-fmad=false``
-keeps every float multiply and add separately rounded, as the JAX twins
-compute them; there is no ``--use_fast_math``.
+The sources build into two shared libraries with a plain C interface (no
+PyTorch headers, so a build takes seconds): ``kernels``, every
+``csrc/*.cu`` but the probes', which serving and training load at first
+CUDA use, and ``probes``, the ``csrc/probe_*.cu`` sources of the
+``tools/`` probes' counterparts (``kernels/probes.py``), built at first
+probe use, so that no serving process compiles them.  Each source
+compiles in its own ``nvcc`` process, all of a library's started
+together, and the objects link into the library, which lands in
+``build/yoloface_tpu_torch/`` at the root of the checkout, named by a
+hash of its own sources (the ``.cu`` files and the headers they include).
+Processes that start at once (the ranks of a mesh) build a library once:
+the build holds an exclusive ``fcntl`` lock on a file beside the library,
+and a process that waits for it finds the library built; each build also
+writes its objects and library under names of its own process and
+renames the library into place, so a reader never sees half a file.
+``-fmad=false`` keeps every float multiply and add separately rounded, as
+the JAX twins compute them; there is no ``--use_fast_math``.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import ctypes
 import fcntl
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -34,6 +40,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
+KERNELS, PROBES = "kernels", "probes"        # the two libraries
+# the probes' sources are csrc/probe_*.cu, their C entries yf_probe_*
+PROBE_PREFIX, PROBE_ENTRY = "probe_", "yf_probe_"
+# every C entry of both libraries: (name, argument types), each returning
+# the launch's cudaGetLastError() (or a check's error), 0 for success;
+# signatures(name) gives a library's own
 SIGNATURES = {
     # (frames u16, out i8, n, stream)
     "yf_preprocess_rgb565": [_P, _P, _I, _P],
@@ -100,8 +112,9 @@ SIGNATURES = {
 }
 
 _lock = threading.Lock()
-_lib = None
-build_seconds = None          # wall time of the build this process made
+_libs = {}                    # library name -> the loaded ctypes.CDLL
+build_seconds = {}            # library name -> wall time of the build this
+                              # process made
 
 
 def _nvcc() -> str:
@@ -113,8 +126,42 @@ def _nvcc() -> str:
     return found
 
 
-def _sources():
-    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+def _library_name(name: str) -> str:
+    if name not in (KERNELS, PROBES):
+        raise ValueError(f"no kernel library {name!r}; one of "
+                         f"{(KERNELS, PROBES)}")
+    return name
+
+
+def sources(name: str = KERNELS):
+    """The ``.cu`` files library ``name`` compiles."""
+    probes = _library_name(name) == PROBES
+    return [p for p in sorted(CSRC.glob("*.cu"))
+            if p.name.startswith(PROBE_PREFIX) == probes]
+
+
+def signatures(name: str = KERNELS) -> dict:
+    """The C entries library ``name`` binds: ``SIGNATURES``' ``yf_probe_*``
+    for ``PROBES``, the rest for ``KERNELS``."""
+    probes = _library_name(name) == PROBES
+    return {fn: args for fn, args in SIGNATURES.items()
+            if fn.startswith(PROBE_ENTRY) == probes}
+
+
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _headers(cus):
+    """The ``csrc`` headers the sources include, directly or through
+    another header."""
+    seen, todo = set(), list(cus)
+    while todo:
+        for inc in _INCLUDE.findall(todo.pop().read_text()):
+            h = CSRC / inc
+            if h not in seen and h.exists():
+                seen.add(h)
+                todo.append(h)
+    return sorted(seen)
 
 
 def _finish(cmd, out: str, err: str, returncode: int) -> None:
@@ -123,26 +170,25 @@ def _finish(cmd, out: str, err: str, returncode: int) -> None:
                            f"\n{out}\n{err}")
 
 
-def build() -> Path:
-    """Compile the kernels unless a library for these sources exists."""
-    cus, headers = _sources()
+def build(name: str = KERNELS) -> Path:
+    """Compile library ``name`` unless one for its sources exists."""
+    cus = sources(name)
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in cus + headers:
+    for p in cus + _headers(cus):
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    lib = BUILD_DIR / f"libyoloface_kernels_{h.hexdigest()[:16]}.so"
+    lib = BUILD_DIR / f"libyoloface_{name}_{h.hexdigest()[:16]}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with open(lib.with_suffix(".lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)     # one build across processes
         if not lib.exists():
-            _compile(cus, h, lib)
+            build_seconds[name] = _compile(cus, h, lib)
     return lib
 
 
-def _compile(cus, h, lib: Path) -> None:
-    global build_seconds
+def _compile(cus, h, lib: Path) -> float:
     tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
@@ -167,21 +213,25 @@ def _compile(cus, h, lib: Path) -> None:
         for o in objs:
             o.unlink(missing_ok=True)
     os.replace(tmp, lib)
-    build_seconds = time.perf_counter() - t0
+    return time.perf_counter() - t0
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
-    global _lib
+def library(name: str = KERNELS) -> ctypes.CDLL:
+    """Library ``name`` (``KERNELS`` or ``PROBES``), loaded and its C
+    entries typed (built on first call)."""
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, argtypes in SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _lib = lib
-    return _lib
+        if name not in _libs:
+            lib = ctypes.CDLL(str(build(name)))
+            for fn, argtypes in signatures(name).items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            _libs[name] = lib
+    return _libs[name]
+
+
+def loaded():
+    """The names of the libraries this process has loaded."""
+    return set(_libs)
 
 
 def check(err: int, what: str) -> None:

@@ -26,7 +26,8 @@ Pallas kernels of their own.  Their counterparts here:
   cores, a warp a pixel and 64 frames; ``variant="mma_rows"``
   (``csrc/probe_nhwc_mma.cu``): the NHWC 1x1 on the int8 tensor cores,
   slabs of rows streamed once through shared memory, any K up to 64 and
-  Nout up to 144 (``mma_rows_plan``).
+  Nout up to 144 (``mma_rows_plan``), walked by persistent blocks or in
+  runs of ``slabs_per_block`` slabs (``csrc/probe_nhwc_mma_runs.cu``).
 
 Each wrapper checks its tensors, runs the plain version (beside it, named
 ``*_plain``) on a CPU tensor, launches its kernel on PyTorch's current
@@ -114,10 +115,10 @@ def _tensor(x: torch.Tensor, what: str, dtypes, dim: Optional[int] = None
 
 
 def _launch(fn: str, what: str, *ptrs_then_params, device) -> None:
-    from yoloface_tpu_torch.kernels._build import check, library
+    from yoloface_tpu_torch.kernels._build import PROBES, check, library
     *ptrs, params = ptrs_then_params
     arr = (ctypes.c_int * len(params))(*[int(v) for v in params])
-    err = getattr(library(), fn)(*ptrs, arr,
+    err = getattr(library(PROBES), fn)(*ptrs, arr,
                                  torch.cuda.current_stream(device).cuda_stream)
     check(err, what)
 
@@ -449,12 +450,16 @@ def bf16_exact(k: int, reps: int) -> bool:
     return k * 128 * 128 * reps < 1 << 24
 
 
-def _conv_args(x, w, variant, epi, reps=1):
+def _conv_args(x, w, variant, epi, reps=1, slabs_per_block=None):
     """Check probe_conv's arguments -> (m, k, nout, ldo, frames)."""
     _tensor(x, "probe_conv x", (torch.int8,))
     _tensor(w, "probe_conv w", (torch.int8,), 2)
     if variant not in CONV_VARIANTS or epi not in CONV_EPIS:
         raise ValueError(f"probe_conv: variant {variant!r}, epi {epi!r}")
+    if slabs_per_block is not None and (variant != "mma_rows"
+                                        or int(slabs_per_block) < 1):
+        raise ValueError(f"probe_conv: slabs_per_block {slabs_per_block} "
+                         "(the mma_rows walk: None, or 1 and more)")
     fi = variant in FRAME_INNER
     if x.dim() < (3 if fi else 2):
         raise ValueError(f"probe_conv: x {tuple(x.shape)}")
@@ -544,8 +549,9 @@ def _out_shape(x, variant, ldo):
 
 
 def probe_conv_plain(x, w, *, variant="mma", epi="raw", reps=1,
-                     tiles_per_block=None):
-    m, k, nout, ldo, _ = _conv_args(x, w, variant, epi, reps)
+                     tiles_per_block=None, slabs_per_block=None):
+    m, k, nout, ldo, _ = _conv_args(x, w, variant, epi, reps,
+                                    slabs_per_block)
     fi = variant in FRAME_INNER
     xs = x.movedim(-1, -2) if fi else x                   # [..., (N,) K]
     wsum = sum((w.to(torch.int32) + r).to(torch.int8).to(torch.float64)
@@ -563,7 +569,8 @@ def probe_conv_plain(x, w, *, variant="mma", epi="raw", reps=1,
 
 
 def probe_conv(x, w, *, variant="mma", epi="raw", reps=1,
-               tiles_per_block: Optional[int] = None):
+               tiles_per_block: Optional[int] = None,
+               slabs_per_block: Optional[int] = None):
     """A 1x1 conv of int8 ``x`` with int8 weights ``w`` [Nout, K], summed
     over ``reps`` repetitions of the weights plus r (wrapped to int8).
     NHWC variants: ``x`` [..., K] (positions by channels); frame-innermost
@@ -577,8 +584,12 @@ def probe_conv(x, w, *, variant="mma", epi="raw", reps=1,
     frame count that is not a multiple of 8 takes byte accesses).
     ``mma_rows``: the NHWC 1x1 on the int8 tensor cores in slabs of rows
     (every epilogue and R; K up to 64, Nout up to 144, ``x`` and ``w``
-    16-byte aligned: ``mma_rows_refuses``)."""
-    m, k, nout, ldo, frames = _conv_args(x, w, variant, epi, reps)
+    16-byte aligned: ``mma_rows_refuses``), walked by persistent blocks
+    strided over the slabs (``slabs_per_block`` None) or by a block for
+    each ``slabs_per_block`` consecutive slabs of ``ROWS_SLAB`` rows (1
+    and more; a ragged last block)."""
+    m, k, nout, ldo, frames = _conv_args(x, w, variant, epi, reps,
+                                         slabs_per_block)
     if _device(x, "probe_conv") == "cpu":
         return probe_conv_plain(x, w, variant=variant, epi=epi, reps=reps)
     if reps < 1 or w.device != x.device or (
@@ -604,7 +615,8 @@ def probe_conv(x, w, *, variant="mma", epi="raw", reps=1,
         _launch("yf_probe_nhwc_mma", "probe_conv mma_rows", x.data_ptr(),
                 w.data_ptr(), out.data_ptr(),
                 (m, k, nout, CONV_EPIS.index(epi), reps,
-                 mma_rows_plan(k, nout, epi)["stages"]), device=x.device)
+                 mma_rows_plan(k, nout, epi)["stages"],
+                 slabs_per_block or 0), device=x.device)
         probe_conv.launches += 1
         probe_conv.mma_rows_launches += 1
         return out
@@ -625,9 +637,9 @@ probe_conv.mma_rows_launches = 0
 
 
 def _kernel_attrs(fn: str, *args) -> dict:
-    from yoloface_tpu_torch.kernels._build import check, library
+    from yoloface_tpu_torch.kernels._build import PROBES, check, library
     out = (ctypes.c_int * 4)()
-    check(getattr(library(), fn)(*args, out), f"{fn}")
+    check(getattr(library(PROBES), fn)(*args, out), f"{fn}")
     regs, local, static_smem, blocks = list(out)
     return dict(registers=regs, local_bytes=local, static_smem=static_smem,
                 blocks_per_sm=blocks)
@@ -655,9 +667,11 @@ def fi_mma_attrs(nout: int, vec: bool = True) -> dict:
     return _kernel_attrs("yf_probe_fi_mma_attrs", -(-nout // 8), int(vec))
 
 
-def mma_rows_attrs(k: int, nout: int, epi: str = "raw") -> dict:
+def mma_rows_attrs(k: int, nout: int, epi: str = "raw",
+                   runs: bool = False) -> dict:
     """The mma_rows instantiation for depth ``k`` and ``nout`` output
-    channels (``mma_rows_shape``), as built, at the shared memory of
+    channels (``mma_rows_shape``) in the persistent walk or (``runs``) the
+    walk in runs of ``slabs_per_block``, as built, at the shared memory of
     epilogue ``epi``'s plan (``dw_frames_attrs``' keys, the shape and
     ``mma_rows_plan``)."""
     why = mma_rows_refuses(k, nout) or (
@@ -666,8 +680,9 @@ def mma_rows_attrs(k: int, nout: int, epi: str = "raw") -> dict:
         raise ValueError(f"probe_conv mma_rows: {why}")
     shp, plan = mma_rows_shape(k, nout), mma_rows_plan(k, nout, epi)
     return dict(_kernel_attrs("yf_probe_nhwc_mma_attrs", shp["tiles"],
-                              shp["k_chunks"], int(shp["any"]),
-                              plan["smem"]), **shp, **plan)
+                              shp["k_chunks"],
+                              int(shp["any"]) | int(runs) << 1,
+                              plan["smem"]), **shp, **plan, runs=runs)
 
 
 def dw_fi_mma_attrs(arith: str = "i16", vec: bool = True) -> dict:

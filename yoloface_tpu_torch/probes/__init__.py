@@ -4,7 +4,7 @@ Each runs on the card, from the root of the checkout::
 
     python3 -m yoloface_tpu_torch.probes.microbench [conv1x1|whcn|inkernel|dw16|packdot] [args]
     python3 -m yoloface_tpu_torch.probes.microbench [batch C S]
-    python3 -m yoloface_tpu_torch.probes.probe448_micro [2]
+    python3 -m yoloface_tpu_torch.probes.probe448_micro [2|sweep]
     python3 -m yoloface_tpu_torch.probes.probe448 [batch]
     python3 -m yoloface_tpu_torch.probes.debug448 fix|rep|min [batch]
 
@@ -14,8 +14,9 @@ and takes the JAX tool's arguments and defaults.  Their kernels are in
 kernel variant against its plain version bit for bit on the input it is
 timed on, then times it (CUDA events; a chained probe feeds each call's
 output to the next call, as the JAX tools chain their calls inside one
-jit) and prints the JAX tool's lines with each variant's bound beside
-them.  A variant that fails
+jit; ``probe448_micro``, whose bytes fit the L2, times each variant with
+the L2 cold and L2-resident beside the launch floor) and prints the JAX
+tool's lines with each variant's bound beside them.  A variant that fails
 raises.  The functions return their numbers as a dict; they default to the
 card and raise without one, and take ``device="cpu"`` (the plain versions,
 host-clock times that are not device times) for the tests.
@@ -39,6 +40,9 @@ HBM_RATE, INT8_RATE, CORE_RATE = 3.35e12, 1979e12, 67e12
 # queue the timed calls behind it: the window then holds device time alone
 CYCLES_PER_S = 2.0e9               # above the H100's 1.98 GHz boost clock
 LEAD_S, LEAD_MAX_S = 1e-3, 0.2
+# a cold window: a read of FLUSH_BYTES (four times the H100's 50 MB L2)
+# before its spin evicts what the last call left in the L2
+FLUSH_BYTES = 4 * 50 * 2 ** 20
 
 
 def card(device="cuda") -> torch.device:
@@ -72,12 +76,19 @@ def _sync(dev: torch.device) -> None:
 
 
 def time_ms(fn: Callable[[], object], dev: torch.device,
-            runs: int = 3) -> float:
+            runs: int = 3, cold: bool = False) -> float:
     """Median milliseconds of ``fn()`` over ``runs`` runs after two
     warm-ups: CUDA events on the card, the host clock on the CPU.  On the
     card each timed window opens behind a spin of twice the host's time to
     queue ``fn`` (read on the second warm-up; ``LEAD_S`` at least), so the
-    wrappers' host work falls outside it while the queue stays ahead."""
+    wrappers' host work falls outside it while the queue stays ahead.
+    ``cold``: before each spin, outside the window, a read of four times
+    the L2 (a reduction: reads alone, so no dirty line is left to write
+    back inside the window), so the window finds nothing of the last call
+    in the L2; else (warm) a call may find what the one before it left
+    there (on the CPU, nothing changes)."""
+    flush = (torch.zeros(FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+             if cold and dev.type == "cuda" else None)
     fn()
     _sync(dev)
     t0 = time.perf_counter()
@@ -89,6 +100,8 @@ def time_ms(fn: Callable[[], object], dev: torch.device,
         if dev.type == "cuda":
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
+            if flush is not None:
+                torch.amax(flush)
             torch.cuda._sleep(int(lead * CYCLES_PER_S))
             a.record()
             fn()
@@ -101,6 +114,20 @@ def time_ms(fn: Callable[[], object], dev: torch.device,
             times.append((time.perf_counter() - t0) * 1e3)
     times.sort()
     return times[len(times) // 2]
+
+
+def launch_floor_ms(dev: torch.device, runs: int = 3,
+                    cold: bool = False) -> float:
+    """The window ``time_ms`` puts around a call, on the NHWC 1x1's row
+    kernel (``probe_conv(..., variant="mma_rows")``) over one row of 8
+    int8 channels to 8 wrapped: what a launch costs between the events
+    when it moves next to nothing (on the CPU, the plain version's host
+    time)."""
+    from yoloface_tpu_torch.kernels import probes as K
+    x = torch.ones((1, 8), dtype=torch.int8, device=dev)
+    w = torch.ones((8, 8), dtype=torch.int8, device=dev)
+    return time_ms(lambda: K.probe_conv(x, w, variant="mma_rows",
+                                        epi="wrap"), dev, runs, cold)
 
 
 def time_chain(call: Callable[[torch.Tensor], torch.Tensor],

@@ -34,7 +34,7 @@ from __future__ import annotations
 import ctypes
 import subprocess
 import sys
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
@@ -492,16 +492,17 @@ ROWS_SHAPES = ((128, 4), (256, 2), (128, 2), (64, 4))
 
 
 def _rows_builds(shapes) -> Dict:
-    """csrc/probe_nhwc_mma.cu and probe_nhwc_mma_any.cu built once a block
-    shape (set in their header, nhwc_mma.cuh), each pair into a library of
-    its own beside the package's (one nvcc each, all at once) -> {shape:
-    (library, rows a slab)}."""
+    """csrc/probe_nhwc_mma*.cu (the row kernel's four sources: both
+    kernels, both walks) built once a block shape (set in their header,
+    nhwc_mma.cuh), each set into a library of its own beside the package's
+    (one nvcc each, all at once) -> {shape: (library, rows a slab)}."""
     from yoloface_tpu_torch.kernels import _build
     head = (_build.CSRC / "nhwc_mma.cuh").read_text()
     own = ("constexpr int kThreads = 128;", "constexpr int kMTiles = 4;")
     if not all(a in head for a in own):
         raise RuntimeError("nhwc_mma.cuh: the block shape moved")
-    cus = ("probe_nhwc_mma.cu", "probe_nhwc_mma_any.cu")
+    cus = sorted(p.name for p in _build.CSRC.glob("probe_nhwc_mma*.cu"))
+    kernels = sorted(p.name for p in _build.CSRC.glob("nhwc_mma_*.cuh"))
     jobs = {}
     for threads, mt in shapes:
         out = _build.BUILD_DIR / "rows_sweep" / f"t{threads}_m{mt}"
@@ -509,8 +510,8 @@ def _rows_builds(shapes) -> Dict:
         (out / "nhwc_mma.cuh").write_text(
             head.replace(own[0], f"constexpr int kThreads = {threads};")
             .replace(own[1], f"constexpr int kMTiles = {mt};"))
-        for cu in cus:          # their quoted include finds the header beside
-            (out / cu).write_text((_build.CSRC / cu).read_text())
+        for src in cus + kernels:   # quoted includes find the headers beside
+            (out / src).write_text((_build.CSRC / src).read_text())
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
                str(out / "probe_nhwc_mma.so"), *(str(out / cu) for cu in cus)]
         jobs[(threads, mt)] = (cmd, subprocess.Popen(
@@ -519,12 +520,35 @@ def _rows_builds(shapes) -> Dict:
     for shape, (cmd, proc) in jobs.items():
         _build._finish(cmd, *proc.communicate(), proc.returncode)
         lib = ctypes.CDLL(cmd[cmd.index("-o") + 1])
-        lib.yf_probe_nhwc_mma.argtypes = _build.SIGNATURES[
-            "yf_probe_nhwc_mma"]
-        lib.yf_probe_nhwc_mma_attrs.argtypes = _build.SIGNATURES[
-            "yf_probe_nhwc_mma_attrs"]
+        for fn in ("yf_probe_nhwc_mma", "yf_probe_nhwc_mma_attrs"):
+            getattr(lib, fn).argtypes = _build.SIGNATURES[fn]
         libs[shape] = (lib, 16 * shape[1] * shape[0] // 32)
     return libs
+
+
+def rows_call(lib, slab: int, x: torch.Tensor, w: torch.Tensor, epi: str,
+              reps: int, slabs_per_block: int = 0,
+              stages: Optional[int] = None) -> torch.Tensor:
+    """probe_conv(x, w, variant="mma_rows", ...) on a library of
+    ``_rows_builds`` (slabs of ``slab`` rows): the walk of
+    ``slabs_per_block`` (0: persistent), a ring of ``stages`` (default:
+    ``K.mma_rows_plan``'s for that slab)."""
+    from yoloface_tpu_torch.kernels._build import check
+    k, nout = x.shape[-1], w.shape[0]
+    out = torch.empty((*x.shape[:-1], k if epi == "shift" else nout),
+                      dtype=torch.int32 if epi == "raw" else torch.int8,
+                      device=x.device)
+    if stages is None:
+        stages = K.mma_rows_plan(k, nout, epi, slab)["stages"]
+    params = (ctypes.c_int * 7)(x.numel() // k, k, nout,
+                                K.CONV_EPIS.index(epi), reps, stages,
+                                slabs_per_block)
+    check(lib.yf_probe_nhwc_mma(x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                                params,
+                                torch.cuda.current_stream(
+                                    x.device).cuda_stream),
+          f"rows_call slab {slab}")
+    return out
 
 
 def rows_sweep(batch: int = 32768, device="cuda", runs: int = 3,
@@ -544,21 +568,7 @@ def rows_sweep(batch: int = 32768, device="cuda", runs: int = 3,
     print(f"rows_sweep batch={batch} ({device_name(dev)})", flush=True)
 
     def call(shape, x, w, epi, reps):
-        lib, slab = libs[shape]
-        k, nout = x.shape[-1], w.shape[0]
-        out = torch.empty((*x.shape[:-1], k if epi == "shift" else nout),
-                          dtype=torch.int32 if epi == "raw" else torch.int8,
-                          device=dev)
-        plan = K.mma_rows_plan(k, nout, epi, slab)
-        params = (ctypes.c_int * 6)(x.numel() // k, k, nout,
-                                    K.CONV_EPIS.index(epi), reps,
-                                    plan["stages"])
-        check(lib.yf_probe_nhwc_mma(x.data_ptr(), w.data_ptr(),
-                                    out.data_ptr(), params,
-                                    torch.cuda.current_stream(
-                                        dev).cuda_stream),
-              f"rows_sweep {shape}")
-        return out
+        return rows_call(*libs[shape], x, w, epi, reps)
 
     cases = {}   # name: (x, w, epi, reps, chained)
     x = randint((batch, 14, 14, 36), -128, 128, dev, 0)
