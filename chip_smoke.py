@@ -11,12 +11,15 @@ Phases (each prints its lines; any failure ends the run with an error):
      instantiations of the section kernel as built (fast and exact bits,
      each with a k32 twin that runs the big-K convs of csrc/conv_mma.cuh;
      registers past the launch bound's SECTION_BLOCKS blocks an SM or a
-     spill, local memory past the 128 B stack frame, fails), and the
-     registers, local memory
+     spill, local memory past the 128 B stack frame, fails) and of their
+     traced twins, and the registers, local memory
      and blocks an SM of both instantiations (fast and exact bits) of the
      two whole-frame kernels (arena_stage.cu, fused_stage.cu, with the
      bodies of csrc/stage_ops.cuh: more than 64 registers, fewer than 4
-     blocks or a spill fails), each beside PR 14's figures;
+     blocks or a spill fails) and of the arena kernel's traced twins, each
+     beside the untraced figures as built before the traced twins
+     (UNTRACED_ATTRS): an untraced instantiation whose registers, local
+     memory or blocks an SM moved from them fails;
   2. each kernel against its plain torch version on the card, bit for bit,
      at the serving path's shapes: the preprocess; the arena stage in each
      bit semantics (fast2, fast, exact) in 1 and 4 stages; the fused head
@@ -168,9 +171,9 @@ Phases (each prints its lines; any failure ends the run with an error):
      the card has it for int8, F.max_pool2d for per-op kernels), the
      arena2, arena_exact, fused, fused_exact, perop and perop_exact
      pipelines at 16384 and 65536, and their synchronised
-     latency (host clock, p50 of 10); the arena stage (arena2, arena) and
-     the fused stages (fused) at 16384 by op kind
-     (tools/torch_profile_pipeline.py's descriptor-prefix times); the 448
+     latency (host clock, p50 of 10); the arena stage (arena2, arena) at
+     16384 by op kind (one forward through its traced twin: its CUDA-event
+     time split by its cycle counters); the 448
      net in tiled2 and
      tiled_exact (the section kernel) at batch 1024 and at 128, against its
      plain version at 128 (median of 3); each new op body at the upsample's
@@ -181,7 +184,12 @@ Phases (each prints its lines; any failure ends the run with an error):
      against the plain path; runtime/profiler.py's profile_engine on
      arena2 and perop at 16384 (its top rows; their MACCs add up to the
      net's); the FPN served to boxes (engine, then detect_multihead) at
-     16384 in arena2, arena_exact and perop, frames/s; last, the
+     16384 in arena2, arena_exact and perop, frames/s; what tracing costs:
+     the arena2 stage at 65536 and the 448 tiled2 sections at 1024,
+     untraced, traced, traced, untraced (CUDA events), the traced outputs
+     equal to the untraced ones and every op kind of a program counted,
+     and their split by op kind and by section;
+     last, the
      profiler's trace around one arena2 forward (the Chrome trace in
      build/trace/ must hold arena_stage kernel events); then the host
      feed's torch.profiler window over a primed CameraStreamer run at
@@ -287,8 +295,8 @@ Phases (each prints its lines; any failure ends the run with an error):
      mode refused; the sharded serving rate beside one process's, the
      sharded step's ms and the halo bytes a frame;
   5. the host feed's JSON line, the [train], [qat], [interchange] and
-     [multi] phases' JSON lines, the kernels JSON line (each kernel's
-     time beside its bound: the larger of the bytes its function must
+     [multi] phases' JSON lines, the trace cost's, the kernels JSON line
+     (each kernel's time beside its bound: the larger of the bytes its function must
      move over 3.35 TB/s and its operations over the card's peak rate for
      them; the kernels the [train] phase's served path launched also carry
      ``launches_train``, their count there, those the [qat] phase's
@@ -301,6 +309,7 @@ Without a CUDA device it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
@@ -350,19 +359,24 @@ V3_FRAMES, BATCH_V3 = 2, 256   # yolov3-tiny 416: checked on 2, timed on 256
 # the blocks an SM the section kernel's launch bounds ask for
 # (csrc/tiled_section.cu kSectionBlocks, kK32Blocks), by k32
 SECTION_BLOCKS = {False: 3, True: 2}
-# the stage kernels' registers a thread and blocks an SM as PR 14's runs
-# printed them (no spill; the whole-frame kernels had one instantiation),
-# printed beside this build's; the section kernel's fast and exact
-# instantiations beside its earlier first one (tiled_section_kernel<false>),
-# its k32 ones beside its earlier tensor-core one (<true>)
-PR14_ATTRS = {"tiled_section_kernel<fast>": (64, None),
-              "tiled_section_kernel<exact>": (64, None),
-              "tiled_section_kernel<fast,k32>": (124, None),
-              "tiled_section_kernel<exact,k32>": (124, None),
-              "arena_stage_kernel<fast>": (64, 4),
-              "arena_stage_kernel<exact>": (64, 4),
-              "fused_stage_kernel<fast>": (64, 4),
-              "fused_stage_kernel<exact>": (64, 4)}
+# the untraced instantiations' registers a thread, local bytes a thread (the
+# 128 B stack frame of the Globals table: no spill) and blocks an SM at the
+# shared memory this script reads them with (the largest section of the 448
+# net, of yolov3-tiny's k32 sections, of the corpus plans), as the build
+# before the traced twins (csrc/stage_ops.cuh OpCycles) printed them on an
+# NVIDIA H100 80GB HBM3: the twins must leave them as they were, so one that
+# moved fails
+UNTRACED_ATTRS = {"tiled_section_kernel<fast>": (77, 128, 2),
+                  "tiled_section_kernel<exact>": (77, 128, 2),
+                  "tiled_section_kernel<fast,k32>": (119, 128, 1),
+                  "tiled_section_kernel<exact,k32>": (127, 128, 1),
+                  "arena_stage_kernel<fast>": (64, 128, 4),
+                  "arena_stage_kernel<exact>": (64, 128, 4),
+                  "fused_stage_kernel<fast>": (64, 128, 4),
+                  "fused_stage_kernel<exact>": (64, 128, 4)}
+# the batches at which the traced stage kernels' cost is timed: the
+# benchmark's arena2 and tiled2 cells'
+TRACE_BATCH, TRACE_BATCH448 = 65536, 1024
 # the per-op kernels (B8) whose programs run on a flat kernel of their own,
 # timed and reported op by op
 FLAT_B8 = ("add_int8", "requantize_int8")
@@ -376,17 +390,6 @@ def _golden_tool():
     spec = importlib.util.spec_from_file_location(
         "make_torch_port_golden",
         os.path.join(ROOT, "tools", "make_torch_port_golden.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-def _profile_tool():
-    """tools/torch_profile_pipeline.py (the by-kind breakdowns)."""
-    import importlib.util
-    spec = importlib.util.spec_from_file_location(
-        "torch_profile_pipeline",
-        os.path.join(ROOT, "tools", "torch_profile_pipeline.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -436,10 +439,33 @@ def _one_op_a_stage(graph, bits):
     return OneOpAStage(graph, bits=bits)
 
 
-def section_instantiation(exact, k32) -> str:
-    """The name of the section kernel's instantiation (exact, k32)."""
+def section_instantiation(exact, k32, traced=False) -> str:
+    """The name of the section kernel's instantiation (exact, k32,
+    traced)."""
     return (f"tiled_section_kernel<{'exact' if exact else 'fast'}"
-            f"{',k32' if k32 else ''}>")
+            f"{',k32' if k32 else ''}{',traced' if traced else ''}>")
+
+
+def _attrs_line(name, regs, local, static_smem, blocks, smem) -> str:
+    """A ``[build]`` line's figures of one instantiation, beside the
+    untraced one's figures as built before the traced twins."""
+    base = name.replace(",traced", "")
+    was = UNTRACED_ATTRS[base]
+    return (f"[build] {name}: {regs} registers a thread, {local} B local "
+            f"memory a thread (its stack frame, spills included), "
+            f"{static_smem} B static shared memory; {blocks} blocks of 256 "
+            f"threads an SM at {smem} B of shared memory (untraced, before "
+            f"the traced twins: {was[0]} registers, {was[1]} B local, "
+            f"{was[2]} blocks an SM)")
+
+
+def _require_unmoved(name, regs, local, blocks) -> None:
+    """An untraced instantiation keeps the figures it had before the
+    traced twins (``UNTRACED_ATTRS``)."""
+    if ",traced" not in name:
+        _require((regs, local, blocks) == UNTRACED_ATTRS[name],
+                 f"{name} moved: {regs} registers, {local} B local, "
+                 f"{blocks} blocks an SM, not {UNTRACED_ATTRS[name]}")
 
 
 def _strip_plan(graph, bits):
@@ -1073,6 +1099,101 @@ LEARNING_BAR = {"detected": 20, "hit_rate": 0.7, "mean_iou": 0.45}
 STEP_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "grad": 1e-3, "param": 1e-5,
             "bn": 1e-5}
 RANGE_RTOL = 1e-4    # calibration ranges, card against CPU
+
+
+@contextlib.contextmanager
+def _traced_launches():
+    """The stage kernels' traced instantiations without a profiler
+    session: the wrappers' gate (``profiler.enabled``) held open, so that
+    CUDA events time the traced kernels alone."""
+    from yoloface_tpu_torch.runtime import profiler
+    gate = profiler.enabled
+    profiler.enabled = lambda: True
+    try:
+        yield
+    finally:
+        profiler.enabled = gate
+
+
+def _kinds_ms(plan, x) -> tuple:
+    """One forward of ``plan`` on ``x`` through the stage kernels' traced
+    twins, the counters zeroed first: ({"stages": [{kind: ms}], "kinds":
+    {kind: ms}}, each stage's CUDA-event time split by its kinds' shares
+    of its cycles (``profiler.stage_cycles``), every kind its program has
+    counted and no other; the forward's tensors)."""
+    import torch
+
+    from yoloface_tpu_torch.kernels import arena
+    from yoloface_tpu_torch.runtime import profiler
+    profiler.reset_counters()
+    env = {plan.input_idx: x}
+    marks = [torch.cuda.Event(enable_timing=True)]
+    marks[0].record()
+    with _traced_launches():
+        for k, st in enumerate(plan.stages):
+            outs = plan._launch(st)(st, getattr(plan, f"descs{k}"),
+                                    getattr(plan, f"consts{k}"),
+                                    [env[i] for i in st.inputs])
+            env.update(zip(st.outputs, outs))
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+    # this forward's stages are the ones that counted since the reset
+    counted = [r for r in profiler.stage_cycles() if any(r["ops"])]
+    _require(len(counted) == len(plan.stages),
+             f"{len(counted)} stages counted of {len(plan.stages)}")
+    stages, kinds = [], dict.fromkeys(arena.OP_KINDS, 0.0)
+    for st, r, a, b in zip(plan.stages, counted, marks, marks[1:]):
+        codes = st.descs[:, arena.F["code"]].tolist()
+        for kind, of in arena.OP_KINDS.items():
+            _require((r["kinds"][kind] > 0) == any(c in of for c in codes),
+                     f"stage counters: {kind} counted {r['kinds'][kind]}")
+        ms = a.elapsed_time(b)
+        split = {kind: ms * c / sum(r["ops"])
+                 for kind, c in r["kinds"].items()}
+        for kind, v in split.items():
+            kinds[kind] += v
+        stages.append(split)
+    return {"stages": stages, "kinds": kinds}, env
+
+
+def _trace_cost(card, pipe, f, eng448, x448) -> dict:
+    """What the traced stage kernels cost: the arena2 net's stage on the
+    preprocessed ``f`` and the 448 tiled2 net's sections on ``x448``,
+    untraced, traced, traced, untraced (CUDA events, median of REPS each),
+    the traced outputs equal to the untraced ones; with the split of
+    ``_kinds_ms``."""
+    import torch
+
+    out = {}
+    x = pipe.preprocess(f)
+    for tag, plan, xin in (("arena2", pipe.engine.arena, x),
+                           ("448 tiled2", eng448.arena, x448)):
+        want = plan.run_stages(xin)
+        split, got = _kinds_ms(plan, xin)
+        for i, t in want.items():
+            _require(torch.equal(t, got[i]),
+                     f"trace cost {tag}: traced tensor {i} differs")
+        del want, got
+        ms = []
+        for traced in (False, True, True, False):
+            with _traced_launches() if traced else contextlib.nullcontext():
+                ms.append(_time_ms(lambda: plan.run_stages(xin)))
+        off, on = (ms[0] + ms[3]) / 2, (ms[1] + ms[2]) / 2
+        out[tag] = {"frames": int(xin.shape[0]), "ms_untraced": off,
+                    "ms_traced": on, "cost": on / off - 1,
+                    "runs_ms": ms, **split}
+        print(f"[time] trace cost {tag} N={xin.shape[0]}: untraced "
+              f"{ms[0]:.4f} / {ms[3]:.4f} ms, traced {ms[1]:.4f} / "
+              f"{ms[2]:.4f} ms: tracing on costs {100 * (on / off - 1):+.2f}% "
+              f"of the net's stage kernels ({len(plan.stages)} a batch; "
+              f"{card})")
+        print(f"[time] trace cost {tag}: by op kind " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in split["kinds"].items())
+            + "; by stage " + "; ".join(
+                ", ".join(f"{k} {v:.3f}" for k, v in st.items())
+                for st in split["stages"]))
+    del x
+    return out
 
 
 def _graph_diff(a, b, f32_scales: bool = False):
@@ -2489,29 +2610,28 @@ def main() -> int:
                         _golden_tool().yolov3_tiny_graph())
                         if s.k32_convs)}
     section_attrs = {}
-    for exact, k32 in ((0, 0), (1, 0), (0, 1), (1, 1)):
-        attrs = (ctypes.c_int * 4)()
-        _build.check(_build.library().yf_tiled_section_attrs(
-            exact, k32, arena.THREADS, section_smem[bool(k32)], attrs),
-            "tiled_section attributes")
-        regs, local, static_smem, blocks = list(attrs)
-        name = section_instantiation(exact, k32)
-        section_attrs[name] = {"registers": regs, "local_bytes": local,
-                               "static_smem": static_smem,
-                               "blocks_per_sm": blocks,
-                               "dynamic_smem": section_smem[bool(k32)]}
-        print(f"[build] {name}: {regs} registers a thread, {local} B local "
-              f"memory a thread (its stack frame, spills included), "
-              f"{static_smem} B static shared memory; {blocks} blocks an SM "
-              f"at {section_smem[bool(k32)]} B of shared memory (before the "
-              f"redesign: {PR14_ATTRS[name][0]} registers, no spill)")
-        # the launch bounds cap the registers (SECTION_BLOCKS blocks an
-        # SM); what they can cost is spilling, which grows the local
-        # memory past the 128 B frame
-        _require(local <= 128, f"{name} spills: {local} B of local memory "
-                 "a thread > its 128 B frame")
-        _require(regs * arena.THREADS * SECTION_BLOCKS[bool(k32)] <= 65536,
-                 f"{name}: within its launch bound")
+    for traced in (0, 1):
+        for exact, k32 in ((0, 0), (1, 0), (0, 1), (1, 1)):
+            attrs = (ctypes.c_int * 4)()
+            _build.check(_build.library().yf_tiled_section_attrs(
+                exact, k32, traced, arena.THREADS, section_smem[bool(k32)],
+                attrs), "tiled_section attributes")
+            regs, local, static_smem, blocks = list(attrs)
+            name = section_instantiation(exact, k32, traced)
+            section_attrs[name] = {"registers": regs, "local_bytes": local,
+                                   "static_smem": static_smem,
+                                   "blocks_per_sm": blocks,
+                                   "dynamic_smem": section_smem[bool(k32)]}
+            print(_attrs_line(name, regs, local, static_smem, blocks,
+                              section_smem[bool(k32)]))
+            # the launch bounds cap the registers (SECTION_BLOCKS blocks an
+            # SM); what they can cost is spilling, which grows the local
+            # memory past the 128 B frame
+            _require(local <= 128, f"{name} spills: {local} B of local "
+                     "memory a thread > its 128 B frame")
+            _require(regs * arena.THREADS * SECTION_BLOCKS[bool(k32)]
+                     <= 65536, f"{name}: within its launch bound")
+            _require_unmoved(name, regs, local, blocks)
     # the whole-frame kernels (a fast and an exact instantiation each),
     # with their convs on the tensor cores, the depthwise word body and the
     # max-pool word passes (csrc/stage_ops.cuh): blocks an SM at the corpus
@@ -2522,33 +2642,30 @@ def main() -> int:
         for st in arena.build_arena_plan(load_tflite(CORPUS))),
         "fused_stage_kernel": max(st.smem_bytes for st in
                                   fused.build_fused_plan(load_tflite(CORPUS)))}
-    for kernel, fn, exact in (
-            ("arena_stage_kernel", _build.library().yf_arena_stage_attrs, 0),
-            ("arena_stage_kernel", _build.library().yf_arena_stage_attrs, 1),
-            ("fused_stage_kernel", _build.library().yf_fused_stage_attrs, 0),
-            ("fused_stage_kernel", _build.library().yf_fused_stage_attrs, 1)):
-        name = f"{kernel}<{'exact' if exact else 'fast'}>"
+    lib = _build.library()
+    for kernel, fn, args in (
+            *[("arena_stage_kernel", lib.yf_arena_stage_attrs, (e, t))
+              for t in (0, 1) for e in (0, 1)],
+            ("fused_stage_kernel", lib.yf_fused_stage_attrs, (0,)),
+            ("fused_stage_kernel", lib.yf_fused_stage_attrs, (1,))):
+        name = (f"{kernel}<{'exact' if args[0] else 'fast'}"
+                f"{',traced' if args[1:] and args[1] else ''}>")
         attrs = (ctypes.c_int * 4)()
-        _build.check(fn(exact, arena.THREADS, corpus_smem[kernel], attrs),
+        _build.check(fn(*args, arena.THREADS, corpus_smem[kernel], attrs),
                      f"{name} attributes")
         regs, local, static_smem, blocks = list(attrs)
         stage_attrs[name] = {"registers": regs, "local_bytes": local,
                              "static_smem": static_smem,
                              "blocks_per_sm": blocks,
                              "dynamic_smem": corpus_smem[kernel]}
-        print(f"[build] {name}: {regs} registers a thread, {local} B local "
-              f"memory a thread (its stack frame, spills included), "
-              f"{static_smem} B static shared memory; {blocks} blocks of "
-              f"{arena.THREADS} threads an SM at the corpus plan's "
-              f"{corpus_smem[kernel]} B of shared memory (PR 14: "
-              f"{PR14_ATTRS[name][0]} registers, {PR14_ATTRS[name][1]} "
-              "blocks an SM, no spill"
-              + (", one instantiation" if exact else "") + ")")
+        print(_attrs_line(name, regs, local, static_smem, blocks,
+                          corpus_smem[kernel]))
         _require(local <= 128, f"{name} spills: {local} B of local memory "
                  "a thread > its 128 B frame")
         _require(regs <= 64 and blocks >= 4,
                  f"{name}: within its launch bound (64 registers, 4 blocks "
                  "an SM)")
+        _require_unmoved(name, regs, local, blocks)
 
     rng = np.random.default_rng(SEED)
 
@@ -4061,13 +4178,19 @@ def main() -> int:
             print(f"[time] pipeline {mode} sync latency N={n}: p50 "
                   f"{p50:.3f} ms of {REPS} calls, host clock ({card})")
             del f
-    # where the whole-frame kernels' time goes by op kind: the time of each
-    # descriptor as that of the program prefix ending at it less the one
-    # before (tools/torch_profile_pipeline.py), at TIMING_BATCH
-    prof = _profile_tool()
-    by_kind = {mode: (prof.fused_breakdown if mode == "fused" else
-                      prof.arena_breakdown)(pipes[mode], TIMING_BATCH, card)
-               for mode in ("arena2", "arena", "fused")}
+    # where the arena stage's time goes by op kind: one traced forward at
+    # TIMING_BATCH, the stage's CUDA-event time split by its descriptors'
+    # cycle counters (no profiler session: a third one in a process caught
+    # no kernel events, and the trace below needs its own)
+    by_kind = {}
+    for mode in ("arena2", "arena"):
+        x = pipes[mode].preprocess(frames(TIMING_BATCH))
+        by_kind[mode] = _kinds_ms(pipes[mode].engine.arena, x)[0]["kinds"]
+        print(f"[time] {mode} N={TIMING_BATCH} by op kind (the traced "
+              "stage's cycle counters): " + ", ".join(
+                  f"{k} {v:.3f} ms" for k, v in by_kind[mode].items())
+              + f" ({card})")
+        del x
     for mode, eng in engines448.items():
         bits = TILED_BITS[mode]
         p = eng.arena
@@ -4242,6 +4365,10 @@ def main() -> int:
               f"{TIMING_BATCH / t_all * 1e3:.0f} frames/s; engine alone "
               f"{t_net:.4f} ms ({card})")
     del x_fpn
+
+    trace_cost = _trace_cost(card, pipes["arena2"], frames(TRACE_BATCH),
+                             engines448["tiled2"],
+                             int8_frames(TRACE_BATCH448, 448))
 
     # trace (runtime/profiler.py), nothing timed after it but the copy
     # overlap window: one arena2 forward under torch.profiler; the Chrome
@@ -4531,6 +4658,7 @@ def main() -> int:
     print(json.dumps({"qat": qat_out}))
     print(json.dumps({"interchange": interchange}))
     print(json.dumps({"multi": multi}))
+    print(json.dumps({"trace_cost": trace_cost}))
     print(_smi("name,power.limit"))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1067,7 +1067,7 @@ def test_section_instantiations_within_their_launch_bound_on_the_card(
                if not s.scratch_off)
     out = (ctypes.c_int * 4)()
     _build.check(_build.library().yf_tiled_section_attrs(
-        exact, k32, arena.THREADS, smem, out), "attributes")
+        exact, k32, 0, arena.THREADS, smem, out), "attributes")
     regs, local, _, blocks = list(out)
     bound = 2 if k32 else 3
     assert regs * arena.THREADS * bound <= 65536 and local <= 128, list(out)
@@ -1201,8 +1201,9 @@ def test_stage_instantiations_within_their_launch_bound_on_the_card(
             if kernel == "arena" else
             max(st.smem_bytes for st in fused.build_fused_plan(g)))
     out = (ctypes.c_int * 4)()
+    untraced = (0,) if kernel == "arena" else ()
     _build.check(getattr(_build.library(), f"yf_{kernel}_stage_attrs")(
-        exact, arena.THREADS, smem, out), "attributes")
+        exact, *untraced, arena.THREADS, smem, out), "attributes")
     regs, local, _, blocks = list(out)
     assert regs <= 64 and local <= 128 and blocks >= 4, list(out)
 
@@ -1826,3 +1827,75 @@ def test_make_sharded_world_of_one_on_nccl(tmp_path):
             assert torch.equal(got[k], want[k]), k
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["arena2", "arena_exact", "tiled2"])
+def test_traced_instantiations_on_the_card(mode):
+    """The stage kernels' traced twins (``runtime/profiler.py``): at a
+    small batch of the corpus net (``arena*``) and of its 448 retarget
+    (``tiled2``), a forward under ``torch.profiler`` launches them and
+    equals the untraced forward bit for bit; each stage's counter holds
+    cycles in every op kind its program has and none in the others; the
+    untraced launches pass no counter (the traced tally stays 0 outside a
+    session); the traced twins stay within their launch bounds, unspilled."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import ctypes
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from yoloface_tpu_torch.kernels import _build
+    from yoloface_tpu_torch.runtime import profiler
+    g = load_tflite(CORPUS)
+    if mode == "tiled2":
+        g = retarget_spatial(g, 8)
+    eng = Int8Engine(g, mode, device="cuda")
+    plan = eng.arena
+    hw = g.tensor(g.inputs[0]).shape[1]
+    x = torch.randint(-128, 128, (3, hw, hw, 3), dtype=torch.int8,
+                      generator=torch.Generator().manual_seed(29)).cuda()
+    fn = tiled.tiled_section if mode == "tiled2" else arena.arena_stage
+    before = fn.traced_launches
+    want = plan.run_stages(x)
+    torch.cuda.synchronize()
+    assert fn.traced_launches == before
+    assert all(getattr(st, "op_cycles", None) is None for st in plan.stages)
+    profiler.reset_counters()     # another plan's counters: none counts
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        got = plan.run_stages(x)
+        torch.cuda.synchronize()
+    assert fn.traced_launches == before + len(plan.stages)
+    for i, t in want.items():
+        assert torch.equal(t, got[i]), i
+    split = [st for st in profiler.stage_cycles() if any(st["ops"])]
+    assert len(split) == len(plan.stages)
+    kernel = "tiled_section_kernel" if mode == "tiled2" else \
+        "arena_stage_kernel"
+    for st, rec in zip(plan.stages, split):
+        assert rec["kernel"] == kernel and rec["ops"] == \
+            st.op_cycles.tolist()
+        codes = st.descs[:, arena.F["code"]].tolist()
+        assert all(c > 0 for c in rec["ops"])
+        for kind, of in arena.OP_KINDS.items():
+            present = any(code in of for code in codes)
+            assert (rec["kinds"][kind] > 0) == present, (kind, rec)
+    profiler.reset_counters()
+    assert all(not any(st["ops"]) for st in profiler.stage_cycles())
+    # the traced twins: within their launch bounds, no spill
+    out = (ctypes.c_int * 4)()
+    lib = _build.library()
+    for st in plan.stages:
+        if mode == "tiled2":
+            _build.check(lib.yf_tiled_section_attrs(
+                int(st.exact_convs), int(st.k32_convs > 0), 1, arena.THREADS,
+                st.smem_bytes, out), "attributes")
+            bound = 2 if st.k32_convs else 3
+        else:
+            _build.check(lib.yf_arena_stage_attrs(
+                int(st.exact_convs), 1, arena.THREADS,
+                arena.stage_smem(st)[0], out), "attributes")
+            bound = 4
+        regs, local, _, _ = list(out)
+        assert regs * arena.THREADS * bound <= 65536 and local <= 128, \
+            list(out)

@@ -8,33 +8,33 @@ Run from the repository root on a machine with a CUDA card:
         [--modes arena2 arena arena_exact tiled2 tiled_exact fused fused_exact
                  perop perop_exact]
 
-It first prints each instantiation of the stage kernels (the arena and
-fused kernels' fast and exact ones, the section kernel's fast and exact
-ones and their k32 twins): registers a thread and local memory a thread
-(its stack frame, spills included).  Then, for each engine mode (default
-``arena2``), each line with the card's name, power limit and SM clocks:
+It first prints each instantiation of the stage kernels (the arena
+kernel's fast and exact ones and their traced twins, the fused kernel's
+fast and exact ones, the section kernel's fast and exact ones, their k32
+twins and the traced twins of all four): registers a thread and local
+memory a thread (its stack frame, spills included).  Then, for each engine
+mode (default ``arena2``), each line with the card's name, power limit and
+SM clocks:
 
   * pipeline: ``FacePipeline.detect_rgb565_device`` with the frames on the
     card (an arena mode), or the 448 net ``Int8Engine(retarget_spatial(corpus,
     8), mode)`` on int8 448x448 frames on the card (a tiled mode), back to
     back (host clock over 5 batches) and synchronised (p50 of 10 calls,
     each ending in ``torch.cuda.synchronize()``);
-  * device busy share: ``torch.profiler`` over 5 back-to-back batches, the
-    sum of the device kernels' time over the wall time, and the kernels
-    that take the most of it;
-  * arena breakdown: the time of each descriptor of the arena stage,
-    measured as the CUDA-event time (median of 7) of the program prefix
-    that ends at it minus that of the prefix before, summed by op kind;
-  * fused breakdown (fused modes): each fused stage kernel's time and, the
-    same way, the time of each of its descriptors, summed by op kind;
+  * counter breakdown (arena and tiled modes): one forward under
+    ``torch.profiler``, which launches the stage kernels' traced
+    instantiations: each stage kernel's device time from the trace, split
+    by its descriptors' shares of the stage's cycles
+    (``runtime/profiler.stage_cycles``), by stage (a section with its
+    strips, arena and recompute), by op kind (``arena.OP_KINDS``) and by
+    descriptor;
   * per-op breakdown (per-op modes): the CUDA-event time (median of 7) of
     each op's launch (the fused-stage kernel on the op's one-op program),
     summed by per-op kernel (the ``pallas_int8.py`` kernel each op
     replaces) and by op kind;
-  * section breakdown (tiled modes): the CUDA-event time (median of 7) of
-    each section kernel of the 448 net, with its ops, strips and arena;
-    with ``--shares``, the 448 net's time under each strip-height target
-    ``tiled.TARGET_SHARE`` (strip arenas of the budget over that share).
+  * with ``--shares`` (tiled modes), the 448 net's time under each
+    strip-height target ``tiled.TARGET_SHARE`` (strip arenas of the budget
+    over that share).
     ``--tiled-graph yolov3-tiny`` runs the tiled modes on the published
     yolov3-tiny at 416x416 instead (``tools/make_torch_port_golden.
     yolov3_tiny_graph``, random int8 weights from its seed) at
@@ -100,10 +100,9 @@ def _event_ms(run, reps: int = 7) -> float:
 
 
 def profile_pipeline(run, n: int, card: str) -> None:
-    """Back to back, sync p50 and busy share of ``run()``, one batch of
-    ``n`` frames."""
+    """Back to back and sync p50 of ``run()``, one batch of ``n``
+    frames."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         run()
     torch.cuda.synchronize()
@@ -122,26 +121,10 @@ def profile_pipeline(run, n: int, card: str) -> None:
     print(f"[pipeline] N={n}: back to back {b2b * 1e3:.3f} ms/batch "
           f"({n / b2b:.0f} frames/s); sync p50 {p50 * 1e3:.3f} ms "
           f"({n / p50:.0f} frames/s) ({card})")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        for _ in range(5):
-            run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-    rows = sorted(((e.device_time_total, e.key, e.count)
-                   for e in prof.key_averages() if e.device_time_total > 0),
-                  reverse=True)
-    busy = sum(r[0] for r in rows) / 1e3
-    print(f"[busy] N={n}, 5 batches: device kernels {busy:.2f} ms in "
-          f"{wall * 1e3:.2f} ms wall, busy share {busy / (wall * 1e3):.4f} "
-          f"({card})")
-    for us, key, count in rows[:12]:
-        print(f"  {us / 1e3 / 5:10.3f} ms/batch  x{count // 5:3d}  {key[:80]}")
 
 
 _CODE_NAMES = ("COPY", "CONV", "DW", "MAXPOOL", "ADD", "QUANTIZE", "PAD",
-               "LEAKY", "ACT", "RESIZE")   # kernels/arena.py's op codes
+               "LEAKY", "ACT", "RESIZE", "AVGPOOL")   # kernels/arena.py's
 
 
 def _row(ms: float, index: int, d):
@@ -154,18 +137,6 @@ def _row(ms: float, index: int, d):
         name += f"{int(d[F['kh']])}x{int(d[F['kw']])}"
     return (ms, index, name, int(d[F["sh"]]), int(d[F["in0_c"]]),
             int(d[F["out_c"]]), int(d[F["out_h"]]))
-
-
-def _descriptor_rows(st, prefix_ms):
-    """``_row`` of each descriptor of ``st``, its ms ``prefix_ms(k)`` (the
-    program's first k descriptors) minus ``prefix_ms(k - 1)``; and the
-    whole program's ms."""
-    rows, prev = [], 0.0
-    for k in range(1, len(st.descs) + 1):
-        cur = prefix_ms(k)
-        rows.append(_row(cur - prev, k - 1, st.descs[k - 1]))
-        prev = cur
-    return rows, prev
 
 
 def _print_rows(tag: str, rows, top: int = 12) -> dict:
@@ -182,72 +153,68 @@ def _print_rows(tag: str, rows, top: int = 12) -> dict:
     return by
 
 
-def arena_breakdown(pipe, n: int, card: str, reps: int = 7) -> dict:
-    """The arena stage's time by op kind (descriptor prefix times); ->
-    {kind: ms}."""
+def _section_line(st) -> str:
+    """A tiled section's plan: its ops, strips, arena, pool scratch,
+    recompute and tensor-core convs ("" for a whole-frame stage)."""
+    from yoloface_tpu_torch.kernels import tiled
+    if not isinstance(st, tiled.Section):
+        return ""
+    return (f"; ops [{st.start},{st.end}) {st.strips} strips of {st.unit}, "
+            f"{st.arena_bytes} B arena + {st.smem_bytes - st.arena_bytes} B "
+            f"pool scratch, recompute {st.recompute:.3f}, {st.mma_convs} "
+            f"convs on the tensor cores ({st.k32_convs} k32)")
+
+
+def counter_breakdown(run, plan, n: int, card: str) -> None:
+    """One traced forward ``run()`` of ``n`` frames through ``plan`` (an
+    arena or tiled plan): each stage kernel's device time from the trace,
+    split by its descriptors' cycle shares (``profiler.stage_cycles``),
+    printed by stage, by op kind (``arena.OP_KINDS``) and by descriptor
+    (``_print_rows``)."""
     import torch
-    from yoloface_tpu_torch.kernels import _build, arena
-    from yoloface_tpu_torch.kernels.preprocess import preprocess_rgb565
-    plan = pipe.engine.arena
-    if len(plan.stages) != 1:
-        raise SystemExit("arena breakdown expects a one-stage plan")
-    st, descs, consts = plan.stages[0], plan.descs0, plan.consts0
-    x = preprocess_rgb565(_frames(n))
-    out = torch.empty((n,) + st.shapes[st.outputs[0]], dtype=torch.int8,
-                      device="cuda")
-    lib = _build.library()
-    ptrs = (ctypes.c_uint64 * arena.MAX_GLOBALS)(x.data_ptr(), out.data_ptr())
-    stream = torch.cuda.current_stream().cuda_stream
-
-    def prefix_ms(k: int) -> float:
-        return _event_ms(lambda: _build.check(lib.yf_arena_stage(
-            descs.data_ptr(), k, consts.data_ptr(), ptrs, 2, n,
-            *arena.stage_smem(st), arena.THREADS, int(st.exact_convs),
-            stream), "arena prefix"),
-            reps)
-
-    rows, total = _descriptor_rows(st, prefix_ms)
-    print(f"[arena] N={n}: whole stage {total:.3f} ms ({card})")
-    return _print_rows("arena", rows)
-
-
-def fused_breakdown(pipe, n: int, card: str, reps: int = 7) -> dict:
-    """Each fused stage kernel's time and its descriptors' (prefix
-    times); -> {kind: ms} over the stages."""
-    import torch
-    from yoloface_tpu_torch.kernels import _build, arena
-    from yoloface_tpu_torch.kernels.preprocess import preprocess_rgb565
-    plan = pipe.engine.arena
-    env = plan.run_stages(preprocess_rgb565(_frames(n)))
-    lib = _build.library()
-    stream = torch.cuda.current_stream().cuda_stream
-    every = []
-    for k, st in enumerate(plan.stages):
-        descs, consts = getattr(plan, f"descs{k}"), getattr(plan, f"consts{k}")
-        outs = [torch.empty_like(env[o]) for o in st.outputs]
-        ptrs = (ctypes.c_uint64 * arena.MAX_GLOBALS)(
-            *[t.data_ptr() for t in [env[i] for i in st.inputs] + outs])
-
-        def prefix_ms(j: int, st=st, descs=descs, consts=consts,
-                      ptrs=ptrs) -> float:
-            return _event_ms(lambda: _build.check(lib.yf_fused_stage(
-                descs.data_ptr(), j, consts.data_ptr(), ptrs,
-                len(st.globals_), n, st.smem_bytes, st.arena_bytes,
-                arena.THREADS, int(st.exact_convs), stream),
-                "fused prefix"), reps)
-
-        rows, total = _descriptor_rows(st, prefix_ms)
-        every += rows
-        kinds = " ".join(r[2] for r in rows if r[2] != "COPY")
-        print(f"[fused] N={n}: stage {k} {total:.3f} ms, {st.smem_bytes} B "
-              f"shared memory, {len(st.inputs)} in / {len(st.outputs)} out: "
-              f"{kinds} ({card})")
-    return _print_rows("fused", every)
+    from torch.profiler import ProfilerActivity, profile
+    from yoloface_tpu_torch.kernels import arena
+    from yoloface_tpu_torch.runtime import profiler
+    run()                               # untraced: allocation, clocks
+    torch.cuda.synchronize()
+    profiler.reset_counters()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    ms = [(end - start) * 1e-3
+          for name, start, end in profiler.device_activities(prof)
+          if "arena_stage_kernel" in name or "tiled_section_kernel" in name]
+    # this forward's stages counted cycles since the reset; a plan traced
+    # before and still alive counted none
+    stages = [st for st in profiler.stage_cycles() if any(st["ops"])]
+    if len(ms) != len(plan.stages) or len(stages) != len(plan.stages):
+        raise SystemExit(f"{len(ms)} stage kernels in the trace and "
+                         f"{len(stages)} stages with counters for a plan "
+                         f"of {len(plan.stages)}")
+    total = sum(ms)
+    by_kind = dict.fromkeys(arena.OP_KINDS, 0.0)
+    rows = []
+    print(f"[counters] N={n}: {len(stages)} stage kernel(s), "
+          f"{total:.3f} ms of one traced forward ({card})")
+    for k, (t, st, plan_st) in enumerate(zip(ms, stages, plan.stages)):
+        cycles = sum(st["ops"])
+        for kind, c in st["kinds"].items():
+            by_kind[kind] += t * c / cycles
+        rows += [_row(t * c / cycles, i, d) for i, (c, d) in
+                 enumerate(zip(st["ops"], plan_st.descs))]
+        print(f"  stage {k} {st['kernel']}: {t:8.3f} ms ({t / total:6.1%});"
+              " " + ", ".join(f"{kind} {c / cycles:6.1%}"
+                              for kind, c in st["kinds"].items())
+              + _section_line(plan_st))
+    print("[counters] kinds: " + ", ".join(
+        f"{kind} {t:.3f} ms ({t / total:.1%})" for kind, t in by_kind.items()))
+    _print_rows("counters", rows)
 
 
 def perop_breakdown(pipe, n: int, card: str) -> None:
     """CUDA-event time of each op's launch (``perop.perop_op``), by per-op
-    kernel and by op kind (``_descriptor_rows``'s kinds)."""
+    kernel and by op code (``_row``'s names)."""
     from yoloface_tpu_torch.kernels import perop
     from yoloface_tpu_torch.kernels.preprocess import preprocess_rgb565
     plan = pipe.engine.arena
@@ -268,48 +235,21 @@ def perop_breakdown(pipe, n: int, card: str) -> None:
     _print_rows("perop", rows)
 
 
-def section_breakdown(eng, x, card: str) -> None:
-    """CUDA-event time of each section kernel of a tiled plan on ``x``."""
-    from yoloface_tpu_torch.kernels import arena, tiled
-    plan = eng.arena
-    env = plan.run_stages(x)
-    names = {arena.COPY: "copy", arena.CONV: "conv", arena.DW: "dw",
-             arena.MAXPOOL: "pool", arena.ADD: "add",
-             arena.QUANTIZE: "quant", arena.PAD: "pad", arena.LEAKY: "leaky",
-             arena.ACT: "act", arena.RESIZE: "resize",
-             arena.AVGPOOL: "avgpool"}
-    rows = []
-    for k, st in enumerate(plan.stages):
-        ins = [env[i] for i in st.inputs]
-        ms = _event_ms(lambda: tiled.tiled_section(
-            st, getattr(plan, f"descs{k}"), getattr(plan, f"consts{k}"),
-            ins))
-        ops = [names[int(c)] for c in st.descs[:, arena.F["code"]]]
-        rows.append((ms, k, st, ops))
-    total = sum(r[0] for r in rows)
-    print(f"[sections] N={x.shape[0]}: {len(rows)} section kernels "
-          f"{total:.3f} ms ({card})")
-    for ms, k, st, ops in rows:
-        print(f"  {ms:8.3f} ms ({ms / total:6.1%})  section {k} ops "
-              f"[{st.start},{st.end}) {st.strips} strips of {st.unit}, "
-              f"{st.arena_bytes} B arena + {st.smem_bytes - st.arena_bytes} "
-              f"B pool scratch, recompute {st.recompute:.3f}, "
-              f"{st.mma_convs} convs on the tensor cores ({st.k32_convs} "
-              f"k32): {' '.join(o for o in ops if o != 'copy')}")
-
-
 def kernel_attrs() -> None:
     """Registers and local bytes a thread of each stage kernel
-    instantiation, as ``cudaFuncGetAttributes`` reads them."""
+    instantiation, traced twins included, as ``cudaFuncGetAttributes``
+    reads them."""
     from yoloface_tpu_torch.kernels import _build, arena
     lib = _build.library()
-    calls = [(f"{k}<{'exact' if e else 'fast'}>", fn, (e,))
-             for k, fn in (("arena_stage_kernel", lib.yf_arena_stage_attrs),
-                           ("fused_stage_kernel", lib.yf_fused_stage_attrs))
-             for e in (0, 1)]
+    calls = [(f"arena_stage_kernel<{'exact' if e else 'fast'}"
+              f"{',traced' if t else ''}>", lib.yf_arena_stage_attrs, (e, t))
+             for t in (0, 1) for e in (0, 1)]
+    calls += [(f"fused_stage_kernel<{'exact' if e else 'fast'}>",
+               lib.yf_fused_stage_attrs, (e,)) for e in (0, 1)]
     calls += [(f"tiled_section_kernel<{'exact' if e else 'fast'}"
-               f"{',k32' if k32 else ''}>", lib.yf_tiled_section_attrs,
-               (e, k32)) for k32 in (0, 1) for e in (0, 1)]
+               f"{',k32' if k32 else ''}{',traced' if t else ''}>",
+               lib.yf_tiled_section_attrs, (e, k32, t))
+              for t in (0, 1) for k32 in (0, 1) for e in (0, 1)]
     for name, fn, args in calls:
         attrs = (ctypes.c_int * 4)()
         _build.check(fn(*args, arena.THREADS, 0, attrs), f"{name} attributes")
@@ -362,7 +302,7 @@ def main() -> int:
     from yoloface_tpu_torch.graph.retarget import retarget_spatial
     from yoloface_tpu_torch.io.tflite_import import load_tflite
     from yoloface_tpu_torch.pipeline.e2e import load_pipeline
-    from yoloface_tpu_torch.runtime.engine import (FUSED_BITS, PEROP_BITS,
+    from yoloface_tpu_torch.runtime.engine import (ARENA_BITS, PEROP_BITS,
                                                    TILED_BITS, Int8Engine)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,clocks.max.sm",
@@ -381,7 +321,7 @@ def main() -> int:
             eng = Int8Engine(g, mode, device="cuda")
             x = _int8_frames(n, hw)
             profile_pipeline(lambda: eng(x), n, card)
-            section_breakdown(eng, x, card)
+            counter_breakdown(lambda: eng(x), eng.arena, n, card)
             share_sweep(g, mode, args.shares, x, card)
             del x
             continue
@@ -389,13 +329,12 @@ def main() -> int:
         f = _frames(args.batch)
         profile_pipeline(lambda: pipe.detect_rgb565_device(f), args.batch,
                          card)
+        if mode in ARENA_BITS:
+            counter_breakdown(lambda: pipe.detect_rgb565_device(f),
+                              pipe.engine.arena, args.batch, card)
         del f
-        if mode in FUSED_BITS:
-            fused_breakdown(pipe, args.arena_batch, card)
-        elif mode in PEROP_BITS:
+        if mode in PEROP_BITS:
             perop_breakdown(pipe, args.arena_batch, card)
-        else:
-            arena_breakdown(pipe, args.arena_batch, card)
     return 0
 
 

@@ -282,17 +282,18 @@ def _build_all(variants, source: str, entry: str):
 
 def _section_report(log: str) -> str:
     """The compiler's registers and spills of each instantiation of the
-    section kernel."""
+    section kernel, traced twins included."""
     import re
     lines = log.splitlines()
     found = []
     for k, line in enumerate(lines):
-        m = re.search(r"tiled_section_kernelILb(\d)ELb(\d)E", line)
+        m = re.search(r"tiled_section_kernelILb(\d)ELb(\d)ELb(\d)E", line)
         if "Compiling entry" in line and m:
             got = [s.split(":")[-1].strip() for s in lines[k + 1:k + 5]
                    if "Used" in s or "spill" in s]
             tag = ("exact" if m[1] == "1" else "fast") + (
-                ",k32" if m[2] == "1" else "")
+                ",k32" if m[2] == "1" else "") + (
+                ",traced" if m[3] == "1" else "")
             found.append(f"{tag}: " + "; ".join(got))
     return " | ".join(found) or "?"
 

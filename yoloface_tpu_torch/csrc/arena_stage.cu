@@ -16,6 +16,9 @@
 // (:654), standalone LEAKY_RELU (:738), RESIZE_NEAREST_NEIGHBOR (:753),
 // and a PAD that a SAME window would pad again.  An op code with no case
 // traps, which fails the launch (the error shows at the next sync).
+// Each instantiation has a traced twin, launched only while a
+// torch.profiler session records, that sums each descriptor's cycles into
+// a counter (stage_ops.cuh OpCycles; runtime/profiler.py stage_cycles).
 //
 // What bounds it on the card: integer multiply-adds on the CUDA cores
 // (1.03 M MACs a 56x56 frame) and shared-memory reads of the windows.
@@ -46,16 +49,19 @@ using yf::Op;
 
 // kExact: the exact instantiation (every body compiled with the exact
 // epilogues, stage_ops.cuh kExactEpis), else the fast one (the fast sets).
-template <bool kExact>
+// kTrace: the traced twin, which sums each op's cycles into op_cycles
+// (stage_ops.cuh OpCycles); the untraced one never reads op_cycles.
+template <bool kExact, bool kTrace>
 __global__ void __launch_bounds__(yf::kStageThreads, yf::kStageBlocks)
     arena_stage_kernel(const Op* __restrict__ ops, int n_ops,
                        const uint8_t* __restrict__ consts, Globals g,
-                       int scratch_off) {
+                       int scratch_off, unsigned long long* op_cycles) {
   constexpr unsigned kMma = kExact ? yf::kExactEpis : yf::kArenaMmaEpis;
   constexpr unsigned kConv = kExact ? yf::kExactEpis : yf::kArenaConvEpis;
   constexpr unsigned kDw = kExact ? yf::kExactEpis : yf::kArenaDwEpis;
   extern __shared__ __align__(16) int8_t arena[];
   const long long frame = blockIdx.x;
+  yf::OpCycles<kTrace> cycles(op_cycles);
   for (int i = 0; i < n_ops; ++i) {
     const Op op = ops[i];
     const int8_t* in0 = yf::base(op.in0, arena, g, frame);
@@ -107,7 +113,19 @@ __global__ void __launch_bounds__(yf::kStageThreads, yf::kStageBlocks)
         __trap();
     }
     __syncthreads();
+    cycles.after(i);
   }
+}
+
+using Kernel = void (*)(const Op*, int, const uint8_t*, Globals, int,
+                        unsigned long long*);
+
+Kernel instantiation(int exact, int trace) {
+  if (exact)
+    return trace ? arena_stage_kernel<true, true>
+                 : arena_stage_kernel<true, false>;
+  return trace ? arena_stage_kernel<false, true>
+               : arena_stage_kernel<false, false>;
 }
 
 }  // namespace
@@ -115,11 +133,14 @@ __global__ void __launch_bounds__(yf::kStageThreads, yf::kStageBlocks)
 // `smem_bytes` of dynamic shared memory a block: the arena, then from
 // `scratch_off` the max-pools' scratch (kernels/arena.py stage_smem; 0: no
 // scratch, the max-pools take the full-window body).  `exact`: launch the
-// exact instantiation (kernels/arena.py Stage.exact_convs).
+// exact instantiation (kernels/arena.py Stage.exact_convs).  `op_cycles`:
+// null launches the untraced instantiation; else the traced one adds each
+// descriptor's cycles to op_cycles[0..n_ops) (unsigned 64-bit sums).
 extern "C" int yf_arena_stage(const void* descs, int n_ops, const void* consts,
                               const void* host_ptrs, int n_globals,
                               int n_frames, int smem_bytes, int scratch_off,
-                              int threads, int exact, void* stream) {
+                              int threads, int exact, void* op_cycles,
+                              void* stream) {
   if (n_globals > yf::kMaxGlobals)
     return static_cast<int>(cudaErrorInvalidValue);
   Globals g = {};
@@ -127,23 +148,23 @@ extern "C" int yf_arena_stage(const void* descs, int n_ops, const void* consts,
       static_cast<const unsigned long long*>(host_ptrs);
   for (int i = 0; i < n_globals; ++i)
     g.p[i] = reinterpret_cast<int8_t*>(p[i]);
-  auto kernel = exact ? arena_stage_kernel<true> : arena_stage_kernel<false>;
+  const Kernel kernel = instantiation(exact, op_cycles != nullptr);
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        smem_bytes);
   kernel<<<n_frames, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const Op*>(descs), n_ops,
-      static_cast<const uint8_t*>(consts), g, scratch_off);
+      static_cast<const uint8_t*>(consts), g, scratch_off,
+      static_cast<unsigned long long*>(op_cycles));
   return static_cast<int>(cudaGetLastError());
 }
 
-// The instantiation `exact` as the build compiled it: registers a thread,
-// local bytes a thread (its stack frame, spills included), static shared
-// bytes, and the blocks of `threads` threads with `smem_bytes` of dynamic
-// shared memory an SM holds at once
+// The instantiation (exact, trace) as the build compiled it: registers a
+// thread, local bytes a thread (its stack frame, spills included), static
+// shared bytes, and the blocks of `threads` threads with `smem_bytes` of
+// dynamic shared memory an SM holds at once
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into out[0..3].
-extern "C" int yf_arena_stage_attrs(int exact, int threads, int smem_bytes,
-                                    int* out) {
-  return yf::kernel_attrs(
-      exact ? arena_stage_kernel<true> : arena_stage_kernel<false>, threads,
-      smem_bytes, out);
+extern "C" int yf_arena_stage_attrs(int exact, int trace, int threads,
+                                    int smem_bytes, int* out) {
+  return yf::kernel_attrs(instantiation(exact, trace), threads, smem_bytes,
+                          out);
 }

@@ -811,6 +811,43 @@ __device__ __forceinline__ const int8_t* stage_view(const Op& op,
   return d;
 }
 
+// The per-descriptor cycle counters of a traced stage kernel (its kTrace
+// instantiation; kernels/arena.py and kernels/tiled.py launch it while a
+// torch.profiler session records, runtime/profiler.py stage_cycles reads
+// the sums): thread 0 of a block reads clock64() after op i's closing
+// barrier and adds the cycles since the previous barrier (the kernel's
+// start, for op 0) to counts[i], one atomic an op a block.  The previous
+// reading stays in shared memory: held in a register across the op bodies
+// it spilled in the arena kernel's 64.  An untraced instantiation compiles
+// none of it.
+template <bool kTrace>
+struct OpCycles {
+  unsigned long long* counts;
+
+  __device__ __forceinline__ static long long& last() {
+    __shared__ long long t;
+    return t;
+  }
+
+  __device__ __forceinline__ explicit OpCycles(unsigned long long* c)
+      : counts(c) {
+    if constexpr (kTrace) {
+      if (threadIdx.x == 0) last() = clock64();
+    }
+  }
+
+  // after op i's closing __syncthreads()
+  __device__ __forceinline__ void after(int i) {
+    if constexpr (kTrace) {
+      if (threadIdx.x == 0) {
+        const long long now = clock64();
+        atomicAdd(counts + i, static_cast<unsigned long long>(now - last()));
+        last() = now;
+      }
+    }
+  }
+};
+
 // A whole-frame kernel as the build compiled it: out[0..3] = registers a
 // thread, local bytes a thread, static shared bytes, and the blocks of
 // `threads` threads with `smem_bytes` of dynamic shared memory an SM holds.

@@ -42,6 +42,9 @@
 // the program (kernels/arena.py Stage.exact_convs).  Each has a k32 twin for sections
 // holding a big-K conv marked for conv_mma_op, bound to fewer blocks an SM
 // (kK32Blocks).
+// Each of the four has a traced twin, launched only while a
+// torch.profiler session records, that sums each descriptor's cycles into
+// a counter (stage_ops.cuh OpCycles; runtime/profiler.py stage_cycles).
 //
 // What bounds it on the card: the operations of the bodies above (the
 // tensor cores' MACs, and the depthwise taps and max-pool compares on the
@@ -106,18 +109,21 @@ constexpr int kK32Blocks = 2;
 
 // kExact: the exact instantiation (kExactEpis in every body), else the
 // fast one (kFastEpis).  kK32: big-K convs marked for conv_mma_op run
-// there.
-template <bool kExact, bool kK32>
+// there.  kTrace: the traced twin, which sums each op's cycles into
+// op_cycles (stage_ops.cuh OpCycles); the untraced one never reads it.
+template <bool kExact, bool kK32, bool kTrace>
 __global__ void __launch_bounds__(yf::kStageThreads,
                                   kK32 ? kK32Blocks : kSectionBlocks)
     tiled_section_kernel(const StripOp* __restrict__ ops, int n_ops,
                          const uint8_t* __restrict__ consts, Globals g,
-                         int strips, int scratch_off) {
+                         int strips, int scratch_off,
+                         unsigned long long* op_cycles) {
   constexpr unsigned kEpis = kExact ? yf::kExactEpis : yf::kFastEpis;
   constexpr unsigned kTabled = kEpis & yf::kTableEpis;
   extern __shared__ __align__(16) int8_t arena[];
   const long long frame = blockIdx.x / strips;
   const int j = blockIdx.x % strips;
+  yf::OpCycles<kTrace> cycles(op_cycles);
   for (int i = 0; i < n_ops; ++i) {
     const StripOp s = ops[i];
     const Op& op = s.op;
@@ -188,18 +194,25 @@ __global__ void __launch_bounds__(yf::kStageThreads,
       }
     }
     __syncthreads();
+    cycles.after(i);
   }
 }
 
 using Kernel = void (*)(const StripOp*, int, const uint8_t*, Globals, int,
-                        int);
+                        int, unsigned long long*);
 
+template <bool kTrace>
 Kernel instantiation(int exact, int k32) {
   if (exact)
-    return k32 ? tiled_section_kernel<true, true>
-               : tiled_section_kernel<true, false>;
-  return k32 ? tiled_section_kernel<false, true>
-             : tiled_section_kernel<false, false>;
+    return k32 ? tiled_section_kernel<true, true, kTrace>
+               : tiled_section_kernel<true, false, kTrace>;
+  return k32 ? tiled_section_kernel<false, true, kTrace>
+             : tiled_section_kernel<false, false, kTrace>;
+}
+
+Kernel instantiation(int exact, int k32, int trace) {
+  return trace ? instantiation<true>(exact, k32)
+               : instantiation<false>(exact, k32);
 }
 
 }  // namespace
@@ -208,12 +221,15 @@ Kernel instantiation(int exact, int k32) {
 // `scratch_off` the max-pools' scratch (kernels/tiled.py Section.smem_bytes,
 // scratch_off; 0: no scratch, the max-pools take the full-window body).
 // exact: the exact instantiation (Stage.exact_convs); k32: the one that
-// runs big-K convs on conv_mma_op (Section.k32_convs).
+// runs big-K convs on conv_mma_op (Section.k32_convs).  op_cycles: null
+// launches the untraced instantiation; else the traced one adds each
+// descriptor's cycles to op_cycles[0..n_ops) (unsigned 64-bit sums).
 extern "C" int yf_tiled_section(const void* descs, int n_ops,
                                 const void* consts, const void* host_ptrs,
                                 int n_globals, int n_frames, int strips,
                                 int smem_bytes, int scratch_off, int threads,
-                                int exact, int k32, void* stream) {
+                                int exact, int k32, void* op_cycles,
+                                void* stream) {
   if (n_globals > yf::kMaxGlobals || strips < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   Globals g = {};
@@ -221,7 +237,7 @@ extern "C" int yf_tiled_section(const void* descs, int n_ops,
       static_cast<const unsigned long long*>(host_ptrs);
   for (int i = 0; i < n_globals; ++i)
     g.p[i] = reinterpret_cast<int8_t*>(p[i]);
-  const Kernel kernel = instantiation(exact, k32);
+  const Kernel kernel = instantiation(exact, k32, op_cycles != nullptr);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -229,16 +245,18 @@ extern "C" int yf_tiled_section(const void* descs, int n_ops,
       static_cast<unsigned int>(static_cast<long long>(n_frames) * strips);
   kernel<<<blocks, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const StripOp*>(descs), n_ops,
-      static_cast<const uint8_t*>(consts), g, strips, scratch_off);
+      static_cast<const uint8_t*>(consts), g, strips, scratch_off,
+      static_cast<unsigned long long*>(op_cycles));
   return static_cast<int>(cudaGetLastError());
 }
 
-// The instantiation (exact, k32) as the build compiled it: registers a
-// thread, local bytes a thread (its stack frame, spills included), static
-// shared bytes, and the blocks of `threads` threads with `smem_bytes` of
-// dynamic shared memory an SM holds at once, into out[0..3].
-extern "C" int yf_tiled_section_attrs(int exact, int k32, int threads,
-                                      int smem_bytes, int* out) {
-  return yf::kernel_attrs(instantiation(exact, k32), threads, smem_bytes,
-                          out);
+// The instantiation (exact, k32, trace) as the build compiled it:
+// registers a thread, local bytes a thread (its stack frame, spills
+// included), static shared bytes, and the blocks of `threads` threads with
+// `smem_bytes` of dynamic shared memory an SM holds at once, into
+// out[0..3].
+extern "C" int yf_tiled_section_attrs(int exact, int k32, int trace,
+                                      int threads, int smem_bytes, int* out) {
+  return yf::kernel_attrs(instantiation(exact, k32, trace), threads,
+                          smem_bytes, out);
 }

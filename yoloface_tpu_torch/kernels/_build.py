@@ -50,22 +50,24 @@ SIGNATURES = {
     # (frames u16, out i8, n, stream)
     "yf_preprocess_rgb565": [_P, _P, _I, _P],
     # (descs, n_ops, consts, host ptr table, n_globals, n_frames,
-    #  smem_bytes, scratch_off, threads, exact instantiation, stream)
-    "yf_arena_stage": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    #  smem_bytes, scratch_off, threads, exact instantiation, op_cycles
+    #  (u64 [n_ops]: the traced instantiation; null: the untraced one),
+    #  stream)
+    "yf_arena_stage": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     # (descs, n_ops, consts, host ptr table, n_globals, n_frames, strips,
     #  smem_bytes, scratch_off, threads, exact instantiation, k32
-    #  instantiation, stream)
+    #  instantiation, op_cycles as above, stream)
     "yf_tiled_section": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                         _P],
-    # (exact, k32, threads, dynamic shared bytes, int out[4]: registers,
-    #  local bytes, static shared bytes, blocks an SM)
-    "yf_tiled_section_attrs": [_I, _I, _I, _I, _P],
+                         _P, _P],
+    # (exact, k32, traced, threads, dynamic shared bytes, int out[4]:
+    #  registers, local bytes, static shared bytes, blocks an SM)
+    "yf_tiled_section_attrs": [_I, _I, _I, _I, _I, _P],
     # (descs, n_ops, consts, host ptr table, n_globals, n_frames,
     #  smem_bytes, scratch_off, threads, exact instantiation, stream)
     "yf_fused_stage": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # (exact instantiation, threads, dynamic shared bytes, int out[4]:
-    #  registers, local bytes, static shared bytes, blocks an SM)
-    "yf_arena_stage_attrs": [_I, _I, _I, _P],
+    # (exact instantiation, [traced,] threads, dynamic shared bytes, int
+    #  out[4]: registers, local bytes, static shared bytes, blocks an SM)
+    "yf_arena_stage_attrs": [_I, _I, _I, _I, _P],
     "yf_fused_stage_attrs": [_I, _I, _I, _P],
     # (descriptor, x, y, bytes, stream)
     "yf_eltwise_lut": [_P, _P, _P, _L, _P],

@@ -68,6 +68,7 @@ from yoloface_tpu_torch.ops.int8_ref import (_conv_acc, _dw_acc,
                                              _window_sum, add_int8,
                                              leaky_relu_int8, logistic_int8,
                                              requantize_int8, window_mean)
+from yoloface_tpu_torch.runtime import profiler
 
 BITS = ("fast", "fast2", "exact")
 # op codes and epilogues; the field layout below is the ``Op`` struct of
@@ -82,6 +83,11 @@ COPY, CONV, DW, MAXPOOL, ADD, QUANTIZE = range(6)
 PAD, LEAKY, ACT, RESIZE, AVGPOOL = range(6, 11)
 ACT_CLIP, ACT_LOGISTIC = range(2)
 CONCAT = 100                       # planner-only: becomes COPYs or nothing
+# the op kinds a traced stage's cycles are summed by
+# (runtime/profiler.stage_cycles): the convs (on the tensor cores: 1x1,
+# full window, k32), the depthwise convs, the pools, and the byte ops
+OP_KINDS = {"conv": (CONV,), "dw": (DW,), "pool": (MAXPOOL, AVGPOOL),
+            "byteops": (COPY, PAD, ADD, QUANTIZE, LEAKY, ACT, RESIZE)}
 (EPI_REQUANT, EPI_LEAKY_V2, EPI_LEAKY_V1, EPI_REQUANT_EXACT,
  EPI_LEAKY_EXACT) = range(5)
 EXACT_EPIS = (EPI_REQUANT_EXACT, EPI_LEAKY_EXACT)
@@ -1002,10 +1008,12 @@ def arena_stage(stage: Stage, descs: torch.Tensor, consts: torch.Tensor,
     """Run one stage on its input tensors (int8 [N,H,W,C], in
     ``stage.inputs`` order) -> its output tensors.  CPU tensors take
     ``arena_stage_plain``; CUDA tensors launch ``yf_arena_stage``, its
-    exact instantiation where ``stage.exact_convs``
+    exact instantiation where ``stage.exact_convs``, and while a
+    ``torch.profiler`` session records (``profiler.enabled``) its traced
+    twin with the stage's counter (``profiler.op_cycles``)
     (``arena_stage.mma_convs`` counts the marked convs the launches ran,
     ``arena_stage.exact_launches`` the launches of the exact
-    instantiation)."""
+    instantiation, ``arena_stage.traced_launches`` the traced ones)."""
     if stage.bands is not None:
         raise ValueError("a strip program runs on tiled.tiled_section")
     outs, dev = prepare(stage, xs)
@@ -1021,20 +1029,26 @@ def arena_stage(stage: Stage, descs: torch.Tensor, consts: torch.Tensor,
     from yoloface_tpu_torch.kernels._build import check, library
     ptrs = (ctypes.c_uint64 * MAX_GLOBALS)(
         *[t.data_ptr() for t in list(xs) + outs])
+    traced = profiler.enabled()
     err = library().yf_arena_stage(
         descs.data_ptr(), stage.descs.shape[0], consts.data_ptr(), ptrs,
         len(stage.globals_), n, *stage_smem(stage), THREADS,
-        int(stage.exact_convs), torch.cuda.current_stream(dev).cuda_stream)
+        int(stage.exact_convs),
+        profiler.op_cycles(stage, "arena_stage_kernel", dev).data_ptr()
+        if traced else None,
+        torch.cuda.current_stream(dev).cuda_stream)
     check(err, "arena_stage")
     arena_stage.launches += 1
     arena_stage.mma_convs += stage.mma_convs
     arena_stage.exact_launches += stage.exact_convs
+    arena_stage.traced_launches += traced
     return outs
 
 
 arena_stage.launches = 0
 arena_stage.mma_convs = 0      # marked convs the launches ran
 arena_stage.exact_launches = 0   # launches of the exact instantiation
+arena_stage.traced_launches = 0  # launches of a traced instantiation
 
 
 class ArenaPlan(nn.Module):

@@ -86,6 +86,7 @@ from yoloface_tpu_torch.kernels import arena
 from yoloface_tpu_torch.kernels.arena import (ARENA_BUDGET, AVGPOOL, CONV,
                                               DW, MAXPOOL, RESIZE, Band, LOp,
                                               Stage)
+from yoloface_tpu_torch.runtime import profiler
 
 RECOMPUTE_BOUND = 1.10      # work a section does over the work it needs
 # prefer strip arenas of budget / TARGET_SHARE: the section kernel runs 3
@@ -338,10 +339,12 @@ def tiled_section(sec: Stage, descs: torch.Tensor, consts: torch.Tensor,
     ``sec.inputs`` order) -> its output tensors.  CPU tensors take
     ``tiled_section_plain``; CUDA tensors launch ``yf_tiled_section``: its
     exact instantiation where ``sec.exact_convs``, its k32 one where
-    ``sec.k32_convs`` (``tiled_section.mma_convs`` counts the marked convs
-    the launches ran, ``tiled_section.k32_convs`` those of them on the k32
-    body, ``tiled_section.exact_launches`` the launches of an exact
-    instantiation)."""
+    ``sec.k32_convs``, and while a ``torch.profiler`` session records
+    (``profiler.enabled``) the traced twin with the section's counter
+    (``profiler.op_cycles``) (``tiled_section.mma_convs`` counts the marked
+    convs the launches ran, ``tiled_section.k32_convs`` those of them on
+    the k32 body, ``tiled_section.exact_launches`` the launches of an exact
+    instantiation, ``tiled_section.traced_launches`` the traced ones)."""
     if sec.bands is None:
         raise ValueError("a whole-frame stage runs on arena.arena_stage")
     outs, dev = arena.prepare(sec, xs)
@@ -359,16 +362,20 @@ def tiled_section(sec: Stage, descs: torch.Tensor, consts: torch.Tensor,
     from yoloface_tpu_torch.kernels._build import check, library
     ptrs = (ctypes.c_uint64 * arena.MAX_GLOBALS)(
         *[t.data_ptr() for t in list(xs) + outs])
+    traced = profiler.enabled()
     err = library().yf_tiled_section(
         descs.data_ptr(), sec.descs.shape[0], consts.data_ptr(), ptrs,
         len(sec.globals_), n, sec.strips, sec.smem_bytes, sec.scratch_off,
         arena.THREADS, int(sec.exact_convs), int(sec.k32_convs > 0),
+        profiler.op_cycles(sec, "tiled_section_kernel", dev).data_ptr()
+        if traced else None,
         torch.cuda.current_stream(dev).cuda_stream)
     check(err, "tiled_section")
     tiled_section.launches += 1
     tiled_section.mma_convs += sec.mma_convs
     tiled_section.k32_convs += sec.k32_convs
     tiled_section.exact_launches += sec.exact_convs
+    tiled_section.traced_launches += traced
     return outs
 
 
@@ -376,6 +383,7 @@ tiled_section.launches = 0
 tiled_section.mma_convs = 0     # marked convs the launches ran
 tiled_section.k32_convs = 0     # of them, those on the k32 body
 tiled_section.exact_launches = 0   # launches of an exact instantiation
+tiled_section.traced_launches = 0  # launches of a traced instantiation
 
 
 class TiledPlan(arena.ArenaPlan):

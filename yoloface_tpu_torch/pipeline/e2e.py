@@ -16,6 +16,11 @@ torch version.  No batch padding: any N works.  As in the JAX pipeline,
 ``load_pipeline`` defaults to ``arena2`` (fast2 bits, the serving mode) on
 the card (``device="cpu"`` runs the plain versions); the JAX package's
 engine and ``load_pipeline`` default to ``exact``.
+
+While a ``torch.profiler`` session records, the two device entries mark
+their layers with spans on the trace's clock (``runtime/profiler.span``):
+``yf.preprocess`` (the RGB565 preprocess, or the int8 input's move to the
+device), ``yf.net`` (the engine) and ``yf.head``.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from yoloface_tpu_torch.kernels.preprocess import preprocess_rgb565
 from yoloface_tpu_torch.pipeline import head as head_lib
 from yoloface_tpu_torch.pipeline.head import HeadConfig
 from yoloface_tpu_torch.pipeline.preprocess import rgb565_to_int8_input
+from yoloface_tpu_torch.runtime import profiler
 from yoloface_tpu_torch.runtime.engine import KERNEL_MODES, Int8Engine
 
 
@@ -61,11 +67,19 @@ class FacePipeline(nn.Module):
             a = torch.from_numpy(np.ascontiguousarray(a))
         return a.to(self.device).contiguous()
 
+    def _net_and_head(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        with profiler.span("yf.net"):
+            y = self.engine(x)
+        with profiler.span("yf.head"):
+            return self._head(y)
+
     @torch.no_grad()
     def detect_int8_device(self, x_int8) -> Dict[str, torch.Tensor]:
         """int8 network inputs [N,56,56,3] -> detections dict of tensors
         on the pipeline's device (no host transfer)."""
-        return self._head(self.engine(self._on_device(x_int8)))
+        with profiler.span("yf.preprocess"):
+            x = self._on_device(x_int8)
+        return self._net_and_head(x)
 
     def detect_int8(self, x_int8) -> Dict[str, np.ndarray]:
         """int8 network inputs [N,56,56,3] -> detections dict of numpy
@@ -85,7 +99,9 @@ class FacePipeline(nn.Module):
         """``detect_rgb565`` with the detections left on the pipeline's
         device as tensors (no host transfer): the form to time and to
         serve from."""
-        return self._head(self.engine(self.preprocess(frames)))
+        with profiler.span("yf.preprocess"):
+            x = self.preprocess(frames)
+        return self._net_and_head(x)
 
     def detect_rgb565(self, frames) -> Dict[str, np.ndarray]:
         """uint16 RGB565 camera frames [N,112,112] -> detections dict of

@@ -16,10 +16,17 @@ here:
   * :func:`device_activities` and :func:`overlaps` -- the card's kernels
     and copies a ``torch.profiler`` window recorded, as intervals, and how
     long activities of two kinds ran at once (the camera streamer's copy
-    of batch k+1 under batch k's kernels).
-
-``tools/torch_profile_pipeline.py`` keeps a finer breakdown, by descriptor
-of a stage's program.
+    of batch k+1 under batch k's kernels);
+  * :func:`enabled`, :func:`span` and :func:`stage_cycles` -- the
+    program's own tracing, on only while a ``torch.profiler`` session
+    records: ``FacePipeline``'s layer spans (``yf.preprocess``,
+    ``yf.net``, ``yf.head``) as user annotations on the trace's clock, and
+    the arena-stage and tiled-section kernels' traced instantiations, which
+    sum each descriptor's cycles into a counter of its stage
+    (:func:`op_cycles`); :func:`stage_cycles` reads them by op kind
+    (``kernels/arena.OP_KINDS``), :func:`reset_counters` zeroes them.
+    ``tools/torch_profile_pipeline.py`` prints that split for one traced
+    forward; ``benchmark/metrics/net_*_ms.py`` read it in a traced window.
 """
 
 from __future__ import annotations
@@ -27,10 +34,12 @@ from __future__ import annotations
 import contextlib
 import os
 import time
+import weakref
 from typing import Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.autograd.profiler
 
 from yoloface_tpu_torch.runtime.engine import KERNEL_MODES
 
@@ -55,6 +64,83 @@ def trace(log_dir: str):
             torch.cuda.synchronize()
         prof.stop()
         prof.export_chrome_trace(path)
+
+
+def enabled() -> bool:
+    """Whether a ``torch.profiler`` session records in this process: the
+    gate of the program's spans and of the stage kernels' traced
+    instantiations."""
+    return torch.autograd.profiler._is_profiler_enabled
+
+
+def span(name: str):
+    """``torch.profiler.record_function(name)`` while :func:`enabled`, a
+    context that does nothing otherwise."""
+    if enabled():
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()
+
+
+# (weak reference to a stage, its kernel's base name) of each stage with a
+# counter, in the order of their first traced launch
+_traced: List[Tuple[weakref.ref, str]] = []
+
+
+def op_cycles(stage, kernel: str, device: torch.device) -> torch.Tensor:
+    """The counter a traced launch of ``stage`` (an ``arena.Stage`` or
+    ``tiled.Section``) adds its descriptors' cycles to: int64 [n_ops] on
+    ``device``, allocated zeroed on first use and kept as the stage's
+    ``op_cycles`` attribute (no module buffer: ``state_dict`` holds none
+    of it).  ``kernel``: the launched kernel's base name
+    (``arena_stage_kernel``, ``tiled_section_kernel``)."""
+    buf = getattr(stage, "op_cycles", None)
+    if buf is None:
+        _traced.append((weakref.ref(stage), kernel))
+    if buf is None or buf.device != device:
+        buf = stage.op_cycles = torch.zeros(len(stage.descs),
+                                            dtype=torch.int64, device=device)
+    return buf
+
+
+def _live() -> List[tuple]:
+    """(stage, kernel) of each stage with a counter that is still alive;
+    the dead ones leave ``_traced``."""
+    live = [(ref(), kernel) for ref, kernel in _traced]
+    _traced[:] = [e for e, (st, _) in zip(_traced, live) if st is not None]
+    return [(st, kernel) for st, kernel in live if st is not None]
+
+
+def reset_counters() -> None:
+    """Zero every stage's counter."""
+    for st, _ in _live():
+        st.op_cycles.zero_()
+
+
+def stage_cycles() -> List[dict]:
+    """For each stage with a counter, in the order of its first traced
+    launch (each plan's stages in launch order): ``kernel``, the launched
+    kernel's base name; ``kinds``, its cycles since the last
+    :func:`reset_counters` summed by op kind (``arena.OP_KINDS``: ``conv``,
+    ``dw``, ``pool``, ``byteops``; a kind absent from the program reads
+    0); ``ops``, the cycles of each descriptor.  The cycles are summed over
+    every block of every traced launch, so only shares within one stage
+    compare.  Synchronises first; empty on the CPU and where nothing was
+    traced."""
+    if not torch.cuda.is_available():
+        return []
+    from yoloface_tpu_torch.kernels.arena import F, OP_KINDS
+    live = _live()
+    for dev in {st.op_cycles.device for st, _ in live}:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    out = []
+    for st, kernel in live:
+        ops = st.op_cycles.tolist()
+        codes = st.descs[:, F["code"]].tolist()
+        kinds = {kind: sum(c for c, code in zip(ops, codes) if code in of)
+                 for kind, of in OP_KINDS.items()}
+        out.append({"kernel": kernel, "kinds": kinds, "ops": ops})
+    return out
 
 
 def device_activities(prof) -> List[Tuple[str, float, float]]:
